@@ -1,0 +1,24 @@
+"""Architecture registry: --arch <id> resolves here.
+
+The port serves only the architectures listed in ``ARCH_IDS``; the rest of
+the reference registry (``repro/configs``) waits for later slices.
+"""
+
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.configs.base import ModelConfig, MoEConfig
+
+_MODULES = {
+    "tinyllama-1.1b": "tinyllama_1_1b",
+}
+
+ARCH_IDS = tuple(_MODULES)
+
+__all__ = ["ARCH_IDS", "ModelConfig", "MoEConfig", "get_config"]
+
+
+def get_config(arch: str, smoke: bool = False) -> ModelConfig:
+    mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")
+    return mod.SMOKE if smoke else mod.CONFIG

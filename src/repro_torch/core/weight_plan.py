@@ -1,0 +1,485 @@
+"""Compressed-weight execution plan (port of ``repro/core/weight_plan.py``).
+
+The plan walks a model's params tree, assigns every large matmul weight one
+of four representations and packs it; every layer routes its matmuls
+through the one dispatch, ``apply_linear`` (and ``apply_gate_up`` for the
+gated-FFN pair):
+
+    ``dense``        -- fp weights as they are.
+    ``quant``        -- int8 payload + per-output-channel fp32 scales, the
+                        ``{"q", "s"}`` dict (Section 4.1 at int8).
+    ``block_sparse`` -- surviving (bk, bn) blocks per block-column with
+                        int32 row indices (the z_w analogue, Section 5.6).
+    ``quant_sparse`` -- both: int8 block payload + scales.
+
+The compressed tree keeps the dense tree's structure (nested dicts and
+lists; leaves become ``PackedLinear`` nodes or ``{"q", "s"}`` dicts).
+Stacked leaves keep their leading layer dimension, so leaf assignment and
+packing match the reference leaf for leaf; the model unstacks the tree
+into per-layer views once, when it is built (``transformer.unstack``).
+
+On CUDA, packed weights run through the hand-written kernels B1/B2
+(``kernels/ops``); on the CPU, through their plain versions.
+``PlanConfig.use_kernel=False`` forces the plain versions on CUDA too.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.pruning import BlockPruneConfig, block_mask
+from repro_torch.core.sparse_format import BlockSparse, build_walk, pad_walk
+from repro_torch.kernels import ops
+from repro_torch.kernels.fused_gate_up import ACTS
+
+REPRS = ("dense", "quant", "block_sparse", "quant_sparse")
+
+# Leaves consumed by apply_linear / embed / unembed call sites, by name.
+QUANT_KEYS = ("w", "tok", "head")
+
+# THE activation table (the kernels' plain versions share it).
+GATE_ACTS = ACTS
+
+
+@dataclasses.dataclass(frozen=True)
+class PackedLinear:
+    """One block-sparse (optionally int8) matmul weight of dense shape (K, N).
+
+      blocks:     (n_cols * mb, bk, bn)  payload -- fp32 or int8
+      block_rows: (n_cols, mb) int32     row-block index per stored block
+      counts:     (n_cols,) int32        true survivor count per column
+      scales:     (N,) fp32 or None      per-output-channel dequant scales
+      walk:       dict of (n_walk,) int32 host tensors -- the TPU kernel's
+                  pack-time block list, kept on the host for pack parity
+
+    Stacked variants carry leading layer dims on every child.
+    ``use_kernel`` True runs the CUDA kernel when the input is on the card;
+    False runs the plain version there too.
+    """
+
+    blocks: Any
+    block_rows: Any
+    counts: Any
+    scales: Optional[Any]
+    walk: Optional[dict] = None
+    kind: str = "block_sparse"
+    shape: tuple = ()
+    bk: int = 128
+    bn: int = 128
+    use_kernel: bool = True
+
+    def to_block_sparse(self) -> BlockSparse:
+        if self.blocks.dim() != 3:
+            raise ValueError("to_block_sparse needs an unstacked leaf")
+        return BlockSparse(self.blocks, self.block_rows, self.counts, self.shape,
+                           BlockPruneConfig(bk=self.bk, bn=self.bn))
+
+
+@dataclasses.dataclass(frozen=True)
+class PlanConfig:
+    """How to compress a model for serving (see the reference's PlanConfig).
+
+    use_kernel: True runs packed weights through the CUDA kernels whenever
+    the activations are on the card; False forces the plain versions."""
+
+    default: str = "quant_sparse"
+    rules: tuple = ()
+    q_prune: float = 0.0
+    bk: int = 128
+    bn: int = 128
+    score: str = "l1"
+    min_size: int = 16384
+    min_contract: int = 64
+    use_kernel: bool = True
+
+    def __post_init__(self):
+        if self.default not in REPRS:
+            raise ValueError(f"default must be one of {REPRS}, got {self.default!r}")
+        if not 0.0 <= self.q_prune < 1.0:
+            raise ValueError(f"q_prune must be in [0, 1), got {self.q_prune}")
+        for r in self.rules:
+            if len(r) not in (2, 3):
+                raise ValueError(f"rule must be (sub, repr[, q_prune]), got {r!r}")
+            if r[1] not in REPRS:
+                raise ValueError(f"unknown representation {r[1]!r} in rule {r!r}")
+            if len(r) == 3 and r[2] is not None and not 0.0 <= r[2] < 1.0:
+                raise ValueError(f"rule q_prune must be in [0, 1), got {r!r}")
+
+    @property
+    def block(self) -> BlockPruneConfig:
+        return BlockPruneConfig(bk=self.bk, bn=self.bn, score=self.score)
+
+
+def _quant_eligible(name: str, leaf, cfg: PlanConfig) -> bool:
+    return (
+        isinstance(leaf, torch.Tensor)
+        and leaf.dim() >= 2
+        and leaf.numel() >= cfg.min_size
+        and leaf.shape[-2] >= cfg.min_contract
+        and (name.startswith("w") or name in QUANT_KEYS)
+    )
+
+
+def _sparse_eligible(name: str, leaf, cfg: PlanConfig) -> bool:
+    """Projection-style weights (w*) whose shape tiles exactly; embedding
+    tables (tok, head) are consumed by gather / unembed and stay quant."""
+    if not (_quant_eligible(name, leaf, cfg) and name.startswith("w")):
+        return False
+    K, N = leaf.shape[-2], leaf.shape[-1]
+    return K % cfg.bk == 0 and N % cfg.bn == 0 and K // cfg.bk >= 1 and N // cfg.bn >= 1
+
+
+def assign_leaf(path: str, leaf, cfg: PlanConfig) -> tuple:
+    """(representation, q_prune) for the leaf at ``path`` ("unit/0/mlp/w_up"):
+    rules override the default; ineligible leaves degrade quant_sparse ->
+    quant -> dense; q_prune is 0 for the non-sparse representations."""
+    name = path.rsplit("/", 1)[-1]
+    kind, q = cfg.default, cfg.q_prune
+    for rule in cfg.rules:
+        if rule[0] in path:
+            kind = rule[1]
+            if len(rule) == 3 and rule[2] is not None:
+                q = float(rule[2])
+            break
+    if kind in ("block_sparse", "quant_sparse") and not _sparse_eligible(name, leaf, cfg):
+        kind = "quant" if kind == "quant_sparse" else "dense"
+    if kind == "quant" and not _quant_eligible(name, leaf, cfg):
+        kind = "dense"
+    if kind not in ("block_sparse", "quant_sparse"):
+        q = 0.0
+    return kind, q
+
+
+def quantize_leaf(leaf: torch.Tensor) -> dict:
+    """int8-quantize one matmul weight into {"q", "s"}; scales reduce over
+    the contraction axis (-2) only, so stacked layers keep their own."""
+    lf = leaf.to(torch.float32)
+    amax = lf.abs().amax(dim=-2, keepdim=True)
+    scales = amax.clamp_min(1e-8) / 127.0
+    qv = torch.round(lf / scales).clamp(-127, 127).to(torch.int8)
+    return {"q": qv, "s": scales.squeeze(-2)}
+
+
+def pack_block_sparse(leaf: torch.Tensor, cfg: PlanConfig, quant: bool) -> PackedLinear:
+    """Prune ``leaf`` to block sparsity cfg.q_prune and pack it.
+
+    Each (K, N) slice of a stacked leaf is pruned independently; ``mb``
+    (stored blocks per column) is the max over all slices and columns so
+    the layout is rectangular.  Padded entries are zero blocks with row 0.
+    Runs on the leaf's device, vectorized over blocks."""
+    w = leaf.to(torch.float32)
+    lead = tuple(w.shape[:-2])
+    K, N = w.shape[-2:]
+    ws = w.reshape(-1, K, N)
+    L = ws.shape[0]
+    bk, bn = cfg.bk, cfg.bn
+    nrb, ncb = K // bk, N // bn
+
+    masks = torch.stack([block_mask(ws[i], cfg.q_prune, cfg.block) for i in range(L)])
+    counts = masks.sum(dim=1).to(torch.int32)  # (L, ncb)
+    mb = max(1, int(counts.max()))
+
+    scales = None
+    if quant:
+        # per-(slice, output-channel) scales over the *masked* matrix, so a
+        # column whose largest weights were pruned keeps full int8 range
+        amax = torch.stack([
+            (ws[i] * masks[i].repeat_interleave(bk, 0).repeat_interleave(bn, 1)).abs().amax(0)
+            for i in range(L)])
+        scales = amax.clamp_min(1e-8) / 127.0  # (L, N)
+
+    # per (slice, column): surviving row blocks in ascending order, then pad
+    order = torch.sort((~masks.transpose(1, 2)).to(torch.int8), dim=-1, stable=True).indices
+    slot = torch.arange(mb, device=w.device)
+    valid = slot[None, None, :] < counts[..., None]  # (L, ncb, mb)
+    rows = torch.where(valid, order[..., :mb], torch.zeros_like(order[..., :mb]))
+
+    wb = ws.reshape(L, nrb, bk, ncb, bn).permute(0, 3, 1, 2, 4)  # (L, ncb, nrb, bk, bn)
+    li = torch.arange(L, device=w.device)[:, None, None]
+    ji = torch.arange(ncb, device=w.device)[None, :, None]
+    payload = wb[li, ji, rows]  # (L, ncb, mb, bk, bn)
+    if quant:
+        payload = torch.round(payload / scales.reshape(L, ncb, 1, 1, bn)).clamp(-127, 127)
+    payload = torch.where(valid[..., None, None], payload, torch.zeros_like(payload))
+    blocks = payload.to(torch.int8 if quant else torch.float32).reshape(L, ncb * mb, bk, bn)
+    rows = rows.to(torch.int32)
+
+    # the TPU kernel's walk (pack-time static, built and kept on the host)
+    rows_np, counts_np = rows.cpu().numpy(), counts.cpu().numpy()
+    walks = [build_walk(rows_np[i], counts_np[i], mb) for i in range(L)]
+    n_walk = max(wk["idx"].shape[0] for wk in walks)
+    walks = [pad_walk(wk, n_walk) for wk in walks]
+    walk = {k: torch.from_numpy(np.stack([wk[k] for wk in walks]).reshape(lead + (n_walk,)))
+            for k in ("idx", "rows", "cols", "flags")}
+
+    return PackedLinear(
+        blocks=blocks.reshape(lead + blocks.shape[1:]),
+        block_rows=rows.reshape(lead + rows.shape[1:]),
+        counts=counts.reshape(lead + counts.shape[1:]),
+        scales=None if scales is None else scales.reshape(lead + scales.shape[1:]),
+        walk=walk,
+        kind="quant_sparse" if quant else "block_sparse",
+        shape=(K, N), bk=bk, bn=bn, use_kernel=cfg.use_kernel,
+    )
+
+
+# ---------------------------------------------------------------------------
+# plan object + stats
+# ---------------------------------------------------------------------------
+
+_DENSE_STREAM_BYTES = 2.0  # dense weights are streamed bf16 at serving time
+
+
+@dataclasses.dataclass(frozen=True)
+class LeafPlan:
+    path: str
+    kind: str
+    shape: tuple
+    n_weights: int
+    surviving: int  # weights actually streamed (== n_weights unless pruned)
+    payload_bytes: float
+    metadata_bytes: float
+
+    @property
+    def bytes(self) -> float:
+        return self.payload_bytes + self.metadata_bytes
+
+    @property
+    def q_prune(self) -> float:
+        return 1.0 - self.surviving / max(1, self.n_weights)
+
+
+def _leaf_stats(path: str, kind: str, shape: tuple, packed) -> LeafPlan:
+    n = int(np.prod(shape)) if shape else 1
+    if kind == "dense":
+        return LeafPlan(path, kind, shape, n, n, n * _DENSE_STREAM_BYTES, 0.0)
+    if kind == "quant":
+        return LeafPlan(path, kind, shape, n, n, float(n), 4.0 * packed["s"].numel())
+    counts = packed.counts.cpu().numpy()
+    surv_blocks = int(counts.sum())
+    surviving = surv_blocks * packed.bk * packed.bn
+    payload = surviving * (1.0 if kind == "quant_sparse" else _DENSE_STREAM_BYTES)
+    meta = 4.0 * surv_blocks + 4.0 * counts.size  # row idx per block + counts
+    if packed.scales is not None:
+        meta += 4.0 * packed.scales.numel()
+    return LeafPlan(path, kind, shape, n, surviving, payload, meta)
+
+
+@dataclasses.dataclass
+class WeightPlan:
+    """Per-leaf assignments + the compressed tree (``params``), which goes
+    anywhere dense params go (prefill, decode_step, ServingEngine)."""
+
+    cfg: PlanConfig
+    leaves: dict  # path -> LeafPlan
+    params: Any = None
+    _by_path: dict = dataclasses.field(default_factory=dict)
+
+    @property
+    def n_weights(self) -> int:
+        return sum(l.n_weights for l in self.leaves.values())
+
+    @property
+    def surviving_weights(self) -> int:
+        return sum(l.surviving for l in self.leaves.values())
+
+    @property
+    def weight_bytes(self) -> float:
+        """Device-memory bytes streamed per decode step (payload + metadata)."""
+        return sum(l.bytes for l in self.leaves.values())
+
+    @property
+    def q_prune_effective(self) -> float:
+        return 1.0 - self.surviving_weights / max(1, self.n_weights)
+
+    @property
+    def b_weight_effective(self) -> float:
+        payload = sum(l.payload_bytes for l in self.leaves.values())
+        return payload / max(1, self.surviving_weights)
+
+    @property
+    def q_overhead_effective(self) -> float:
+        payload = sum(l.payload_bytes for l in self.leaves.values())
+        return self.weight_bytes / max(1.0, payload)
+
+    def sizer(self, *, sparse_compute: bool = True, **kw):
+        """A BatchSizer charged with this plan's weight stream."""
+        from repro_torch.core.batching import BatchSizer
+
+        kw.setdefault("n_params", self.n_weights)
+        return BatchSizer(
+            b_weight=self.b_weight_effective,
+            q_prune=self.q_prune_effective,
+            q_overhead=self.q_overhead_effective,
+            sparse_compute=sparse_compute,
+            **kw,
+        )
+
+    @property
+    def fused_pairs(self) -> int:
+        """Gated-FFN (w_gate, w_up) pairs served by one fused launch."""
+        n = 0
+        for p, l in self.leaves.items():
+            if not p.endswith("w_gate") or l.kind not in ("block_sparse", "quant_sparse"):
+                continue
+            lu = self.leaves.get(p[: -len("w_gate")] + "w_up")
+            if lu is not None and lu.kind == l.kind and lu.shape == l.shape:
+                n += 1
+        return n
+
+    def summary(self, *, kv_bytes_per_token: float = 0.0, context_len: int = 0,
+                batch: Optional[int] = None) -> str:
+        """One traffic budget in the sizer's bytes/token units: the weight
+        stream charged once per step and amortized over the batch, the KV
+        stream per live token."""
+        from repro_torch.core.batching import UNBOUNDED_NOPT
+
+        by_kind: dict = {}
+        for l in self.leaves.values():
+            agg = by_kind.setdefault(l.kind, [0, 0.0, 1.0, 0.0])
+            agg[0] += 1
+            agg[1] += l.bytes
+            agg[2] = min(agg[2], l.q_prune)
+            agg[3] = max(agg[3], l.q_prune)
+
+        def _q_label(lo: float, hi: float) -> str:
+            if hi <= 0.0:
+                return ""
+            if hi - lo < 5e-3:
+                return f" q={hi:.2f}"
+            return f" q={lo:.2f}..{hi:.2f}"
+
+        parts = [f"{k}:{n} ({b/1e6:.2f} MB{_q_label(lo, hi)})"
+                 for k, (n, b, lo, hi) in sorted(by_kind.items())]
+        n = batch or self.sizer(kv_bytes_per_token=kv_bytes_per_token,
+                                context_len=context_len).n_opt
+        n_label = "inf" if (batch is None and n >= UNBOUNDED_NOPT) else str(n)
+        w_tok = self.weight_bytes / max(1, n)
+        kv_tok = kv_bytes_per_token * context_len
+        return (
+            f"plan[{', '.join(parts)}] "
+            f"q_prune={self.q_prune_effective:.3f} "
+            f"b_weight={self.b_weight_effective:.2f} "
+            f"q_overhead={self.q_overhead_effective:.4f} "
+            f"fused_pairs={self.fused_pairs} "
+            f"bytes/step={self.weight_bytes/1e6:.2f} MB | "
+            f"bytes/tok@n={n_label}: weights={w_tok:.0f} kv={kv_tok:.0f} "
+            f"total={w_tok + kv_tok:.0f}"
+        )
+
+
+def _is_plan_node(n) -> bool:
+    return isinstance(n, PackedLinear) or (isinstance(n, dict) and "q" in n)
+
+
+def map_tree(fn, tree, path: str = ""):
+    """Rebuild a nested dict/list tree, calling fn(path, node) on every
+    tensor leaf and plan node (PackedLinear / {"q","s"} dict)."""
+    if isinstance(tree, PackedLinear) or (isinstance(tree, dict) and "q" in tree) \
+            or not isinstance(tree, (dict, list, tuple)):
+        return fn(path, tree)
+    join = (lambda k: f"{path}/{k}") if path else str
+    if isinstance(tree, dict):
+        return {k: map_tree(fn, v, join(k)) for k, v in tree.items()}
+    return type(tree)(map_tree(fn, v, join(i)) for i, v in enumerate(tree))
+
+
+def with_use_kernel(params, use_kernel: bool):
+    """The same tree with every PackedLinear's ``use_kernel`` replaced
+    (tensors shared): ``False`` runs the plain versions on the card."""
+    return map_tree(
+        lambda _, n: dataclasses.replace(n, use_kernel=use_kernel)
+        if isinstance(n, PackedLinear) else n, params)
+
+
+def compress(params, cfg: PlanConfig = PlanConfig()) -> WeightPlan:
+    """Assign each leaf a representation, pack, and return the WeightPlan."""
+    leaves: dict = {}
+    by_path: dict = {}
+
+    def _one(path, leaf):
+        if not isinstance(leaf, torch.Tensor):
+            return leaf
+        kind, q = assign_leaf(path, leaf, cfg)
+        if kind == "dense":
+            packed = leaf
+        elif kind == "quant":
+            packed = quantize_leaf(leaf)
+        else:
+            pc = cfg if q == cfg.q_prune else dataclasses.replace(cfg, q_prune=q)
+            packed = pack_block_sparse(leaf, pc, quant=(kind == "quant_sparse"))
+        leaves[path] = _leaf_stats(path, kind, tuple(leaf.shape), packed)
+        by_path[path] = packed
+        return packed
+
+    compressed = map_tree(_one, params)
+    return WeightPlan(cfg=cfg, leaves=leaves, params=compressed, _by_path=by_path)
+
+
+# ---------------------------------------------------------------------------
+# the runtime dispatch -- every layer's matmuls route through here
+# ---------------------------------------------------------------------------
+
+
+def _fusable_pair(g, u) -> bool:
+    return (
+        isinstance(g, PackedLinear)
+        and isinstance(u, PackedLinear)
+        and g.kind == u.kind
+        and g.shape == u.shape
+        and (g.bk, g.bn) == (u.bk, u.bn)
+        and (g.scales is None) == (u.scales is None)
+    )
+
+
+def apply_gate_up(x: torch.Tensor, w_gate, w_up, activation: str = "silu") -> torch.Tensor:
+    """act(x @ Wg) * (x @ Wu).  A fusable packed pair runs as ONE kernel
+    launch (B2); any other representation mix is two ``apply_linear``
+    dispatches plus the elementwise gate."""
+    if activation not in GATE_ACTS:
+        raise ValueError(f"unknown gate activation {activation!r}")
+    if _fusable_pair(w_gate, w_up):
+        K, N = w_gate.shape
+        lead = x.shape[:-1]
+        y = ops.fused_gate_up(x.reshape(-1, K), w_gate, w_up, activation)
+        return y.reshape(*lead, N)
+    return GATE_ACTS[activation](apply_linear(x, w_gate)) * apply_linear(x, w_up)
+
+
+def apply_linear(x: torch.Tensor, w) -> torch.Tensor:
+    """y = x @ W for a dense tensor, an int8 {"q", "s"} dict or a
+    PackedLinear of one layer."""
+    if isinstance(w, PackedLinear):
+        K, N = w.shape
+        lead = x.shape[:-1]
+        return ops.block_sparse_matmul(x.reshape(-1, K), w).reshape(*lead, N)
+    if isinstance(w, dict) and "q" in w:
+        return _apply_quant(x, w)
+    return x @ w.to(x.dtype)
+
+
+def _apply_quant(x, w):
+    """int8 path: (x @ q) * s with fp32 accumulation; the scales factor out
+    of the contraction."""
+    y = x.to(torch.float32) @ w["q"].to(torch.float32)
+    return (y * w["s"].to(torch.float32)).to(x.dtype)
+
+
+def tree_to(tree, device):
+    """Move every tensor of a (possibly compressed) params tree to
+    ``device``; walks stay on the host (no kernel reads them)."""
+    def mv(_, n):
+        if isinstance(n, PackedLinear):
+            return dataclasses.replace(
+                n, blocks=n.blocks.to(device), block_rows=n.block_rows.to(device),
+                counts=n.counts.to(device),
+                scales=None if n.scales is None else n.scales.to(device))
+        if isinstance(n, dict):
+            return {k: v.to(device) for k, v in n.items()}
+        return n.to(device) if isinstance(n, torch.Tensor) else n
+
+    return map_tree(mv, tree)

@@ -1,0 +1,77 @@
+"""Reference params -> port params, without importing the reference.
+
+``params_from_reference`` takes the reference's params tree -- nested dicts
+and lists of arrays (numpy, or anything ``np.asarray`` accepts), including
+a compressed tree whose leaves are the reference's ``PackedLinear`` nodes
+(any object with ``blocks``/``block_rows``/``counts``/``scales``/``walk``/
+``kind``/``shape``/``bk``/``bn`` attributes) and ``{"q", "s"}`` dicts --
+and returns the same tree of torch tensors, with port ``PackedLinear``
+nodes.  ``plan_from_reference`` does the same for a reference
+``WeightPlan``, so both packages can serve the identical packed payload.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.weight_plan import (
+    LeafPlan,
+    PackedLinear,
+    PlanConfig,
+    WeightPlan,
+    map_tree,
+)
+
+
+def _tensor(a, device):
+    return torch.from_numpy(np.array(np.asarray(a))).to(device)
+
+
+def _is_packed(n) -> bool:
+    return all(hasattr(n, a) for a in ("blocks", "block_rows", "counts", "kind", "bk", "bn"))
+
+
+def params_from_reference(tree, device="cpu", use_kernel: bool = True):
+    """Convert a reference params tree (dense or compressed) leaf for leaf."""
+    if _is_packed(tree):
+        walk = None
+        if tree.walk is not None:
+            walk = {k: _tensor(v, "cpu") for k, v in tree.walk.items()}  # host only
+        return PackedLinear(
+            blocks=_tensor(tree.blocks, device),
+            block_rows=_tensor(tree.block_rows, device),
+            counts=_tensor(tree.counts, device),
+            scales=None if tree.scales is None else _tensor(tree.scales, device),
+            walk=walk, kind=tree.kind, shape=tuple(tree.shape), bk=int(tree.bk),
+            bn=int(tree.bn), use_kernel=use_kernel)
+    if isinstance(tree, dict):
+        return {k: params_from_reference(v, device, use_kernel) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(params_from_reference(v, device, use_kernel) for v in tree)
+    return _tensor(tree, device)
+
+
+def plan_from_reference(ref_plan, device="cpu", use_kernel: bool = True) -> WeightPlan:
+    """A port WeightPlan holding the reference plan's packed payload and
+    per-leaf statistics (its PlanConfig fields that the port shares)."""
+    params = params_from_reference(ref_plan.params, device, use_kernel)
+    rc = ref_plan.cfg
+    cfg = PlanConfig(default=rc.default, rules=tuple(rc.rules), q_prune=rc.q_prune,
+                     bk=rc.bk, bn=rc.bn, score=rc.score, min_size=rc.min_size,
+                     min_contract=rc.min_contract, use_kernel=use_kernel)
+    leaves = {
+        p: LeafPlan(path=l.path, kind=l.kind, shape=tuple(l.shape), n_weights=int(l.n_weights),
+                    surviving=int(l.surviving), payload_bytes=float(l.payload_bytes),
+                    metadata_bytes=float(l.metadata_bytes))
+        for p, l in ref_plan.leaves.items()
+    }
+    by_path = {}
+
+    def visit(path, node):
+        by_path[path] = node
+        return node
+
+    map_tree(visit, params)
+    return WeightPlan(cfg=cfg, leaves=leaves, params=params,
+                      _by_path={p: by_path[p] for p in leaves})

@@ -1,0 +1,104 @@
+"""B1: block-sparse (optionally int8) matmul -- wrapper, plain version and
+launch counter of ``csrc/block_sparse.cu``.
+
+Replaces ``repro/kernels/block_sparse.py:block_sparse_matmul_mc``.  What
+bounds it on the H100: at decode, M (the live batch) is far below the
+card's ~295 FLOP/byte balance point, so the kernel is bound by the weight
+stream -- surviving payload + scales + x + y over 3.35 TB/s.  Its design
+reads only the surviving blocks (one byte per int8 weight), one CTA per
+(output block-column, 16-row M-tile), with the next block's copy in flight
+while the current one multiplies (cp.async double buffer).
+
+``block_sparse_matmul`` launches the kernel for CUDA tensors and runs the
+plain version for CPU tensors; on CUDA the plain version runs only when
+the caller passes ``use_kernel=False``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build
+
+BLOCK = 128  # the kernel's (bk, bn) block edge
+X_DTYPES = (torch.float32, torch.bfloat16)
+W_DTYPES = (torch.int8, torch.float32)
+
+
+def block_sparse_fp32(x, blocks, block_rows, scales=None) -> torch.Tensor:
+    """fp32 y = x @ W by gather (the reference's ``_packed_ref_matmul``):
+    x's row-blocks are selected by ``block_rows`` and contracted with every
+    stored block; padded blocks are zero, so ``counts`` is not consulted."""
+    M, K = x.shape
+    n_cols, mb = block_rows.shape
+    bk, bn = blocks.shape[1], blocks.shape[2]
+    xsel = x.reshape(M, K // bk, bk)[:, block_rows.reshape(-1).long()]
+    xsel = xsel.reshape(M, n_cols, mb, bk).to(torch.float32)
+    bl = blocks.reshape(n_cols, mb, bk, bn).to(torch.float32)
+    y = torch.einsum("mcsk,cskn->mcn", xsel, bl).reshape(M, n_cols * bn)
+    if scales is not None:
+        y = y * scales.to(torch.float32)
+    return y
+
+
+def block_sparse_matmul_plain(x, blocks, block_rows, counts, scales=None) -> torch.Tensor:
+    """The plain PyTorch version of the kernel (output in x's dtype)."""
+    return block_sparse_fp32(x, blocks, block_rows, scales).to(x.dtype)
+
+
+def check_operands(x, blocks, block_rows, counts, scales) -> None:
+    """Raise on anything the CUDA kernel does not take."""
+    dev = x.device
+    if x.dim() != 2 or x.dtype not in X_DTYPES:
+        raise ValueError(f"x must be 2-D {X_DTYPES}, got {tuple(x.shape)} {x.dtype}")
+    n_cols, mb = block_rows.shape
+    if blocks.dtype not in W_DTYPES or tuple(blocks.shape) != (n_cols * mb, BLOCK, BLOCK):
+        raise ValueError(f"blocks must be ({n_cols * mb}, {BLOCK}, {BLOCK}) in {W_DTYPES}, "
+                         f"got {tuple(blocks.shape)} {blocks.dtype}")
+    if block_rows.dtype != torch.int32 or counts.dtype != torch.int32 \
+            or tuple(counts.shape) != (n_cols,):
+        raise ValueError("block_rows (n_cols, mb) and counts (n_cols,) must be int32")
+    if x.shape[1] % BLOCK:
+        raise ValueError(f"K={x.shape[1]} is not a multiple of {BLOCK}")
+    if scales is not None and (scales.dtype != torch.float32
+                               or tuple(scales.shape) != (n_cols * BLOCK,)):
+        raise ValueError(f"scales must be float32 ({n_cols * BLOCK},)")
+    for name, t in (("x", x), ("blocks", blocks), ("block_rows", block_rows),
+                    ("counts", counts), ("scales", scales)):
+        if t is None:
+            continue
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, x on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if blocks.data_ptr() % 16:
+        raise ValueError("blocks must be 16-byte aligned (cp.async)")
+
+
+def block_sparse_matmul(x, blocks, block_rows, counts, scales=None, *,
+                        use_kernel: bool = True) -> torch.Tensor:
+    """y (M, N) = x (M, K) @ W for the block-sparse W, in x's dtype.
+
+    blocks (N/128 * mb, 128, 128) int8 or float32; block_rows (N/128, mb)
+    and counts (N/128,) int32; scales (N,) float32 per-output-channel
+    dequant scales or None.  ``use_kernel=False`` runs the plain version
+    on CUDA tensors too."""
+    if not x.is_cuda or not use_kernel:
+        return block_sparse_matmul_plain(x, blocks, block_rows, counts, scales)
+    check_operands(x, blocks, block_rows, counts, scales)
+    M, K = x.shape
+    n_cols, mb = block_rows.shape
+    N = n_cols * BLOCK
+    y = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    lib = build.load("block_sparse")
+    code = lib.bsmm_launch(
+        build.ptr(x), build.ptr(blocks), build.ptr(block_rows), build.ptr(counts),
+        build.ptr(scales), build.ptr(y), M, K, N, mb,
+        build.DTYPE_CODES[x.dtype], build.DTYPE_CODES[blocks.dtype],
+        build.stream_ptr(x.device))
+    build.check(lib, code, "block_sparse_matmul")
+    block_sparse_matmul.launches += 1
+    return y
+
+
+block_sparse_matmul.launches = 0

@@ -1,0 +1,46 @@
+"""The kernel dispatch that ``core.weight_plan`` and ``models.layers`` call.
+
+Each function unpacks the port's data structures into the kernel wrapper's
+arguments.  The wrappers launch their CUDA kernel for CUDA tensors and run
+their plain PyTorch version for CPU tensors; on CUDA the plain version runs
+only for an explicit ``use_kernel=False`` (``PlanConfig.use_kernel``,
+``layers.paged_decode_attention(use_kernel=)``).  Nothing here catches a
+kernel failure to fall back.
+"""
+
+from __future__ import annotations
+
+from repro_torch.kernels import block_sparse as _bs
+from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import fused_gate_up as _fgu
+
+
+def _check_k(x2, w):
+    # the kernels index x by the pack-time row blocks: K must be the weight's
+    if x2.shape[-1] != w.shape[0]:
+        raise ValueError(f"x has K={x2.shape[-1]}, the weight packs K={w.shape[0]}")
+
+
+def block_sparse_matmul(x2, w):
+    """(M, K) @ PackedLinear -> (M, N) in x2's dtype (kernel B1)."""
+    _check_k(x2, w)
+    return _bs.block_sparse_matmul(x2, w.blocks, w.block_rows, w.counts, w.scales,
+                                   use_kernel=w.use_kernel)
+
+
+def fused_gate_up(x2, g, u, activation: str):
+    """act(x2 @ g) * (x2 @ u) for a fusable PackedLinear pair (kernel B2)."""
+    _check_k(x2, g)
+    return _fgu.fused_gate_up(
+        x2, (g.blocks, g.block_rows, g.counts), (u.blocks, u.block_rows, u.counts),
+        g.scales, u.scales, activation=activation,
+        use_kernel=g.use_kernel and u.use_kernel)
+
+
+def paged_decode_attention(q, k_pages, v_pages, page_table, pos, *, window=None,
+                           softcap=0.0, k_scale_pages=None, v_scale_pages=None,
+                           use_kernel: bool = True):
+    """Decode attention through the page table (kernel B3)."""
+    return _fa.paged_decode_attention(
+        q, k_pages, v_pages, page_table, pos, window=window, softcap=softcap,
+        k_scale_pages=k_scale_pages, v_scale_pages=v_scale_pages, use_kernel=use_kernel)

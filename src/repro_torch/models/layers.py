@@ -1,0 +1,316 @@
+"""Shared model layers (port of ``repro/models/layers.py``): RMSNorm, RoPE,
+GQA attention (dense prefill, contiguous and paged decode), the int8 KV
+cache, the gated MLP, embedding and unembedding -- what tinyllama-1.1b
+serving runs (``transformer.check_supported`` names the rest).
+
+Functions take and return tensors in the reference's layouts: activations
+(B, S, d), q (B, S, H, hd), KV caches (B, S, KVH, hd) and page pools
+(num_pages, page_size, KVH, hd).  Where the reference returns an updated
+cache (JAX donates the old buffer), the port writes into the cache in place
+and says so.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.core.weight_plan import GATE_ACTS, apply_gate_up, apply_linear
+from repro_torch.kernels import ops
+
+# ---------------------------------------------------------------------------
+# initializers
+# ---------------------------------------------------------------------------
+
+
+def dense_init(shape, generator: torch.Generator, device, fan_in: Optional[int] = None):
+    """LeCun-normal over the fan-in (the contraction axis, -2, by default)."""
+    fan_in = shape[-2] if fan_in is None else fan_in
+    w = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
+    return w * (1.0 / math.sqrt(fan_in))
+
+
+def embed_init(shape, generator: torch.Generator, device):
+    return torch.randn(shape, generator=generator, device=device, dtype=torch.float32) * 0.02
+
+
+# ---------------------------------------------------------------------------
+# norms and RoPE
+# ---------------------------------------------------------------------------
+
+
+def apply_norm(p, x, eps: float = 1e-6):
+    """RMSNorm in fp32, scaled by (1 + scale) as the reference does."""
+    xf = x.to(torch.float32)
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * (1.0 + p["scale"])).to(x.dtype)
+
+
+def rope_freqs(hd: int, base: float, device=None) -> torch.Tensor:
+    return base ** (-torch.arange(0, hd, 2, dtype=torch.float32, device=device) / hd)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, base: float) -> torch.Tensor:
+    """x: (..., S, H, hd); positions broadcastable to (..., S).  Each head is
+    split in halves (not interleaved pairs), as in the reference."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, base, x.device)
+    ang = positions[..., :, None].to(torch.float32) * freqs
+    sin, cos = torch.sin(ang)[..., None, :], torch.cos(ang)[..., None, :]
+    x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+
+def _softcap(s, cap: float):
+    return torch.tanh(s / cap) * cap if cap > 0.0 else s
+
+
+def dense_attention(q, k, v):
+    """Exact causal GQA attention with an (Sq, Sk) score tensor (small S);
+    q (B, Sq, H, hd) at positions 0..Sq-1, k/v (B, Sk, KVH, hd)."""
+    B, Sq, H, hd = q.shape
+    KVH = k.shape[2]
+    G = H // KVH
+    scale = 1.0 / math.sqrt(hd)
+    qg = q.reshape(B, Sq, KVH, G, hd)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg.to(torch.float32), k.to(torch.float32)) * scale
+    mask = (torch.arange(k.shape[1], device=q.device)[None, :]
+            <= torch.arange(Sq, device=q.device)[:, None])
+    s = torch.where(mask, s, torch.full_like(s, -1e30))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bskd->bqkgd", p, v.to(torch.float32))
+    return o.reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def attention(q, k, v, dense_threshold: int = 1024):
+    """Prefill attention.  Serving stays under ``dense_threshold``; the
+    reference's chunked flash path (layers.flash_attention) is ROADMAP A2b."""
+    if q.shape[1] > dense_threshold or k.shape[1] > dense_threshold:
+        raise NotImplementedError(
+            f"sequences over {dense_threshold} need the chunked flash attention "
+            "(ROADMAP A2b, kernel B6)")
+    return dense_attention(q, k, v)
+
+
+def decode_attention(q, k_cache, v_cache, pos, *, window: Optional[int] = None,
+                     softcap: float = 0.0, k_scale=None, v_scale=None):
+    """Attention of T new tokens per sequence against a ring-buffer cache of
+    length S (slot i holds the newest position p with p % S == i).
+
+    int8 caches (``k_scale``/``v_scale`` (B, S, KVH)) fold their scales into
+    the score and probability tensors: (q . k*s) == (q . k) * s and
+    p @ (v*s) == (p*s) @ v."""
+    B, S, KVH, hd = k_cache.shape
+    T, H = q.shape[1], q.shape[2]
+    G = H // KVH
+    scale = 1.0 / math.sqrt(hd)
+    dev = q.device
+    qg = q.reshape(B, T, KVH, G, hd)
+    if k_scale is None:
+        s = torch.einsum("btkgd,bskd->bkgts", qg.to(k_cache.dtype).to(torch.float32),
+                         k_cache.to(torch.float32)) * scale
+    else:
+        s = torch.einsum("btkgd,bskd->bkgts", qg.to(torch.float32),
+                         k_cache.to(torch.float32)) * scale
+        s = s * k_scale.to(torch.float32).permute(0, 2, 1)[:, :, None, None, :]
+    s = _softcap(s, softcap)
+    newest = pos[:, None].long() + (T - 1)  # (B, 1)
+    slot = torch.arange(S, device=dev)[None]
+    kv_pos = newest - ((newest - slot) % S)  # (B, S) absolute position per slot
+    q_pos = pos[:, None].long() + torch.arange(T, device=dev)[None]  # (B, T)
+    mask = (kv_pos[:, None, :] >= 0) & (kv_pos[:, None, :] <= q_pos[:, :, None])
+    if window is not None:
+        mask &= kv_pos[:, None, :] > (q_pos[:, :, None] - window)
+    s = torch.where(mask[:, None, None], s, torch.full_like(s, -1e30))
+    p = torch.softmax(s, dim=-1)
+    if v_scale is None:
+        o = torch.einsum("bkgts,bskd->btkgd", p.to(v_cache.dtype).to(torch.float32),
+                         v_cache.to(torch.float32))
+    else:
+        pv = p * v_scale.to(torch.float32).permute(0, 2, 1)[:, :, None, None, :]
+        o = torch.einsum("bkgts,bskd->btkgd", pv, v_cache.to(torch.float32))
+    return o.reshape(B, T, H, hd).to(q.dtype)
+
+
+def quantize_kv(x: torch.Tensor):
+    """Per-(token, head) int8 quantization of K or V (..., hd): int8 values
+    and fp32 scales without the hd axis.  torch.round rounds half to even,
+    as jnp.round does."""
+    xf = x.to(torch.float32)
+    amax = xf.abs().amax(dim=-1)
+    scale = amax.clamp_min(1e-8) / 127.0
+    q = torch.round(xf / scale[..., None]).clamp(-127, 127).to(torch.int8)
+    return q, scale
+
+
+def _cache_update(cache: torch.Tensor, new: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """Write T new (B, T, ...) entries at positions pos..pos+T-1 (mod the
+    ring length), IN PLACE (the reference donates the cache instead)."""
+    S = cache.shape[1]
+    B, T = new.shape[:2]
+    idx = (pos[:, None].long() + torch.arange(T, device=pos.device)[None]) % S
+    cache[torch.arange(B, device=pos.device)[:, None], idx] = new.to(cache.dtype)
+    return cache
+
+
+def init_attn_cache(cfg, batch: int, length: int, dtype=torch.bfloat16, device="cpu"):
+    """Contiguous KV cache for one attention layer; ``dtype=torch.int8``
+    selects int8 payloads + per-(slot, head) fp32 scales."""
+    KVH, hd = cfg.n_kv_heads, cfg.hd
+    shape = (batch, length, KVH, hd)
+    if dtype == torch.int8:
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(shape[:3], dtype=torch.float32, device=device),
+                "v_scale": torch.zeros(shape[:3], dtype=torch.float32, device=device)}
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# paged KV cache: per-layer pools of fixed-size pages + a page table
+# ---------------------------------------------------------------------------
+#
+# Pools are (num_pages, page_size, KVH, hd); the host-side allocator
+# (serving/paged.py) maps each slot's logical page to a physical page via
+# the int32 table (B, pages_per_seq).  Position p lives at logical page
+# p // page_size, slot p % page_size.  Physical page 0 is the null page:
+# dead slots point at it, so their writes land there harmlessly.
+
+
+def init_paged_attn_cache(cfg, num_pages: int, page_size: int, dtype=torch.bfloat16,
+                          device="cpu"):
+    KVH, hd = cfg.n_kv_heads, cfg.hd
+    shape = (num_pages, page_size, KVH, hd)
+    if dtype == torch.int8:
+        return {"k_pages": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v_pages": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale_pages": torch.zeros(shape[:3], dtype=torch.float32, device=device),
+                "v_scale_pages": torch.zeros(shape[:3], dtype=torch.float32, device=device)}
+    return {"k_pages": torch.zeros(shape, dtype=dtype, device=device),
+            "v_pages": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def paged_cache_update(pool, new, page_table, pos):
+    """Scatter T new (B, T, ...) entries per sequence through the page
+    table, IN PLACE.  Target pages are privately owned (the engine's
+    copy-on-write guarantees it); dead slots write into the null page.
+    Logical page indices past the table clamp to its last column, as the
+    reference's gather does."""
+    ps = pool.shape[1]
+    B, T = new.shape[:2]
+    dev = pos.device
+    positions = pos[:, None].long() + torch.arange(T, device=dev)[None]  # (B, T)
+    lp = (positions // ps).clamp(max=page_table.shape[1] - 1)
+    phys = page_table[torch.arange(B, device=dev)[:, None], lp].long()
+    pool[phys, positions % ps] = new.to(pool.dtype)
+    return pool
+
+
+def gather_pages(pool, page_table):
+    """(num_pages, ps, ...) pool -> (B, pages_per_seq * ps, ...) logical view."""
+    g = pool[page_table.long()]
+    B, P, ps = g.shape[:3]
+    return g.reshape((B, P * ps) + tuple(g.shape[3:]))
+
+
+def paged_decode_attention(q, k_pages, v_pages, page_table, pos, *, window=None,
+                           softcap: float = 0.0, k_scale_pages=None, v_scale_pages=None,
+                           use_kernel: bool = True):
+    """Attention for T new tokens per sequence through the page table:
+    kernel B3 for CUDA tensors (unless ``use_kernel=False``), its plain
+    version (gather + ``decode_attention``) otherwise."""
+    return ops.paged_decode_attention(
+        q, k_pages, v_pages, page_table, pos, window=window, softcap=softcap,
+        k_scale_pages=k_scale_pages, v_scale_pages=v_scale_pages, use_kernel=use_kernel)
+
+
+def finite_rows(logits: torch.Tensor) -> torch.Tensor:
+    """(B,) bool: whether every logit in batch row b is finite."""
+    return torch.isfinite(logits).flatten(1).all(dim=1)
+
+
+# ---------------------------------------------------------------------------
+# attention block
+# ---------------------------------------------------------------------------
+
+
+def apply_attn(cfg, p, x, *, cache: dict, pos, page_table=None,
+               use_kernel: bool = True):
+    """A decode step for S new tokens per sequence at ``pos``: writes their
+    K/V into the cache in place -- through ``page_table`` for a paged cache
+    ({"k_pages", ...}), at pos % length for a contiguous one -- and attends.
+    ``use_kernel`` reaches the paged attention dispatch."""
+    B, S, _ = x.shape
+    H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = apply_linear(x, p["wq"]).reshape(B, S, H, hd)
+    k = apply_linear(x, p["wk"]).reshape(B, S, KVH, hd)
+    v = apply_linear(x, p["wv"]).reshape(B, S, KVH, hd)
+    positions = pos[:, None].long() + torch.arange(S, device=x.device)[None]
+    q = apply_rope(q, positions, cfg.rope_base)
+    k = apply_rope(k, positions, cfg.rope_base)
+    if "k_pages" in cache:
+        if "k_scale_pages" in cache:
+            k, ks = quantize_kv(k)
+            v, vs = quantize_kv(v)
+            paged_cache_update(cache["k_scale_pages"], ks, page_table, pos)
+            paged_cache_update(cache["v_scale_pages"], vs, page_table, pos)
+        paged_cache_update(cache["k_pages"], k, page_table, pos)
+        paged_cache_update(cache["v_pages"], v, page_table, pos)
+        o = paged_decode_attention(
+            q, cache["k_pages"], cache["v_pages"], page_table, pos,
+            k_scale_pages=cache.get("k_scale_pages"),
+            v_scale_pages=cache.get("v_scale_pages"), use_kernel=use_kernel)
+    else:
+        ksc = vsc = None
+        if "k_scale" in cache:
+            k, ks = quantize_kv(k)
+            v, vs = quantize_kv(v)
+            ksc = _cache_update(cache["k_scale"], ks, pos)
+            vsc = _cache_update(cache["v_scale"], vs, pos)
+        kc = _cache_update(cache["k"], k, pos)
+        vc = _cache_update(cache["v"], v, pos)
+        o = decode_attention(q, kc, vc, pos, k_scale=ksc, v_scale=vsc)
+    return apply_linear(o.reshape(B, S, H * hd), p["wo"])
+
+
+# ---------------------------------------------------------------------------
+# MLP, embedding, unembedding
+# ---------------------------------------------------------------------------
+
+GATED = ("silu", "swiglu", "geglu", "gelu_glu")
+
+
+def apply_mlp(cfg, p, x):
+    if "w_gate" in p:
+        # fused-pair node: a packed (w_gate, w_up) pair is ONE kernel launch
+        h = apply_gate_up(x, p["w_gate"], p["w_up"], cfg.activation)
+    else:
+        h = GATE_ACTS[cfg.activation](apply_linear(x, p["w_up"]))
+    return apply_linear(h, p["w_down"])
+
+
+def _cdtype(cfg) -> torch.dtype:
+    return getattr(torch, cfg.compute_dtype)
+
+
+def embed_tokens(cfg, p, tokens):
+    tok = p["tok"]
+    idx = tokens.long()
+    if isinstance(tok, dict):  # int8 table: dequantize the gathered rows
+        x = tok["q"][idx].to(_cdtype(cfg))
+        return x * tok["s"].to(x.dtype)
+    return tok[idx].to(_cdtype(cfg))
+
+
+def unembed(p, x):
+    """Logits through the untied head (any representation)."""
+    return apply_linear(x, p["head"])

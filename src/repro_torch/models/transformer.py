@@ -1,0 +1,278 @@
+"""Decoder-only LM (port of ``repro/models/transformer.py``).
+
+The params tree keeps the reference's layout: the layer-kind sequence is
+factored into a repeating unit (``find_unit``), and every leaf of a unit
+position is stacked over the units, so reference params convert and
+compress leaf for leaf (``interop``, ``weight_plan.compress``).  Where the
+reference scans over the stack, the port runs a Python loop over layers:
+``unstack`` turns the tree into a list of per-layer views once, when a
+model is set up, and ``init_cache`` makes one cache dict per layer.
+
+Only what tinyllama-1.1b uses is ported: ``global`` attention layers with
+RMSNorm, a dense gated MLP and an untied head.  ``check_supported`` names
+the ROADMAP item of everything else.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.core.weight_plan import PackedLinear, apply_linear, map_tree
+from repro_torch.device import resolve_device
+from repro_torch.models import layers as L
+
+
+def find_unit(kinds: tuple) -> tuple:
+    """Factor a kind sequence into (unit, n_units, remainder), maximizing
+    scanned coverage (ties -> shortest unit), as the reference does."""
+    Ln = len(kinds)
+
+    def cost(unit, rem):
+        return len(unit) + len(rem_runs(rem))
+
+    best = (kinds, 1, ())
+    best_cost = cost(kinds, ())
+    for p in range(1, min(Ln, 12) + 1):
+        unit = kinds[:p]
+        k = 0
+        while (k + 1) * p <= Ln and kinds[k * p:(k + 1) * p] == unit:
+            k += 1
+        if k < 1:
+            continue
+        rem = kinds[p * k:]
+        c = cost(unit, rem)
+        if c < best_cost or (c == best_cost and p * k > len(best[0]) * best[1]):
+            best = (unit, k, rem)
+            best_cost = c
+    return best
+
+
+def rem_runs(rem: tuple) -> list:
+    """Group the remainder into (kind, count) runs."""
+    runs = []
+    for kind in rem:
+        if runs and runs[-1][0] == kind:
+            runs[-1][1] += 1
+        else:
+            runs.append([kind, 1])
+    return [(k, c) for k, c in runs]
+
+
+def check_supported(cfg):
+    """Raise NotImplementedError, naming the ROADMAP item, for any part of
+    ``cfg`` the port does not serve yet."""
+    unported = [
+        (cfg.moe is not None, "MoE layers", "A8"),
+        (any(k == "local" for k in cfg.layer_kinds), "sliding-window layers", "A8"),
+        (any(k not in ("global", "local") for k in cfg.layer_kinds),
+         "recurrent / xLSTM layers", "A10"),
+        (cfg.norm != "rmsnorm", "layernorm", "A9"),
+        (cfg.tie_embeddings, "tied embeddings", "A2c"),
+        (cfg.scale_embed or cfg.logit_softcap > 0.0 or cfg.rope_base_global > 0.0,
+         "gemma-style embedding scale / softcap / global RoPE base", "A8"),
+    ]
+    for bad, what, item in unported:
+        if bad:
+            raise NotImplementedError(f"{cfg.name}: {what} are not ported yet (ROADMAP {item})")
+
+
+def _layer_shapes(cfg) -> dict:
+    """{name: (shape, init)} of one layer; init is 'dense' or 'zeros'."""
+    d, H, KVH, hd, f = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_ff
+    mlp = {"w_up": ((d, f), "dense"), "w_down": ((f, d), "dense")}
+    if cfg.activation in L.GATED:
+        mlp["w_gate"] = ((d, f), "dense")
+    return {
+        "ln1": {"scale": ((d,), "zeros")},
+        "attn": {"wq": ((d, H * hd), "dense"), "wk": ((d, KVH * hd), "dense"),
+                 "wv": ((d, KVH * hd), "dense"), "wo": ((H * hd, d), "dense")},
+        "ln2": {"scale": ((d,), "zeros")},
+        "mlp": mlp,
+    }
+
+
+def param_shapes(cfg) -> dict:
+    """The params tree of ``init_params`` as (shape, init) leaves."""
+    check_supported(cfg)
+    unit, n_units, rem = find_unit(cfg.layer_kinds)
+
+    def stack(tree, n):
+        return {k: stack(v, n) if isinstance(v, dict) else ((n,) + v[0], v[1])
+                for k, v in tree.items()}
+
+    return {
+        "embed": {"tok": ((cfg.vocab, cfg.d_model), "embed"),
+                  "head": ((cfg.d_model, cfg.vocab), "dense")},
+        "final_norm": {"scale": ((cfg.d_model,), "zeros")},
+        "unit": [stack(_layer_shapes(cfg), n_units) for _ in unit],
+        "rem": [stack(_layer_shapes(cfg), c) for _, c in rem_runs(rem)],
+    }
+
+
+def init_params(cfg, seed: int = 0, *, device=None):
+    """Random params with the reference's shapes and scales: LeCun-normal
+    matmul weights (fan-in = contraction axis), N(0, 0.02) token embedding,
+    zero norm scales (RMSNorm multiplies by 1 + scale).  Drawn from a
+    ``torch.Generator`` seeded with ``seed`` on ``device`` (the CUDA device
+    unless device="cpu"); this does not reproduce the reference's
+    ``jax.random`` bits -- parity tests convert reference params through
+    ``interop`` instead."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+
+    def make(node):
+        if isinstance(node, dict):
+            return {k: make(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [make(v) for v in node]
+        shape, init = node
+        if init == "zeros":
+            return torch.zeros(shape, dtype=torch.float32, device=dev)
+        if init == "embed":
+            return L.embed_init(shape, gen, dev)
+        return L.dense_init(shape, gen, dev)
+
+    return make(param_shapes(cfg))
+
+
+def n_params_exact(cfg) -> int:
+    total = 0
+
+    def visit(node):
+        nonlocal total
+        if isinstance(node, dict):
+            for v in node.values():
+                visit(v)
+        elif isinstance(node, list):
+            for v in node:
+                visit(v)
+        else:
+            n = 1
+            for s in node[0]:
+                n *= s
+            total += n
+
+    visit(param_shapes(cfg))
+    return total
+
+
+def _layer_leaf(node, i: int):
+    """Layer ``i`` of a stacked leaf (views); a packed leaf leaves its walk
+    behind on the host, since no kernel reads it."""
+    if isinstance(node, PackedLinear):
+        return dataclasses.replace(
+            node, blocks=node.blocks[i], block_rows=node.block_rows[i],
+            counts=node.counts[i],
+            scales=None if node.scales is None else node.scales[i], walk=None)
+    if isinstance(node, dict):  # {"q", "s"}
+        return {k: v[i] for k, v in node.items()}
+    return node[i]
+
+
+def _layer(tree, i: int) -> dict:
+    return map_tree(lambda _, n: _layer_leaf(n, i), tree)
+
+
+def unstack(cfg, params) -> dict:
+    """The per-layer view that ``prefill`` and ``decode_step`` take:
+    {"embed", "final_norm", "layers": one params dict per layer in
+    execution order (unit 0's positions, unit 1's, ..., then the remainder
+    runs)}.  Built once when a model is set up; its leaves are views of the
+    stacked tree's tensors.  A tree that is already unstacked is returned
+    as it is."""
+    if "layers" in params:
+        return params
+    unit, n_units, rem = find_unit(cfg.layer_kinds)
+    layers = [_layer(params["unit"][pi], u) for u in range(n_units) for pi in range(len(unit))]
+    for ri, (_, count) in enumerate(rem_runs(rem)):
+        layers += [_layer(params["rem"][ri], i) for i in range(count)]
+    return {"embed": params["embed"], "final_norm": params["final_norm"], "layers": layers}
+
+
+def init_cache(cfg, batch: int, length: int, dtype=torch.bfloat16, kv_dtype=None,
+               page_size=None, num_pages=None, device="cpu"):
+    """{"layers": one KV cache dict per layer, in execution order}.
+    ``page_size``/``num_pages`` select the paged cache and add a
+    ``page_table`` (batch, ceil(length / page_size)) int32 leaf, owned by
+    the engine."""
+    check_supported(cfg)
+    dt = kv_dtype if kv_dtype is not None else dtype
+
+    def one():
+        if page_size is not None:
+            return L.init_paged_attn_cache(cfg, num_pages, page_size, dt, device)
+        return L.init_attn_cache(cfg, batch, length, dt, device)
+
+    cache = {"layers": [one() for _ in range(cfg.n_layers)]}
+    if page_size is not None:
+        cache["page_table"] = torch.zeros((batch, -(-length // page_size)),
+                                          dtype=torch.int32, device=device)
+    return cache
+
+
+def apply_layer(cfg, p, x, *, cache, pos=None, page_table=None, use_kernel: bool = True):
+    """One global-attention layer; returns x.  ``pos`` None is the prefill
+    over x (filling the contiguous cache), else a decode step at ``pos``."""
+    h = L.apply_norm(p["ln1"], x)
+    if pos is None:
+        a = _attn_prefill(cfg, p["attn"], h, cache)
+    else:
+        a = L.apply_attn(cfg, p["attn"], h, cache=cache, pos=pos, page_table=page_table,
+                         use_kernel=use_kernel)
+    x = x + a
+    h = L.apply_norm(p["ln2"], x)
+    return x + L.apply_mlp(cfg, p["mlp"], h)
+
+
+def _attn_prefill(cfg, p, h, cache):
+    """Full-sequence causal attention that also fills the contiguous KV
+    cache (in place; int8 caches get the quantized K/V of every position)."""
+    B, Sq, _ = h.shape
+    H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = apply_linear(h, p["wq"]).reshape(B, Sq, H, hd)
+    k = apply_linear(h, p["wk"]).reshape(B, Sq, KVH, hd)
+    v = apply_linear(h, p["wv"]).reshape(B, Sq, KVH, hd)
+    positions = torch.arange(Sq, device=h.device)[None].expand(B, Sq)
+    q = L.apply_rope(q, positions, cfg.rope_base)
+    k = L.apply_rope(k, positions, cfg.rope_base)
+    o = L.attention(q, k, v)
+    out = apply_linear(o.reshape(B, Sq, H * hd), p["wo"])
+    if "k_scale" in cache:
+        k, ks = L.quantize_kv(k)
+        v, vs = L.quantize_kv(v)
+        cache["k_scale"][:, :Sq] = ks
+        cache["v_scale"][:, :Sq] = vs
+    cache["k"][:, :Sq] = k.to(cache["k"].dtype)
+    cache["v"][:, :Sq] = v.to(cache["v"].dtype)
+    return out
+
+
+def _run_layers(cfg, params, x, cache, pos=None, use_kernel: bool = True):
+    for p, c in zip(params["layers"], cache["layers"]):
+        x = apply_layer(cfg, p, x, cache=c, pos=pos, page_table=cache.get("page_table"),
+                        use_kernel=use_kernel)
+    return x
+
+
+def prefill(cfg, params, tokens, cache):
+    """Serving prefill into a contiguous cache: (last-position logits
+    (B, 1, V), the filled cache).  ``params`` is the ``unstack`` view."""
+    x = L.embed_tokens(cfg, params["embed"], tokens)
+    x = _run_layers(cfg, params, x, cache)
+    x = L.apply_norm(params["final_norm"], x[:, -1:])
+    return L.unembed(params["embed"], x), cache
+
+
+def decode_step(cfg, params, cache, tokens, pos, *, use_kernel: bool = True):
+    """One decode step over T new tokens per sequence.  ``params`` is the
+    ``unstack`` view; tokens (B, T) int, pos (B,) int32 absolute position
+    of tokens[:, 0].  Returns (logits (B, T, V), cache); the cache is
+    updated in place.  ``use_kernel=False`` runs the paged attention's
+    plain version on the card."""
+    x = L.embed_tokens(cfg, params["embed"], tokens)
+    x = _run_layers(cfg, params, x, cache, pos=pos, use_kernel=use_kernel)
+    x = L.apply_norm(params["final_norm"], x)
+    return L.unembed(params["embed"], x), cache
