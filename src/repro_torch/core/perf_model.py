@@ -1,15 +1,247 @@
-"""Decode-step roofline model (port of ``repro/core/perf_model.py``).
+"""Analytical performance models (port of ``repro/core/perf_model.py``).
 
-Only what serving and the engine call is ported: ``decode_n_opt``,
-``pages_for_context``, ``paged_pool_pages`` and ``decode_step_time``.  The
-hardware defaults are the NVIDIA H100 SXM data-sheet values, not
-measurements: 989e12 FLOP/s dense bf16 on the tensor cores and 3.35e12 B/s
-of HBM3 bandwidth.  They are the only hardware constants of the port.
+Two parts:
+
+1. The paper's Section 4.4 model of a fully-connected layer transition as
+   two overlapped streams -- MACs on an m x r array and the weight
+   transfer -- with its batch-size optimum ``n_opt`` and the cycle counts of
+   the paper's datapaths (Section 5.5).  Copied as it is: pure arithmetic,
+   with the paper's ZedBoard designs as ``HardwareSpec``s.
+2. The decode-step roofline that serving and the engine call:
+   ``decode_n_opt``, ``pages_for_context``, ``paged_pool_pages`` and
+   ``decode_step_time``.  Its hardware defaults are the NVIDIA H100 SXM
+   data-sheet values, not measurements: 989e12 FLOP/s dense bf16 on the
+   tensor cores and 3.35e12 B/s of HBM3 bandwidth.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
+from typing import Sequence
+
+# ---------------------------------------------------------------------------
+# The paper's model (Section 4.4)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class HardwareSpec:
+    """A machine, in the paper's parameterization.
+
+    m:        parallel processing units (neurons per section)
+    r:        parallel MACs per processing unit
+    f_pu:     clock of the processing units [Hz]
+    T_mem:    achievable memory throughput [bytes/s]
+    b_weight: bytes per stored weight
+    name:     human-readable tag
+    """
+
+    name: str
+    m: int
+    r: int
+    f_pu: float
+    T_mem: float
+    b_weight: float = 2.0  # Q7.8 -> 16 bit
+
+    @property
+    def macs_per_s(self) -> float:
+        return self.m * self.r * self.f_pu
+
+    @property
+    def flops_per_s(self) -> float:
+        # one MAC = 2 FLOPs (mul + add)
+        return 2.0 * self.macs_per_s
+
+
+# The paper's batch-processing design on the ZedBoard (Zynq XC7020):
+# m = 114 MAC units (batch sizes 1..4), f_pu = 100 MHz, r = 1.
+# The four Zynq HP ports at 133 MHz x 64 bit give a practical ~1.6 GB/s
+# aggregated weight throughput (the paper states DDR3 controller peak of the
+# PS side is shared; we calibrate T_mem from the paper's own n_opt = 12.66
+# with m=114, r=1, f=100e6, b=2, q_ov=1:   T_mem = m*r*f*b/n_opt).
+ZYNQ_BATCH = HardwareSpec(
+    name="zedboard-batch-m114",
+    m=114,
+    r=1,
+    f_pu=100e6,
+    T_mem=114 * 1 * 100e6 * 2.0 / 12.66,  # ~1.80 GB/s, calibrated to n_opt=12.66
+    b_weight=2.0,
+)
+
+# The paper's pruning design: m = 4 coprocessors x r = 3 MACs = 12 MACs.
+ZYNQ_PRUNE = HardwareSpec(
+    name="zedboard-prune-m4r3",
+    m=4,
+    r=3,
+    f_pu=100e6,
+    T_mem=ZYNQ_BATCH.T_mem,
+    b_weight=2.0,
+)
+
+# ---------------------------------------------------------------------------
+# Layer / network descriptions
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerShape:
+    """One FC transition: s_in inputs (s_j), s_out neurons (s_{j+1})."""
+
+    s_in: int
+    s_out: int
+
+    @property
+    def weights(self) -> int:
+        return self.s_in * self.s_out
+
+
+def fc_network(sizes: Sequence[int]) -> tuple[LayerShape, ...]:
+    """A network '784x800x800x10' -> tuple of LayerShape transitions."""
+    return tuple(LayerShape(a, b) for a, b in zip(sizes[:-1], sizes[1:]))
+
+
+# The paper's four evaluation networks (Table 2 footnotes).
+MNIST_4LAYER = fc_network([784, 800, 800, 10])
+MNIST_8LAYER = fc_network([784, 800, 800, 800, 800, 800, 800, 10])
+HAR_4LAYER = fc_network([561, 1200, 300, 6])
+HAR_6LAYER = fc_network([561, 2000, 1500, 750, 300, 6])
+
+PAPER_NETWORKS = {
+    "mnist-4layer": MNIST_4LAYER,
+    "mnist-8layer": MNIST_8LAYER,
+    "har-4layer": HAR_4LAYER,
+    "har-6layer": HAR_6LAYER,
+}
+
+
+def network_parameters(net: Sequence[LayerShape]) -> int:
+    return sum(l.weights for l in net)
+
+
+# ---------------------------------------------------------------------------
+# The two-term model (Section 4.4)
+# ---------------------------------------------------------------------------
+
+
+def t_calc(
+    layer: LayerShape,
+    hw: HardwareSpec,
+    n_samples: int,
+    q_prune: float = 0.0,
+) -> float:
+    """Compute time for a layer across n_samples inputs [seconds]."""
+    if not 0.0 <= q_prune <= 1.0:
+        raise ValueError(f"q_prune must be in [0,1], got {q_prune}")
+    ops = layer.s_out * layer.s_in * n_samples * (1.0 - q_prune)
+    return ops / (hw.m * hw.r * hw.f_pu)
+
+
+def t_mem(
+    layer: LayerShape,
+    hw: HardwareSpec,
+    n_samples: int,
+    batch: int = 1,
+    q_prune: float = 0.0,
+    q_overhead: float = 1.0,
+) -> float:
+    """Weight-transfer time for a layer across n_samples inputs [seconds].
+
+    With batch processing, each weight is fetched once per `batch` samples.
+    With pruning, only (1 - q_prune) of the weights are streamed, inflated by
+    the sparse-format overhead q_overhead (paper: 64/(3*16) = 1.33).
+    """
+    if batch < 1:
+        raise ValueError(f"batch must be >= 1, got {batch}")
+    if q_overhead < 1.0:
+        raise ValueError(f"q_overhead must be >= 1, got {q_overhead}")
+    nbytes = (
+        layer.s_out
+        * layer.s_in
+        * hw.b_weight
+        * q_overhead
+        * (1.0 - q_prune)
+        * n_samples
+    )
+    return nbytes / (hw.T_mem * batch)
+
+
+def t_proc(
+    layer: LayerShape,
+    hw: HardwareSpec,
+    n_samples: int,
+    batch: int = 1,
+    q_prune: float = 0.0,
+    q_overhead: float = 1.0,
+) -> float:
+    """Overall processing time: compute and transfer are overlapped (max)."""
+    return max(
+        t_calc(layer, hw, n_samples, q_prune),
+        t_mem(layer, hw, n_samples, batch, q_prune, q_overhead),
+    )
+
+
+def network_t_proc(
+    net: Sequence[LayerShape],
+    hw: HardwareSpec,
+    n_samples: int,
+    batch: int = 1,
+    q_prune: float | Sequence[float] = 0.0,
+    q_overhead: float = 1.0,
+) -> float:
+    """Sum of per-layer t_proc over a whole network [seconds]."""
+    if isinstance(q_prune, (int, float)):
+        q_prune = [float(q_prune)] * len(net)
+    if len(q_prune) != len(net):
+        raise ValueError("q_prune must have one entry per layer")
+    return sum(
+        t_proc(l, hw, n_samples, batch, q, q_overhead)
+        for l, q in zip(net, q_prune)
+    )
+
+
+def n_opt(hw: HardwareSpec, q_overhead: float = 1.0) -> float:
+    """Optimal batch size: machine-balance point t_calc == t_mem.
+
+    n_opt = m * r * f_pu * b_weight * q_overhead / T_mem
+    """
+    return hw.m * hw.r * hw.f_pu * hw.b_weight * q_overhead / hw.T_mem
+
+
+def arithmetic_intensity(batch: int, b_weight: float = 2.0) -> float:
+    """MACs per weight byte streamed, as a function of batch size."""
+    return batch / b_weight
+
+
+def machine_balance(hw: HardwareSpec) -> float:
+    """MACs per byte the machine can sustain (the roofline ridge point)."""
+    return hw.macs_per_s / hw.T_mem
+
+
+# ---------------------------------------------------------------------------
+# Cycle-accurate variant (paper Section 5.5):
+#   ceil(s_out/m) * s_in * n + m * c_a   clock cycles for the batch datapath
+# ---------------------------------------------------------------------------
+
+
+def batch_datapath_cycles(
+    layer: LayerShape, m: int, n: int, c_a: int = 1
+) -> int:
+    """Exact cycle count of the paper's batch-processing datapath."""
+    return math.ceil(layer.s_out / m) * layer.s_in * n + m * c_a
+
+
+def pruning_datapath_cycles(
+    layer: LayerShape, m: int, r: int, n: int, q_prune: float
+) -> int:
+    """Cycle count of the paper's pruning datapath (Section 4.4 general form)."""
+    per_row = math.ceil(layer.s_in * (1.0 - q_prune) / r)
+    return math.ceil(layer.s_out / m) * per_row * n
+
+
+# ---------------------------------------------------------------------------
+# Decode roofline on the H100
+# ---------------------------------------------------------------------------
 
 # NVIDIA H100 SXM data sheet (dense, no sparsity, 700 W) -- not measured.
 H100_PEAK_FLOPS = 989e12  # bf16 tensor-core FLOP/s

@@ -1,18 +1,120 @@
-"""Block pruning (port of the block-granular part of ``repro/core/pruning.py``).
+"""Pruning (port of ``repro/core/pruning.py``; paper Section 4.3).
 
-Weights are scored and removed in (bk, bn) blocks, so a kernel can skip a
-whole block: both the bytes streamed and the MACs scale with (1 - q_prune),
-the paper's Section 4.3 claim at a granularity the hardware can exploit.
+Two granularities:
 
-Pack parity with the reference rests on three details kept here: fp32
-scores, the threshold ``sort(scores)[k - 1]`` and the strict ``s > delta``.
+1. **Element pruning** (paper-faithful): survivors are |w| above a
+   magnitude threshold, as masks (``sparsity_target_mask`` and friends);
+   ``models.fcnet.forward_pruned`` runs on the masked weights and the
+   (w, z)^3 stream codec of ``core.sparse_format`` is their storage format.
+   ``iterative_prune`` needs training and waits for it (ROADMAP A14).
+2. **Block pruning**: weights are scored and removed in (bk, bn) blocks, so
+   a kernel can skip a whole block: both the bytes streamed and the MACs
+   scale with (1 - q_prune), the paper's claim at a granularity the
+   hardware can exploit.  Pack parity with the reference rests on three
+   details kept here: fp32 scores, the threshold ``sort(scores)[k - 1]``
+   and the strict ``s > delta``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable
 
 import torch
+
+# ---------------------------------------------------------------------------
+# Element-granular pruning (paper-faithful)
+# ---------------------------------------------------------------------------
+
+
+def magnitude_threshold_mask(w: torch.Tensor, delta: float) -> torch.Tensor:
+    """Mask of survivors: |w| >= delta (paper Section 4.3)."""
+    return (w.abs() >= delta).to(w.dtype)
+
+
+def sparsity_target_mask(w: torch.Tensor, q_prune: float) -> torch.Tensor:
+    """Mask pruning the q_prune fraction of smallest-|w| weights: the
+    threshold delta is the k-th smallest magnitude, survivors are |w| > delta
+    (ties at delta are pruned with it, as in the reference)."""
+    if not 0.0 <= q_prune < 1.0:
+        raise ValueError(f"q_prune must be in [0,1), got {q_prune}")
+    flat = w.abs().reshape(-1)
+    k = int(round(q_prune * flat.numel()))
+    if k == 0:
+        return torch.ones_like(w)
+    delta = torch.sort(flat).values[k - 1]
+    return (w.abs() > delta).to(w.dtype)
+
+
+def apply_mask(w: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    return w * mask
+
+
+def measured_q_prune(mask: torch.Tensor) -> float:
+    """Fraction of pruned (zero) entries in a mask -- the paper's q_prune."""
+    return float(1.0 - mask.to(torch.float32).mean())
+
+
+def row_q_prune(mask: torch.Tensor) -> torch.Tensor:
+    """Per-output-neuron pruning factors q_prune_k (paper Section 5.6): the
+    mask is (s_in, s_out), so the paper's rows of W^(j) are its columns."""
+    return 1.0 - mask.to(torch.float32).mean(dim=0)
+
+
+@dataclasses.dataclass(frozen=True)
+class PruneSchedule:
+    """Cubic sparsity ramp from start_step to end_step (Zhu & Gupta style),
+    reaching final_q at end_step; before start_step no pruning.  start ==
+    end is the paper's one-shot prune-then-refine."""
+
+    final_q: float
+    start_step: int
+    end_step: int
+
+    def q_at(self, step: int) -> float:
+        if step < self.start_step:
+            return 0.0
+        if step >= self.end_step:
+            return self.final_q
+        frac = (step - self.start_step) / max(1, self.end_step - self.start_step)
+        return self.final_q * (1.0 - (1.0 - frac) ** 3)
+
+
+def _map_leaves(fn, tree, path: str = ""):
+    """fn(path, leaf) over the tensors of a nested dict/list tree; paths are
+    "0/w"-style strings."""
+    join = (lambda k: f"{path}/{k}") if path else str
+    if isinstance(tree, dict):
+        return {k: _map_leaves(fn, v, join(k)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_leaves(fn, v, join(i)) for i, v in enumerate(tree))
+    return fn(path, tree)
+
+
+def update_masks(params, q_prune: float, filter_fn: Callable | None = None):
+    """Masks at sparsity q_prune for every >= 2-D leaf that ``filter_fn(path,
+    leaf)`` accepts (all of them without one); ones for the other leaves."""
+
+    def _m(path, leaf):
+        if leaf.dim() >= 2 and (filter_fn is None or filter_fn(path, leaf)):
+            return sparsity_target_mask(leaf, q_prune)
+        return torch.ones_like(leaf)
+
+    return _map_leaves(_m, params)
+
+
+def apply_masks(params, masks):
+    """params * masks, leaf for leaf (the trees share their structure)."""
+    if isinstance(params, dict):
+        return {k: apply_masks(v, masks[k]) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return type(params)(apply_masks(p, m) for p, m in zip(params, masks))
+    return params * masks
+
+
+# ---------------------------------------------------------------------------
+# Block-granular pruning
+# ---------------------------------------------------------------------------
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,3 +160,20 @@ def block_mask(w: torch.Tensor, q_prune: float, cfg: BlockPruneConfig) -> torch.
 def expand_block_mask(bmask: torch.Tensor, cfg: BlockPruneConfig) -> torch.Tensor:
     """Block mask -> element mask."""
     return bmask.repeat_interleave(cfg.bk, dim=0).repeat_interleave(cfg.bn, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# Sparse-format accounting (feeds the perf model)
+# ---------------------------------------------------------------------------
+
+
+def element_stream_overhead(r: int = 3, w_bits: int = 16, word_bits: int = 64) -> float:
+    """q_overhead of the paper's packed tuple stream: word / (r * w_bits)
+    (paper: 64 / (3 * 16) = 1.333...)."""
+    return word_bits / (r * w_bits)
+
+
+def block_format_overhead(cfg: BlockPruneConfig, b_weight: float = 2.0,
+                          idx_bytes: int = 4) -> float:
+    """q_overhead of the block-sparse format: one int32 index per block."""
+    return 1.0 + idx_bytes / (cfg.bk * cfg.bn * b_weight)

@@ -6,21 +6,23 @@ through the one dispatch, ``apply_linear`` (and ``apply_gate_up`` for the
 gated-FFN pair):
 
     ``dense``        -- fp weights as they are.
-    ``quant``        -- int8 payload + per-output-channel fp32 scales, the
-                        ``{"q", "s"}`` dict (Section 4.1 at int8).
+    ``quant``        -- int8 payload + per-output-channel fp32 scales, a
+                        ``QuantLinear`` node (Section 4.1 at int8).
     ``block_sparse`` -- surviving (bk, bn) blocks per block-column with
                         int32 row indices (the z_w analogue, Section 5.6).
     ``quant_sparse`` -- both: int8 block payload + scales.
 
 The compressed tree keeps the dense tree's structure (nested dicts and
-lists; leaves become ``PackedLinear`` nodes or ``{"q", "s"}`` dicts).
+lists; leaves become ``PackedLinear`` or ``QuantLinear`` nodes).
 Stacked leaves keep their leading layer dimension, so leaf assignment and
 packing match the reference leaf for leaf; the model unstacks the tree
 into per-layer views once, when it is built (``transformer.unstack``).
 
-On CUDA, packed weights run through the hand-written kernels B1/B2
-(``kernels/ops``); on the CPU, through their plain versions.
-``PlanConfig.use_kernel=False`` forces the plain versions on CUDA too.
+On CUDA, packed weights run through the hand-written kernels B1/B2 and
+int8 weights through B5 (``kernels/ops``); on the CPU, through their plain
+versions.  Every plan node carries ``use_kernel``, set from
+``PlanConfig.use_kernel`` when it is packed: False forces the plain
+versions on CUDA too.  ``with_use_kernel`` switches every node of a tree.
 """
 
 from __future__ import annotations
@@ -80,11 +82,27 @@ class PackedLinear:
 
 
 @dataclasses.dataclass(frozen=True)
+class QuantLinear:
+    """One int8 matmul weight (or embedding table) of dense shape (K, N).
+
+      q: (K, N) int8 payload
+      s: (N,) fp32 per-output-channel dequant scales
+
+    Stacked variants carry leading layer dims on both.  ``use_kernel`` as
+    for PackedLinear (kernel B5)."""
+
+    q: Any
+    s: Any
+    use_kernel: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
 class PlanConfig:
     """How to compress a model for serving (see the reference's PlanConfig).
 
-    use_kernel: True runs packed weights through the CUDA kernels whenever
-    the activations are on the card; False forces the plain versions."""
+    use_kernel: True runs packed and int8 weights through the CUDA kernels
+    whenever the activations are on the card; False forces the plain
+    versions."""
 
     default: str = "quant_sparse"
     rules: tuple = ()
@@ -154,14 +172,14 @@ def assign_leaf(path: str, leaf, cfg: PlanConfig) -> tuple:
     return kind, q
 
 
-def quantize_leaf(leaf: torch.Tensor) -> dict:
-    """int8-quantize one matmul weight into {"q", "s"}; scales reduce over
-    the contraction axis (-2) only, so stacked layers keep their own."""
+def quantize_leaf(leaf: torch.Tensor, use_kernel: bool = True) -> QuantLinear:
+    """int8-quantize one matmul weight; scales reduce over the contraction
+    axis (-2) only, so stacked layers keep their own."""
     lf = leaf.to(torch.float32)
     amax = lf.abs().amax(dim=-2, keepdim=True)
     scales = amax.clamp_min(1e-8) / 127.0
     qv = torch.round(lf / scales).clamp(-127, 127).to(torch.int8)
-    return {"q": qv, "s": scales.squeeze(-2)}
+    return QuantLinear(q=qv, s=scales.squeeze(-2), use_kernel=use_kernel)
 
 
 def pack_block_sparse(leaf: torch.Tensor, cfg: PlanConfig, quant: bool) -> PackedLinear:
@@ -258,7 +276,7 @@ def _leaf_stats(path: str, kind: str, shape: tuple, packed) -> LeafPlan:
     if kind == "dense":
         return LeafPlan(path, kind, shape, n, n, n * _DENSE_STREAM_BYTES, 0.0)
     if kind == "quant":
-        return LeafPlan(path, kind, shape, n, n, float(n), 4.0 * packed["s"].numel())
+        return LeafPlan(path, kind, shape, n, n, float(n), 4.0 * packed.s.numel())
     counts = packed.counts.cpu().numpy()
     surv_blocks = int(counts.sum())
     surviving = surv_blocks * packed.bk * packed.bn
@@ -372,15 +390,13 @@ class WeightPlan:
         )
 
 
-def _is_plan_node(n) -> bool:
-    return isinstance(n, PackedLinear) or (isinstance(n, dict) and "q" in n)
+PLAN_NODES = (PackedLinear, QuantLinear)
 
 
 def map_tree(fn, tree, path: str = ""):
     """Rebuild a nested dict/list tree, calling fn(path, node) on every
-    tensor leaf and plan node (PackedLinear / {"q","s"} dict)."""
-    if isinstance(tree, PackedLinear) or (isinstance(tree, dict) and "q" in tree) \
-            or not isinstance(tree, (dict, list, tuple)):
+    tensor leaf and plan node (PackedLinear / QuantLinear)."""
+    if isinstance(tree, PLAN_NODES) or not isinstance(tree, (dict, list, tuple)):
         return fn(path, tree)
     join = (lambda k: f"{path}/{k}") if path else str
     if isinstance(tree, dict):
@@ -389,11 +405,14 @@ def map_tree(fn, tree, path: str = ""):
 
 
 def with_use_kernel(params, use_kernel: bool):
-    """The same tree with every PackedLinear's ``use_kernel`` replaced
+    """The same tree with every plan node's ``use_kernel`` replaced
     (tensors shared): ``False`` runs the plain versions on the card."""
-    return map_tree(
-        lambda _, n: dataclasses.replace(n, use_kernel=use_kernel)
-        if isinstance(n, PackedLinear) else n, params)
+    def one(_, n):
+        if isinstance(n, PLAN_NODES):
+            return dataclasses.replace(n, use_kernel=use_kernel)
+        return n
+
+    return map_tree(one, params)
 
 
 def compress(params, cfg: PlanConfig = PlanConfig()) -> WeightPlan:
@@ -408,7 +427,7 @@ def compress(params, cfg: PlanConfig = PlanConfig()) -> WeightPlan:
         if kind == "dense":
             packed = leaf
         elif kind == "quant":
-            packed = quantize_leaf(leaf)
+            packed = quantize_leaf(leaf, cfg.use_kernel)
         else:
             pc = cfg if q == cfg.q_prune else dataclasses.replace(cfg, q_prune=q)
             packed = pack_block_sparse(leaf, pc, quant=(kind == "quant_sparse"))
@@ -451,22 +470,25 @@ def apply_gate_up(x: torch.Tensor, w_gate, w_up, activation: str = "silu") -> to
 
 
 def apply_linear(x: torch.Tensor, w) -> torch.Tensor:
-    """y = x @ W for a dense tensor, an int8 {"q", "s"} dict or a
-    PackedLinear of one layer."""
+    """y = x @ W for a dense tensor, a QuantLinear or a PackedLinear of one
+    layer."""
     if isinstance(w, PackedLinear):
         K, N = w.shape
         lead = x.shape[:-1]
         return ops.block_sparse_matmul(x.reshape(-1, K), w).reshape(*lead, N)
-    if isinstance(w, dict) and "q" in w:
+    if isinstance(w, QuantLinear):
         return _apply_quant(x, w)
     return x @ w.to(x.dtype)
 
 
-def _apply_quant(x, w):
-    """int8 path: (x @ q) * s with fp32 accumulation; the scales factor out
-    of the contraction."""
-    y = x.to(torch.float32) @ w["q"].to(torch.float32)
-    return (y * w["s"].to(torch.float32)).to(x.dtype)
+def _apply_quant(x, w: QuantLinear):
+    """int8 path through kernel B5 (its plain version on the CPU): (x @ q)
+    * s with fp32 accumulation, in x's dtype; the scales factor out of the
+    contraction."""
+    if w.q.dim() != 2:
+        raise ValueError("_apply_quant needs an unstacked leaf")
+    K, N = w.q.shape
+    return ops.quant_matmul(x.reshape(-1, K), w).reshape(*x.shape[:-1], N)
 
 
 def tree_to(tree, device):
@@ -478,8 +500,8 @@ def tree_to(tree, device):
                 n, blocks=n.blocks.to(device), block_rows=n.block_rows.to(device),
                 counts=n.counts.to(device),
                 scales=None if n.scales is None else n.scales.to(device))
-        if isinstance(n, dict):
-            return {k: v.to(device) for k, v in n.items()}
+        if isinstance(n, QuantLinear):
+            return dataclasses.replace(n, q=n.q.to(device), s=n.s.to(device))
         return n.to(device) if isinstance(n, torch.Tensor) else n
 
     return map_tree(mv, tree)

@@ -1,0 +1,99 @@
+// B5 and B8: the quantized-weight products of Sections 4.1 / 5.3, for Hopper.
+//
+// B5 replaces repro/kernels/quant_matmul.py:quant_matmul:
+//     y = act((x @ w_q) * scales),  w_q int8 (K, N), scales (N,) fp32.
+// The int8 payload is read once (one byte per weight) and converted exactly
+// to fp32 for the MACs; the per-column scale factors out of the K sum, so
+// it and the activation run once in the epilogue -- the reference's
+// deferred dequantization.  Bound on this card: at the served batches
+// (M = 8 decode, 36-40 prefill) every weight byte feeds at most 40 MACs,
+// so the kernel is bound by the int8 stream (K * N bytes over 3.35 TB/s;
+// the 2048 x 32000 head is 65.5 MB, 0.0196 ms).
+//
+// B8 replaces repro/kernels/quant_matmul.py:q78_matmul_kernel, the paper's
+// FPGA MAC array: int16 Q7.8 x int16 Q7.8 -> int32 Q15.16, no rounding and
+// no epilogue.  The sum must wrap modulo 2^32 as the reference's int32 dot
+// does; signed overflow is undefined in C++, so the accumulator is
+// uint32_t and is reinterpreted as int32 only at the store.  Integer sums
+// do not depend on order, so the result is bit-exact at any tiling.
+// Hopper has no int16 MMA; the MACs run on the CUDA cores.  Bound: the
+// int16 weight stream (2 bytes per weight) at the nets' batches of 1..32.
+//
+// Both walk K in a loop over output tiles 32 weight bytes wide (32 int8
+// or 16 int16 columns; dense_tile.cuh), the weight tile in registers
+// serving every row of the CTA; ragged M, K, N are masked, and the weight
+// is addressed through a row stride so that a column section of it
+// (forward_q78_sectioned) needs no copy.
+#include "dense_tile.cuh"
+
+template <int BM, typename XT>
+__global__ void __launch_bounds__(dtile::kThreads)
+quant_matmul_kernel(const XT* __restrict__ x, const int8_t* __restrict__ w,
+                    const float* __restrict__ scales, XT* __restrict__ y, int M, int K, int N,
+                    int ldx, int ldw, int act) {
+  __shared__ dtile::Smem<BM, float, int8_t> sm;
+  dtile::tile_product<BM, float>(x, ldx, w, ldw, M, K, N, sm, [=](int m, int n, float s) {
+    y[static_cast<size_t>(m) * N + n] = from_float<XT>(apply_act(act, s * scales[n]));
+  });
+}
+
+template <int BM>
+__global__ void __launch_bounds__(dtile::kThreads)
+q78_matmul_kernel(const int16_t* __restrict__ a, const int16_t* __restrict__ w,
+                  int32_t* __restrict__ y, int M, int K, int N, int lda, int ldw) {
+  __shared__ dtile::Smem<BM, uint32_t, int16_t> sm;
+  dtile::tile_product<BM, uint32_t>(a, lda, w, ldw, M, K, N, sm, [=](int m, int n, uint32_t s) {
+    y[static_cast<size_t>(m) * N + n] = static_cast<int32_t>(s);  // two's complement: wraps
+  });
+}
+
+template <int BM, typename XT>
+static int launch_quant_bm(const void* x, const int8_t* w, const float* scales, void* y, int M,
+                           int K, int N, int ldx, int ldw, int act, cudaStream_t stream) {
+  constexpr int kCols = dtile::Tile<int8_t>::kCols;
+  const dim3 grid((N + kCols - 1) / kCols, (M + BM - 1) / BM);
+  quant_matmul_kernel<BM, XT><<<grid, dtile::kThreads, 0, stream>>>(
+      static_cast<const XT*>(x), w, scales, static_cast<XT*>(y), M, K, N, ldx, ldw, act);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename XT>
+static int launch_quant(const void* x, const int8_t* w, const float* scales, void* y, int M,
+                        int K, int N, int ldx, int ldw, int act, cudaStream_t stream) {
+#define LAUNCH(BM) launch_quant_bm<BM, XT>(x, w, scales, y, M, K, N, ldx, ldw, act, stream)
+  DTILE_DISPATCH_BM(M, LAUNCH)
+#undef LAUNCH
+}
+
+template <int BM>
+static int launch_q78_bm(const int16_t* a, const int16_t* w, int32_t* y, int M, int K, int N,
+                         int lda, int ldw, cudaStream_t stream) {
+  constexpr int kCols = dtile::Tile<int16_t>::kCols;
+  const dim3 grid((N + kCols - 1) / kCols, (M + BM - 1) / BM);
+  q78_matmul_kernel<BM><<<grid, dtile::kThreads, 0, stream>>>(a, w, y, M, K, N, lda, ldw);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x (M, K) f32|bf16 with row stride ldx; w (K, N) int8 with row stride ldw;
+// scales (N,) f32; y (M, N) contiguous in x's dtype; act an Act code.
+// Returns a cudaError_t code (0 = launched).
+extern "C" int quant_matmul_launch(const void* x, const int8_t* w, const float* scales, void* y,
+                                   int M, int K, int N, int ldx, int ldw, int act, int x_dtype,
+                                   void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (M <= 0 || N <= 0) return 0;
+  if (x_dtype == DT_F32) return launch_quant<float>(x, w, scales, y, M, K, N, ldx, ldw, act, s);
+  if (x_dtype == DT_BF16) return launch_quant<__nv_bfloat16>(x, w, scales, y, M, K, N, ldx, ldw, act, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// a (M, K) int16 with row stride lda; w (K, N) int16 with row stride ldw;
+// y (M, N) int32 contiguous.  Returns a cudaError_t code (0 = launched).
+extern "C" int q78_matmul_launch(const int16_t* a, const int16_t* w, int32_t* y, int M, int K,
+                                 int N, int lda, int ldw, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (M <= 0 || N <= 0) return 0;
+#define LAUNCH(BM) launch_q78_bm<BM>(a, w, y, M, K, N, lda, ldw, s)
+  DTILE_DISPATCH_BM(M, LAUNCH)
+#undef LAUNCH
+}

@@ -5,8 +5,8 @@ and lists of arrays (numpy, or anything ``np.asarray`` accepts), including
 a compressed tree whose leaves are the reference's ``PackedLinear`` nodes
 (any object with ``blocks``/``block_rows``/``counts``/``scales``/``walk``/
 ``kind``/``shape``/``bk``/``bn`` attributes) and ``{"q", "s"}`` dicts --
-and returns the same tree of torch tensors, with port ``PackedLinear``
-nodes.  ``plan_from_reference`` does the same for a reference
+and returns the same tree of torch tensors, with port ``PackedLinear`` and
+``QuantLinear`` nodes.  ``plan_from_reference`` does the same for a reference
 ``WeightPlan``, so both packages can serve the identical packed payload.
 """
 
@@ -19,6 +19,7 @@ from repro_torch.core.weight_plan import (
     LeafPlan,
     PackedLinear,
     PlanConfig,
+    QuantLinear,
     WeightPlan,
     map_tree,
 )
@@ -45,6 +46,9 @@ def params_from_reference(tree, device="cpu", use_kernel: bool = True):
             scales=None if tree.scales is None else _tensor(tree.scales, device),
             walk=walk, kind=tree.kind, shape=tuple(tree.shape), bk=int(tree.bk),
             bn=int(tree.bn), use_kernel=use_kernel)
+    if isinstance(tree, dict) and "q" in tree:  # the reference's int8 leaf
+        return QuantLinear(q=_tensor(tree["q"], device), s=_tensor(tree["s"], device),
+                           use_kernel=use_kernel)
     if isinstance(tree, dict):
         return {k: params_from_reference(v, device, use_kernel) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):

@@ -24,7 +24,7 @@ import torch
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("block_sparse", "fused_gate_up", "paged_attention")
+SOURCES = ("block_sparse", "fused_gate_up", "paged_attention", "batched_ffn", "quant_matmul")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -56,6 +56,16 @@ _SIGNATURES = {
         # q_dtype, kv_dtype, stream
         "paged_decode_launch": ([_P] * 8 + [_I] * 9 + [_F, _F] + [_I, _I] + [_P], _I),
         "paged_decode_smem_bytes": ([_I, _I, _I], ctypes.c_size_t),
+    },
+    "batched_ffn": {
+        # x, w, b, y, M, K, N, ldx, ldw, act, x_dtype, stream
+        "batched_ffn_launch": ([_P] * 4 + [_I] * 7 + [_P], _I),
+    },
+    "quant_matmul": {
+        # x, w_q, scales, y, M, K, N, ldx, ldw, act, x_dtype, stream
+        "quant_matmul_launch": ([_P] * 4 + [_I] * 7 + [_P], _I),
+        # a_q, w_q, y, M, K, N, lda, ldw, stream
+        "q78_matmul_launch": ([_P] * 3 + [_I] * 5 + [_P], _I),
     },
 }
 

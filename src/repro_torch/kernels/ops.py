@@ -4,15 +4,18 @@ Each function unpacks the port's data structures into the kernel wrapper's
 arguments.  The wrappers launch their CUDA kernel for CUDA tensors and run
 their plain PyTorch version for CPU tensors; on CUDA the plain version runs
 only for an explicit ``use_kernel=False`` (``PlanConfig.use_kernel``,
-``layers.paged_decode_attention(use_kernel=)``).  Nothing here catches a
+the plan nodes' ``use_kernel``, ``layers.paged_decode_attention(use_kernel=)``,
+the ``models.fcnet`` forwards' ``use_kernel=``).  Nothing here catches a
 kernel failure to fall back.
 """
 
 from __future__ import annotations
 
+from repro_torch.kernels import batched_ffn as _bffn
 from repro_torch.kernels import block_sparse as _bs
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import fused_gate_up as _fgu
+from repro_torch.kernels import quant_matmul as _qmm
 
 
 def _check_k(x2, w):
@@ -44,3 +47,19 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, pos, *, window=None,
     return _fa.paged_decode_attention(
         q, k_pages, v_pages, page_table, pos, window=window, softcap=softcap,
         k_scale_pages=k_scale_pages, v_scale_pages=v_scale_pages, use_kernel=use_kernel)
+
+
+def quant_matmul(x2, w, activation: str = "linear"):
+    """act((x2 @ w.q) * w.s) for a 2-D QuantLinear (kernel B5)."""
+    _check_k(x2, w.q)
+    return _qmm.quant_matmul(x2, w.q, w.s, activation=activation, use_kernel=w.use_kernel)
+
+
+def batched_ffn(x, w, b, activation: str = "relu", use_kernel: bool = True):
+    """act(x @ w + b), weight-stationary over the batch (kernel B7)."""
+    return _bffn.batched_ffn(x, w, b, activation=activation, use_kernel=use_kernel)
+
+
+def q78_matmul(a_q, w_q, use_kernel: bool = True):
+    """Q7.8 x Q7.8 -> wrapping int32 Q15.16 accumulator (kernel B8)."""
+    return _qmm.q78_matmul(a_q, w_q, use_kernel=use_kernel)

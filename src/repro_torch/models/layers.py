@@ -17,7 +17,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.weight_plan import GATE_ACTS, apply_gate_up, apply_linear
+from repro_torch.core.weight_plan import GATE_ACTS, QuantLinear, apply_gate_up, apply_linear
 from repro_torch.kernels import ops
 
 # ---------------------------------------------------------------------------
@@ -305,9 +305,9 @@ def _cdtype(cfg) -> torch.dtype:
 def embed_tokens(cfg, p, tokens):
     tok = p["tok"]
     idx = tokens.long()
-    if isinstance(tok, dict):  # int8 table: dequantize the gathered rows
-        x = tok["q"][idx].to(_cdtype(cfg))
-        return x * tok["s"].to(x.dtype)
+    if isinstance(tok, QuantLinear):  # int8 table: dequantize the gathered rows
+        x = tok.q[idx].to(_cdtype(cfg))
+        return x * tok.s.to(x.dtype)
     return tok[idx].to(_cdtype(cfg))
 
 

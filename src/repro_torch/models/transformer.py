@@ -19,7 +19,7 @@ import dataclasses
 
 import torch
 
-from repro_torch.core.weight_plan import PackedLinear, apply_linear, map_tree
+from repro_torch.core.weight_plan import PackedLinear, QuantLinear, apply_linear, map_tree
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 
@@ -167,8 +167,8 @@ def _layer_leaf(node, i: int):
             node, blocks=node.blocks[i], block_rows=node.block_rows[i],
             counts=node.counts[i],
             scales=None if node.scales is None else node.scales[i], walk=None)
-    if isinstance(node, dict):  # {"q", "s"}
-        return {k: v[i] for k, v in node.items()}
+    if isinstance(node, QuantLinear):
+        return dataclasses.replace(node, q=node.q[i], s=node.s[i])
     return node[i]
 
 

@@ -9,15 +9,19 @@ path); these cover the wrappers' contracts at small shapes:
 
 Tolerances: kernel and plain version both accumulate in fp32 and round to
 the output dtype once, in another order -- fp32 outputs agree to 1e-5
-relative, bf16 outputs to about one bf16 ulp (held to 1e-2 of the max)."""
+relative (1e-4 for the dense B5/B7 products over K up to 2000), bf16
+outputs to about one bf16 ulp (held to 1e-2 of the max).  B8 is integer
+arithmetic and is held to exact equality."""
 
 import pytest
 import torch
 
 from repro_torch.core.weight_plan import PlanConfig, pack_block_sparse
+from repro_torch.kernels import batched_ffn as BF
 from repro_torch.kernels import block_sparse as BS
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import fused_gate_up as FG
+from repro_torch.kernels import quant_matmul as QM
 
 pytestmark = pytest.mark.gpu
 
@@ -114,3 +118,86 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         BS.block_sparse_matmul(x.cpu().cuda().double(), p.blocks, p.block_rows, p.counts,
                                p.scales)
+
+
+# (M, K, N): ragged on every edge, one-row and multi-tile batches, the
+# nets' widest layer and an output layer of 6
+DENSE_SHAPES = [(5, 70, 37), (1, 561, 300), (33, 130, 65), (16, 2000, 1500), (3, 300, 6)]
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("activation", ["linear", "relu", "sigmoid", "gelu", "silu"])
+@pytest.mark.parametrize("M,K,N", DENSE_SHAPES)
+def test_batched_ffn_kernel_matches_plain(cuda, M, K, N, activation, dtype, rtol):
+    x = torch.randn((M, K), device=cuda).to(dtype)
+    w = torch.randn((K, N), device=cuda) / K ** 0.5
+    b = torch.randn((N,), device=cuda)
+    n = BF.batched_ffn.launches
+    y = BF.batched_ffn(x, w, b, activation=activation)
+    assert BF.batched_ffn.launches == n + 1 and y.dtype == dtype and y.shape == (M, N)
+    ref = BF.batched_ffn(x, w, b, activation=activation, use_kernel=False)
+    torch.cuda.synchronize()
+    _close(y, ref, rtol)
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("activation", ["linear", "silu"])
+@pytest.mark.parametrize("M,K,N", [(5, 70, 37), (8, 2048, 5632), (40, 2048, 1000), (1, 64, 6)])
+def test_quant_matmul_kernel_matches_plain(cuda, M, K, N, activation, dtype, rtol):
+    x = torch.randn((M, K), device=cuda).to(dtype)
+    wq = torch.randint(-127, 128, (K, N), device=cuda, dtype=torch.int8)
+    s = torch.rand((N,), device=cuda) * 0.01 + 1e-3
+    n = QM.quant_matmul.launches
+    y = QM.quant_matmul(x, wq, s, activation=activation)
+    assert QM.quant_matmul.launches == n + 1 and y.dtype == dtype
+    ref = QM.quant_matmul(x, wq, s, activation=activation, use_kernel=False)
+    torch.cuda.synchronize()
+    _close(y, ref, rtol)
+
+
+@pytest.mark.parametrize("M,K,N", DENSE_SHAPES + [(2, 3000, 3)])
+def test_q78_matmul_kernel_is_exact(cuda, M, K, N):
+    a = torch.randint(-(1 << 15), 1 << 15, (M, K), device=cuda, dtype=torch.int16)
+    w = torch.randint(-(1 << 15), 1 << 15, (K, N), device=cuda, dtype=torch.int16)
+    n = QM.q78_matmul.launches
+    y = QM.q78_matmul(a, w)
+    assert QM.q78_matmul.launches == n + 1 and y.dtype == torch.int32
+    ref = QM.q78_matmul(a, w, use_kernel=False)
+    torch.cuda.synchronize()
+    assert torch.equal(y, ref)
+    # a column section, read in place through the row stride
+    sec = QM.q78_matmul(a, w[:, 1:N - 1]) if N > 2 else None
+    if sec is not None:
+        torch.cuda.synchronize()
+        assert torch.equal(sec, ref[:, 1:N - 1])
+
+
+def test_q78_matmul_kernel_wraps_like_int32(cuda):
+    """3000 * 32767^2 overflows int32: the kernel wraps modulo 2^32."""
+    a = torch.full((2, 3000), 32767, dtype=torch.int16, device=cuda)
+    w = torch.full((3000, 3), 32767, dtype=torch.int16, device=cuda)
+    y = QM.q78_matmul(a, w)
+    torch.cuda.synchronize()
+    assert (y == -196605000).all()
+    a = torch.where(torch.rand((4, 3000), device=cuda) < 0.5, 32767, -32768).to(torch.int16)
+    w = torch.where(torch.rand((3000, 40), device=cuda) < 0.5, 32767, -32768).to(torch.int16)
+    got = QM.q78_matmul(a, w)
+    torch.cuda.synchronize()
+    assert torch.equal(got, QM.q78_matmul(a, w, use_kernel=False))
+    assert torch.equal(got.cpu(), a.cpu().to(torch.int32) @ w.cpu().to(torch.int32))
+
+
+def test_dense_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    x = torch.randn((4, 64), device=cuda)
+    with pytest.raises(ValueError):
+        BF.batched_ffn(x, torch.randn((64, 8), device=cuda).t().contiguous().t()[:, ::2],
+                       torch.zeros(4, device=cuda))
+    with pytest.raises(ValueError):
+        BF.batched_ffn(x, torch.randn((64, 8), device=cuda), torch.zeros(8, device=cuda).double())
+    with pytest.raises(ValueError):
+        BF.batched_ffn(x, torch.randn((64, 8), device=cuda).to(torch.bfloat16),
+                       torch.zeros(8, device=cuda))
+    with pytest.raises(ValueError):
+        QM.quant_matmul(x, torch.zeros((64, 8), device=cuda), torch.ones(8, device=cuda))
+    with pytest.raises(ValueError):
+        QM.q78_matmul(x.to(torch.int32), torch.zeros((64, 8), dtype=torch.int16, device=cuda))

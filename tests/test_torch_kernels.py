@@ -23,6 +23,7 @@ from repro_torch.core import weight_plan as TW
 from repro_torch.kernels import block_sparse as BS
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import fused_gate_up as FG
+from repro_torch.kernels import quant_matmul as QM
 from repro_torch.models import layers as TL
 
 MM_TOL = dict(rtol=1e-5, atol=2e-4)
@@ -190,3 +191,51 @@ def test_cpu_tensors_take_the_plain_versions():
     after = (BS.block_sparse_matmul.launches, FG.fused_gate_up.launches,
              FA.paged_decode_attention.launches)
     assert after == before
+
+
+@pytest.mark.parametrize("lead", [(5,), (2, 3)])
+def test_apply_quant_takes_the_b5_plain_version_and_matches(lead):
+    """A 2-D QuantLinear runs through ops.quant_matmul (B5's plain version
+    on the CPU, no launch) and equals the reference's _apply_quant; a
+    stacked one is refused (the model runs per-layer views)."""
+    ref, tw = _leaves("quant", seed=15)
+    x = _rng(16).normal(size=(*lead, 64)).astype(np.float32)
+    n = QM.quant_matmul.launches
+    got = TW._apply_quant(torch.from_numpy(x), tw)
+    assert QM.quant_matmul.launches == n
+    assert got.shape == (*lead, 96) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(RW._apply_quant(jnp.asarray(x), ref)),
+                               **MM_TOL)
+    plain = QM.quant_matmul_plain(torch.from_numpy(x).reshape(-1, 64), tw.q, tw.s)
+    assert torch.equal(got.reshape(-1, 96), plain)
+    stacked = TW.QuantLinear(q=torch.stack([tw.q, tw.q]), s=torch.stack([tw.s, tw.s]))
+    with pytest.raises(ValueError, match="unstacked"):
+        TW._apply_quant(torch.from_numpy(x), stacked)
+
+
+def test_with_use_kernel_reaches_quant_leaves():
+    """with_use_kernel switches PackedLinear and QuantLinear nodes alike and
+    shares their tensors; the flag survives moving and unstacking, and the
+    plan config sets it when the tree is compressed or converted."""
+    from repro_torch.models import transformer as TT
+
+    ref, q = _leaves("quant", seed=17)
+    _, p = _leaves("quant_sparse", seed=18)
+    tree = {"a": q, "b": [p, torch.ones(3)]}
+    off = TW.with_use_kernel(tree, False)
+    assert off["a"].use_kernel is False and off["b"][0].use_kernel is False
+    assert off["a"].q is q.q and off["b"][1] is tree["b"][1]
+    on = TW.with_use_kernel(off, True)
+    assert on["a"].use_kernel is True and on["b"][0].use_kernel is True
+    moved = TW.tree_to(off, "cpu")
+    assert moved["a"].use_kernel is False
+    stacked = TW.QuantLinear(q=torch.stack([q.q, q.q]), s=torch.stack([q.s, q.s]),
+                             use_kernel=False)
+    layer = TT._layer_leaf(stacked, 1)
+    assert layer.use_kernel is False and torch.equal(layer.q, q.q)
+    plan = TW.compress({"w": torch.randn(64, 512)}, TW.PlanConfig(default="quant",
+                                                                 use_kernel=False))
+    assert plan.params["w"].use_kernel is False
+    assert interop.params_from_reference(jax_tree_numpy(ref), use_kernel=False).use_kernel is False
+    x = torch.from_numpy(_rng(19).normal(size=(4, 64)).astype(np.float32))
+    assert torch.equal(TW.apply_linear(x, off["a"]), TW.apply_linear(x, q))

@@ -66,8 +66,8 @@ def test_quantize_leaf_matches():
     w = _w((4, 96, 64), seed=3)
     ref = RW.quantize_leaf(jnp.asarray(w))
     got = TW.quantize_leaf(torch.from_numpy(w))
-    np.testing.assert_array_equal(got["q"].numpy(), np.asarray(ref["q"]))
-    np.testing.assert_array_equal(got["s"].numpy(), np.asarray(ref["s"]))
+    np.testing.assert_array_equal(got.q.numpy(), np.asarray(ref["q"]))
+    np.testing.assert_array_equal(got.s.numpy(), np.asarray(ref["s"]))
 
 
 def test_quantize_kv_matches():
@@ -126,8 +126,8 @@ def test_compress_smoke_model_matches(default):
                 assert (x is None) == (y is None)
                 if x is not None:
                     assert torch.equal(x, y), (path, name)
-        elif isinstance(a, dict):
-            assert torch.equal(a["q"], b["q"]) and torch.equal(a["s"], b["s"]), path
+        elif isinstance(a, TW.QuantLinear):
+            assert torch.equal(a.q, b.q) and torch.equal(a.s, b.s), path
         else:
             assert torch.equal(a, b), path
     assert cfg.n_layers == rcfg.n_layers
