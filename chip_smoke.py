@@ -2,22 +2,24 @@
 """On-card smoke test of the PyTorch/CUDA port (``src/repro_torch``).
 
     python3 chip_smoke.py            # every phase, on one CUDA device
-    python3 chip_smoke.py --profile  # then a torch.profiler decode step
+    python3 chip_smoke.py --profile  # then torch.profiler: decode steps, a long prefill
 
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. device   -- the card's name and power limit; TF32 off for matmul/cuDNN.
-2. build    -- nvcc builds the five kernel sources (six kernels) from
+2. build    -- nvcc builds the six kernel sources (seven kernels) from
                src/repro_torch/csrc, one process per source, all at once.
 3. kernels  -- each kernel against its plain PyTorch version on the card at
                the shapes its main path gives it: B1-B3 at full-width
-               tinyllama-1.1b (decode batch, and prompt length at
-               prefill), B5 at the int8 head (2048x32000) and 2048x5632,
-               each at M 8 and 40, B7/B8 at HAR-6's widest layer (2000x1500, B 1
-               and 16) and ragged shapes, B8 also on saturated codes that
-               force the int32 wrap.  Timings are CUDA events, median of
-               single launches after an L2 flush, with the bound and a
-               PyTorch library call as a yardstick.
+               tinyllama-1.1b (decode batch, and prompt lengths at
+               prefill up to M 2032), B6 at a 2048-token causal prefill, an
+               1100-token int8-K/V one and a 256-token window, B5 at the
+               int8 head (2048x32000) and 2048x5632, each at M 8 and 40,
+               B7/B8 at HAR-6's widest layer (2000x1500, B 1 and 16) and
+               ragged shapes, B8 also on saturated codes that force the
+               int32 wrap.  Timings are CUDA events, median of single
+               launches after an L2 flush, with the bound and a PyTorch
+               library call as a yardstick.
 4. fcnet    -- the paper's four FC nets (Table 2) at published widths,
                random weights from a seed: forward_fp32 / forward_pruned
                (B7) held to the plain path, forward_q78 (B8) equal to it
@@ -30,13 +32,20 @@ Phases, in order; any failure raises and the script exits non-zero:
                Every request must finish, the page audit must be clean,
                prefix pages must be shared, and the launch counters of B1,
                B2, B3 and B5 (the int8 head) must rise during the run.
-6. parity   -- prefill of the serve phase's prompt lengths, then
-               teacher-forced decode, through the kernels and through the
-               plain versions (with_use_kernel(False)) on the same tokens,
-               for the served plan and for a --compress quant plan (every
+6. long     -- the serve flags with --max-len 2048: prompts of 40, 1100,
+               1536 and 2032 tokens, 16 new tokens each.  Every prefill
+               past 1024 tokens runs its attention through B6 (exactly
+               22 x 3 launches); B1, B2, B3 and B5 must launch too, every
+               request must finish and the page audit must be clean; each
+               prefill is timed on the card's clock.
+7. parity   -- prefill of the serve phase's prompt lengths and of 2032
+               tokens, then teacher-forced decode, through the kernels and
+               through the plain versions (with_use_kernel(False),
+               prefill(use_kernel=False)) on the same tokens, for the
+               served plan and for a --compress quant plan (every
                projection through B5); the logits must agree within the
                stated bf16 tolerance.
-7. summary  -- one JSON line of per-kernel numbers, then the result line.
+8. summary  -- one JSON line of per-kernel numbers, then the result line.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -73,6 +82,8 @@ KERNEL_RTOL = 1e-2
 # layer and compound over 22 layers; held to max |dlogit| <= PATH_RTOL *
 # max |logit| at every teacher-forced step.
 PATH_RTOL = 5e-2
+# the longest prompt of the long-prefill phase (prompt + 16 new = 2048)
+LONG_M = 2032
 # B5/B7 in fp32: kernel and plain version both sum in fp32, in another
 # order, over K <= 2048; held to max |kernel - plain| <= FP32_RTOL * max
 # |plain|.  B8 is integer arithmetic: exact equality, no tolerance.
@@ -85,6 +96,8 @@ KERNEL_META = {
                       "src/repro/kernels/fused_gate_up.py:91"),
     "paged_decode_attention": ("src/repro_torch/csrc/paged_attention.cu",
                                "src/repro/kernels/flash_attention.py:273"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:105"),
     "quant_matmul": ("src/repro_torch/csrc/quant_matmul.cu",
                      "src/repro/kernels/quant_matmul.py:59"),
     "batched_ffn": ("src/repro_torch/csrc/batched_ffn.cu",
@@ -94,7 +107,8 @@ KERNEL_META = {
 }
 # the tolerance each kernel's max_rel_err is held to (None: exact)
 KERNEL_TOL = {"block_sparse_matmul": KERNEL_RTOL, "fused_gate_up": KERNEL_RTOL,
-              "paged_decode_attention": KERNEL_RTOL, "quant_matmul": KERNEL_RTOL,
+              "paged_decode_attention": KERNEL_RTOL, "flash_attention": KERNEL_RTOL,
+              "quant_matmul": KERNEL_RTOL,
               "batched_ffn": FP32_RTOL, "q78_matmul": None}
 
 
@@ -200,17 +214,20 @@ def phase_kernels(torch, results: dict) -> None:
     gen.manual_seed(0)
 
     # B1 at every K x N of one tinyllama layer (wq, wk, wv, wo, w_down)
-    # at M = 8 and 12 (decode batches: one M-tile, ragged) and M = 40 (the
-    # serve phase's prefill: three M-tiles, the last ragged)
+    # at M = 8 and 12 (decode batches: one M-tile, ragged), M = 40 (the
+    # serve phase's prefill: three M-tiles, the last ragged) and M = 2032
+    # (the longest prefill of the long phase); timed at M = 8 (the summary
+    # line) and at M = 2032
     shapes = {"wq": (2048, 2048), "wk": (2048, 256), "wv": (2048, 256),
               "wo": (2048, 2048), "w_down": (5632, 2048)}
-    agg = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0, "err": 0.0,
-           "rel": 0.0, "bytes": 0.0, "flops": 0.0}
+    sums = {M: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0, "bytes": 0.0,
+                "flops": 0.0} for M in (8, LONG_M)}
+    agg = {"err": 0.0, "rel": 0.0, **sums[8]}
     for name, (K, N) in shapes.items():
         p = _packed(torch, K, N, gen)
         wd = _dense_bf16(torch, p)
         args = (p.blocks, p.block_rows, p.counts, p.scales)
-        for M in (8, 12, 40):
+        for M in (8, 12, 40, LONG_M):
             x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
             y = BS.block_sparse_matmul(x, *args)
             ref = BS.block_sparse_matmul(x, *args, use_kernel=False)
@@ -220,7 +237,7 @@ def phase_kernels(torch, results: dict) -> None:
             if not rel <= KERNEL_RTOL:
                 raise AssertionError(f"B1 {name} M={M}: rel err {rel:.3e} > {KERNEL_RTOL}")
             agg["err"], agg["rel"] = max(agg["err"], diff), max(agg["rel"], rel)
-            if M != 8:
+            if M not in sums:
                 continue
             surv = int(p.counts.sum())
             nbytes = (M * K * 2 + surv * 128 * 128 + surv * 4 + p.counts.numel() * 4
@@ -230,25 +247,32 @@ def phase_kernels(torch, results: dict) -> None:
             ms = timer(lambda: BS.block_sparse_matmul(x, *args))
             plain_ms = timer(lambda: BS.block_sparse_matmul(x, *args, use_kernel=False))
             lib_ms = timer(lambda: torch.matmul(x, wd))
-            log(f"B1 {name} M=8: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            log(f"B1 {name} M={M}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                 f"torch.matmul(dense bf16) {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
                 f"({surv} of {(K // 128) * (N // 128)} blocks)")
             for k, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", b_ms),
                          ("library_ms", lib_ms), ("bytes", nbytes), ("flops", flops)):
-                agg[k] += v
+                sums[M][k] += v
+    agg.update(sums[8])
+    t = sums[LONG_M]
+    log(f"B1 one layer's five at M={LONG_M}: kernel {t['ms']:.4f} ms, plain "
+        f"{t['plain_ms']:.4f} ms, torch.matmul {t['library_ms']:.4f} ms, bound "
+        f"{bound(t['bytes'], t['flops'])[0]:.4f} ms ({bound(t['bytes'], t['flops'])[1]})")
     results["block_sparse_matmul"] = {
         "max_abs_err": agg["err"], "max_rel_err": agg["rel"], "ms": agg["ms"], "plain_ms": agg["plain_ms"],
         "bound_ms": agg["bound_ms"], "bound_by": bound(agg["bytes"], agg["flops"])[1],
         "library_ms": agg["library_ms"],
         "shape": "sum of one layer's wq, wk, wv, wo, w_down at M=8"}
 
-    # B2: gate/up 2048 x 5632 at M = 40 (prefill), then M = 8 (decode, timed)
+    # B2: gate/up 2048 x 5632 at M = 2032 and 40 (prefill), then M = 8
+    # (decode); timed at M = 2032 and at M = 8 (the summary line)
     K, N = 2048, 5632
     g, u = _packed(torch, K, N, gen), _packed(torch, K, N, gen)
     wgu = torch.cat([_dense_bf16(torch, g), _dense_bf16(torch, u)], dim=1)
     ga, ua = (g.blocks, g.block_rows, g.counts), (u.blocks, u.block_rows, u.counts)
     b2_err = b2_rel = 0.0
-    for M in (40, 8):
+    surv = int(g.counts.sum() + u.counts.sum())
+    for M in (LONG_M, 40, 8):
         x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
         y = FG.fused_gate_up(x, ga, ua, g.scales, u.scales)
         ref = FG.fused_gate_up(x, ga, ua, g.scales, u.scales, use_kernel=False)
@@ -258,7 +282,16 @@ def phase_kernels(torch, results: dict) -> None:
         if not rel <= KERNEL_RTOL:
             raise AssertionError(f"B2 M={M}: rel err {rel:.3e} > {KERNEL_RTOL}")
         b2_err, b2_rel = max(b2_err, diff), max(b2_rel, rel)
-    surv = int(g.counts.sum() + u.counts.sum())
+        if M == LONG_M:
+            nbytes = (M * K * 2 + surv * (128 * 128 + 4) + 2 * (N // 128) * 4 + 2 * N * 4
+                      + M * N * 2)
+            b_ms, b_by = bound(nbytes, 2.0 * M * surv * 128 * 128)
+            ms = timer(lambda: FG.fused_gate_up(x, ga, ua, g.scales, u.scales))
+            plain_ms = timer(lambda: FG.fused_gate_up(x, ga, ua, g.scales, u.scales,
+                                                      use_kernel=False))
+            lib_ms = timer(lambda: torch.matmul(x, wgu))
+            log(f"B2 M={M}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.matmul(dense "
+                f"[Wg|Wu] bf16) {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     nbytes = M * K * 2 + surv * (128 * 128 + 4) + 2 * (N // 128) * 4 + 2 * N * 4 + M * N * 2
     b_ms, b_by = bound(nbytes, 2.0 * M * surv * 128 * 128)
     ms = timer(lambda: FG.fused_gate_up(x, ga, ua, g.scales, u.scales))
@@ -334,6 +367,69 @@ def phase_kernels(torch, results: dict) -> None:
             "bound_by": b_by, "library_ms": lib_ms,
             "shape": "B=8 T=1 H=32 KVH=4 hd=64 int8 pages of 16, pos 15..100"}
     results["paged_decode_attention"].update(max_abs_err=b3_err, max_rel_err=b3_rel)
+
+
+def _visible_pairs(Sq: int, Sk: int, causal: bool, window) -> int:
+    """(query, key) pairs a flash attention call scores: key j is visible
+    to query i if j < Sk, j <= i when causal, and j > i - window."""
+    n = 0
+    for i in range(Sq):
+        hi = min(Sk, i + 1) if causal else Sk
+        lo = max(0, i - window + 1) if window else 0
+        n += max(0, hi - lo)
+    return n
+
+
+def phase_flash(torch, results: dict) -> None:
+    """B6 against its plain version at the long-prefill shapes of
+    tinyllama-1.1b (32 query heads over 4 KV heads, hd 64): a 2048-token
+    causal prefill in bf16 (timed, with SDPA as the yardstick), an
+    1100-token one over int8 K/V (a ragged last key tile) and one under a
+    256-token window."""
+    from repro_torch.kernels import flash_attention as FA
+
+    timer = Timer(torch)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    H, KVH, hd = 32, 4, 64
+    err = rel = 0.0
+    for S, kv, window in ((2048, "bf16", None), (1100, "int8", None), (1100, "bf16", 256)):
+        q = torch.randn((1, S, H, hd), generator=gen, device="cuda").to(torch.bfloat16)
+        if kv == "int8":
+            k = torch.randint(-127, 128, (1, S, KVH, hd), generator=gen, device="cuda",
+                              dtype=torch.int8)
+            v = torch.randint(-127, 128, k.shape, generator=gen, device="cuda",
+                              dtype=torch.int8)
+            ks = torch.rand((1, S, KVH), generator=gen, device="cuda") * 0.02 + 0.002
+            vs = torch.rand((1, S, KVH), generator=gen, device="cuda") * 0.02 + 0.002
+        else:
+            k = torch.randn((1, S, KVH, hd), generator=gen, device="cuda").to(torch.bfloat16)
+            v = torch.randn(k.shape, generator=gen, device="cuda").to(torch.bfloat16)
+            ks = vs = None
+        kw = dict(causal=True, window=window, k_scale=ks, v_scale=vs)
+        d, r = _held(torch, f"B6 S={S} causal {kv} K/V window {window}",
+                     FA.flash_attention(q, k, v, **kw),
+                     FA.flash_attention(q, k, v, use_kernel=False, **kw), KERNEL_RTOL)
+        err, rel = max(err, d), max(rel, r)
+        if S != 2048:
+            continue
+        # bound: q, k, v read once and o written once; 4 * hd flops (QK^T and
+        # PV) per visible (query head, key) pair, on the bf16 tensor cores
+        nbytes = 2 * (q.numel() * 2 + k.numel() * 2)
+        flops = 4.0 * hd * H * _visible_pairs(S, S, True, window)
+        b_ms, b_by = bound(nbytes, flops)
+        ms = timer(lambda: FA.flash_attention(q, k, v, **kw))
+        plain_ms = timer(lambda: FA.flash_attention(q, k, v, use_kernel=False, **kw))
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        lib_ms = timer(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True))
+        log(f"B6 S={S} causal bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"SDPA(is_causal, enable_gqa) {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
+            f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP)")
+        results["flash_attention"] = {
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib_ms, "shape": "B=1 S=2048 H=32 KVH=4 hd=64 causal bf16"}
+    results["flash_attention"].update(max_abs_err=err, max_rel_err=rel)
 
 
 def _held(torch, label: str, got, want, tol) -> tuple:
@@ -534,7 +630,9 @@ def phase_fcnet(torch, results: dict) -> None:
                     f"({wall_ms / B:.5f} ms/sample)")
 
 
-def _serve_args():
+def _serve_args(extra=()):
+    """The serve CLI's parser and the quickstart flags (``extra`` flags
+    override them)."""
     from repro_torch.launch import serve
 
     ap = serve.build_parser()
@@ -542,7 +640,7 @@ def _serve_args():
         "--arch", "tinyllama-1.1b", "--requests", "8", "--max-new", "16",
         "--prompt-len", "40", "--max-batch", "8", "--max-len", "128",
         "--compress", "quant_sparse", "--q-prune", "0.5", "--block", "128",
-        "--kv-dtype", "int8", "--page-size", "16", "--share-prefix"])
+        "--kv-dtype", "int8", "--page-size", "16", "--share-prefix", *extra])
     return serve, ap, args
 
 
@@ -602,11 +700,82 @@ def phase_serve(torch, results: dict):
     return cfg, engine
 
 
+def phase_long(torch, results: dict) -> None:
+    """Long-prompt prefill at full width through B6 (see the module doc)."""
+    import numpy as np
+
+    from repro_torch.kernels import block_sparse as BS
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import fused_gate_up as FG
+    from repro_torch.kernels import quant_matmul as QM
+    from repro_torch.serving.engine import Request, RequestState
+
+    serve, ap, args = _serve_args(["--requests", "4", "--prompt-len", str(LONG_M),
+                                   "--max-len", "2048"])
+    t0 = time.perf_counter()
+    cfg, engine, _ = serve.build_engine(args, ap)
+    torch.cuda.synchronize()
+    log(f"long: model + plan + engine built in {time.perf_counter() - t0:.1f}s "
+        f"(max_len {engine.max_len}, {engine.num_pages} pages of {engine.page_size})")
+    rng = np.random.default_rng(1)
+    lens = (40, 1100, 1536, LONG_M)
+    reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab, size=n).astype(np.int32),
+                    max_new_tokens=args.max_new) for i, n in enumerate(lens)]
+    # each batch-1 prefill on the card's clock: CUDA events around the
+    # engine's prefill call (idle gaps while the host enqueues included)
+    timed = []
+    prefill = engine._prefill_request
+
+    def timed_prefill(req, tokens):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = prefill(req, tokens)
+        end.record()
+        timed.append((req.uid, len(tokens), start, end))
+        return out
+
+    engine._prefill_request = timed_prefill
+    counters = (BS.block_sparse_matmul, FG.fused_gate_up, FA.paged_decode_attention,
+                QM.quant_matmul, FA.flash_attention)
+    for c in counters:
+        c.launches = 0
+    dt = serve.run_requests(engine, reqs)
+    launches = {c.__name__: c.launches for c in counters}
+    serve.report(engine, dt)
+    log(f"long: launches during the run {launches}")
+    engine.audit_pages()
+    bad = [r.uid for r in reqs if r.state is not RequestState.FINISHED
+           or len(r.output) != args.max_new]
+    if bad:
+        raise AssertionError(f"long: requests not finished with {args.max_new} tokens: {bad}")
+    if any(not (0 <= t < cfg.vocab) for r in reqs for t in r.output):
+        raise AssertionError("long: a sampled token is outside the vocabulary")
+    if engine.pages_in_use != 0:
+        raise AssertionError(f"long: {engine.pages_in_use} pages leaked")
+    want = cfg.n_layers * sum(n > 1024 for n in lens)  # the 40-token prompt stays dense
+    if launches["flash_attention"] != want:
+        raise AssertionError(f"long: B6 launched {launches['flash_attention']} times, "
+                             f"expected {want}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"long: kernel {name} was not launched on the long path")
+    results.setdefault("flash_attention", {})["launches"] = launches["flash_attention"]
+    torch.cuda.synchronize()
+    for uid, n, start, end in timed:
+        log(f"long: request {uid} prefill of {n} tokens {start.elapsed_time(end):.3f} ms "
+            f"on the card's clock")
+    log(f"long: {engine.stats.completed}/{len(reqs)} FINISHED, audit clean, "
+        f"{engine.stats.decode_tokens / dt:.1f} tok/s on {torch.cuda.get_device_name(0)}")
+    del engine
+    torch.cuda.empty_cache()
+
+
 def _path_parity(torch, cfg, params, label: str, gen) -> None:
-    """Prefill at the serve phase's prompt lengths, then teacher-forced
-    paged int8-KV decode, through the kernels and through the plain
-    versions (``with_use_kernel(params, False)``) on the same tokens; the
-    logits must agree within PATH_RTOL at every step."""
+    """Prefill at the serve phase's prompt lengths and at LONG_M (past the
+    dense threshold: B6), then teacher-forced paged int8-KV decode, through
+    the kernels and through the plain versions (``with_use_kernel(params,
+    False)``, ``prefill(use_kernel=False)``) on the same tokens; the logits
+    must agree within PATH_RTOL at every step."""
     from repro_torch.core.weight_plan import with_use_kernel
     from repro_torch.models import transformer as T
 
@@ -614,12 +783,12 @@ def _path_parity(torch, cfg, params, label: str, gen) -> None:
     tokens = torch.randint(0, cfg.vocab, (steps, B), generator=gen, device="cuda")
     paths = {"kernels": (params, True), "plain": (with_use_kernel(params, False), False)}
 
-    for S in (36, 40):
+    for S in (36, 40, LONG_M):
         prompt = torch.randint(0, cfg.vocab, (1, S), generator=gen, device="cuda")
         lg = {}
-        for name, (p, _) in paths.items():
+        for name, (p, use_kernel) in paths.items():
             cache = T.init_cache(cfg, 1, S, torch.bfloat16, kv_dtype=torch.int8, device="cuda")
-            lg[name] = T.prefill(cfg, p, prompt, cache)[0][0, -1].float()
+            lg[name] = T.prefill(cfg, p, prompt, cache, use_kernel=use_kernel)[0][0, -1].float()
         torch.cuda.synchronize()
         a, b = lg["kernels"], lg["plain"]
         if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
@@ -664,6 +833,7 @@ def phase_parity(torch, cfg, engine) -> None:
     model whose every projection and head is a 2-D int8 leaf (kernel B5)."""
     from repro_torch.core.weight_plan import PlanConfig, QuantLinear, compress, map_tree
     from repro_torch.kernels import block_sparse as BS
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import fused_gate_up as FG
     from repro_torch.kernels import quant_matmul as QM
     from repro_torch.models import transformer as T
@@ -680,16 +850,20 @@ def phase_parity(torch, cfg, engine) -> None:
     map_tree(lambda path, n: quant_leaves.append(path)
              if isinstance(n, QuantLinear) and not path.endswith("tok") else None, params)
     packed = (BS.block_sparse_matmul, FG.fused_gate_up)
-    for c in (*packed, QM.quant_matmul):
+    for c in (*packed, QM.quant_matmul, FA.flash_attention):
         c.launches = 0
     _path_parity(torch, cfg, params, "quant", gen)
-    # kernels path only: 2 prefills + 24 decode steps, each leaf once per call
-    want = len(quant_leaves) * (2 + 24)
+    # kernels path only: 3 prefills + 24 decode steps, each leaf once per
+    # call; B6 once per layer in the LONG_M prefill
+    want = len(quant_leaves) * (3 + 24)
     log(f"parity quant: {len(quant_leaves)} int8 matmul leaves; B5 launches "
         f"{QM.quant_matmul.launches} (expected {want}), B1/B2 "
-        f"{[c.launches for c in packed]}")
+        f"{[c.launches for c in packed]}, B6 {FA.flash_attention.launches} "
+        f"(expected {cfg.n_layers})")
     if QM.quant_matmul.launches != want or any(c.launches for c in packed):
         raise AssertionError("the --compress quant plan did not run every projection through B5")
+    if FA.flash_attention.launches != cfg.n_layers:
+        raise AssertionError("the long prefill did not run every layer's attention through B6")
     torch.cuda.empty_cache()
 
 
@@ -726,7 +900,13 @@ def _profile_steps(torch, cfg, params, steps: int) -> tuple:
             step(t)
         torch.cuda.synchronize()
         prof_wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = []  # kernels only: operator rows would count their kernels twice
+    return wall_ms / steps, prof_wall_ms / steps, _device_rows(torch, prof)
+
+
+def _device_rows(torch, prof) -> list:
+    """[(device ms, calls, kernel name)] of a profile, largest first:
+    kernels only, since operator rows would count their kernels twice."""
+    rows = []
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -736,7 +916,43 @@ def _profile_steps(torch, cfg, params, steps: int) -> tuple:
         if dev_us > 0:
             rows.append((dev_us / 1e3, e.count, e.key))
     rows.sort(reverse=True)
-    return wall_ms / steps, prof_wall_ms / steps, rows
+    return rows
+
+
+def _profile_prefill(torch, cfg, params) -> None:
+    """Where a LONG_M-token prefill's device time goes, kernels on: B6's
+    share against B1 and B2."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import transformer as T
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    prompt = torch.randint(0, cfg.vocab, (1, LONG_M), generator=gen, device="cuda")
+
+    def run():
+        cache = T.init_cache(cfg, 1, LONG_M, torch.bfloat16, kv_dtype=torch.int8, device="cuda")
+        return T.prefill(cfg, params, prompt, cache)[0]
+
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    rows = _device_rows(torch, prof)
+    dev = sum(r[0] for r in rows)
+    log(f"profile: prefill of {LONG_M} tokens: wall {wall:.3f} ms, device busy {dev:.3f} ms "
+        f"({dev / wall:.3f} of the unprofiled wall)")
+    for ms, n, name in rows[:12]:
+        log(f"profile:   {ms:9.4f} ms  {n:5d} calls  {name[:90]}")
+    for label, key in (("B1", "bsmm_kernel"), ("B2", "fused_gate_up_kernel"),
+                       ("B6", "flash_fwd_kernel")):
+        ms = sum(r[0] for r in rows if key in r[2])
+        log(f"profile: prefill share of {label}: {ms:.3f} ms, {ms / dev:.4f} of device time")
 
 
 def phase_profile(torch, cfg, engine, steps: int = 6) -> None:
@@ -744,7 +960,8 @@ def phase_profile(torch, cfg, engine, steps: int = 6) -> None:
     the int8 head on its plain version (fp32 cast + matmul), so that the
     head's device time before and after B5 is the difference.  The
     device-busy share is the profiled device time over the unprofiled wall
-    time (the profiler slows the host, not the kernels)."""
+    time (the profiler slows the host, not the kernels).  Last, one
+    LONG_M-token prefill's breakdown."""
     embed = engine.params["embed"]
     head = dataclasses.replace(embed["head"], use_kernel=False)
     plain_head = {**engine.params, "embed": {**embed, "head": head}}
@@ -760,12 +977,14 @@ def phase_profile(torch, cfg, engine, steps: int = 6) -> None:
             log(f"profile:   {ms / steps:9.4f} ms/step  {n // steps:5d} calls/step  {name[:90]}")
     log(f"profile: the head costs {busy['plain head'] - busy['B5 head']:.4f} ms/step more "
         f"device time on its plain version than through B5")
+    _profile_prefill(torch, cfg, engine.params)
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="on-card smoke test of the CUDA port")
     ap.add_argument("--profile", action="store_true",
-                    help="after every phase, profile decode steps with torch.profiler")
+                    help="after every phase, profile decode steps and a long prefill "
+                         "with torch.profiler")
     args = ap.parse_args(argv)
     import torch
 
@@ -783,9 +1002,11 @@ def main(argv=None) -> int:
     phase_device(torch)
     phase_build()
     phase_kernels(torch, results)
+    phase_flash(torch, results)
     phase_dense_kernels(torch, results)
     phase_fcnet(torch, results)
     cfg, engine = phase_serve(torch, results)
+    phase_long(torch, results)
     phase_parity(torch, cfg, engine)
     if args.profile:
         phase_profile(torch, cfg, engine)

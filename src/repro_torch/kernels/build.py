@@ -24,7 +24,8 @@ import torch
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("block_sparse", "fused_gate_up", "paged_attention", "batched_ffn", "quant_matmul")
+SOURCES = ("block_sparse", "fused_gate_up", "paged_attention", "flash_attention",
+           "batched_ffn", "quant_matmul")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -56,6 +57,11 @@ _SIGNATURES = {
         # q_dtype, kv_dtype, stream
         "paged_decode_launch": ([_P] * 8 + [_I] * 9 + [_F, _F] + [_I, _I] + [_P], _I),
         "paged_decode_smem_bytes": ([_I, _I, _I], ctypes.c_size_t),
+    },
+    "flash_attention": {
+        # q, k, v, k_scale, v_scale, out, B, Sq, Sk, H, KVH, hd, causal, window,
+        # scale, kv_dtype, stream
+        "flash_attention_launch": ([_P] * 6 + [_I] * 8 + [_F, _I, _P], _I),
     },
     "batched_ffn": {
         # x, w, b, y, M, K, N, ldx, ldw, act, x_dtype, stream

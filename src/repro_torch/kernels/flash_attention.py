@@ -1,16 +1,26 @@
-"""B3: paged multi-query decode attention -- wrapper, plain version and
-launch counter of ``csrc/paged_attention.cu``.
+"""B3 and B6: the attention kernels -- wrappers, plain versions and launch
+counters of ``csrc/paged_attention.cu`` and ``csrc/flash_attention.cu``.
 
-Replaces ``repro/kernels/flash_attention.py:paged_decode_attention``.  What
-bounds it on the H100: bytes -- each sequence's pages (K and V payload plus
-their int8 scales), q and o cross device memory once per step, over
-3.35 TB/s.  Its design: one CTA per (sequence, KV head) scores all T*G
-query rows of that head against each page while the page sits in shared
-memory, dequantizes int8 on load, keeps an fp32 online softmax, and stops
-at the last page that covers ``pos + T - 1``.
+B3, paged multi-query decode attention, replaces
+``repro/kernels/flash_attention.py:paged_decode_attention``.  What bounds
+it on the H100: bytes -- each sequence's pages (K and V payload plus their
+int8 scales), q and o cross device memory once per step, over 3.35 TB/s.
+Its design: one CTA per (sequence, KV head) scores all T*G query rows of
+that head against each page while the page sits in shared memory,
+dequantizes int8 on load, keeps an fp32 online softmax, and stops at the
+last page that covers ``pos + T - 1``.  Its plain version is the
+reference's gather path: gather the pages into a contiguous view and run
+``models.layers.decode_attention``.
 
-The plain version is the reference's gather path: gather the pages into a
-contiguous view and run ``models.layers.decode_attention``.
+B6, GQA flash attention forward (long prefill), replaces
+``repro/kernels/flash_attention.py:flash_attention``.  What bounds it on
+the H100: operations -- 4 * hd flops per visible (query head, key) pair on
+the bf16 tensor cores; a 2048-token causal prefill of tinyllama moves
+19 MB but does 17 GFLOP.  Its design (see the source's note): one CTA per
+(batch x KV head, 64 folded query rows), K/V tiles double-buffered by
+cp.async, QK^T and PV on ``mma.sync`` bf16 tensor cores, wholly masked
+tiles skipped.  Its plain version is an fp32 online softmax over key
+chunks (``models.layers.flash_rows``).
 """
 
 from __future__ import annotations
@@ -114,3 +124,104 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, pos, *, window=None,
 
 
 paged_decode_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# B6: flash attention forward
+# ---------------------------------------------------------------------------
+
+FLASH_HEAD_DIM = 64  # the instantiated head dim (tinyllama-1.1b's)
+FLASH_BLOCK_K = 128  # the plain version's key chunk (the Pallas kernel's block_k)
+
+
+def flash_attention_plain(q, k, v, *, causal: bool = True, window=None, k_scale=None,
+                          v_scale=None) -> torch.Tensor:
+    """B6's plain version: the Pallas kernel's arithmetic in PyTorch.  q is
+    scaled by 1/sqrt(hd) in fp32, scores and the online softmax state are
+    fp32, P is rounded to V's dtype before PV (bf16 V), and int8 K/V fold
+    their per-(position, head) scales into the scores and into P in fp32.
+    Query i sits at position i, key j at j."""
+    from repro_torch.models import layers as L  # layers imports this module
+
+    B, Sq, H, hd = q.shape
+    KVH = k.shape[2]
+    G = H // KVH
+    qs = q.to(torch.float32).reshape(B, Sq, KVH, G, hd).permute(0, 2, 3, 1, 4)
+    qs = qs * (1.0 / math.sqrt(hd))
+    o = L.flash_rows(qs, k, v, torch.arange(Sq, device=q.device), causal=causal,
+                     window=window, softcap=0.0, chunk_k=FLASH_BLOCK_K,
+                     k_scale=k_scale, v_scale=v_scale)
+    return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def _check_flash_features(q_offset, softcap):
+    """B6 (and so its plain version) has neither a query offset nor a logit
+    softcap, as the Pallas kernel has neither."""
+    if q_offset:
+        raise ValueError(f"flash attention kernel B6 takes no q_offset (got {q_offset}): a "
+                         "prefill continued from cached positions is ROADMAP A7 (chunked "
+                         "prefill)")
+    if softcap:
+        raise ValueError(f"flash attention kernel B6 takes no logit softcap (got {softcap}): "
+                         "softcapped attention is ROADMAP A8 (gemma3)")
+
+
+def _check_flash(q, k, v, k_scale, v_scale):
+    """Raise ValueError on anything the CUDA kernel does not take."""
+    if q.dim() != 4 or q.dtype != torch.bfloat16:
+        raise ValueError(f"q must be (B, Sq, H, hd) bfloat16, got {tuple(q.shape)} {q.dtype}")
+    B, Sq, H, hd = q.shape
+    if hd != FLASH_HEAD_DIM:
+        raise ValueError(f"head dim {hd}: the kernel is built for {FLASH_HEAD_DIM}")
+    if k.dim() != 4 or k.shape != v.shape or k.shape[0] != B or k.shape[3] != hd:
+        raise ValueError(f"k/v must be (B={B}, Sk, KVH, hd={hd}) alike, got "
+                         f"{tuple(k.shape)} and {tuple(v.shape)}")
+    Sk, KVH = k.shape[1], k.shape[2]
+    if H % KVH:
+        raise ValueError(f"H={H} is not a multiple of KVH={KVH}")
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("k_scale and v_scale come together")
+    if k_scale is not None:
+        if k.dtype != torch.int8 or v.dtype != torch.int8:
+            raise ValueError("k_scale/v_scale select int8 K/V")
+        for s in (k_scale, v_scale):
+            if s.dtype != torch.float32 or tuple(s.shape) != (B, Sk, KVH):
+                raise ValueError(f"scales must be float32 ({B}, {Sk}, {KVH})")
+    elif k.dtype != torch.bfloat16 or v.dtype != torch.bfloat16:
+        raise ValueError(f"k/v must be bfloat16 (or int8 with scales), got {k.dtype}")
+    for name, t in (("q", q), ("k", k), ("v", v), ("k_scale", k_scale), ("v_scale", v_scale)):
+        if t is None:
+            continue
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window=None, k_scale=None,
+                    v_scale=None, q_offset: int = 0, softcap: float = 0.0,
+                    use_kernel: bool = True) -> torch.Tensor:
+    """Flash attention forward of q (B, Sq, H, hd) against k/v (B, Sk, KVH,
+    hd), GQA by H // KVH, query i at position i; optional int8 k/v with
+    (B, Sk, KVH) float32 scales.  ``q_offset`` and ``softcap`` are taken only
+    to refuse them (ValueError): B6 has neither.  Ragged Sq and Sk need no
+    padding."""
+    _check_flash_features(q_offset, softcap)
+    if not q.is_cuda or not use_kernel:
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     k_scale=k_scale, v_scale=v_scale)
+    _check_flash(q, k, v, k_scale, v_scale)
+    B, Sq, H, hd = q.shape
+    Sk, KVH = k.shape[1], k.shape[2]
+    lib = build.load("flash_attention")
+    out = torch.empty_like(q)
+    code = lib.flash_attention_launch(
+        build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(k_scale), build.ptr(v_scale),
+        build.ptr(out), B, Sq, Sk, H, KVH, hd, int(bool(causal)), int(window or 0),
+        1.0 / math.sqrt(hd), build.DTYPE_CODES[k.dtype], build.stream_ptr(q.device))
+    build.check(lib, code, "flash_attention")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

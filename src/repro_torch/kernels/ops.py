@@ -5,8 +5,8 @@ arguments.  The wrappers launch their CUDA kernel for CUDA tensors and run
 their plain PyTorch version for CPU tensors; on CUDA the plain version runs
 only for an explicit ``use_kernel=False`` (``PlanConfig.use_kernel``,
 the plan nodes' ``use_kernel``, ``layers.paged_decode_attention(use_kernel=)``,
-the ``models.fcnet`` forwards' ``use_kernel=``).  Nothing here catches a
-kernel failure to fall back.
+``layers.attention(use_kernel=)``, the ``models.fcnet`` forwards'
+``use_kernel=``).  Nothing here catches a kernel failure to fall back.
 """
 
 from __future__ import annotations
@@ -47,6 +47,17 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, pos, *, window=None,
     return _fa.paged_decode_attention(
         q, k_pages, v_pages, page_table, pos, window=window, softcap=softcap,
         k_scale_pages=k_scale_pages, v_scale_pages=v_scale_pages, use_kernel=use_kernel)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window=None, q_offset: int = 0,
+                    softcap: float = 0.0, k_scale=None, v_scale=None, use_kernel: bool = True):
+    """Flash attention forward (kernel B6).  Unlike the reference's
+    ``ops.flash_attention`` it pads nothing: the kernel masks ragged Sq and
+    Sk itself, so non-causal calls never see padded keys.  B6 refuses
+    ``q_offset`` and ``softcap``."""
+    return _fa.flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset,
+                               softcap=softcap, k_scale=k_scale, v_scale=v_scale,
+                               use_kernel=use_kernel)
 
 
 def quant_matmul(x2, w, activation: str = "linear"):

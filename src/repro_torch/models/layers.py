@@ -1,7 +1,8 @@
 """Shared model layers (port of ``repro/models/layers.py``): RMSNorm, RoPE,
-GQA attention (dense prefill, contiguous and paged decode), the int8 KV
-cache, the gated MLP, embedding and unembedding -- what tinyllama-1.1b
-serving runs (``transformer.check_supported`` names the rest).
+GQA attention (dense and chunked flash prefill, contiguous and paged
+decode), the int8 KV cache, the gated MLP, embedding and unembedding --
+what tinyllama-1.1b serving runs (``transformer.check_supported`` names
+the rest).
 
 Functions take and return tensors in the reference's layouts: activations
 (B, S, d), q (B, S, H, hd), KV caches (B, S, KVH, hd) and page pools
@@ -73,31 +74,115 @@ def _softcap(s, cap: float):
     return torch.tanh(s / cap) * cap if cap > 0.0 else s
 
 
-def dense_attention(q, k, v):
-    """Exact causal GQA attention with an (Sq, Sk) score tensor (small S);
-    q (B, Sq, H, hd) at positions 0..Sq-1, k/v (B, Sk, KVH, hd)."""
+def _chunk_mask(qpos, kpos, causal: bool, window: Optional[int]):
+    """(n, c) bool mask from absolute positions: causal keeps k <= q, a
+    window keeps k > q - window (layers.py:164-171 of the reference)."""
+    m = torch.ones((qpos.shape[0], kpos.shape[0]), dtype=torch.bool, device=qpos.device)
+    if causal:
+        m &= kpos[None, :] <= qpos[:, None]
+    if window is not None:
+        m &= kpos[None, :] > (qpos[:, None] - window)
+    return m
+
+
+def dense_attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
+                    softcap: float = 0.0, q_offset: int = 0):
+    """Exact GQA attention with an (Sq, Sk) score tensor (small S); q (B,
+    Sq, H, hd) at positions q_offset.., k/v (B, Sk, KVH, hd) at 0..Sk-1."""
     B, Sq, H, hd = q.shape
     KVH = k.shape[2]
     G = H // KVH
     scale = 1.0 / math.sqrt(hd)
     qg = q.reshape(B, Sq, KVH, G, hd)
     s = torch.einsum("bqkgd,bskd->bkgqs", qg.to(torch.float32), k.to(torch.float32)) * scale
-    mask = (torch.arange(k.shape[1], device=q.device)[None, :]
-            <= torch.arange(Sq, device=q.device)[:, None])
+    s = _softcap(s, softcap)
+    qpos = torch.arange(Sq, device=q.device) + q_offset
+    mask = _chunk_mask(qpos, torch.arange(k.shape[1], device=q.device), causal, window)
     s = torch.where(mask, s, torch.full_like(s, -1e30))
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bskd->bqkgd", p, v.to(torch.float32))
     return o.reshape(B, Sq, H, hd).to(q.dtype)
 
 
-def attention(q, k, v, dense_threshold: int = 1024):
-    """Prefill attention.  Serving stays under ``dense_threshold``; the
-    reference's chunked flash path (layers.flash_attention) is ROADMAP A2b."""
-    if q.shape[1] > dense_threshold or k.shape[1] > dense_threshold:
-        raise NotImplementedError(
-            f"sequences over {dense_threshold} need the chunked flash attention "
-            "(ROADMAP A2b, kernel B6)")
-    return dense_attention(q, k, v)
+def flash_rows(qs, k, v, qpos, *, causal: bool, window: Optional[int], softcap: float,
+               chunk_k: int, k_scale=None, v_scale=None):
+    """Online softmax of pre-scaled fp32 queries ``qs`` (B, KVH, G, n, hd)
+    at absolute positions ``qpos`` (n,) over k/v (B, Sk, KVH, hd) in key
+    chunks of ``chunk_k``; (m, l, acc) stay in fp32.  Returns the
+    normalized output (B, KVH, G, n, hd) in fp32.
+
+    The last chunk is short: no key past Sk is read.  A masked score adds
+    exactly nothing (p = 0), so a row that sees no key ends with l = 0,
+    clamped at 1e-30, and writes 0.  P is rounded to V's dtype before PV
+    (bf16 V: as the reference); int8 K/V (``k_scale``/``v_scale`` (B, Sk,
+    KVH)) fold their scales into the scores and into P in fp32, as the
+    Pallas kernel's fp32 dequantized tiles do."""
+    B, KVH, G, n, hd = qs.shape
+    Sk = k.shape[1]
+    dev = qs.device
+    m = torch.full((B, KVH, G, n), -1e30, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, KVH, G, n), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, KVH, G, n, hd), dtype=torch.float32, device=dev)
+    def per_key(scale, j0):  # (B, c, KVH) scales -> (B, KVH, 1, 1, c)
+        return scale[:, j0:j0 + chunk_k].to(torch.float32).permute(0, 2, 1)[:, :, None, None]
+
+    for j0 in range(0, Sk, chunk_k):
+        kj, vj = k[:, j0:j0 + chunk_k], v[:, j0:j0 + chunk_k]
+        s = torch.einsum("bkgqd,bckd->bkgqc", qs, kj.to(torch.float32))
+        if k_scale is not None:
+            s = s * per_key(k_scale, j0)
+        s = _softcap(s, softcap)
+        mask = _chunk_mask(qpos, torch.arange(j0, j0 + kj.shape[1], device=dev), causal, window)
+        s = torch.where(mask, s, torch.full_like(s, -1e30))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.where(mask, torch.exp(s - m_new[..., None]), torch.zeros_like(s))
+        l = l * alpha + p.sum(dim=-1)
+        pv = p.to(vj.dtype).to(torch.float32) if v_scale is None else p * per_key(v_scale, j0)
+        acc = acc * alpha[..., None] + torch.einsum("bkgqc,bckd->bkgqd", pv, vj.to(torch.float32))
+        m = m_new
+    return acc / l.clamp_min(1e-30)[..., None]
+
+
+def flash_attention(q, k, v, causal: bool = True, window: Optional[int] = None,
+                    q_offset: int = 0, softcap: float = 0.0, chunk_q: int = 512,
+                    chunk_k: int = 512):
+    """Exact attention in (chunk_q x chunk_k) tiles with an online softmax:
+    the forward of the reference's ``layers.flash_attention`` (plain torch;
+    what the CPU runs past ``dense_threshold``).  ``q_offset`` is the
+    absolute position of q[:, 0].  q is scaled in its own dtype before QK^T,
+    as the reference does."""
+    B, Sq, H, hd = q.shape
+    KVH = k.shape[2]
+    G = H // KVH
+    qs = (q * (1.0 / math.sqrt(hd))).reshape(B, Sq, KVH, G, hd).permute(0, 2, 3, 1, 4)
+    qs = qs.to(torch.float32)
+    outs = []
+    for i0 in range(0, Sq, chunk_q):
+        qpos = torch.arange(i0, min(i0 + chunk_q, Sq), device=q.device) + q_offset
+        outs.append(flash_rows(qs[:, :, :, i0:i0 + chunk_q], k, v, qpos, causal=causal,
+                               window=window, softcap=softcap, chunk_k=chunk_k))
+    o = torch.cat(outs, dim=3)
+    return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
+              q_offset: int = 0, softcap: float = 0.0, dense_threshold: int = 1024,
+              chunk: int = 512, use_kernel: bool = True):
+    """Prefill attention: dense while both q and k are at most
+    ``dense_threshold`` long, else flash -- kernel B6 for CUDA tensors
+    (which takes neither ``q_offset`` nor ``softcap`` and raises for them),
+    the plain chunked ``flash_attention`` on the CPU or for
+    ``use_kernel=False``."""
+    if q.shape[1] <= dense_threshold and k.shape[1] <= dense_threshold:
+        return dense_attention(q, k, v, causal=causal, window=window, softcap=softcap,
+                               q_offset=q_offset)
+    if q.is_cuda and use_kernel:
+        return ops.flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset,
+                                   softcap=softcap)
+    cq = min(chunk, max(128, q.shape[1]))
+    ck = min(chunk, max(128, k.shape[1]))
+    return flash_attention(q, k, v, causal, window, q_offset, softcap, cq, ck)
 
 
 def decode_attention(q, k_cache, v_cache, pos, *, window: Optional[int] = None,

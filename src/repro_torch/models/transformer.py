@@ -218,7 +218,7 @@ def apply_layer(cfg, p, x, *, cache, pos=None, page_table=None, use_kernel: bool
     over x (filling the contiguous cache), else a decode step at ``pos``."""
     h = L.apply_norm(p["ln1"], x)
     if pos is None:
-        a = _attn_prefill(cfg, p["attn"], h, cache)
+        a = _attn_prefill(cfg, p["attn"], h, cache, use_kernel=use_kernel)
     else:
         a = L.apply_attn(cfg, p["attn"], h, cache=cache, pos=pos, page_table=page_table,
                          use_kernel=use_kernel)
@@ -227,9 +227,11 @@ def apply_layer(cfg, p, x, *, cache, pos=None, page_table=None, use_kernel: bool
     return x + L.apply_mlp(cfg, p["mlp"], h)
 
 
-def _attn_prefill(cfg, p, h, cache):
+def _attn_prefill(cfg, p, h, cache, use_kernel: bool = True):
     """Full-sequence causal attention that also fills the contiguous KV
-    cache (in place; int8 caches get the quantized K/V of every position)."""
+    cache (in place; int8 caches get the quantized K/V of every position).
+    Past ``dense_threshold`` the attention is kernel B6 on the card unless
+    ``use_kernel=False``."""
     B, Sq, _ = h.shape
     H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q = apply_linear(h, p["wq"]).reshape(B, Sq, H, hd)
@@ -238,7 +240,9 @@ def _attn_prefill(cfg, p, h, cache):
     positions = torch.arange(Sq, device=h.device)[None].expand(B, Sq)
     q = L.apply_rope(q, positions, cfg.rope_base)
     k = L.apply_rope(k, positions, cfg.rope_base)
-    o = L.attention(q, k, v)
+    # global layers only (check_supported): no sliding window
+    o = L.attention(q, k, v, causal=True, window=None, softcap=cfg.logit_softcap,
+                    use_kernel=use_kernel)
     out = apply_linear(o.reshape(B, Sq, H * hd), p["wo"])
     if "k_scale" in cache:
         k, ks = L.quantize_kv(k)
@@ -257,11 +261,13 @@ def _run_layers(cfg, params, x, cache, pos=None, use_kernel: bool = True):
     return x
 
 
-def prefill(cfg, params, tokens, cache):
+def prefill(cfg, params, tokens, cache, *, use_kernel: bool = True):
     """Serving prefill into a contiguous cache: (last-position logits
-    (B, 1, V), the filled cache).  ``params`` is the ``unstack`` view."""
+    (B, 1, V), the filled cache).  ``params`` is the ``unstack`` view.
+    ``use_kernel=False`` runs the flash attention's plain version on the
+    card (the params' own ``use_kernel`` fields switch B1, B2 and B5)."""
     x = L.embed_tokens(cfg, params["embed"], tokens)
-    x = _run_layers(cfg, params, x, cache)
+    x = _run_layers(cfg, params, x, cache, use_kernel=use_kernel)
     x = L.apply_norm(params["final_norm"], x[:, -1:])
     return L.unembed(params["embed"], x), cache
 

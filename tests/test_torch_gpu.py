@@ -201,3 +201,67 @@ def test_dense_wrappers_reject_what_the_kernels_do_not_take(cuda):
         QM.quant_matmul(x, torch.zeros((64, 8), device=cuda), torch.ones(8, device=cuda))
     with pytest.raises(ValueError):
         QM.q78_matmul(x.to(torch.int32), torch.zeros((64, 8), dtype=torch.int16, device=cuda))
+
+
+def _flash_inputs(B, Sq, Sk, H, KVH, hd, int8, device, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    q = torch.randn((B, Sq, H, hd), generator=g, device=device).to(torch.bfloat16)
+    if int8:
+        k = torch.randint(-127, 128, (B, Sk, KVH, hd), generator=g, device=device,
+                          dtype=torch.int8)
+        v = torch.randint(-127, 128, k.shape, generator=g, device=device, dtype=torch.int8)
+        ks = torch.rand((B, Sk, KVH), generator=g, device=device) * 0.02 + 0.002
+        vs = torch.rand((B, Sk, KVH), generator=g, device=device) * 0.02 + 0.002
+        return q, k, v, ks, vs
+    k = torch.randn((B, Sk, KVH, hd), generator=g, device=device).to(torch.bfloat16)
+    v = torch.randn(k.shape, generator=g, device=device).to(torch.bfloat16)
+    return q, k, v, None, None
+
+
+# B6: bf16 outputs of an fp32 online softmax; the kernel rounds P (and, for
+# int8, P * v_scale) to bf16 before PV where the plain version keeps the
+# int8 path in fp32: about one bf16 ulp, held to 1e-2 of the max
+@pytest.mark.parametrize("B,Sq,Sk,H,KVH,hd,causal,window,int8", [
+    (1, 200, 200, 8, 2, 64, True, None, False),     # ragged, one partial key tile
+    (2, 300, 300, 32, 4, 64, True, 96, False),      # tinyllama heads, sliding window
+    (1, 257, 257, 8, 1, 64, True, None, True),      # MQA, int8 K/V
+    (2, 100, 250, 8, 2, 64, False, None, False),    # non-causal, ragged Sk
+    (1, 1100, 1100, 32, 4, 64, True, None, True),   # long prefill, int8, ragged tail
+    (1, 1100, 1100, 32, 4, 64, True, 256, False),   # long prefill, window 256
+])
+def test_flash_attention_kernel_matches_plain(cuda, B, Sq, Sk, H, KVH, hd, causal, window,
+                                              int8):
+    q, k, v, ks, vs = _flash_inputs(B, Sq, Sk, H, KVH, hd, int8, cuda)
+    kw = dict(causal=causal, window=window, k_scale=ks, v_scale=vs)
+    n = FA.flash_attention.launches
+    o = FA.flash_attention(q, k, v, **kw)
+    assert FA.flash_attention.launches == n + 1 and o.dtype == torch.bfloat16
+    ref = FA.flash_attention(q, k, v, use_kernel=False, **kw)
+    assert FA.flash_attention.launches == n + 1
+    torch.cuda.synchronize()
+    assert torch.isfinite(o.float()).all()
+    _close(o, ref, 1e-2)
+
+
+def test_flash_attention_fully_masked_rows_write_zero(cuda):
+    """Sq > Sk under a window: queries past Sk - 1 + window see no key; the
+    kernel and its plain version both write 0 there (l = 0, clamped)."""
+    q, k, v, _, _ = _flash_inputs(1, 300, 64, 8, 2, 64, False, cuda, seed=1)
+    o = FA.flash_attention(q, k, v, causal=True, window=32)
+    ref = FA.flash_attention(q, k, v, causal=True, window=32, use_kernel=False)
+    torch.cuda.synchronize()
+    assert torch.all(o[:, 64 + 31:] == 0) and torch.all(ref[:, 64 + 31:] == 0)
+    assert o[:, :64 + 31].abs().amax() > 0
+    _close(o, ref, 1e-2)
+
+
+def test_flash_attention_rejects_what_the_kernel_does_not_take(cuda):
+    q, k, v, _, _ = _flash_inputs(1, 64, 64, 8, 2, 64, False, cuda)
+    for bad in (dict(q=q.float()), dict(q=q[..., :32].contiguous(), k=k[..., :32].contiguous(),
+                                       v=v[..., :32].contiguous()),
+                dict(k=k.transpose(1, 2).contiguous().transpose(1, 2)),
+                dict(q_offset=8), dict(softcap=30.0)):
+        args = dict(q=q, k=k, v=v)
+        args.update(bad)
+        with pytest.raises(ValueError):
+            FA.flash_attention(**args)
