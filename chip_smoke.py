@@ -7,12 +7,14 @@
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. device   -- the card's name and power limit; TF32 off for matmul/cuDNN.
-2. build    -- nvcc builds the six kernel sources (seven kernels) from
+2. build    -- nvcc builds the seven kernel sources (eight kernels) from
                src/repro_torch/csrc, one process per source, all at once.
 3. kernels  -- each kernel against its plain PyTorch version on the card at
-               the shapes its main path gives it: B1-B3 at full-width
+               the shapes its main path gives it: B1-B4 at full-width
                tinyllama-1.1b (decode batch, and prompt lengths at
-               prefill up to M 2032), B6 at a 2048-token causal prefill, an
+               prefill up to M 2032; B4 also against B1, on an fp32
+               payload and on a column that keeps no block), B6 at a
+               2048-token causal prefill, an
                1100-token int8-K/V one and a 256-token window, B5 at the
                int8 head (2048x32000) and 2048x5632, each at M 8 and 40,
                B7/B8 at HAR-6's widest layer (2000x1500, B 1 and 16) and
@@ -31,21 +33,32 @@ Phases, in order; any failure raises and the script exits non-zero:
                q_prune 0.5, 128-blocks, paged int8 KV, prefix sharing.
                Every request must finish, the page audit must be clean,
                prefix pages must be shared, and the launch counters of B1,
-               B2, B3 and B5 (the int8 head) must rise during the run.
-6. long     -- the serve flags with --max-len 2048: prompts of 40, 1100,
+               B2, B3 and B5 (the int8 head) must rise during the run; B4
+               must not launch (every served leaf carries its walk).
+6. plancache -- the serve flags with --plan-cache in a temporary
+               directory: the first boot packs and saves, the second hits,
+               restores every leaf bit for bit and serves the serve
+               phase's greedy tokens through B1 (B4 not launched).  Then
+               the same plan saved without its walks: a third boot serves
+               the 8 requests through B4 (5 x 22 launches per model step,
+               prefill or decode; B1 none; B2, B3, B5 as in the serve
+               phase) with a clean page audit, and its teacher-forced
+               logits are held to the plain path as in the parity phase.
+               Logs the directory's size and the boot times (pack vs load).
+7. long     -- the serve flags with --max-len 2048: prompts of 40, 1100,
                1536 and 2032 tokens, 16 new tokens each.  Every prefill
                past 1024 tokens runs its attention through B6 (exactly
                22 x 3 launches); B1, B2, B3 and B5 must launch too, every
                request must finish and the page audit must be clean; each
                prefill is timed on the card's clock.
-7. parity   -- prefill of the serve phase's prompt lengths and of 2032
+8. parity   -- prefill of the serve phase's prompt lengths and of 2032
                tokens, then teacher-forced decode, through the kernels and
                through the plain versions (with_use_kernel(False),
                prefill(use_kernel=False)) on the same tokens, for the
                served plan and for a --compress quant plan (every
                projection through B5); the logits must agree within the
                stated bf16 tolerance.
-8. summary  -- one JSON line of per-kernel numbers, then the result line.
+9. summary  -- one JSON line of per-kernel numbers, then the result line.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -92,6 +105,8 @@ FP32_RTOL = 1e-4
 KERNEL_META = {
     "block_sparse_matmul": ("src/repro_torch/csrc/block_sparse.cu",
                             "src/repro/kernels/block_sparse.py:221"),
+    "block_sparse_matmul_col": ("src/repro_torch/csrc/block_sparse_col.cu",
+                                "src/repro/kernels/block_sparse.py:84"),
     "fused_gate_up": ("src/repro_torch/csrc/fused_gate_up.cu",
                       "src/repro/kernels/fused_gate_up.py:91"),
     "paged_decode_attention": ("src/repro_torch/csrc/paged_attention.cu",
@@ -106,7 +121,8 @@ KERNEL_META = {
                    "src/repro/kernels/quant_matmul.py:122"),
 }
 # the tolerance each kernel's max_rel_err is held to (None: exact)
-KERNEL_TOL = {"block_sparse_matmul": KERNEL_RTOL, "fused_gate_up": KERNEL_RTOL,
+KERNEL_TOL = {"block_sparse_matmul": KERNEL_RTOL, "block_sparse_matmul_col": KERNEL_RTOL,
+              "fused_gate_up": KERNEL_RTOL,
               "paged_decode_attention": KERNEL_RTOL, "flash_attention": KERNEL_RTOL,
               "quant_matmul": KERNEL_RTOL,
               "batched_ffn": FP32_RTOL, "q78_matmul": None}
@@ -204,6 +220,31 @@ def _dense_bf16(torch, p):
     return w.to(torch.bfloat16)
 
 
+def _b4_edges(torch, gen) -> None:
+    """B4 off the served pair: an fp32 payload (--compress block_sparse)
+    under bf16 and fp32 x, fp32 x on an int8 payload, and a weight whose
+    second block-column keeps no block (its outputs must be zeros)."""
+    from repro_torch.core.weight_plan import PlanConfig, pack_block_sparse
+    from repro_torch.kernels import block_sparse as BS
+
+    K, N = 2048, 2048
+    w = torch.randn((K, N), generator=gen, device="cuda") / K ** 0.5
+    w[:, 128:256] = 0.0
+    for quant in (False, True):
+        p = pack_block_sparse(w, PlanConfig(q_prune=0.5), quant=quant)
+        if int(p.counts[1]) != 0:
+            raise AssertionError("B4 edge case: block-column 1 kept a block")
+        args = (p.blocks, p.block_rows, p.counts, p.scales)
+        for M, dt in ((8, torch.bfloat16), (37, torch.float32), (100, torch.bfloat16)):
+            x = torch.randn((M, K), generator=gen, device="cuda").to(dt)
+            y = BS.block_sparse_matmul_col(x, *args)
+            tol = FP32_RTOL if dt == torch.float32 else KERNEL_RTOL
+            _held(torch, f"B4 {'int8' if quant else 'fp32'} payload, {dt} x, M={M}", y,
+                  BS.block_sparse_matmul_col(x, *args, use_kernel=False), tol)
+            if not bool((y[:, 128:256] == 0).all()):
+                raise AssertionError("B4 wrote nonzero outputs for a column with no block")
+
+
 def phase_kernels(torch, results: dict) -> None:
     from repro_torch.kernels import block_sparse as BS
     from repro_torch.kernels import flash_attention as FA
@@ -213,56 +254,60 @@ def phase_kernels(torch, results: dict) -> None:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
 
-    # B1 at every K x N of one tinyllama layer (wq, wk, wv, wo, w_down)
-    # at M = 8 and 12 (decode batches: one M-tile, ragged), M = 40 (the
-    # serve phase's prefill: three M-tiles, the last ragged) and M = 2032
-    # (the longest prefill of the long phase); timed at M = 8 (the summary
-    # line) and at M = 2032
+    # B1 and B4 at every K x N of one tinyllama layer (wq, wk, wv, wo,
+    # w_down) at M = 8 and 12 (decode batches: one M-tile, ragged), 37 (a
+    # ragged prefill), 40 (the serve phase's prefill) and 2032 (the longest
+    # prefill of the long phase), each against its plain version and B4
+    # also against B1; timed at M = 8 (the summary line) and at M = 2032,
+    # beside the plain version and torch.matmul on the dequantized weight
     shapes = {"wq": (2048, 2048), "wk": (2048, 256), "wv": (2048, 256),
               "wo": (2048, 2048), "w_down": (5632, 2048)}
-    sums = {M: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0, "bytes": 0.0,
-                "flops": 0.0} for M in (8, LONG_M)}
-    agg = {"err": 0.0, "rel": 0.0, **sums[8]}
+    keys = ("ms", "plain_ms", "bound_ms", "library_ms", "bytes", "flops")
+    sums = {(b, M): dict.fromkeys(keys, 0.0) for b in ("B1", "B4") for M in (8, LONG_M)}
+    err = {"B1": [0.0, 0.0], "B4": [0.0, 0.0]}
+    kern = {"B1": BS.block_sparse_matmul, "B4": BS.block_sparse_matmul_col}
     for name, (K, N) in shapes.items():
         p = _packed(torch, K, N, gen)
         wd = _dense_bf16(torch, p)
         args = (p.blocks, p.block_rows, p.counts, p.scales)
-        for M in (8, 12, 40, LONG_M):
+        for M in (8, 12, 37, 40, LONG_M):
             x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
-            y = BS.block_sparse_matmul(x, *args)
             ref = BS.block_sparse_matmul(x, *args, use_kernel=False)
-            torch.cuda.synchronize()
-            diff, rel = rel_err(torch, y, ref)
-            log(f"B1 {name} {K}x{N} M={M}: max|diff| {diff:.3e} rel {rel:.3e}")
-            if not rel <= KERNEL_RTOL:
-                raise AssertionError(f"B1 {name} M={M}: rel err {rel:.3e} > {KERNEL_RTOL}")
-            agg["err"], agg["rel"] = max(agg["err"], diff), max(agg["rel"], rel)
-            if M not in sums:
+            ys = {b: f(x, *args) for b, f in kern.items()}
+            for b, y in ys.items():
+                d, r = _held(torch, f"{b} {name} {K}x{N} M={M}", y, ref, KERNEL_RTOL)
+                err[b] = [max(err[b][0], d), max(err[b][1], r)]
+            _held(torch, f"B4 {name} M={M} vs B1", ys["B4"], ys["B1"], KERNEL_RTOL)
+            if M not in (8, LONG_M):
                 continue
             surv = int(p.counts.sum())
             nbytes = (M * K * 2 + surv * 128 * 128 + surv * 4 + p.counts.numel() * 4
                       + N * 4 + M * N * 2)
             flops = 2.0 * M * surv * 128 * 128
             b_ms, _ = bound(nbytes, flops)
-            ms = timer(lambda: BS.block_sparse_matmul(x, *args))
-            plain_ms = timer(lambda: BS.block_sparse_matmul(x, *args, use_kernel=False))
             lib_ms = timer(lambda: torch.matmul(x, wd))
-            log(f"B1 {name} M={M}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                f"torch.matmul(dense bf16) {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
-                f"({surv} of {(K // 128) * (N // 128)} blocks)")
-            for k, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", b_ms),
-                         ("library_ms", lib_ms), ("bytes", nbytes), ("flops", flops)):
-                sums[M][k] += v
-    agg.update(sums[8])
-    t = sums[LONG_M]
-    log(f"B1 one layer's five at M={LONG_M}: kernel {t['ms']:.4f} ms, plain "
-        f"{t['plain_ms']:.4f} ms, torch.matmul {t['library_ms']:.4f} ms, bound "
-        f"{bound(t['bytes'], t['flops'])[0]:.4f} ms ({bound(t['bytes'], t['flops'])[1]})")
-    results["block_sparse_matmul"] = {
-        "max_abs_err": agg["err"], "max_rel_err": agg["rel"], "ms": agg["ms"], "plain_ms": agg["plain_ms"],
-        "bound_ms": agg["bound_ms"], "bound_by": bound(agg["bytes"], agg["flops"])[1],
-        "library_ms": agg["library_ms"],
-        "shape": "sum of one layer's wq, wk, wv, wo, w_down at M=8"}
+            for b, f in kern.items():
+                ms = timer(lambda: f(x, *args))
+                plain_ms = timer(lambda: f(x, *args, use_kernel=False))
+                log(f"{b} {name} M={M}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                    f"torch.matmul(dense bf16) {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
+                    f"({surv} of {(K // 128) * (N // 128)} blocks)")
+                for k, v in zip(keys, (ms, plain_ms, b_ms, lib_ms, nbytes, flops)):
+                    sums[b, M][k] += v
+    for M in (8, LONG_M):
+        t1, t4 = sums["B1", M], sums["B4", M]
+        log(f"one layer's five at M={M}: B4 {t4['ms']:.4f} ms, B1 {t1['ms']:.4f} ms, plain "
+            f"{t4['plain_ms']:.4f} / {t1['plain_ms']:.4f} ms, torch.matmul "
+            f"{t4['library_ms']:.4f} ms, bound {bound(t4['bytes'], t4['flops'])[0]:.4f} ms "
+            f"({bound(t4['bytes'], t4['flops'])[1]})")
+    _b4_edges(torch, gen)
+    for b, fn in kern.items():
+        t = sums[b, 8]
+        results[fn.__name__] = {
+            "max_abs_err": err[b][0], "max_rel_err": err[b][1],
+            **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+            "bound_by": bound(t["bytes"], t["flops"])[1],
+            "shape": "sum of one layer's wq, wk, wv, wo, w_down at M=8"}
 
     # B2: gate/up 2048 x 5632 at M = 2032 and 40 (prefill), then M = 8
     # (decode); timed at M = 2032 and at M = 8 (the summary line)
@@ -644,60 +689,203 @@ def _serve_args(extra=()):
     return serve, ap, args
 
 
-def phase_serve(torch, results: dict):
+def _serve_requests(cfg, max_new: int) -> list:
+    """The serve phase's 8 requests: requests 0-3 share a prefix (request
+    0's 36-token prompt, which requests 1-3 extend: 2 full pages shared by
+    refcount, the partial third page copied on write); requests 4-7 are
+    independent."""
     import numpy as np
 
-    from repro_torch.kernels import block_sparse as BS
-    from repro_torch.kernels import flash_attention as FA
-    from repro_torch.kernels import fused_gate_up as FG
-    from repro_torch.kernels import quant_matmul as QM
-    from repro_torch.serving.engine import Request, RequestState
+    from repro_torch.serving.engine import Request
 
-    serve, ap, args = _serve_args()
-    t0 = time.perf_counter()
-    cfg, engine, plan = serve.build_engine(args, ap)
-    torch.cuda.synchronize()
-    log(f"serve: model + plan + engine built in {time.perf_counter() - t0:.1f}s "
-        f"({cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads} heads / "
-        f"{cfg.n_kv_heads} kv, d_ff {cfg.d_ff}, vocab {cfg.vocab}, {cfg.compute_dtype})")
     rng = np.random.default_rng(0)
-    # requests 0-3 share a prefix: request 0's 36-token prompt is the
-    # prefix that requests 1-3 extend (2 full pages shared by refcount, the
-    # partial third page copied on write); requests 4-7 are independent
     prefix = rng.integers(0, cfg.vocab, size=36).astype(np.int32)
     prompts = [prefix] + [np.concatenate([prefix, rng.integers(0, cfg.vocab, 4)
                                           .astype(np.int32)]) for _ in range(3)]
     prompts += [rng.integers(0, cfg.vocab, size=40).astype(np.int32) for _ in range(4)]
-    reqs = [Request(uid=i, prompt=p, max_new_tokens=args.max_new) for i, p in enumerate(prompts)]
-    counters = (BS.block_sparse_matmul, FG.fused_gate_up, FA.paged_decode_attention,
-                QM.quant_matmul)  # B5: the int8 head
+    return [Request(uid=i, prompt=p, max_new_tokens=max_new) for i, p in enumerate(prompts)]
+
+
+def _served_kernels():
+    """The launch counters of the serving path: B1, B4, B2, B3, B5."""
+    from repro_torch.kernels import block_sparse as BS
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import fused_gate_up as FG
+    from repro_torch.kernels import quant_matmul as QM
+
+    return (BS.block_sparse_matmul, BS.block_sparse_matmul_col, FG.fused_gate_up,
+            FA.paged_decode_attention, QM.quant_matmul)
+
+
+def _serve_and_check(serve, engine, cfg, max_new: int, label: str) -> tuple:
+    """Serve the 8 requests from zeroed launch counters; every request must
+    finish with in-vocabulary tokens and no page may leak.  Returns (the
+    requests' outputs, {kernel: launches}, wall seconds)."""
+    from repro_torch.serving.engine import RequestState
+
+    reqs = _serve_requests(cfg, max_new)
+    counters = _served_kernels()
     for c in counters:
         c.launches = 0
     dt = serve.run_requests(engine, reqs)
     launches = {c.__name__: c.launches for c in counters}
     serve.report(engine, dt)
-    log(f"serve: launches during the run {launches}")
+    log(f"{label}: launches during the run {launches}")
     engine.audit_pages()
     bad = [r.uid for r in reqs if r.state is not RequestState.FINISHED
-           or len(r.output) != args.max_new]
+           or len(r.output) != max_new]
     if bad:
-        raise AssertionError(f"requests not finished with {args.max_new} tokens: {bad}")
+        raise AssertionError(f"{label}: requests not finished with {max_new} tokens: {bad}")
     if any(not (0 <= t < cfg.vocab) for r in reqs for t in r.output):
-        raise AssertionError("a sampled token is outside the vocabulary")
+        raise AssertionError(f"{label}: a sampled token is outside the vocabulary")
     if engine.pages_in_use != 0:
-        raise AssertionError(f"{engine.pages_in_use} pages leaked")
+        raise AssertionError(f"{label}: {engine.pages_in_use} pages leaked")
+    return [list(r.output) for r in reqs], launches, dt
+
+
+def phase_serve(torch, results: dict):
+    serve, ap, args = _serve_args()
+    t0 = time.perf_counter()
+    cfg, engine, _ = serve.build_engine(args, ap)
+    torch.cuda.synchronize()
+    log(f"serve: model + plan + engine built in {time.perf_counter() - t0:.1f}s "
+        f"({cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads} heads / "
+        f"{cfg.n_kv_heads} kv, d_ff {cfg.d_ff}, vocab {cfg.vocab}, {cfg.compute_dtype})")
+    outputs, launches, dt = _serve_and_check(serve, engine, cfg, args.max_new, "serve")
     if engine.stats.pages_shared <= 0:
         raise AssertionError("no prefix page was shared")
+    if launches.pop("block_sparse_matmul_col"):
+        raise AssertionError("serve: B4 launched, but every served leaf carries its walk (B1)")
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"kernel {name} was not launched on the main path")
-    for name, n in launches.items():
         results.setdefault(name, {})["launches"] = n
     tok_s = engine.stats.decode_tokens / dt
     log(f"serve: {engine.stats.completed}/8 FINISHED, audit clean, "
         f"{engine.stats.pages_shared} pages shared, {engine.stats.cow_copies} COW copies, "
         f"{tok_s:.1f} tok/s on {torch.cuda.get_device_name(0)}")
-    return cfg, engine
+    return cfg, engine, outputs, launches
+
+
+class _Tee:
+    """Copies what is printed to a buffer (to read the CLI's messages)."""
+
+    def __init__(self, out):
+        self.out, self.text = out, []
+
+    def write(self, s):
+        self.text.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def _boot(torch, serve, ap, args) -> tuple:
+    """build_engine under a tee; returns (printed text, cfg, engine, plan,
+    wall seconds to a ready engine)."""
+    import contextlib
+
+    tee = _Tee(sys.stdout)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        cfg, engine, plan = serve.build_engine(args, ap)
+    torch.cuda.synchronize()
+    return "".join(tee.text), cfg, engine, plan, time.perf_counter() - t0
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+
+
+def phase_plancache(torch, results: dict, serve_outputs: list, serve_launches: dict,
+                    card: str) -> None:
+    """--plan-cache on the serve phase's model and flags (see the module
+    doc): miss, hit, then a walk-less copy of the plan served through B4."""
+    import shutil
+    import tempfile
+
+    from repro_torch.core import weight_plan as W
+    from repro_torch.checkpoint import store
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_plan_")
+    try:
+        d_walk, d_bare = os.path.join(tmp, "walk"), os.path.join(tmp, "walkless")
+        serve, ap, args = _serve_args(["--plan-cache", d_walk])
+        out, cfg, engine, plan, pack_s = _boot(torch, serve, ap, args)
+        if not ("plan cache missing" in out and "plan cached to" in out):
+            raise AssertionError("plancache: the first boot did not miss, pack and save")
+        packed = [t.cpu() for t in W.flatten_leaves(plan.params)]
+        del engine, plan
+        torch.cuda.empty_cache()
+
+        out, cfg, engine, plan, load_s = _boot(torch, serve, ap, args)
+        if "plan cache hit" not in out:
+            raise AssertionError("plancache: the second boot did not hit the cache")
+        restored = W.flatten_leaves(plan.params)
+        same = len(restored) == len(packed) and all(
+            a.dtype == b.dtype and torch.equal(a.cpu(), b) for a, b in zip(restored, packed))
+        if not same:
+            raise AssertionError("plancache: a restored leaf differs from the packed one")
+        n_packed = sum(isinstance(n, W.PackedLinear) for n in plan._by_path.values())
+        log(f"plancache: {len(packed)} leaves ({n_packed} packed, with walks) restored bit "
+            f"for bit; {_dir_bytes(d_walk) / 1e6:.1f} MB on disk; boot {pack_s:.2f}s packing "
+            f"and saving vs {load_s:.2f}s loading (init, plan, engine; {card})")
+        outputs, launches, _ = _serve_and_check(serve, engine, cfg, args.max_new,
+                                                "plancache hit")
+        if outputs != serve_outputs:
+            raise AssertionError("plancache: the hit plan's greedy tokens differ from the "
+                                 "serve phase's")
+        if launches["block_sparse_matmul"] <= 0 or launches["block_sparse_matmul_col"]:
+            raise AssertionError(f"plancache: the walk plan must run B1, not B4: {launches}")
+        log("plancache: the hit plan serves the serve phase's greedy tokens through B1")
+
+        bare = W.map_tree(lambda _, n: dataclasses.replace(n, walk=None)
+                          if isinstance(n, W.PackedLinear) else n, plan.params)
+        W.save_plan(d_bare, dataclasses.replace(plan, params=bare))
+        meta = store.restore_flat(d_bare)[1]["metadata"]["packed"]
+        if any(m["has_walk"] for m in meta.values() if m["repr"] == "packed"):
+            raise AssertionError("plancache: the walk-less directory holds a walk")
+        del engine, plan, bare
+        torch.cuda.empty_cache()
+
+        serve, ap, args = _serve_args(["--plan-cache", d_bare])
+        out, cfg, engine, plan, bare_s = _boot(torch, serve, ap, args)
+        if "plan cache hit" not in out:
+            raise AssertionError("plancache: the walk-less boot did not hit the cache")
+        # apply_linear's packed leaves per model step (wq, wk, wv, wo, w_down
+        # of every layer; gate/up go to B2 as a fused pair)
+        per_step = []
+        W.map_tree(lambda path, n: per_step.append(path) if isinstance(n, W.PackedLinear)
+                   and not path.endswith(("w_gate", "w_up")) else None, engine.params)
+        bare_out, launches, dt = _serve_and_check(serve, engine, cfg, args.max_new,
+                                                  "plancache walk-less")
+        steps = engine.stats.prefills + engine.stats.decode_steps
+        want = len(per_step) * steps
+        log(f"plancache walk-less: {steps} model steps ({engine.stats.prefills} prefills, "
+            f"{engine.stats.decode_steps} decode steps) x {len(per_step)} packed projections "
+            f"({cfg.n_layers} layers): B4 launches {launches['block_sparse_matmul_col']} "
+            f"(expected {want}), boot {bare_s:.2f}s")
+        if launches["block_sparse_matmul_col"] != want or launches["block_sparse_matmul"]:
+            raise AssertionError(f"plancache: the walk-less plan must run every projection "
+                                 f"through B4 and none through B1: {launches}")
+        for name in ("fused_gate_up", "paged_decode_attention", "quant_matmul"):
+            if launches[name] != serve_launches[name]:
+                raise AssertionError(f"plancache: {name} launched {launches[name]} times, "
+                                     f"{serve_launches[name]} in the serve phase")
+        results.setdefault("block_sparse_matmul_col", {})["launches"] = \
+            launches["block_sparse_matmul_col"]
+        agree = sum(a == b for o, so in zip(bare_out, serve_outputs) for a, b in zip(o, so))
+        log(f"plancache walk-less: 8/8 FINISHED, audit clean, {agree} of "
+            f"{sum(map(len, serve_outputs))} greedy tokens equal the walk plan's "
+            f"({engine.stats.decode_tokens / dt:.1f} tok/s on {card})")
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(5)
+        _path_parity(torch, cfg, engine.params, "walk-less quant_sparse (B4)", gen)
+        del engine, plan
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def phase_long(torch, results: dict) -> None:
@@ -999,13 +1187,14 @@ def main(argv=None) -> int:
 
     t_start = time.perf_counter()
     results: dict = {}
-    phase_device(torch)
+    card = phase_device(torch)
     phase_build()
     phase_kernels(torch, results)
     phase_flash(torch, results)
     phase_dense_kernels(torch, results)
     phase_fcnet(torch, results)
-    cfg, engine = phase_serve(torch, results)
+    cfg, engine, serve_outputs, serve_launches = phase_serve(torch, results)
+    phase_plancache(torch, results, serve_outputs, serve_launches, card)
     phase_long(torch, results)
     phase_parity(torch, cfg, engine)
     if args.profile:

@@ -20,7 +20,9 @@ into per-layer views once, when it is built (``transformer.unstack``).
 
 On CUDA, packed weights run through the hand-written kernels B1/B2 and
 int8 weights through B5 (``kernels/ops``); on the CPU, through their plain
-versions.  Every plan node carries ``use_kernel``, set from
+versions.  A packed weight without its pack-time walk (a plan cache saved
+without walks) runs through B4 instead of B1, as the reference's jitted
+engine runs such a leaf.  Every plan node carries ``use_kernel``, set from
 ``PlanConfig.use_kernel`` when it is packed: False forces the plain
 versions on CUDA too.  ``with_use_kernel`` switches every node of a tree.
 """
@@ -56,7 +58,8 @@ class PackedLinear:
       counts:     (n_cols,) int32        true survivor count per column
       scales:     (N,) fp32 or None      per-output-channel dequant scales
       walk:       dict of (n_walk,) int32 host tensors -- the TPU kernel's
-                  pack-time block list, kept on the host for pack parity
+                  pack-time block list, kept on the host; no kernel reads
+                  it, but a leaf with a walk runs B1 and one without B4
 
     Stacked variants carry leading layer dims on every child.
     ``use_kernel`` True runs the CUDA kernel when the input is on the card;
@@ -413,6 +416,191 @@ def with_use_kernel(params, use_kernel: bool):
         return n
 
     return map_tree(one, params)
+
+
+
+# ---------------------------------------------------------------------------
+# serve-time plan cache: persist/restore compressed trees (checkpoint/store)
+# ---------------------------------------------------------------------------
+
+WALK_KEYS = ("cols", "flags", "idx", "rows")  # sorted, as jax flattens the walk dict
+
+
+@dataclasses.dataclass(frozen=True)
+class _Slot:
+    """A stored leaf's place in a skeleton tree, with its expected shape
+    where the model fixes it (None: set by the packing)."""
+
+    shape: Optional[tuple] = None
+
+
+def flatten_leaves(tree) -> list:
+    """The leaves of a params tree in the order ``jax.tree_util.tree_flatten``
+    lists the reference's: dict keys sorted, lists in order, ``None`` no
+    leaf; a PackedLinear as blocks, block_rows, counts, [scales], [walk
+    cols, flags, idx, rows]; a QuantLinear (the reference's ``{"q", "s"}``)
+    as q, s."""
+    if tree is None:
+        return []
+    if isinstance(tree, PackedLinear):
+        walk = [] if tree.walk is None else [tree.walk[k] for k in sorted(tree.walk)]
+        return [tree.blocks, tree.block_rows, tree.counts,
+                *flatten_leaves(tree.scales), *walk]
+    if isinstance(tree, QuantLinear):
+        return [tree.q, tree.s]
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in flatten_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in flatten_leaves(v)]
+    return [tree]
+
+
+def unflatten_leaves(skeleton, leaves: list):
+    """The inverse of ``flatten_leaves``: ``skeleton`` with its leaves
+    replaced, in flatten order, by ``leaves`` (which must match in number)."""
+    it = iter(leaves)
+
+    def fill(node):
+        if node is None:
+            return None
+        if isinstance(node, PackedLinear):
+            blocks, rows, counts = next(it), next(it), next(it)
+            scales = None if node.scales is None else next(it)
+            walk = None if node.walk is None else {k: next(it) for k in sorted(node.walk)}
+            return dataclasses.replace(node, blocks=blocks, block_rows=rows, counts=counts,
+                                       scales=scales, walk=walk)
+        if isinstance(node, QuantLinear):
+            return dataclasses.replace(node, q=next(it), s=next(it))
+        if isinstance(node, dict):
+            # fill in sorted order, keep the skeleton's key order
+            filled = {k: fill(node[k]) for k in sorted(node)}
+            return {k: filled[k] for k in node}
+        if isinstance(node, (list, tuple)):
+            return type(node)(fill(v) for v in node)
+        return next(it)
+
+    out = fill(skeleton)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the skeleton has places")
+    return out
+
+
+def _node_meta(node) -> dict:
+    """Static reconstruction metadata for one planned node."""
+    if isinstance(node, PackedLinear):
+        return {
+            "repr": "packed",
+            "kind": node.kind,
+            "shape": list(node.shape),
+            "bk": node.bk,
+            "bn": node.bn,
+            "use_kernel": node.use_kernel,
+            "has_scales": node.scales is not None,
+            "has_walk": node.walk is not None,
+        }
+    if isinstance(node, QuantLinear):
+        return {"repr": "quant"}
+    return {"repr": "dense"}
+
+
+def _index_nodes(params) -> dict:
+    """path -> planned node (PackedLinear / QuantLinear / plain tensor)."""
+    out = {}
+
+    def visit(path, node):
+        out[path] = node
+        return node
+
+    map_tree(visit, params)
+    return out
+
+
+_PLAN_CFG_FIELDS = tuple(f.name for f in dataclasses.fields(PlanConfig) if f.name != "use_kernel")
+
+
+def save_plan(base: str, plan: WeightPlan) -> str:
+    """Persist a compressed plan (packed tree + reconstruction metadata)
+    through ``checkpoint.store`` in the reference's layout, so that a
+    serving engine boots from packed weights instead of re-packing.
+    Saving over a directory that holds a plan replaces it (keep=1).
+    Returns the step directory."""
+    from repro_torch.checkpoint import store
+
+    metadata = {
+        "plan_cfg": {
+            **{f.name: getattr(plan.cfg, f.name) for f in dataclasses.fields(plan.cfg)
+               if f.name != "rules"},
+            "rules": [list(r) for r in plan.cfg.rules],
+        },
+        "leaves": {p: {**dataclasses.asdict(l), "shape": list(l.shape)}
+                   for p, l in plan.leaves.items()},
+        "packed": {p: _node_meta(n) for p, n in _index_nodes(plan.params).items()},
+    }
+    return store.save(base, 0, flatten_leaves(plan.params), metadata=metadata, keep=1)
+
+
+def load_plan(base: str, dense_params, *, use_kernel: bool = True) -> WeightPlan:
+    """Rebuild a WeightPlan saved by ``save_plan`` here or by the reference's
+    ``save_plan`` (tensors on the CPU).
+
+    ``dense_params`` supplies the tree structure only (e.g. from
+    ``init_params``): its leaves are replaced node for node by the stored
+    packed representations -- no pruning or quantization runs.  The
+    reference also checks its treedef string, which cannot be rebuilt
+    without jax; this checks the leaf count, the shapes of every dense and
+    int8 leaf and every packed leaf's dense shape instead, and raises
+    ValueError on a mismatch (another arch or shape).  ``use_kernel`` is the run's choice,
+    not the file's: it goes into every node and into ``plan.cfg``; the
+    reference's ``interpret`` flags and its per-leaf ``axes`` (ROADMAP A13)
+    are ignored."""
+    from repro_torch.checkpoint import store
+
+    leaves_t, manifest = store.restore_flat(base)
+    meta = manifest["metadata"]
+    cfg_d = {k: meta["plan_cfg"][k] for k in _PLAN_CFG_FIELDS if k in meta["plan_cfg"]}
+    cfg_d["rules"] = tuple(tuple(r) for r in cfg_d.get("rules", ()))
+    cfg = PlanConfig(**cfg_d, use_kernel=use_kernel)
+
+    def skeleton(path, leaf):
+        if not isinstance(leaf, torch.Tensor):
+            return leaf
+        pm = meta["packed"].get(path, {"repr": "dense"})
+        if pm["repr"] == "quant":
+            shape = tuple(leaf.shape)
+            return QuantLinear(q=_Slot(shape), s=_Slot(shape[:-2] + shape[-1:]),
+                               use_kernel=use_kernel)
+        if pm["repr"] == "packed":
+            if tuple(leaf.shape[-2:]) != tuple(pm["shape"]):
+                raise ValueError(
+                    f"plan cache leaf {path} packs dense shape {tuple(pm['shape'])}, "
+                    f"model has {tuple(leaf.shape[-2:])}")
+            return PackedLinear(
+                blocks=_Slot(), block_rows=_Slot(), counts=_Slot(),
+                scales=_Slot() if pm["has_scales"] else None,
+                walk={k: _Slot() for k in WALK_KEYS} if pm["has_walk"] else None,
+                kind=pm["kind"], shape=tuple(pm["shape"]), bk=pm["bk"], bn=pm["bn"],
+                use_kernel=use_kernel)
+        return leaf
+
+    skel = map_tree(skeleton, dense_params)
+    flat = flatten_leaves(skel)
+    if len(flat) != manifest["n_leaves"]:
+        raise ValueError(
+            f"plan cache has {manifest['n_leaves']} leaves, model structure expects "
+            f"{len(flat)} -- was it saved for a different config?")
+    # dense placeholders are the model's own tensors, and an int8 leaf's
+    # payload and scales follow its dense shape: their stored shapes must
+    # match (catches e.g. a width or vocabulary change that keeps the count)
+    for i, (ph, entry) in enumerate(zip(flat, manifest["leaves"])):
+        if ph.shape is not None and tuple(ph.shape) != tuple(entry["shape"]):
+            raise ValueError(f"plan cache leaf {i} has shape {tuple(entry['shape'])}, "
+                             f"model structure expects {tuple(ph.shape)}")
+    params = unflatten_leaves(skel, leaves_t)
+    fields = {f.name for f in dataclasses.fields(LeafPlan)}
+    leaves = {p: LeafPlan(**{**{k: v for k, v in d.items() if k in fields},
+                             "shape": tuple(d["shape"])})
+              for p, d in meta["leaves"].items()}
+    return WeightPlan(cfg=cfg, leaves=leaves, params=params, _by_path=_index_nodes(params))
 
 
 def compress(params, cfg: PlanConfig = PlanConfig()) -> WeightPlan:

@@ -34,7 +34,7 @@
 // scores (K) and P (V), and P * v_scale enters PV as a bf16 pair hi + lo
 // (~16 significant bits, two MMAs), close to the fp32 P and dequantized V
 // of the Pallas kernel's int8 branch.
-#include "common.cuh"
+#include "mma.cuh"
 
 #include <math_constants.h>
 
@@ -60,49 +60,6 @@ struct Layout {
   // Q, two stages, and for int8 the converted bf16 K and V tiles
   static constexpr size_t smem_bytes = q_bytes + 2 * stage_bytes + (QUANT ? 2 * tile_bytes : 0);
 };
-
-// 16-byte cp.async that writes zeros (reads nothing) when !valid.
-__device__ __forceinline__ void cp_async16_zfill(void* smem_dst, const void* gmem_src,
-                                                 bool valid) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
-  int n = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem_src),
-               "r"(n));
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// two bf16 of one column and consecutive rows (row stride ld) as a pair
-__device__ __forceinline__ uint32_t ld_col_pair(const __nv_bfloat16* p, int ld) {
-  const uint16_t* u = reinterpret_cast<const uint16_t*>(p);
-  return static_cast<uint32_t>(u[0]) | (static_cast<uint32_t>(u[ld]) << 16);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// (a, b) rounded to a bf16 pair hi; with LO also the pair of what rounding
-// dropped, lo = (a, b) - hi, so that hi + lo keeps ~16 significant bits
-template <bool LO>
-__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  if constexpr (LO) lo = pack_bf16(a - __low2float(h), b - __high2float(h));
-}
-
-// C += A (16x16, row) * B (16x8, col), bf16 in, fp32 accumulate
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                          uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 template <int HD, bool QUANT>
 __global__ void __launch_bounds__(kThreads)

@@ -21,7 +21,7 @@ from repro_torch.core.weight_plan import (
     PlanConfig,
     QuantLinear,
     WeightPlan,
-    map_tree,
+    _index_nodes,
 )
 
 
@@ -70,12 +70,4 @@ def plan_from_reference(ref_plan, device="cpu", use_kernel: bool = True) -> Weig
                     metadata_bytes=float(l.metadata_bytes))
         for p, l in ref_plan.leaves.items()
     }
-    by_path = {}
-
-    def visit(path, node):
-        by_path[path] = node
-        return node
-
-    map_tree(visit, params)
-    return WeightPlan(cfg=cfg, leaves=leaves, params=params,
-                      _by_path={p: by_path[p] for p in leaves})
+    return WeightPlan(cfg=cfg, leaves=leaves, params=params, _by_path=_index_nodes(params))

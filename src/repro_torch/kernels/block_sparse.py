@@ -1,5 +1,6 @@
-"""B1: block-sparse (optionally int8) matmul -- wrapper, plain version and
-launch counter of ``csrc/block_sparse.cu``.
+"""B1 and B4: block-sparse (optionally int8) matmuls -- wrappers, plain
+versions and launch counters of ``csrc/block_sparse.cu`` (B1) and
+``csrc/block_sparse_col.cu`` (B4).
 
 Replaces ``repro/kernels/block_sparse.py:block_sparse_matmul_mc``.  What
 bounds it on the H100: at decode, M (the live batch) is far below the
@@ -9,9 +10,17 @@ reads only the surviving blocks (one byte per int8 weight), one CTA per
 (output block-column, 16-row M-tile), with the next block's copy in flight
 while the current one multiplies (cp.async double buffer).
 
-``block_sparse_matmul`` launches the kernel for CUDA tensors and runs the
-plain version for CPU tensors; on CUDA the plain version runs only when
-the caller passes ``use_kernel=False``.
+B4 replaces ``repro/kernels/block_sparse.py:block_sparse_matmul``, the
+reference's per-column sweep for a packed weight without a walk.  Same
+function, another schedule: one CTA per (output block-column, 64-row
+M-tile), so each surviving block is streamed once per 64 rows, and bf16 x
+against an int8 payload multiplies on the tensor cores (mma.sync bf16,
+fp32 accumulation); pairs with an fp32 operand run fp32 FMAs.
+
+``block_sparse_matmul`` (B1) and ``block_sparse_matmul_col`` (B4) launch
+their kernel for CUDA tensors and run the plain version for CPU tensors;
+on CUDA the plain version runs only when the caller passes
+``use_kernel=False``.
 """
 
 from __future__ import annotations
@@ -75,6 +84,23 @@ def check_operands(x, blocks, block_rows, counts, scales) -> None:
         raise ValueError("blocks must be 16-byte aligned (cp.async)")
 
 
+def _launch(source: str, entry: str, x, blocks, block_rows, counts, scales) -> torch.Tensor:
+    """Allocate y and launch C entry ``entry`` of library ``source``; the
+    operands have passed ``check_operands``."""
+    M, K = x.shape
+    n_cols, mb = block_rows.shape
+    N = n_cols * BLOCK
+    y = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    lib = build.load(source)
+    code = getattr(lib, entry)(
+        build.ptr(x), build.ptr(blocks), build.ptr(block_rows), build.ptr(counts),
+        build.ptr(scales), build.ptr(y), M, K, N, mb,
+        build.DTYPE_CODES[x.dtype], build.DTYPE_CODES[blocks.dtype],
+        build.stream_ptr(x.device))
+    build.check(lib, code, entry)
+    return y
+
+
 def block_sparse_matmul(x, blocks, block_rows, counts, scales=None, *,
                         use_kernel: bool = True) -> torch.Tensor:
     """y (M, N) = x (M, K) @ W for the block-sparse W, in x's dtype.
@@ -86,19 +112,33 @@ def block_sparse_matmul(x, blocks, block_rows, counts, scales=None, *,
     if not x.is_cuda or not use_kernel:
         return block_sparse_matmul_plain(x, blocks, block_rows, counts, scales)
     check_operands(x, blocks, block_rows, counts, scales)
-    M, K = x.shape
-    n_cols, mb = block_rows.shape
-    N = n_cols * BLOCK
-    y = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    lib = build.load("block_sparse")
-    code = lib.bsmm_launch(
-        build.ptr(x), build.ptr(blocks), build.ptr(block_rows), build.ptr(counts),
-        build.ptr(scales), build.ptr(y), M, K, N, mb,
-        build.DTYPE_CODES[x.dtype], build.DTYPE_CODES[blocks.dtype],
-        build.stream_ptr(x.device))
-    build.check(lib, code, "block_sparse_matmul")
+    y = _launch("block_sparse", "bsmm_launch", x, blocks, block_rows, counts, scales)
     block_sparse_matmul.launches += 1
     return y
 
 
 block_sparse_matmul.launches = 0
+
+
+# B4 computes B1's function (padded slots hold zero blocks, so the plain
+# version need not consult counts; the kernel never reads them)
+block_sparse_matmul_col_plain = block_sparse_matmul_plain
+
+
+def block_sparse_matmul_col(x, blocks, block_rows, counts, scales=None, *,
+                            use_kernel: bool = True) -> torch.Tensor:
+    """y (M, N) = x (M, K) @ W through kernel B4, in x's dtype; operands as
+    for ``block_sparse_matmul``, and x 16-byte aligned (its slices are
+    copied by cp.async).  ``use_kernel=False`` runs the plain version on
+    CUDA tensors too."""
+    if not x.is_cuda or not use_kernel:
+        return block_sparse_matmul_col_plain(x, blocks, block_rows, counts, scales)
+    check_operands(x, blocks, block_rows, counts, scales)
+    if x.data_ptr() % 16:
+        raise ValueError("x must be 16-byte aligned (cp.async)")
+    y = _launch("block_sparse_col", "bsmm_col_launch", x, blocks, block_rows, counts, scales)
+    block_sparse_matmul_col.launches += 1
+    return y
+
+
+block_sparse_matmul_col.launches = 0

@@ -24,8 +24,8 @@ import torch
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("block_sparse", "fused_gate_up", "paged_attention", "flash_attention",
-           "batched_ffn", "quant_matmul")
+SOURCES = ("block_sparse", "block_sparse_col", "fused_gate_up", "paged_attention",
+           "flash_attention", "batched_ffn", "quant_matmul")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -45,6 +45,10 @@ _SIGNATURES = {
     "block_sparse": {
         # x, blocks, rows, counts, scales, y, M, K, N, mb, x_dtype, w_dtype, stream
         "bsmm_launch": ([_P] * 6 + [_I] * 6 + [_P], _I),
+    },
+    "block_sparse_col": {
+        # as bsmm_launch
+        "bsmm_col_launch": ([_P] * 6 + [_I] * 6 + [_P], _I),
     },
     "fused_gate_up": {
         # x, gate (blocks, rows, counts, scales), up (...), y,

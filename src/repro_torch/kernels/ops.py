@@ -25,10 +25,12 @@ def _check_k(x2, w):
 
 
 def block_sparse_matmul(x2, w):
-    """(M, K) @ PackedLinear -> (M, N) in x2's dtype (kernel B1)."""
+    """(M, K) @ PackedLinear -> (M, N) in x2's dtype: kernel B1 for a leaf
+    that carries its pack-time walk, B4 for one that does not -- the
+    reference's route under its jitted engine (``ops.py:103-110``)."""
     _check_k(x2, w)
-    return _bs.block_sparse_matmul(x2, w.blocks, w.block_rows, w.counts, w.scales,
-                                   use_kernel=w.use_kernel)
+    fn = _bs.block_sparse_matmul if w.walk is not None else _bs.block_sparse_matmul_col
+    return fn(x2, w.blocks, w.block_rows, w.counts, w.scales, use_kernel=w.use_kernel)
 
 
 def fused_gate_up(x2, g, u, activation: str):

@@ -2,11 +2,14 @@
 
     python -m repro_torch.launch.serve --arch tinyllama-1.1b --requests 8 \
         --max-new 16 --compress quant_sparse --q-prune 0.5 --block 128 \
-        --kv-dtype int8 --page-size 16 --share-prefix
+        --kv-dtype int8 --page-size 16 --share-prefix --plan-cache /tmp/plan
 
 Runs on the CUDA device (``--device cpu`` runs the plain versions on the
 CPU).  Takes the reference's flags; those the port does not serve yet exit
-with an error naming their ROADMAP item.  Reports the machine-balance n_opt
+with an error naming their ROADMAP item.  ``--plan-cache DIR`` stores the
+packed tree (``weight_plan.save_plan``) so that later boots skip packing;
+it also reads a directory the reference's CLI wrote.  Reports the
+machine-balance n_opt
 from the H100 data-sheet constants, the plan summary, and throughput next
 to the device's name.
 """
@@ -22,7 +25,7 @@ import torch
 import repro_torch.configs as C
 from repro_torch.core.batching import UNBOUNDED_NOPT, BatchSizer, mean_decode_context
 from repro_torch.core.perf_model import HARDWARE_LABEL, paged_pool_pages
-from repro_torch.core.weight_plan import PlanConfig, compress
+from repro_torch.core.weight_plan import PlanConfig, compress, load_plan, save_plan
 from repro_torch.device import resolve_device
 from repro_torch.models.api import get_api, kv_bytes_per_token, supports_paged_kv
 from repro_torch.serving.config import config_from_args
@@ -30,7 +33,6 @@ from repro_torch.serving.engine import Request, ServingEngine
 
 # flag -> (is it set?, the ROADMAP item that ports it)
 _UNSERVED_FLAGS = {
-    "--plan-cache": (lambda a: a.plan_cache is not None, "A3 (plan cache: checkpoint store)"),
     "--autotune-plan": (lambda a: a.autotune_plan is not None, "A12 (autotuner)"),
     "--mesh": (lambda a: a.mesh != "none", "A13 (sharding)"),
     "--draft-config": (lambda a: a.draft_config is not None, "A7 (speculative decode)"),
@@ -54,6 +56,36 @@ def device_name(device: torch.device) -> str:
     if device.type == "cuda":
         return torch.cuda.get_device_name(device)
     return "cpu"
+
+
+def _build_plan(params, pc: PlanConfig, cache_dir):
+    """Compress (or restore) the serving plan.  With a cache directory: a
+    hit when the stored plan's payload config equals ``pc`` (``use_kernel``
+    is the run's, whatever the file says); stale when it differs, and
+    incompatible when the directory was saved for another arch or shape:
+    both re-pack and overwrite; missing: pack and save."""
+    if cache_dir:
+        try:
+            t0 = time.perf_counter()
+            plan = load_plan(cache_dir, params, use_kernel=pc.use_kernel)
+            if plan.cfg == pc:
+                print(f"[serve] plan cache hit: {cache_dir} (loaded in "
+                      f"{time.perf_counter() - t0:.2f}s)")
+                return plan
+            print("[serve] plan cache stale (config changed); re-packing")
+        except FileNotFoundError:
+            print(f"[serve] plan cache missing: {cache_dir}; packing")
+        except ValueError as e:
+            # saved for a different arch/shape: re-pack rather than abort
+            print(f"[serve] plan cache incompatible ({e}); re-packing")
+    t0 = time.perf_counter()
+    plan = compress(params, pc)
+    print(f"[serve] packed weights in {time.perf_counter() - t0:.2f}s")
+    if cache_dir:
+        t0 = time.perf_counter()
+        save_plan(cache_dir, plan)
+        print(f"[serve] plan cached to {cache_dir} in {time.perf_counter() - t0:.2f}s")
+    return plan
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -125,11 +157,9 @@ def build_engine(args, ap=None):
     params = api.init_params(cfg, args.seed, device=device)
     plan = None
     if args.compress != "none":
-        t0 = time.perf_counter()
-        plan = compress(params, PlanConfig(default=args.compress, q_prune=args.q_prune,
-                                           bk=args.block, bn=args.block))
+        plan = _build_plan(params, PlanConfig(default=args.compress, q_prune=args.q_prune,
+                                              bk=args.block, bn=args.block), args.plan_cache)
         params = plan.params
-        print(f"[serve] packed weights in {time.perf_counter() - t0:.2f}s")
     if paged and not args.pool_pages:
         # size the pool for the workload: max_batch sequences at their
         # allocated context (prompt + max_new), plus the null page

@@ -160,13 +160,15 @@ def n_params_exact(cfg) -> int:
 
 
 def _layer_leaf(node, i: int):
-    """Layer ``i`` of a stacked leaf (views); a packed leaf leaves its walk
-    behind on the host, since no kernel reads it."""
+    """Layer ``i`` of a stacked leaf (views).  A packed leaf keeps row ``i``
+    of its walk, on the host, as the reference's scan slices it: whether a
+    leaf has a walk picks its kernel (B1 with, B4 without)."""
     if isinstance(node, PackedLinear):
         return dataclasses.replace(
             node, blocks=node.blocks[i], block_rows=node.block_rows[i],
             counts=node.counts[i],
-            scales=None if node.scales is None else node.scales[i], walk=None)
+            scales=None if node.scales is None else node.scales[i],
+            walk=None if node.walk is None else {k: v[i] for k, v in node.walk.items()})
     if isinstance(node, QuantLinear):
         return dataclasses.replace(node, q=node.q[i], s=node.s[i])
     return node[i]

@@ -136,7 +136,7 @@ def test_serve_cli_on_cpu(capsys):
     assert eng.pages_in_use == 0
 
 
-@pytest.mark.parametrize("flag", [["--plan-cache", "x"], ["--spec-k", "2"],
+@pytest.mark.parametrize("flag", [["--autotune-plan", "x"], ["--spec-k", "2"],
                                   ["--prefill-chunk", "8"], ["--mesh", "host"],
                                   ["--evict-policy", "priority"]])
 def test_serve_rejects_unserved_flags(flag, capsys):

@@ -71,6 +71,56 @@ def test_block_sparse_empty_column_writes_zeros(cuda):
     assert torch.all(y[:, :128] == 0)
 
 
+# B4: bf16 x with an int8 payload multiplies on the tensor cores (exact
+# bf16 products, fp32 sums): about one bf16 ulp of the output, 1e-2 of the
+# max; fp32 pairs run fp32 FMAs (1e-5).  One layer's full-width shapes at
+# decode, a ragged M, a multi-tile prefill, and a small ragged weight.
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("quant", [True, False])
+@pytest.mark.parametrize("M,K,N", [(8, 2048, 2048), (8, 2048, 256), (8, 5632, 2048),
+                                   (37, 2048, 2048), (200, 384, 256), (1, 384, 256)])
+def test_block_sparse_col_kernel_matches_plain(cuda, M, K, N, quant, dtype, rtol):
+    p = _packed(K, N, quant, 4, cuda)
+    x = torch.randn((M, K), device=cuda).to(dtype)
+    args = (p.blocks, p.block_rows, p.counts, p.scales)
+    n = BS.block_sparse_matmul_col.launches
+    y = BS.block_sparse_matmul_col(x, *args)
+    assert BS.block_sparse_matmul_col.launches == n + 1 and y.dtype == dtype
+    ref = BS.block_sparse_matmul_col(x, *args, use_kernel=False)
+    assert BS.block_sparse_matmul_col.launches == n + 1
+    torch.cuda.synchronize()
+    _close(y, ref, rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_block_sparse_col_empty_column_writes_zeros(cuda, dtype):
+    w = torch.randn((256, 384), device=cuda)
+    w[:, 128:256] = 0.0
+    p = pack_block_sparse(w, PlanConfig(q_prune=0.5), quant=True)
+    assert int(p.counts[1]) == 0
+    x = torch.randn((70, 256), device=cuda).to(dtype)
+    y = BS.block_sparse_matmul_col(x, p.blocks, p.block_rows, p.counts, p.scales)
+    torch.cuda.synchronize()
+    assert torch.all(y[:, 128:256] == 0) and y[:, :128].abs().amax() > 0
+
+
+def test_block_sparse_col_rejects_what_the_kernel_does_not_take(cuda):
+    p = _packed(256, 256, True, 5, cuda)
+    x = torch.randn((4, 256), device=cuda).to(torch.bfloat16)
+    args = (p.blocks, p.block_rows, p.counts, p.scales)
+    misaligned = torch.zeros(4 * 256 + 1, device=cuda, dtype=torch.bfloat16)[1:].view(4, 256)
+    for bad_x in (x[:, :128], x.double(), x.t().contiguous().t(), misaligned):
+        with pytest.raises(ValueError):
+            BS.block_sparse_matmul_col(bad_x, *args)
+    small = pack_block_sparse(torch.randn((64, 64), device=cuda),
+                              PlanConfig(q_prune=0.5, bk=32, bn=32), quant=True)
+    with pytest.raises(ValueError):  # blocks other than 128
+        BS.block_sparse_matmul_col(torch.randn((4, 64), device=cuda), small.blocks,
+                                   small.block_rows, small.counts, small.scales)
+    with pytest.raises(ValueError):
+        BS.block_sparse_matmul_col(x, p.blocks.to(torch.int32), *args[1:])
+
+
 @pytest.mark.parametrize("activation", ["silu", "gelu", "relu"])
 def test_fused_gate_up_kernel_matches_plain(cuda, activation):
     g, u = _packed(256, 384, True, 1, cuda), _packed(256, 384, True, 2, cuda)

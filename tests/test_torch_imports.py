@@ -30,7 +30,8 @@ def test_import_leaves_jax_and_repro_out():
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert len(mods) >= 20, mods\n"
         "new = {'repro_torch.core.quantization', 'repro_torch.models.fcnet',\n"
-        "       'repro_torch.kernels.batched_ffn', 'repro_torch.kernels.quant_matmul'}\n"
+        "       'repro_torch.kernels.batched_ffn', 'repro_torch.kernels.quant_matmul',\n"
+        "       'repro_torch.checkpoint.store'}\n"
         "assert new <= set(mods), new - set(mods)\n"
         "print('BAD', bad)\n"
         "sys.exit(1 if bad else 0)\n"

@@ -124,8 +124,9 @@ def test_param_shapes_match_reference():
 
 def test_unstack_gives_per_layer_views():
     """``unstack`` runs once per model: one params dict per layer, whose
-    leaves are views of the stacked tensors; packed leaves leave their
-    walk behind on the host.  Applied to its own output it is a no-op."""
+    leaves are views of the stacked tensors; packed leaves keep their
+    layer's row of the walk, on the host.  Applied to its own output it is
+    a no-op."""
     cfg = get_config("tinyllama-1.1b", smoke=True)
     plan = TW.compress(T.init_params(cfg, 0, device="cpu"),
                        TW.PlanConfig(q_prune=0.5, bk=16, bn=16))
@@ -136,6 +137,9 @@ def test_unstack_gives_per_layer_views():
     assert stacked["mlp"]["w_up"].walk["idx"].device.type == "cpu"
     for i, layer in enumerate(view["layers"]):
         w = layer["mlp"]["w_up"]
-        assert isinstance(w, TW.PackedLinear) and w.blocks.dim() == 3 and w.walk is None
+        assert isinstance(w, TW.PackedLinear) and w.blocks.dim() == 3
+        assert w.walk is not None and set(w.walk) == set(stacked["mlp"]["w_up"].walk)
+        for k, v in w.walk.items():
+            assert v.device.type == "cpu" and torch.equal(v, stacked["mlp"]["w_up"].walk[k][i])
         assert w.blocks.data_ptr() == stacked["mlp"]["w_up"].blocks[i].data_ptr()
         assert layer["ln1"]["scale"].data_ptr() == stacked["ln1"]["scale"][i].data_ptr()
