@@ -2,7 +2,8 @@
 """On-card smoke test of the PyTorch/CUDA port (``src/repro_torch``).
 
     python3 chip_smoke.py            # every phase, on one CUDA device
-    python3 chip_smoke.py --profile  # then torch.profiler: decode steps, a long prefill
+    python3 chip_smoke.py --profile  # also B1/B2 under every decode split; then
+                                     # torch.profiler: decode steps, a long prefill
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -11,9 +12,12 @@ Phases, in order; any failure raises and the script exits non-zero:
                src/repro_torch/csrc, one process per source, all at once.
 3. kernels  -- each kernel against its plain PyTorch version on the card at
                the shapes its main path gives it: B1-B4 at full-width
-               tinyllama-1.1b (decode batch, and prompt lengths at
-               prefill up to M 2032; B4 also against B1, on an fp32
-               payload and on a column that keeps no block), B6 at a
+               tinyllama-1.1b (decode batches, prompt lengths at prefill
+               up to M 2032, and the M edges of B1/B2's two regimes: 1,
+               63-65, 127-129; B1 and B2 also launched twice on the same
+               operands, which must give the same bits; B4 also against
+               B1, on an fp32 payload and on a column that keeps no
+               block), B6 at a
                2048-token causal prefill, an
                1100-token int8-K/V one and a 256-token window, B5 at the
                int8 head (2048x32000) and 2048x5632, each at M 8 and 40,
@@ -21,7 +25,10 @@ Phases, in order; any failure raises and the script exits non-zero:
                ragged shapes, B8 also on saturated codes that force the
                int32 wrap.  Timings are CUDA events, median of single
                launches after an L2 flush, with the bound and a PyTorch
-               library call as a yardstick.
+               library call as a yardstick; also the host's time per B1
+               and B4 call at decode.  With --profile, then B1/B2 at
+               decode batches under every regime their C entry takes
+               (the split sweep ``launch_plan`` rests on).
 4. fcnet    -- the paper's four FC nets (Table 2) at published widths,
                random weights from a seed: forward_fp32 / forward_pruned
                (B7) held to the plain path, forward_q78 (B8) equal to it
@@ -50,7 +57,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                past 1024 tokens runs its attention through B6 (exactly
                22 x 3 launches); B1, B2, B3 and B5 must launch too, every
                request must finish and the page audit must be clean; each
-               prefill is timed on the card's clock.
+               prefill is timed on the card's clock, the 2032-token one
+               also against the last measurement before B1/B2 ran on wgmma.
 8. parity   -- prefill of the serve phase's prompt lengths and of 2032
                tokens, then teacher-forced decode, through the kernels and
                through the plain versions (with_use_kernel(False),
@@ -97,6 +105,13 @@ KERNEL_RTOL = 1e-2
 PATH_RTOL = 5e-2
 # the longest prompt of the long-prefill phase (prompt + 16 new = 2048)
 LONG_M = 2032
+# B1 and B2 switch from the decode regime (one 64-row tile, a cluster split)
+# to the prefill regime (128-row tiles) above 64 rows: the rows each regime
+# and tile edge meet, besides the main path's decode batches and prompts
+M_EDGES = (1, 63, 64, 65, 127, 128, 129)
+# the 2032-token prefill on the card's clock before B1/B2 ran on wgmma
+# (NVIDIA H100 80GB HBM3, 700 W; fp32 CUDA-core B1/B2 with 16-row tiles)
+LONG_PREFILL_MS_BEFORE = 117.722
 # B5/B7 in fp32: kernel and plain version both sum in fp32, in another
 # order, over K <= 2048; held to max |kernel - plain| <= FP32_RTOL * max
 # |plain|.  B8 is integer arithmetic: exact equality, no tolerance.
@@ -201,8 +216,9 @@ def phase_build() -> None:
     for name, info in out.items():
         regs = sorted(set(re.findall(r"Used (\d+) registers", info["log"])), key=int)
         spill = max(map(int, re.findall(r"(\d+) bytes spill stores", info["log"])), default=0)
+        stack = max(map(int, re.findall(r"(\d+) bytes stack frame", info["log"])), default=0)
         log(f"ptxas {name}: registers per thread {', '.join(regs)}; "
-            f"largest spill {spill} bytes")
+            f"largest spill {spill} bytes, largest stack frame {stack} bytes")
 
 
 def _packed(torch, K, N, gen):
@@ -245,6 +261,37 @@ def _b4_edges(torch, gen) -> None:
                 raise AssertionError("B4 wrote nonzero outputs for a column with no block")
 
 
+def _deterministic(torch, label: str, first, second) -> None:
+    """Two launches on the same operands must give the same bits (B1 and
+    B2 sum in a fixed order: no float atomics)."""
+    torch.cuda.synchronize()
+    if not torch.equal(first, second):
+        raise AssertionError(f"{label}: two launches on the same operands differ")
+    log(f"{label}: two launches bit for bit equal")
+
+
+def _host_cost(torch, gen) -> None:
+    """The host's time per call of the B1 and B4 wrappers at decode (wq,
+    M = 8): B1 also encodes a TMA tensor map for x and picks its regime on
+    every call.  Host clock over 200 back-to-back calls; the card finishes
+    each call faster than the host issues the next."""
+    from repro_torch.kernels import block_sparse as BS
+
+    p = _packed(torch, 2048, 2048, gen)
+    x = torch.randn((8, 2048), generator=gen, device="cuda").to(torch.bfloat16)
+    args = (p.blocks, p.block_rows, p.counts, p.scales)
+    for name, fn in (("B1", BS.block_sparse_matmul), ("B4", BS.block_sparse_matmul_col)):
+        for _ in range(20):
+            fn(x, *args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            fn(x, *args)
+        host_us = (time.perf_counter() - t0) / 200 * 1e6
+        torch.cuda.synchronize()
+        log(f"host cost of one {name} call (wq, M=8): {host_us:.2f} us")
+
+
 def phase_kernels(torch, results: dict) -> None:
     from repro_torch.kernels import block_sparse as BS
     from repro_torch.kernels import flash_attention as FA
@@ -255,10 +302,11 @@ def phase_kernels(torch, results: dict) -> None:
     gen.manual_seed(0)
 
     # B1 and B4 at every K x N of one tinyllama layer (wq, wk, wv, wo,
-    # w_down) at M = 8 and 12 (decode batches: one M-tile, ragged), 37 (a
-    # ragged prefill), 40 (the serve phase's prefill) and 2032 (the longest
-    # prefill of the long phase), each against its plain version and B4
-    # also against B1; timed at M = 8 (the summary line) and at M = 2032,
+    # w_down) at M = 8 and 12 (decode batches), 37 (a ragged prefill), 40
+    # (the serve phase's prefill), 2032 (the longest prefill of the long
+    # phase) and the regime edges M_EDGES, each against its plain version
+    # and B4 also against B1; B1 launched twice at M = 8 and 2032 must give
+    # the same bits; timed at M = 8 (the summary line) and at M = 2032,
     # beside the plain version and torch.matmul on the dequantized weight
     shapes = {"wq": (2048, 2048), "wk": (2048, 256), "wv": (2048, 256),
               "wo": (2048, 2048), "w_down": (5632, 2048)}
@@ -270,10 +318,12 @@ def phase_kernels(torch, results: dict) -> None:
         p = _packed(torch, K, N, gen)
         wd = _dense_bf16(torch, p)
         args = (p.blocks, p.block_rows, p.counts, p.scales)
-        for M in (8, 12, 37, 40, LONG_M):
+        for M in sorted((8, 12, 37, 40, LONG_M) + M_EDGES):
             x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
             ref = BS.block_sparse_matmul(x, *args, use_kernel=False)
             ys = {b: f(x, *args) for b, f in kern.items()}
+            if M in (8, LONG_M):
+                _deterministic(torch, f"B1 {name} M={M}", ys["B1"], kern["B1"](x, *args))
             for b, y in ys.items():
                 d, r = _held(torch, f"{b} {name} {K}x{N} M={M}", y, ref, KERNEL_RTOL)
                 err[b] = [max(err[b][0], d), max(err[b][1], r)]
@@ -301,6 +351,7 @@ def phase_kernels(torch, results: dict) -> None:
             f"{t4['library_ms']:.4f} ms, bound {bound(t4['bytes'], t4['flops'])[0]:.4f} ms "
             f"({bound(t4['bytes'], t4['flops'])[1]})")
     _b4_edges(torch, gen)
+    _host_cost(torch, gen)
     for b, fn in kern.items():
         t = sums[b, 8]
         results[fn.__name__] = {
@@ -309,18 +360,21 @@ def phase_kernels(torch, results: dict) -> None:
             "bound_by": bound(t["bytes"], t["flops"])[1],
             "shape": "sum of one layer's wq, wk, wv, wo, w_down at M=8"}
 
-    # B2: gate/up 2048 x 5632 at M = 2032 and 40 (prefill), then M = 8
-    # (decode); timed at M = 2032 and at M = 8 (the summary line)
+    # B2: gate/up 2048 x 5632 at M = 2032 and 40 (prefill), the regime
+    # edges, then M = 8 (decode); launched twice at M = 2032 and 8 (the
+    # same bits); timed at M = 2032 and at M = 8 (the summary line)
     K, N = 2048, 5632
     g, u = _packed(torch, K, N, gen), _packed(torch, K, N, gen)
     wgu = torch.cat([_dense_bf16(torch, g), _dense_bf16(torch, u)], dim=1)
     ga, ua = (g.blocks, g.block_rows, g.counts), (u.blocks, u.block_rows, u.counts)
     b2_err = b2_rel = 0.0
     surv = int(g.counts.sum() + u.counts.sum())
-    for M in (LONG_M, 40, 8):
+    for M in (LONG_M, 40, *M_EDGES, 8):
         x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
         y = FG.fused_gate_up(x, ga, ua, g.scales, u.scales)
         ref = FG.fused_gate_up(x, ga, ua, g.scales, u.scales, use_kernel=False)
+        if M in (8, LONG_M):
+            _deterministic(torch, f"B2 M={M}", y, FG.fused_gate_up(x, ga, ua, g.scales, u.scales))
         torch.cuda.synchronize()
         diff, rel = rel_err(torch, y, ref)
         log(f"B2 {K}x{N} M={M}: max|diff| {diff:.3e} rel {rel:.3e}")
@@ -591,6 +645,52 @@ def phase_dense_kernels(torch, results: dict) -> None:
     results["q78_matmul"] = {
         "max_abs_err": b8_err, "max_rel_err": b8_err, **b8,
         "shape": "2000x1500 int16 at B=16 (HAR-6 layer 2)"}
+
+
+def phase_sweep(torch) -> None:
+    """B1 (wq, wk, w_down) and B2 at decode batches M = 1, 8, 40 and 64
+    under each regime the C entry takes -- (128, 1) and (64, split) for
+    split 1..8 -- in place of the one ``launch_plan`` picks; each result is
+    held to the plain version first.  What ``launch_plan``'s split rule
+    rests on."""
+    from repro_torch.kernels import block_sparse as BS
+    from repro_torch.kernels import fused_gate_up as FG
+
+    timer = Timer(torch)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6)
+    shapes = {"wq": (2048, 2048), "wk": (2048, 256), "w_down": (5632, 2048)}
+    packs = {n: _packed(torch, K, N, gen) for n, (K, N) in shapes.items()}
+    g, u = _packed(torch, 2048, 5632, gen), _packed(torch, 2048, 5632, gen)
+    regimes = [(128, 1)] + [(64, c) for c in range(1, BS.MAX_SPLIT + 1)]
+    plan, n_sm = BS.launch_plan, BS.sm_count(torch.device("cuda"))
+    try:  # the wrappers take the regime from BS.launch_plan: swap it per run
+        for M in (1, 8, 40, 64):
+            calls = {}
+            for name, (K, N) in shapes.items():
+                p = packs[name]
+                x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+                args = (x, p.blocks, p.block_rows, p.counts, p.scales)
+                calls[f"B1 {name}"] = (BS.block_sparse_matmul, args,
+                                       plan(M, *p.block_rows.shape, n_sm))
+            x = torch.randn((M, 2048), generator=gen, device="cuda").to(torch.bfloat16)
+            args = (x, (g.blocks, g.block_rows, g.counts), (u.blocks, u.block_rows, u.counts),
+                    g.scales, u.scales)
+            mb = max(g.block_rows.shape[1], u.block_rows.shape[1])
+            calls["B2"] = (FG.fused_gate_up, args, plan(M, g.block_rows.shape[0], mb, n_sm))
+            for label, (fn, args, chosen) in calls.items():
+                ref = fn(*args, use_kernel=False)
+                row = []
+                for regime in regimes:
+                    BS.launch_plan = lambda *a, regime=regime: regime
+                    _, r = rel_err(torch, fn(*args), ref)
+                    if not r <= KERNEL_RTOL:
+                        raise AssertionError(f"sweep {label} M={M} {regime}: rel err {r:.3e}")
+                    row.append(f"{regime[0]}/{regime[1]} {timer(lambda: fn(*args)) * 1e3:.1f}")
+                log(f"sweep {label} M={M} (bm/split us; launch_plan picks "
+                    f"{chosen[0]}/{chosen[1]}): " + ", ".join(row))
+    finally:
+        BS.launch_plan = plan
 
 
 def _fcnet_launches(cfg, kind: str, batch: int, m: int = 114) -> int:
@@ -950,8 +1050,11 @@ def phase_long(torch, results: dict) -> None:
     results.setdefault("flash_attention", {})["launches"] = launches["flash_attention"]
     torch.cuda.synchronize()
     for uid, n, start, end in timed:
-        log(f"long: request {uid} prefill of {n} tokens {start.elapsed_time(end):.3f} ms "
-            f"on the card's clock")
+        ms = start.elapsed_time(end)
+        log(f"long: request {uid} prefill of {n} tokens {ms:.3f} ms on the card's clock")
+        if n == LONG_M:
+            log(f"long: the {LONG_M}-token prefill {ms:.3f} ms against {LONG_PREFILL_MS_BEFORE} "
+                f"ms before B1/B2 ran on wgmma ({LONG_PREFILL_MS_BEFORE / ms:.2f}x)")
     log(f"long: {engine.stats.completed}/{len(reqs)} FINISHED, audit clean, "
         f"{engine.stats.decode_tokens / dt:.1f} tok/s on {torch.cuda.get_device_name(0)}")
     del engine
@@ -1171,7 +1274,8 @@ def phase_profile(torch, cfg, engine, steps: int = 6) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="on-card smoke test of the CUDA port")
     ap.add_argument("--profile", action="store_true",
-                    help="after every phase, profile decode steps and a long prefill "
+                    help="time B1/B2 at decode under every cluster split after the kernels "
+                         "phase; after every phase, profile decode steps and a long prefill "
                          "with torch.profiler")
     args = ap.parse_args(argv)
     import torch
@@ -1190,6 +1294,8 @@ def main(argv=None) -> int:
     card = phase_device(torch)
     phase_build()
     phase_kernels(torch, results)
+    if args.profile:
+        phase_sweep(torch)
     phase_flash(torch, results)
     phase_dense_kernels(torch, results)
     phase_fcnet(torch, results)

@@ -495,6 +495,9 @@ def _node_meta(node) -> dict:
             "bk": node.bk,
             "bn": node.bn,
             "use_kernel": node.use_kernel,
+            # the reference's load_plan reads this key for every packed
+            # leaf; the port has no interpret mode and ignores it on load
+            "interpret": False,
             "has_scales": node.scales is not None,
             "has_walk": node.walk is not None,
         }
@@ -532,7 +535,8 @@ def save_plan(base: str, plan: WeightPlan) -> str:
                if f.name != "rules"},
             "rules": [list(r) for r in plan.cfg.rules],
         },
-        "leaves": {p: {**dataclasses.asdict(l), "shape": list(l.shape)}
+        # "axes" as the reference writes it for a plan built without axes
+        "leaves": {p: {**dataclasses.asdict(l), "shape": list(l.shape), "axes": []}
                    for p, l in plan.leaves.items()},
         "packed": {p: _node_meta(n) for p, n in _index_nodes(plan.params).items()},
     }

@@ -23,12 +23,14 @@
 // padded x slice (conflict-free).  Warps whose 16 rows lie past M skip
 // their MMAs.  Pairs with an fp32 operand (fp32 x, or the fp32 payload of
 // --compress block_sparse) run fp32 CUDA-core FMAs over the same 64-row
-// tile: fp32 weights are never rounded to bf16.  wgmma, TMA and a split of
+// tile (fma_column.cuh, shared with B1 and B2): fp32 weights are never
+// rounded to bf16.  wgmma, TMA and a split of
 // the k loop across warps at decode are later work.
 //
 // Hazards handled: a column with counts[j] == 0 writes zeros (the output
 // comes from torch.empty); the ragged M edge is masked (x rows past M are
 // zero-filled in shared memory, never read; nothing is padded).
+#include "fma_column.cuh"
 #include "mma.cuh"
 
 #include <type_traits>
@@ -164,111 +166,23 @@ bsmm_col_mma_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restric
   }
 }
 
-// -- pairs with an fp32 operand: fp32 CUDA-core FMAs -------------------------
-
-constexpr int kFmaThreads = 256;
-constexpr int kFmaRows = BM / (kFmaThreads / BN);  // 32 rows per thread
-constexpr int XLD = BM + 4;                        // fp32 per shared k-row of the x slice
-
-template <typename WT>
-constexpr size_t fma_smem_bytes() {
-  return 2 * sizeof(WT) * BK * BN + sizeof(float) * BK * XLD;
-}
-
-template <typename XT, typename WT>
-__global__ void __launch_bounds__(kFmaThreads)
-bsmm_col_fma_kernel(const XT* __restrict__ x, const WT* __restrict__ blocks,
-                    const int* __restrict__ block_rows, const int* __restrict__ counts,
-                    const float* __restrict__ scales, XT* __restrict__ y, int M, int K, int N,
-                    int mb) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  WT* wbuf = reinterpret_cast<WT*>(smem);
-  float* xs = reinterpret_cast<float*>(smem + 2 * sizeof(WT) * BK * BN);  // xs[k * XLD + m]
-
-  const int j = blockIdx.x;
-  const int m0 = blockIdx.y * BM;
-  const int tid = threadIdx.x;
-  const int n = tid % BN;                      // this thread's output column
-  const int r0 = (tid / BN) * kFmaRows;        // and its first row
-  const int count = counts[j];
-  const WT* col_blocks = blocks + static_cast<size_t>(j) * mb * BK * BN;
-  const int* col_rows = block_rows + static_cast<size_t>(j) * mb;
-  const bool active = m0 + r0 < M;             // warp-uniform
-
-  float acc[kFmaRows];
-#pragma unroll
-  for (int r = 0; r < kFmaRows; ++r) acc[r] = 0.0f;
-
-  auto fetch = [&](int s, int buf) {
-    constexpr int kChunks = static_cast<int>(sizeof(WT) * BK * BN / 16);
-    const char* src = reinterpret_cast<const char*>(col_blocks + static_cast<size_t>(s) * BK * BN);
-    char* dst = reinterpret_cast<char*>(wbuf + buf * BK * BN);
-    for (int c = tid; c < kChunks; c += kFmaThreads) cp_async16(dst + 16 * c, src + 16 * c);
-  };
-
-  if (count > 0) fetch(0, 0);
-  cp_async_commit();
-  for (int s = 0; s < count; ++s) {
-    const int buf = s & 1;
-    if (s + 1 < count) fetch(s + 1, buf ^ 1);
-    cp_async_commit();
-    const int kb = col_rows[s] * BK;
-    for (int i = tid; i < BM * BK; i += kFmaThreads) {
-      const int m = i / BK, k = i % BK, gm = m0 + m;
-      xs[k * XLD + m] = gm < M ? to_float(x[static_cast<size_t>(gm) * K + kb + k]) : 0.0f;
-    }
-    cp_async_wait<1>();
-    __syncthreads();
-    if (active) {
-      const WT* wb = wbuf + buf * BK * BN;
-#pragma unroll 2
-      for (int k = 0; k < BK; ++k) {
-        const float w = to_float(wb[k * BN + n]);
-        const float4* xr = reinterpret_cast<const float4*>(xs + k * XLD + r0);
-#pragma unroll
-        for (int q = 0; q < kFmaRows / 4; ++q) {
-          const float4 a = xr[q];
-          acc[4 * q + 0] = fmaf(a.x, w, acc[4 * q + 0]);
-          acc[4 * q + 1] = fmaf(a.y, w, acc[4 * q + 1]);
-          acc[4 * q + 2] = fmaf(a.z, w, acc[4 * q + 2]);
-          acc[4 * q + 3] = fmaf(a.w, w, acc[4 * q + 3]);
-        }
-      }
-    }
-    __syncthreads();  // the next step overwrites xs and this step's buffer
-  }
-
-  const float sc = scales != nullptr ? scales[j * BN + n] : 1.0f;
-#pragma unroll
-  for (int r = 0; r < kFmaRows; ++r) {
-    const int m = m0 + r0 + r;
-    if (m < M) y[static_cast<size_t>(m) * N + j * BN + n] = from_float<XT>(acc[r] * sc);
-  }
-}
-
 template <typename XT, typename WT>
 int launch(const void* x, const void* blocks, const int* rows, const int* counts,
            const float* scales, void* y, int M, int K, int N, int mb, cudaStream_t stream) {
-  dim3 grid(N / BN, (M + BM - 1) / BM);
-  cudaError_t err;
   if constexpr (std::is_same<XT, __nv_bfloat16>::value && std::is_same<WT, int8_t>::value) {
-    err = cudaFuncSetAttribute(bsmm_col_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(kMmaSmem));
+    dim3 grid(N / BN, (M + BM - 1) / BM);
+    cudaError_t err = cudaFuncSetAttribute(
+        bsmm_col_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(kMmaSmem));
     if (err != cudaSuccess) return static_cast<int>(err);
     bsmm_col_mma_kernel<<<grid, kMmaThreads, kMmaSmem, stream>>>(
         static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(blocks), rows, counts,
         scales, static_cast<__nv_bfloat16*>(y), M, K, N, mb);
+    return static_cast<int>(cudaGetLastError());
   } else {
-    constexpr size_t smem = fma_smem_bytes<WT>();
-    auto kern = bsmm_col_fma_kernel<XT, WT>;
-    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    kern<<<grid, kFmaThreads, smem, stream>>>(static_cast<const XT*>(x),
-                                              static_cast<const WT*>(blocks), rows, counts,
-                                              scales, static_cast<XT*>(y), M, K, N, mb);
+    return fcol::launch_column_fma<XT, WT>(x, blocks, rows, counts, scales, y, M, K, N, mb,
+                                           stream);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace

@@ -2,13 +2,21 @@
 versions and launch counters of ``csrc/block_sparse.cu`` (B1) and
 ``csrc/block_sparse_col.cu`` (B4).
 
-Replaces ``repro/kernels/block_sparse.py:block_sparse_matmul_mc``.  What
+B1 replaces ``repro/kernels/block_sparse.py:block_sparse_matmul_mc``.  What
 bounds it on the H100: at decode, M (the live batch) is far below the
-card's ~295 FLOP/byte balance point, so the kernel is bound by the weight
-stream -- surviving payload + scales + x + y over 3.35 TB/s.  Its design
-reads only the surviving blocks (one byte per int8 weight), one CTA per
-(output block-column, 16-row M-tile), with the next block's copy in flight
-while the current one multiplies (cp.async double buffer).
+card's ~295 FLOP/byte balance point, so the weight stream bounds it --
+surviving payload + scales + x + y over 3.35 TB/s; at prefill (M up to
+2032) each block serves every row, and the bf16 tensor-core rate bounds
+it.  Its design for bf16 x against an int8 payload (``csrc/wgmma_column.cuh``)
+reads only the surviving blocks, one byte per int8 weight, through a ring
+of bulk copies (payload) and TMA loads (x) that a producer warp keeps in
+flight, converts each block exactly to bf16 in shared memory and
+multiplies on ``wgmma`` with fp32 sums.  ``launch_plan`` picks the regime
+from shapes the host knows: at prefill one CTA per (output block-column,
+128-row M tile), so each block is streamed once per 128 rows; at decode
+(M <= 64) one 64-row tile, with a column's blocks split over a cluster of
+up to 8 CTAs whose partial sums rank 0 adds in rank order.  Pairs with an
+fp32 operand run fp32 CUDA-core FMAs.
 
 B4 replaces ``repro/kernels/block_sparse.py:block_sparse_matmul``, the
 reference's per-column sweep for a packed weight without a walk.  Same
@@ -30,6 +38,8 @@ import torch
 from repro_torch.kernels import build
 
 BLOCK = 128  # the kernel's (bk, bn) block edge
+DECODE_MAX_M = 64  # up to this many rows, one 64-row tile and a cluster split
+MAX_SPLIT = 8  # the portable cluster size
 X_DTYPES = (torch.float32, torch.bfloat16)
 W_DTYPES = (torch.int8, torch.float32)
 
@@ -84,9 +94,40 @@ def check_operands(x, blocks, block_rows, counts, scales) -> None:
         raise ValueError("blocks must be 16-byte aligned (cp.async)")
 
 
-def _launch(source: str, entry: str, x, blocks, block_rows, counts, scales) -> torch.Tensor:
-    """Allocate y and launch C entry ``entry`` of library ``source``; the
-    operands have passed ``check_operands``."""
+def check_x_aligned(x) -> None:
+    """The kernels copy x in 16-byte pieces (cp.async, TMA)."""
+    if x.data_ptr() % 16:
+        raise ValueError("x must be 16-byte aligned (cp.async, TMA)")
+
+
+def launch_plan(M: int, n_cols: int, mb: int, n_sm: int) -> tuple:
+    """(bm, split) of B1 and B2 for an (M, K) x against ``n_cols`` output
+    block-columns of ``mb`` slots each (B2: the larger of its two mb), on a
+    card of ``n_sm`` SMs -- from shapes alone, never from ``counts``, which
+    lie on the card and would synchronise every launch.
+
+    Prefill (M > DECODE_MAX_M): 128-row tiles, no split.  Decode: one
+    64-row tile, and each column's slots dealt round-robin to ``split``
+    CTAs of a cluster (rank r takes slots r, r + split, ...): at most
+    MAX_SPLIT, no more than the slots, and no more CTAs than three
+    quarters of the SMs -- a cluster's CTAs must share one GPC, so the
+    card runs fewer large clusters at once than it has SMs, and a launch
+    that does not fit them all runs in two waves (PERF.md, the split
+    sweep)."""
+    if M > DECODE_MAX_M:
+        return 128, 1
+    return 64, max(1, min(MAX_SPLIT, mb, (3 * n_sm // 4) // max(1, n_cols)))
+
+
+def sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _launch(source: str, entry: str, x, blocks, block_rows, counts, scales,
+            *regime) -> torch.Tensor:
+    """Allocate y and launch C entry ``entry`` of library ``source`` (with
+    B1's ``regime`` = (bm, split) arguments, if given); the operands have
+    passed ``check_operands``."""
     M, K = x.shape
     n_cols, mb = block_rows.shape
     N = n_cols * BLOCK
@@ -95,7 +136,7 @@ def _launch(source: str, entry: str, x, blocks, block_rows, counts, scales) -> t
     code = getattr(lib, entry)(
         build.ptr(x), build.ptr(blocks), build.ptr(block_rows), build.ptr(counts),
         build.ptr(scales), build.ptr(y), M, K, N, mb,
-        build.DTYPE_CODES[x.dtype], build.DTYPE_CODES[blocks.dtype],
+        build.DTYPE_CODES[x.dtype], build.DTYPE_CODES[blocks.dtype], *regime,
         build.stream_ptr(x.device))
     build.check(lib, code, entry)
     return y
@@ -108,11 +149,13 @@ def block_sparse_matmul(x, blocks, block_rows, counts, scales=None, *,
     blocks (N/128 * mb, 128, 128) int8 or float32; block_rows (N/128, mb)
     and counts (N/128,) int32; scales (N,) float32 per-output-channel
     dequant scales or None.  ``use_kernel=False`` runs the plain version
-    on CUDA tensors too."""
+    on CUDA tensors too; x must be 16-byte aligned."""
     if not x.is_cuda or not use_kernel:
         return block_sparse_matmul_plain(x, blocks, block_rows, counts, scales)
     check_operands(x, blocks, block_rows, counts, scales)
-    y = _launch("block_sparse", "bsmm_launch", x, blocks, block_rows, counts, scales)
+    check_x_aligned(x)
+    regime = launch_plan(x.shape[0], *block_rows.shape, sm_count(x.device))
+    y = _launch("block_sparse", "bsmm_launch", x, blocks, block_rows, counts, scales, *regime)
     block_sparse_matmul.launches += 1
     return y
 
@@ -134,8 +177,7 @@ def block_sparse_matmul_col(x, blocks, block_rows, counts, scales=None, *,
     if not x.is_cuda or not use_kernel:
         return block_sparse_matmul_col_plain(x, blocks, block_rows, counts, scales)
     check_operands(x, blocks, block_rows, counts, scales)
-    if x.data_ptr() % 16:
-        raise ValueError("x must be 16-byte aligned (cp.async)")
+    check_x_aligned(x)
     y = _launch("block_sparse_col", "bsmm_col_launch", x, blocks, block_rows, counts, scales)
     block_sparse_matmul_col.launches += 1
     return y

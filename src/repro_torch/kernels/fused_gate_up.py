@@ -3,11 +3,13 @@ of ``csrc/fused_gate_up.cu``.
 
 Replaces ``repro/kernels/fused_gate_up.py:fused_gate_up``.  Computes
 ``act(x @ Wg * sg) * (x @ Wu * su)`` in one launch for an independently
-pruned (gate, up) pair.  What bounds it on the H100: the weight stream, as
-for B1 (both surviving payloads + both scale vectors + x + y over
-3.35 TB/s at decode).  Its design streams each side's surviving blocks
-into its own fp32 accumulator (one CTA per output block-column and 16-row
-M-tile) and applies scales, activation and product in the epilogue, so the
+pruned (gate, up) pair.  What bounds it on the H100: as for B1, the weight
+stream at decode (both surviving payloads + both scale vectors + x + y
+over 3.35 TB/s) and the bf16 tensor-core rate at prefill.  Its design is
+B1's (``csrc/wgmma_column.cuh``: ``wgmma``, a ring of bulk copies and TMA
+loads, 128-row tiles at prefill, a cluster split of both slot lists at
+decode, regime from ``block_sparse.launch_plan``) with two fp32
+accumulators; the epilogue applies scales, activation and product, so the
 gate projection never goes to device memory.
 """
 
@@ -17,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import build
+from repro_torch.kernels import block_sparse as _bs
 from repro_torch.kernels.block_sparse import block_sparse_fp32, check_operands
 
 # weight_plan.GATE_ACTS name -> csrc/common.cuh Act code
@@ -53,7 +56,8 @@ def fused_gate_up(x, gate, up, gate_scales=None, up_scales=None, *,
                   activation: str = "silu", use_kernel: bool = True) -> torch.Tensor:
     """y (M, N) = act(x @ Wg) * (x @ Wu) for block-sparse Wg, Wu of the same
     dense shape and 128x128 geometry; ``gate``/``up`` are (blocks,
-    block_rows, counts) triples, scales both given or both None."""
+    block_rows, counts) triples, scales both given or both None; x must be
+    16-byte aligned."""
     if activation not in ACTS:
         raise ValueError(f"unknown gate activation {activation!r}")
     if (gate_scales is None) != (up_scales is None):
@@ -64,8 +68,12 @@ def fused_gate_up(x, gate, up, gate_scales=None, up_scales=None, *,
     check_operands(x, *up, up_scales)
     if gate[0].dtype != up[0].dtype or gate[1].shape[0] != up[1].shape[0]:
         raise ValueError("gate and up must share payload dtype and output width")
+    _bs.check_x_aligned(x)
     M, K = x.shape
-    N = gate[1].shape[0] * 128
+    n_cols = gate[1].shape[0]
+    N = n_cols * 128
+    bm, split = _bs.launch_plan(M, n_cols, max(gate[1].shape[1], up[1].shape[1]),
+                                _bs.sm_count(x.device))
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     lib = build.load("fused_gate_up")
     code = lib.fused_gate_up_launch(
@@ -73,7 +81,7 @@ def fused_gate_up(x, gate, up, gate_scales=None, up_scales=None, *,
         build.ptr(gate[0]), build.ptr(gate[1]), build.ptr(gate[2]), build.ptr(gate_scales),
         build.ptr(up[0]), build.ptr(up[1]), build.ptr(up[2]), build.ptr(up_scales),
         build.ptr(y), M, K, N, gate[1].shape[1], up[1].shape[1], ACT_CODES[activation],
-        build.DTYPE_CODES[x.dtype], build.DTYPE_CODES[gate[0].dtype],
+        build.DTYPE_CODES[x.dtype], build.DTYPE_CODES[gate[0].dtype], bm, split,
         build.stream_ptr(x.device))
     build.check(lib, code, "fused_gate_up")
     fused_gate_up.launches += 1

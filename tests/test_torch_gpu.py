@@ -71,6 +71,85 @@ def test_block_sparse_empty_column_writes_zeros(cuda):
     assert torch.all(y[:, :128] == 0)
 
 
+# B1 and B2 (csrc/wgmma_column.cuh): bf16 x with an int8 payload runs
+# wgmma (exact bf16 products, fp32 sums: about one bf16 ulp of the output,
+# held to 1e-2 of the max), in the decode regime up to M = 64 (a cluster
+# split of each column's slots) and the prefill regime above (128-row
+# tiles); the M edges straddle both tiles.  Pairs with an fp32 operand run
+# fp32 FMAs (1e-5 for fp32 x; bf16 x rounds its output to bf16: 1e-2).
+# Columns keep 0, 1, ... blocks, some fewer than the split (6 at decode
+# here, the largest count), so ranks with no slot occur.
+M_EDGES = [1, 8, 63, 64, 65, 127, 128, 129, 2032]
+PAIRS = [(torch.bfloat16, True, 1e-2), (torch.float32, True, 1e-5),
+         (torch.bfloat16, False, 1e-2), (torch.float32, False, 1e-5)]
+GATE_COUNTS = [0, 1, 2, 3, 6, 5, 4, 1]
+UP_COUNTS = [2, 0, 4, 4, 1, 3, 0, 1]  # mb 4 against the gate's 6
+
+
+def _with_counts(counts, K, seed, device, quant):
+    """A packed (K, 128 * len(counts)) weight whose block-column c keeps
+    counts[c] blocks: the other blocks are zero, and q_prune prunes just
+    those."""
+    nrb = K // 128
+    g = torch.Generator(device=device).manual_seed(seed)
+    w = torch.randn((K, 128 * len(counts)), generator=g, device=device) / K ** 0.5
+    for c, n in enumerate(counts):
+        drop = torch.randperm(nrb, generator=g, device=device)[n:]
+        for r in drop.tolist():
+            w[r * 128:(r + 1) * 128, c * 128:(c + 1) * 128] = 0.0
+    q = (nrb * len(counts) - sum(counts)) / (nrb * len(counts))
+    p = pack_block_sparse(w, PlanConfig(q_prune=q), quant=quant)
+    assert p.counts.tolist() == counts
+    return p
+
+
+@pytest.mark.parametrize("dtype,quant,rtol", PAIRS)
+@pytest.mark.parametrize("M", M_EDGES)
+def test_b1_regimes_match_plain(cuda, M, dtype, quant, rtol):
+    p = _with_counts(GATE_COUNTS, 768, 6, cuda, quant)
+    x = torch.randn((M, 768), device=cuda).to(dtype)
+    args = (p.blocks, p.block_rows, p.counts, p.scales)
+    n = BS.block_sparse_matmul.launches
+    y = BS.block_sparse_matmul(x, *args)
+    assert BS.block_sparse_matmul.launches == n + 1 and y.dtype == dtype
+    ref = BS.block_sparse_matmul(x, *args, use_kernel=False)
+    torch.cuda.synchronize()
+    _close(y, ref, rtol)
+    assert torch.all(y[:, :128] == 0)
+
+
+@pytest.mark.parametrize("dtype,quant,rtol", PAIRS)
+@pytest.mark.parametrize("M", M_EDGES)
+def test_b2_regimes_match_plain(cuda, M, dtype, quant, rtol):
+    g = _with_counts(GATE_COUNTS, 768, 7, cuda, quant)
+    u = _with_counts(UP_COUNTS, 768, 8, cuda, quant)
+    assert g.block_rows.shape[1] != u.block_rows.shape[1]
+    x = torch.randn((M, 768), device=cuda).to(dtype)
+    args = ((g.blocks, g.block_rows, g.counts), (u.blocks, u.block_rows, u.counts),
+            g.scales, u.scales)
+    n = FG.fused_gate_up.launches
+    y = FG.fused_gate_up(x, *args)
+    assert FG.fused_gate_up.launches == n + 1 and y.dtype == dtype
+    ref = FG.fused_gate_up(x, *args, use_kernel=False)
+    torch.cuda.synchronize()
+    _close(y, ref, rtol)
+    assert torch.all(y[:, :256] == 0)  # gate or up keeps no block
+
+
+@pytest.mark.parametrize("M", [8, 2032])
+def test_b1_b2_launches_are_bitwise_deterministic(cuda, M):
+    g = _with_counts(GATE_COUNTS, 768, 9, cuda, True)
+    u = _with_counts(UP_COUNTS, 768, 10, cuda, True)
+    x = torch.randn((M, 768), device=cuda).to(torch.bfloat16)
+    b1 = [BS.block_sparse_matmul(x, g.blocks, g.block_rows, g.counts, g.scales)
+          for _ in range(2)]
+    pair = ((g.blocks, g.block_rows, g.counts), (u.blocks, u.block_rows, u.counts),
+            g.scales, u.scales)
+    b2 = [FG.fused_gate_up(x, *pair) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(b1[0], b1[1]) and torch.equal(b2[0], b2[1])
+
+
 # B4: bf16 x with an int8 payload multiplies on the tensor cores (exact
 # bf16 products, fp32 sums): about one bf16 ulp of the output, 1e-2 of the
 # max; fp32 pairs run fp32 FMAs (1e-5).  One layer's full-width shapes at

@@ -15,6 +15,7 @@ plain version to the Pallas kernel in interpret mode at rtol 1e-5 / atol
 import dataclasses
 import functools
 import json
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -370,3 +371,22 @@ def test_clis_share_one_directory(tmp_path, monkeypatch, capsys):
         assert len(r.output) == 5 and r.output == rr.output
     eng.audit_pages()
     assert eng.pages_in_use == 0
+
+
+def test_reference_cli_repacks_a_port_directory(tmp_path, capsys):
+    """The port's CLI packs and saves; the reference's CLI on that directory
+    finds it incompatible (its treedef check), re-packs and serves without
+    raising; the port's directory, kept aside, still hits in the port."""
+    d, kept = tmp_path / "plan", tmp_path / "kept"
+    serve.main(SMOKE_FLAGS + ["--plan-cache", str(d), "--device", "cpu"])
+    assert "plan cache missing" in capsys.readouterr().out
+    meta = store.restore_flat(str(d))[1]["metadata"]
+    assert all(m["interpret"] is False for m in meta["packed"].values() if m["repr"] == "packed")
+    assert all(leaf["axes"] == [] for leaf in meta["leaves"].values())
+    shutil.copytree(d, kept)
+    ref_serve.main(SMOKE_FLAGS + ["--plan-cache", str(d)])
+    out = capsys.readouterr().out
+    assert "plan cache incompatible" in out and "packed weights" in out
+    assert TW.load_plan(str(kept), _dense()).cfg.q_prune == 0.5
+    serve.main(SMOKE_FLAGS + ["--plan-cache", str(kept), "--device", "cpu"])
+    assert "plan cache hit" in capsys.readouterr().out
