@@ -15,11 +15,12 @@ Phases, in order; any failure raises and the script exits non-zero:
                tinyllama-1.1b (decode batches, prompt lengths at prefill
                up to M 2032, and the M edges of B1/B2's two regimes: 1,
                63-65, 127-129; B1 and B2 also launched twice on the same
-               operands, which must give the same bits; B4 also against
-               B1, on an fp32 payload and on a column that keeps no
-               block), B6 at a
-               2048-token causal prefill, an
-               1100-token int8-K/V one and a 256-token window, B5 at the
+               operands, which must give the same bits; B4 also equal to
+               B1 bit for bit, on an fp32 payload and on a column that
+               keeps no block), B6's bf16 kernel at lengths 1-2048 around
+               its tile edges for G = 8, 1 and 4, causal, non-causal and
+               under a 256-token window, then at a 2048-token causal
+               prefill (twice for the same bits) and an 1100-token int8-K/V one, B5 at the
                int8 head (2048x32000) and 2048x5632, each at M 8 and 40,
                B7/B8 at HAR-6's widest layer (2000x1500, B 1 and 16) and
                ragged shapes, B8 also on saturated codes that force the
@@ -49,7 +50,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                the same plan saved without its walks: a third boot serves
                the 8 requests through B4 (5 x 22 launches per model step,
                prefill or decode; B1 none; B2, B3, B5 as in the serve
-               phase) with a clean page audit, and its teacher-forced
+               phase) with a clean page audit and the walk plan's greedy
+               tokens, every one (B4 equals B1 bit for bit), and its
+               teacher-forced
                logits are held to the plain path as in the parity phase.
                Logs the directory's size and the boot times (pack vs load).
 7. long     -- the serve flags with --max-len 2048: prompts of 40, 1100,
@@ -305,7 +308,8 @@ def phase_kernels(torch, results: dict) -> None:
     # w_down) at M = 8 and 12 (decode batches), 37 (a ragged prefill), 40
     # (the serve phase's prefill), 2032 (the longest prefill of the long
     # phase) and the regime edges M_EDGES, each against its plain version
-    # and B4 also against B1; B1 launched twice at M = 8 and 2032 must give
+    # and B4 also against B1, bit for bit (the same column body in the same
+    # regime); B1 launched twice at M = 8 and 2032 must give
     # the same bits; timed at M = 8 (the summary line) and at M = 2032,
     # beside the plain version and torch.matmul on the dequantized weight
     shapes = {"wq": (2048, 2048), "wk": (2048, 256), "wv": (2048, 256),
@@ -327,7 +331,7 @@ def phase_kernels(torch, results: dict) -> None:
             for b, y in ys.items():
                 d, r = _held(torch, f"{b} {name} {K}x{N} M={M}", y, ref, KERNEL_RTOL)
                 err[b] = [max(err[b][0], d), max(err[b][1], r)]
-            _held(torch, f"B4 {name} M={M} vs B1", ys["B4"], ys["B1"], KERNEL_RTOL)
+            _held(torch, f"B4 {name} M={M} vs B1", ys["B4"], ys["B1"], None)
             if M not in (8, LONG_M):
                 continue
             surv = int(p.counts.sum())
@@ -479,55 +483,96 @@ def _visible_pairs(Sq: int, Sk: int, causal: bool, window) -> int:
     return n
 
 
+# B6's bf16 kernel (128 folded rows per CTA in two 64-row warpgroups,
+# 128-key tiles): lengths around those edges and the long prefills, at G =
+# 8, 1 and 4, so that the 128-row tile cuts positions at different places
+B6_LENGTHS = (1, 63, 64, 65, 127, 129, 1100, 2048)
+B6_HEADS = ((32, 4), (8, 8), (16, 4))
+
+
+def _flash_operands(torch, gen, B: int, S: int, H: int, KVH: int, int8: bool) -> tuple:
+    """q, k, v, k_scale, v_scale of one B6 call (hd 64), random from ``gen``."""
+    hd = 64
+    q = torch.randn((B, S, H, hd), generator=gen, device="cuda").to(torch.bfloat16)
+    if not int8:
+        k = torch.randn((B, S, KVH, hd), generator=gen, device="cuda").to(torch.bfloat16)
+        return q, k, torch.randn(k.shape, generator=gen, device="cuda").to(torch.bfloat16), \
+            None, None
+    k = torch.randint(-127, 128, (B, S, KVH, hd), generator=gen, device="cuda", dtype=torch.int8)
+    v = torch.randint(-127, 128, k.shape, generator=gen, device="cuda", dtype=torch.int8)
+    ks = torch.rand((B, S, KVH), generator=gen, device="cuda") * 0.02 + 0.002
+    vs = torch.rand((B, S, KVH), generator=gen, device="cuda") * 0.02 + 0.002
+    return q, k, v, ks, vs
+
+
 def phase_flash(torch, results: dict) -> None:
-    """B6 against its plain version at the long-prefill shapes of
-    tinyllama-1.1b (32 query heads over 4 KV heads, hd 64): a 2048-token
-    causal prefill in bf16 (timed, with SDPA as the yardstick), an
-    1100-token one over int8 K/V (a ragged last key tile) and one under a
-    256-token window."""
+    """B6 against its plain version: the bf16 kernel at B6_LENGTHS x
+    B6_HEADS for two sequences, causal and not, and under a 256-token
+    window; then at tinyllama-1.1b's long prefill (32 query heads over 4 KV
+    heads, hd 64): a 2048-token causal bf16 prefill (launched twice for the
+    same bits, timed with SDPA as the yardstick) and an 1100-token one over
+    int8 K/V (the first port's kernel, timed)."""
     from repro_torch.kernels import flash_attention as FA
 
     timer = Timer(torch)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(3)
-    H, KVH, hd = 32, 4, 64
     err = rel = 0.0
-    for S, kv, window in ((2048, "bf16", None), (1100, "int8", None), (1100, "bf16", 256)):
-        q = torch.randn((1, S, H, hd), generator=gen, device="cuda").to(torch.bfloat16)
-        if kv == "int8":
-            k = torch.randint(-127, 128, (1, S, KVH, hd), generator=gen, device="cuda",
-                              dtype=torch.int8)
-            v = torch.randint(-127, 128, k.shape, generator=gen, device="cuda",
-                              dtype=torch.int8)
-            ks = torch.rand((1, S, KVH), generator=gen, device="cuda") * 0.02 + 0.002
-            vs = torch.rand((1, S, KVH), generator=gen, device="cuda") * 0.02 + 0.002
-        else:
-            k = torch.randn((1, S, KVH, hd), generator=gen, device="cuda").to(torch.bfloat16)
-            v = torch.randn(k.shape, generator=gen, device="cuda").to(torch.bfloat16)
-            ks = vs = None
-        kw = dict(causal=True, window=window, k_scale=ks, v_scale=vs)
-        d, r = _held(torch, f"B6 S={S} causal {kv} K/V window {window}",
-                     FA.flash_attention(q, k, v, **kw),
-                     FA.flash_attention(q, k, v, use_kernel=False, **kw), KERNEL_RTOL)
+
+    def check(label, q, k, v, **kw):
+        nonlocal err, rel
+        got = FA.flash_attention(q, k, v, **kw)
+        d, r = _held(torch, label, got, FA.flash_attention(q, k, v, use_kernel=False, **kw),
+                     KERNEL_RTOL)
         err, rel = max(err, d), max(rel, r)
-        if S != 2048:
-            continue
-        # bound: q, k, v read once and o written once; 4 * hd flops (QK^T and
-        # PV) per visible (query head, key) pair, on the bf16 tensor cores
-        nbytes = 2 * (q.numel() * 2 + k.numel() * 2)
-        flops = 4.0 * hd * H * _visible_pairs(S, S, True, window)
-        b_ms, b_by = bound(nbytes, flops)
-        ms = timer(lambda: FA.flash_attention(q, k, v, **kw))
-        plain_ms = timer(lambda: FA.flash_attention(q, k, v, use_kernel=False, **kw))
-        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-        sdpa = torch.nn.functional.scaled_dot_product_attention
-        lib_ms = timer(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True))
-        log(f"B6 S={S} causal bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"SDPA(is_causal, enable_gqa) {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
-            f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP)")
-        results["flash_attention"] = {
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": lib_ms, "shape": "B=1 S=2048 H=32 KVH=4 hd=64 causal bf16"}
+        return got
+
+    for H, KVH in B6_HEADS:
+        for S in B6_LENGTHS:
+            q, k, v, _, _ = _flash_operands(torch, gen, 2, S, H, KVH, False)
+            for causal in (True, False):
+                check(f"B6 bf16 B=2 S={S} H={H}/{KVH} causal={causal}", q, k, v, causal=causal)
+            if S > 128:
+                check(f"B6 bf16 B=2 S={S} H={H}/{KVH} window 256", q, k, v, causal=True,
+                      window=256)
+
+    S, H, KVH, hd = 2048, 32, 4, 64
+    q, k, v, _, _ = _flash_operands(torch, gen, 1, S, H, KVH, False)
+    first = check(f"B6 S={S} causal bf16", q, k, v)
+    _deterministic(torch, f"B6 S={S} causal bf16", first, FA.flash_attention(q, k, v))
+    # bound: q, k, v read once and o written once; 4 * hd flops (QK^T and
+    # PV) per visible (query head, key) pair, on the bf16 tensor cores
+    nbytes = 2 * (q.numel() * 2 + k.numel() * 2)
+    flops = 4.0 * hd * H * _visible_pairs(S, S, True, None)
+    b_ms, b_by = bound(nbytes, flops)
+    ms = timer(lambda: FA.flash_attention(q, k, v))
+    plain_ms = timer(lambda: FA.flash_attention(q, k, v, use_kernel=False))
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_ms = timer(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True))
+    log(f"B6 S={S} causal bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA(is_causal, enable_gqa) {lib_ms:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP)")
+    results["flash_attention"] = {
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": lib_ms, "shape": "B=1 S=2048 H=32 KVH=4 hd=64 causal bf16"}
+    # where the time goes: the same grid against one key (each CTA streams
+    # one key tile: the cost of its CTAs, the loop aside), and the long
+    # phase's 1100-token prefill
+    one = (k[:, :1].contiguous(), v[:, :1].contiguous())
+    fixed_ms = timer(lambda: FA.flash_attention(q, *one))
+    q11, k11, v11 = q[:, :1100].contiguous(), k[:, :1100].contiguous(), v[:, :1100].contiguous()
+    ms_1100 = timer(lambda: FA.flash_attention(q11, k11, v11))
+    lib_1100 = timer(lambda: sdpa(q11.transpose(1, 2), k11.transpose(1, 2), v11.transpose(1, 2),
+                                  is_causal=True, enable_gqa=True))
+    log(f"B6 S={S} against one key: {fixed_ms:.4f} ms; S=1100 causal bf16: kernel "
+        f"{ms_1100:.4f} ms, SDPA {lib_1100:.4f} ms")
+
+    S = 1100
+    q, k, v, ks, vs = _flash_operands(torch, gen, 1, S, H, KVH, True)
+    kw = dict(k_scale=ks, v_scale=vs)
+    check(f"B6 S={S} causal int8 K/V", q, k, v, **kw)
+    i8_ms = timer(lambda: FA.flash_attention(q, k, v, **kw))
+    log(f"B6 S={S} causal int8 K/V: kernel {i8_ms:.4f} ms")
     results["flash_attention"].update(max_abs_err=err, max_rel_err=rel)
 
 
@@ -975,8 +1020,13 @@ def phase_plancache(torch, results: dict, serve_outputs: list, serve_launches: d
                                      f"{serve_launches[name]} in the serve phase")
         results.setdefault("block_sparse_matmul_col", {})["launches"] = \
             launches["block_sparse_matmul_col"]
-        agree = sum(a == b for o, so in zip(bare_out, serve_outputs) for a, b in zip(o, so))
-        log(f"plancache walk-less: 8/8 FINISHED, audit clean, {agree} of "
+        # B4 equals B1 bit for bit, so every token equals the walk plan's
+        if bare_out != serve_outputs:
+            agree = sum(a == b for o, so in zip(bare_out, serve_outputs) for a, b in zip(o, so))
+            raise AssertionError(f"plancache: the walk-less plan's greedy tokens differ from "
+                                 f"the walk plan's ({agree} of {sum(map(len, serve_outputs))} "
+                                 f"equal)")
+        log(f"plancache walk-less: 8/8 FINISHED, audit clean, all "
             f"{sum(map(len, serve_outputs))} greedy tokens equal the walk plan's "
             f"({engine.stats.decode_tokens / dt:.1f} tok/s on {card})")
         gen = torch.Generator(device="cuda")
@@ -1241,7 +1291,7 @@ def _profile_prefill(torch, cfg, params) -> None:
     for ms, n, name in rows[:12]:
         log(f"profile:   {ms:9.4f} ms  {n:5d} calls  {name[:90]}")
     for label, key in (("B1", "bsmm_kernel"), ("B2", "fused_gate_up_kernel"),
-                       ("B6", "flash_fwd_kernel")):
+                       ("B6", "flash_fwd")):
         ms = sum(r[0] for r in rows if key in r[2])
         log(f"profile: prefill share of {label}: {ms:.3f} ms, {ms / dev:.4f} of device time")
 
@@ -1249,15 +1299,21 @@ def _profile_prefill(torch, cfg, params) -> None:
 def phase_profile(torch, cfg, engine, steps: int = 6) -> None:
     """Where a decode step's time goes, kernels on; then the same steps with
     the int8 head on its plain version (fp32 cast + matmul), so that the
-    head's device time before and after B5 is the difference.  The
-    device-busy share is the profiled device time over the unprofiled wall
-    time (the profiler slows the host, not the kernels).  Last, one
-    LONG_M-token prefill's breakdown."""
+    head's device time before and after B5 is the difference; then the
+    plan without its walks (every projection through B4).  The device-busy
+    share is the profiled device time over the unprofiled wall time (the
+    profiler slows the host, not the kernels).  Last, one LONG_M-token
+    prefill's breakdown."""
+    from repro_torch.core import weight_plan as W
+
     embed = engine.params["embed"]
     head = dataclasses.replace(embed["head"], use_kernel=False)
     plain_head = {**engine.params, "embed": {**embed, "head": head}}
+    walkless = W.map_tree(lambda _, n: dataclasses.replace(n, walk=None)
+                          if isinstance(n, W.PackedLinear) else n, engine.params)
     busy = {}
-    for label, params in (("B5 head", engine.params), ("plain head", plain_head)):
+    for label, params in (("B5 head", engine.params), ("plain head", plain_head),
+                          ("walk-less, B4", walkless)):
         wall, prof_wall, rows = _profile_steps(torch, cfg, params, steps)
         dev = sum(r[0] for r in rows) / steps
         busy[label] = dev
@@ -1268,6 +1324,8 @@ def phase_profile(torch, cfg, engine, steps: int = 6) -> None:
             log(f"profile:   {ms / steps:9.4f} ms/step  {n // steps:5d} calls/step  {name[:90]}")
     log(f"profile: the head costs {busy['plain head'] - busy['B5 head']:.4f} ms/step more "
         f"device time on its plain version than through B5")
+    log(f"profile: the walk-less plan (B4) takes {busy['walk-less, B4']:.4f} ms/step of "
+        f"device time, the walk plan (B1) {busy['B5 head']:.4f}")
     _profile_prefill(torch, cfg, engine.params)
 
 

@@ -1,44 +1,72 @@
 // B6: GQA flash attention forward (long prefill), causal and sliding-window
 // masks, bf16 K/V or int8 K/V with per-(position, head) fp32 scales.
 //
-// Replaces repro/kernels/flash_attention.py:flash_attention (the Pallas
-// kernel body _flash_kernel).  Query i sits at position i and key j at j;
-// the causal mask keeps j <= i, a window keeps j > i - window.
+// Replaces repro/kernels/flash_attention.py:flash_attention (line 105; the
+// Pallas kernel body _flash_kernel).  Query i sits at position i and key j
+// at j; the causal mask keeps j <= i, a window keeps j > i - window.  The G
+// query heads that share a KV head fold into the rows, as the TPU kernel
+// folds them: row r of a (b, kvh) is position r / G, head kvh * G + r % G,
+// so each K/V tile read into shared memory serves all G heads.  Tiles
+// wholly outside the causal or window band are never loaded (half the work
+// of a causal prefill); a masked score adds exactly nothing (p = 0), so a
+// row that sees no key writes 0 (l = 0, clamped at 1e-30).  No atomics and
+// no split over keys: two launches give the same bits.
 //
 // Bound on this card: operations.  Every visible (query head, key) pair
 // costs 4 * hd flops (QK^T and PV); a causal 2048-token prefill of
 // tinyllama-1.1b (32 heads over 4 KV heads, hd 64) does 17.2 GFLOP on
 // 18.9 MB of q, k, v and o, far right of the bf16 ridge.  So the products
-// run on the tensor cores: mma.sync.m16n8k16 bf16 with fp32 accumulation
-// (Hopper runs these Ampere-era instructions; wgmma and TMA are later
-// work).
+// run on the tensor cores, and the exp of a score -- at hd 64 about what
+// its two products cost on the SM's special-function units -- has to run
+// under them.
 //
-// Design.  One CTA of 4 warps per (batch x KV head, 64 query rows).  The G
-// query heads that share a KV head fold into the rows, as the TPU kernel
-// folds them: row r of a (b, kvh) is position r / G, head kvh * G + r % G,
-// so each K/V tile read into shared memory serves all G heads.  Each warp
-// owns 16 rows; the sequential kv grid axis of the TPU kernel becomes a
-// loop over 64-key tiles, double-buffered into shared memory by cp.async
-// (zero-filled past Sk: the ragged tail is masked by the real Sk, nothing
-// is padded).  The online-softmax state (m, l, acc) lives in fp32
-// registers, laid out as the mma accumulator fragments; P goes from the
-// QK^T accumulators straight into the A fragments of PV.  Tiles wholly
-// outside the causal or window band are never loaded (half the work of a
-// causal prefill); a masked score adds exactly nothing (p = 0), so a row
-// that sees no key writes 0 (l = 0, clamped at 1e-30).
+// bf16 K/V (the served path), flash_fwd_wgmma_kernel: warp-specialised TMA
+// + wgmma.  A CTA owns 128 folded rows of one (b, kvh): two consumer
+// warpgroups of 64 rows and a producer warp.
+// - The producer keeps a ring of kStages (K, V) tiles of 128 keys in flight
+//   by TMA (one 4-D tensor map per operand, (hd, KVH, Sk, B), boxes of
+//   (64, 1, 128, 1) with the 128-byte swizzle: one key's 64 bf16 are one
+//   swizzle row), on "full" / "empty" mbarriers.  Keys past Sk arrive as
+//   zeros and are masked by the real Sk.
+// - Q is loaded once per CTA by the consumers themselves: 16-byte loads
+//   into registers, issued first so that they overlap the CTA's set-up and
+//   the first K/V tile's TMA, then stored in the K-major 128B-swizzle
+//   layout (any G; a 5-D tensor map would need G | 128).
+// - S = Q K^T: wgmma m64n128k16, both operands from shared memory as TMA
+//   wrote them (Q the K-major A, the K tile the K-major B), 4 k steps.
+// - O += P V: wgmma m64n64k16 with A from registers: S's fp32 accumulator
+//   of a 64x16 slice, rounded to bf16 pairs, is the A fragment, so P never
+//   touches shared memory; V is the MN-major B (keys are the contraction,
+//   hd contiguous), its TMA swizzle rows the operand's atoms, 8 k steps.
+// - Softmax under the tensor cores: each warpgroup issues tile j+1's S and
+//   tile j's PV together, waits for S only, and runs tile j+1's online
+//   softmax (exp2, log2(e)/sqrt(hd) folded into one fp32 scale) while PV
+//   runs; the two warpgroups of a CTA interleave on the SM besides.
+// - Tiles wholly inside the band run unmasked; only the diagonal,
+//   window-edge and ragged-Sk tiles apply masks.  The longest causal
+//   q-tiles start first (the q tile is the grid's slow axis).
+// - One CTA per SM: a consumer thread holds 64 scores, 32 output sums and
+//   32 P words, and the kernel takes 168 registers a thread without
+//   spilling; two CTAs of 384 threads would allow 85.  Shared memory: 16 KB
+//   of Q and 3 stages of 32 KB (more stages were not faster).
 //
-// Numerics: scores are the fp32 sum of exact bf16 products, scaled by
-// 1/sqrt(hd) in fp32; P is rounded to bf16 before PV, as both reference
-// paths do for bf16 V.  int8 K/V convert exactly to bf16 (|x| <= 127) in
-// shared memory and run the same MMAs; their scales multiply the fp32
-// scores (K) and P (V), and P * v_scale enters PV as a bf16 pair hi + lo
-// (~16 significant bits, two MMAs), close to the fp32 P and dequantized V
-// of the Pallas kernel's int8 branch.
+// int8 K/V (off the main path: the served prefill attends the prompt's own
+// bf16 K/V before they are quantized into the cache), flash_fwd_kernel: the
+// first port's design.  One CTA of 4 warps per 64 folded rows,
+// 64-key tiles double-buffered by cp.async, converted exactly to bf16 (|x|
+// <= 127) in shared memory, mma.sync.m16n8k16; the scales multiply the
+// fp32 scores (K) and P (V), and P * v_scale enters PV as a bf16 pair hi +
+// lo (~16 significant bits, two MMAs), close to the fp32 P and dequantized V
+// of the Pallas kernel's int8 branch.  Moving it onto TMA + wgmma needs the
+// conversion in the consumer's path, later work.
+//
+// Numerics (both): scores are the fp32 sum of exact bf16 products; the
+// fp32 state (m, l, O) stays in registers; P is rounded to bf16 before PV,
+// as both reference paths do for bf16 V.
+#include "hopper.cuh"
 #include "mma.cuh"
 
 #include <math_constants.h>
-
-#include <type_traits>
 
 namespace {
 
@@ -48,39 +76,35 @@ constexpr int BM = 16 * kWarps;  // folded query rows per CTA
 constexpr int BK = 64;           // keys per tile
 constexpr int kPad = 8;          // bf16 padding per shared row: conflict-free fragment loads
 
-template <int HD, bool QUANT>
+template <int HD>
 struct Layout {
   static constexpr int LD = HD + kPad;                          // bf16 per shared row
   static constexpr size_t q_bytes = size_t(BM) * LD * 2;        // the Q tile
   static constexpr size_t tile_bytes = size_t(BK) * LD * 2;     // one bf16 K or V tile
   static constexpr size_t tile8_bytes = size_t(BK) * HD;        // one int8 K or V tile
-  // one pipeline stage: bf16 K and V, or int8 K and V plus their scales
-  static constexpr size_t stage_bytes =
-      QUANT ? 2 * tile8_bytes + 2 * BK * sizeof(float) : 2 * tile_bytes;
-  // Q, two stages, and for int8 the converted bf16 K and V tiles
-  static constexpr size_t smem_bytes = q_bytes + 2 * stage_bytes + (QUANT ? 2 * tile_bytes : 0);
+  // one pipeline stage: int8 K and V plus their scales
+  static constexpr size_t stage_bytes = 2 * tile8_bytes + 2 * BK * sizeof(float);
+  // Q, two stages, and the converted bf16 K and V tiles
+  static constexpr size_t smem_bytes = q_bytes + 2 * stage_bytes + 2 * tile_bytes;
 };
 
-template <int HD, bool QUANT>
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,  // (B, Sq, H, HD)
-                 const void* __restrict__ k_,          // (B, Sk, KVH, HD) bf16 | int8
-                 const void* __restrict__ v_,
-                 const float* __restrict__ k_scale,    // (B, Sk, KVH) if QUANT
+                 const int8_t* __restrict__ kg,        // (B, Sk, KVH, HD)
+                 const int8_t* __restrict__ vg,
+                 const float* __restrict__ k_scale,    // (B, Sk, KVH)
                  const float* __restrict__ v_scale,
                  __nv_bfloat16* __restrict__ out,      // (B, Sq, H, HD)
                  int Sq, int Sk, int H, int KVH, int causal, int window, float scale) {
-  using L = Layout<HD, QUANT>;
-  using KT = typename std::conditional<QUANT, int8_t, __nv_bfloat16>::type;
+  using L = Layout<HD>;
   constexpr int LD = L::LD;
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
   unsigned char* stages = smem + L::q_bytes;
-  // int8: the bf16 tiles the MMAs read, converted from the current stage
+  // the bf16 tiles the MMAs read, converted from the current stage
   __nv_bfloat16* kb = reinterpret_cast<__nv_bfloat16*>(stages + 2 * L::stage_bytes);
   __nv_bfloat16* vb = kb + BK * LD;
-  const KT* kg = static_cast<const KT*>(k_);
-  const KT* vg = static_cast<const KT*>(v_);
 
   const int G = H / KVH;
   const int rows = Sq * G;  // folded (position, group) rows of one (b, kvh)
@@ -105,37 +129,24 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,  // (B, Sq, H, HD)
   auto load_tile = [&](int t, int s) {
     unsigned char* base = stages + s * L::stage_bytes;
     const int n0 = t * BK;
-    if constexpr (QUANT) {
-      int8_t* k8 = reinterpret_cast<int8_t*>(base);
-      int8_t* v8 = k8 + BK * HD;
-      float* ks = reinterpret_cast<float*>(base + 2 * L::tile8_bytes);
-      float* vs = ks + BK;
-      constexpr int CH = HD / 16;
-      for (int i = tid; i < BK * CH; i += kThreads) {
-        const int n = i / CH, c = i % CH, key = n0 + n;
-        const bool ok = key < Sk;
-        const size_t off = ((static_cast<size_t>(b) * Sk + key) * KVH + kvh) * HD + c * 16;
-        cp_async16_zfill(k8 + n * HD + c * 16, ok ? kg + off : kg, ok);
-        cp_async16_zfill(v8 + n * HD + c * 16, ok ? vg + off : vg, ok);
-      }
-      for (int n = tid; n < BK; n += kThreads) {
-        const int key = n0 + n;
-        const bool ok = key < Sk;
-        const size_t off = (static_cast<size_t>(b) * Sk + key) * KVH + kvh;
-        ks[n] = ok ? k_scale[off] : 0.0f;
-        vs[n] = ok ? v_scale[off] : 0.0f;
-      }
-    } else {
-      __nv_bfloat16* kt = reinterpret_cast<__nv_bfloat16*>(base);
-      __nv_bfloat16* vt = kt + BK * LD;
-      constexpr int CH = HD / 8;
-      for (int i = tid; i < BK * CH; i += kThreads) {
-        const int n = i / CH, c = i % CH, key = n0 + n;
-        const bool ok = key < Sk;
-        const size_t off = ((static_cast<size_t>(b) * Sk + key) * KVH + kvh) * HD + c * 8;
-        cp_async16_zfill(kt + n * LD + c * 8, ok ? kg + off : kg, ok);
-        cp_async16_zfill(vt + n * LD + c * 8, ok ? vg + off : vg, ok);
-      }
+    int8_t* k8 = reinterpret_cast<int8_t*>(base);
+    int8_t* v8 = k8 + BK * HD;
+    float* ks = reinterpret_cast<float*>(base + 2 * L::tile8_bytes);
+    float* vs = ks + BK;
+    constexpr int CH = HD / 16;
+    for (int i = tid; i < BK * CH; i += kThreads) {
+      const int n = i / CH, c = i % CH, key = n0 + n;
+      const bool ok = key < Sk;
+      const size_t off = ((static_cast<size_t>(b) * Sk + key) * KVH + kvh) * HD + c * 16;
+      cp_async16_zfill(k8 + n * HD + c * 16, ok ? kg + off : kg, ok);
+      cp_async16_zfill(v8 + n * HD + c * 16, ok ? vg + off : vg, ok);
+    }
+    for (int n = tid; n < BK; n += kThreads) {
+      const int key = n0 + n;
+      const bool ok = key < Sk;
+      const size_t off = (static_cast<size_t>(b) * Sk + key) * KVH + kvh;
+      ks[n] = ok ? k_scale[off] : 0.0f;
+      vs[n] = ok ? v_scale[off] : 0.0f;
     }
   };
 
@@ -184,34 +195,25 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,  // (B, Sq, H, HD)
     __syncthreads();
 
     unsigned char* base = stages + s * L::stage_bytes;
-    const __nv_bfloat16* kt;
-    const __nv_bfloat16* vt;
-    const float* ks = nullptr;
-    const float* vs = nullptr;
-    if constexpr (QUANT) {
-      const int8_t* k8 = reinterpret_cast<const int8_t*>(base);
-      const int8_t* v8 = k8 + BK * HD;
-      ks = reinterpret_cast<const float*>(base + 2 * L::tile8_bytes);
-      vs = ks + BK;
-      // int8 -> bf16 is exact for |x| <= 127; four values per step
-      for (int i = tid; i < BK * HD / 4; i += kThreads) {
-        const int n = (i * 4) / HD, d = (i * 4) % HD;
-        const char4 k4 = *reinterpret_cast<const char4*>(k8 + n * HD + d);
-        const char4 v4 = *reinterpret_cast<const char4*>(v8 + n * HD + d);
-        uint32_t* kd = reinterpret_cast<uint32_t*>(kb + n * LD + d);
-        uint32_t* vd = reinterpret_cast<uint32_t*>(vb + n * LD + d);
-        kd[0] = pack_bf16(static_cast<float>(k4.x), static_cast<float>(k4.y));
-        kd[1] = pack_bf16(static_cast<float>(k4.z), static_cast<float>(k4.w));
-        vd[0] = pack_bf16(static_cast<float>(v4.x), static_cast<float>(v4.y));
-        vd[1] = pack_bf16(static_cast<float>(v4.z), static_cast<float>(v4.w));
-      }
-      __syncthreads();
-      kt = kb;
-      vt = vb;
-    } else {
-      kt = reinterpret_cast<const __nv_bfloat16*>(base);
-      vt = kt + BK * LD;
+    const int8_t* k8 = reinterpret_cast<const int8_t*>(base);
+    const int8_t* v8 = k8 + BK * HD;
+    const float* ks = reinterpret_cast<const float*>(base + 2 * L::tile8_bytes);
+    const float* vs = ks + BK;
+    // int8 -> bf16 is exact for |x| <= 127; four values per step
+    for (int i = tid; i < BK * HD / 4; i += kThreads) {
+      const int n = (i * 4) / HD, d = (i * 4) % HD;
+      const char4 k4 = *reinterpret_cast<const char4*>(k8 + n * HD + d);
+      const char4 v4 = *reinterpret_cast<const char4*>(v8 + n * HD + d);
+      uint32_t* kd = reinterpret_cast<uint32_t*>(kb + n * LD + d);
+      uint32_t* vd = reinterpret_cast<uint32_t*>(vb + n * LD + d);
+      kd[0] = pack_bf16(static_cast<float>(k4.x), static_cast<float>(k4.y));
+      kd[1] = pack_bf16(static_cast<float>(k4.z), static_cast<float>(k4.w));
+      vd[0] = pack_bf16(static_cast<float>(v4.x), static_cast<float>(v4.y));
+      vd[1] = pack_bf16(static_cast<float>(v4.z), static_cast<float>(v4.w));
     }
+    __syncthreads();
+    const __nv_bfloat16* kt = kb;
+    const __nv_bfloat16* vt = vb;
 
     // S = Q K^T for the warp's 16 rows x 64 keys
     float sc[BK / 8][4];
@@ -241,7 +243,7 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,  // (B, Sq, H, HD)
         if (causal) keep = keep && key <= qp;
         if (window > 0) keep = keep && key > qp - window;
         float x = sc[nt][e] * scale;
-        if constexpr (QUANT) x *= ks[col];
+        x *= ks[col];
         x = keep ? x : -CUDART_INF_F;  // exp(-inf - m) = 0 with m >= -1e30: p = 0
         sc[nt][e] = x;
         mx[e >> 1] = fmaxf(mx[e >> 1], x);
@@ -269,29 +271,27 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,  // (B, Sq, H, HD)
       for (int e = 0; e < 4; ++e) {
         const float p = expf(sc[nt][e] - m[e >> 1]);
         l[e >> 1] += p;
-        float pv = p;
-        if constexpr (QUANT) pv *= vs[nt * 8 + 2 * tig + (e & 1)];
-        sc[nt][e] = pv;
+        sc[nt][e] = p * vs[nt * 8 + 2 * tig + (e & 1)];
       }
     }
 
     // O += P V: P's accumulator fragments are PV's A fragments.  int8 V is
-    // exact in bf16, so there P * v_scale goes in as two bf16 terms (hi + lo,
-    // ~16 significant bits): the fp32 P of the Pallas kernel's int8 branch
+    // exact in bf16, so P * v_scale goes in as two bf16 terms (hi + lo, ~16
+    // significant bits): the fp32 P of the Pallas kernel's int8 branch
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
       uint32_t pf[4], pl[4];
-      split_bf16<QUANT>(sc[2 * kk][0], sc[2 * kk][1], pf[0], pl[0]);
-      split_bf16<QUANT>(sc[2 * kk][2], sc[2 * kk][3], pf[1], pl[1]);
-      split_bf16<QUANT>(sc[2 * kk + 1][0], sc[2 * kk + 1][1], pf[2], pl[2]);
-      split_bf16<QUANT>(sc[2 * kk + 1][2], sc[2 * kk + 1][3], pf[3], pl[3]);
+      split_bf16(sc[2 * kk][0], sc[2 * kk][1], pf[0], pl[0]);
+      split_bf16(sc[2 * kk][2], sc[2 * kk][3], pf[1], pl[1]);
+      split_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1], pf[2], pl[2]);
+      split_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3], pf[3], pl[3]);
       const __nv_bfloat16* vr = vt + (kk * 16 + 2 * tig) * LD + g;
 #pragma unroll
       for (int nt = 0; nt < HD / 8; ++nt) {
         const __nv_bfloat16* p = vr + nt * 8;
         const uint32_t b0 = ld_col_pair(p, LD), b1 = ld_col_pair(p + 8 * LD, LD);
         mma_16816(acc[nt], pf, b0, b1);
-        if constexpr (QUANT) mma_16816(acc[nt], pl, b0, b1);
+        mma_16816(acc[nt], pl, b0, b1);
       }
     }
     __syncthreads();  // the next iteration's load overwrites this stage
@@ -313,18 +313,20 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,  // (B, Sq, H, HD)
   }
 }
 
-template <int HD, bool QUANT>
+template <int HD>
 int launch(const void* q, const void* k, const void* v, const float* ks, const float* vs,
            void* out, int B, int Sq, int Sk, int H, int KVH, int causal, int window, float scale,
            cudaStream_t stream) {
-  constexpr size_t smem = Layout<HD, QUANT>::smem_bytes;
-  auto kern = flash_fwd_kernel<HD, QUANT>;
+  constexpr size_t smem = Layout<HD>::smem_bytes;
+  auto kern = flash_fwd_kernel<HD>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int rows = Sq * (H / KVH);
   dim3 grid((rows + BM - 1) / BM, B * KVH);
-  kern<<<grid, kThreads, smem, stream>>>(static_cast<const __nv_bfloat16*>(q), k, v, ks, vs,
+  kern<<<grid, kThreads, smem, stream>>>(static_cast<const __nv_bfloat16*>(q),
+                                         static_cast<const int8_t*>(k),
+                                         static_cast<const int8_t*>(v), ks, vs,
                                          static_cast<__nv_bfloat16*>(out), Sq, Sk, H, KVH,
                                          causal, window, scale);
   return static_cast<int>(cudaGetLastError());
@@ -332,18 +334,314 @@ int launch(const void* q, const void* k, const void* v, const float* ks, const f
 
 }  // namespace
 
+// -- bf16 K/V: TMA + wgmma, warp-specialised ----------------------------------
+
+namespace fwg {
+
+constexpr int kHD = 64;       // head dim: one 128-byte swizzle row of bf16
+constexpr int kRows = 128;    // folded query rows per CTA: two consumer warpgroups of 64
+constexpr int kBK = 128;      // keys per K/V tile
+constexpr int kStages = 3;    // (K, V) tiles in flight
+constexpr int kThreads = 384; // consumer warpgroups 0 and 1, producer warpgroup 2
+constexpr uint32_t kTileBytes = kBK * kHD * 2;             // one K or V tile, 16 KB
+constexpr uint32_t kQ = 0;                                  // Q: kRows x 128 bytes
+constexpr uint32_t kStage0 = kRows * kHD * 2;               // stage s: K, then V
+constexpr uint32_t kStageBytes = 2 * kTileBytes;
+constexpr uint32_t kBars = kStage0 + kStages * kStageBytes;  // full[kStages], empty[kStages]
+constexpr uint32_t kSmem = kBars + 2 * kStages * 8 + 1024;   // + alignment slack
+static_assert(kSmem <= 232448, "more shared memory than a CTA may have");
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// s (64 rows x 128 keys of this warpgroup) = Q K^T: Q the K-major A (SBO
+// 1024: eight 128-byte rows; a k16 step is +32 bytes in the swizzle row),
+// the K tile the K-major B (128 key rows, the same layout)
+__device__ __forceinline__ void qk_tile(float (&s)[64], uint32_t qa, uint32_t ka) {
+#pragma unroll
+  for (int kk = 0; kk < kHD / 16; ++kk)
+    wgmma_m64n128k16_bf16<0>(s, desc_sw128(qa + kk * 32, 16, 1024),
+                             desc_sw128(ka + kk * 32, 16, 1024), kk);
+}
+
+// o += P V: P's bf16 pairs p[4 kk .. 4 kk + 3] are the A fragment of keys
+// 16 kk .. 16 kk + 15; V the MN-major B (one 64-column atom, SBO = eight
+// key rows, a k16 step = 16 key rows)
+__device__ __forceinline__ void pv_tile(float (&o)[32], const uint32_t (&p)[32], uint32_t va) {
+#pragma unroll
+  for (int kk = 0; kk < kBK / 16; ++kk)
+    wgmma_m64n64k16_rs(o, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3],
+                       desc_sw128(va + kk * 16 * 128, kTileBytes, 1024));
+}
+
+// the online softmax of one tile: s[4c + e] is row h = e / 2 (this thread's
+// qpos[h]), key n0 + 8c + 2 (lane % 4) + e % 2.  m is the running max in
+// the exp2 domain; s becomes p; l (this thread's partial sums) and the
+// factor alpha that rescales the older sums are updated
+template <bool MASK>
+__device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2], int n0, const int (&qpos)[2],
+                                             int Sk, int causal, int window, float scale_log2) {
+  const int lane = threadIdx.x & 31;
+  float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+  for (int c = 0; c < kBK / 8; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = s[4 * c + e];
+      if constexpr (MASK) {
+        const int key = n0 + 8 * c + 2 * (lane & 3) + (e & 1);
+        const int qp = qpos[e >> 1];
+        bool keep = key < Sk;
+        if (causal) keep = keep && key <= qp;
+        if (window > 0) keep = keep && key > qp - window;
+        x = keep ? x : -CUDART_INF_F;  // exp2(-inf) = 0: p = 0
+        s[4 * c + e] = x;
+      }
+      mx[e >> 1] = fmaxf(mx[e >> 1], x);
+    }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+    const float mn = fmaxf(m[h], mx[h] * scale_log2);  // m starts at -1e30: finite
+    alpha[h] = ex2(m[h] - mn);
+    m[h] = mn;
+    l[h] *= alpha[h];
+  }
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    const float p = ex2(fmaf(s[i], scale_log2, -m[(i >> 1) & 1]));
+    l[(i >> 1) & 1] += p;
+    s[i] = p;
+  }
+}
+
+// p (bf16 pairs) from s: pairs 4 kk + {0, 1, 2, 3} are the A fragment of
+// keys 16 kk .. 16 kk + 15 (rows g, g + 8 at columns 2 t, then at + 8)
+__device__ __forceinline__ void pack_p(const float (&s)[64], uint32_t (&p)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) p[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
+}
+
+// tile j + 1's softmax runs while tile j's PV is on the tensor cores
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap kmap,
+                       const __grid_constant__ CUtensorMap vmap,
+                       const __nv_bfloat16* __restrict__ q,  // (B, Sq, H, 64)
+                       __nv_bfloat16* __restrict__ out,      // (B, Sq, H, 64)
+                       int Sq, int Sk, int H, int KVH, int causal, int window,
+                       float scale_log2) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kBars);
+  uint64_t* empty = full + kStages;
+
+  const int G = H / KVH;
+  const int rows = Sq * G;  // folded (position, group) rows of one (b, kvh)
+  const int b = blockIdx.x / KVH, kvh = blockIdx.x % KVH;
+  const int r0 = (gridDim.y - 1 - blockIdx.y) * kRows;  // the longest causal tiles start first
+
+  // the key band this CTA's rows can see: tiles t_begin .. t_begin + n - 1
+  const int q_first = r0 / G, q_last = (min(r0 + kRows, rows) - 1) / G;
+  const int k_end = causal ? min(Sk, q_last + 1) : Sk;
+  const int k_begin = window > 0 ? max(0, q_first - window + 1) : 0;
+  const int t_begin = k_begin / kBK;
+  const int n = k_end > k_begin ? (k_end + kBK - 1) / kBK - t_begin : 0;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wr0 = r0 + (warp >> 2) * 64;  // a consumer warpgroup's first folded row
+  auto q_off = [&](int r) {               // element offset of folded row r in q / out
+    return ((static_cast<size_t>(b) * Sq + r / G) * H + kvh * G + r % G) * kHD;
+  };
+  // Q of the consumer warpgroups' rows, in flight while the barriers are set up
+  uint4 qv[4];
+  if (warp < 8) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int i = (threadIdx.x & 127) + 128 * j, r = wr0 + (i >> 3);
+      qv[j] = r < rows ? *reinterpret_cast<const uint4*>(q + q_off(r) + (i & 7) * 8)
+                       : make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // one arrival per consumer warp
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (warp >= 8) {
+    // -- producer ---------------------------------------------------------------
+    setmaxnreg_dec<40>();
+    if (warp == 8 && lane == 0) {
+      for (int i = 0; i < n; ++i) {
+        const int st = i % kStages;
+        if (i >= kStages) mbar_wait(&empty[st], ((i / kStages) - 1) & 1);
+        unsigned char* kt = smem + kStage0 + st * kStageBytes;
+        const int key0 = (t_begin + i) * kBK;
+        mbar_arrive_expect_tx(&full[st], kStageBytes);
+        tma_load_4d(kt, &kmap, 0, kvh, key0, b, &full[st]);
+        tma_load_4d(kt + kTileBytes, &vmap, 0, kvh, key0, b, &full[st]);
+      }
+    }
+  } else {
+    // -- consumers --------------------------------------------------------------
+    setmaxnreg_inc<232>();
+    const int wg = warp >> 2;
+
+    // Q: the warpgroup's 64 rows into the K-major 128B-swizzle layout (row
+    // rr at rr * 128 bytes, 16-byte chunk c at c ^ rr % 8); rows past Sq * G
+    // are zeros and are never written back
+    unsigned char* qs = smem + kQ + wg * 64 * 128;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int i = (threadIdx.x & 127) + 128 * j, rr = i >> 3, c = i & 7;
+      *reinterpret_cast<uint4*>(qs + rr * 128 + ((c ^ (rr & 7)) << 4)) = qv[j];
+    }
+    fence_proxy_async();
+    named_bar_sync(1 + wg, 128);
+
+    const int ra = wr0 + (warp & 3) * 16 + (lane >> 2);  // this thread's rows: ra, ra + 8
+    const int qpos[2] = {ra / G, (ra + 8) / G};
+    // a tile runs unmasked if every key in it is real and visible to every
+    // row of the warpgroup
+    const int wq_first = wr0 / G, wq_last = (min(wr0 + 64, rows) - 1) / G;
+    const uint32_t qa = smem_u32(qs);
+    const uint32_t stages = smem_u32(smem + kStage0);
+
+    float s[64], o[32], m[2] = {-1e30f, -1e30f}, l[2] = {0.0f, 0.0f}, alpha[2];
+    uint32_t p[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[i] = 0.0f;
+
+    auto softmax = [&](int i) {
+      const int n0 = (t_begin + i) * kBK;
+      const bool inside = n0 + kBK <= Sk && (!causal || n0 + kBK - 1 <= wq_first) &&
+                          (window <= 0 || n0 > wq_last - window);
+      if (inside)
+        softmax_tile<false>(s, m, l, alpha, n0, qpos, Sk, causal, window, scale_log2);
+      else
+        softmax_tile<true>(s, m, l, alpha, n0, qpos, Sk, causal, window, scale_log2);
+    };
+    auto k_tile = [&](int i) { return stages + (i % kStages) * kStageBytes; };
+
+    if (n > 0) {
+      mbar_wait(&full[0], 0);
+      wgmma_fence();
+      qk_tile(s, qa, k_tile(0));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      softmax(0);
+      pack_p(s, p);
+      for (int i = 0; i + 1 < n; ++i) {
+        mbar_wait(&full[(i + 1) % kStages], ((i + 1) / kStages) & 1);
+        fence_regs(s);
+        fence_regs(o);
+        fence_regs(p);
+        wgmma_fence();
+        qk_tile(s, qa, k_tile(i + 1));
+        wgmma_commit();
+        pv_tile(o, p, k_tile(i) + kTileBytes);
+        wgmma_commit();
+        wgmma_wait<1>();  // S of tile i + 1 is in
+        fence_regs(s);
+        softmax(i + 1);
+        wgmma_wait<0>();  // PV of tile i is in: its stage is free
+        fence_regs(o);
+        fence_regs(p);
+        if (lane == 0) mbar_arrive(&empty[i % kStages]);
+#pragma unroll
+        for (int j = 0; j < 32; ++j) o[j] *= alpha[(j >> 1) & 1];
+        pack_p(s, p);
+      }
+      fence_regs(o);
+      fence_regs(p);
+      wgmma_fence();
+      pv_tile(o, p, k_tile(n - 1) + kTileBytes);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o);
+    }
+
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+      const int r = ra + 8 * h;
+      if (r >= rows) continue;
+      const float inv = 1.0f / fmaxf(l[h], 1e-30f);  // one division per row
+      __nv_bfloat16* orow = out + q_off(r);
+#pragma unroll
+      for (int c = 0; c < kHD / 8; ++c)
+        *reinterpret_cast<uint32_t*>(orow + 8 * c + 2 * (lane & 3)) =
+            pack_bf16(o[4 * c + 2 * h] * inv, o[4 * c + 2 * h + 1] * inv);
+    }
+  }
+}
+
+// k or v (B, Sk, KVH, 64) bf16 as boxes of (64 hd, 1 head, kBK keys, 1
+// batch), 128B swizzle, zeros outside the tensor
+inline bool encode_kv_map(CUtensorMap* map, const void* kv, int B, int Sk, int KVH) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t row = kHD * 2;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(kHD), static_cast<cuuint64_t>(KVH),
+                              static_cast<cuuint64_t>(Sk), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {row, row * KVH, row * KVH * Sk};
+  const cuuint32_t box[4] = {kHD, 1, kBK, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(kv), dims, strides, box,
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+static int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Sk,
+                  int H, int KVH, int causal, int window, float scale, cudaStream_t stream) {
+  if (Sk <= 0)  // no key: every row writes 0
+    return static_cast<int>(
+        cudaMemsetAsync(out, 0, static_cast<size_t>(B) * Sq * H * kHD * 2, stream));
+  const int tiles = (Sq * (H / KVH) + kRows - 1) / kRows;
+  if (tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap kmap, vmap;
+  if (!encode_kv_map(&kmap, k, B, Sk, KVH) || !encode_kv_map(&vmap, v, B, Sk, KVH))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // set on every call, as the attribute is per device
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(kSmem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const float log2e = 1.4426950408889634f;
+  flash_fwd_wgmma_kernel<<<dim3(B * KVH, tiles), kThreads, kSmem, stream>>>(
+      kmap, vmap, static_cast<const __nv_bfloat16*>(q), static_cast<__nv_bfloat16*>(out), Sq, Sk,
+      H, KVH, causal, window, scale * log2e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace fwg
+
 // q/out (B, Sq, H, hd) bf16; k/v (B, Sk, KVH, hd) bf16, or int8 with
-// (B, Sk, KVH) f32 scales; hd 64 (the head dim of the served models; the
-// kernel is written for any multiple of 16).  window <= 0: no window.
+// (B, Sk, KVH) f32 scales; all 16-byte aligned; hd 64 (the head dim of the
+// served models).  window <= 0: no window.  Returns a cudaError_t code
+// (0 = launched).
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v,
                                       const float* k_scale, const float* v_scale, void* out,
                                       int B, int Sq, int Sk, int H, int KVH, int hd, int causal,
                                       int window, float scale, int kv_dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || Sq <= 0) return 0;
-#define FA_ARGS q, k, v, k_scale, v_scale, out, B, Sq, Sk, H, KVH, causal, window, scale, s
-  if (hd == 64 && kv_dtype == DT_I8) return launch<64, true>(FA_ARGS);
-  if (hd == 64 && kv_dtype == DT_BF16) return launch<64, false>(FA_ARGS);
-#undef FA_ARGS
+  if (hd == 64 && kv_dtype == DT_I8)
+    return launch<64>(q, k, v, k_scale, v_scale, out, B, Sq, Sk, H, KVH, causal, window, scale,
+                      s);
+  if (hd == 64 && kv_dtype == DT_BF16)
+    return fwg::launch(q, k, v, out, B, Sq, Sk, H, KVH, causal, window, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,15 +1,17 @@
 // Hopper (sm_90a) primitives in inline PTX, shared by the kernels that run
-// on wgmma, bulk copies, mbarriers and thread-block clusters (B1 in
-// block_sparse.cu and B2 in fused_gate_up.cu, through wgmma_column.cuh).
+// on wgmma, bulk copies, mbarriers and thread-block clusters (B1, B2 and B4
+// through wgmma_column.cuh; B6's bf16 kernel in flash_attention.cu).
 //
 // - mbarrier: init, arrive, arrive with an expected transaction count, and
 //   a parity wait (a phase of parity p has completed);
-// - bulk copies: a 1-D global -> shared copy and a 2-D TMA tile load, both
-//   completing on an mbarrier by transaction bytes;
+// - bulk copies: a 1-D global -> shared copy and 2-D / 4-D TMA tile loads,
+//   all completing on an mbarrier by transaction bytes;
 // - wgmma: the 128B-swizzle shared-memory descriptor, fence / commit /
-//   wait, and m64n128k16 bf16 x bf16 -> fp32 with B transposed (MN-major);
+//   wait, m64n128k16 bf16 x bf16 -> fp32 with both operands in shared
+//   memory (B K-major or MN-major), and m64n64k16 with A from registers;
 // - clusters: a cluster-wide barrier and loads from a peer CTA's shared
-//   memory (distributed shared memory).
+//   memory (distributed shared memory);
+// - host: cuTensorMapEncodeTiled, reached through the runtime.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap (the type only)
@@ -87,6 +89,18 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, i
       : "memory");
 }
 
+// the 4-D box of ``map`` at (c0 innermost, .., c3) into shared memory,
+// completing on ``bar``; elements outside the tensor arrive as zeros
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, int c3, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
 // generic-proxy writes to shared memory -> visible to wgmma (async proxy)
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -126,11 +140,19 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
 
-// d (64x128 fp32, accumulated) += A (64x16 bf16, K-major) * B (16x128 bf16,
-// MN-major: the transpose bit set); the warpgroup's 128 threads hold d as
+// d (64x128 fp32) = A (64x16 bf16, K-major) * B (16x128 bf16) + (scale_d ?
+// d : 0); B is MN-major (the transpose bit set) for TB = 1, K-major for TB =
+// 0; the warpgroup's 128 threads hold d as
 // d[4c + e] = D[16 * warp + lane / 4 + 8 * (e / 2)][8 * c + 2 * (lane % 4) + e % 2]
-__device__ __forceinline__ void wgmma_m64n128k16_bf16(float (&d)[64], uint64_t da, uint64_t db) {
+template <int TB = 1>
+__device__ __forceinline__ void wgmma_m64n128k16_bf16(float (&d)[64], uint64_t da, uint64_t db,
+                                                      int scale_d = 1) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -144,7 +166,7 @@ __device__ __forceinline__ void wgmma_m64n128k16_bf16(float (&d)[64], uint64_t d
       "%40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, "
       "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 1;\n"
+      "%64, %65, p, 1, 1, 0, %67;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
@@ -162,7 +184,33 @@ __device__ __forceinline__ void wgmma_m64n128k16_bf16(float (&d)[64], uint64_t d
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+}
+
+// d (64x64 fp32, accumulated) += A (64x16 bf16 from registers) * B (16x64
+// bf16 in shared memory, MN-major).  A's fragments a0..a3 are those of
+// mma.m16n8k16 for the warp's 16 rows: (row lane / 4, columns 2 (lane % 4)
+// + {0, 1}), the same 8 rows below, then both at columns + 8 -- so the
+// accumulator of a 64xN product, two columns' groups c = 2 kk, 2 kk + 1
+// packed in pairs, is the A operand of k step kk with no data movement
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], uint32_t a0, uint32_t a1,
+                                                   uint32_t a2, uint32_t a3, uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, 1, 1, 1, 1;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db));
 }
 
 template <int N>
@@ -194,4 +242,30 @@ __device__ __forceinline__ float2 ld_peer_f2(uint32_t addr) {
   asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];\n" : "=f"(v.x), "=f"(v.y) : "r"(addr)
                : "memory");
   return v;
+}
+
+// -- host side -------------------------------------------------------------------
+
+// cuTensorMapEncodeTiled, reached through the runtime (the libraries link
+// no libcuda)
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &q);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
 }

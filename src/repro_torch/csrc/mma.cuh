@@ -1,5 +1,5 @@
-// Tensor-core and copy helpers shared by the port's mma.sync kernels: B6
-// (flash_attention.cu) and B4 (block_sparse_col.cu).
+// Tensor-core and copy helpers of the port's one mma.sync kernel: B6 over
+// int8 K/V (flash_attention.cu).
 //
 // mma.sync.m16n8k16 bf16 with fp32 accumulation (an Ampere-era instruction
 // that Hopper runs), the bf16 packing its fragments take, and a cp.async
@@ -32,13 +32,12 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// (a, b) rounded to a bf16 pair hi; with LO also the pair of what rounding
-// dropped, lo = (a, b) - hi, so that hi + lo keeps ~16 significant bits
-template <bool LO>
+// (a, b) rounded to a bf16 pair hi, and the pair of what rounding dropped,
+// lo = (a, b) - hi, so that hi + lo keeps ~16 significant bits
 __device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi, uint32_t& lo) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
   hi = *reinterpret_cast<const uint32_t*>(&h);
-  if constexpr (LO) lo = pack_bf16(a - __low2float(h), b - __high2float(h));
+  lo = pack_bf16(a - __low2float(h), b - __high2float(h));
 }
 
 // C += A (16x16, row) * B (16x8, col), bf16 in, fp32 accumulate

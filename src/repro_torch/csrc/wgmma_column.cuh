@@ -1,6 +1,6 @@
 // One output block-column of a block-sparse product on Hopper's tensor
-// cores, shared by B1 (block_sparse.cu) and B2 (fused_gate_up.cu) for bf16 x
-// against an int8 payload.
+// cores, shared by B1 (block_sparse.cu), B2 (fused_gate_up.cu) and B4
+// (block_sparse_col.cu) for bf16 x against an int8 payload.
 //
 // The payload is the pack layout: column j's surviving blocks lie
 // contiguously, (mb, 128, 128) int8 row-major (k, n), with block_rows[j, s]
@@ -288,30 +288,6 @@ __device__ __forceinline__ void column_body(const CUtensorMap* xmap, const ColLi
 
 // -- host side ---------------------------------------------------------------------
 
-// cuTensorMapEncodeTiled, reached through the runtime (the libraries link
-// no libcuda)
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-inline EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                       cudaEnableDefault, &q);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
-
 // x (M, K) bf16 row-major as boxes of 64 k x box_rows rows, 128B swizzle,
 // zeros outside the tensor
 inline bool encode_x_map(CUtensorMap* map, const void* x, int M, int K, int box_rows) {
@@ -329,9 +305,12 @@ inline bool encode_x_map(CUtensorMap* map, const void* x, int M, int K, int box_
 // Launch ``kern`` (a __global__ wrapper of column_body<NC, S, *>) over
 // (n_cols * split, M tiles), with a cluster of ``split`` CTAs along x when
 // split > 1.  bm is the host's regime: 128 (NC = 2, split 1) or 64 (NC = 1,
-// split 1..8).
+// split 1..8).  static: B1 and B4 pass kernels of one type from two
+// libraries, and the static ``configured`` of an inline template would be
+// one process-wide (unique) symbol -- one library's flag would skip the
+// other's shared-memory attribute.
 template <int NC, int S, typename Kern, typename... Args>
-int launch_column(Kern kern, int M, int n_cols, int split, cudaStream_t stream, Args... args) {
+static int launch_column(Kern kern, int M, int n_cols, int split, cudaStream_t stream, Args... args) {
   using G = Geometry<NC, S>;
   static bool configured = false;
   if (!configured) {

@@ -18,12 +18,14 @@ from shapes the host knows: at prefill one CTA per (output block-column,
 up to 8 CTAs whose partial sums rank 0 adds in rank order.  Pairs with an
 fp32 operand run fp32 CUDA-core FMAs.
 
-B4 replaces ``repro/kernels/block_sparse.py:block_sparse_matmul``, the
-reference's per-column sweep for a packed weight without a walk.  Same
-function, another schedule: one CTA per (output block-column, 64-row
-M-tile), so each surviving block is streamed once per 64 rows, and bf16 x
-against an int8 payload multiplies on the tensor cores (mma.sync bf16,
-fp32 accumulation); pairs with an fp32 operand run fp32 FMAs.
+B4 replaces ``repro/kernels/block_sparse.py:block_sparse_matmul`` (line
+84), the reference's per-column sweep for a packed weight without a walk.
+It is bound as B1 is (bytes at decode, operations at prefill), and it runs
+B1's design: it takes exactly B1's operands, and B1's schedule never reads
+the walk either (a CTA loops over its column's live slots; the walk stays
+on the host).  So its C entry launches ``wgmma_column.cuh``'s column body
+under its own kernel name and launch counter, in the regime ``launch_plan``
+picks for B1 -- on the same operands its output equals B1's bit for bit.
 
 ``block_sparse_matmul`` (B1) and ``block_sparse_matmul_col`` (B4) launch
 their kernel for CUDA tensors and run the plain version for CPU tensors;
@@ -123,11 +125,16 @@ def sm_count(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _launch(source: str, entry: str, x, blocks, block_rows, counts, scales,
-            *regime) -> torch.Tensor:
-    """Allocate y and launch C entry ``entry`` of library ``source`` (with
-    B1's ``regime`` = (bm, split) arguments, if given); the operands have
-    passed ``check_operands``."""
+def regime(x, block_rows) -> tuple:
+    """(bm, split) of a B1 or B4 launch on x against packed operands with
+    ``block_rows``: ``launch_plan`` from host ints (x's rows, the columns and
+    slots, the card's SMs)."""
+    return launch_plan(x.shape[0], *block_rows.shape, sm_count(x.device))
+
+
+def _launch(source: str, entry: str, x, blocks, block_rows, counts, scales) -> torch.Tensor:
+    """Allocate y and launch C entry ``entry`` of library ``source`` in the
+    regime ``regime`` picks; the operands have passed ``check_operands``."""
     M, K = x.shape
     n_cols, mb = block_rows.shape
     N = n_cols * BLOCK
@@ -136,7 +143,7 @@ def _launch(source: str, entry: str, x, blocks, block_rows, counts, scales,
     code = getattr(lib, entry)(
         build.ptr(x), build.ptr(blocks), build.ptr(block_rows), build.ptr(counts),
         build.ptr(scales), build.ptr(y), M, K, N, mb,
-        build.DTYPE_CODES[x.dtype], build.DTYPE_CODES[blocks.dtype], *regime,
+        build.DTYPE_CODES[x.dtype], build.DTYPE_CODES[blocks.dtype], *regime(x, block_rows),
         build.stream_ptr(x.device))
     build.check(lib, code, entry)
     return y
@@ -154,8 +161,7 @@ def block_sparse_matmul(x, blocks, block_rows, counts, scales=None, *,
         return block_sparse_matmul_plain(x, blocks, block_rows, counts, scales)
     check_operands(x, blocks, block_rows, counts, scales)
     check_x_aligned(x)
-    regime = launch_plan(x.shape[0], *block_rows.shape, sm_count(x.device))
-    y = _launch("block_sparse", "bsmm_launch", x, blocks, block_rows, counts, scales, *regime)
+    y = _launch("block_sparse", "bsmm_launch", x, blocks, block_rows, counts, scales)
     block_sparse_matmul.launches += 1
     return y
 
@@ -171,8 +177,8 @@ block_sparse_matmul_col_plain = block_sparse_matmul_plain
 def block_sparse_matmul_col(x, blocks, block_rows, counts, scales=None, *,
                             use_kernel: bool = True) -> torch.Tensor:
     """y (M, N) = x (M, K) @ W through kernel B4, in x's dtype; operands as
-    for ``block_sparse_matmul``, and x 16-byte aligned (its slices are
-    copied by cp.async).  ``use_kernel=False`` runs the plain version on
+    for ``block_sparse_matmul``, and x 16-byte aligned (its tiles come by
+    TMA).  ``use_kernel=False`` runs the plain version on
     CUDA tensors too."""
     if not x.is_cuda or not use_kernel:
         return block_sparse_matmul_col_plain(x, blocks, block_rows, counts, scales)

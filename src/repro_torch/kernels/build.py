@@ -48,8 +48,9 @@ _SIGNATURES = {
         "bsmm_launch": ([_P] * 6 + [_I] * 8 + [_P], _I),
     },
     "block_sparse_col": {
-        # x, blocks, rows, counts, scales, y, M, K, N, mb, x_dtype, w_dtype, stream
-        "bsmm_col_launch": ([_P] * 6 + [_I] * 6 + [_P], _I),
+        # x, blocks, rows, counts, scales, y, M, K, N, mb, x_dtype, w_dtype,
+        # bm, split, stream (B1's arguments)
+        "bsmm_col_launch": ([_P] * 6 + [_I] * 8 + [_P], _I),
     },
     "fused_gate_up": {
         # x, gate (blocks, rows, counts, scales), up (...), y,

@@ -13,14 +13,18 @@ reference's gather path: gather the pages into a contiguous view and run
 ``models.layers.decode_attention``.
 
 B6, GQA flash attention forward (long prefill), replaces
-``repro/kernels/flash_attention.py:flash_attention``.  What bounds it on
-the H100: operations -- 4 * hd flops per visible (query head, key) pair on
-the bf16 tensor cores; a 2048-token causal prefill of tinyllama moves
-19 MB but does 17 GFLOP.  Its design (see the source's note): one CTA per
-(batch x KV head, 64 folded query rows), K/V tiles double-buffered by
-cp.async, QK^T and PV on ``mma.sync`` bf16 tensor cores, wholly masked
-tiles skipped.  Its plain version is an fp32 online softmax over key
-chunks (``models.layers.flash_rows``).
+``repro/kernels/flash_attention.py:flash_attention`` (line 105).  What
+bounds it on the H100: operations -- 4 * hd flops per visible (query head,
+key) pair on the bf16 tensor cores; a 2048-token causal prefill of
+tinyllama moves 18.9 MB but does 17.2 GFLOP.  Its design for bf16 K/V (the
+served path; see the source's note): a warp-specialised CTA per (batch x KV
+head, 128 folded query rows) -- a producer warp streams 128-key K/V tiles
+by TMA through an mbarrier ring, two consumer warpgroups run QK^T on
+``wgmma`` from shared memory and PV on ``wgmma`` with P in registers, each
+tile's softmax under the previous tile's PV; tiles wholly inside the band
+run unmasked, tiles outside it are never loaded.  int8 K/V (off the main
+path) keep the first port's ``mma.sync`` kernel.  Its plain version is an
+fp32 online softmax over key chunks (``models.layers.flash_rows``).
 """
 
 from __future__ import annotations
@@ -196,6 +200,9 @@ def _check_flash(q, k, v, k_scale, v_scale):
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (16-byte loads, TMA)")
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window=None, k_scale=None,
@@ -218,7 +225,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None, k_scale=None,
     code = lib.flash_attention_launch(
         build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(k_scale), build.ptr(v_scale),
         build.ptr(out), B, Sq, Sk, H, KVH, hd, int(bool(causal)), int(window or 0),
-        1.0 / math.sqrt(hd), build.DTYPE_CODES[k.dtype], build.stream_ptr(q.device))
+        1.0 / math.sqrt(hd), build.DTYPE_CODES[k.dtype],
+        build.stream_ptr(q.device))
     build.check(lib, code, "flash_attention")
     flash_attention.launches += 1
     return out

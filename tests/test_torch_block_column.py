@@ -119,3 +119,59 @@ def test_b2_refuses_misaligned_x_before_any_launch(no_launch):
     with pytest.raises(RuntimeError, match="launch reached"):
         FG.fused_gate_up(_x(True), *pair)
     assert no_launch == ["fused_gate_up"]
+
+
+# B4 (csrc/block_sparse_col.cu) runs B1's column body, so its wrapper must
+# hand its C entry B1's regime: the same (bm, split) for the same shapes
+
+
+@pytest.mark.parametrize("M", [1, 8, 40, 64, 65, 2032])
+@pytest.mark.parametrize("n_cols,mb", TINYLLAMA)
+def test_regime_is_launch_plans_for_tinyllama(M, n_cols, mb, monkeypatch):
+    monkeypatch.setattr(BS, "sm_count", lambda device: H100_SMS)
+    x = torch.zeros((M, 128), dtype=torch.bfloat16)
+    rows = torch.zeros((n_cols, mb), dtype=torch.int32)
+    assert BS.regime(x, rows) == BS.launch_plan(M, n_cols, mb, H100_SMS)
+
+
+class _Lib:
+    """Stands in for a kernel library: records each C entry's arguments."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, entry):
+        return lambda *args: self.calls.append((entry, args)) or 0
+
+
+@pytest.mark.parametrize("M", [1, 8, 40, 65, 2032])
+def test_b4_launches_in_b1s_regime(M, monkeypatch):
+    libs = {}
+    monkeypatch.setattr(build, "load", lambda name: libs.setdefault(name, _Lib()))
+    monkeypatch.setattr(build, "stream_ptr", lambda device: 0)
+    monkeypatch.setattr(BS, "sm_count", lambda device: H100_SMS)
+    blocks, rows, counts, scales = _operands()
+    base = torch.zeros(M * 256 + 8, dtype=torch.bfloat16)
+    x = base[8:].view(M, 256).as_subclass(_OnCard)
+    n1, n4 = BS.block_sparse_matmul.launches, BS.block_sparse_matmul_col.launches
+    BS.block_sparse_matmul(x, blocks, rows, counts, scales)
+    BS.block_sparse_matmul_col(x, blocks, rows, counts, scales)
+    (e1, a1), = libs["block_sparse"].calls
+    (e4, a4), = libs["block_sparse_col"].calls
+    assert (e1, e4) == ("bsmm_launch", "bsmm_col_launch")
+    want = BS.launch_plan(M, *rows.shape, H100_SMS)
+    # ..., x_dtype, w_dtype, bm, split, stream: everything but y's address agrees
+    assert a4[-3:-1] == a1[-3:-1] == want
+    assert a4[6:] == a1[6:] and a4[:5] == a1[:5]
+    assert BS.block_sparse_matmul.launches == n1 + 1
+    assert BS.block_sparse_matmul_col.launches == n4 + 1
+
+
+def test_b4_refuses_misaligned_x_before_any_launch(no_launch):
+    args = _operands()
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        BS.block_sparse_matmul_col(_x(False), *args)
+    assert no_launch == []
+    with pytest.raises(RuntimeError, match="launch reached"):
+        BS.block_sparse_matmul_col(_x(True), *args)
+    assert no_launch == ["block_sparse_col"]

@@ -26,6 +26,7 @@ from repro.serving.engine import ServingEngine as RServingEngine
 
 from repro_torch import interop
 from repro_torch.configs import get_config
+from repro_torch.kernels import build
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ops
 from repro_torch.models import layers as TL
@@ -67,6 +68,25 @@ def test_b6_plain_matches_pallas(B, S, H, KVH, hd, window):
     got = ops.flash_attention(*_t(q, k, v), causal=True, window=window)
     assert FA.flash_attention.launches == n  # CPU tensors: the plain version
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=5e-5)
+
+
+@pytest.mark.parametrize("H,KVH,window", [(8, 1, None), (16, 2, None), (8, 2, None),
+                                          (8, 1, 64)])
+def test_b6_plain_matches_pallas_across_a_row_tile(H, KVH, window):
+    """S = 136: at G = 8 the 1088 folded rows of a KV head straddle B6's
+    128-row CTA tile (and 17 positions per tile at G = 8, 34 at G = 4); the
+    Pallas wrapper pads the length to its block, which causal attention
+    never sees."""
+    q, k, v = _qkv(1, 136, 136, H, KVH, 64, seed=H + KVH)
+    want = rops.flash_attention(*_j(q, k, v), causal=True, window=window, block_q=64,
+                                block_k=64, interpret=True)
+    got = ops.flash_attention(*_t(q, k, v), causal=True, window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=5e-5)
+    bq, bk, bv = _t(q, k, v, dtype=torch.bfloat16)
+    want16 = rops.flash_attention(*_j(q, k, v, dtype=jnp.bfloat16), causal=True, window=window,
+                                  block_q=64, block_k=64, interpret=True)
+    got16 = FA.flash_attention(bq, bk, bv, causal=True, window=window)
+    np.testing.assert_allclose(got16.float().numpy(), np.asarray(want16, np.float32), atol=3e-2)
 
 
 def test_b6_plain_matches_pallas_bf16():
@@ -213,6 +233,40 @@ def test_b6_check_rejects_what_the_kernel_does_not_take(bad):
         FA._check_flash(q, k, v, ks, vs)
     good = _t(*_qkv(1, 64, 64, 4, 2, 64), dtype=torch.bfloat16)
     FA._check_flash(*good, None, None)  # what the kernel takes passes
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that claims to lie on the card, so that the wrapper
+    takes its kernel branch."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+@pytest.mark.parametrize("which", ["q", "k", "v"])
+def test_b6_refuses_misaligned_operands_before_any_launch(which, monkeypatch):
+    """The bf16 kernel reads Q in 16-byte pieces and K/V by TMA: an operand
+    off a 16-byte boundary is refused before any library is loaded."""
+    loads = []
+
+    def load(name):
+        loads.append(name)
+        raise RuntimeError("launch reached")
+
+    monkeypatch.setattr(build, "load", load)
+    ops_ = dict(zip("qkv", _t(*_qkv(1, 64, 64, 4, 2, 64), dtype=torch.bfloat16)))
+    base = torch.zeros(ops_[which].numel() + 8, dtype=torch.bfloat16)
+    ops_[which] = base[1:1 + ops_[which].numel()].view(ops_[which].shape)
+    args = {n: t.as_subclass(_OnCard) for n, t in ops_.items()}
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        FA.flash_attention(**args)
+    assert loads == []
+    ops_[which] = base[8:8 + ops_[which].numel()].view(ops_[which].shape)
+    args = {n: t.as_subclass(_OnCard) for n, t in ops_.items()}
+    with pytest.raises(RuntimeError, match="launch reached"):
+        FA.flash_attention(**args)
+    assert loads == ["flash_attention"]
 
 
 # ---------------------------------------------------------------------------

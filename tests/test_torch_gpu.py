@@ -171,6 +171,40 @@ def test_block_sparse_col_kernel_matches_plain(cuda, M, K, N, quant, dtype, rtol
     _close(y, ref, rtol)
 
 
+# B4 runs B1's column body (csrc/wgmma_column.cuh) in B1's regime, so on
+# the same operands its output equals B1's bit for bit -- at the decode
+# batches, across both regimes' tile edges and at the longest prefill, for
+# one layer's wq, wk and w_down shapes; each also within 1e-2 of the plain
+# version, and a block-column that keeps no block writes zeros
+B4_MS = [1, 8, 40, 63, 64, 65, 127, 128, 129, 2032]
+
+
+@pytest.mark.parametrize("K,N", [(2048, 2048), (2048, 256), (5632, 2048)])
+@pytest.mark.parametrize("M", B4_MS)
+def test_b4_equals_b1_bit_for_bit(cuda, M, K, N):
+    p = _packed(K, N, True, 11, cuda)
+    x = torch.randn((M, K), device=cuda).to(torch.bfloat16)
+    args = (p.blocks, p.block_rows, p.counts, p.scales)
+    y4 = BS.block_sparse_matmul_col(x, *args)
+    y1 = BS.block_sparse_matmul(x, *args)
+    ref = BS.block_sparse_matmul_col(x, *args, use_kernel=False)
+    torch.cuda.synchronize()
+    assert torch.equal(y4, y1)
+    _close(y4, ref, 1e-2)
+
+
+@pytest.mark.parametrize("M", B4_MS)
+def test_b4_empty_column_writes_zeros_at_every_regime(cuda, M):
+    p = _with_counts(GATE_COUNTS, 768, 12, cuda, True)
+    x = torch.randn((M, 768), device=cuda).to(torch.bfloat16)
+    args = (p.blocks, p.block_rows, p.counts, p.scales)
+    y = BS.block_sparse_matmul_col(x, *args)
+    ref = BS.block_sparse_matmul_col(x, *args, use_kernel=False)
+    torch.cuda.synchronize()
+    assert torch.all(y[:, :128] == 0)
+    _close(y, ref, 1e-2)
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_block_sparse_col_empty_column_writes_zeros(cuda, dtype):
     w = torch.randn((256, 384), device=cuda)
@@ -370,6 +404,45 @@ def test_flash_attention_kernel_matches_plain(cuda, B, Sq, Sk, H, KVH, hd, causa
     torch.cuda.synchronize()
     assert torch.isfinite(o.float()).all()
     _close(o, ref, 1e-2)
+
+
+# B6's bf16 path (TMA + wgmma, 128 folded rows per CTA): lengths around
+# the 64-row warpgroup and 128-key tile edges and the long prefills, causal
+# and not, G = 8, 1 and 4 (the 128-row tile cuts positions at different
+# places), two sequences
+B6_LENGTHS = [1, 63, 64, 65, 127, 129, 1100, 2048]
+B6_HEADS = [(32, 4), (8, 8), (16, 4)]
+
+
+@pytest.mark.parametrize("H,KVH", B6_HEADS)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S", B6_LENGTHS)
+def test_flash_attention_bf16_lengths_and_groups(cuda, S, causal, H, KVH):
+    q, k, v, _, _ = _flash_inputs(2, S, S, H, KVH, 64, False, cuda, seed=S + H)
+    o = FA.flash_attention(q, k, v, causal=causal)
+    ref = FA.flash_attention(q, k, v, causal=causal, use_kernel=False)
+    torch.cuda.synchronize()
+    assert torch.isfinite(o.float()).all()
+    _close(o, ref, 1e-2)
+
+
+@pytest.mark.parametrize("H,KVH", B6_HEADS)
+@pytest.mark.parametrize("S", [129, 1100, 2048])
+def test_flash_attention_bf16_window(cuda, S, H, KVH):
+    q, k, v, _, _ = _flash_inputs(2, S, S, H, KVH, 64, False, cuda, seed=S + 7)
+    o = FA.flash_attention(q, k, v, causal=True, window=256)
+    ref = FA.flash_attention(q, k, v, causal=True, window=256, use_kernel=False)
+    torch.cuda.synchronize()
+    _close(o, ref, 1e-2)
+
+
+def test_flash_attention_bf16_launches_are_bitwise_deterministic(cuda):
+    """No atomics and no split over keys: two launches give the same bits."""
+    q, k, v, _, _ = _flash_inputs(1, 1100, 1100, 32, 4, 64, False, cuda, seed=5)
+    a = FA.flash_attention(q, k, v, causal=True)
+    b = FA.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
 
 
 def test_flash_attention_fully_masked_rows_write_zero(cuda):
