@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py            # every phase, on one CUDA device
     python3 chip_smoke.py --profile  # also B1/B2 under every decode split; then
-                                     # torch.profiler: decode steps, a long prefill
+                                     # torch.profiler: decode steps (short and
+                                     # long contexts), a long prefill
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -20,8 +21,11 @@ Phases, in order; any failure raises and the script exits non-zero:
                keeps no block), B6's bf16 kernel at lengths 1-2048 around
                its tile edges for G = 8, 1 and 4, causal, non-causal and
                under a 256-token window, then at a 2048-token causal
-               prefill (twice for the same bits) and an 1100-token int8-K/V one, B5 at the
-               int8 head (2048x32000) and 2048x5632, each at M 8 and 40,
+               prefill (twice for the same bits) and an 1100-token int8-K/V one, B3
+               also at the long phase's contexts (40-2032 tokens, B 8 and 4) and
+               twice for the same bits, B5 at the int8 head (2048x32000, M 8
+               and 40) and 2048x5632 (M 8, 40 and 2032), each call's regime
+               logged and launched twice for the same bits,
                B7/B8 at HAR-6's widest layer (2000x1500, B 1 and 16) and
                ragged shapes, B8 also on saturated codes that force the
                int32 wrap.  Timings are CUDA events, median of single
@@ -29,7 +33,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                library call as a yardstick; also the host's time per B1
                and B4 call at decode.  With --profile, then B1/B2 at
                decode batches under every regime their C entry takes
-               (the split sweep ``launch_plan`` rests on).
+               (the split sweep ``launch_plan`` rests on), and B3 at
+               decode under every (split, groups) (what ``paged_split``
+               and ``paged_groups`` rest on).
 4. fcnet    -- the paper's four FC nets (Table 2) at published widths,
                random weights from a seed: forward_fp32 / forward_pruned
                (B7) held to the plain path, forward_q78 (B8) equal to it
@@ -42,7 +48,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                Every request must finish, the page audit must be clean,
                prefix pages must be shared, and the launch counters of B1,
                B2, B3 and B5 (the int8 head) must rise during the run; B4
-               must not launch (every served leaf carries its walk).
+               must not launch (every served leaf carries its walk), and every
+               B5 launch must be in its wgmma regime.
 6. plancache -- the serve flags with --plan-cache in a temporary
                directory: the first boot packs and saves, the second hits,
                restores every leaf bit for bit and serves the serve
@@ -58,7 +65,7 @@ Phases, in order; any failure raises and the script exits non-zero:
 7. long     -- the serve flags with --max-len 2048: prompts of 40, 1100,
                1536 and 2032 tokens, 16 new tokens each.  Every prefill
                past 1024 tokens runs its attention through B6 (exactly
-               22 x 3 launches); B1, B2, B3 and B5 must launch too, every
+               22 x 3 launches); B1, B2, B3 and B5 (wgmma only) must launch too, every
                request must finish and the page audit must be clean; each
                prefill is timed on the card's clock, the 2032-token one
                also against the last measurement before B1/B2 ran on wgmma.
@@ -67,8 +74,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                through the plain versions (with_use_kernel(False),
                prefill(use_kernel=False)) on the same tokens, for the
                served plan and for a --compress quant plan (every
-               projection through B5); the logits must agree within the
-               stated bf16 tolerance.
+               projection through B5, every launch in its wgmma regime); the
+               logits must agree within the stated bf16 tolerance.
 9. summary  -- one JSON line of per-kernel numbers, then the result line.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
@@ -78,6 +85,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
 import json
 import os
 import re
@@ -148,6 +156,12 @@ KERNEL_TOL = {"block_sparse_matmul": KERNEL_RTOL, "block_sparse_matmul_col": KER
 
 def log(msg: str) -> None:
     print(f"[chip_smoke] {msg}", flush=True)
+
+
+def token_digest(tokens) -> str:
+    """A short digest of a nested list of greedy tokens, to compare two runs
+    (two trees, or two kernels) by their logs."""
+    return hashlib.sha256(json.dumps(tokens).encode()).hexdigest()[:16]
 
 
 def bound(nbytes: float, ops: float, rate: float = BF16_FLOPS) -> tuple:
@@ -416,7 +430,6 @@ def phase_kernels(torch, results: dict) -> None:
     table[1:4, 0] = table[0, 0]
     table = table.to(torch.int32).contiguous()
     q = torch.randn((B, 1, H, hd), generator=gen, device="cuda").to(torch.bfloat16)
-    n_pages = (pos // ps + 1).clamp(max=P)
     b3_err = b3_rel = 0.0
     for kv in ("int8", "bf16"):
         if kv == "int8":
@@ -436,7 +449,8 @@ def phase_kernels(torch, results: dict) -> None:
         kw = dict(k_scale_pages=ks, v_scale_pages=vs)
         o = FA.paged_decode_attention(q, kp, vp, table, pos, **kw)
         ref = FA.paged_decode_attention(q, kp, vp, table, pos, use_kernel=False, **kw)
-        torch.cuda.synchronize()
+        _deterministic(torch, f"B3 {kv} pools", o,
+                       FA.paged_decode_attention(q, kp, vp, table, pos, **kw))
         diff, rel = rel_err(torch, o, ref)
         log(f"B3 {kv} pools: max|diff| {diff:.3e} rel {rel:.3e}")
         if not rel <= KERNEL_RTOL:
@@ -444,32 +458,108 @@ def phase_kernels(torch, results: dict) -> None:
         b3_err, b3_rel = max(b3_err, diff), max(b3_rel, rel)
         if kv != "int8":
             continue
-        pages_read = int(n_pages.sum()) * KVH  # (page, kv head) tiles
-        nbytes = (pages_read * ps * (2 * hd * elem + 2 * scale_bytes)
-                  + 2 * q.numel() * 2 + table.numel() * 4 + B * 4)
-        flops = 4.0 * int((pos + 1).sum()) * H * hd
-        b_ms, b_by = bound(nbytes, flops)
+        b_ms, b_by = _b3_bound(q, table, pos, ps, KVH, hd, H, elem, scale_bytes)
         ms = timer(lambda: FA.paged_decode_attention(q, kp, vp, table, pos, **kw))
         plain_ms = timer(lambda: FA.paged_decode_attention(q, kp, vp, table, pos,
                                                            use_kernel=False, **kw))
-        # yardstick: SDPA on the gathered, dequantized K/V (expanded to H heads)
-        from repro_torch.models import layers as L
-
-        kd = (L.gather_pages(kp, table).float() * L.gather_pages(ks, table)[..., None])
-        vd = (L.gather_pages(vp, table).float() * L.gather_pages(vs, table)[..., None])
-        kd = kd.to(torch.bfloat16).repeat_interleave(H // KVH, dim=2).transpose(1, 2)
-        vd = vd.to(torch.bfloat16).repeat_interleave(H // KVH, dim=2).transpose(1, 2)
-        mask = (torch.arange(P * ps, device="cuda")[None, :] <= pos[:, None])[:, None, None]
-        qt = q.transpose(1, 2)
-        sdpa = torch.nn.functional.scaled_dot_product_attention
-        lib_ms = timer(lambda: sdpa(qt, kd, vd, attn_mask=mask))
+        lib_ms = timer(_sdpa_gathered(torch, q, kp, vp, ks, vs, table, pos))
         log(f"B3 int8 B=8: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"SDPA(gathered bf16) {lib_ms:.4f} ms, bound {b_ms:.4f} ms")
         results["paged_decode_attention"] = {
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": lib_ms,
             "shape": "B=8 T=1 H=32 KVH=4 hd=64 int8 pages of 16, pos 15..100"}
-    results["paged_decode_attention"].update(max_abs_err=b3_err, max_rel_err=b3_rel)
+    rows, d, r = b3_long_rows(torch, timer, gen)
+    results["paged_decode_attention"].update(max_abs_err=max(b3_err, d),
+                                             max_rel_err=max(b3_rel, r), rows=rows)
+
+
+def _sdpa_gathered(torch, q, kp, vp, ks, vs, table, pos):
+    """B3's yardstick: scaled_dot_product_attention on the gathered,
+    dequantized bf16 K/V (expanded to the query heads) under the causal
+    mask of one new token at ``pos``; returns a thunk for the timer."""
+    from repro_torch.models import layers as L
+
+    H, KVH = q.shape[2], kp.shape[2]
+    kd = L.gather_pages(kp, table).float() * L.gather_pages(ks, table)[..., None]
+    vd = L.gather_pages(vp, table).float() * L.gather_pages(vs, table)[..., None]
+    kd = kd.to(torch.bfloat16).repeat_interleave(H // KVH, dim=2).transpose(1, 2)
+    vd = vd.to(torch.bfloat16).repeat_interleave(H // KVH, dim=2).transpose(1, 2)
+    S = kd.shape[2]
+    mask = (torch.arange(S, device="cuda")[None, :] <= pos[:, None])[:, None, None]
+    qt = q.transpose(1, 2)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return lambda: sdpa(qt, kd, vd, attn_mask=mask)
+
+
+def _b3_bound(q, table, pos, ps, KVH, hd, H, elem=1, scale_bytes=4) -> tuple:
+    """B3's least time: the live (page, KV head) tiles' K and V payload and
+    scales, q and o, the table and pos over the memory rate; 4 * hd flops
+    per (query head, visible key) on the bf16 tensor cores."""
+    n_pages = (pos // ps + 1).clamp(max=table.shape[1])
+    tiles = int(n_pages.sum()) * KVH
+    nbytes = (tiles * ps * (2 * hd * elem + 2 * scale_bytes) + 2 * q.numel() * q.element_size()
+              + table.numel() * 4 + pos.numel() * 4)
+    return bound(nbytes, 4.0 * int((pos + 1).sum()) * H * hd)
+
+
+def _b3_case(torch, gen, ctx, P: int) -> tuple:
+    """One B3 call at tinyllama-1.1b's attention (32 query heads over 4 KV
+    heads, hd 64, int8 pages of 16): a sequence per context in ``ctx`` (one
+    new token each, after ctx - 1 cached ones), ``P`` pages per sequence in
+    a shuffled table.  Returns (q, k_pages, v_pages, table, pos, scales)."""
+    B, H, KVH, hd, ps = len(ctx), 32, 4, 64, 16
+    pos = torch.tensor([c - 1 for c in ctx], dtype=torch.int32, device="cuda")
+    table = (1 + torch.randperm(B * P, generator=gen, device="cuda")).reshape(B, P)
+    table = table.to(torch.int32).contiguous()
+    shape = (1 + B * P, ps, KVH, hd)
+    kp = torch.randint(-127, 128, shape, generator=gen, device="cuda", dtype=torch.int8)
+    vp = torch.randint(-127, 128, shape, generator=gen, device="cuda", dtype=torch.int8)
+    ks = torch.rand(shape[:3], generator=gen, device="cuda") * 0.02 + 0.005
+    vs = torch.rand(shape[:3], generator=gen, device="cuda") * 0.02 + 0.005
+    q = torch.randn((B, 1, H, hd), generator=gen, device="cuda").to(torch.bfloat16)
+    return q, kp, vp, table, pos, dict(k_scale_pages=ks, v_scale_pages=vs)
+
+
+# the long phase's contexts (its prompts of 40-2032 tokens, each followed by
+# the first new token), at its batch of 4 and at the serve batch of 8
+B3_LONG_CONTEXTS = (40, 1100, 1536, LONG_M)
+
+
+def b3_long_rows(torch, timer, gen) -> tuple:
+    """B3 at long contexts: B = 4 and 8 sequences (32 query heads over 4 KV
+    heads, hd 64, int8 pages of 16, 128 pages per sequence), one new token
+    each at the contexts of B3_LONG_CONTEXTS; each held to its plain version,
+    launched twice for the same bits, timed with SDPA on gathered bf16 as
+    the yardstick.  Only the kernel's Python signature is used.  Returns
+    (rows, max abs err, max rel err)."""
+    from repro_torch.kernels import flash_attention as FA
+
+    H, KVH, hd, ps = 32, 4, 64, 16
+    rows, err, rel = [], 0.0, 0.0
+    for B in (4, 8):
+        ctx = B3_LONG_CONTEXTS * (B // len(B3_LONG_CONTEXTS))
+        q, kp, vp, table, pos, kw = _b3_case(torch, gen, ctx, 128)
+        ks, vs = kw["k_scale_pages"], kw["v_scale_pages"]
+        label = f"B3 int8 B={B} contexts {','.join(map(str, ctx))}"
+        o = FA.paged_decode_attention(q, kp, vp, table, pos, **kw)
+        d, r = _held(torch, label, o,
+                     FA.paged_decode_attention(q, kp, vp, table, pos, use_kernel=False, **kw),
+                     KERNEL_RTOL)
+        err, rel = max(err, d), max(rel, r)
+        _deterministic(torch, label, o, FA.paged_decode_attention(q, kp, vp, table, pos, **kw))
+        b_ms, b_by = _b3_bound(q, table, pos, ps, KVH, hd, H)
+        ms = timer(lambda: FA.paged_decode_attention(q, kp, vp, table, pos, **kw))
+        plain_ms = timer(lambda: FA.paged_decode_attention(q, kp, vp, table, pos,
+                                                           use_kernel=False, **kw))
+        lib_ms = timer(_sdpa_gathered(torch, q, kp, vp, ks, vs, table, pos))
+        log(f"{label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA(gathered bf16) "
+            f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        rows.append({"shape": f"B={B} T=1 H=32 KVH=4 hd=64 int8 pages of 16, contexts "
+                              f"{'/'.join(map(str, B3_LONG_CONTEXTS))}",
+                     "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                     "bound_ms": b_ms, "bound_by": b_by})
+    return rows, err, rel
 
 
 def _visible_pairs(Sq: int, Sk: int, causal: bool, window) -> int:
@@ -590,9 +680,8 @@ def _held(torch, label: str, got, want, tol) -> tuple:
 
 def phase_dense_kernels(torch, results: dict) -> None:
     """B5, B7 and B8 against their plain versions, timed at the shapes of
-    their main paths: B5 at the served int8 head, B7/B8 at the FC nets'
-    widest layer."""
-    from repro_torch.core.weight_plan import quantize_leaf
+    their main paths: B5 at the served int8 head and a --compress quant
+    leaf (``b5_rows``), B7/B8 at the FC nets' widest layer."""
     from repro_torch.kernels import batched_ffn as BF
     from repro_torch.kernels import quant_matmul as QM
 
@@ -603,36 +692,9 @@ def phase_dense_kernels(torch, results: dict) -> None:
     def randn(*shape):
         return torch.randn(shape, generator=gen, device="cuda")
 
-    # B5 at the head (2048 x 32000) and at 2048 x 5632 (a --compress quant
-    # gate/up), each at M = 8 (decode) and 40 (prefill), bf16 activations as
-    # served, each timed against its plain version and torch.matmul on the
-    # dequantized bf16 weight; the summary line carries the head at M = 8
-    err = rel = 0.0
-    for K, N in ((2048, 32000), (2048, 5632)):
-        leaf = quantize_leaf(randn(K, N) / K ** 0.5)
-        wq, sc = leaf.q, leaf.s
-        wd = (wq.float() * sc).to(torch.bfloat16)
-        for M in (8, 40):
-            x = randn(M, K).to(torch.bfloat16)
-            d, r = _held(torch, f"B5 {K}x{N} M={M} bf16", QM.quant_matmul(x, wq, sc),
-                         QM.quant_matmul(x, wq, sc, use_kernel=False), KERNEL_RTOL)
-            err, rel = max(err, d), max(rel, r)
-            if (N, M) == (32000, 8):
-                _held(torch, f"B5 {K}x{N} M={M} fp32", QM.quant_matmul(x.float(), wq, sc),
-                      QM.quant_matmul(x.float(), wq, sc, use_kernel=False), FP32_RTOL)
-            b_ms, b_by = bound(M * K * 2 + K * N + N * 4 + M * N * 2, 2.0 * M * K * N,
-                               BF16_FLOPS)
-            ms = timer(lambda: QM.quant_matmul(x, wq, sc))
-            plain_ms = timer(lambda: QM.quant_matmul(x, wq, sc, use_kernel=False))
-            lib_ms = timer(lambda: torch.matmul(x, wd))
-            log(f"B5 {K}x{N} M={M}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                f"torch.matmul(dequantized bf16) {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-            if (N, M) == (32000, 8):
-                results["quant_matmul"] = {
-                    "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                    "library_ms": lib_ms, "shape": "int8 head 2048x32000, bf16 x at M=8"}
-        del wd
-    results["quant_matmul"].update(max_abs_err=err, max_rel_err=rel)
+    rows, err, rel = b5_rows(torch, timer, gen)
+    results["quant_matmul"] = {**rows[0], "max_abs_err": err, "max_rel_err": rel,
+                               "rows": rows[1:]}
 
     # B7 and B8 at HAR-6's widest layer (2000 x 1500) at B = 1 and 16, at a
     # ragged layer (561 x 300, B = 5) and at an output layer (300 x 6)
@@ -692,6 +754,52 @@ def phase_dense_kernels(torch, results: dict) -> None:
         "shape": "2000x1500 int16 at B=16 (HAR-6 layer 2)"}
 
 
+# B5's rows: the int8 head at decode and at the serve phase's prefill, and
+# a --compress quant gate/up leaf at decode, prefill and the long prefill
+B5_ROWS = (((2048, 32000), (8, 40)), ((2048, 5632), (8, 40, LONG_M)))
+
+
+def b5_rows(torch, timer, gen) -> tuple:
+    """B5 against its plain version at B5_ROWS, bf16 activations as served:
+    each call's regime logged, launched twice for the same bits, timed beside
+    its plain version and torch.matmul on the dequantized bf16 weight; the
+    head at M = 8 also under fp32 x (the CUDA-core regime).  Returns (rows,
+    the first the head at M = 8; max abs err; max rel err)."""
+    from repro_torch.core.weight_plan import quantize_leaf
+    from repro_torch.kernels import block_sparse as BS
+    from repro_torch.kernels import quant_matmul as QM
+
+    rows, err, rel = [], 0.0, 0.0
+    for (K, N), Ms in B5_ROWS:
+        leaf = quantize_leaf(torch.randn((K, N), generator=gen, device="cuda") / K ** 0.5)
+        wq, sc = leaf.q, leaf.s
+        wd = (wq.float() * sc).to(torch.bfloat16)
+        for M in Ms:
+            x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+            label = f"B5 {K}x{N} M={M} bf16"
+            log(f"{label}: regime {QM.regime(x.dtype, M, K, N, K, N, BS.sm_count(x.device))}")
+            y = QM.quant_matmul(x, wq, sc)
+            d, r = _held(torch, label, y, QM.quant_matmul(x, wq, sc, use_kernel=False),
+                         KERNEL_RTOL)
+            err, rel = max(err, d), max(rel, r)
+            _deterministic(torch, label, y, QM.quant_matmul(x, wq, sc))
+            if (N, M) == (32000, 8):
+                _held(torch, f"B5 {K}x{N} M={M} fp32", QM.quant_matmul(x.float(), wq, sc),
+                      QM.quant_matmul(x.float(), wq, sc, use_kernel=False), FP32_RTOL)
+            b_ms, b_by = bound(M * K * 2 + K * N + N * 4 + M * N * 2, 2.0 * M * K * N,
+                               BF16_FLOPS)
+            ms = timer(lambda: QM.quant_matmul(x, wq, sc))
+            plain_ms = timer(lambda: QM.quant_matmul(x, wq, sc, use_kernel=False))
+            lib_ms = timer(lambda: torch.matmul(x, wd))
+            log(f"B5 {K}x{N} M={M}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"torch.matmul(dequantized bf16) {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+            rows.append({"shape": f"int8 {K}x{N}, bf16 x at M={M}", "ms": ms,
+                         "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
+                         "bound_by": b_by})
+        del wd
+    return rows, err, rel
+
+
 def phase_sweep(torch) -> None:
     """B1 (wq, wk, w_down) and B2 at decode batches M = 1, 8, 40 and 64
     under each regime the C entry takes -- (128, 1) and (64, split) for
@@ -736,6 +844,51 @@ def phase_sweep(torch) -> None:
                     f"{chosen[0]}/{chosen[1]}): " + ", ".join(row))
     finally:
         BS.launch_plan = plan
+
+
+def phase_b3_sweep(torch) -> None:
+    """B3 under each (split, groups) its C entry takes, in place of the pair
+    ``paged_split`` and ``paged_groups`` pick, at the serve phase's decode
+    (8 sequences, 8 pages each, contexts 16-101), the long phase's (4 and 8
+    sequences, 128 pages, contexts 40-2032), one sequence at 2032 and four
+    at 1 (the launch's fixed cost); each result held to the plain version
+    first.  What the two host rules rest on; a one-element add_ gives the
+    timer's floor."""
+    from repro_torch.kernels import block_sparse as BS
+    from repro_torch.kernels import flash_attention as FA
+
+    timer = Timer(torch)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    one = torch.zeros(1, device="cuda")
+    log(f"b3 sweep: the timer's floor (a one-element add_) {timer(lambda: one.add_(1.0)) * 1e3:.2f} us")
+    cases = {"serve B=8": ((16, 17, 18, 32, 33, 48, 64, 101), 8),
+             "long B=4": (B3_LONG_CONTEXTS, 128), "long B=8": (B3_LONG_CONTEXTS * 2, 128),
+             "one at 2032": ((LONG_M,), 128), "four at 1": ((1, 1, 1, 1), 128)}
+    plan = (FA.paged_split, FA.paged_groups)
+    n_sm = BS.sm_count(torch.device("cuda"))
+    try:  # the wrapper takes split and groups from these two: swap them per run
+        for label, (ctx, P) in cases.items():
+            q, kp, vp, table, pos, kw = _b3_case(torch, gen, ctx, P)
+            ref = FA.paged_decode_attention(q, kp, vp, table, pos, use_kernel=False, **kw)
+            split = plan[0](len(ctx), 4, P, n_sm)
+            groups = plan[1](8, 64, 16, torch.int8, -(-P // split), len(ctx) * 4 * split, n_sm)
+            row = []
+            for sp in (1, 2, 4, 8):
+                for g in (1, 2, 4):
+                    FA.paged_split = lambda *a, sp=sp: sp
+                    FA.paged_groups = lambda *a, g=g: g
+                    _, r = rel_err(torch, FA.paged_decode_attention(q, kp, vp, table, pos, **kw),
+                                   ref)
+                    if not r <= KERNEL_RTOL:
+                        raise AssertionError(f"b3 sweep {label} split {sp} groups {g}: rel err "
+                                             f"{r:.3e}")
+                    us = timer(lambda: FA.paged_decode_attention(q, kp, vp, table, pos, **kw))
+                    row.append(f"{sp}/{g} {us * 1e3:.1f}")
+            log(f"b3 sweep {label} (split/groups us; the host picks {split}/{groups}): "
+                + ", ".join(row))
+    finally:
+        FA.paged_split, FA.paged_groups = plan
 
 
 def _fcnet_launches(cfg, kind: str, batch: int, m: int = 114) -> int:
@@ -862,6 +1015,28 @@ def _served_kernels():
             FA.paged_decode_attention, QM.quant_matmul)
 
 
+def _zero_launches(counters) -> None:
+    """Set the launch counters of ``counters`` to 0, B5's per-regime ones too."""
+    from repro_torch.kernels import quant_matmul as QM
+
+    for c in counters:
+        c.launches = 0
+    QM.quant_matmul.wgmma_launches = QM.quant_matmul.dense_tile_launches = 0
+
+
+def _b5_all_wgmma(label: str) -> None:
+    """Every B5 launch since ``_zero_launches`` ran in the wgmma regime (the
+    served model's int8 leaves are all TMA-addressable bf16 products)."""
+    from repro_torch.kernels import quant_matmul as QM
+
+    f = QM.quant_matmul
+    log(f"{label}: B5 launches {f.launches}: wgmma {f.wgmma_launches}, dense_tile "
+        f"{f.dense_tile_launches}")
+    if f.dense_tile_launches or f.wgmma_launches != f.launches:
+        raise AssertionError(f"{label}: a B5 launch left the wgmma regime "
+                             f"({f.dense_tile_launches} dense_tile of {f.launches})")
+
+
 def _serve_and_check(serve, engine, cfg, max_new: int, label: str) -> tuple:
     """Serve the 8 requests from zeroed launch counters; every request must
     finish with in-vocabulary tokens and no page may leak.  Returns (the
@@ -870,12 +1045,12 @@ def _serve_and_check(serve, engine, cfg, max_new: int, label: str) -> tuple:
 
     reqs = _serve_requests(cfg, max_new)
     counters = _served_kernels()
-    for c in counters:
-        c.launches = 0
+    _zero_launches(counters)
     dt = serve.run_requests(engine, reqs)
     launches = {c.__name__: c.launches for c in counters}
     serve.report(engine, dt)
     log(f"{label}: launches during the run {launches}")
+    _b5_all_wgmma(label)
     engine.audit_pages()
     bad = [r.uid for r in reqs if r.state is not RequestState.FINISHED
            or len(r.output) != max_new]
@@ -885,7 +1060,9 @@ def _serve_and_check(serve, engine, cfg, max_new: int, label: str) -> tuple:
         raise AssertionError(f"{label}: a sampled token is outside the vocabulary")
     if engine.pages_in_use != 0:
         raise AssertionError(f"{label}: {engine.pages_in_use} pages leaked")
-    return [list(r.output) for r in reqs], launches, dt
+    outputs = [[int(t) for t in r.output] for r in reqs]
+    log(f"{label}: greedy tokens {token_digest(outputs)} (sha256 of {sum(map(len, outputs))})")
+    return outputs, launches, dt
 
 
 def phase_serve(torch, results: dict):
@@ -905,6 +1082,8 @@ def phase_serve(torch, results: dict):
         if n <= 0:
             raise AssertionError(f"kernel {name} was not launched on the main path")
         results.setdefault(name, {})["launches"] = n
+    log(f"serve: {engine.stats.prefills} prefills and {engine.stats.decode_steps} decode steps; "
+        f"B3 {launches['paged_decode_attention']} and B5 {launches['quant_matmul']} launches")
     tok_s = engine.stats.decode_tokens / dt
     log(f"serve: {engine.stats.completed}/8 FINISHED, audit clean, "
         f"{engine.stats.pages_shared} pages shared, {engine.stats.cow_copies} COW copies, "
@@ -1075,12 +1254,12 @@ def phase_long(torch, results: dict) -> None:
     engine._prefill_request = timed_prefill
     counters = (BS.block_sparse_matmul, FG.fused_gate_up, FA.paged_decode_attention,
                 QM.quant_matmul, FA.flash_attention)
-    for c in counters:
-        c.launches = 0
+    _zero_launches(counters)
     dt = serve.run_requests(engine, reqs)
     launches = {c.__name__: c.launches for c in counters}
     serve.report(engine, dt)
     log(f"long: launches during the run {launches}")
+    _b5_all_wgmma("long")
     engine.audit_pages()
     bad = [r.uid for r in reqs if r.state is not RequestState.FINISHED
            or len(r.output) != args.max_new]
@@ -1090,6 +1269,8 @@ def phase_long(torch, results: dict) -> None:
         raise AssertionError("long: a sampled token is outside the vocabulary")
     if engine.pages_in_use != 0:
         raise AssertionError(f"long: {engine.pages_in_use} pages leaked")
+    outputs = [[int(t) for t in r.output] for r in reqs]
+    log(f"long: greedy tokens {token_digest(outputs)} (sha256 of {sum(map(len, outputs))})")
     want = cfg.n_layers * sum(n > 1024 for n in lens)  # the 40-token prompt stays dense
     if launches["flash_attention"] != want:
         raise AssertionError(f"long: B6 launched {launches['flash_attention']} times, "
@@ -1124,6 +1305,7 @@ def _path_parity(torch, cfg, params, label: str, gen) -> None:
     tokens = torch.randint(0, cfg.vocab, (steps, B), generator=gen, device="cuda")
     paths = {"kernels": (params, True), "plain": (with_use_kernel(params, False), False)}
 
+    greedy = []  # the kernel path's greedy tokens: each prefill's, then each step's
     for S in (36, 40, LONG_M):
         prompt = torch.randint(0, cfg.vocab, (1, S), generator=gen, device="cuda")
         lg = {}
@@ -1132,6 +1314,7 @@ def _path_parity(torch, cfg, params, label: str, gen) -> None:
             lg[name] = T.prefill(cfg, p, prompt, cache, use_kernel=use_kernel)[0][0, -1].float()
         torch.cuda.synchronize()
         a, b = lg["kernels"], lg["plain"]
+        greedy.append(int(a.argmax()))
         if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
             raise AssertionError(f"{label}: non-finite prefill logits")
         worst = float((a - b).abs().max() / b.abs().max())
@@ -1162,8 +1345,10 @@ def _path_parity(torch, cfg, params, label: str, gen) -> None:
     scale = b.abs().amax(dim=(1, 2))
     worst = float((diff / scale).max())
     agree = float((a.argmax(-1) == b.argmax(-1)).float().mean())
+    greedy.append(a.argmax(-1).tolist())
     log(f"parity {label}: {steps} teacher-forced steps x {B} sequences, max |dlogit| / "
-        f"max |logit| = {worst:.3e} (tolerance {PATH_RTOL}), greedy agreement {agree:.4f}")
+        f"max |logit| = {worst:.3e} (tolerance {PATH_RTOL}), greedy agreement {agree:.4f}, "
+        f"kernel path's greedy tokens {token_digest(greedy)}")
     if not worst <= PATH_RTOL:
         raise AssertionError(f"{label}: kernel path logits differ from the plain path: "
                              f"{worst:.3e}")
@@ -1191,9 +1376,9 @@ def phase_parity(torch, cfg, engine) -> None:
     map_tree(lambda path, n: quant_leaves.append(path)
              if isinstance(n, QuantLinear) and not path.endswith("tok") else None, params)
     packed = (BS.block_sparse_matmul, FG.fused_gate_up)
-    for c in (*packed, QM.quant_matmul, FA.flash_attention):
-        c.launches = 0
+    _zero_launches((*packed, QM.quant_matmul, FA.flash_attention))
     _path_parity(torch, cfg, params, "quant", gen)
+    _b5_all_wgmma("parity quant")
     # kernels path only: 3 prefills + 24 decode steps, each leaf once per
     # call; B6 once per layer in the LONG_M prefill
     want = len(quant_leaves) * (3 + 24)
@@ -1208,23 +1393,24 @@ def phase_parity(torch, cfg, engine) -> None:
     torch.cuda.empty_cache()
 
 
-def _profile_steps(torch, cfg, params, steps: int) -> tuple:
-    """``steps`` decode steps at batch 8 (paged int8 KV) timed on the host
-    clock, then as many under torch.profiler.  Returns (wall ms per step,
-    profiled wall ms per step, [(device ms, calls, kernel name)])."""
+def _profile_steps(torch, cfg, params, steps: int, B: int = 8, start: int = 0) -> tuple:
+    """``steps`` decode steps at batch ``B`` (paged int8 KV, positions from
+    ``start`` + 2) timed on the host clock, then as many under
+    torch.profiler.  Returns (wall ms per step, profiled wall ms per step,
+    [(device ms, calls, kernel name)])."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import transformer as T
 
-    B, ps = 8, 16
-    P = -(-(2 + 2 * steps) // ps)
+    ps = 16
+    P = -(-(start + 2 + 2 * steps) // ps)
     cache = T.init_cache(cfg, B, P * ps, torch.bfloat16, kv_dtype=torch.int8,
                          page_size=ps, num_pages=1 + B * P, device="cuda")
     cache["page_table"].copy_(1 + torch.arange(B * P, device="cuda").reshape(B, P))
     tok = torch.zeros((B, 1), dtype=torch.long, device="cuda")
 
     def step(t):
-        pos = torch.full((B,), t, dtype=torch.int32, device="cuda")
+        pos = torch.full((B,), start + t, dtype=torch.int32, device="cuda")
         return T.decode_step(cfg, params, cache, tok, pos)[0]
 
     for t in range(2):
@@ -1300,7 +1486,8 @@ def phase_profile(torch, cfg, engine, steps: int = 6) -> None:
     """Where a decode step's time goes, kernels on; then the same steps with
     the int8 head on its plain version (fp32 cast + matmul), so that the
     head's device time before and after B5 is the difference; then the
-    plan without its walks (every projection through B4).  The device-busy
+    plan without its walks (every projection through B4); then 4 sequences
+    at contexts past LONG_M - 16 (B3 over ~127 pages each).  The device-busy
     share is the profiled device time over the unprofiled wall time (the
     profiler slows the host, not the kernels).  Last, one LONG_M-token
     prefill's breakdown."""
@@ -1312,16 +1499,22 @@ def phase_profile(torch, cfg, engine, steps: int = 6) -> None:
     walkless = W.map_tree(lambda _, n: dataclasses.replace(n, walk=None)
                           if isinstance(n, W.PackedLinear) else n, engine.params)
     busy = {}
-    for label, params in (("B5 head", engine.params), ("plain head", plain_head),
-                          ("walk-less, B4", walkless)):
-        wall, prof_wall, rows = _profile_steps(torch, cfg, params, steps)
+    runs = (("B5 head", engine.params, 8, 0), ("plain head", plain_head, 8, 0),
+            ("walk-less, B4", walkless, 8, 0),
+            (f"contexts {LONG_M - 16}+", engine.params, 4, LONG_M - 16))
+    for label, params, B, start in runs:
+        wall, prof_wall, rows = _profile_steps(torch, cfg, params, steps, B, start)
         dev = sum(r[0] for r in rows) / steps
         busy[label] = dev
-        log(f"profile ({label}): {steps} decode steps at batch 8: wall {wall:.3f} ms/step "
+        log(f"profile ({label}): {steps} decode steps at batch {B}: wall {wall:.3f} ms/step "
             f"({prof_wall:.3f} under the profiler), device busy {dev:.3f} ms/step "
             f"({dev / wall:.3f} of the unprofiled wall)")
         for ms, n, name in rows[:12]:
             log(f"profile:   {ms / steps:9.4f} ms/step  {n // steps:5d} calls/step  {name[:90]}")
+        for kname, key in (("B3", "paged_decode_kernel"), ("B5", "quant_matmul")):
+            ms = sum(r[0] for r in rows if key in r[2])
+            n = sum(r[1] for r in rows if key in r[2])
+            log(f"profile ({label}): {kname} {ms / steps:.4f} ms/step in {n // steps} calls/step")
     log(f"profile: the head costs {busy['plain head'] - busy['B5 head']:.4f} ms/step more "
         f"device time on its plain version than through B5")
     log(f"profile: the walk-less plan (B4) takes {busy['walk-less, B4']:.4f} ms/step of "
@@ -1332,9 +1525,9 @@ def phase_profile(torch, cfg, engine, steps: int = 6) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="on-card smoke test of the CUDA port")
     ap.add_argument("--profile", action="store_true",
-                    help="time B1/B2 at decode under every cluster split after the kernels "
-                         "phase; after every phase, profile decode steps and a long prefill "
-                         "with torch.profiler")
+                    help="time B1/B2 at decode under every cluster split and B3 under every "
+                         "(split, groups) after the kernels phase; after every phase, profile "
+                         "decode steps and a long prefill with torch.profiler")
     args = ap.parse_args(argv)
     import torch
 
@@ -1354,6 +1547,7 @@ def main(argv=None) -> int:
     phase_kernels(torch, results)
     if args.profile:
         phase_sweep(torch)
+        phase_b3_sweep(torch)
     phase_flash(torch, results)
     phase_dense_kernels(torch, results)
     phase_fcnet(torch, results)
@@ -1374,7 +1568,7 @@ def main(argv=None) -> int:
                         "max_rel_err": r["max_rel_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-                        "shape": r["shape"], "pass": ok})
+                        "shape": r["shape"], "rows": r.get("rows", []), "pass": ok})
     if not all(k["pass"] for k in kernels):
         raise AssertionError(f"a kernel failed: {kernels}")
     log(f"all phases passed in {time.perf_counter() - t_start:.1f}s")

@@ -1,11 +1,13 @@
 // Hopper (sm_90a) primitives in inline PTX, shared by the kernels that run
-// on wgmma, bulk copies, mbarriers and thread-block clusters (B1, B2 and B4
-// through wgmma_column.cuh; B6's bf16 kernel in flash_attention.cu).
+// on wgmma, bulk copies, mbarriers and thread-block clusters (B1, B2, B4
+// and B5's bf16 path through wgmma_column.cuh; B6's bf16 kernel in
+// flash_attention.cu; B3 in paged_attention.cu).
 //
 // - mbarrier: init, arrive, arrive with an expected transaction count, and
 //   a parity wait (a phase of parity p has completed);
 // - bulk copies: a 1-D global -> shared copy and 2-D / 4-D TMA tile loads,
-//   all completing on an mbarrier by transaction bytes;
+//   all completing on an mbarrier by transaction bytes; a 4-byte cp.async
+//   whose completion an mbarrier tracks;
 // - wgmma: the 128B-swizzle shared-memory descriptor, fence / commit /
 //   wait, m64n128k16 bf16 x bf16 -> fp32 with both operands in shared
 //   memory (B K-major or MN-major), and m64n64k16 with A from registers;
@@ -78,6 +80,12 @@ __device__ __forceinline__ void bulk_copy_g2s(void* dst, const void* src, uint32
       : "memory");
 }
 
+// brings a tensor map (a __grid_constant__ kernel parameter) into the
+// descriptor cache ahead of its first TMA load
+__device__ __forceinline__ void prefetch_tensormap(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
 // the 2-D box of ``map`` at (c0 innermost, c1) into shared memory,
 // completing on ``bar``; rows outside the tensor arrive as zeros
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1,
@@ -99,6 +107,19 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, i
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
       : "memory");
+}
+
+// 4 bytes from global to shared memory (cp.async, through L1)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
+// one arrival on ``bar`` once every cp.async this thread issued before has
+// landed (noinc: the barrier's expected count includes this arrival)
+__device__ __forceinline__ void cp_async_mbar_arrive_noinc(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
 }
 
 // generic-proxy writes to shared memory -> visible to wgmma (async proxy)
@@ -235,6 +256,12 @@ __device__ __forceinline__ uint32_t peer_addr(const void* p, uint32_t rank) {
   uint32_t out;
   asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(smem_u32(p)), "r"(rank));
   return out;
+}
+
+__device__ __forceinline__ float ld_peer_f32(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
+  return v;
 }
 
 __device__ __forceinline__ float2 ld_peer_f2(uint32_t addr) {

@@ -1,6 +1,8 @@
 // One output block-column of a block-sparse product on Hopper's tensor
 // cores, shared by B1 (block_sparse.cu), B2 (fused_gate_up.cu) and B4
-// (block_sparse_col.cu) for bf16 x against an int8 payload.
+// (block_sparse_col.cu) for bf16 x against an int8 payload, and by B5's
+// bf16 path (quant_matmul.cu), whose dense int8 weight is a packed weight
+// with every 128x128 block live.
 //
 // The payload is the pack layout: column j's surviving blocks lie
 // contiguously, (mb, 128, 128) int8 row-major (k, n), with block_rows[j, s]
@@ -29,6 +31,17 @@
 // launches on the same operands give the same bits.  B2 (GATED) walks the
 // gate slots, then the up slots, into two accumulators and writes
 // act(hg * sg) * (hu * su).
+//
+// DENSE (B5): slot s of column j is k block s of a dense (K, N) int8
+// weight, ``g.mb`` = ceil(K / 128) slots for every column (a kernel
+// argument: nothing is read from the device).  Its stage is one 2-D TMA
+// load of the (128 k x 128 n) box at (j * 128, s * 128) through a tensor
+// map over the weight with its row stride and no swizzle, which lands as
+// the row-major 128x128 image a bulk copy lands for a packed block, so the
+// conversion and the wgmma are the packed path's.  TMA zero-fills k >= K
+// and n >= N (x's map zero-fills k >= K too); the epilogue writes
+// act(sum * scales[n]) for n < N only.  The other kernels instantiate
+// DENSE = false and compile to what they were.
 #pragma once
 
 #include "hopper.cuh"
@@ -135,15 +148,52 @@ __device__ __forceinline__ void store_tile(const float (&hg)[64], const float (&
   }
 }
 
+// y rows of this thread (row0 and row0 + 8) of block-column j of a DENSE
+// (B5) product: act(sum * scales[n]) in bf16 for n < N; a column past N
+// reads no scale and writes nothing.  y's row stride is N, so a bf16 pair
+// is stored whole only when N is even (the pair is then 4-byte aligned).
+__device__ __forceinline__ void store_dense(const float (&h)[64], const float* __restrict__ scales,
+                                            __nv_bfloat16* __restrict__ y, int M, int N, int j,
+                                            int row0, int lane, int act) {
+#pragma unroll
+  for (int c = 0; c < kBN / 8; ++c) {
+    const int n = j * kBN + 8 * c + 2 * (lane & 3);
+    if (n >= N) continue;
+    const bool two = n + 1 < N;
+    const float s0 = scales[n], s1 = two ? scales[n + 1] : 0.0f;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int m = row0 + 8 * e;
+      if (m >= M) continue;
+      const float v0 = apply_act(act, h[4 * c + 2 * e] * s0);
+      __nv_bfloat16* dst = y + static_cast<size_t>(m) * N + n;
+      if (!two) {
+        dst[0] = __float2bfloat16(v0);
+        continue;
+      }
+      const float v1 = apply_act(act, h[4 * c + 2 * e + 1] * s1);
+      if ((N & 1) == 0) {
+        *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(v0, v1);
+      } else {
+        dst[0] = __float2bfloat16(v0);
+        dst[1] = __float2bfloat16(v1);
+      }
+    }
+  }
+}
+
 // The kernel body (see the file comment).  ``split`` > 1 needs NC == 1 and
-// a cluster launch of ``split`` CTAs along x.
-template <int NC, int S, bool GATED>
+// a cluster launch of ``split`` CTAs along x.  DENSE reads the weight
+// through ``wmap`` (g.blocks, rows and counts unused) and needs !GATED.
+template <int NC, int S, bool GATED, bool DENSE = false>
 __device__ __forceinline__ void column_body(const CUtensorMap* xmap, const ColList& g,
                                             const ColList& u, __nv_bfloat16* __restrict__ y,
                                             int M, int N, int split, int act,
-                                            unsigned char* smem_raw) {
+                                            unsigned char* smem_raw,
+                                            const CUtensorMap* wmap = nullptr) {
   using G = Geometry<NC, S>;
   static_assert(NC == 1 || NC == 2, "one or two consumer warpgroups");
+  static_assert(!(DENSE && GATED), "a dense weight is one operand");
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + G::kBars);
@@ -152,7 +202,11 @@ __device__ __forceinline__ void column_body(const CUtensorMap* xmap, const ColLi
   const int j = blockIdx.x / split;
   const int rank = blockIdx.x % split;
   const int m0 = blockIdx.y * G::kBM;
-  const int cg = g.counts[j];
+  int cg;
+  if constexpr (DENSE)
+    cg = g.mb;
+  else
+    cg = g.counts[j];
   const int cu = GATED ? u.counts[j] : 0;
   const int ng = cg > rank ? (cg - rank + split - 1) / split : 0;  // this rank's gate slots
   const int nu = cu > rank ? (cu - rank + split - 1) / split : 0;  // and up slots
@@ -180,6 +234,15 @@ __device__ __forceinline__ void column_body(const CUtensorMap* xmap, const ColLi
       for (int i = 0; i < nl; ++i) {
         const int st = i % S;
         if (i >= S) mbar_wait(&empty[st], ((i / S) - 1) & 1);
+        if constexpr (DENSE) {
+          const int k0 = (rank + i * split) * kBK;
+          unsigned char* xd = smem + G::kX + st * G::kXBytes;
+          mbar_arrive_expect_tx(&full[st], kRawBytes + G::kXBytes);
+          tma_load_2d(smem + G::kRaw + st * kRawBytes, wmap, j * kBN, k0, &full[st]);
+          tma_load_2d(xd, xmap, k0, m0, &full[st]);
+          tma_load_2d(xd + G::kBM * 128, xmap, k0 + 64, m0, &full[st]);
+          continue;
+        }
         const bool gate = i < ng;
         const size_t b = static_cast<size_t>(j) * (gate ? g.mb : u.mb) + rank +
                          (gate ? i : i - ng) * split;
@@ -231,8 +294,13 @@ __device__ __forceinline__ void column_body(const CUtensorMap* xmap, const ColLi
     for (; i < ng; ++i) step(i, hg);
     if constexpr (GATED)
       for (; i < nl; ++i) step(i, hu);
-    if (split == 1)
-      store_tile<GATED>(hg, hu, g, u, y, M, N, j, m0 + t / 32 * 16 + lane / 4, lane, act);
+    if (split == 1) {
+      const int row0 = m0 + t / 32 * 16 + lane / 4;
+      if constexpr (DENSE)
+        store_dense(hg, g.scales, y, M, N, j, row0, lane, act);
+      else
+        store_tile<GATED>(hg, hu, g, u, y, M, N, j, row0, lane, act);
+    }
   }
 
   if constexpr (NC == 1) {
@@ -279,7 +347,10 @@ __device__ __forceinline__ void column_body(const CUtensorMap* xmap, const ColLi
               }
             }
         }
-        store_tile<GATED>(hg, hu, g, u, y, M, N, j, m0 + r0, lane, act);
+        if constexpr (DENSE)
+          store_dense(hg, g.scales, y, M, N, j, m0 + r0, lane, act);
+        else
+          store_tile<GATED>(hg, hu, g, u, y, M, N, j, m0 + r0, lane, act);
       }
       cluster_sync();  // no CTA exits while rank 0 still reads its shared memory
     }
@@ -288,17 +359,32 @@ __device__ __forceinline__ void column_body(const CUtensorMap* xmap, const ColLi
 
 // -- host side ---------------------------------------------------------------------
 
-// x (M, K) bf16 row-major as boxes of 64 k x box_rows rows, 128B swizzle,
-// zeros outside the tensor
-inline bool encode_x_map(CUtensorMap* map, const void* x, int M, int K, int box_rows) {
+// x (M, K) bf16 with row stride ldx (K when 0) as boxes of 64 k x box_rows
+// rows, 128B swizzle, zeros outside the tensor
+inline bool encode_x_map(CUtensorMap* map, const void* x, int M, int K, int box_rows,
+                         int ldx = 0) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(M)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(K) * 2};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ldx > 0 ? ldx : K) * 2};
   const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t elem[2] = {1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(x), dims, strides, box,
             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// a dense int8 weight (K, N) with row stride ldw bytes as boxes of 128 n x
+// 128 k, no swizzle (row-major in shared memory), zeros outside the tensor
+inline bool encode_w_map(CUtensorMap* map, const void* w, int K, int N, int ldw) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(N), static_cast<cuuint64_t>(K)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ldw)};
+  const cuuint32_t box[2] = {kBN, kBK};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(w), dims, strides, box,
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

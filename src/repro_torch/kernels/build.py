@@ -59,10 +59,11 @@ _SIGNATURES = {
     },
     "paged_attention": {
         # q, k_pages, v_pages, k_scales, v_scales, table, pos, out,
-        # B, T, H, KVH, hd, P, ps, causal, window, softcap, scale,
-        # q_dtype, kv_dtype, stream
-        "paged_decode_launch": ([_P] * 8 + [_I] * 9 + [_F, _F] + [_I, _I] + [_P], _I),
-        "paged_decode_smem_bytes": ([_I, _I, _I], ctypes.c_size_t),
+        # B, T, H, KVH, hd, P, ps, num_pages, causal, window, softcap, scale,
+        # q_dtype, kv_dtype, split, stages, groups, stream
+        "paged_decode_launch": ([_P] * 8 + [_I] * 10 + [_F, _F] + [_I] * 5 + [_P], _I),
+        # rows, hd, ps, kv_dtype, stages, groups
+        "paged_decode_smem_bytes": ([_I] * 6, ctypes.c_size_t),
     },
     "flash_attention": {
         # q, k, v, k_scale, v_scale, out, B, Sq, Sk, H, KVH, hd, causal, window,
@@ -74,8 +75,8 @@ _SIGNATURES = {
         "batched_ffn_launch": ([_P] * 4 + [_I] * 7 + [_P], _I),
     },
     "quant_matmul": {
-        # x, w_q, scales, y, M, K, N, ldx, ldw, act, x_dtype, stream
-        "quant_matmul_launch": ([_P] * 4 + [_I] * 7 + [_P], _I),
+        # x, w_q, scales, y, M, K, N, ldx, ldw, act, x_dtype, bm, split, stream
+        "quant_matmul_launch": ([_P] * 4 + [_I] * 9 + [_P], _I),
         # a_q, w_q, y, M, K, N, lda, ldw, stream
         "q78_matmul_launch": ([_P] * 3 + [_I] * 5 + [_P], _I),
     },

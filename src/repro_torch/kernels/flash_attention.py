@@ -3,12 +3,17 @@ counters of ``csrc/paged_attention.cu`` and ``csrc/flash_attention.cu``.
 
 B3, paged multi-query decode attention, replaces
 ``repro/kernels/flash_attention.py:paged_decode_attention``.  What bounds
-it on the H100: bytes -- each sequence's pages (K and V payload plus their
-int8 scales), q and o cross device memory once per step, over 3.35 TB/s.
-Its design: one CTA per (sequence, KV head) scores all T*G query rows of
-that head against each page while the page sits in shared memory,
-dequantizes int8 on load, keeps an fp32 online softmax, and stops at the
-last page that covers ``pos + T - 1``.  Its plain version is the
+it on the H100: bytes and latency -- each sequence's pages (K and V
+payload plus their int8 scales), q and o cross device memory once per
+step, a few hundred KB, so the launch and the latency of a page weigh as
+much as 3.35 TB/s.  Its design (``csrc/paged_attention.cu``): the live
+pages of a (sequence, KV head) are dealt over a thread-block cluster of
+``paged_split`` CTAs; in each CTA a producer warp keeps a ring of
+``paged_stages`` pages in flight by TMA (int8 scales by cp.async) on
+mbarriers, ``paged_groups`` groups of four consumer warps score their pages
+(the four warps of a group splitting the T*G query rows) with an fp32
+online softmax, and rank 0 combines the ranks' (m, l, acc) from
+distributed shared memory in rank order.  Its plain version is the
 reference's gather path: gather the pages into a contiguous view and run
 ``models.layers.decode_attention``.
 
@@ -33,6 +38,7 @@ import math
 
 import torch
 
+from repro_torch.kernels import block_sparse as _bs
 from repro_torch.kernels import build
 
 Q_DTYPES = (torch.float32, torch.bfloat16)
@@ -53,6 +59,88 @@ def paged_decode_attention_plain(q, k_pages, v_pages, page_table, pos, *,
         vsc = L.gather_pages(v_scale_pages, page_table)
     return L.decode_attention(q, kc, vc, pos, window=window, softcap=softcap,
                               k_scale=ksc, v_scale=vsc)
+
+
+PAGED_HEAD_DIMS = (64, 128, 256)  # the head dims of the repo's configs
+# groups of consumer warps one CTA may run at each head dim (registers)
+PAGED_MAX_GROUPS = {64: 4, 128: 2, 256: 1}
+# CTAs of (hd, groups) one SM holds by registers (ptxas: about 92 a thread
+# at hd 64, 128 at hd 128, 168 at hd 256; a CTA is 32 * (4 * groups + 1)
+# threads of 65,536 registers an SM)
+PAGED_CTAS_PER_SM = {(64, 4): 1, (64, 2): 2, (64, 1): 4, (128, 2): 1, (128, 1): 3,
+                     (256, 1): 2}
+PAGED_MAX_SPLIT = 8  # CTAs of a cluster (the portable limit)
+PAGED_MAX_PAGE = 256  # slots of a page: a TMA box edge
+PAGED_STAGE_BUDGET = 65536  # bytes of ring per CTA, within 3..8 stages
+PAGED_MIN_STAGES, PAGED_MAX_STAGES = 3, 8
+
+
+def _round_up(n: int, a: int) -> int:
+    return -(-n // a) * a
+
+
+def paged_stage_bytes(hd: int, ps: int, kv_dtype) -> int:
+    """One ring stage of B3: the K and V tiles of a (page, KV head), each
+    128-byte aligned for TMA, and for int8 their two scale vectors."""
+    tile = _round_up(ps * hd * kv_dtype.itemsize, 128)
+    scales = _round_up(ps * 4, 128) if kv_dtype == torch.int8 else 0
+    return 2 * tile + 2 * scales
+
+
+def paged_stages(hd: int, ps: int, kv_dtype) -> int:
+    """Pages in flight per CTA: as many as PAGED_STAGE_BUDGET holds, 3 to 8."""
+    return max(PAGED_MIN_STAGES,
+               min(PAGED_MAX_STAGES, PAGED_STAGE_BUDGET // paged_stage_bytes(hd, ps, kv_dtype)))
+
+
+def paged_smem_bytes(rows: int, hd: int, ps: int, kv_dtype, groups: int = 1) -> int:
+    """Dynamic shared memory of a B3 launch over ``rows`` = T * G query rows
+    with ``groups`` groups of consumer warps (``csrc/paged_attention.cu``'s
+    Layout): q and each group's accumulator (rows x hd fp32 each), each
+    group's m and l, each consumer warp's 2 x 16 probabilities, the ring,
+    its mbarriers, 128 bytes of alignment."""
+    stages = paged_stages(hd, ps, kv_dtype)
+    ring = _round_up((1 + groups) * rows * hd * 4 + 2 * groups * rows * 4
+                     + groups * 4 * 2 * 16 * 4, 128)
+    return ring + stages * paged_stage_bytes(hd, ps, kv_dtype) + 2 * stages * 8 + 128
+
+
+def paged_groups(rows: int, hd: int, ps: int, kv_dtype, pages_per_rank: int, ctas: int,
+                 n_sm: int) -> int:
+    """Groups of four consumer warps of a B3 launch of ``ctas`` CTAs, each
+    group scoring its own pages: 4, 2 or 1 -- no more than the head dim's
+    registers allow (PAGED_MAX_GROUPS), than a rank's share of the table,
+    than the ring's stages (a group waits on the page ``groups`` ahead of its
+    last one, and an mbarrier's parity tells only its last two phases
+    apart), or than fit in shared memory (one group always fits what the
+    wrapper admits); and only as many as keep the launch in one wave on
+    three quarters of the SMs (clusters share a GPC, as ``launch_plan``
+    allows for): a second wave costs more than the groups gain (PERF.md)."""
+    cap = min(PAGED_MAX_GROUPS[hd], pages_per_rank, paged_stages(hd, ps, kv_dtype))
+    for g in (4, 2):
+        if g <= cap and ctas <= (3 * n_sm // 4) * PAGED_CTAS_PER_SM[hd, g] \
+                and paged_smem_bytes(rows, hd, ps, kv_dtype, g) <= SMEM_LIMIT:
+            return g
+    return 1
+
+
+def paged_max_rows(hd: int, ps: int, kv_dtype) -> int:
+    """The largest T * G whose launch (one group of warps) fits SMEM_LIMIT."""
+    lo, hi = 0, SMEM_LIMIT
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if paged_smem_bytes(mid, hd, ps, kv_dtype) <= SMEM_LIMIT:
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo
+
+
+def paged_split(B: int, KVH: int, pages_per_seq: int, n_sm: int) -> int:
+    """CTAs per (sequence, KV head) of a B3 launch, from shapes alone (never
+    from ``pos``, which lies on the card): enough clusters to give every SM
+    two CTAs, at most PAGED_MAX_SPLIT and no more than the table's pages."""
+    return max(1, min(PAGED_MAX_SPLIT, pages_per_seq, -(-2 * n_sm // max(1, B * KVH))))
 
 
 def _check(q, k_pages, v_pages, page_table, pos, k_scale_pages, v_scale_pages):
@@ -107,21 +195,32 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, pos, *, window=None,
     page_table = page_table.contiguous()
     _check(q, k_pages, v_pages, page_table, pos, k_scale_pages, v_scale_pages)
     B, T, H, hd = q.shape
-    _, ps, KVH, _ = k_pages.shape
+    num_pages, ps, KVH, _ = k_pages.shape
     P = page_table.shape[1]
-    lib = build.load("paged_attention")
-    smem = lib.paged_decode_smem_bytes(T * (H // KVH), hd, ps)
+    if hd not in PAGED_HEAD_DIMS:
+        raise ValueError(f"head dim {hd}: paged attention kernel B3 takes {PAGED_HEAD_DIMS}")
+    if ps > PAGED_MAX_PAGE:
+        raise ValueError(f"pages of {ps} slots: kernel B3 takes at most {PAGED_MAX_PAGE}")
+    smem = paged_smem_bytes(T * (H // KVH), hd, ps, k_pages.dtype)
     if smem > SMEM_LIMIT:
         raise ValueError(f"paged attention needs {smem} bytes of shared memory "
                          f"(T*G={T * H // KVH}, hd={hd}, page {ps}); the limit is {SMEM_LIMIT}")
+    for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (TMA)")
+    n_sm = _bs.sm_count(q.device)
+    split = paged_split(B, KVH, P, n_sm)
+    groups = paged_groups(T * (H // KVH), hd, ps, k_pages.dtype, -(-P // split),
+                          B * KVH * split, n_sm)
+    lib = build.load("paged_attention")
     out = torch.empty_like(q)
     code = lib.paged_decode_launch(
         build.ptr(q), build.ptr(k_pages), build.ptr(v_pages),
         build.ptr(k_scale_pages), build.ptr(v_scale_pages),
         build.ptr(page_table), build.ptr(pos), build.ptr(out),
-        B, T, H, KVH, hd, P, ps, 1, int(window or 0), float(softcap),
+        B, T, H, KVH, hd, P, ps, num_pages, 1, int(window or 0), float(softcap),
         1.0 / math.sqrt(hd), build.DTYPE_CODES[q.dtype], build.DTYPE_CODES[k_pages.dtype],
-        build.stream_ptr(q.device))
+        split, paged_stages(hd, ps, k_pages.dtype), groups, build.stream_ptr(q.device))
     build.check(lib, code, "paged_decode_attention")
     paged_decode_attention.launches += 1
     return out

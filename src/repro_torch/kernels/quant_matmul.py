@@ -3,9 +3,24 @@ launch counters of ``csrc/quant_matmul.cu``.
 
 ``quant_matmul`` (B5) replaces ``repro/kernels/quant_matmul.py:quant_matmul``:
 y = act((x @ w_q) * scales) for int8 w_q with per-output-channel fp32
-scales.  It is bound by the int8 weight stream at the served batches: the
-kernel reads one byte per weight and converts it exactly to fp32 for the
-MACs; scales and activation run in the epilogue.
+scales.  It is bound by the int8 weight stream at decode and by the bf16
+tensor-core rate at a long prefill.  Two regimes, picked by ``regime`` from
+dtype and shapes before anything is built or launched:
+
+- ``"wgmma"``: bf16 x whose operands TMA can address (K * 2, ldx * 2 and
+  ldw multiples of 16) -- the int8 head and every ``--compress quant`` leaf
+  of the served models.  B1's column body (``csrc/wgmma_column.cuh``) with
+  a dense producer: 2-D TMA loads of (128 k x 128 n) weight boxes through
+  an mbarrier ring, converted exactly to bf16, multiplied on ``wgmma``
+  with fp32 sums, scales and activation in the epilogue; ``launch_plan``'s
+  (bm, split) for ceil(N / 128) columns of ceil(K / 128) k blocks.  x and
+  w must be 16-byte aligned there (ValueError otherwise).
+- ``"dense_tile"``: fp32 x, and bf16 x that TMA cannot address: the
+  CUDA-core kernel over ``csrc/dense_tile.cuh``, one byte per weight
+  converted to fp32 for the MACs.
+
+``quant_matmul.launches`` counts every launch, ``quant_matmul.wgmma_launches``
+and ``quant_matmul.dense_tile_launches`` those of each regime.
 
 ``q78_matmul`` (B8) replaces ``repro/kernels/quant_matmul.py:
 q78_matmul_kernel``: the paper's Q7.8 x Q7.8 -> Q15.16 MAC array, int16
@@ -23,6 +38,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import quantization as Q
+from repro_torch.kernels import block_sparse as _bs
 from repro_torch.kernels import build
 from repro_torch.kernels.batched_ffn import (
     X_DTYPES,
@@ -44,12 +60,29 @@ def quant_matmul_plain(x, w_q, scales, activation: str = "linear") -> torch.Tens
     return ACTS[activation](y * scales.to(torch.float32)).to(x.dtype)
 
 
+def regime(x_dtype, M: int, K: int, N: int, ldx: int, ldw: int, n_sm: int) -> tuple:
+    """(name, bm, split) of a B5 launch, from dtype and shapes alone.
+
+    ``("wgmma", bm, split)`` for bf16 x whose operands TMA can address --
+    x's row (K * 2 bytes) and stride (ldx * 2) and w's stride (ldw bytes)
+    multiples of 16 -- in ``launch_plan``'s regime for ceil(N / 128)
+    output block-columns of ceil(K / 128) k blocks; ``("dense_tile", 0, 1)``
+    otherwise (fp32 x, or strides TMA cannot take)."""
+    if (x_dtype == torch.bfloat16 and K > 0 and (2 * K) % 16 == 0 and (2 * ldx) % 16 == 0
+            and ldw % 16 == 0):
+        n_cols, mb = -(-N // _bs.BLOCK), -(-K // _bs.BLOCK)
+        return ("wgmma", *_bs.launch_plan(M, n_cols, mb, n_sm))
+    return ("dense_tile", 0, 1)
+
+
 def quant_matmul(x, w_q, scales, *, activation: str = "linear",
                  use_kernel: bool = True) -> torch.Tensor:
     """y (M, N) = act((x (M, K) @ w_q (K, N)) * scales (N,)) in x's dtype.
 
-    x float32 or bfloat16; w_q int8; scales float32.  ``use_kernel=False``
-    runs the plain version on CUDA tensors too."""
+    x float32 or bfloat16; w_q int8; scales float32.  In the wgmma regime
+    (``regime``) x and w_q must be 16-byte aligned (their tiles come by
+    TMA).  ``use_kernel=False`` runs the plain version on CUDA tensors
+    too."""
     check_act(activation)
     if not x.is_cuda or not use_kernel:
         return quant_matmul_plain(x, w_q, scales, activation)
@@ -61,19 +94,31 @@ def quant_matmul(x, w_q, scales, *, activation: str = "linear",
     N = w_q.shape[1]
     check_vector("scales", scales, N, x.device)
     check_rows(M)
+    name, bm, split = regime(x.dtype, M, K, N, ldx, ldw, _bs.sm_count(x.device))
+    if name == "wgmma":
+        for what, t in (("x", x), ("w_q", w_q)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"{what} must be 16-byte aligned (TMA) for the wgmma regime")
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if M == 0 or N == 0:
         return y
     lib = build.load("quant_matmul")
     code = lib.quant_matmul_launch(
         build.ptr(x), build.ptr(w_q), build.ptr(scales), build.ptr(y), M, K, N, ldx, ldw,
-        ACT_CODES[activation], build.DTYPE_CODES[x.dtype], build.stream_ptr(x.device))
+        ACT_CODES[activation], build.DTYPE_CODES[x.dtype], bm, split,
+        build.stream_ptr(x.device))
     build.check(lib, code, "quant_matmul")
     quant_matmul.launches += 1
+    if name == "wgmma":
+        quant_matmul.wgmma_launches += 1
+    else:
+        quant_matmul.dense_tile_launches += 1
     return y
 
 
 quant_matmul.launches = 0
+quant_matmul.wgmma_launches = 0
+quant_matmul.dense_tile_launches = 0
 
 
 def q78_matmul(a_q, w_q, *, use_kernel: bool = True) -> torch.Tensor:

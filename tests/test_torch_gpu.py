@@ -467,3 +467,226 @@ def test_flash_attention_rejects_what_the_kernel_does_not_take(cuda):
         args.update(bad)
         with pytest.raises(ValueError):
             FA.flash_attention(**args)
+
+
+# B5's wgmma regime (bf16 x whose operands TMA can address; the head and
+# every --compress quant leaf): exact bf16 products of the converted int8
+# weight, fp32 sums, act(sum * scale) rounded to bf16 once -- about one bf16
+# ulp of the output, held to 1e-2 of the max.  M at both regimes' tile
+# edges and the longest prefill; the head, a gate/up leaf, w_down, and a
+# weight whose K is not a multiple of 128 and whose N is a multiple of 16
+# but not of 128 (TMA zero-fills both edges; the epilogue masks n >= N)
+B5_MS = [1, 8, 63, 64, 65, 127, 128, 129, 2032]
+B5_SHAPES = [(2048, 32000), (2048, 5632), (5632, 2048), (1000, 1040)]
+
+
+def _b5_operands(M, K, N, device, seed, ldx=None, ldw=None):
+    """x (M, K) bf16 and w (K, N) int8, each a view into a wider matrix
+    when its row stride (ldx, ldw) is given; scales (N,)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((M, ldx or K), generator=g, device=device).to(torch.bfloat16)[:, :K]
+    w = torch.randint(-127, 128, (K, ldw or N), generator=g, device=device,
+                      dtype=torch.int8)[:, :N]
+    s = torch.rand((N,), generator=g, device=device) * 0.01 + 1e-3
+    return x, w, s
+
+
+def _b5_regime(x, w):
+    return QM.regime(x.dtype, x.shape[0], x.shape[1], w.shape[1],
+                     x.stride(0) if x.shape[0] > 1 else x.shape[1], w.stride(0),
+                     BS.sm_count(x.device))
+
+
+@pytest.mark.parametrize("activation", ["linear", "silu"])
+@pytest.mark.parametrize("K,N", B5_SHAPES)
+@pytest.mark.parametrize("M", B5_MS)
+def test_b5_wgmma_matches_plain(cuda, M, K, N, activation):
+    x, w, s = _b5_operands(M, K, N, cuda, seed=M + N)
+    assert _b5_regime(x, w)[0] == "wgmma"
+    n, nw = QM.quant_matmul.launches, QM.quant_matmul.wgmma_launches
+    y = QM.quant_matmul(x, w, s, activation=activation)
+    assert QM.quant_matmul.launches == n + 1 and QM.quant_matmul.wgmma_launches == nw + 1
+    assert y.dtype == torch.bfloat16 and y.shape == (M, N)
+    ref = QM.quant_matmul(x, w, s, activation=activation, use_kernel=False)
+    torch.cuda.synchronize()
+    assert torch.isfinite(y.float()).all()
+    _close(y, ref, 1e-2)
+
+
+@pytest.mark.parametrize("M", [8, 65, 300])
+def test_b5_wgmma_strided_operands(cuda, M):
+    """x with row stride K + 64 and w a column section (row stride 1056,
+    odd N = 1037): read in place through the TMA maps' strides; odd N
+    stores bf16 one at a time."""
+    x, w, s = _b5_operands(M, 1000, 1037, cuda, seed=M, ldx=1064, ldw=1056)
+    assert x.stride(0) == 1064 and w.stride(0) == 1056
+    assert _b5_regime(x, w)[0] == "wgmma"
+    for activation in ("linear", "silu"):
+        y = QM.quant_matmul(x, w, s, activation=activation)
+        ref = QM.quant_matmul(x.contiguous(), w.contiguous(), s, activation=activation,
+                              use_kernel=False)
+        torch.cuda.synchronize()
+        _close(y, ref, 1e-2)
+
+
+@pytest.mark.parametrize("M", [8, 2032])
+def test_b5_wgmma_launches_are_bitwise_deterministic(cuda, M):
+    x, w, s = _b5_operands(M, 2048, 5632, cuda, seed=3)
+    a = QM.quant_matmul(x, w, s, activation="silu")
+    b = QM.quant_matmul(x, w, s, activation="silu")
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+def test_b5_dense_tile_regime_counts_apart(cuda):
+    """fp32 x and a bf16 x whose stride TMA cannot take run the CUDA-core
+    kernel, counted under its own regime."""
+    x, w, s = _b5_operands(5, 70, 37, cuda, seed=1)
+    n, nd = QM.quant_matmul.wgmma_launches, QM.quant_matmul.dense_tile_launches
+    for xx in (x, x.float()):
+        assert _b5_regime(xx, w)[0] == "dense_tile"
+        y = QM.quant_matmul(xx, w, s)
+        torch.cuda.synchronize()
+        _close(y, QM.quant_matmul(xx, w, s, use_kernel=False), 1e-2)
+    assert QM.quant_matmul.wgmma_launches == n
+    assert QM.quant_matmul.dense_tile_launches == nd + 2
+
+
+# B3 (csrc/paged_attention.cu): pages dealt over a cluster of
+# ``paged_split`` CTAs, fed by TMA, combined by rank 0 in rank order.  fp32
+# scores and softmax: fp32 q with fp32 or int8 pools is held to 1e-5 of the
+# max (the existing tolerance), bf16 q with bf16 pools to 1e-2 (one bf16
+# ulp of the output).  Contexts (keys the last row sees) at a page's edges
+# and at the long phase's 2048, T 1 and 3, window and softcap, every split
+# the host picks and forced splits of 1 and 8; sequence 1 shares sequence
+# 0's first physical page.
+B3_POOLS = [("int8", torch.float32, 1e-5), ("bf16", torch.bfloat16, 1e-2),
+            ("fp32", torch.float32, 1e-5)]
+B3_CONTEXTS = (1, 15, 16, 17, 2047, 2048)
+
+
+def _b3_inputs(T, pool, q_dtype, device, seed, hd=64, H=8, KVH=2, ps=16, P=128):
+    g = torch.Generator(device=device).manual_seed(seed)
+    ctx = [max(c, T) for c in B3_CONTEXTS]
+    B = len(ctx)
+    pos = torch.tensor([c - T for c in ctx], dtype=torch.int32, device=device)
+    num_pages = 1 + B * P
+    table = (1 + torch.randperm(B * P, generator=g, device=device)).reshape(B, P)
+    table[1, 0] = table[0, 0]
+    table = table.to(torch.int32).contiguous()
+    q = torch.randn((B, T, H, hd), generator=g, device=device).to(q_dtype)
+    shape = (num_pages, ps, KVH, hd)
+    ks = vs = None
+    if pool == "int8":
+        kp = torch.randint(-127, 128, shape, generator=g, device=device, dtype=torch.int8)
+        vp = torch.randint(-127, 128, shape, generator=g, device=device, dtype=torch.int8)
+        ks = torch.rand(shape[:3], generator=g, device=device) * 0.02 + 0.002
+        vs = torch.rand(shape[:3], generator=g, device=device) * 0.02 + 0.002
+    else:
+        dt = torch.bfloat16 if pool == "bf16" else torch.float32
+        kp = torch.randn(shape, generator=g, device=device).to(dt)
+        vp = torch.randn(shape, generator=g, device=device).to(dt)
+    return q, kp, vp, table, pos, dict(k_scale_pages=ks, v_scale_pages=vs)
+
+
+@pytest.fixture(params=["plan", 1, 8])
+def b3_split(request, monkeypatch):
+    """The split B3 launches with: ``paged_split``'s, or forced to 1 or 8."""
+    if request.param != "plan":
+        monkeypatch.setattr(FA, "paged_split", lambda *args: request.param)
+    return request.param
+
+
+@pytest.mark.parametrize("window,softcap", [(None, 0.0), (20, 30.0), (300, 0.0)])
+@pytest.mark.parametrize("T", [1, 3])
+@pytest.mark.parametrize("pool,q_dtype,rtol", B3_POOLS)
+def test_b3_contexts_and_splits_match_plain(cuda, b3_split, pool, q_dtype, rtol, T, window,
+                                            softcap):
+    q, kp, vp, table, pos, kw = _b3_inputs(T, pool, q_dtype, cuda, seed=T + len(pool))
+    kw.update(window=window, softcap=softcap)
+    n = FA.paged_decode_attention.launches
+    o = FA.paged_decode_attention(q, kp, vp, table, pos, **kw)
+    assert FA.paged_decode_attention.launches == n + 1 and o.dtype == q_dtype
+    again = FA.paged_decode_attention(q, kp, vp, table, pos, **kw)
+    ref = FA.paged_decode_attention(q, kp, vp, table, pos, use_kernel=False, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(o.float()).all()
+    assert torch.equal(o, again)
+    _close(o, ref, rtol)
+
+
+@pytest.mark.parametrize("hd", [128, 256])
+@pytest.mark.parametrize("pool,q_dtype,rtol", B3_POOLS)
+def test_b3_head_dims_match_plain(cuda, hd, pool, q_dtype, rtol):
+    q, kp, vp, table, pos, kw = _b3_inputs(2, pool, q_dtype, cuda, seed=hd, hd=hd)
+    o = FA.paged_decode_attention(q, kp, vp, table, pos, **kw)
+    ref = FA.paged_decode_attention(q, kp, vp, table, pos, use_kernel=False, **kw)
+    torch.cuda.synchronize()
+    _close(o, ref, rtol)
+
+
+def test_b3_largest_admitted_rows_match_plain(cuda):
+    """T * G at the shared-memory bound (hd 64, int8 pages of 16): as many
+    tokens of 8 grouped heads as fit."""
+    rows = FA.paged_max_rows(64, 16, torch.int8)
+    T = rows // 8
+    g = torch.Generator(device=cuda).manual_seed(0)
+    B, P, ps, KVH = 2, 8, 16, 1
+    q = torch.randn((B, T, 8, 64), generator=g, device=cuda)
+    shape = (1 + B * P, ps, KVH, 64)
+    kp = torch.randint(-127, 128, shape, generator=g, device=cuda, dtype=torch.int8)
+    vp = torch.randint(-127, 128, shape, generator=g, device=cuda, dtype=torch.int8)
+    ks = torch.rand(shape[:3], generator=g, device=cuda) * 0.02 + 0.002
+    vs = torch.rand(shape[:3], generator=g, device=cuda) * 0.02 + 0.002
+    table = (1 + torch.arange(B * P, device=cuda)).reshape(B, P).to(torch.int32)
+    pos = torch.tensor([0, 70], dtype=torch.int32, device=cuda)
+    kw = dict(k_scale_pages=ks, v_scale_pages=vs)
+    o = FA.paged_decode_attention(q, kp, vp, table, pos, **kw)
+    ref = FA.paged_decode_attention(q, kp, vp, table, pos, use_kernel=False, **kw)
+    torch.cuda.synchronize()
+    _close(o, ref, 1e-5)
+
+
+@pytest.mark.parametrize("pool", ["int8", "bf16", "fp32"])
+@pytest.mark.parametrize("hd", [64, 128, 256])
+def test_b3_smem_layout_matches_the_host_mirror(cuda, hd, pool):
+    """The C entry's Layout and ``paged_smem_bytes`` agree."""
+    from repro_torch.kernels import build
+
+    dt = {"int8": torch.int8, "bf16": torch.bfloat16, "fp32": torch.float32}[pool]
+    lib = build.load("paged_attention")
+    for rows in (1, 8, 24, 100):
+        for ps in (8, 16, 40):
+            for groups in range(1, FA.PAGED_MAX_GROUPS[hd] + 1):
+                want = FA.paged_smem_bytes(rows, hd, ps, dt, groups)
+                got = lib.paged_decode_smem_bytes(rows, hd, ps, build.DTYPE_CODES[dt],
+                                                  FA.paged_stages(hd, ps, dt), groups)
+                assert got == want, (rows, ps, groups)
+
+
+@pytest.mark.parametrize("groups", [1, 2, 3, 4])
+@pytest.mark.parametrize("pool,q_dtype,rtol", B3_POOLS)
+def test_b3_every_group_count_matches_plain(cuda, monkeypatch, pool, q_dtype, rtol, groups):
+    """Each count of consumer-warp groups the hd 64 kernel takes (the host
+    picks 4 at long contexts, fewer where shared memory, the stages or the
+    pages run short), at the split the host picks and at a forced split of
+    1."""
+    monkeypatch.setattr(FA, "paged_groups", lambda *args: groups)
+    q, kp, vp, table, pos, kw = _b3_inputs(3, pool, q_dtype, cuda, seed=groups)
+    kw.update(window=300)
+    for split in (None, 1):
+        if split is not None:
+            monkeypatch.setattr(FA, "paged_split", lambda *args: split)
+        o = FA.paged_decode_attention(q, kp, vp, table, pos, **kw)
+        ref = FA.paged_decode_attention(q, kp, vp, table, pos, use_kernel=False, **kw)
+        torch.cuda.synchronize()
+        _close(o, ref, rtol)
+
+
+def test_b3_refuses_more_groups_than_stages(cuda, monkeypatch):
+    """The C entry refuses a launch whose groups outrun its ring."""
+    monkeypatch.setattr(FA, "paged_groups", lambda *args: 4)
+    monkeypatch.setattr(FA, "paged_stages", lambda *args: 3)
+    q, kp, vp, table, pos, kw = _b3_inputs(1, "int8", torch.float32, cuda, seed=0)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        FA.paged_decode_attention(q, kp, vp, table, pos, **kw)
