@@ -26,12 +26,20 @@ Phases, in order; any failure raises and the script exits non-zero:
                twice for the same bits, B5 at the int8 head (2048x32000, M 8
                and 40) and 2048x5632 (M 8, 40 and 2032), each call's regime
                logged and launched twice for the same bits,
-               B7/B8 at HAR-6's widest layer (2000x1500, B 1 and 16) and
-               ragged shapes, B8 also on saturated codes that force the
-               int32 wrap.  Timings are CUDA events, median of single
-               launches after an L2 flush, with the bound and a PyTorch
-               library call as a yardstick; also the host's time per B1
-               and B4 call at decode.  With --profile, then B1/B2 at
+               B7/B8 at HAR-6's widest layer (2000x1500, B 1, 16 and 32;
+               B7 also twice for the same bits) and ragged shapes, each
+               call's stream plan logged, B8 also on saturated codes that
+               force the int32 wrap; the card's resident clusters of 1..8
+               CTAs, which the stream plan rests on.  Timings are CUDA
+               events, median of single launches after an L2 flush, with
+               the bound and a PyTorch library call as a yardstick (B8's:
+               the fp64 matmul with both casts, and on pre-converted
+               operands); B7/B8 also the kernel's own time from
+               torch.profiler (flushed and warm L2), which leaves out the
+               events' floor (a one-element add_, logged), beside one
+               torch.sum over the same weight bytes (the memory's floor
+               under the same flush); also the host's time per B1 and B4
+               call at decode.  With --profile, then B1/B2 at
                decode batches under every regime their C entry takes
                (the split sweep ``launch_plan`` rests on), and B3 at
                decode under every (split, groups) (what ``paged_split``
@@ -40,8 +48,10 @@ Phases, in order; any failure raises and the script exits non-zero:
                random weights from a seed: forward_fp32 / forward_pruned
                (B7) held to the plain path, forward_q78 (B8) equal to it
                bit for bit and forward_q78_sectioned equal to forward_q78;
-               B7/B8 launch counts equal layers x forwards; then the batch
-               sweep 1..32 (ms per sample, fp32 and Q7.8 paths).
+               B7/B8 launch counts equal layers x forwards, and every
+               layer's stream plan (strip, split, copy width) and the
+               launches by copy width are logged; then the batch sweep
+               1..32 (ms per sample, fp32 and Q7.8 paths).
 5. serve    -- full-width tinyllama-1.1b (22 layers, d 2048, random weights
                from a seed) with the quickstart flags: quant_sparse
                q_prune 0.5, 128-blocks, paged int8 KV, prefix sharing.
@@ -201,6 +211,28 @@ class Timer:
             events.append((s, e))
         torch.cuda.synchronize()
         return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+def kernel_ms(torch, fn, key: str, flush=None, reps: int = 25):
+    """Median device time (ms) of the kernels named ``key`` that ``reps``
+    calls of ``fn`` launch, from torch.profiler (CUPTI): the kernel's own
+    time, without the CUDA events' floor.  ``flush`` (a uint8 tensor) is
+    zeroed before each call, as Timer does; None keeps L2 warm.  None when
+    the profiler records no such kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            if flush is not None:
+                flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    times = [e.time_range.elapsed_us() for e in prof.events()
+             if key in e.name and e.time_range.elapsed_us() > 0]
+    return statistics.median(times) / 1e3 if times else None
 
 
 def rel_err(torch, got, want) -> tuple:
@@ -696,19 +728,29 @@ def phase_dense_kernels(torch, results: dict) -> None:
     results["quant_matmul"] = {**rows[0], "max_abs_err": err, "max_rel_err": rel,
                                "rows": rows[1:]}
 
-    # B7 and B8 at HAR-6's widest layer (2000 x 1500) at B = 1 and 16, at a
-    # ragged layer (561 x 300, B = 5) and at an output layer (300 x 6)
-    b7 = {"err": 0.0, "rel": 0.0}
-    b8, b8_err = {}, 0.0
-    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+    # B7 and B8 at HAR-6's widest layer (2000 x 1500) at Table 2's B = 1, 16
+    # and 32, at a ragged layer (561 x 300, B = 5) and at an output layer
+    # (300 x 6); the 2000 x 1500 rows timed (B = 16 is the headline row)
+    b7 = {"err": 0.0, "rel": 0.0, "rows": []}
+    b8 = {"err": 0.0, "rows": []}
+    keys = ("ms", "kernel_ms", "kernel_warm_ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by")
+    clusters = BF.resident_clusters(torch.device("cuda"))
+    log(f"stream: resident clusters of 1..8 CTAs on this card {list(clusters)}")
+    one = torch.zeros(1, device="cuda")
+    fmt = lambda v: "not measured" if v is None else f"{v:.4f} ms"
+    log(f"timer floor (a one-element add_): event {timer(lambda: one.add_(1.0)):.4f} ms, "
+        f"kernel only {fmt(kernel_ms(torch, lambda: one.add_(1.0), 'elementwise'))}")
     for K, N, B, act in ((2000, 1500, 1, "relu"), (2000, 1500, 16, "relu"),
-                         (561, 300, 5, "relu"), (300, 6, 16, "sigmoid")):
+                         (2000, 1500, 32, "relu"), (561, 300, 5, "relu"), (300, 6, 16, "sigmoid")):
         w = randn(K, N) * (2.0 / K) ** 0.5
         b = randn(N) * 0.1
         x = torch.rand((B, K), generator=gen, device="cuda")
         d, r = _held(torch, f"B7 {K}x{N} B={B} {act} fp32", BF.batched_ffn(x, w, b, activation=act),
                      BF.batched_ffn(x, w, b, activation=act, use_kernel=False), FP32_RTOL)
         b7["err"], b7["rel"] = max(b7["err"], d), max(b7["rel"], r)
+        _deterministic(torch, f"B7 {K}x{N} B={B} fp32", BF.batched_ffn(x, w, b, activation=act),
+                       BF.batched_ffn(x, w, b, activation=act))
         xb = x.to(torch.bfloat16)
         _held(torch, f"B7 {K}x{N} B={B} {act} bf16 x", BF.batched_ffn(xb, w, b, activation=act),
               BF.batched_ffn(xb, w, b, activation=act, use_kernel=False), KERNEL_RTOL)
@@ -716,22 +758,42 @@ def phase_dense_kernels(torch, results: dict) -> None:
         w_q = torch.randint(-512, 512, (K, N), generator=gen, device="cuda", dtype=torch.int16)
         d8, _ = _held(torch, f"B8 {K}x{N} B={B}", QM.q78_matmul(a_q, w_q),
                       QM.q78_matmul(a_q, w_q, use_kernel=False), None)
-        b8_err = max(b8_err, d8)
+        b8["err"] = max(b8["err"], d8)
+        p7 = BF.stream_plan("fp32", B, K, N, N, w.data_ptr(), clusters)
+        p8 = BF.stream_plan("q78", B, K, N, N, w_q.data_ptr(), clusters)
+        log(f"B7 {K}x{N} B={B}: plan {p7._asdict()}; B8: plan {p8._asdict()}")
         if N != 1500:
             continue
-        t7 = (timer(lambda: BF.batched_ffn(x, w, b, activation=act)),
+        a_d, w_d = a_q.double(), w_q.double()
+        f7 = lambda: BF.batched_ffn(x, w, b, activation=act)
+        f8 = lambda: QM.q78_matmul(a_q, w_q)
+        t7 = (timer(f7), kernel_ms(torch, f7, "batched_ffn_kernel", timer.flush),
+              kernel_ms(torch, f7, "batched_ffn_kernel"),
               timer(lambda: BF.batched_ffn(x, w, b, activation=act, use_kernel=False)),
               timer(lambda: torch.relu(torch.addmm(b, x, w))),
               *bound(4 * (B * K + K * N + N + B * N), 2.0 * B * K * N, FP32_FLOPS))
-        t8 = (timer(lambda: QM.q78_matmul(a_q, w_q)),
+        t8 = (timer(f8), kernel_ms(torch, f8, "q78_stream_kernel", timer.flush),
+              kernel_ms(torch, f8, "q78_stream_kernel"),
               timer(lambda: QM.q78_matmul(a_q, w_q, use_kernel=False)),
               timer(lambda: a_q.double() @ w_q.double()),
               *bound(2 * B * K + 2 * K * N + 4 * B * N, 2.0 * B * K * N, INT16_MAC_OPS))
-        for name, lib, t in (("B7", "relu(addmm) fp32", t7), ("B8", "fp64 matmul", t8)):
-            log(f"{name} {K}x{N} B={B}: kernel {t[0]:.4f} ms, plain {t[1]:.4f} ms, "
-                f"{lib} {t[2]:.4f} ms, bound {t[3]:.4f} ms ({t[4]})")
-        b7.update(zip(keys, t7))
-        b8.update(zip(keys, t8))
+        pre = timer(lambda: a_d @ w_d)
+        # a plain read of the same weight bytes under the same flush (one
+        # torch.sum): the memory system's floor for this stream
+        reads = (kernel_ms(torch, lambda: w.sum(), "reduce_kernel", timer.flush),
+                 kernel_ms(torch, lambda: w_q.sum(), "reduce_kernel", timer.flush))
+        for name, what, t in (("B7", "fp32 weight", reads[0]), ("B8", "int16 weight", reads[1])):
+            log(f"{name} {K}x{N}: torch.sum over the {what} (L2 flushed) {fmt(t)} kernel only")
+        for name, lib, t in (("B7", "relu(addmm) fp32", t7),
+                             ("B8", "fp64 matmul with both casts", t8)):
+            log(f"{name} {K}x{N} B={B}: kernel {t[0]:.4f} ms (events), {fmt(t[1])} (kernel only, "
+                f"L2 flushed), {fmt(t[2])} (kernel only, L2 warm); plain {t[3]:.4f} ms, "
+                f"{lib} {t[4]:.4f} ms, bound {t[5]:.4f} ms ({t[6]})")
+        log(f"B8 {K}x{N} B={B}: fp64 matmul on pre-converted operands {pre:.4f} ms")
+        b7["rows"].append({"shape": f"fp32 {K}x{N} at B={B}, {act}", **dict(zip(keys, t7)),
+                           "weight_read_ms": reads[0]})
+        b8["rows"].append({"shape": f"int16 {K}x{N} at B={B}", **dict(zip(keys, t8)),
+                           "library_preconverted_ms": pre, "weight_read_ms": reads[1]})
 
     # B8 on saturated codes: the partial sums leave int32 within a few
     # terms, so only an accumulator that wraps modulo 2^32 matches
@@ -745,13 +807,15 @@ def phase_dense_kernels(torch, results: dict) -> None:
                   None)
     if int(y[0, 0]) != -196605000:  # 3000 * 32767^2 mod 2^32, as int32
         raise AssertionError(f"B8 does not wrap like int32: {int(y[0, 0])} != -196605000")
-    b8_err = max(b8_err, d8)
+    b8["err"] = max(b8["err"], d8)
+    head7 = next(r for r in b7["rows"] if "B=16" in r["shape"])
+    head8 = next(r for r in b8["rows"] if "B=16" in r["shape"])
     results["batched_ffn"] = {
-        "max_abs_err": b7["err"], "max_rel_err": b7["rel"], **{k: b7[k] for k in keys},
-        "shape": "2000x1500 fp32 at B=16, relu (HAR-6 layer 2)"}
+        "max_abs_err": b7["err"], "max_rel_err": b7["rel"], **head7,
+        "rows": [r for r in b7["rows"] if r is not head7]}
     results["q78_matmul"] = {
-        "max_abs_err": b8_err, "max_rel_err": b8_err, **b8,
-        "shape": "2000x1500 int16 at B=16 (HAR-6 layer 2)"}
+        "max_abs_err": b8["err"], "max_rel_err": b8["err"], **head8,
+        "rows": [r for r in b8["rows"] if r is not head8]}
 
 
 # B5's rows: the int8 head at decode and at the serve phase's prefill, and
@@ -903,6 +967,7 @@ def phase_fcnet(torch, results: dict) -> None:
     """The paper's FC nets end to end on the card (see the module doc)."""
     import numpy as np
 
+    from repro_torch.core import quantization as Q
     from repro_torch.core.pruning import update_masks
     from repro_torch.kernels import batched_ffn as BF
     from repro_torch.kernels import quant_matmul as QM
@@ -918,8 +983,23 @@ def phase_fcnet(torch, results: dict) -> None:
         nets[name] = (cfg, params, update_masks(params, 0.9), x)
     torch.cuda.synchronize()
 
+    # the stream plan of every layer (B = 32): strip, split and the copy
+    # width its weight's address and row stride allow (the Q7.8 codes are a
+    # fresh tensor per call; sections are read in place at 228 i bytes)
+    clusters = BF.resident_clusters(torch.device("cuda"))
+    for name, (cfg, params, _, _) in nets.items():
+        for kind in ("fp32", "q78"):
+            plans = []
+            for p in params:
+                w = p["w"] if kind == "fp32" else Q.q78_encode(p["w"])
+                K, N = w.shape
+                plan = BF.stream_plan(kind, 32, K, N, w.stride(0), w.data_ptr(), clusters)
+                plans.append(f"{K}x{N}: sb {plan.sb} split {plan.split} width {plan.width}")
+            log(f"fcnet {name} {kind} B=32 layers: " + "; ".join(plans))
+
     # correctness and launch counts: the main path is run from zeroed counters
     BF.batched_ffn.launches = QM.q78_matmul.launches = 0
+    widths = {"b7": dict(BF.batched_ffn.width_launches), "b8": dict(QM.q78_matmul.width_launches)}
     want = {"b7": 0, "b8": 0}
     err = rel = 0.0
     for name, (cfg, params, masks, x) in nets.items():
@@ -943,12 +1023,39 @@ def phase_fcnet(torch, results: dict) -> None:
             _held(torch, f"fcnet {name} q78_sectioned(m=114, n={B}) vs forward_q78", sec, q, None)
     got = {"b7": BF.batched_ffn.launches, "b8": QM.q78_matmul.launches}
     log(f"fcnet: launches {got}, expected layers x forwards {want}")
+    for key, fn in (("b7", BF.batched_ffn), ("b8", QM.q78_matmul)):
+        by = {w: n - widths[key][w] for w, n in fn.width_launches.items()}
+        log(f"fcnet: {key} launches by copy width (bytes) {by}")
+        if sum(by.values()) != got[key]:
+            raise AssertionError(f"fcnet {key}: width counts {by} do not add up to {got[key]}")
     if got != want:
         raise AssertionError(f"fcnet launch counts {got} != layers x forwards {want}")
     results.setdefault("batched_ffn", {})["launches"] = got["b7"]
     results.setdefault("q78_matmul", {})["launches"] = got["b8"]
     log(f"fcnet: fp32 and pruned paths within {FP32_RTOL} of the plain path "
         f"(max rel {rel:.3e}); Q7.8 paths bit-exact on all four nets")
+
+    # where a forward's device time goes: HAR-6 at B = 32 under
+    # torch.profiler, the B7 / B8 kernels against everything else
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg, params, _, x = nets["har-6layer"]
+    for kind, fn, key in (("fp32", lambda: F.forward_fp32(cfg, params, x), "batched_ffn_kernel"),
+                          ("q78", lambda: F.forward_q78(cfg, params, x), "q78_stream_kernel")):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        rows = _device_rows(torch, prof)
+        dev = sum(r[0] for r in rows)
+        ms = sum(r[0] for r in rows if key in r[2])
+        n = sum(r[1] for r in rows if key in r[2])
+        log(f"fcnet profile har-6layer {kind} B=32: device busy {dev:.4f} ms in "
+            f"{sum(r[1] for r in rows)} kernels; {key} {ms:.4f} ms in {n} launches "
+            f"({ms / dev:.3f} of device time)")
+        for t, c, name in rows[:6]:
+            log(f"fcnet profile:   {t:8.4f} ms  {c:4d} calls  {name[:80]}")
 
     # Table 2's batch sweep on this card: device ms per forward (CUDA events
     # around the forward, L2 flushed before each; a long spin kernel covers
@@ -1566,7 +1673,7 @@ def main(argv=None) -> int:
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": r["launches"], "max_abs_err": r["max_abs_err"],
                         "max_rel_err": r["max_rel_err"], "ms": r["ms"],
-                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "kernel_ms": r.get("kernel_ms"), "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                         "shape": r["shape"], "rows": r.get("rows", []), "pass": ok})
     if not all(k["pass"] for k in kernels):

@@ -1,5 +1,6 @@
-// One output tile of a dense product  acc = x @ w,  shared by the B5, B7
-// and B8 kernels (quant_matmul.cu, batched_ffn.cu).
+// One output tile of a dense product  acc = x @ w,  of B5's CUDA-core
+// regime (quant_matmul.cu: fp32 x, or bf16 x whose strides TMA cannot
+// take; the FC nets' B7 and B8 run stream_tile.cuh instead).
 //
 // A CTA of kThreads threads owns Tile::kCols output columns (32 bytes of
 // weights per row: 8 fp32, 16 int16 or 32 int8 columns) for BM rows
@@ -44,9 +45,7 @@ struct Tile {
   static_assert(kKPer % 4 == 0, "the MAC loop reads four activations per load");
 };
 
-// MAC arithmetic per accumulator type: fp32 FMA on the CUDA cores, or
-// 32-bit integer MACs that wrap modulo 2^32 (unsigned, so that -O3 may not
-// assume the sum never overflows).
+// MAC arithmetic per accumulator type: fp32 FMA on the CUDA cores.
 template <typename Acc> struct Mac;
 
 template <> struct Mac<float> {
@@ -54,14 +53,6 @@ template <> struct Mac<float> {
   using Vec4 = float4;
   template <typename T> __device__ static float load(T v) { return to_float(v); }
   __device__ static void mac(float& acc, float a, float w) { acc = fmaf(a, w, acc); }
-};
-
-template <> struct Mac<uint32_t> {
-  using Stage = int;
-  using Vec4 = int4;
-  __device__ static int load(int16_t v) { return static_cast<int>(v); }
-  // |a * w| <= 2^30 for int16 operands: the product itself never overflows
-  __device__ static void mac(uint32_t& acc, int a, int w) { acc += static_cast<uint32_t>(a * w); }
 };
 
 // The activation tile while K is walked; the partial sums after (at most

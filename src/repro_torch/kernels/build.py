@@ -71,14 +71,21 @@ _SIGNATURES = {
         "flash_attention_launch": ([_P] * 6 + [_I] * 8 + [_F, _I, _P], _I),
     },
     "batched_ffn": {
-        # x, w, b, y, M, K, N, ldx, ldw, act, x_dtype, stream
-        "batched_ffn_launch": ([_P] * 4 + [_I] * 7 + [_P], _I),
+        # x, w, b, y, M, K, N, ldx, ldw, act, x_dtype, sb, split, width, ks,
+        # stream
+        "batched_ffn_launch": ([_P] * 4 + [_I] * 11 + [_P], _I),
+        # M, sb, ks, x_dtype
+        "batched_ffn_smem_bytes": ([_I] * 4, _I),
+        # split, smem
+        "stream_max_clusters": ([_I] * 2, _I),
     },
     "quant_matmul": {
         # x, w_q, scales, y, M, K, N, ldx, ldw, act, x_dtype, bm, split, stream
         "quant_matmul_launch": ([_P] * 4 + [_I] * 9 + [_P], _I),
-        # a_q, w_q, y, M, K, N, lda, ldw, stream
-        "q78_matmul_launch": ([_P] * 3 + [_I] * 5 + [_P], _I),
+        # a_q, w_q, y, M, K, N, lda, ldw, sb, split, width, ks, stream
+        "q78_matmul_launch": ([_P] * 3 + [_I] * 9 + [_P], _I),
+        # M, sb, ks
+        "q78_matmul_smem_bytes": ([_I] * 3, _I),
     },
 }
 

@@ -26,7 +26,12 @@ and ``quant_matmul.dense_tile_launches`` those of each regime.
 q78_matmul_kernel``: the paper's Q7.8 x Q7.8 -> Q15.16 MAC array, int16
 operands and a 32-bit accumulator that wraps modulo 2^32, bit-identical to
 ``core.quantization.q78_matmul`` (its plain version).  Bound by the int16
-weight stream at the paper's batches.
+weight stream at the paper's batches.  It runs B7's weight stream
+(``csrc/stream_tile.cuh``, in ``batched_ffn.stream_plan``'s launch) with
+the MACs on the int8 tensor cores: each int16 operand cut into a signed
+high and an unsigned low byte, four ``mma.sync`` int8 products combined
+with shifts into a wrapping 32-bit sum.  ``q78_matmul.width_launches[w]``
+counts the launches whose weight was copied in pieces of w bytes.
 
 Both launch their kernel for CUDA tensors and run the plain version for CPU
 tensors; on CUDA the plain version runs only when the caller passes
@@ -41,11 +46,14 @@ from repro_torch.core import quantization as Q
 from repro_torch.kernels import block_sparse as _bs
 from repro_torch.kernels import build
 from repro_torch.kernels.batched_ffn import (
+    COPY_WIDTHS,
     X_DTYPES,
     check_act,
     check_matrix,
     check_rows,
     check_vector,
+    resident_clusters,
+    stream_plan,
 )
 from repro_torch.kernels.fused_gate_up import ACT_CODES, ACTS
 
@@ -138,12 +146,16 @@ def q78_matmul(a_q, w_q, *, use_kernel: bool = True) -> torch.Tensor:
     y = torch.empty((M, N), dtype=torch.int32, device=a_q.device)
     if M == 0 or N == 0:
         return y
+    plan = stream_plan("q78", M, K, N, ldw, w_q.data_ptr(), resident_clusters(a_q.device))
     lib = build.load("quant_matmul")
     code = lib.q78_matmul_launch(build.ptr(a_q), build.ptr(w_q), build.ptr(y), M, K, N,
-                                 lda, ldw, build.stream_ptr(a_q.device))
+                                 lda, ldw, plan.sb, plan.split, plan.width, plan.ks,
+                                 build.stream_ptr(a_q.device))
     build.check(lib, code, "q78_matmul")
     q78_matmul.launches += 1
+    q78_matmul.width_launches[plan.width] += 1
     return y
 
 
 q78_matmul.launches = 0
+q78_matmul.width_launches = {w: 0 for w in COPY_WIDTHS}

@@ -284,8 +284,13 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
 
 
 # (M, K, N): ragged on every edge, one-row and multi-tile batches, the
-# nets' widest layer and an output layer of 6
-DENSE_SHAPES = [(5, 70, 37), (1, 561, 300), (33, 130, 65), (16, 2000, 1500), (3, 300, 6)]
+# nets' widest layer at B = 1, 16 and 32 (Table 2's batches) and an output
+# layer of 6
+DENSE_SHAPES = [(5, 70, 37), (1, 561, 300), (33, 130, 65), (16, 2000, 1500), (3, 300, 6),
+                (1, 2000, 1500), (32, 2000, 1500)]
+# every layer (K, N) of the paper's four FC nets, at B = 1, 16 and 32
+FCNET_LAYERS = [(784, 800), (800, 800), (800, 10), (561, 1200), (1200, 300), (300, 6),
+                (561, 2000), (2000, 1500), (1500, 750), (750, 300)]
 
 
 @pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)])
@@ -301,6 +306,88 @@ def test_batched_ffn_kernel_matches_plain(cuda, M, K, N, activation, dtype, rtol
     ref = BF.batched_ffn(x, w, b, activation=activation, use_kernel=False)
     torch.cuda.synchronize()
     _close(y, ref, rtol)
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("K,N", FCNET_LAYERS)
+@pytest.mark.parametrize("M", [1, 16, 32])
+def test_batched_ffn_fcnet_layers_match_plain(cuda, M, K, N, dtype, rtol):
+    g = torch.Generator(device=cuda).manual_seed(K + N + M)
+    x = torch.rand((M, K), generator=g, device=cuda).to(dtype)
+    w = torch.randn((K, N), generator=g, device=cuda) * (2.0 / K) ** 0.5
+    b = torch.randn((N,), generator=g, device=cuda) * 0.1
+    y = BF.batched_ffn(x, w, b, activation="relu")
+    torch.cuda.synchronize()
+    _close(y, BF.batched_ffn(x, w, b, activation="relu", use_kernel=False), rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M", [1, 16, 32])
+def test_batched_ffn_launches_are_bitwise_deterministic(cuda, M, dtype):
+    """Each strip's K sum is split over a cluster and added by rank 0 in
+    rank order: two launches give the same bits."""
+    x = torch.randn((M, 2000), device=cuda).to(dtype)
+    w = torch.randn((2000, 1500), device=cuda) / 2000 ** 0.5
+    b = torch.randn((1500,), device=cuda)
+    first = BF.batched_ffn(x, w, b, activation="silu")
+    second = BF.batched_ffn(x, w, b, activation="silu")
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def _stream_plan_of(kind, x, w):
+    return BF.stream_plan(kind, x.shape[0], x.shape[1], w.shape[1], w.stride(0), w.data_ptr(),
+                          BF.resident_clusters(x.device))
+
+
+# a weight whose address and row stride allow exactly this copy width:
+# (ldw, column offset) for fp32 (N 64) and int16 (N 40) weights
+B7_WIDTH_CASES = {16: (1500, 0), 8: (750, 0), 4: (1504, 1)}
+B8_WIDTH_CASES = {16: (1600, 0), 8: (1500, 0), 4: (10, 0), 2: (37, 1)}
+
+
+@pytest.mark.parametrize("width", sorted(B7_WIDTH_CASES))
+def test_batched_ffn_counts_its_copy_width(cuda, width):
+    ldw, off = B7_WIDTH_CASES[width]
+    x = torch.randn((16, 300), device=cuda)
+    w = (torch.randn((300, ldw), device=cuda) / 300 ** 0.5)[:, off:off + 64]
+    b = torch.randn((64,), device=cuda)
+    assert _stream_plan_of("fp32", x, w).width == width
+    before = dict(BF.batched_ffn.width_launches)
+    y = BF.batched_ffn(x, w, b)
+    torch.cuda.synchronize()
+    _close(y, BF.batched_ffn(x, w.contiguous(), b, use_kernel=False), 1e-4)
+    assert BF.batched_ffn.width_launches == {**before, width: before[width] + 1}
+
+
+@pytest.mark.parametrize("width", sorted(B8_WIDTH_CASES))
+def test_q78_matmul_counts_its_copy_width(cuda, width):
+    ldw, off = B8_WIDTH_CASES[width]
+    a = torch.randint(-(1 << 15), 1 << 15, (16, 300), device=cuda, dtype=torch.int16)
+    w = torch.randint(-(1 << 15), 1 << 15, (300, ldw), device=cuda, dtype=torch.int16)
+    w = w[:, off:off + min(40, ldw - off)]
+    assert _stream_plan_of("q78", a, w).width == width
+    before = dict(QM.q78_matmul.width_launches)
+    y = QM.q78_matmul(a, w)
+    torch.cuda.synchronize()
+    assert torch.equal(y, QM.q78_matmul(a, w.contiguous(), use_kernel=False))
+    assert QM.q78_matmul.width_launches == {**before, width: before[width] + 1}
+
+
+@pytest.mark.parametrize("M,sb,ks", [(1, 128, 196), (16, 256, 400), (32, 512, 252),
+                                     (33, 128, 96), (5, 256, 2000)])
+def test_stream_smem_matches_the_host_mirror(cuda, M, sb, ks):
+    from repro_torch.kernels import build
+    lib_b7, lib_b8 = build.load("batched_ffn"), build.load("quant_matmul")
+    for kind, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        want = BF.stream_smem_bytes(kind, BF.pick_bm(kind, M), sb, ks)
+        assert lib_b7.batched_ffn_smem_bytes(M, sb, ks, build.DTYPE_CODES[dtype]) == want
+    want = BF.stream_smem_bytes("q78", BF.pick_bm("q78", M), sb, _round32(ks))
+    assert lib_b8.q78_matmul_smem_bytes(M, sb, _round32(ks)) == want
+
+
+def _round32(k):
+    return -(-k // 32) * 32
 
 
 @pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)])
@@ -333,6 +420,34 @@ def test_q78_matmul_kernel_is_exact(cuda, M, K, N):
     if sec is not None:
         torch.cuda.synchronize()
         assert torch.equal(sec, ref[:, 1:N - 1])
+
+
+@pytest.mark.parametrize("K,N", FCNET_LAYERS)
+@pytest.mark.parametrize("M", [1, 16, 32])
+def test_q78_matmul_fcnet_layers_are_exact(cuda, M, K, N):
+    g = torch.Generator(device=cuda).manual_seed(K * N + M)
+    a = torch.randint(-(1 << 15), 1 << 15, (M, K), generator=g, device=cuda, dtype=torch.int16)
+    w = torch.randint(-(1 << 15), 1 << 15, (K, N), generator=g, device=cuda, dtype=torch.int16)
+    y = QM.q78_matmul(a, w)
+    torch.cuda.synchronize()
+    assert torch.equal(y, QM.q78_matmul(a, w, use_kernel=False))
+
+
+@pytest.mark.parametrize("K,N", [(2000, 1500), (561, 2000), (784, 800)])
+@pytest.mark.parametrize("M", [1, 16, 32])
+def test_q78_matmul_sections_read_in_place(cuda, M, K, N):
+    """forward_q78_sectioned's sections w[:, 114 i : 114 (i + 1)], each read
+    in place: a base 228 i bytes in (only 4-byte aligned for odd i)."""
+    a = torch.randint(-(1 << 15), 1 << 15, (M, K), device=cuda, dtype=torch.int16)
+    w = torch.randint(-(1 << 15), 1 << 15, (K, N), device=cuda, dtype=torch.int16)
+    ref = QM.q78_matmul(a, w, use_kernel=False)
+    for s in range(0, N, 114):
+        sec = w[:, s:s + 114]
+        if s // 114 % 2:
+            assert sec.data_ptr() % 8 == 4
+        y = QM.q78_matmul(a, sec)
+        torch.cuda.synchronize()
+        assert torch.equal(y, ref[:, s:s + 114])
 
 
 def test_q78_matmul_kernel_wraps_like_int32(cuda):
