@@ -23,7 +23,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                under a 256-token window, then at a 2048-token causal
                prefill (twice for the same bits) and an 1100-token int8-K/V one, B3
                also at the long phase's contexts (40-2032 tokens, B 8 and 4) and
-               twice for the same bits, B5 at the int8 head (2048x32000, M 8
+               twice for the same bits, and at the spec phase's verify step
+               (B 8, T 5: 40 rows per KV head), B5 at the int8 head (2048x32000, M 8
                and 40) and 2048x5632 (M 8, 40 and 2032), each call's regime
                logged and launched twice for the same bits,
                B7/B8 at HAR-6's widest layer (2000x1500, B 1, 16 and 32;
@@ -86,7 +87,37 @@ Phases, in order; any failure raises and the script exits non-zero:
                served plan and for a --compress quant plan (every
                projection through B5, every launch in its wgmma regime); the
                logits must agree within the stated bf16 tolerance.
-9. summary  -- one JSON line of per-kernel numbers, then the result line.
+9. spec     -- the serve flags with --draft-config tinyllama-1.1b --spec-k 4
+               (a dense bf16 draft from seed + 1): every request finishes,
+               the audit is clean, B1, B2, B3 and B5 launch (B3 at T = 5,
+               counted by query positions), B4 does not, the ladder stays
+               untouched, and the streams match the serve phase's by the
+               near-tie rule (equal, or the plain path's top-2 logit gap at
+               the first difference within PATH_RTOL of its largest
+               logit); each tick's wall time split into the draft steps,
+               the verify step and the rest.  Then the target's own plan as
+               the draft: accept rate over 0.5, more than one committed
+               token a sequence a tick, streams by the same rule, and
+               teacher-forced verify logits (T = 5) within PATH_RTOL of the
+               plain versions' and of one position a step.
+10. chunked -- the long phase's prompts (40-2032 tokens) with --prefill-chunk
+               256 --prefill-budget 512, arriving by seeded Poisson arrivals
+               on a TickClock (loadgen.run_open_loop: an audit every tick):
+               every request finishes, chunks reach B1, B2, B5 and never
+               B6; the 40-token request's largest inter-token gap (in
+               prefill + decode tokens between its commits) is smaller than
+               in the same trace without chunks; each first token matches
+               the long phase's by the near-tie rule; LoadReport.summary()
+               is printed.
+11. faults  -- run_chaos under a seeded_schedule of all six kinds (nan_logits,
+               alloc_fail, drop_tick, dead_draft, slow_tick, kernel_fault) at
+               the serve flags with --spec-k 2 and a watchdog: every request
+               terminal, no page leaked, rung 1 taken exactly at the
+               dead_draft tick and rung 2 at the kernel_fault tick, B3's
+               counter flat after rung 2, and the requests no fault touched
+               keep the fault-free run's streams by the near-tie rule; the
+               fault-free run leaves ``degraded`` empty.
+12. summary -- one JSON line of per-kernel numbers, then the result line.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -126,6 +157,9 @@ KERNEL_RTOL = 1e-2
 PATH_RTOL = 5e-2
 # the longest prompt of the long-prefill phase (prompt + 16 new = 2048)
 LONG_M = 2032
+# draft tokens a tick of the spec phase: its verify step runs B3 at T = 5
+# (40 rows per KV head) and B1, B2, B5 at M = 8 * 5
+SPEC_K = 4
 # B1 and B2 switch from the decode regime (one 64-row tile, a cluster split)
 # to the prefill regime (128-row tiles) above 64 rows: the rows each regime
 # and tile edge meet, besides the main path's decode batches and prompts
@@ -502,23 +536,26 @@ def phase_kernels(torch, results: dict) -> None:
             "bound_by": b_by, "library_ms": lib_ms,
             "shape": "B=8 T=1 H=32 KVH=4 hd=64 int8 pages of 16, pos 15..100"}
     rows, d, r = b3_long_rows(torch, timer, gen)
-    results["paged_decode_attention"].update(max_abs_err=max(b3_err, d),
-                                             max_rel_err=max(b3_rel, r), rows=rows)
+    row, dv, rv = b3_verify_row(torch, timer, gen)
+    results["paged_decode_attention"].update(max_abs_err=max(b3_err, d, dv),
+                                             max_rel_err=max(b3_rel, r, rv), rows=rows + [row])
 
 
 def _sdpa_gathered(torch, q, kp, vp, ks, vs, table, pos):
     """B3's yardstick: scaled_dot_product_attention on the gathered,
     dequantized bf16 K/V (expanded to the query heads) under the causal
-    mask of one new token at ``pos``; returns a thunk for the timer."""
+    mask of the T new tokens at pos .. pos + T - 1; returns a thunk for the
+    timer."""
     from repro_torch.models import layers as L
 
-    H, KVH = q.shape[2], kp.shape[2]
+    T, H, KVH = q.shape[1], q.shape[2], kp.shape[2]
     kd = L.gather_pages(kp, table).float() * L.gather_pages(ks, table)[..., None]
     vd = L.gather_pages(vp, table).float() * L.gather_pages(vs, table)[..., None]
     kd = kd.to(torch.bfloat16).repeat_interleave(H // KVH, dim=2).transpose(1, 2)
     vd = vd.to(torch.bfloat16).repeat_interleave(H // KVH, dim=2).transpose(1, 2)
     S = kd.shape[2]
-    mask = (torch.arange(S, device="cuda")[None, :] <= pos[:, None])[:, None, None]
+    q_pos = pos[:, None] + torch.arange(T, device="cuda")[None]
+    mask = (torch.arange(S, device="cuda")[None, None, :] <= q_pos[:, :, None])[:, None]
     qt = q.transpose(1, 2)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     return lambda: sdpa(qt, kd, vd, attn_mask=mask)
@@ -526,13 +563,16 @@ def _sdpa_gathered(torch, q, kp, vp, ks, vs, table, pos):
 
 def _b3_bound(q, table, pos, ps, KVH, hd, H, elem=1, scale_bytes=4) -> tuple:
     """B3's least time: the live (page, KV head) tiles' K and V payload and
-    scales, q and o, the table and pos over the memory rate; 4 * hd flops
-    per (query head, visible key) on the bf16 tensor cores."""
-    n_pages = (pos // ps + 1).clamp(max=table.shape[1])
+    scales (read once for all T query positions), q and o, the table and
+    pos over the memory rate; 4 * hd flops per (query head, visible key) on
+    the bf16 tensor cores."""
+    T = q.shape[1]
+    n_pages = ((pos + T - 1) // ps + 1).clamp(max=table.shape[1])
     tiles = int(n_pages.sum()) * KVH
     nbytes = (tiles * ps * (2 * hd * elem + 2 * scale_bytes) + 2 * q.numel() * q.element_size()
               + table.numel() * 4 + pos.numel() * 4)
-    return bound(nbytes, 4.0 * int((pos + 1).sum()) * H * hd)
+    visible = T * int((pos + 1).sum()) + pos.numel() * T * (T - 1) // 2
+    return bound(nbytes, 4.0 * visible * H * hd)
 
 
 def _b3_case(torch, gen, ctx, P: int) -> tuple:
@@ -592,6 +632,42 @@ def b3_long_rows(torch, timer, gen) -> tuple:
                      "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                      "bound_ms": b_ms, "bound_by": b_by})
     return rows, err, rel
+
+
+def b3_verify_row(torch, timer, gen) -> tuple:
+    """B3 at the spec phase's verify step: B = 8 sequences, T = SPEC_K + 1
+    query positions each (40 rows per KV head at G = 8), 32 query heads over
+    4 KV heads, hd 64, int8 pages of 16, 8 pages per sequence, at the serve
+    phase's contexts (prompts of 36-40 tokens, 8 tokens into generation);
+    sequences 1-3 share sequence 0's first page.  Held to its plain version,
+    launched twice for the same bits, timed with SDPA on gathered bf16 as
+    the yardstick.  Returns (row, max abs err, max rel err)."""
+    from repro_torch.kernels import flash_attention as FA
+
+    B, T, H, KVH, hd, ps, P = 8, SPEC_K + 1, 32, 4, 64, 16, 8
+    ctx = (36, 40, 40, 40, 40, 40, 40, 40)
+    q, kp, vp, table, pos, kw = _b3_case(torch, gen, [c + 8 for c in ctx], P)
+    table[1:4, 0] = table[0, 0]
+    q = torch.randn((B, T, H, hd), generator=gen, device="cuda").to(torch.bfloat16)
+    label = f"B3 int8 verify B={B} T={T} pos {pos.tolist()}"
+    o = FA.paged_decode_attention(q, kp, vp, table, pos, **kw)
+    d, r = _held(torch, label, o,
+                 FA.paged_decode_attention(q, kp, vp, table, pos, use_kernel=False, **kw),
+                 KERNEL_RTOL)
+    _deterministic(torch, label, o, FA.paged_decode_attention(q, kp, vp, table, pos, **kw))
+    b_ms, b_by = _b3_bound(q, table, pos, ps, KVH, hd, H)
+    ms = timer(lambda: FA.paged_decode_attention(q, kp, vp, table, pos, **kw))
+    plain_ms = timer(lambda: FA.paged_decode_attention(q, kp, vp, table, pos,
+                                                       use_kernel=False, **kw))
+    lib_ms = timer(_sdpa_gathered(torch, q, kp, vp, kw["k_scale_pages"], kw["v_scale_pages"],
+                                  table, pos))
+    log(f"{label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA(gathered bf16) "
+        f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    row = {"shape": f"verify B={B} T={T} H=32 KVH=4 hd=64 int8 pages of 16, pos "
+                    f"{'/'.join(map(str, pos.tolist()))}",
+           "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
+           "bound_by": b_by}
+    return row, d, r
 
 
 def _visible_pairs(Sq: int, Sk: int, causal: bool, window) -> int:
@@ -1123,12 +1199,15 @@ def _served_kernels():
 
 
 def _zero_launches(counters) -> None:
-    """Set the launch counters of ``counters`` to 0, B5's per-regime ones too."""
+    """Set the launch counters of ``counters`` to 0, B5's per-regime ones and
+    B3's by query positions too."""
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import quant_matmul as QM
 
     for c in counters:
         c.launches = 0
     QM.quant_matmul.wgmma_launches = QM.quant_matmul.dense_tile_launches = 0
+    FA.paged_decode_attention.launches_by_t.clear()
 
 
 def _b5_all_wgmma(label: str) -> None:
@@ -1146,7 +1225,8 @@ def _b5_all_wgmma(label: str) -> None:
 
 def _serve_and_check(serve, engine, cfg, max_new: int, label: str) -> tuple:
     """Serve the 8 requests from zeroed launch counters; every request must
-    finish with in-vocabulary tokens and no page may leak.  Returns (the
+    finish with in-vocabulary tokens, no page may leak and the degradation
+    ladder must stay untouched.  Returns (the
     requests' outputs, {kernel: launches}, wall seconds)."""
     from repro_torch.serving.engine import RequestState
 
@@ -1167,6 +1247,8 @@ def _serve_and_check(serve, engine, cfg, max_new: int, label: str) -> tuple:
         raise AssertionError(f"{label}: a sampled token is outside the vocabulary")
     if engine.pages_in_use != 0:
         raise AssertionError(f"{label}: {engine.pages_in_use} pages leaked")
+    if engine.degraded:
+        raise AssertionError(f"{label}: the degradation ladder triggered: {engine.degraded}")
     outputs = [[int(t) for t in r.output] for r in reqs]
     log(f"{label}: greedy tokens {token_digest(outputs)} (sha256 of {sum(map(len, outputs))})")
     return outputs, launches, dt
@@ -1324,8 +1406,9 @@ def phase_plancache(torch, results: dict, serve_outputs: list, serve_launches: d
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def phase_long(torch, results: dict) -> None:
-    """Long-prompt prefill at full width through B6 (see the module doc)."""
+def phase_long(torch, results: dict) -> tuple:
+    """Long-prompt prefill at full width through B6 (see the module doc).
+    Returns (the prompts, the greedy tokens) for the chunked phase."""
     import numpy as np
 
     from repro_torch.kernels import block_sparse as BS
@@ -1396,6 +1479,384 @@ def phase_long(torch, results: dict) -> None:
     log(f"long: {engine.stats.completed}/{len(reqs)} FINISHED, audit clean, "
         f"{engine.stats.decode_tokens / dt:.1f} tok/s on {torch.cuda.get_device_name(0)}")
     del engine
+    torch.cuda.empty_cache()
+    return [r.prompt for r in reqs], outputs
+
+
+def _prefill_logits(torch, cfg, params, tokens):
+    """Last-position logits (fp32) of a batch-1 prefill over ``tokens`` through
+    the served kernels: the plain, non-speculative path teacher-forced."""
+    from repro_torch.models import transformer as T
+
+    dev = params["final_norm"]["scale"].device
+    t = torch.as_tensor([int(x) for x in tokens], device=dev)[None]
+    cache = T.init_cache(cfg, 1, len(tokens), getattr(torch, cfg.compute_dtype),
+                         kv_dtype=torch.int8, device=dev)
+    return T.prefill(cfg, params, t, cache)[0][0, -1].float()
+
+
+def near_tie(torch, cfg, params, label: str, prompt, want, got) -> int:
+    """The near-tie rule: streams ``got`` and ``want`` (the plain path's) are
+    equal, or at the first position j where they differ the top-2 gap of
+    the plain path's logits there (teacher-forced over prompt + want[:j]) is
+    at most PATH_RTOL of their largest magnitude: the two paths' logits may
+    differ that much (the parity phase's tolerance), so such a token flips on
+    a near-tie.  Returns the count of differing tokens; raises otherwise."""
+    if len(want) != len(got):
+        raise AssertionError(f"{label}: streams of {len(want)} and {len(got)} tokens")
+    diff = [i for i, (a, b) in enumerate(zip(want, got)) if a != b]
+    if not diff:
+        return 0
+    j = diff[0]
+    lg = _prefill_logits(torch, cfg, params, list(prompt) + list(want[:j]))
+    top = torch.topk(lg, 2).values
+    gap = float(top[0] - top[1])
+    pair = float((lg[want[j]] - lg[got[j]]).abs())
+    tol = PATH_RTOL * float(lg.abs().max())
+    log(f"{label}: streams differ from token {j} on ({len(diff)} of {len(want)} tokens "
+        f"differ); plain logits there: top-2 gap {gap:.4e}, |dlogit| of the two tokens "
+        f"{pair:.4e}, tolerance {tol:.4e}")
+    if not gap <= tol:
+        raise AssertionError(f"{label}: streams differ at token {j} where the plain path has "
+                             f"no near-tie (top-2 gap {gap:.4e} > {tol:.4e})")
+    return len(diff)
+
+
+def _streams_near_tie(torch, cfg, params, label, prompts, want, got) -> int:
+    """near_tie over every request; logs and returns the differing tokens."""
+    n = sum(near_tie(torch, cfg, params, f"{label} request {i}", p, w, g)
+            for i, (p, w, g) in enumerate(zip(prompts, want, got)))
+    log(f"{label}: {n} of {sum(map(len, want))} tokens differ from the plain path's "
+        f"(near-tie rule, tolerance {PATH_RTOL} of the largest logit)")
+    return n
+
+
+def _spec_log(label: str, engine, dt: float, card: str) -> float:
+    """Logs a speculative run's counters; returns committed tokens per
+    sequence per verify step."""
+    s, k = engine.stats, engine.spec_k
+    per_seq = s.decode_tokens / max(1, s.verified_positions // (k + 1))
+    log(f"{label}: accept rate {s.accept_rate:.4f} ({s.draft_accepted}/{s.draft_proposed}), "
+        f"verified_positions {s.verified_positions}, {s.decode_steps} verify ticks, "
+        f"{s.decode_tokens} committed tokens ({s.mean_batch:.3f} a tick, {per_seq:.3f} a "
+        f"sequence a tick), {s.decode_tokens / dt:.1f} tok/s on {card}; degraded "
+        f"{engine.degraded}")
+    return per_seq
+
+
+def _timed_spec_ticks(engine) -> dict:
+    """Wall time of each speculative tick and of its draft chain and verify
+    step (host clock; each ends in a device-to-host fetch, so it covers the
+    device work it waits on).  Returns the lists it fills."""
+    times = {"tick": [], "draft": [], "verify": []}
+
+    def timed(fn, key):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            times[key].append(time.perf_counter() - t0)
+            return out
+        return run
+
+    engine._spec_step = timed(engine._spec_step, "tick")
+    engine._draft_chain = timed(engine._draft_chain, "draft")
+    engine._run_decode = timed(engine._run_decode, "verify")
+    return times
+
+
+def _verify_parity(torch, cfg, params, gen) -> None:
+    """Teacher-forced verify steps at the spec phase's shape (8 sequences,
+    T = SPEC_K + 1 positions a step, paged int8 KV from position 0): the
+    kernels (B1, B2, B5 at M = 40, B3 at T = 5) against the plain versions on
+    the same tokens, and against the kernels one position at a time; logits
+    within PATH_RTOL at every position."""
+    from repro_torch.core.weight_plan import with_use_kernel
+    from repro_torch.models import transformer as T
+
+    B, T_, steps, ps = 8, SPEC_K + 1, 5, 16
+    n = T_ * steps
+    dev = gen.device
+    tokens = torch.randint(0, cfg.vocab, (B, n), generator=gen, device=dev)
+    P = -(-n // ps)
+
+    def run(p, use_kernel, width):
+        cache = T.init_cache(cfg, B, P * ps, getattr(torch, cfg.compute_dtype),
+                             kv_dtype=torch.int8, page_size=ps, num_pages=1 + B * P, device=dev)
+        cache["page_table"].copy_(1 + torch.arange(B * P, device=dev).reshape(B, P))
+        out = []
+        for t in range(0, n, width):
+            pos = torch.full((B,), t, dtype=torch.int32, device=dev)
+            lg, cache = T.decode_step(cfg, p, cache, tokens[:, t:t + width], pos,
+                                      use_kernel=use_kernel)
+            out.append(lg.float())
+        return torch.cat(out, dim=1)
+
+    verify = run(params, True, T_)
+    others = {"plain versions": run(with_use_kernel(params, False), False, T_),
+              "kernels one position a step": run(params, True, 1)}
+    torch.cuda.synchronize()
+    for name, b in others.items():
+        if not (torch.isfinite(verify).all() and torch.isfinite(b).all()):
+            raise AssertionError("verify parity: non-finite logits")
+        worst = float(((verify - b).abs().amax(dim=-1) / b.abs().amax(dim=-1)).max())
+        agree = float((verify.argmax(-1) == b.argmax(-1)).float().mean())
+        log(f"spec: teacher-forced verify (B={B}, T={T_}, {n} positions) vs {name}: max "
+            f"|dlogit| / max |logit| = {worst:.3e} (tolerance {PATH_RTOL}), greedy agreement "
+            f"{agree:.4f}")
+        if not worst <= PATH_RTOL:
+            raise AssertionError(f"verify logits differ from the {name}: {worst:.3e}")
+
+
+def phase_spec(torch, results: dict, serve_outputs: list, card: str) -> None:
+    """Speculative decode at full width through the serve CLI (see the
+    module doc): a seed + 1 draft, then the target's own plan as the draft."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.serving.config import SpecConfig
+    from repro_torch.serving.engine import ServingEngine
+
+    serve, ap, args = _serve_args(["--draft-config", "tinyllama-1.1b", "--spec-k", str(SPEC_K)])
+    t0 = time.perf_counter()
+    cfg, engine, plan = serve.build_engine(args, ap)
+    torch.cuda.synchronize()
+    log(f"spec: model + plan + dense bf16 draft + engine built in "
+        f"{time.perf_counter() - t0:.1f}s")
+    times = _timed_spec_ticks(engine)
+    outputs, launches, dt = _serve_and_check(serve, engine, cfg, args.max_new, "spec")
+    by_t = dict(FA.paged_decode_attention.launches_by_t)
+    log(f"spec: B3 launches by query positions {by_t}")
+    if launches.pop("block_sparse_matmul_col"):
+        raise AssertionError("spec: B4 launched, but every served leaf carries its walk")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"spec: kernel {name} was not launched")
+    if by_t.get(SPEC_K + 1, 0) <= 0:
+        raise AssertionError(f"spec: B3 never launched at T = {SPEC_K + 1}: {by_t}")
+    for row in results.get("paged_decode_attention", {}).get("rows", []):
+        if row["shape"].startswith("verify"):
+            row["launches"] = by_t[SPEC_K + 1]
+    _spec_log("spec (seed + 1 draft)", engine, dt, card)
+    n_ticks = len(times["tick"])
+    draft_ms, verify_ms, tick_ms = (1e3 * sum(times[k]) / max(1, n_ticks)
+                                    for k in ("draft", "verify", "tick"))
+    log(f"spec: a tick's wall time {tick_ms:.2f} ms over {n_ticks} ticks: {SPEC_K + 1} draft "
+        f"steps {draft_ms:.2f} ms, verify step {verify_ms:.2f} ms, the rest (acceptance, "
+        f"table, bookkeeping) {tick_ms - draft_ms - verify_ms:.2f} ms ({card})")
+    prompts = [r.prompt for r in _serve_requests(cfg, args.max_new)]
+    _streams_near_tie(torch, cfg, engine.params, "spec vs serve", prompts, serve_outputs,
+                      outputs)
+
+    params, dev = engine.params, engine.device
+    conf = dataclasses.replace(engine.config, spec=SpecConfig(
+        draft_cfg=cfg, draft_params=params, spec_k=SPEC_K))
+    del engine
+    torch.cuda.empty_cache()
+    self_eng = ServingEngine(cfg, params, plan=plan, device=dev, config=conf)
+    out_self, _, dt = _serve_and_check(serve, self_eng, cfg, args.max_new, "spec self-draft")
+    per_seq = _spec_log("spec self-draft", self_eng, dt, card)
+    if not self_eng.stats.accept_rate > 0.5:
+        raise AssertionError(f"spec self-draft: accept rate {self_eng.stats.accept_rate:.4f} "
+                             f"<= 0.5")
+    if not per_seq > 1.0:
+        raise AssertionError(f"spec self-draft: {per_seq:.3f} committed tokens a sequence a "
+                             f"tick, not more than 1")
+    _streams_near_tie(torch, cfg, params, "spec self-draft vs serve", prompts, serve_outputs,
+                      out_self)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    _verify_parity(torch, cfg, params, gen)
+    del self_eng, params, plan
+    torch.cuda.empty_cache()
+
+
+# the chunked phase: the long phase's prompts, arriving by a seeded Poisson
+# process at this many requests a tick, prefilled in chunks of 256 under a
+# budget of 512 prompt tokens a tick
+CHUNK_FLAGS = ("--prefill-chunk", "256", "--prefill-budget", "512")
+ARRIVAL_RATE = 0.5
+
+
+def _open_loop(torch, flags, prompts, label: str):
+    """The long phase's prompts (16 new tokens each) under open-loop
+    arrivals on the engine's TickClock; returns (engine, LoadReport,
+    {kernel: launches}, wall seconds)."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.serving import loadgen as LG
+    from repro_torch.serving.engine import Request
+
+    serve, ap, args = _serve_args(["--requests", str(len(prompts)), "--prompt-len", str(LONG_M),
+                                   "--max-len", "2048", "--arrival-rate", str(ARRIVAL_RATE),
+                                   *flags])
+    cfg, engine, _ = serve.build_engine(args, ap)
+    one = LG.LengthMixture(((1.0, (1, 1), (args.max_new, args.max_new)),))
+    arrivals = [dataclasses.replace(a, prompt_len=len(p)) for a, p in
+                zip(LG.poisson_trace(ARRIVAL_RATE, len(prompts), one, seed=0), prompts)]
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=args.max_new) for i, p in enumerate(prompts)]
+    counters = _served_kernels() + (FA.flash_attention,)
+    _zero_launches(counters)
+    # the host clock at the end of each tick (a tick ends in device-to-host
+    # fetches): the wall time between a request's commits
+    walls, step = [], engine.step
+
+    def timed_step():
+        out = step()
+        walls.append(time.perf_counter())
+        return out
+
+    engine.step = timed_step
+    rep, dt = serve.run_open_loop_timed(engine, arrivals, reqs)
+    rep.tick_wall_s = walls
+    launches = {c.__name__: c.launches for c in counters}
+    serve.report(engine, dt, rep)
+    log(f"{label}: arrivals at ticks {[round(a.t, 3) for a in arrivals]}; launches {launches}")
+    log(f"{label}: summary {json.dumps(rep.summary(), sort_keys=True)}")
+    bad = [r.uid for r in reqs if r.state.value != "FINISHED" or len(r.output) != args.max_new]
+    if bad or not rep.all_terminal or rep.leaked_pages:
+        raise AssertionError(f"{label}: unfinished requests {bad}, {rep.leaked_pages} pages leaked")
+    if engine.degraded:
+        raise AssertionError(f"{label}: the degradation ladder triggered: {engine.degraded}")
+    return cfg, engine, rep, launches
+
+
+def _wall_gap_ms(rep, uid: int) -> float:
+    """Largest host-clock gap (ms) between two consecutive commits of
+    request ``uid``: ticks from ``rep.token_ticks``, times from the end of
+    each tick (``rep.tick_wall_s``)."""
+    ticks = rep.token_ticks[uid]
+    return max((rep.tick_wall_s[b - 1] - rep.tick_wall_s[a - 1]) * 1e3
+               for a, b in zip(ticks, ticks[1:]))
+
+
+def phase_chunked(torch, long_prompts: list, long_outputs: list, card: str) -> None:
+    """Chunked prefill under open-loop arrivals (see the module doc)."""
+    cfg, engine, rep, launches = _open_loop(torch, CHUNK_FLAGS, long_prompts, "chunked")
+    for name in ("block_sparse_matmul", "fused_gate_up", "quant_matmul",
+                 "paged_decode_attention"):
+        if launches[name] <= 0:
+            raise AssertionError(f"chunked: kernel {name} was not launched")
+    if launches["flash_attention"] or launches["block_sparse_matmul_col"]:
+        raise AssertionError(f"chunked: a chunk reached B6 or B4: {launches}")
+    log(f"chunked: {engine.stats.prefill_chunks} chunks, {engine.stats.prefill_tokens} prompt "
+        f"tokens, {engine.stats.decode_steps} decode steps, {rep.wall_s:.2f}s wall on {card}")
+    gap = {u: rep.max_intertoken_gap([0], unit=u) for u in ("work", "tick")}
+    gap["ms"] = _wall_gap_ms(rep, 0)
+    firsts = [o[0] for o in rep.outputs.values()]
+    params = engine.params
+    del engine
+    torch.cuda.empty_cache()
+    _, sync, srep, _ = _open_loop(torch, (), long_prompts, "chunked, synchronous")
+    sgap = {u: srep.max_intertoken_gap([0], unit=u) for u in ("work", "tick")}
+    sgap["ms"] = _wall_gap_ms(srep, 0)
+    del sync
+    torch.cuda.empty_cache()
+    log(f"chunked: the 40-token request's largest inter-token gap {gap['work']} work units "
+        f"({gap['tick']} ticks, {gap['ms']:.2f} ms wall) with chunks, {sgap['work']} "
+        f"({sgap['tick']} ticks, {sgap['ms']:.2f} ms wall) without ({card})")
+    if not gap["work"] < sgap["work"]:
+        raise AssertionError("chunked: chunks did not shrink the short request's largest gap")
+    n = sum(near_tie(torch, cfg, params, f"chunked first token, request {i}", p, [w[0]], [f])
+            for i, (p, w, f) in enumerate(zip(long_prompts, long_outputs, firsts)))
+    log(f"chunked: {len(firsts) - n} of {len(firsts)} first tokens equal the long phase's, "
+        f"the rest near-ties")
+
+
+def _chaos_schedule(FI, n_ticks: int, uids: list) -> tuple:
+    """The first seed whose ``seeded_schedule`` holds all six kinds, with the
+    first dead_draft at tick 3-8, the first kernel_fault after it by tick 10,
+    neither on a dropped tick (so that both meet a decode step)."""
+    rates = {"nan_logits": 0.08, "alloc_fail": 0.08, "drop_tick": 0.06, "slow_tick": 0.06,
+             "dead_draft": 0.05, "kernel_fault": 0.05}
+    for seed in range(10000):
+        sched = FI.seeded_schedule(seed, n_ticks=n_ticks, uids=uids, rates=rates,
+                                   slow_delay_s=2.0)
+        first = {k: min((f.tick for f in sched if f.kind == k), default=0) for k in FI.KINDS}
+        drops = {f.tick for f in sched if f.kind == "drop_tick"}
+        dd, kf = first["dead_draft"], first["kernel_fault"]
+        if all(first.values()) and 3 <= dd < kf <= 10 and not {dd, kf} & drops:
+            return seed, rates, sched
+    raise AssertionError("no chaos schedule found")
+
+
+def phase_faults(torch, card: str) -> None:
+    """run_chaos under a seeded schedule of all six kinds (see the module doc)."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.serving import faultinject as FI
+    from repro_torch.serving.config import FaultConfig
+    from repro_torch.serving.engine import ServingEngine
+
+    serve, ap, args = _serve_args(["--draft-config", "tinyllama-1.1b", "--spec-k", "2",
+                                   "--max-retries", "3"])
+    cfg, base, plan = serve.build_engine(args, ap)
+    n = args.requests
+
+    def chaos(faults):
+        clock = FI.TickClock()
+        fi = FI.FaultInjector(faults, clock=clock) if faults else None
+        conf = dataclasses.replace(base.config, fault=FaultConfig(
+            clock=clock, fault_injector=fi, watchdog_timeout_s=3.0))
+        eng = ServingEngine(cfg, base.params, plan=plan, device=base.device, config=conf)
+        trail, step = [], eng.step
+
+        def traced():
+            out = step()
+            trail.append((eng.tick, FA.paged_decode_attention.launches, sorted(eng.degraded)))
+            return out
+
+        eng.step = traced
+        reqs = _serve_requests(cfg, args.max_new)
+        _zero_launches(_served_kernels())
+        t0 = time.perf_counter()
+        rep = FI.run_chaos(eng, [(1, r) for r in reqs])
+        torch.cuda.synchronize()
+        return eng, reqs, rep, trail, time.perf_counter() - t0
+
+    clean, creqs, crep, _, dt = chaos(None)
+    if not crep.all_terminal or crep.leaked_pages or clean.degraded:
+        raise AssertionError(f"faults: the fault-free run: {crep.states}, {crep.leaked_pages} "
+                             f"pages leaked, degraded {clean.degraded}")
+    log(f"faults: fault-free run {crep.ticks} ticks, degraded {clean.degraded}, {dt:.2f}s")
+    seed, rates, sched = _chaos_schedule(FI, 16, list(range(n)))
+    log(f"faults: seeded_schedule seed {seed}, rates {rates}: "
+        + ", ".join(f"{f.kind}@{f.tick}" + (f"(uid {f.uid})" if f.uid is not None else "")
+                    for f in sched))
+    eng, reqs, rep, trail, dt = chaos(sched)
+    fired = eng.fault_injector.fired
+    kinds = sorted({k for _, k, _ in fired})
+    log(f"faults: fired {fired}")
+    log(f"faults: {rep.ticks} ticks in {dt:.2f}s; states {rep.states}; stats failed "
+        f"{eng.stats.failed} retried {eng.stats.retried} evicted {eng.stats.evicted} timed out "
+        f"{eng.stats.timed_out} fallback ticks {eng.stats.fallback_ticks}; degraded "
+        f"{eng.degraded}; watchdog silence {eng.watchdog.silence_s():.1f}s, dead hosts "
+        f"{eng.watchdog.dead_hosts()}")
+    if not rep.all_terminal or rep.leaked_pages:
+        raise AssertionError(f"faults: {rep.states}, {rep.leaked_pages} pages leaked")
+    if kinds != sorted(FI.KINDS):
+        raise AssertionError(f"faults: kinds that fired {kinds}, not all six")
+    for rung, kind in (("speculative", "dead_draft"), ("attention_kernel", "kernel_fault")):
+        at = min(t for t, k, _ in fired if k == kind)
+        taken = min((t for t, _, d in trail if rung in d), default=None)
+        log(f"faults: rung {rung} taken at tick {taken}; first {kind} fired at tick {at}")
+        if taken != at:
+            raise AssertionError(f"faults: rung {rung} at tick {taken}, {kind} at tick {at}")
+    if sorted(eng.degraded) != ["attention_kernel", "speculative"]:
+        raise AssertionError(f"faults: degraded {eng.degraded}")
+    kf = min(t for t, k, _ in fired if k == "kernel_fault")
+    before = [b3 for t, b3, _ in trail if t < kf][-1]
+    after = sorted({b3 for t, b3, _ in trail if t >= kf})
+    log(f"faults: B3 launches {before} before the kernel_fault tick {kf}, {after} after")
+    if after != [before]:
+        raise AssertionError("faults: B3 launched after rung 2 switched this engine off it")
+    touched = {u for _, k, u in fired if k == "nan_logits" and u is not None}
+    touched |= {r.uid for r in reqs if r.retries or r.evictions}
+    if any(k == "nan_logits" and u is None for _, k, u in fired):
+        touched = set(range(n))  # a poisoning of every live slot
+    diff = rep.diff_streams(crep.outputs)
+    log(f"faults: requests touched by a fault {sorted(touched)}; streams that differ from the "
+        f"fault-free run {diff}")
+    prompts = [r.prompt for r in creqs]
+    for uid in sorted(set(range(n)) - touched):
+        near_tie(torch, cfg, base.params, f"faults request {uid}", prompts[uid],
+                 crep.outputs[uid], rep.outputs[uid])
+    del eng, clean, base, plan
     torch.cuda.empty_cache()
 
 
@@ -1660,8 +2121,11 @@ def main(argv=None) -> int:
     phase_fcnet(torch, results)
     cfg, engine, serve_outputs, serve_launches = phase_serve(torch, results)
     phase_plancache(torch, results, serve_outputs, serve_launches, card)
-    phase_long(torch, results)
+    long_prompts, long_outputs = phase_long(torch, results)
     phase_parity(torch, cfg, engine)
+    phase_spec(torch, results, serve_outputs, card)
+    phase_chunked(torch, long_prompts, long_outputs, card)
+    phase_faults(torch, card)
     if args.profile:
         phase_profile(torch, cfg, engine)
     kernels = []

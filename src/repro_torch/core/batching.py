@@ -8,10 +8,11 @@ Ported:
    the latency / throughput model of Fig. 7 (``section_schedule``,
    ``weight_transfers``, ``batch_latency``, ``throughput_samples_per_s``).
    ``models.fcnet.forward_q78_sectioned`` runs in this order.
-2. ``mean_decode_context`` and the balance point of ``BatchSizer``, which
-   serving and the engine read.  The latency clamp, the speculative and
-   multi-chip terms wait for their slices (ROADMAP A7, A13).  The sizer's
-   defaults are the H100 data-sheet constants of ``core.perf_model``.
+2. ``mean_decode_context``, ``BatchSizer`` (the balance point, the
+   latency clamp, the multi-card and speculative terms, the acceptance EMA
+   the engine feeds back) and ``efficiency_curve``.  ``MixedSizer`` waits
+   for mixed serving (ROADMAP A10).  The sizer's defaults are the H100
+   data-sheet constants of ``core.perf_model``.
 """
 
 from __future__ import annotations
@@ -123,27 +124,145 @@ def mean_decode_context(prompt_len: float, max_new: float) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class BatchSizer:
-    """The decode batch at the machine-balance point, n_opt."""
+    """Pick decode batch sizes at the machine-balance point n_opt, clamped
+    by ``max_latency_s`` (batching trades latency, paper Section 6.3).
+
+    ``sparse_compute``: the datapath skips pruned blocks (t_calc scales with
+    1 - q_prune).  ``kv_bytes_per_token`` at ``context_len``: per-sample
+    cache reads, which never amortize with the batch.  ``model_parallel`` /
+    ``kv_parallel``: the cards of one model group and the degree the KV
+    cache shards by.  ``spec_k`` draft tokens a tick make the verify step's
+    batch B * (k+1) (the KV pages are read once a tick); ``spec_accept`` is
+    the per-draft acceptance the engine feeds back (``observe_accept``), and
+    ``draft_n_params`` charges the k+1 draft steps a tick."""
 
     n_params: int
     b_weight: float = 2.0
     peak_flops: float = pm.H100_PEAK_FLOPS
     hbm_bw: float = pm.H100_HBM_BW
+    max_latency_s: float | None = None
     q_prune: float = 0.0
     q_overhead: float = 1.0
     sparse_compute: bool = True
     kv_bytes_per_token: float = 0.0
     context_len: int = 0
+    model_parallel: int = 1
+    kv_parallel: int | None = None
+    spec_k: int = 0
+    spec_accept: float = 0.0
+    draft_n_params: int = 0
 
     @property
     def n_opt(self) -> int:
-        n = pm.decode_n_opt(
-            self.peak_flops, self.hbm_bw, self.b_weight,
-            q_prune=self.q_prune, q_overhead=self.q_overhead,
-            sparse_compute=self.sparse_compute, n_params=self.n_params,
+        kw = dict(
+            q_prune=self.q_prune,
+            q_overhead=self.q_overhead,
+            sparse_compute=self.sparse_compute,
+            n_params=self.n_params,
             kv_bytes_per_token=self.kv_bytes_per_token,
             context_len=self.context_len,
+            model_parallel=self.model_parallel,
+            kv_parallel=self.kv_parallel,
         )
+        if self.spec_k > 0:
+            n = pm.spec_decode_n_opt(self.spec_k, self.peak_flops, self.hbm_bw,
+                                     self.b_weight, **kw)
+        else:
+            n = pm.decode_n_opt(self.peak_flops, self.hbm_bw, self.b_weight, **kw)
         if not math.isfinite(n):
             return UNBOUNDED_NOPT
         return max(1, int(round(n)))
+
+    def committed_per_tick(self, batch: int) -> float:
+        """Expected committed tokens per engine tick at this batch."""
+        if self.spec_k <= 0:
+            return float(batch)
+        return batch * pm.expected_committed(self.spec_accept, self.spec_k)
+
+    @property
+    def memory_bound(self) -> bool:
+        """True when the kv stream alone exceeds the compute budget (n_opt is
+        the UNBOUNDED_NOPT sentinel, not a balance point)."""
+        return self.n_opt >= UNBOUNDED_NOPT
+
+    def observe_accept(self, accept_rate: float, ema: float = 0.2) -> "BatchSizer":
+        """A copy with one tick's measured acceptance folded into
+        ``spec_accept`` (EMA; a fresh sizer adopts the first measurement)."""
+        if not 0.0 <= accept_rate <= 1.0:
+            raise ValueError(f"accept_rate must be in [0,1], got {accept_rate}")
+        if self.spec_accept <= 0.0:
+            new = accept_rate
+        else:
+            new = (1.0 - ema) * self.spec_accept + ema * accept_rate
+        return dataclasses.replace(self, spec_accept=new)
+
+    def step_time(self, batch: int, context_len: int | None = None,
+                  kv_bytes_per_token: float | None = None,
+                  prefill_tokens: int = 0) -> float:
+        """Modeled seconds of one tick: the (verify) step at batch * (k+1)
+        rows with the kv read charged once, the k+1 draft steps, and one
+        more pass of the weight stream for ``prefill_tokens`` chunked-prefill
+        rows (a chunk runs on its own batch-1 cache, so its weight traffic
+        does not amortize with the decode batch's; its kv read is charged
+        at half the context)."""
+        kv0 = self.kv_bytes_per_token if kv_bytes_per_token is None else kv_bytes_per_token
+        kv = kv0 / (self.spec_k + 1) if self.spec_k > 0 else kv0
+        ctx = self.context_len if context_len is None else context_len
+        common = dict(peak_flops=self.peak_flops, hbm_bw=self.hbm_bw, b_weight=self.b_weight)
+        model = dict(q_prune=self.q_prune, q_overhead=self.q_overhead,
+                     sparse_compute=self.sparse_compute, model_parallel=self.model_parallel,
+                     kv_parallel=self.kv_parallel)
+        rows = batch * (self.spec_k + 1) if self.spec_k > 0 else batch
+        t = pm.decode_step_time(self.n_params, rows, kv, ctx, **common, **model)["t_proc"]
+        if self.spec_k > 0 and self.draft_n_params > 0:
+            t += (self.spec_k + 1) * pm.decode_step_time(
+                self.draft_n_params, batch, 0.0, 0, **common)["t_proc"]
+        if prefill_tokens > 0:
+            t += pm.decode_step_time(self.n_params, prefill_tokens, kv0, ctx // 2,
+                                     **common, **model)["t_proc"]
+        return t
+
+    def spec_payoff(self, batch: int) -> float:
+        """Modeled committed tokens/s of a speculative tick at this batch over
+        the same sizer's plain decode; below 1, speculation loses."""
+        if self.spec_k <= 0:
+            return 1.0
+        plain = dataclasses.replace(self, spec_k=0, spec_accept=0.0, draft_n_params=0)
+        spec_rate = self.committed_per_tick(batch) / self.step_time(batch)
+        plain_rate = batch / plain.step_time(batch)
+        return spec_rate / plain_rate
+
+    def spec_worthwhile(self, batch: int, min_accept: float = 0.0) -> bool:
+        """Speculation stays on while the acceptance EMA clears
+        ``min_accept`` and the modeled payoff is at least 1."""
+        if self.spec_k <= 0:
+            return False
+        return self.spec_accept >= min_accept and self.spec_payoff(batch) >= 1.0
+
+    def pick(self, waiting: int, context_len: int | None = None,
+             kv_bytes_per_token: float | None = None) -> int:
+        """Batch for the next decode step: min(waiting, n_opt), halved until
+        a step fits the latency budget."""
+        n = min(max(1, waiting), self.n_opt)
+        if self.max_latency_s is not None:
+            while n > 1 and self.step_time(n, context_len, kv_bytes_per_token) > self.max_latency_s:
+                n //= 2
+        return n
+
+
+def efficiency_curve(sizer: BatchSizer, batches: Sequence[int]) -> list[dict]:
+    """tokens/s and per-token latency across batch sizes (Fig. 7 analogue)."""
+    out = []
+    for b in batches:
+        t = sizer.step_time(b)
+        out.append({
+            "batch": b,
+            "step_s": t,
+            "tokens_per_s": b / t,
+            # useful model FLOPs only: masked-zero MACs are occupancy
+            "model_flops_util": min(
+                1.0,
+                2.0 * sizer.n_params * (1 - sizer.q_prune) * b
+                / (t * sizer.peak_flops)),
+        })
+    return out

@@ -8,8 +8,9 @@ Two parts:
    the paper's datapaths (Section 5.5).  Copied as it is: pure arithmetic,
    with the paper's ZedBoard designs as ``HardwareSpec``s.
 2. The decode-step roofline that serving and the engine call:
-   ``decode_n_opt``, ``pages_for_context``, ``paged_pool_pages`` and
-   ``decode_step_time``.  Its hardware defaults are the NVIDIA H100 SXM
+   ``decode_n_opt``, ``pages_for_context``, ``paged_pool_pages``,
+   ``decode_step_time`` and the speculative tick (``expected_committed``,
+   ``spec_decode_n_opt``, ``spec_step_time``).  Its hardware defaults are the NVIDIA H100 SXM
    data-sheet values, not measurements: 989e12 FLOP/s dense bf16 on the
    tensor cores and 3.35e12 B/s of HBM3 bandwidth.
 """
@@ -259,6 +260,8 @@ def decode_n_opt(
     n_params: int | None = None,
     kv_bytes_per_token: float = 0.0,
     context_len: int = 0,
+    model_parallel: int = 1,
+    kv_parallel: int | None = None,
 ) -> float:
     """Batch size at which decode flips from HBM-bound to compute-bound.
 
@@ -271,13 +274,21 @@ def decode_n_opt(
         n_opt = (W_stream / hbm_bw) / (2*P_compute/peak - ctx*kv/hbm_bw)
 
     A non-positive denominator means memory-bound at any batch (inf).
+
+    ``model_parallel`` = m cards each stream W/m weight bytes and run 1/m
+    of the MACs; ``kv_parallel`` (default m) is the degree the KV cache
+    actually shards by.  The kv term then weighs m / kv_m: a perfectly
+    sharded group keeps the one-card balance point.
     """
+    m = max(1, int(model_parallel))
+    kv_m = max(1, int(kv_parallel if kv_parallel is not None else m))
     if kv_bytes_per_token > 0.0 and context_len > 0:
         if n_params is None:
             raise ValueError("n_params required for kv-aware n_opt")
         eff = n_params * (1.0 - q_prune)
         comp = eff if sparse_compute else n_params
-        denom = 2.0 * comp / peak_flops - context_len * kv_bytes_per_token / hbm_bw
+        denom = (2.0 * comp / peak_flops
+                 - (m / kv_m) * context_len * kv_bytes_per_token / hbm_bw)
         if denom <= 0.0:
             return float("inf")
         return (eff * b_weight * q_overhead / hbm_bw) / denom
@@ -319,17 +330,117 @@ def decode_step_time(
     q_prune: float = 0.0,
     q_overhead: float = 1.0,
     sparse_compute: bool = True,
+    model_parallel: int = 1,
+    kv_parallel: int | None = None,
 ) -> dict:
-    """Two-term decode-step model: dict of t_calc, t_mem, t_proc, bound."""
+    """Two-term decode-step model: dict of t_calc, t_mem, t_proc, bound.
+    ``model_parallel`` shards the weight stream and the MACs over m cards;
+    ``kv_parallel`` (default m) is the degree the KV leaves shard by."""
+    m = max(1, int(model_parallel))
+    kv_m = max(1, int(kv_parallel if kv_parallel is not None else m))
     eff_params = n_params * (1.0 - q_prune)
     flops = 2.0 * (eff_params if sparse_compute else n_params) * batch
     weight_bytes = eff_params * b_weight * q_overhead
     kv_read = batch * context_len * kv_bytes_per_token
-    tc = flops / (peak_flops * n_chips)
-    tm = (weight_bytes + kv_read) / (hbm_bw * n_chips)
+    tc = flops / (peak_flops * n_chips * m)
+    tm = (weight_bytes / m + kv_read / kv_m) / (hbm_bw * n_chips)
     return {
         "t_calc": tc,
         "t_mem": tm,
         "t_proc": max(tc, tm),
         "bound": "compute" if tc >= tm else "memory",
     }
+
+
+# ---------------------------------------------------------------------------
+# Speculative decode: draft positions as extra batch samples
+# ---------------------------------------------------------------------------
+
+
+def expected_committed(accept_rate: float, spec_k: int) -> float:
+    """Expected tokens committed per speculative tick, per sequence: with k
+    drafts each kept with i.i.d. probability alpha, draft j commits only if
+    drafts 1..j matched, and one resampled (bonus) token always commits:
+    1 + alpha + ... + alpha^k, in [1, k+1]."""
+    if not 0.0 <= accept_rate <= 1.0:
+        raise ValueError(f"accept_rate must be in [0,1], got {accept_rate}")
+    if spec_k < 0:
+        raise ValueError(f"spec_k must be >= 0, got {spec_k}")
+    return float(sum(accept_rate**j for j in range(spec_k + 1)))
+
+
+def spec_decode_n_opt(
+    spec_k: int,
+    peak_flops: float = H100_PEAK_FLOPS,
+    hbm_bw: float = H100_HBM_BW,
+    b_weight: float = 2.0,
+    q_prune: float = 0.0,
+    q_overhead: float = 1.0,
+    sparse_compute: bool = True,
+    n_params: int | None = None,
+    kv_bytes_per_token: float = 0.0,
+    context_len: int = 0,
+    model_parallel: int = 1,
+    kv_parallel: int | None = None,
+    single_pass_kv: bool = True,
+) -> float:
+    """Machine-balance *sequence* batch of the verify step: one pass of the
+    weight stream carries B * (k+1) rows.  The paged attention kernel (B3)
+    reads each page once for all k+1 positions (``single_pass_kv``), so the
+    kv term stays the plain per-sequence read:
+    ``decode_n_opt(kv / (k+1)) / (k+1)``; ``single_pass_kv=False`` charges
+    kv per position (``decode_n_opt / (k+1)`` exactly)."""
+    if spec_k < 0:
+        raise ValueError(f"spec_k must be >= 0, got {spec_k}")
+    kv = kv_bytes_per_token
+    if single_pass_kv:
+        kv = kv / (spec_k + 1)
+    n = decode_n_opt(
+        peak_flops, hbm_bw, b_weight, q_prune, q_overhead, sparse_compute,
+        n_params, kv, context_len, model_parallel, kv_parallel,
+    )
+    return n / (spec_k + 1)
+
+
+def spec_step_time(
+    n_params: int,
+    batch: int,
+    spec_k: int,
+    accept_rate: float,
+    draft_n_params: int = 0,
+    kv_bytes_per_token: float = 0.0,
+    context_len: int = 0,
+    peak_flops: float = H100_PEAK_FLOPS,
+    hbm_bw: float = H100_HBM_BW,
+    b_weight: float = 2.0,
+    single_pass_kv: bool = True,
+    **kw,
+) -> dict:
+    """One speculative tick: k draft steps at batch B plus one verify step at
+    B * (k+1) rows (kv charged once a tick with ``single_pass_kv``).  Returns
+    the verify step's dict plus ``t_draft``, ``t_tick``,
+    ``committed_per_tick``, ``tokens_per_s`` and
+    ``tokens_per_weight_stream`` (committed tokens per pass of the target's
+    weight stream)."""
+    kv = kv_bytes_per_token
+    if single_pass_kv:
+        kv = kv / (spec_k + 1)
+    verify = decode_step_time(
+        n_params, batch * (spec_k + 1), kv, context_len,
+        peak_flops, hbm_bw, b_weight, **kw)
+    t_draft = 0.0
+    if spec_k > 0 and draft_n_params > 0:
+        d = decode_step_time(
+            draft_n_params, batch, 0.0, 0, peak_flops, hbm_bw, b_weight, **kw)
+        t_draft = spec_k * d["t_proc"]
+    committed = batch * expected_committed(accept_rate, spec_k)
+    t_tick = verify["t_proc"] + t_draft
+    out = dict(verify)
+    out.update(
+        t_draft=t_draft,
+        t_tick=t_tick,
+        committed_per_tick=committed,
+        tokens_per_s=committed / t_tick,
+        tokens_per_weight_stream=committed / 1.0,  # one stream per tick
+    )
+    return out

@@ -223,10 +223,14 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, pos, *, window=None,
         split, paged_stages(hd, ps, k_pages.dtype), groups, build.stream_ptr(q.device))
     build.check(lib, code, "paged_decode_attention")
     paged_decode_attention.launches += 1
+    by_t = paged_decode_attention.launches_by_t
+    by_t[T] = by_t.get(T, 0) + 1
     return out
 
 
 paged_decode_attention.launches = 0
+# launches by query positions per sequence: T = 1 decode, T = k + 1 verify
+paged_decode_attention.launches_by_t = {}
 
 
 # ---------------------------------------------------------------------------

@@ -1,17 +1,23 @@
-"""Serving CLI (port of ``repro/launch/serve.py``, closed-loop only).
+"""Serving CLI (port of ``repro/launch/serve.py``).
 
     python -m repro_torch.launch.serve --arch tinyllama-1.1b --requests 8 \
         --max-new 16 --compress quant_sparse --q-prune 0.5 --block 128 \
         --kv-dtype int8 --page-size 16 --share-prefix --plan-cache /tmp/plan
 
 Runs on the CUDA device (``--device cpu`` runs the plain versions on the
-CPU).  Takes the reference's flags; those the port does not serve yet exit
-with an error naming their ROADMAP item.  ``--plan-cache DIR`` stores the
-packed tree (``weight_plan.save_plan``) so that later boots skip packing;
-it also reads a directory the reference's CLI wrote.  Reports the
-machine-balance n_opt
-from the H100 data-sheet constants, the plan summary, and throughput next
-to the device's name.
+CPU).  Takes the reference's flags; those the port does not serve yet
+(``--autotune-plan``, ``--mesh``, ``--workload-mix``) exit with an error
+naming their ROADMAP item.  ``--plan-cache DIR`` stores the packed tree
+(``weight_plan.save_plan``) so that later boots skip packing; it also reads
+a directory the reference's CLI wrote.  ``--draft-config ARCH --spec-k K``
+serves speculative decode (a dense draft from ``--seed`` + 1 proposes K
+tokens a tick, verified in one (B, K+1) target step); ``--prefill-chunk C
+--prefill-budget T`` chunked prefill; ``--arrival-rate R`` or ``--trace
+PATH`` an open-loop run on simulated time (one tick = one time unit), with
+TTFT and latency percentiles; ``--request-timeout``, ``--ttft-deadline``,
+``--max-retries`` and ``--evict-policy`` the failure model.  Reports the
+machine-balance n_opt from the H100 data-sheet constants, the plan summary,
+and throughput next to the device's name.
 """
 
 from __future__ import annotations
@@ -25,31 +31,49 @@ import torch
 import repro_torch.configs as C
 from repro_torch.core.batching import UNBOUNDED_NOPT, BatchSizer, mean_decode_context
 from repro_torch.core.perf_model import HARDWARE_LABEL, paged_pool_pages
-from repro_torch.core.weight_plan import PlanConfig, compress, load_plan, save_plan
+from repro_torch.core.weight_plan import PlanConfig, compress, load_plan, map_tree, save_plan
 from repro_torch.device import resolve_device
 from repro_torch.models.api import get_api, kv_bytes_per_token, supports_paged_kv
 from repro_torch.serving.config import config_from_args
 from repro_torch.serving.engine import Request, ServingEngine
+from repro_torch.serving.faultinject import TickClock
+from repro_torch.serving.loadgen import (
+    LengthMixture,
+    load_trace,
+    make_requests,
+    poisson_trace,
+    run_open_loop,
+)
 
 # flag -> (is it set?, the ROADMAP item that ports it)
 _UNSERVED_FLAGS = {
     "--autotune-plan": (lambda a: a.autotune_plan is not None, "A12 (autotuner)"),
     "--mesh": (lambda a: a.mesh != "none", "A13 (sharding)"),
-    "--draft-config": (lambda a: a.draft_config is not None, "A7 (speculative decode)"),
-    "--spec-k": (lambda a: a.spec_k != 0, "A7 (speculative decode)"),
-    "--prefill-chunk": (lambda a: a.prefill_chunk != 0, "A7 (chunked prefill)"),
-    "--prefill-budget": (lambda a: a.prefill_budget != 0, "A7 (chunked prefill)"),
-    "--arrival-rate": (lambda a: a.arrival_rate != 0, "A7 (open-loop load generator)"),
-    "--trace": (lambda a: a.trace is not None, "A7 (open-loop load generator)"),
     "--workload-mix": (lambda a: a.workload_mix is not None, "A10 (mixed serving)"),
-    "--request-timeout": (lambda a: a.request_timeout != 0, "A7 (deadlines)"),
-    "--ttft-deadline": (lambda a: a.ttft_deadline != 0, "A7 (deadlines)"),
-    "--evict-policy": (lambda a: a.evict_policy != "fifo", "A7 (eviction)"),
 }
 
 
 def _fmt_nopt(n: int) -> str:
     return "inf (memory-bound at any batch)" if n >= UNBOUNDED_NOPT else str(n)
+
+
+def _open_loop_mixture(p: int, n: int, cap: int) -> LengthMixture:
+    """Chat-style mixture anchored at the CLI lengths: 70% of arrivals at
+    the --prompt-len scale, 25% up to 2x, 5% at ~4x (the long-prefill tail
+    continuous batching exists for), every component clamped so that
+    prompt + max_new fits the engine's admission bound ``cap``."""
+    n_rng = (max(1, n // 2), max(1, n))
+
+    def pr(a, b):
+        hi = max(1, cap - n_rng[1])
+        a = max(1, min(a, hi))
+        return (a, max(a, min(b, hi)))
+
+    return LengthMixture((
+        (0.70, pr(max(1, p // 2), p), n_rng),
+        (0.25, pr(p, 2 * p), n_rng),
+        (0.05, pr(4 * p, 4 * p), n_rng),
+    ))
 
 
 def device_name(device: torch.device) -> str:
@@ -116,17 +140,31 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--plan-cache", default=None, metavar="DIR")
     ap.add_argument("--autotune-plan", default=None, metavar="PATH")
     ap.add_argument("--mesh", default="none", metavar="SPEC")
-    ap.add_argument("--draft-config", default=None, metavar="ARCH")
-    ap.add_argument("--spec-k", type=int, default=0, metavar="K")
-    ap.add_argument("--request-timeout", type=float, default=0.0, metavar="S")
-    ap.add_argument("--ttft-deadline", type=float, default=0.0, metavar="S")
+    ap.add_argument("--draft-config", default=None, choices=C.ARCH_IDS, metavar="ARCH",
+                    help="speculative decode: the draft model proposing --spec-k tokens "
+                         "a tick (same vocab as --arch)")
+    ap.add_argument("--spec-k", type=int, default=0, metavar="K",
+                    help="draft tokens proposed and verified a tick (0 = plain decode)")
+    ap.add_argument("--request-timeout", type=float, default=0.0, metavar="S",
+                    help="total-latency deadline per request (0 = none)")
+    ap.add_argument("--ttft-deadline", type=float, default=0.0, metavar="S",
+                    help="queue-to-first-token deadline (0 = none)")
     ap.add_argument("--max-retries", type=int, default=1, metavar="N",
-                    help="bounded retries per request on non-finite logits")
-    ap.add_argument("--evict-policy", default="fifo", choices=("fifo", "priority"))
-    ap.add_argument("--prefill-chunk", type=int, default=0, metavar="C")
-    ap.add_argument("--prefill-budget", type=int, default=0, metavar="T")
-    ap.add_argument("--arrival-rate", type=float, default=0.0, metavar="R")
-    ap.add_argument("--trace", default=None, metavar="PATH")
+                    help="bounded retries per request on transient faults")
+    ap.add_argument("--evict-policy", default="fifo", choices=("fifo", "priority"),
+                    help="admission under pressure: queue (fifo) or preempt the "
+                         "lowest-priority slot (priority)")
+    ap.add_argument("--prefill-chunk", type=int, default=0, metavar="C",
+                    help="prefill prompts in C-token chunks between decode ticks "
+                         "(0 = synchronous prefill at admission)")
+    ap.add_argument("--prefill-budget", type=int, default=0, metavar="T",
+                    help="prompt tokens advanced a tick across chunked prefills "
+                         "(0 = one chunk)")
+    ap.add_argument("--arrival-rate", type=float, default=0.0, metavar="R",
+                    help="open-loop load: seeded Poisson arrivals at R requests a tick")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="open-loop load: replay a JSONL arrival trace (wins over "
+                         "--arrival-rate)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA device; 'cpu' runs the "
                          "kernels' plain versions on the CPU)")
@@ -150,10 +188,29 @@ def build_engine(args, ap=None):
     paged = args.page_size > 0 and supports_paged_kv(cfg)
     ctx = mean_decode_context(args.prompt_len, args.max_new) if paged else args.max_len
     kv_tok = kv_bytes_per_token(cfg, kv_dtype)
-    sizer = BatchSizer(n_params=n_params, kv_bytes_per_token=kv_tok, context_len=ctx)
+    sizer = BatchSizer(n_params=n_params, kv_bytes_per_token=kv_tok, context_len=ctx,
+                       spec_k=max(0, args.spec_k))
     print(f"[serve] {cfg.name}: n_params={n_params:,} machine-balance "
           f"n_opt={_fmt_nopt(sizer.n_opt)} ({HARDWARE_LABEL}, kv={kv_tok:.0f} B/tok "
           f"@ ctx {ctx})")
+    spec_k = args.spec_k
+    draft_cfg = draft_params = None
+    if args.draft_config and spec_k <= 0:
+        ap.error("--draft-config needs --spec-k > 0 (it would otherwise be silently ignored)")
+    if spec_k > 0:
+        if not args.draft_config:
+            ap.error("--spec-k needs --draft-config")
+        draft_cfg = C.get_config(args.draft_config, smoke=args.smoke)
+        if draft_cfg.vocab != cfg.vocab:
+            ap.error(f"--draft-config vocab {draft_cfg.vocab} != target vocab {cfg.vocab}")
+        # a dense copy in the draft's compute dtype (norm scales stay fp32),
+        # cast once instead of in every draft matmul
+        dtype = getattr(torch, draft_cfg.compute_dtype)
+        draft_params = map_tree(
+            lambda _, t: t.to(dtype) if t.dim() >= 2 else t,
+            get_api(draft_cfg).init_params(draft_cfg, args.seed + 1, device=device))
+        print(f"[serve] speculative decode: {draft_cfg.name} drafts {spec_k} tokens/tick, "
+              f"verified in one (B, {spec_k + 1}) target step")
     params = api.init_params(cfg, args.seed, device=device)
     plan = None
     if args.compress != "none":
@@ -165,8 +222,16 @@ def build_engine(args, ap=None):
         # allocated context (prompt + max_new), plus the null page
         args.pool_pages = 1 + paged_pool_pages(
             args.max_batch, args.prompt_len + args.max_new, args.page_size)
+    open_loop = bool(args.trace) or args.arrival_rate > 0
     engine = ServingEngine(cfg, params, plan=plan, device=device, config=config_from_args(
-        args, expected_context=ctx if paged else None))
+        args, expected_context=ctx if paged else None,
+        # open-loop time is simulated: one tick is one unit of the arrival
+        # schedule, so deadlines, TTFT and latency are seed-reproducible
+        clock=TickClock() if open_loop else None,
+        draft_cfg=draft_cfg, draft_params=draft_params))
+    if engine.prefill_chunk is not None:
+        print(f"[serve] continuous batching: {engine.prefill_chunk}-token prefill chunks, "
+              f"{engine.prefill_budget} tok/tick budget")
     if engine.paged:
         print(f"[serve] paged KV cache: {engine.num_pages} pages x {engine.page_size} tok "
               f"(pool {engine.num_pages * engine.page_size} tok vs contiguous reservation "
@@ -193,24 +258,81 @@ def run_requests(engine, reqs) -> float:
     return time.perf_counter() - t0
 
 
-def report(engine, dt: float) -> None:
+def open_loop_arrivals(args, engine) -> list:
+    """The run's arrivals: ``--trace``, else seeded Poisson arrivals at
+    ``--arrival-rate`` over the chat-style mixture (clamped so that prompt +
+    max_new + spec_k fits ``--max-len``)."""
+    if args.trace:
+        arrivals = load_trace(args.trace)
+        print(f"[serve] replaying {len(arrivals)} arrivals from {args.trace}")
+        return arrivals
+    mix = _open_loop_mixture(args.prompt_len, args.max_new, args.max_len - engine.spec_k)
+    arrivals = poisson_trace(args.arrival_rate, args.requests, mix, seed=args.seed)
+    print(f"[serve] poisson arrivals: {args.arrival_rate}/tick, n={len(arrivals)}, "
+          f"seed={args.seed}")
+    return arrivals
+
+
+def run_open_loop_timed(engine, arrivals, reqs, seed: int = 0):
+    """``loadgen.run_open_loop`` between two device syncs; returns (report,
+    wall seconds)."""
+    if engine.device.type == "cuda":
+        torch.cuda.synchronize(engine.device)
+    t0 = time.perf_counter()
+    rep = run_open_loop(engine, arrivals, reqs, seed=seed)
+    if engine.device.type == "cuda":
+        torch.cuda.synchronize(engine.device)
+    return rep, time.perf_counter() - t0
+
+
+def report(engine, dt: float, load=None) -> None:
+    """The run's report lines; ``load`` is an open-loop run's LoadReport."""
     stats = engine.stats
-    print(f"[serve] completed {stats.completed} requests in {dt:.2f}s; "
-          f"decode steps {stats.decode_steps}, tokens {stats.decode_tokens}, "
-          f"mean batch {stats.mean_batch:.2f} "
-          f"({stats.decode_tokens / max(dt, 1e-9):.1f} tok/s on {device_name(engine.device)})")
+    card = device_name(engine.device)
+    if load is None:
+        print(f"[serve] completed {stats.completed} requests in {dt:.2f}s; "
+              f"decode steps {stats.decode_steps}, tokens {stats.decode_tokens}, "
+              f"mean batch {stats.mean_batch:.2f} "
+              f"({stats.decode_tokens / max(dt, 1e-9):.1f} tok/s on {card})")
+    else:
+        s = load.summary()
+        print(f"[serve] open-loop: {s['completed']}/{s['n_requests']} completed in "
+              f"{s['ticks']} ticks ({dt:.2f}s wall on {card}); p50/p99 TTFT "
+              f"{s['p50_ttft_s']:.1f}/{s['p99_ttft_s']:.1f} ticks, p50/p99 latency "
+              f"{s['p50_latency_s']:.1f}/{s['p99_latency_s']:.1f} ticks, "
+              f"{s['tokens_per_s']:.2f} committed tok/tick (sizer n_opt "
+              f"{_fmt_nopt(engine.sizer.n_opt)}), mean batch {s['mean_batch']:.2f}, "
+              f"leaked pages {s['leaked_pages']}")
     if engine.paged:
         print(f"[serve] paged: mean admitted context {stats.mean_context:.1f} tok, "
               f"{stats.pages_shared} prefix pages shared, {stats.cow_copies} "
               f"copy-on-write copies")
-    if stats.failed or stats.retried:
-        print(f"[serve] failure model: {stats.failed} failed, {stats.retried} retries")
+    if engine.spec_k:
+        print(f"[serve] speculative: {stats.verified_positions} verified positions -> "
+              f"{stats.decode_tokens} committed tokens "
+              f"({stats.decode_tokens / max(1, stats.verified_positions):.2f} "
+              f"committed/verified), draft accept rate {stats.accept_rate:.2f}, "
+              f"{stats.mean_batch:.2f} committed tokens/tick")
+    # failure-model outcomes: anything nonzero means the engine served
+    # through faults or pressure rather than at steady state
+    if (stats.failed or stats.evicted or stats.timed_out or stats.retried
+            or stats.fallback_ticks or engine.degraded):
+        print(f"[serve] failure model: {stats.failed} failed, {stats.timed_out} timed out, "
+              f"{stats.evicted} evictions, {stats.retried} retries, "
+              f"{stats.fallback_ticks} degraded ticks"
+              + (f"; degraded: {engine.degraded}" if engine.degraded else ""))
 
 
 def main(argv=None):
     ap = build_parser()
     args = ap.parse_args(argv)
     cfg, engine, _ = build_engine(args, ap)
+    if bool(args.trace) or args.arrival_rate > 0:
+        arrivals = open_loop_arrivals(args, engine)
+        reqs = make_requests(arrivals, cfg.vocab, seed=args.seed)
+        load, dt = run_open_loop_timed(engine, arrivals, reqs, seed=args.seed)
+        report(engine, dt, load)
+        return engine
     rng = np.random.default_rng(args.seed)
     reqs = [Request(uid=uid,
                     prompt=rng.integers(0, cfg.vocab, size=args.prompt_len).astype(np.int32),

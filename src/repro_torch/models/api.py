@@ -50,6 +50,18 @@ def supports_paged_kv(cfg) -> bool:
     return "global" in (getattr(cfg, "layer_kinds", ()) or ())
 
 
+def supports_spec_decode(cfg) -> bool:
+    """Whether this family can be the target or the draft of speculative
+    decode (and serve chunked prefill): every piece of per-sequence state
+    must be positionally addressed, so that rejected speculative writes
+    stay masked until the next verify step overwrites them.  Attention KV
+    caches qualify; recurrent / xLSTM states (ROADMAP A10) do not."""
+    if get_api(cfg) is not _TRANSFORMER_API:
+        return False
+    kinds = getattr(cfg, "layer_kinds", ()) or ()
+    return bool(kinds) and all(k in ("global", "local") for k in kinds)
+
+
 def is_int8(kv_dtype) -> bool:
     return kv_dtype in ("int8", torch.int8)
 

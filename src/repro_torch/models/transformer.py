@@ -195,11 +195,14 @@ def unstack(cfg, params) -> dict:
 
 
 def init_cache(cfg, batch: int, length: int, dtype=torch.bfloat16, kv_dtype=None,
-               page_size=None, num_pages=None, device="cpu"):
+               page_size=None, num_pages=None, device="cpu", spec_k: int = 0):
     """{"layers": one KV cache dict per layer, in execution order}.
     ``page_size``/``num_pages`` select the paged cache and add a
     ``page_table`` (batch, ceil(length / page_size)) int32 leaf, owned by
-    the engine."""
+    the engine.  ``spec_k`` (speculative decode) would widen sliding-window
+    rings to ``local_window + spec_k``; the port serves global layers only
+    (``check_supported``), whose caches span ``length`` already, so it is
+    accepted and changes nothing."""
     check_supported(cfg)
     dt = kv_dtype if kv_dtype is not None else dtype
 

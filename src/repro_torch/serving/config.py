@@ -2,9 +2,10 @@
 ``repro/serving/config.py``).
 
 Four frozen dataclasses group the knobs by subsystem and compose into the
-one ``EngineConfig`` the engine accepts.  The port serves plain and paged
-decode with int8 KV and prefix sharing; every field of a feature it does
-not serve yet must keep its default, and ``EngineConfig`` raises
+one ``EngineConfig`` the engine accepts.  The port serves plain, paged,
+speculative and chunked decode, deadlines, eviction and fault injection;
+the fields of a feature it does not serve yet (a shared allocator, ROADMAP
+A10; a mesh, A13) must keep their defaults, and ``EngineConfig`` raises
 ``NotImplementedError`` naming the ROADMAP item otherwise.
 """
 
@@ -12,7 +13,22 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 from typing import Any, Callable, Optional
+
+
+def positional_state_gate(cfg, feature: str) -> Optional[str]:
+    """The gate for features that write a span of positions ahead of the
+    committed frontier and rely on position masks to hide the uncommitted
+    tail (speculative decode, chunked prefill): None when ``cfg``'s caches
+    are positionally addressed (``api.supports_spec_decode``), else the one
+    error text."""
+    from repro_torch.models.api import supports_spec_decode
+
+    if supports_spec_decode(cfg):
+        return None
+    return (f"{cfg.name}: {feature} needs multi-token decode on a "
+            f"positionally-addressed cache ({cfg.family} does not qualify)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,55 +47,61 @@ class CacheConfig:
 class SchedulerConfig:
     """Admission, chunked prefill, deadlines, retries, eviction."""
 
-    prefill_chunk: Optional[int] = None
-    prefill_budget: Optional[int] = None
-    evict_policy: str = "fifo"
-    request_timeout_s: Optional[float] = None
-    ttft_deadline_s: Optional[float] = None
-    max_retries: int = 1  # retries of a request whose logits went non-finite
-    retry_backoff_s: float = 0.0
-    deadline_slack_s: float = 0.0
+    prefill_chunk: Optional[int] = None  # C-token chunks (None: synchronous)
+    prefill_budget: Optional[int] = None  # prompt tokens/tick across jobs
+    evict_policy: str = "fifo"  # "fifo" back-pressure | "priority" preempt
+    request_timeout_s: Optional[float] = None  # default total deadline
+    ttft_deadline_s: Optional[float] = None  # default TTFT deadline
+    max_retries: int = 1  # transient-failure retries per request
+    retry_backoff_s: float = 0.0  # backoff base (doubles per retry)
+    deadline_slack_s: float = 0.0  # TTFT pressure window for preemption
 
 
 @dataclasses.dataclass(frozen=True)
 class SpecConfig:
-    """Speculative decode (ROADMAP A7): only the defaults are served."""
+    """Speculative decode: the draft model and the acceptance fallback."""
 
     draft_cfg: Any = None
     draft_params: Any = None
-    spec_k: int = 0
-    fallback_accept: Optional[float] = None
-    fallback_min_ticks: int = 8
+    spec_k: int = 0  # draft tokens per tick (0 = plain decode)
+    fallback_accept: Optional[float] = None  # EMA floor; None = off
+    fallback_min_ticks: int = 8  # spec ticks before the EMA check
+
+    def validated_k(self, cfg) -> int:
+        """The effective spec_k for a target ``cfg``.  Raises on a missing
+        draft or a vocab mismatch; warns and returns 0 when either model's
+        caches are not positionally addressed."""
+        k = int(self.spec_k or 0)
+        if not k:
+            return 0
+        if self.draft_cfg is None or self.draft_params is None:
+            raise ValueError("spec_k > 0 needs draft_cfg and draft_params")
+        reasons = [r for r in (
+            positional_state_gate(cfg, "speculative decode"),
+            positional_state_gate(self.draft_cfg, "speculative decode"),
+        ) if r]
+        if reasons:
+            warnings.warn("; ".join(reasons) + "; serving without speculation", stacklevel=3)
+            return 0
+        if self.draft_cfg.vocab != cfg.vocab:
+            raise ValueError(f"draft vocab {self.draft_cfg.vocab} != target vocab "
+                             f"{cfg.vocab}: verification compares token ids")
+        return k
 
 
 @dataclasses.dataclass(frozen=True)
 class FaultConfig:
-    """Fault tolerance: clock and page audits are served; the watchdog and
-    chaos injection are ROADMAP A7."""
+    """Fault tolerance: watchdog, chaos injection, clock, page audits."""
 
-    watchdog_timeout_s: Optional[float] = None
-    fault_injector: Any = None
+    watchdog_timeout_s: Optional[float] = None  # HeartbeatMonitor stall
+    fault_injector: Any = None  # serving/faultinject.FaultInjector
     clock: Callable[[], float] = time.monotonic
-    audit_every_step: bool = False
+    audit_every_step: bool = False  # audit the allocator every tick
 
 
 # (sub-config, field) -> the ROADMAP item that ports it
 _UNSERVED = {
     ("cache", "allocator"): "A10 (mixed-family serving)",
-    ("scheduler", "prefill_chunk"): "A7 (chunked prefill)",
-    ("scheduler", "prefill_budget"): "A7 (chunked prefill)",
-    ("scheduler", "evict_policy"): "A7 (eviction)",
-    ("scheduler", "request_timeout_s"): "A7 (deadlines)",
-    ("scheduler", "ttft_deadline_s"): "A7 (deadlines)",
-    ("scheduler", "retry_backoff_s"): "A7 (fault model)",
-    ("scheduler", "deadline_slack_s"): "A7 (deadlines)",
-    ("spec", "draft_cfg"): "A7 (speculative decode)",
-    ("spec", "draft_params"): "A7 (speculative decode)",
-    ("spec", "spec_k"): "A7 (speculative decode)",
-    ("spec", "fallback_accept"): "A7 (speculative decode)",
-    ("spec", "fallback_min_ticks"): "A7 (speculative decode)",
-    ("fault", "watchdog_timeout_s"): "A7 (fault model)",
-    ("fault", "fault_injector"): "A7 (fault model)",
 }
 
 
@@ -110,9 +132,12 @@ class EngineConfig:
                     f"ROADMAP {item}")
 
 
-def config_from_args(ns, *, clock=None, expected_context=None) -> EngineConfig:
+def config_from_args(ns, *, clock=None, expected_context=None, draft_cfg=None,
+                     draft_params=None) -> EngineConfig:
     """The argparse-namespace -> EngineConfig adapter of ``launch/serve.py``.
-    Flags use 0/"" as "unset"; missing attributes keep the defaults."""
+    Flags use 0/"" as "unset"; missing attributes keep the defaults.  What
+    argparse cannot carry (clock, draft model, the sizer's expected
+    context) comes in as keyword arguments."""
 
     def get(name, default=None):
         return getattr(ns, name, default)
@@ -128,6 +153,18 @@ def config_from_args(ns, *, clock=None, expected_context=None) -> EngineConfig:
             share_prefix=bool(get("share_prefix", False)),
             expected_context=expected_context,
         ),
-        scheduler=SchedulerConfig(max_retries=int(get("max_retries", 1))),
+        scheduler=SchedulerConfig(
+            prefill_chunk=int(get("prefill_chunk") or 0) or None,
+            prefill_budget=int(get("prefill_budget") or 0) or None,
+            evict_policy=get("evict_policy", "fifo") or "fifo",
+            request_timeout_s=float(get("request_timeout") or 0) or None,
+            ttft_deadline_s=float(get("ttft_deadline") or 0) or None,
+            max_retries=int(get("max_retries", 1)),
+        ),
+        spec=SpecConfig(
+            draft_cfg=draft_cfg,
+            draft_params=draft_params,
+            spec_k=int(get("spec_k") or 0) if draft_cfg is not None else 0,
+        ),
         fault=FaultConfig(clock=clock) if clock is not None else FaultConfig(),
     )

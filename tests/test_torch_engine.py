@@ -136,9 +136,8 @@ def test_serve_cli_on_cpu(capsys):
     assert eng.pages_in_use == 0
 
 
-@pytest.mark.parametrize("flag", [["--autotune-plan", "x"], ["--spec-k", "2"],
-                                  ["--prefill-chunk", "8"], ["--mesh", "host"],
-                                  ["--evict-policy", "priority"]])
+@pytest.mark.parametrize("flag", [["--autotune-plan", "x"], ["--mesh", "host"],
+                                  ["--workload-mix", "tinyllama-1.1b:1"]])
 def test_serve_rejects_unserved_flags(flag, capsys):
     from repro_torch.launch import serve
 
@@ -148,8 +147,7 @@ def test_serve_rejects_unserved_flags(flag, capsys):
     assert "ROADMAP" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("kw", [dict(scheduler=SchedulerConfig(prefill_chunk=8)),
-                                dict(scheduler=SchedulerConfig(evict_policy="priority")),
+@pytest.mark.parametrize("kw", [dict(cache=CacheConfig(allocator=object())),
                                 dict(mesh=object())])
 def test_engine_config_rejects_unserved_fields(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

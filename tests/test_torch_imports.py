@@ -31,7 +31,9 @@ def test_import_leaves_jax_and_repro_out():
         "assert len(mods) >= 20, mods\n"
         "new = {'repro_torch.core.quantization', 'repro_torch.models.fcnet',\n"
         "       'repro_torch.kernels.batched_ffn', 'repro_torch.kernels.quant_matmul',\n"
-        "       'repro_torch.checkpoint.store'}\n"
+        "       'repro_torch.checkpoint.store', 'repro_torch.serving.scheduler',\n"
+        "       'repro_torch.serving.loadgen', 'repro_torch.serving.faultinject',\n"
+        "       'repro_torch.distributed.fault'}\n"
         "assert new <= set(mods), new - set(mods)\n"
         "print('BAD', bad)\n"
         "sys.exit(1 if bad else 0)\n"
