@@ -44,7 +44,16 @@ Phases, in order; any failure raises and the script exits non-zero:
                decode batches under every regime their C entry takes
                (the split sweep ``launch_plan`` rests on), and B3 at
                decode under every (split, groups) (what ``paged_split``
-               and ``paged_groups`` rest on).
+               and ``paged_groups`` rest on).  Then the dense families'
+               shapes (``phase_family_kernels``): B6 at hd 128 (glm4-9b's
+               32/2 heads) and hd 256 (gemma3-4b's 8/4, causal and under
+               its 1024-token window) at 2048 tokens, B3 at hd 128 and 256
+               at the serve step (T 1) and the verify step (T 5), B2 with
+               the gelu_glu epilogue at gemma3's 2560x10240 pair; each held
+               to its plain version, launched twice for the same bits, and
+               timed beside its plain version and its library call; each
+               is a row of its kernel in the summary line, with the
+               launches the families phase counts at that shape.
 4. fcnet    -- the paper's four FC nets (Table 2) at published widths,
                random weights from a seed: forward_fp32 / forward_pruned
                (B7) held to the plain path, forward_q78 (B8) equal to it
@@ -117,7 +126,27 @@ Phases, in order; any failure raises and the script exits non-zero:
                counter flat after rung 2, and the requests no fault touched
                keep the fault-free run's streams by the near-tie rule; the
                fault-free run leaves ``degraded`` empty.
-12. summary -- one JSON line of per-kernel numbers, then the result line.
+12. families -- llama3.2-1b (hd 64, tied head), glm4-9b (hd 128, 16 query
+               heads a KV head, an untied int8 head at vocab 151552) and
+               gemma3-4b (hd 256, 5:1 local:global layers, window 1024,
+               tied head) at full width, random weights from a seed, with
+               the serve phase's flags and requests: every request
+               finishes with a clean audit and shared prefix pages; B1, B2
+               and B3 launch, B5 only on glm4's untied head, B4 never; tok/s
+               and the median decode step; the same requests through the
+               plain versions, the streams held to each other by the
+               near-tie rule; then ``_path_parity`` (prefills of 36, 40 and
+               2032 tokens, teacher-forced decode, within PATH_RTOL); for
+               glm4 and gemma3 a served 2032-token prompt (max_len 2048)
+               whose prefill runs B6 once a layer (gemma3: windowed on its
+               29 local layers), timed on the card's clock; for gemma3 its
+               own plan as the draft (k 4: rings widened by k, B3 at T = 5,
+               accept rate over 0.5, streams by the near-tie rule) and
+               chunked prefill (chunks of 256, 512 a tick) of prompts of
+               40, 600 and 1000 tokens against the same prompts prefilled
+               whole (within the window a chunk sees every key a whole
+               prefill sees), never reaching B6.
+13. summary -- one JSON line of per-kernel numbers, then the result line.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -1208,6 +1237,7 @@ def _zero_launches(counters) -> None:
         c.launches = 0
     QM.quant_matmul.wgmma_launches = QM.quant_matmul.dense_tile_launches = 0
     FA.paged_decode_attention.launches_by_t.clear()
+    FA.flash_attention.launches_by_window.clear()
 
 
 def _b5_all_wgmma(label: str) -> None:
@@ -1223,17 +1253,48 @@ def _b5_all_wgmma(label: str) -> None:
                              f"({f.dense_tile_launches} dense_tile of {f.launches})")
 
 
-def _serve_and_check(serve, engine, cfg, max_new: int, label: str) -> tuple:
-    """Serve the 8 requests from zeroed launch counters; every request must
-    finish with in-vocabulary tokens, no page may leak and the degradation
-    ladder must stay untouched.  Returns (the
-    requests' outputs, {kernel: launches}, wall seconds)."""
+def _run_ticks(torch, engine, reqs, ticks: list) -> float:
+    """Submit ``reqs`` and drive the engine's ``step()`` until every request
+    is terminal, appending (seconds, prefills, decode steps) of each tick to
+    ``ticks`` (host clock, the card synchronized after the tick).  Returns
+    wall seconds, as ``serve.run_requests`` does."""
+    for r in reqs:
+        engine.submit(r)
+    torch.cuda.synchronize(engine.device)
+    s, t_all = engine.stats, time.perf_counter()
+    while not all(r.terminal for r in reqs):
+        p0, d0, t0 = s.prefills, s.decode_steps, time.perf_counter()
+        engine.step()
+        torch.cuda.synchronize(engine.device)
+        ticks.append((time.perf_counter() - t0, s.prefills - p0, s.decode_steps - d0))
+    return time.perf_counter() - t_all
+
+
+def _decode_tick_ms(ticks: list) -> tuple:
+    """(median ms, count) of the ticks that ran one decode step and no
+    prefill."""
+    dec = [t for t, p, d in ticks if p == 0 and d == 1]
+    return 1e3 * statistics.median(dec), len(dec)
+
+
+def _serve_and_check(serve, engine, cfg, max_new: int, label: str, reqs=None,
+                     ticks=None) -> tuple:
+    """Serve the 8 requests (or ``reqs``) from zeroed launch counters; every
+    request must finish with in-vocabulary tokens, no page may leak and the
+    degradation ladder must stay untouched.  With a list ``ticks`` the run
+    is driven tick by tick and each tick's time is appended (``_run_ticks``).
+    Returns (the requests' outputs, {kernel: launches}, wall seconds)."""
+    import torch
+
     from repro_torch.serving.engine import RequestState
 
-    reqs = _serve_requests(cfg, max_new)
+    reqs = _serve_requests(cfg, max_new) if reqs is None else reqs
     counters = _served_kernels()
     _zero_launches(counters)
-    dt = serve.run_requests(engine, reqs)
+    if ticks is None:
+        dt = serve.run_requests(engine, reqs)
+    else:
+        dt = _run_ticks(torch, engine, reqs, ticks)
     launches = {c.__name__: c.launches for c in counters}
     serve.report(engine, dt)
     log(f"{label}: launches during the run {launches}")
@@ -2090,6 +2151,383 @@ def phase_profile(torch, cfg, engine, steps: int = 6) -> None:
     _profile_prefill(torch, cfg, engine.params)
 
 
+# ---------------------------------------------------------------------------
+# the dense families: llama3.2-1b (hd 64, tied), glm4-9b (hd 128, G 16, an
+# untied int8 head at vocab 151552), gemma3-4b (hd 256, G 2, 5:1 local:global
+# layers with window 1024, tied)
+# ---------------------------------------------------------------------------
+
+FAMILIES = ("llama3.2-1b", "glm4-9b", "gemma3-4b")
+# the families whose 2032-token prompt runs B6 at a new head dim, and whose
+# self-draft speculation runs B3's verify step at a new head dim
+FAMILY_LONG = ("glm4-9b", "gemma3-4b")
+# the chunked run on gemma3-4b: prompts within the 1024-token window (a ring
+# that never wraps, so a chunk sees every key a synchronous prefill sees)
+GEMMA_CHUNK_PROMPTS = (40, 600, 1000)
+GEMMA_CHUNK_FLAGS = dict(prefill_chunk=256, prefill_budget=512)
+
+
+def _row(results: dict, name: str, key: str) -> dict:
+    """The kernel row of ``results[name]`` tagged ``key``."""
+    return next(r for r in results[name]["rows"] if r.get("key") == key)
+
+
+def _add_row(results: dict, name: str, row: dict, err: float, rel: float) -> None:
+    """Append ``row`` to kernel ``name``'s rows and fold its errors into
+    the kernel's maxima.  Its launches stay None until the phase that runs
+    its shape on a served path counts them (``_check_family_rows``)."""
+    r = results.setdefault(name, {})
+    r.setdefault("rows", []).append(dict(row, max_abs_err=err, max_rel_err=rel, launches=None))
+    r["max_abs_err"] = max(r.get("max_abs_err", 0.0), err)
+    r["max_rel_err"] = max(r.get("max_rel_err", 0.0), rel)
+
+
+def _b6_row(torch, timer, gen, results, key, H, KVH, hd, window=None) -> None:
+    """B6 at one family's long prefill (B 1, 2048 tokens, causal, bf16):
+    held to its plain version, launched twice for the same bits, timed
+    beside the plain version and SDPA on the same inputs."""
+    from repro_torch.kernels import flash_attention as FA
+
+    S = 2048
+    q = torch.randn((1, S, H, hd), generator=gen, device="cuda").to(torch.bfloat16)
+    k = torch.randn((1, S, KVH, hd), generator=gen, device="cuda").to(torch.bfloat16)
+    v = torch.randn(k.shape, generator=gen, device="cuda").to(torch.bfloat16)
+    label = f"B6 hd {hd} S={S} H={H}/{KVH} causal{f' window {window}' if window else ''} bf16"
+    o = FA.flash_attention(q, k, v, window=window)
+    d, r = _held(torch, label, o, FA.flash_attention(q, k, v, window=window, use_kernel=False),
+                 KERNEL_RTOL)
+    _deterministic(torch, label, o, FA.flash_attention(q, k, v, window=window))
+    nbytes = 2 * (q.numel() * 2 + k.numel() * 2)
+    flops = 4.0 * hd * H * _visible_pairs(S, S, True, window)
+    b_ms, b_by = bound(nbytes, flops)
+    ms = timer(lambda: FA.flash_attention(q, k, v, window=window))
+    plain_ms = timer(lambda: FA.flash_attention(q, k, v, window=window, use_kernel=False))
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    if window is None:
+        lib_ms = timer(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True))
+        lib = "SDPA(is_causal, enable_gqa)"
+    else:
+        i = torch.arange(S, device="cuda")
+        mask = (i[None] <= i[:, None]) & (i[None] > i[:, None] - window)
+        lib_ms = timer(lambda: sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True))
+        lib = "SDPA(boolean band mask, enable_gqa)"
+    log(f"{label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, {lib} {lib_ms:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP)")
+    _add_row(results, "flash_attention", {
+        "key": key, "shape": f"B=1 S={S} H={H} KVH={KVH} hd={hd} causal"
+                             f"{f' window {window}' if window else ''} bf16",
+        "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
+        "bound_by": b_by}, d, r)
+
+
+def _b3_row(torch, timer, gen, results, key, H, KVH, hd, T) -> None:
+    """B3 at one family's serve step (T 1) or verify step (T 5): 8
+    sequences at the serve phase's contexts, int8 pages of 16, 8 pages a
+    sequence, sequences 1-3 sharing sequence 0's first page; held to its
+    plain version, twice for the same bits, timed beside SDPA on the
+    gathered bf16 K/V."""
+    from repro_torch.kernels import flash_attention as FA
+
+    B, ps, P = 8, 16, 8
+    ctx = [c + 8 for c in (36, 40, 40, 40, 40, 40, 40, 40)]
+    pos = torch.tensor([c - 1 for c in ctx], dtype=torch.int32, device="cuda")
+    table = (1 + torch.randperm(B * P, generator=gen, device="cuda")).reshape(B, P)
+    table[1:4, 0] = table[0, 0]
+    table = table.to(torch.int32).contiguous()
+    shape = (1 + B * P, ps, KVH, hd)
+    kp = torch.randint(-127, 128, shape, generator=gen, device="cuda", dtype=torch.int8)
+    vp = torch.randint(-127, 128, shape, generator=gen, device="cuda", dtype=torch.int8)
+    kw = dict(k_scale_pages=torch.rand(shape[:3], generator=gen, device="cuda") * 0.02 + 0.005,
+              v_scale_pages=torch.rand(shape[:3], generator=gen, device="cuda") * 0.02 + 0.005)
+    q = torch.randn((B, T, H, hd), generator=gen, device="cuda").to(torch.bfloat16)
+    label = f"B3 int8 hd {hd} B={B} T={T} H={H}/{KVH}"
+    o = FA.paged_decode_attention(q, kp, vp, table, pos, **kw)
+    d, r = _held(torch, label, o,
+                 FA.paged_decode_attention(q, kp, vp, table, pos, use_kernel=False, **kw),
+                 KERNEL_RTOL)
+    _deterministic(torch, label, o, FA.paged_decode_attention(q, kp, vp, table, pos, **kw))
+    b_ms, b_by = _b3_bound(q, table, pos, ps, KVH, hd, H)
+    ms = timer(lambda: FA.paged_decode_attention(q, kp, vp, table, pos, **kw))
+    plain_ms = timer(lambda: FA.paged_decode_attention(q, kp, vp, table, pos, use_kernel=False,
+                                                       **kw))
+    lib_ms = timer(_sdpa_gathered(torch, q, kp, vp, kw["k_scale_pages"], kw["v_scale_pages"],
+                                  table, pos))
+    log(f"{label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA(gathered bf16) "
+        f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    _add_row(results, "paged_decode_attention", {
+        "key": key, "shape": f"B={B} T={T} H={H} KVH={KVH} hd={hd} int8 pages of 16, pos "
+                             f"{'/'.join(map(str, pos.tolist()))}{' (verify)' if T > 1 else ''}",
+        "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
+        "bound_by": b_by}, d, r)
+
+
+def _b2_gelu_row(torch, timer, gen, results) -> None:
+    """B2 with gemma3's gelu_glu epilogue at its gate/up pair, 2560 x 10240
+    (80 block-columns), M = 8 (the serve batch) and 40 (a prefill); held to
+    its plain version, twice for the same bits, timed at M = 8 beside one
+    torch.matmul on the dequantized [Wg | Wu]."""
+    from repro_torch.kernels import fused_gate_up as FG
+
+    K, N = 2560, 10240
+    g, u = _packed(torch, K, N, gen), _packed(torch, K, N, gen)
+    ga, ua = (g.blocks, g.block_rows, g.counts), (u.blocks, u.block_rows, u.counts)
+    err = rel = 0.0
+    for M in (40, 8):
+        x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+        y = FG.fused_gate_up(x, ga, ua, g.scales, u.scales, activation="gelu_glu")
+        d, r = _held(torch, f"B2 gelu_glu {K}x{N} M={M}", y,
+                     FG.fused_gate_up(x, ga, ua, g.scales, u.scales, activation="gelu_glu",
+                                      use_kernel=False), KERNEL_RTOL)
+        err, rel = max(err, d), max(rel, r)
+        _deterministic(torch, f"B2 gelu_glu M={M}", y,
+                       FG.fused_gate_up(x, ga, ua, g.scales, u.scales, activation="gelu_glu"))
+    surv = int(g.counts.sum() + u.counts.sum())
+    nbytes = M * K * 2 + surv * (128 * 128 + 4) + 2 * (N // 128) * 4 + 2 * N * 4 + M * N * 2
+    b_ms, b_by = bound(nbytes, 2.0 * M * surv * 128 * 128)
+    wgu = torch.cat([_dense_bf16(torch, g), _dense_bf16(torch, u)], dim=1)
+    ms = timer(lambda: FG.fused_gate_up(x, ga, ua, g.scales, u.scales, activation="gelu_glu"))
+    plain_ms = timer(lambda: FG.fused_gate_up(x, ga, ua, g.scales, u.scales,
+                                              activation="gelu_glu", use_kernel=False))
+    lib_ms = timer(lambda: torch.matmul(x, wgu))
+    log(f"B2 gelu_glu {K}x{N} M=8: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.matmul("
+        f"dense [Wg|Wu] bf16) {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    _add_row(results, "fused_gate_up", {
+        "key": "gelu", "shape": f"{K}x{N} gate+up gelu_glu at M=8", "ms": ms,
+        "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by},
+        err, rel)
+
+
+def phase_family_kernels(torch, results: dict) -> None:
+    """The kernels at the dense families' new shapes, each against its plain
+    version: B6 at hd 128 (glm4-9b's 32/2 heads) and hd 256 (gemma3-4b's
+    8/4, causal and under its 1024-token window), B3 at hd 128 and 256 at
+    the serve and verify steps, B2 with gelu_glu at gemma3's gate/up."""
+    timer = Timer(torch)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(21)
+    _b6_row(torch, timer, gen, results, "hd128", 32, 2, 128)
+    _b6_row(torch, timer, gen, results, "hd256", 8, 4, 256)
+    _b6_row(torch, timer, gen, results, "hd256 window", 8, 4, 256, window=1024)
+    for hd, H, KVH in ((128, 32, 2), (256, 8, 4)):
+        _b3_row(torch, timer, gen, results, f"hd{hd} serve", H, KVH, hd, 1)
+        _b3_row(torch, timer, gen, results, f"hd{hd} verify", H, KVH, hd, SPEC_K + 1)
+    _b2_gelu_row(torch, timer, gen, results)
+
+
+def _engine_like(engine, plan, params=None, **changes):
+    """A new engine over ``engine``'s plan (or ``params``) with its config
+    changed by ``changes``: top-level fields, ``cache``/``scheduler``/
+    ``spec`` fields by their flat names (``EngineConfig.of``), and a pool
+    sized for the new max_batch x max_len."""
+    from repro_torch.serving.config import EngineConfig
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.core.perf_model import paged_pool_pages
+
+    flat = engine.config.flat()
+    flat.update(changes)
+    flat["num_pages"] = 1 + paged_pool_pages(flat["max_batch"], flat["max_len"],
+                                             flat["page_size"])
+    return ServingEngine(engine.cfg, params if params is not None else engine.params,
+                         plan=plan, device=engine.device, config=EngineConfig.of(**flat))
+
+
+def _family_serve(torch, results, arch: str, card: str):
+    """One family at full width with the quickstart flags: the kernel path's
+    streams, its launches (B1, B2, B3; B5 only for an untied head; no B4),
+    tok/s and step time, then the plain path's streams, held to each other
+    by the near-tie rule.  Returns (serve, cfg, engine, plan, outputs)."""
+    from repro_torch.core.weight_plan import with_use_kernel
+    from repro_torch.kernels import flash_attention as FA
+
+    serve, ap, args = _serve_args(["--arch", arch])
+    t0 = time.perf_counter()
+    cfg, engine, plan = serve.build_engine(args, ap)
+    torch.cuda.synchronize()
+    log(f"{arch}: model + plan + engine built in {time.perf_counter() - t0:.1f}s "
+        f"({cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} kv, "
+        f"hd {cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, tied {cfg.tie_embeddings}; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated)")
+    ticks = []
+    outputs, launches, dt = _serve_and_check(serve, engine, cfg, args.max_new, arch,
+                                             ticks=ticks)
+    if launches.pop("block_sparse_matmul_col"):
+        raise AssertionError(f"{arch}: B4 launched, but every served leaf carries its walk")
+    for name in ("block_sparse_matmul", "fused_gate_up", "paged_decode_attention"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{arch}: kernel {name} was not launched on its path")
+    if cfg.tie_embeddings and launches["quant_matmul"]:
+        raise AssertionError(f"{arch}: the tied head reached B5")
+    if not cfg.tie_embeddings and launches["quant_matmul"] <= 0:
+        raise AssertionError(f"{arch}: the untied int8 head did not launch B5")
+    step_ms, n_steps = _decode_tick_ms(ticks)
+    log(f"{arch}: {engine.stats.completed}/8 FINISHED, audit clean, {engine.stats.pages_shared} "
+        f"pages shared, {engine.stats.decode_tokens / dt:.1f} tok/s, decode tick "
+        f"{step_ms:.2f} ms (median of {n_steps}, batch {engine.stats.mean_batch:.2f}) on "
+        f"{card}")
+    if cfg.hd != 64:  # the rows of B3 at the new head dims
+        _row(results, "paged_decode_attention", f"hd{cfg.hd} serve")["launches"] = \
+            FA.paged_decode_attention.launches_by_t.get(1, 0)
+    if arch == "gemma3-4b":
+        _row(results, "fused_gate_up", "gelu")["launches"] = launches["fused_gate_up"]
+
+    plain = _engine_like(engine, plan, params=with_use_kernel(engine.params, False))
+    plain.attention_kernel = False
+    p_out, p_launches, p_dt = _serve_and_check(serve, plain, cfg, args.max_new, f"{arch} plain")
+    if any(p_launches.values()):
+        raise AssertionError(f"{arch} plain: a kernel launched on the plain path: {p_launches}")
+    prompts = [r.prompt for r in _serve_requests(cfg, args.max_new)]
+    _streams_near_tie(torch, cfg, plain.params, f"{arch} kernels vs plain", prompts, p_out,
+                      outputs)
+    log(f"{arch} plain: {plain.stats.decode_tokens / p_dt:.1f} tok/s on {card}")
+    del plain
+    torch.cuda.empty_cache()
+    return serve, cfg, engine, plan, outputs
+
+
+def _family_long(torch, results, serve, cfg, engine, plan, card: str) -> None:
+    """One 2032-token prompt (16 new tokens, max_len 2048) served through
+    the family's engine: every layer's prefill attention runs B6 at the
+    family's head dim (gemma3: windowed on its local layers), counted by
+    window at the launch site; the first tick (the prefill and one decode
+    step) timed; the first token held to the plain path's by the near-tie
+    rule (``_path_parity`` holds the logits)."""
+    import numpy as np
+
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.serving.engine import Request
+
+    arch = cfg.name
+    eng = _engine_like(engine, plan, max_len=2048, max_batch=1)
+    prompt = np.random.default_rng(1).integers(0, cfg.vocab, size=LONG_M).astype(np.int32)
+    reqs = [Request(uid=0, prompt=prompt, max_new_tokens=16)]
+    ticks = []
+    FA.flash_attention.launches = 0
+    outputs, launches, dt = _serve_and_check(serve, eng, cfg, 16, f"{arch} long", reqs,
+                                             ticks=ticks)
+    b6 = FA.flash_attention.launches
+    by_w = dict(FA.flash_attention.launches_by_window)
+    first_ms = 1e3 * ticks[0][0]
+    log(f"{arch} long: B6 launches {b6}, by window {by_w} ({cfg.layer_kinds.count('local')} "
+        f"local layers, window {cfg.local_window}), first tick (prefill of {LONG_M} tokens + "
+        f"one decode step) {first_ms:.3f} ms, {eng.stats.decode_tokens / dt:.1f} tok/s on "
+        f"{card}")
+    want = {}
+    for kind in cfg.layer_kinds:
+        w = cfg.local_window if kind == "local" else 0
+        want[w] = want.get(w, 0) + 1
+    if by_w != want or b6 != cfg.n_layers:
+        raise AssertionError(f"{arch} long: B6 launches by window {by_w}, expected {want}")
+    for name in ("block_sparse_matmul", "fused_gate_up", "paged_decode_attention"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{arch} long: kernel {name} was not launched")
+    _row(results, "flash_attention", f"hd{cfg.hd}")["launches"] = by_w.get(0, 0)
+    if "local" in cfg.layer_kinds:
+        _row(results, "flash_attention", f"hd{cfg.hd} window")["launches"] = \
+            by_w.get(cfg.local_window, 0)
+    del eng
+    torch.cuda.empty_cache()
+
+
+def _family_spec(torch, results, serve, cfg, engine, plan, outputs, card: str) -> None:
+    """The family with its own plan as the draft (k = SPEC_K; a model with
+    local layers widens their rings by k): B3 at T = 5 on the global layers
+    at the family's head dim, accept rate over 0.5, streams held to the
+    serve run's by the near-tie rule."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.serving.config import SpecConfig
+    from repro_torch.serving.engine import ServingEngine
+
+    arch = cfg.name
+    conf = dataclasses.replace(engine.config, spec=SpecConfig(
+        draft_cfg=cfg, draft_params=engine.params, spec_k=SPEC_K))
+    spec = ServingEngine(cfg, engine.params, plan=plan, device=engine.device, config=conf)
+    rings = {c["k"].shape[1] for k, c in zip(cfg.layer_kinds, spec.cache["layers"])
+             if k == "local"}
+    out_spec, launches, dt = _serve_and_check(serve, spec, cfg, 16, f"{arch} spec self-draft")
+    by_t = dict(FA.paged_decode_attention.launches_by_t)
+    per_seq = _spec_log(f"{arch} spec self-draft", spec, dt, card)
+    log(f"{arch} spec: local rings of {sorted(rings)} slots (max_len {spec.max_len}, window "
+        f"{cfg.local_window} + k {SPEC_K}); B3 launches by query positions {by_t}")
+    if by_t.get(SPEC_K + 1, 0) <= 0:
+        raise AssertionError(f"{arch} spec: B3 never launched at T = {SPEC_K + 1}")
+    if not spec.stats.accept_rate > 0.5 or not per_seq > 1.0:
+        raise AssertionError(f"{arch} spec: accept rate {spec.stats.accept_rate:.4f}, "
+                             f"{per_seq:.3f} tokens a sequence a tick")
+    _row(results, "paged_decode_attention", f"hd{cfg.hd} verify")["launches"] = \
+        by_t[SPEC_K + 1]
+    prompts = [r.prompt for r in _serve_requests(cfg, 16)]
+    _streams_near_tie(torch, cfg, engine.params, f"{arch} spec vs serve", prompts, outputs,
+                      out_spec)
+    del spec
+    torch.cuda.empty_cache()
+
+
+def _gemma_chunked(torch, serve, cfg, engine, plan, card: str) -> None:
+    """gemma3-4b's chunked prefill (256-token chunks, 512 a tick) of prompts
+    within the window, held to the same prompts prefilled whole by the
+    near-tie rule; no chunk reaches B6."""
+    import numpy as np
+
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.serving.engine import Request
+
+    rng = np.random.default_rng(4)
+    lens = GEMMA_CHUNK_PROMPTS
+    prompts = [rng.integers(0, cfg.vocab, size=n).astype(np.int32) for n in lens]
+    runs = {}
+    for label, flags in (("whole", {}), ("chunked", GEMMA_CHUNK_FLAGS)):
+        eng = _engine_like(engine, plan, max_len=1024, max_batch=len(lens), **flags)
+        reqs = [Request(uid=i, prompt=p, max_new_tokens=16) for i, p in enumerate(prompts)]
+        FA.flash_attention.launches = 0
+        out, launches, dt = _serve_and_check(serve, eng, cfg, 16, f"gemma3-4b {label}", reqs)
+        log(f"gemma3-4b {label}: prompts {lens}, {eng.stats.prefill_chunks} chunks of "
+            f"{eng.prefill_chunk}, B6 launches {FA.flash_attention.launches}, "
+            f"{dt:.2f}s wall on {card}")
+        if FA.flash_attention.launches:
+            raise AssertionError(f"gemma3-4b {label}: a prompt within the window reached B6")
+        runs[label] = (out, eng.stats.prefill_chunks)
+        del eng
+        torch.cuda.empty_cache()
+    if runs["chunked"][1] <= len(lens):
+        raise AssertionError("gemma3-4b chunked: no prompt was split into chunks")
+    _streams_near_tie(torch, cfg, engine.params, "gemma3-4b chunked vs whole", prompts,
+                      runs["whole"][0], runs["chunked"][0])
+
+
+def _check_family_rows(results: dict) -> None:
+    """Every kernel row of the families phase carries the launches that a
+    served run at its shape counted."""
+    for name, r in results.items():
+        for row in r.get("rows", []):
+            if "key" in row and not (row["launches"] or 0) > 0:
+                raise AssertionError(f"{name} row {row['key']}: no served run launched its "
+                                     f"shape ({row['launches']})")
+
+
+def phase_families(torch, results: dict, card: str) -> None:
+    """The dense families at full width (random weights from a seed, the
+    quickstart flags): for each, the serve run and the plain path's
+    (``_family_serve``), then ``_path_parity`` (prefills of 36, 40 and 2032
+    tokens and teacher-forced decode, kernels vs plain versions), then for
+    glm4-9b and gemma3-4b a served 2032-token prompt (``_family_long``) and
+    self-draft speculation (``_family_spec``), and for gemma3-4b chunked
+    prefill."""
+    for arch in FAMILIES:
+        serve, cfg, engine, plan, outputs = _family_serve(torch, results, arch, card)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(11)
+        _path_parity(torch, cfg, engine.params, f"{arch} quant_sparse", gen)
+        if arch in FAMILY_LONG:
+            _family_long(torch, results, serve, cfg, engine, plan, card)
+            _family_spec(torch, results, serve, cfg, engine, plan, outputs, card)
+        if arch == "gemma3-4b":
+            _gemma_chunked(torch, serve, cfg, engine, plan, card)
+        del engine, plan
+        torch.cuda.empty_cache()
+    _check_family_rows(results)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="on-card smoke test of the CUDA port")
     ap.add_argument("--profile", action="store_true",
@@ -2118,6 +2556,7 @@ def main(argv=None) -> int:
         phase_b3_sweep(torch)
     phase_flash(torch, results)
     phase_dense_kernels(torch, results)
+    phase_family_kernels(torch, results)
     phase_fcnet(torch, results)
     cfg, engine, serve_outputs, serve_launches = phase_serve(torch, results)
     phase_plancache(torch, results, serve_outputs, serve_launches, card)
@@ -2126,6 +2565,7 @@ def main(argv=None) -> int:
     phase_spec(torch, results, serve_outputs, card)
     phase_chunked(torch, long_prompts, long_outputs, card)
     phase_faults(torch, card)
+    phase_families(torch, results, card)
     if args.profile:
         phase_profile(torch, cfg, engine)
     kernels = []

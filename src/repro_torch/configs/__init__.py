@@ -11,7 +11,10 @@ import importlib
 from repro_torch.configs.base import ModelConfig, MoEConfig
 
 _MODULES = {
+    "llama3.2-1b": "llama3_2_1b",
+    "glm4-9b": "glm4_9b",
     "tinyllama-1.1b": "tinyllama_1_1b",
+    "gemma3-4b": "gemma3_4b",
 }
 
 ARCH_IDS = tuple(_MODULES)

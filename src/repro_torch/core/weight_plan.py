@@ -219,14 +219,18 @@ def pack_block_sparse(leaf: torch.Tensor, cfg: PlanConfig, quant: bool) -> Packe
     valid = slot[None, None, :] < counts[..., None]  # (L, ncb, mb)
     rows = torch.where(valid, order[..., :mb], torch.zeros_like(order[..., :mb]))
 
-    wb = ws.reshape(L, nrb, bk, ncb, bn).permute(0, 3, 1, 2, 4)  # (L, ncb, nrb, bk, bn)
-    li = torch.arange(L, device=w.device)[:, None, None]
-    ji = torch.arange(ncb, device=w.device)[None, :, None]
-    payload = wb[li, ji, rows]  # (L, ncb, mb, bk, bn)
-    if quant:
-        payload = torch.round(payload / scales.reshape(L, ncb, 1, 1, bn)).clamp(-127, 127)
-    payload = torch.where(valid[..., None, None], payload, torch.zeros_like(payload))
-    blocks = payload.to(torch.int8 if quant else torch.float32).reshape(L, ncb * mb, bk, bn)
+    # gathered slice by slice: the fp32 payload of a whole stack (glm4-9b's
+    # 40 layers of 4096 x 13696) would need several GB of temporaries at once
+    ji = torch.arange(ncb, device=w.device)[:, None]
+    blocks = torch.empty((L, ncb * mb, bk, bn), dtype=torch.int8 if quant else torch.float32,
+                         device=w.device)
+    for i in range(L):
+        wb = ws[i].reshape(nrb, bk, ncb, bn).permute(2, 0, 1, 3)  # (ncb, nrb, bk, bn)
+        payload = wb[ji, rows[i]]  # (ncb, mb, bk, bn)
+        if quant:
+            payload = torch.round(payload / scales[i].reshape(ncb, 1, 1, bn)).clamp(-127, 127)
+        payload = torch.where(valid[i][..., None, None], payload, torch.zeros_like(payload))
+        blocks[i] = payload.to(blocks.dtype).reshape(ncb * mb, bk, bn)
     rows = rows.to(torch.int32)
 
     # the TPU kernel's walk (pack-time static, built and kept on the host)

@@ -15,29 +15,37 @@
 // Bound on this card: operations.  Every visible (query head, key) pair
 // costs 4 * hd flops (QK^T and PV); a causal 2048-token prefill of
 // tinyllama-1.1b (32 heads over 4 KV heads, hd 64) does 17.2 GFLOP on
-// 18.9 MB of q, k, v and o, far right of the bf16 ridge.  So the products
+// 18.9 MB of q, k, v and o, glm4-9b's (32 over 2, hd 128) 34.4 GFLOP on
+// 35.7 MB: far right of the bf16 ridge.  So the products
 // run on the tensor cores, and the exp of a score -- at hd 64 about what
 // its two products cost on the SM's special-function units -- has to run
 // under them.
 //
-// bf16 K/V (the served path), flash_fwd_wgmma_kernel: warp-specialised TMA
-// + wgmma.  A CTA owns 128 folded rows of one (b, kvh): two consumer
-// warpgroups of 64 rows and a producer warp.
-// - The producer keeps a ring of kStages (K, V) tiles of 128 keys in flight
-//   by TMA (one 4-D tensor map per operand, (hd, KVH, Sk, B), boxes of
-//   (64, 1, 128, 1) with the 128-byte swizzle: one key's 64 bf16 are one
-//   swizzle row), on "full" / "empty" mbarriers.  Keys past Sk arrive as
-//   zeros and are masked by the real Sk.
-// - Q is loaded once per CTA by the consumers themselves: 16-byte loads
-//   into registers, issued first so that they overlap the CTA's set-up and
-//   the first K/V tile's TMA, then stored in the K-major 128B-swizzle
-//   layout (any G; a 5-D tensor map would need G | 128).
-// - S = Q K^T: wgmma m64n128k16, both operands from shared memory as TMA
-//   wrote them (Q the K-major A, the K tile the K-major B), 4 k steps.
-// - O += P V: wgmma m64n64k16 with A from registers: S's fp32 accumulator
-//   of a 64x16 slice, rounded to bf16 pairs, is the A fragment, so P never
-//   touches shared memory; V is the MN-major B (keys are the contraction,
-//   hd contiguous), its TMA swizzle rows the operand's atoms, 8 k steps.
+// bf16 K/V (the served path), flash_fwd_wgmma_kernel<HD>: warp-specialised
+// TMA + wgmma, one template for the served head dims 64 (tinyllama,
+// llama3.2), 128 (glm4) and 256 (gemma3).  A CTA owns 128 folded rows of one
+// (b, kvh): two consumer warpgroups of 64 rows and a producer warp.
+// - Head-dim panels: Q, K and V sit in shared memory as HD / 64 panels of
+//   64 columns, one 128-byte swizzle row per query or key (a TMA box may
+//   not span more than the swizzle's 128 bytes).  hd 64 is one panel: the
+//   single-head-dim kernel this template replaced, instruction for
+//   instruction.
+// - The producer keeps a ring of (K, V) tiles of BK keys in flight by TMA
+//   (one 4-D tensor map per operand, (hd, KVH, Sk, B), HD / 64 boxes of
+//   (64, 1, BK, 1) per operand and tile, 128-byte swizzle), on "full" /
+//   "empty" mbarriers.  Keys past Sk arrive as zeros and are masked by the
+//   real Sk.  BK is 128 at hd 64 (3 stages of 32 KB beside 16 KB of Q), 64
+//   at hd 128 and 32 at hd 256 (4 stages of 32 KB beside 32 or 64 KB of Q).
+// - Q is loaded by the consumers themselves: 16-byte loads into registers
+//   (the first panel issued before the barriers are set up), stored in the
+//   K-major 128B-swizzle layout (any G; a 5-D tensor map would need G | 128).
+// - S = Q K^T: wgmma m64nBKk16 (n 128, 64 or 32), both operands from
+//   shared memory as TMA wrote them (Q the K-major A, the K tile the
+//   K-major B), HD / 16 k steps, every fourth the next panel.
+// - O += P V: one wgmma m64n64k16 per panel with A from registers: S's fp32
+//   accumulator of a 64x16 slice, rounded to bf16 pairs, is the A fragment,
+//   so P never touches shared memory; V is the MN-major B (keys are the
+//   contraction, hd contiguous), its TMA swizzle rows the operand's atoms.
 // - Softmax under the tensor cores: each warpgroup issues tile j+1's S and
 //   tile j's PV together, waits for S only, and runs tile j+1's online
 //   softmax (exp2, log2(e)/sqrt(hd) folded into one fp32 scale) while PV
@@ -45,20 +53,22 @@
 // - Tiles wholly inside the band run unmasked; only the diagonal,
 //   window-edge and ragged-Sk tiles apply masks.  The longest causal
 //   q-tiles start first (the q tile is the grid's slow axis).
-// - One CTA per SM: a consumer thread holds 64 scores, 32 output sums and
-//   32 P words, and the kernel takes 168 registers a thread without
-//   spilling; two CTAs of 384 threads would allow 85.  Shared memory: 16 KB
-//   of Q and 3 stages of 32 KB (more stages were not faster).
+// - One CTA per SM: a consumer thread holds BK / 2 scores, HD / 2 output
+//   sums and BK / 4 P words: 64 + 32 + 32 at hd 64, 32 + 64 + 16 at hd 128,
+//   16 + 128 + 8 at hd 256.  ptxas allocates 168 registers a thread (384
+//   threads a CTA) whatever setmaxnreg grants the consumers after it: hd 64
+//   and 128 do not spill, hd 256 does (548 bytes; PERF.md has the times,
+//   making hd 256 fast is later work).
 //
 // int8 K/V (off the main path: the served prefill attends the prompt's own
-// bf16 K/V before they are quantized into the cache), flash_fwd_kernel: the
-// first port's design.  One CTA of 4 warps per 64 folded rows,
-// 64-key tiles double-buffered by cp.async, converted exactly to bf16 (|x|
-// <= 127) in shared memory, mma.sync.m16n8k16; the scales multiply the
-// fp32 scores (K) and P (V), and P * v_scale enters PV as a bf16 pair hi +
-// lo (~16 significant bits, two MMAs), close to the fp32 P and dequantized V
-// of the Pallas kernel's int8 branch.  Moving it onto TMA + wgmma needs the
-// conversion in the consumer's path, later work.
+// bf16 K/V before they are quantized into the cache), flash_fwd_kernel<HD>
+// at hd 64, 128 and 256: the first port's design.  One CTA of 4 warps per
+// 64 folded rows, 64-key tiles double-buffered by cp.async, converted
+// exactly to bf16 (|x| <= 127) in shared memory, mma.sync.m16n8k16; the
+// scales multiply the fp32 scores (K) and P (V), and P * v_scale enters PV
+// as a bf16 pair hi + lo (~16 significant bits, two MMAs), close to the
+// fp32 P and dequantized V of the Pallas kernel's int8 branch.  Moving it
+// onto TMA + wgmma needs the conversion in the consumer's path, later work.
 //
 // Numerics (both): scores are the fp32 sum of exact bf16 products; the
 // fp32 state (m, l, O) stays in registers; P is rounded to bf16 before PV,
@@ -338,18 +348,33 @@ int launch(const void* q, const void* k, const void* v, const float* ks, const f
 
 namespace fwg {
 
-constexpr int kHD = 64;       // head dim: one 128-byte swizzle row of bf16
 constexpr int kRows = 128;    // folded query rows per CTA: two consumer warpgroups of 64
-constexpr int kBK = 128;      // keys per K/V tile
-constexpr int kStages = 3;    // (K, V) tiles in flight
 constexpr int kThreads = 384; // consumer warpgroups 0 and 1, producer warpgroup 2
-constexpr uint32_t kTileBytes = kBK * kHD * 2;             // one K or V tile, 16 KB
-constexpr uint32_t kQ = 0;                                  // Q: kRows x 128 bytes
-constexpr uint32_t kStage0 = kRows * kHD * 2;               // stage s: K, then V
-constexpr uint32_t kStageBytes = 2 * kTileBytes;
-constexpr uint32_t kBars = kStage0 + kStages * kStageBytes;  // full[kStages], empty[kStages]
-constexpr uint32_t kSmem = kBars + 2 * kStages * 8 + 1024;   // + alignment slack
-static_assert(kSmem <= 232448, "more shared memory than a CTA may have");
+constexpr int kPanel = 64;    // bf16 of one 128-byte swizzle row: a head dim's panel
+
+// the tile geometry of head dim HD.  Q, K and V sit in shared memory as
+// HD / 64 panels of 64 head-dim columns, each panel one 128-byte swizzle row
+// per query or key (TMA boxes may not exceed the 128-byte swizzle span).
+// The key tile shrinks as the head dim grows, so that a consumer thread's
+// scores, P words and HD / 2 output sums fit the 168 registers ptxas
+// allocates: 128 keys at hd 64, 64 at hd 128, 32 at hd 256 (faster than
+// 128 and 64 on the card, PERF.md).
+template <int HD>
+struct Cfg {
+  static constexpr int BK = HD == 64 ? 128 : (HD == 128 ? 64 : 32);  // keys per K/V tile
+  static constexpr int kStages = HD == 64 ? 3 : 4;        // (K, V) tiles in flight
+  static constexpr int kPanels = HD / kPanel;
+  static constexpr uint32_t kPanelBytes = BK * 128;        // one panel of a K or V tile
+  static constexpr uint32_t kTileBytes = BK * HD * 2;      // one K or V tile
+  static constexpr uint32_t kQPanel = kRows * 128;         // one panel of Q
+  static constexpr uint32_t kQ = 0;                         // Q: kPanels panels
+  static constexpr uint32_t kStage0 = kRows * HD * 2;      // stage s: K, then V
+  static constexpr uint32_t kStageBytes = 2 * kTileBytes;
+  static constexpr uint32_t kBars = kStage0 + kStages * kStageBytes;  // full[], empty[]
+  static constexpr uint32_t kSmem = kBars + 2 * kStages * 8 + 1024;   // + alignment slack
+  static_assert(HD % kPanel == 0 && HD <= 256, "head dim 64, 128 or 256");
+  static_assert(kSmem <= 232448, "more shared memory than a CTA may have");
+};
 
 __device__ __forceinline__ float ex2(float x) {
   float y;
@@ -357,38 +382,55 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// s (64 rows x 128 keys of this warpgroup) = Q K^T: Q the K-major A (SBO
-// 1024: eight 128-byte rows; a k16 step is +32 bytes in the swizzle row),
-// the K tile the K-major B (128 key rows, the same layout)
-__device__ __forceinline__ void qk_tile(float (&s)[64], uint32_t qa, uint32_t ka) {
+// s (64 rows x BK keys of this warpgroup) = Q K^T: Q the K-major A (SBO
+// 1024: eight 128-byte rows; a k16 step is +32 bytes in the swizzle row,
+// every fourth step the next panel), the K tile the K-major B (BK key rows,
+// the same layout)
+template <int HD>
+__device__ __forceinline__ void qk_tile(float (&s)[Cfg<HD>::BK / 2], uint32_t qa, uint32_t ka) {
+  using C = Cfg<HD>;
 #pragma unroll
-  for (int kk = 0; kk < kHD / 16; ++kk)
-    wgmma_m64n128k16_bf16<0>(s, desc_sw128(qa + kk * 32, 16, 1024),
-                             desc_sw128(ka + kk * 32, 16, 1024), kk);
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const uint64_t da = desc_sw128(qa + (kk / 4) * C::kQPanel + (kk % 4) * 32, 16, 1024);
+    const uint64_t db = desc_sw128(ka + (kk / 4) * C::kPanelBytes + (kk % 4) * 32, 16, 1024);
+    if constexpr (C::BK == 128)
+      wgmma_m64n128k16_bf16<0>(s, da, db, kk);
+    else if constexpr (C::BK == 64)
+      wgmma_m64n64k16_bf16<0>(s, da, db, kk);
+    else
+      wgmma_m64n32k16_bf16<0>(s, da, db, kk);
+  }
 }
 
 // o += P V: P's bf16 pairs p[4 kk .. 4 kk + 3] are the A fragment of keys
-// 16 kk .. 16 kk + 15; V the MN-major B (one 64-column atom, SBO = eight
-// key rows, a k16 step = 16 key rows)
-__device__ __forceinline__ void pv_tile(float (&o)[32], const uint32_t (&p)[32], uint32_t va) {
+// 16 kk .. 16 kk + 15; V the MN-major B, one m64n64 product per 64-column
+// panel (one swizzle atom wide, SBO = eight key rows, a k16 step = 16 key
+// rows), o[c] that panel's sums
+template <int HD>
+__device__ __forceinline__ void pv_tile(float (&o)[Cfg<HD>::kPanels][32],
+                                        const uint32_t (&p)[Cfg<HD>::BK / 4], uint32_t va) {
+  using C = Cfg<HD>;
 #pragma unroll
-  for (int kk = 0; kk < kBK / 16; ++kk)
-    wgmma_m64n64k16_rs(o, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3],
-                       desc_sw128(va + kk * 16 * 128, kTileBytes, 1024));
+  for (int kk = 0; kk < C::BK / 16; ++kk)
+#pragma unroll
+    for (int c = 0; c < C::kPanels; ++c)
+      wgmma_m64n64k16_rs(o[c], p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3],
+                         desc_sw128(va + c * C::kPanelBytes + kk * 16 * 128, C::kTileBytes,
+                                    1024));
 }
 
 // the online softmax of one tile: s[4c + e] is row h = e / 2 (this thread's
 // qpos[h]), key n0 + 8c + 2 (lane % 4) + e % 2.  m is the running max in
 // the exp2 domain; s becomes p; l (this thread's partial sums) and the
 // factor alpha that rescales the older sums are updated
-template <bool MASK>
-__device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2], float (&l)[2],
+template <bool MASK, int BK>
+__device__ __forceinline__ void softmax_tile(float (&s)[BK / 2], float (&m)[2], float (&l)[2],
                                              float (&alpha)[2], int n0, const int (&qpos)[2],
                                              int Sk, int causal, int window, float scale_log2) {
   const int lane = threadIdx.x & 31;
   float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
 #pragma unroll
-  for (int c = 0; c < kBK / 8; ++c)
+  for (int c = 0; c < BK / 8; ++c)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       float x = s[4 * c + e];
@@ -413,7 +455,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2], floa
     l[h] *= alpha[h];
   }
 #pragma unroll
-  for (int i = 0; i < 64; ++i) {
+  for (int i = 0; i < BK / 2; ++i) {
     const float p = ex2(fmaf(s[i], scale_log2, -m[(i >> 1) & 1]));
     l[(i >> 1) & 1] += p;
     s[i] = p;
@@ -422,23 +464,27 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2], floa
 
 // p (bf16 pairs) from s: pairs 4 kk + {0, 1, 2, 3} are the A fragment of
 // keys 16 kk .. 16 kk + 15 (rows g, g + 8 at columns 2 t, then at + 8)
-__device__ __forceinline__ void pack_p(const float (&s)[64], uint32_t (&p)[32]) {
+template <int BK>
+__device__ __forceinline__ void pack_p(const float (&s)[BK / 2], uint32_t (&p)[BK / 4]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) p[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
+  for (int i = 0; i < BK / 4; ++i) p[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
 }
 
 // tile j + 1's softmax runs while tile j's PV is on the tensor cores
+template <int HD>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap kmap,
                        const __grid_constant__ CUtensorMap vmap,
-                       const __nv_bfloat16* __restrict__ q,  // (B, Sq, H, 64)
-                       __nv_bfloat16* __restrict__ out,      // (B, Sq, H, 64)
+                       const __nv_bfloat16* __restrict__ q,  // (B, Sq, H, HD)
+                       __nv_bfloat16* __restrict__ out,      // (B, Sq, H, HD)
                        int Sq, int Sk, int H, int KVH, int causal, int window,
                        float scale_log2) {
+  using C = Cfg<HD>;
+  constexpr int BK = C::BK, kStages = C::kStages, kPanels = C::kPanels;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kBars);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::kBars);
   uint64_t* empty = full + kStages;
 
   const int G = H / KVH;
@@ -450,24 +496,28 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap kmap,
   const int q_first = r0 / G, q_last = (min(r0 + kRows, rows) - 1) / G;
   const int k_end = causal ? min(Sk, q_last + 1) : Sk;
   const int k_begin = window > 0 ? max(0, q_first - window + 1) : 0;
-  const int t_begin = k_begin / kBK;
-  const int n = k_end > k_begin ? (k_end + kBK - 1) / kBK - t_begin : 0;
+  const int t_begin = k_begin / BK;
+  const int n = k_end > k_begin ? (k_end + BK - 1) / BK - t_begin : 0;
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int wr0 = r0 + (warp >> 2) * 64;  // a consumer warpgroup's first folded row
   auto q_off = [&](int r) {               // element offset of folded row r in q / out
-    return ((static_cast<size_t>(b) * Sq + r / G) * H + kvh * G + r % G) * kHD;
+    return ((static_cast<size_t>(b) * Sq + r / G) * H + kvh * G + r % G) * HD;
   };
-  // Q of the consumer warpgroups' rows, in flight while the barriers are set up
-  uint4 qv[4];
-  if (warp < 8) {
+  // Q's first panel of the consumer warpgroups' rows, in flight while the
+  // barriers are set up (panel c: 16-byte chunk i & 7 of row i >> 3 at
+  // column 64 c)
+  auto load_q = [&](uint4 (&qv)[4], int c) {
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int i = (threadIdx.x & 127) + 128 * j, r = wr0 + (i >> 3);
-      qv[j] = r < rows ? *reinterpret_cast<const uint4*>(q + q_off(r) + (i & 7) * 8)
-                       : make_uint4(0u, 0u, 0u, 0u);
+      qv[j] = r < rows
+                  ? *reinterpret_cast<const uint4*>(q + q_off(r) + c * kPanel + (i & 7) * 8)
+                  : make_uint4(0u, 0u, 0u, 0u);
     }
-  }
+  };
+  uint4 qv[4];
+  if (warp < 8) load_q(qv, 0);
   if (threadIdx.x == 0) {
 #pragma unroll
     for (int s = 0; s < kStages; ++s) {
@@ -485,11 +535,16 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap kmap,
       for (int i = 0; i < n; ++i) {
         const int st = i % kStages;
         if (i >= kStages) mbar_wait(&empty[st], ((i / kStages) - 1) & 1);
-        unsigned char* kt = smem + kStage0 + st * kStageBytes;
-        const int key0 = (t_begin + i) * kBK;
-        mbar_arrive_expect_tx(&full[st], kStageBytes);
-        tma_load_4d(kt, &kmap, 0, kvh, key0, b, &full[st]);
-        tma_load_4d(kt + kTileBytes, &vmap, 0, kvh, key0, b, &full[st]);
+        unsigned char* kt = smem + C::kStage0 + st * C::kStageBytes;
+        const int key0 = (t_begin + i) * BK;
+        mbar_arrive_expect_tx(&full[st], C::kStageBytes);
+#pragma unroll
+        for (int c = 0; c < kPanels; ++c)
+          tma_load_4d(kt + c * C::kPanelBytes, &kmap, c * kPanel, kvh, key0, b, &full[st]);
+#pragma unroll
+        for (int c = 0; c < kPanels; ++c)
+          tma_load_4d(kt + C::kTileBytes + c * C::kPanelBytes, &vmap, c * kPanel, kvh, key0, b,
+                      &full[st]);
       }
     }
   } else {
@@ -497,14 +552,19 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap kmap,
     setmaxnreg_inc<232>();
     const int wg = warp >> 2;
 
-    // Q: the warpgroup's 64 rows into the K-major 128B-swizzle layout (row
-    // rr at rr * 128 bytes, 16-byte chunk c at c ^ rr % 8); rows past Sq * G
-    // are zeros and are never written back
-    unsigned char* qs = smem + kQ + wg * 64 * 128;
+    // Q: the warpgroup's 64 rows into the K-major 128B-swizzle layout, panel
+    // by panel (row rr at rr * 128 bytes of its panel, 16-byte chunk c at
+    // c ^ rr % 8); rows past Sq * G are zeros and are never written back
+    unsigned char* qs = smem + C::kQ + wg * 64 * 128;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int i = (threadIdx.x & 127) + 128 * j, rr = i >> 3, c = i & 7;
-      *reinterpret_cast<uint4*>(qs + rr * 128 + ((c ^ (rr & 7)) << 4)) = qv[j];
+    for (int c = 0; c < kPanels; ++c) {
+      if (c > 0) load_q(qv, c);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int i = (threadIdx.x & 127) + 128 * j, rr = i >> 3, ch = i & 7;
+        *reinterpret_cast<uint4*>(qs + c * C::kQPanel + rr * 128 + ((ch ^ (rr & 7)) << 4)) =
+            qv[j];
+      }
     }
     fence_proxy_async();
     named_bar_sync(1 + wg, 128);
@@ -515,61 +575,69 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap kmap,
     // row of the warpgroup
     const int wq_first = wr0 / G, wq_last = (min(wr0 + 64, rows) - 1) / G;
     const uint32_t qa = smem_u32(qs);
-    const uint32_t stages = smem_u32(smem + kStage0);
+    const uint32_t stages = smem_u32(smem + C::kStage0);
 
-    float s[64], o[32], m[2] = {-1e30f, -1e30f}, l[2] = {0.0f, 0.0f}, alpha[2];
-    uint32_t p[32];
+    float s[BK / 2], o[kPanels][32], m[2] = {-1e30f, -1e30f}, l[2] = {0.0f, 0.0f}, alpha[2];
+    uint32_t p[BK / 4];
 #pragma unroll
-    for (int i = 0; i < 32; ++i) o[i] = 0.0f;
+    for (int c = 0; c < kPanels; ++c)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[c][i] = 0.0f;
 
     auto softmax = [&](int i) {
-      const int n0 = (t_begin + i) * kBK;
-      const bool inside = n0 + kBK <= Sk && (!causal || n0 + kBK - 1 <= wq_first) &&
+      const int n0 = (t_begin + i) * BK;
+      const bool inside = n0 + BK <= Sk && (!causal || n0 + BK - 1 <= wq_first) &&
                           (window <= 0 || n0 > wq_last - window);
       if (inside)
-        softmax_tile<false>(s, m, l, alpha, n0, qpos, Sk, causal, window, scale_log2);
+        softmax_tile<false, BK>(s, m, l, alpha, n0, qpos, Sk, causal, window, scale_log2);
       else
-        softmax_tile<true>(s, m, l, alpha, n0, qpos, Sk, causal, window, scale_log2);
+        softmax_tile<true, BK>(s, m, l, alpha, n0, qpos, Sk, causal, window, scale_log2);
     };
-    auto k_tile = [&](int i) { return stages + (i % kStages) * kStageBytes; };
+    auto k_tile = [&](int i) { return stages + (i % kStages) * C::kStageBytes; };
+    auto fence_o = [&]() {
+#pragma unroll
+      for (int c = 0; c < kPanels; ++c) fence_regs(o[c]);
+    };
 
     if (n > 0) {
       mbar_wait(&full[0], 0);
       wgmma_fence();
-      qk_tile(s, qa, k_tile(0));
+      qk_tile<HD>(s, qa, k_tile(0));
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(s);
       softmax(0);
-      pack_p(s, p);
+      pack_p<BK>(s, p);
       for (int i = 0; i + 1 < n; ++i) {
         mbar_wait(&full[(i + 1) % kStages], ((i + 1) / kStages) & 1);
         fence_regs(s);
-        fence_regs(o);
+        fence_o();
         fence_regs(p);
         wgmma_fence();
-        qk_tile(s, qa, k_tile(i + 1));
+        qk_tile<HD>(s, qa, k_tile(i + 1));
         wgmma_commit();
-        pv_tile(o, p, k_tile(i) + kTileBytes);
+        pv_tile<HD>(o, p, k_tile(i) + C::kTileBytes);
         wgmma_commit();
         wgmma_wait<1>();  // S of tile i + 1 is in
         fence_regs(s);
         softmax(i + 1);
         wgmma_wait<0>();  // PV of tile i is in: its stage is free
-        fence_regs(o);
+        fence_o();
         fence_regs(p);
         if (lane == 0) mbar_arrive(&empty[i % kStages]);
 #pragma unroll
-        for (int j = 0; j < 32; ++j) o[j] *= alpha[(j >> 1) & 1];
-        pack_p(s, p);
+        for (int c = 0; c < kPanels; ++c)
+#pragma unroll
+          for (int j = 0; j < 32; ++j) o[c][j] *= alpha[(j >> 1) & 1];
+        pack_p<BK>(s, p);
       }
-      fence_regs(o);
+      fence_o();
       fence_regs(p);
       wgmma_fence();
-      pv_tile(o, p, k_tile(n - 1) + kTileBytes);
+      pv_tile<HD>(o, p, k_tile(n - 1) + C::kTileBytes);
       wgmma_commit();
       wgmma_wait<0>();
-      fence_regs(o);
+      fence_o();
     }
 
 #pragma unroll
@@ -581,46 +649,50 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap kmap,
       const float inv = 1.0f / fmaxf(l[h], 1e-30f);  // one division per row
       __nv_bfloat16* orow = out + q_off(r);
 #pragma unroll
-      for (int c = 0; c < kHD / 8; ++c)
-        *reinterpret_cast<uint32_t*>(orow + 8 * c + 2 * (lane & 3)) =
-            pack_bf16(o[4 * c + 2 * h] * inv, o[4 * c + 2 * h + 1] * inv);
+      for (int c = 0; c < kPanels; ++c)
+#pragma unroll
+        for (int cc = 0; cc < kPanel / 8; ++cc)
+          *reinterpret_cast<uint32_t*>(orow + c * kPanel + 8 * cc + 2 * (lane & 3)) =
+              pack_bf16(o[c][4 * cc + 2 * h] * inv, o[c][4 * cc + 2 * h + 1] * inv);
     }
   }
 }
 
-// k or v (B, Sk, KVH, 64) bf16 as boxes of (64 hd, 1 head, kBK keys, 1
-// batch), 128B swizzle, zeros outside the tensor
+// k or v (B, Sk, KVH, HD) bf16 as boxes of (64 head-dim columns, 1 head, BK
+// keys, 1 batch), 128B swizzle, zeros outside the tensor
+template <int HD>
 inline bool encode_kv_map(CUtensorMap* map, const void* kv, int B, int Sk, int KVH) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return false;
-  const cuuint64_t row = kHD * 2;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(kHD), static_cast<cuuint64_t>(KVH),
+  const cuuint64_t row = HD * 2;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(HD), static_cast<cuuint64_t>(KVH),
                               static_cast<cuuint64_t>(Sk), static_cast<cuuint64_t>(B)};
   const cuuint64_t strides[3] = {row, row * KVH, row * KVH * Sk};
-  const cuuint32_t box[4] = {kHD, 1, kBK, 1};
+  const cuuint32_t box[4] = {kPanel, 1, Cfg<HD>::BK, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(kv), dims, strides, box,
             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-static int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Sk,
-                  int H, int KVH, int causal, int window, float scale, cudaStream_t stream) {
+template <int HD>
+int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Sk, int H,
+           int KVH, int causal, int window, float scale, cudaStream_t stream) {
   if (Sk <= 0)  // no key: every row writes 0
     return static_cast<int>(
-        cudaMemsetAsync(out, 0, static_cast<size_t>(B) * Sq * H * kHD * 2, stream));
+        cudaMemsetAsync(out, 0, static_cast<size_t>(B) * Sq * H * HD * 2, stream));
   const int tiles = (Sq * (H / KVH) + kRows - 1) / kRows;
   if (tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap kmap, vmap;
-  if (!encode_kv_map(&kmap, k, B, Sk, KVH) || !encode_kv_map(&vmap, v, B, Sk, KVH))
+  if (!encode_kv_map<HD>(&kmap, k, B, Sk, KVH) || !encode_kv_map<HD>(&vmap, v, B, Sk, KVH))
     return static_cast<int>(cudaErrorInvalidValue);
   // set on every call, as the attribute is per device
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(kSmem));
+  auto kern = flash_fwd_wgmma_kernel<HD>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(Cfg<HD>::kSmem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const float log2e = 1.4426950408889634f;
-  flash_fwd_wgmma_kernel<<<dim3(B * KVH, tiles), kThreads, kSmem, stream>>>(
+  kern<<<dim3(B * KVH, tiles), kThreads, Cfg<HD>::kSmem, stream>>>(
       kmap, vmap, static_cast<const __nv_bfloat16*>(q), static_cast<__nv_bfloat16*>(out), Sq, Sk,
       H, KVH, causal, window, scale * log2e);
   return static_cast<int>(cudaGetLastError());
@@ -629,19 +701,33 @@ static int launch(const void* q, const void* k, const void* v, void* out, int B,
 }  // namespace fwg
 
 // q/out (B, Sq, H, hd) bf16; k/v (B, Sk, KVH, hd) bf16, or int8 with
-// (B, Sk, KVH) f32 scales; all 16-byte aligned; hd 64 (the head dim of the
-// served models).  window <= 0: no window.  Returns a cudaError_t code
-// (0 = launched).
+// (B, Sk, KVH) f32 scales; all 16-byte aligned; hd 64, 128 or 256 (the head
+// dims of the served models).  window <= 0: no window.  Returns a
+// cudaError_t code (0 = launched).
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v,
                                       const float* k_scale, const float* v_scale, void* out,
                                       int B, int Sq, int Sk, int H, int KVH, int hd, int causal,
                                       int window, float scale, int kv_dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || Sq <= 0) return 0;
-  if (hd == 64 && kv_dtype == DT_I8)
-    return launch<64>(q, k, v, k_scale, v_scale, out, B, Sq, Sk, H, KVH, causal, window, scale,
-                      s);
-  if (hd == 64 && kv_dtype == DT_BF16)
-    return fwg::launch(q, k, v, out, B, Sq, Sk, H, KVH, causal, window, scale, s);
+  if (kv_dtype == DT_I8) {
+    switch (hd) {
+      case 64: return launch<64>(q, k, v, k_scale, v_scale, out, B, Sq, Sk, H, KVH, causal,
+                                 window, scale, s);
+      case 128: return launch<128>(q, k, v, k_scale, v_scale, out, B, Sq, Sk, H, KVH, causal,
+                                   window, scale, s);
+      case 256: return launch<256>(q, k, v, k_scale, v_scale, out, B, Sq, Sk, H, KVH, causal,
+                                   window, scale, s);
+    }
+  }
+  if (kv_dtype == DT_BF16) {
+    switch (hd) {
+      case 64: return fwg::launch<64>(q, k, v, out, B, Sq, Sk, H, KVH, causal, window, scale, s);
+      case 128:
+        return fwg::launch<128>(q, k, v, out, B, Sq, Sk, H, KVH, causal, window, scale, s);
+      case 256:
+        return fwg::launch<256>(q, k, v, out, B, Sq, Sk, H, KVH, causal, window, scale, s);
+    }
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }

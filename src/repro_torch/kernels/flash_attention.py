@@ -237,7 +237,9 @@ paged_decode_attention.launches_by_t = {}
 # B6: flash attention forward
 # ---------------------------------------------------------------------------
 
-FLASH_HEAD_DIM = 64  # the instantiated head dim (tinyllama-1.1b's)
+# the instantiated head dims: tinyllama's and llama3.2's 64, glm4's 128,
+# gemma3's 256
+FLASH_HEAD_DIMS = (64, 128, 256)
 FLASH_BLOCK_K = 128  # the plain version's key chunk (the Pallas kernel's block_k)
 
 
@@ -270,7 +272,7 @@ def _check_flash_features(q_offset, softcap):
                          "prefill)")
     if softcap:
         raise ValueError(f"flash attention kernel B6 takes no logit softcap (got {softcap}): "
-                         "softcapped attention is ROADMAP A8 (gemma3)")
+                         "softcapped attention is ROADMAP A8b")
 
 
 def _check_flash(q, k, v, k_scale, v_scale):
@@ -278,8 +280,8 @@ def _check_flash(q, k, v, k_scale, v_scale):
     if q.dim() != 4 or q.dtype != torch.bfloat16:
         raise ValueError(f"q must be (B, Sq, H, hd) bfloat16, got {tuple(q.shape)} {q.dtype}")
     B, Sq, H, hd = q.shape
-    if hd != FLASH_HEAD_DIM:
-        raise ValueError(f"head dim {hd}: the kernel is built for {FLASH_HEAD_DIM}")
+    if hd not in FLASH_HEAD_DIMS:
+        raise ValueError(f"head dim {hd}: the kernel is built for {FLASH_HEAD_DIMS}")
     if k.dim() != 4 or k.shape != v.shape or k.shape[0] != B or k.shape[3] != hd:
         raise ValueError(f"k/v must be (B={B}, Sk, KVH, hd={hd}) alike, got "
                          f"{tuple(k.shape)} and {tuple(v.shape)}")
@@ -332,7 +334,11 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None, k_scale=None,
         build.stream_ptr(q.device))
     build.check(lib, code, "flash_attention")
     flash_attention.launches += 1
+    by_w = flash_attention.launches_by_window
+    by_w[int(window or 0)] = by_w.get(int(window or 0), 0) + 1
     return out
 
 
 flash_attention.launches = 0
+# launches by window: 0 = full causal (or none), else the sliding window
+flash_attention.launches_by_window = {}

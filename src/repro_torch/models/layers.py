@@ -1,8 +1,8 @@
 """Shared model layers (port of ``repro/models/layers.py``): RMSNorm, RoPE,
 GQA attention (dense and chunked flash prefill, contiguous and paged
-decode), the int8 KV cache, the gated MLP, embedding and unembedding --
-what tinyllama-1.1b serving runs (``transformer.check_supported`` names
-the rest).
+decode, sliding windows), the int8 KV cache, the gated MLP, embedding
+(with gemma's scale) and unembedding (tied or untied) -- what the dense
+families run (``transformer.check_supported`` names the rest).
 
 Functions take and return tensors in the reference's layouts: activations
 (B, S, d), q (B, S, H, hd), KV caches (B, S, KVH, hd) and page pools
@@ -328,20 +328,31 @@ def finite_rows(logits: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def apply_attn(cfg, p, x, *, cache: dict, pos, page_table=None,
+def attn_window_and_base(cfg, kind: str) -> tuple:
+    """(window, RoPE base) of an attention layer of ``kind``: a ``local``
+    layer attends within ``local_window``; a ``global`` one takes
+    ``rope_base_global`` where the config sets one (gemma3)."""
+    if kind == "local":
+        return cfg.local_window, cfg.rope_base
+    return None, cfg.rope_base_global or cfg.rope_base
+
+
+def apply_attn(cfg, p, x, *, kind: str = "global", cache: dict, pos, page_table=None,
                use_kernel: bool = True):
     """A decode step for S new tokens per sequence at ``pos``: writes their
     K/V into the cache in place -- through ``page_table`` for a paged cache
-    ({"k_pages", ...}), at pos % length for a contiguous one -- and attends.
-    ``use_kernel`` reaches the paged attention dispatch."""
+    ({"k_pages", ...}), at pos % length for a contiguous one (a ``local``
+    layer's ring) -- and attends, within ``local_window`` on a local
+    layer.  ``use_kernel`` reaches the paged attention dispatch."""
     B, S, _ = x.shape
     H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    window, base = attn_window_and_base(cfg, kind)
     q = apply_linear(x, p["wq"]).reshape(B, S, H, hd)
     k = apply_linear(x, p["wk"]).reshape(B, S, KVH, hd)
     v = apply_linear(x, p["wv"]).reshape(B, S, KVH, hd)
     positions = pos[:, None].long() + torch.arange(S, device=x.device)[None]
-    q = apply_rope(q, positions, cfg.rope_base)
-    k = apply_rope(k, positions, cfg.rope_base)
+    q = apply_rope(q, positions, base)
+    k = apply_rope(k, positions, base)
     if "k_pages" in cache:
         if "k_scale_pages" in cache:
             k, ks = quantize_kv(k)
@@ -351,8 +362,8 @@ def apply_attn(cfg, p, x, *, cache: dict, pos, page_table=None,
         paged_cache_update(cache["k_pages"], k, page_table, pos)
         paged_cache_update(cache["v_pages"], v, page_table, pos)
         o = paged_decode_attention(
-            q, cache["k_pages"], cache["v_pages"], page_table, pos,
-            k_scale_pages=cache.get("k_scale_pages"),
+            q, cache["k_pages"], cache["v_pages"], page_table, pos, window=window,
+            softcap=cfg.logit_softcap, k_scale_pages=cache.get("k_scale_pages"),
             v_scale_pages=cache.get("v_scale_pages"), use_kernel=use_kernel)
     else:
         ksc = vsc = None
@@ -363,7 +374,8 @@ def apply_attn(cfg, p, x, *, cache: dict, pos, page_table=None,
             vsc = _cache_update(cache["v_scale"], vs, pos)
         kc = _cache_update(cache["k"], k, pos)
         vc = _cache_update(cache["v"], v, pos)
-        o = decode_attention(q, kc, vc, pos, k_scale=ksc, v_scale=vsc)
+        o = decode_attention(q, kc, vc, pos, window=window, softcap=cfg.logit_softcap,
+                             k_scale=ksc, v_scale=vsc)
     return apply_linear(o.reshape(B, S, H * hd), p["wo"])
 
 
@@ -388,14 +400,33 @@ def _cdtype(cfg) -> torch.dtype:
 
 
 def embed_tokens(cfg, p, tokens):
+    """Rows of the token table (an int8 table dequantized after the
+    gather), times sqrt(d_model) in the compute dtype where the config
+    scales embeddings (gemma): the scalar is rounded to that dtype first, as
+    the reference's weakly typed Python scalar is."""
     tok = p["tok"]
     idx = tokens.long()
     if isinstance(tok, QuantLinear):  # int8 table: dequantize the gathered rows
         x = tok.q[idx].to(_cdtype(cfg))
-        return x * tok.s.to(x.dtype)
-    return tok[idx].to(_cdtype(cfg))
+        x = x * tok.s.to(x.dtype)
+    else:
+        x = tok[idx].to(_cdtype(cfg))
+    if cfg.scale_embed:
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype, device=x.device)
+    return x
 
 
-def unembed(p, x):
-    """Logits through the untied head (any representation)."""
-    return apply_linear(x, p["head"])
+def unembed(cfg, p, x):
+    """Logits: through the head where the model has one (any
+    representation), else through the tied token table -- ``x @ tok.T``,
+    and for an int8 table ``(x * s) @ q.T``: its scales lie on the
+    contraction axis, so this product is plain torch, not kernel B5, which
+    scales output channels (the reference contracts it with ``dot_general``
+    outside any Pallas kernel as well).  Softcapped logits are ROADMAP A8b
+    (``transformer.check_supported``)."""
+    if "head" in p:
+        return apply_linear(x, p["head"])
+    tok = p["tok"]
+    if isinstance(tok, QuantLinear):
+        return (x * tok.s.to(x.dtype)) @ tok.q.to(x.dtype).T
+    return x @ tok.T.to(x.dtype)

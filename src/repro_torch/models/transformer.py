@@ -8,9 +8,13 @@ reference scans over the stack, the port runs a Python loop over layers:
 ``unstack`` turns the tree into a list of per-layer views once, when a
 model is set up, and ``init_cache`` makes one cache dict per layer.
 
-Only what tinyllama-1.1b uses is ported: ``global`` attention layers with
-RMSNorm, a dense gated MLP and an untied head.  ``check_supported`` names
-the ROADMAP item of everything else.
+What the dense families use is ported (tinyllama-1.1b, llama3.2-1b,
+glm4-9b, gemma3-4b): ``global`` and sliding-window ``local`` attention
+layers with RMSNorm and a dense gated MLP, tied or untied heads, gemma's
+embedding scale and global RoPE base.  A ``local`` layer keeps a
+contiguous ring of ``local_window (+ spec_k)`` slots, also when the global
+layers are paged.  ``check_supported`` names the ROADMAP item of
+everything else.
 """
 
 from __future__ import annotations
@@ -60,18 +64,18 @@ def rem_runs(rem: tuple) -> list:
     return [(k, c) for k, c in runs]
 
 
+ATTN_KINDS = ("global", "local")
+
+
 def check_supported(cfg):
     """Raise NotImplementedError, naming the ROADMAP item, for any part of
     ``cfg`` the port does not serve yet."""
     unported = [
-        (cfg.moe is not None, "MoE layers", "A8"),
-        (any(k == "local" for k in cfg.layer_kinds), "sliding-window layers", "A8"),
-        (any(k not in ("global", "local") for k in cfg.layer_kinds),
+        (cfg.moe is not None, "MoE layers", "A8b"),
+        (any(k not in ATTN_KINDS for k in cfg.layer_kinds),
          "recurrent / xLSTM layers", "A10"),
         (cfg.norm != "rmsnorm", "layernorm", "A9"),
-        (cfg.tie_embeddings, "tied embeddings", "A2c"),
-        (cfg.scale_embed or cfg.logit_softcap > 0.0 or cfg.rope_base_global > 0.0,
-         "gemma-style embedding scale / softcap / global RoPE base", "A8"),
+        (cfg.logit_softcap > 0.0, "logit softcaps", "A8b"),
     ]
     for bad, what, item in unported:
         if bad:
@@ -102,9 +106,11 @@ def param_shapes(cfg) -> dict:
         return {k: stack(v, n) if isinstance(v, dict) else ((n,) + v[0], v[1])
                 for k, v in tree.items()}
 
+    embed = {"tok": ((cfg.vocab, cfg.d_model), "embed")}
+    if not cfg.tie_embeddings:  # a tied model unembeds through tok
+        embed["head"] = ((cfg.d_model, cfg.vocab), "dense")
     return {
-        "embed": {"tok": ((cfg.vocab, cfg.d_model), "embed"),
-                  "head": ((cfg.d_model, cfg.vocab), "dense")},
+        "embed": embed,
         "final_norm": {"scale": ((cfg.d_model,), "zeros")},
         "unit": [stack(_layer_shapes(cfg), n_units) for _ in unit],
         "rem": [stack(_layer_shapes(cfg), c) for _, c in rem_runs(rem)],
@@ -194,74 +200,97 @@ def unstack(cfg, params) -> dict:
     return {"embed": params["embed"], "final_norm": params["final_norm"], "layers": layers}
 
 
+def init_layer_cache(cfg, kind: str, batch: int, length: int, dtype=torch.bfloat16,
+                     page_size=None, num_pages=None, device="cpu", spec_k: int = 0):
+    """One layer's KV cache.  ``page_size``/``num_pages`` page a ``global``
+    layer; a ``local`` layer keeps its contiguous ring of
+    ``min(length, local_window + spec_k)`` slots either way -- the window
+    already bounds it, which is what paging would buy.  ``spec_k``
+    (speculative decode) widens the ring because a verify step writes k+1
+    positions before it attends: with exactly ``window`` slots the newest
+    draft entries would overwrite positions the earliest verify query still
+    reads."""
+    if kind == "global" and page_size is not None:
+        return L.init_paged_attn_cache(cfg, num_pages, page_size, dtype, device)
+    ln = min(length, cfg.local_window + spec_k) if kind == "local" else length
+    return L.init_attn_cache(cfg, batch, ln, dtype, device)
+
+
 def init_cache(cfg, batch: int, length: int, dtype=torch.bfloat16, kv_dtype=None,
                page_size=None, num_pages=None, device="cpu", spec_k: int = 0):
     """{"layers": one KV cache dict per layer, in execution order}.
-    ``page_size``/``num_pages`` select the paged cache and add a
-    ``page_table`` (batch, ceil(length / page_size)) int32 leaf, owned by
-    the engine.  ``spec_k`` (speculative decode) would widen sliding-window
-    rings to ``local_window + spec_k``; the port serves global layers only
-    (``check_supported``), whose caches span ``length`` already, so it is
-    accepted and changes nothing."""
+    ``page_size``/``num_pages`` select the paged cache for the global
+    layers and add a ``page_table`` (batch, ceil(length / page_size)) int32
+    leaf, owned by the engine.  ``spec_k`` widens the local layers' rings
+    (``init_layer_cache``)."""
     check_supported(cfg)
     dt = kv_dtype if kv_dtype is not None else dtype
-
-    def one():
-        if page_size is not None:
-            return L.init_paged_attn_cache(cfg, num_pages, page_size, dt, device)
-        return L.init_attn_cache(cfg, batch, length, dt, device)
-
-    cache = {"layers": [one() for _ in range(cfg.n_layers)]}
+    cache = {"layers": [init_layer_cache(cfg, kind, batch, length, dt, page_size, num_pages,
+                                         device, spec_k)
+                        for kind in cfg.layer_kinds]}
     if page_size is not None:
         cache["page_table"] = torch.zeros((batch, -(-length // page_size)),
                                           dtype=torch.int32, device=device)
     return cache
 
 
-def apply_layer(cfg, p, x, *, cache, pos=None, page_table=None, use_kernel: bool = True):
-    """One global-attention layer; returns x.  ``pos`` None is the prefill
-    over x (filling the contiguous cache), else a decode step at ``pos``."""
+def apply_layer(cfg, kind: str, p, x, *, cache, pos=None, page_table=None,
+                use_kernel: bool = True):
+    """One attention layer of ``kind`` ("global" or "local"); returns x.
+    ``pos`` None is the prefill over x (filling the contiguous cache),
+    else a decode step at ``pos``; the kind sets the window and the RoPE
+    base (``layers.attn_window_and_base``)."""
     h = L.apply_norm(p["ln1"], x)
     if pos is None:
-        a = _attn_prefill(cfg, p["attn"], h, cache, use_kernel=use_kernel)
+        a = _attn_prefill(cfg, p["attn"], h, kind, cache, use_kernel=use_kernel)
     else:
-        a = L.apply_attn(cfg, p["attn"], h, cache=cache, pos=pos, page_table=page_table,
-                         use_kernel=use_kernel)
+        a = L.apply_attn(cfg, p["attn"], h, kind=kind, cache=cache, pos=pos,
+                         page_table=page_table, use_kernel=use_kernel)
     x = x + a
     h = L.apply_norm(p["ln2"], x)
     return x + L.apply_mlp(cfg, p["mlp"], h)
 
 
-def _attn_prefill(cfg, p, h, cache, use_kernel: bool = True):
-    """Full-sequence causal attention that also fills the contiguous KV
-    cache (in place; int8 caches get the quantized K/V of every position).
-    Past ``dense_threshold`` the attention is kernel B6 on the card unless
+def _attn_prefill(cfg, p, h, kind: str, cache, use_kernel: bool = True):
+    """Full-sequence causal attention (windowed on a ``local`` layer) that
+    also fills the contiguous KV cache, in place; int8 caches get the
+    quantized K/V of every position.  A local layer's ring of Sc < Sq slots
+    keeps the last Sc positions, rolled so that slot = pos % Sc.  Past
+    ``dense_threshold`` the attention is kernel B6 on the card unless
     ``use_kernel=False``."""
     B, Sq, _ = h.shape
     H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    window, base = L.attn_window_and_base(cfg, kind)
     q = apply_linear(h, p["wq"]).reshape(B, Sq, H, hd)
     k = apply_linear(h, p["wk"]).reshape(B, Sq, KVH, hd)
     v = apply_linear(h, p["wv"]).reshape(B, Sq, KVH, hd)
     positions = torch.arange(Sq, device=h.device)[None].expand(B, Sq)
-    q = L.apply_rope(q, positions, cfg.rope_base)
-    k = L.apply_rope(k, positions, cfg.rope_base)
-    # global layers only (check_supported): no sliding window
-    o = L.attention(q, k, v, causal=True, window=None, softcap=cfg.logit_softcap,
+    q = L.apply_rope(q, positions, base)
+    k = L.apply_rope(k, positions, base)
+    o = L.attention(q, k, v, causal=True, window=window, softcap=cfg.logit_softcap,
                     use_kernel=use_kernel)
     out = apply_linear(o.reshape(B, Sq, H * hd), p["wo"])
+    Sc = cache["k"].shape[1]
+
+    def fill(c, new):
+        if Sc >= Sq:
+            c[:, :Sq] = new.to(c.dtype)
+        else:
+            c.copy_(torch.roll(new[:, -Sc:], Sq % Sc, dims=1).to(c.dtype))
+
     if "k_scale" in cache:
         k, ks = L.quantize_kv(k)
         v, vs = L.quantize_kv(v)
-        cache["k_scale"][:, :Sq] = ks
-        cache["v_scale"][:, :Sq] = vs
-    cache["k"][:, :Sq] = k.to(cache["k"].dtype)
-    cache["v"][:, :Sq] = v.to(cache["v"].dtype)
+        fill(cache["k_scale"], ks)
+        fill(cache["v_scale"], vs)
+    fill(cache["k"], k)
+    fill(cache["v"], v)
     return out
 
 
 def _run_layers(cfg, params, x, cache, pos=None, use_kernel: bool = True):
-    for p, c in zip(params["layers"], cache["layers"]):
-        x = apply_layer(cfg, p, x, cache=c, pos=pos, page_table=cache.get("page_table"),
+    for kind, p, c in zip(cfg.layer_kinds, params["layers"], cache["layers"]):
+        x = apply_layer(cfg, kind, p, x, cache=c, pos=pos, page_table=cache.get("page_table"),
                         use_kernel=use_kernel)
     return x
 
@@ -274,7 +303,7 @@ def prefill(cfg, params, tokens, cache, *, use_kernel: bool = True):
     x = L.embed_tokens(cfg, params["embed"], tokens)
     x = _run_layers(cfg, params, x, cache, use_kernel=use_kernel)
     x = L.apply_norm(params["final_norm"], x[:, -1:])
-    return L.unembed(params["embed"], x), cache
+    return L.unembed(cfg, params["embed"], x), cache
 
 
 def decode_step(cfg, params, cache, tokens, pos, *, use_kernel: bool = True):
@@ -286,4 +315,4 @@ def decode_step(cfg, params, cache, tokens, pos, *, use_kernel: bool = True):
     x = L.embed_tokens(cfg, params["embed"], tokens)
     x = _run_layers(cfg, params, x, cache, pos=pos, use_kernel=use_kernel)
     x = L.apply_norm(params["final_norm"], x)
-    return L.unembed(params["embed"], x), cache
+    return L.unembed(cfg, params["embed"], x), cache

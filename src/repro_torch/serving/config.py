@@ -7,6 +7,9 @@ speculative and chunked decode, deadlines, eviction and fault injection;
 the fields of a feature it does not serve yet (a shared allocator, ROADMAP
 A10; a mesh, A13) must keep their defaults, and ``EngineConfig`` raises
 ``NotImplementedError`` naming the ROADMAP item otherwise.
+``EngineConfig.of``/``flat`` route the reference's flat keyword names into
+the sub-configs and back, and ``from_legacy`` is the deprecation shim
+behind ``ServingEngine(**legacy)``.
 """
 
 from __future__ import annotations
@@ -130,6 +133,77 @@ class EngineConfig:
                 raise NotImplementedError(
                     f"EngineConfig.{group}.{field} is not served by the port yet: "
                     f"ROADMAP {item}")
+
+    @classmethod
+    def of(cls, **flat) -> "EngineConfig":
+        """Build from flat keyword names (the legacy ``ServingEngine``
+        kwargs), routing each into its sub-config.  Whole sub-configs may
+        also be passed (``of(max_len=64, cache=CacheConfig(...))``).  The
+        flat ``mesh`` and ``rules`` route to the fields of the same name,
+        which refuse a value (ROADMAP A13)."""
+        groups: dict = {"cache": {}, "scheduler": {}, "spec": {}, "fault": {}}
+        top: dict = {}
+        for name, value in flat.items():
+            if name in _GROUPS:
+                top[name] = value
+                continue
+            dest = _FLAT_FIELDS.get(name)
+            if dest is None:
+                raise TypeError(f"unknown engine config field {name!r}")
+            group, field = dest
+            if group is None:
+                top[field] = value
+            else:
+                groups[group][field] = value
+        for group, cls_g in _GROUPS.items():
+            if groups[group]:
+                if group in top:
+                    top[group] = dataclasses.replace(top[group], **groups[group])
+                else:
+                    top[group] = cls_g(**groups[group])
+        return cls(**top)
+
+    def flat(self) -> dict:
+        """Inverse of ``of``: the full flat-name -> value mapping."""
+        out = {}
+        for name, (group, field) in _FLAT_FIELDS.items():
+            src = self if group is None else getattr(self, group)
+            out[name] = getattr(src, field)
+        return out
+
+    @classmethod
+    def from_legacy(cls, **flat) -> "EngineConfig":
+        """Deprecation shim for ``ServingEngine(**legacy_kwargs)``: the
+        routing of ``of``, plus a once-per-process DeprecationWarning."""
+        global _LEGACY_WARNED
+        if not _LEGACY_WARNED:
+            warnings.warn(
+                "passing ServingEngine configuration as loose keyword "
+                "arguments is deprecated; pass "
+                "config=EngineConfig(...)/EngineConfig.of(...) "
+                "(repro_torch/serving/config.py)",
+                DeprecationWarning, stacklevel=4)
+            _LEGACY_WARNED = True
+        return cls.of(**flat)
+
+
+_LEGACY_WARNED = False
+
+_GROUPS = {"cache": CacheConfig, "scheduler": SchedulerConfig, "spec": SpecConfig,
+           "fault": FaultConfig}
+
+# legacy flat kwarg name -> (sub-config, field); None routes to EngineConfig
+# itself.  Generated from the dataclass fields so that the shim follows the
+# real surface; the two spec_* renames keep the historical names.
+_FLAT_FIELDS: dict = {}
+for _f in dataclasses.fields(EngineConfig):
+    if _f.name not in _GROUPS:
+        _FLAT_FIELDS[_f.name] = (None, _f.name)
+for _group, _cls in _GROUPS.items():
+    for _f in dataclasses.fields(_cls):
+        _FLAT_FIELDS[_f.name] = (_group, _f.name)
+_FLAT_FIELDS["spec_fallback_accept"] = ("spec", "fallback_accept")
+_FLAT_FIELDS["spec_fallback_min_ticks"] = ("spec", "fallback_min_ticks")
 
 
 def config_from_args(ns, *, clock=None, expected_context=None, draft_cfg=None,

@@ -239,8 +239,17 @@ class ServingEngine:
     into per-layer views once, the draft's too."""
 
     def __init__(self, cfg, params, *, config: Optional[EngineConfig] = None,
-                 plan=None, sizer: Optional[BatchSizer] = None, device=None):
-        config = config if config is not None else EngineConfig()
+                 plan=None, sizer: Optional[BatchSizer] = None, device=None, **legacy):
+        # loose kwargs (the reference's legacy surface) route through the
+        # deprecation shim, which warns once per process
+        if legacy:
+            if config is not None:
+                raise TypeError(
+                    "pass either config=EngineConfig(...) or legacy keyword "
+                    f"arguments, not both (got {sorted(legacy)})")
+            config = EngineConfig.from_legacy(**legacy)
+        elif config is None:
+            config = EngineConfig()
         self.config = config
         cc, sc, pc, fc = config.cache, config.scheduler, config.spec, config.fault
         self.device = resolve_device(device)
@@ -267,6 +276,10 @@ class ServingEngine:
             if reason is not None:
                 warnings.warn(reason + "; serving synchronous prefill", stacklevel=2)
             else:
+                if any(k == "local" for k in cfg.layer_kinds):
+                    # a chunk wider than a sliding-window ring would scatter
+                    # duplicate ring slots in one step: clamp to the window
+                    chunk = min(chunk, cfg.local_window)
                 self.prefill_chunk = chunk
                 self.prefill_budget = max(int(sc.prefill_budget or 0), chunk)
         ctx = min(int(cc.expected_context) if cc.expected_context else max_len, max_len)
@@ -860,11 +873,11 @@ class ServingEngine:
 
     def _write_slot_paged(self, slot: int, cache1, start: int, stop: int):
         """Scatter positions [start, stop) of a batch-1 contiguous prefill
-        cache into this slot's pages (in place)."""
+        cache into this slot's pages (in place); a layer that is not paged
+        (a sliding-window ring) takes its whole row, whatever the shared
+        prefix covers, since rings are never shared."""
         ps = self.page_size
         pos_w = np.arange(start, stop)
-        if len(pos_w) == 0:
-            return
         for lp in sorted({int(p) // ps for p in pos_w}):
             self._ensure_private(slot, lp)
         phys = torch.as_tensor([self.slot_pages[slot][p // ps] for p in pos_w],
@@ -872,6 +885,12 @@ class ServingEngine:
         off = torch.as_tensor(pos_w % ps, dtype=torch.long, device=self.device)
         src = torch.as_tensor(pos_w, dtype=torch.long, device=self.device)
         for entry, one in zip(self.cache["layers"], cache1["layers"]):
+            if "k_pages" not in entry:
+                for k, ring in entry.items():
+                    ring[slot] = one[k][0].to(ring.dtype)
+                continue
+            if len(pos_w) == 0:
+                continue
             for pk, ck in _PAGED_KEYS:
                 if pk in entry:
                     entry[pk][phys, off] = one[ck][0, src].to(entry[pk].dtype)
