@@ -53,7 +53,16 @@ Phases, in order; any failure raises and the script exits non-zero:
                to its plain version, launched twice for the same bits, and
                timed beside its plain version and its library call; each
                is a row of its kernel in the summary line, with the
-               launches the families phase counts at that shape.
+               launches the families phase counts at that shape.  Then
+               the MoE family's shapes (``phase_moe_kernels``): B2 and B1
+               over a stack of experts (one launch, gridDim.z = E) at
+               granite-moe's 32 x 1024 x 512 / 32 x 512 x 1024 and
+               qwen2-moe's 64 x 2048 x 1408 / 64 x 1408 x 2048 stacks at M 8
+               an expert, each equal bit for bit to E single-expert
+               launches in the stack's regime and timed beside torch.bmm on
+               the dequantized stack; stacked B4 equal to stacked B1; B3 at
+               qwen2-moe's 16/16 heads, hd 128 (T 1, T 5), B6 at its
+               2048-token prefill, B5 at its 2048 x 151936 head.
 4. fcnet    -- the paper's four FC nets (Table 2) at published widths,
                random weights from a seed: forward_fp32 / forward_pruned
                (B7) held to the plain path, forward_q78 (B8) equal to it
@@ -146,7 +155,23 @@ Phases, in order; any failure raises and the script exits non-zero:
                40, 600 and 1000 tokens against the same prompts prefilled
                whole (within the window a chunk sees every key a whole
                prefill sees), never reaching B6.
-13. summary -- one JSON line of per-kernel numbers, then the result line.
+13. moe      -- granite-moe-1b-a400m (24 layers, d 1024, 32 experts top-8)
+               and qwen2-moe-a2.7b (24 layers, d 2048, 60 experts padded
+               to 64, top-4, 4 shared, untied head) at full width and depth,
+               random weights from a seed, the serve phase's flags and
+               requests, each through the kernels and the plain versions
+               (streams by the near-tie rule; the build's peak memory
+               logged); every stacked B1/B2 launch covers all Ep experts and
+               a decode step launches each once a layer; ``_path_parity``
+               (prefills of 36, 40 and 2032 tokens -- the last past full
+               capacity -- and teacher-forced decode); granite's plan saved
+               without walks and booted from --plan-cache (stacked B4, the
+               walk plan's tokens exactly) and its self-draft speculation;
+               qwen2-moe's served 2032-token prompt (B6 at hd 128, stacked
+               B2 at M 172 an expert) and its self-draft speculation (B3 at
+               T 5).  Every kernel row must carry launches from a served
+               run.
+14. summary -- one JSON line of per-kernel numbers, then the result line.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -154,6 +179,7 @@ It imports nothing of JAX and nothing of the JAX package ``repro``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import hashlib
 import json
@@ -1235,6 +1261,8 @@ def _zero_launches(counters) -> None:
 
     for c in counters:
         c.launches = 0
+        if hasattr(c, "stacked_launches"):  # B1, B2, B4: a stack of experts' launches
+            c.stacked_launches = c.stacked_experts = 0
     QM.quant_matmul.wgmma_launches = QM.quant_matmul.dense_tile_launches = 0
     FA.paged_decode_attention.launches_by_t.clear()
     FA.flash_attention.launches_by_window.clear()
@@ -1921,18 +1949,71 @@ def phase_faults(torch, card: str) -> None:
     torch.cuda.empty_cache()
 
 
+class _SharedRouting:
+    """A MoE model's plain pass replays its kernel pass's routing.
+
+    The kernel pass records every ``moe.route`` call (expert choices,
+    slots, kept assignments); the plain pass that follows on the same
+    tokens takes them back in the same order, with gate values from its
+    own router probabilities.  A top-k choice is discontinuous: a one-ulp
+    difference upstream sends a token to another expert wherever two
+    router probabilities nearly tie (common under random weights: 60
+    experts' logits lie close), which moves its output far more than the
+    kernels' rounding does.  With the choices shared the comparison holds
+    the kernels' arithmetic to PATH_RTOL; ``flips`` counts the assignments
+    the plain pass would have routed elsewhere.  A dense model runs both
+    passes untouched."""
+
+    def __init__(self, cfg):
+        self.moe = cfg.moe is not None
+        self.calls, self.flips, self.total = [], 0, 0
+
+    @contextlib.contextmanager
+    def run(self, record: bool):
+        """A pass that records (the kernels') or replays (the plain one's)."""
+        if not self.moe:
+            yield
+            return
+        from repro_torch.models import moe as MOE
+
+        inner = MOE.route
+        if record:
+            self.calls = []
+        replay = iter(self.calls)
+
+        def route(cfg, xg, router):
+            r = inner(cfg, xg, router)
+            if record:
+                self.calls.append(r)
+                return r
+            k = next(replay)
+            self.flips += int((r.idx != k.idx).sum())
+            self.total += r.idx.numel()
+            gates = r.probs.gather(-1, k.idx)
+            gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+            return dataclasses.replace(k, probs=r.probs, gates=gates)
+
+        MOE.route = route
+        try:
+            yield
+        finally:
+            MOE.route = inner
+
+
 def _path_parity(torch, cfg, params, label: str, gen) -> None:
     """Prefill at the serve phase's prompt lengths and at LONG_M (past the
     dense threshold: B6), then teacher-forced paged int8-KV decode, through
     the kernels and through the plain versions (``with_use_kernel(params,
     False)``, ``prefill(use_kernel=False)``) on the same tokens; the logits
-    must agree within PATH_RTOL at every step."""
+    must agree within PATH_RTOL at every step.  A MoE model's plain pass
+    takes the kernel pass's expert choices (``_SharedRouting``)."""
     from repro_torch.core.weight_plan import with_use_kernel
     from repro_torch.models import transformer as T
 
     B, steps, ps = 4, 24, 16
     tokens = torch.randint(0, cfg.vocab, (steps, B), generator=gen, device="cuda")
     paths = {"kernels": (params, True), "plain": (with_use_kernel(params, False), False)}
+    shared = _SharedRouting(cfg)
 
     greedy = []  # the kernel path's greedy tokens: each prefill's, then each step's
     for S in (36, 40, LONG_M):
@@ -1940,7 +2021,9 @@ def _path_parity(torch, cfg, params, label: str, gen) -> None:
         lg = {}
         for name, (p, use_kernel) in paths.items():
             cache = T.init_cache(cfg, 1, S, torch.bfloat16, kv_dtype=torch.int8, device="cuda")
-            lg[name] = T.prefill(cfg, p, prompt, cache, use_kernel=use_kernel)[0][0, -1].float()
+            with shared.run(record=use_kernel):
+                lg[name] = T.prefill(cfg, p, prompt, cache,
+                                     use_kernel=use_kernel)[0][0, -1].float()
         torch.cuda.synchronize()
         a, b = lg["kernels"], lg["plain"]
         greedy.append(int(a.argmax()))
@@ -1960,11 +2043,12 @@ def _path_parity(torch, cfg, params, label: str, gen) -> None:
                              page_size=ps, num_pages=1 + B * P, device="cuda")
         cache["page_table"].copy_(1 + torch.arange(B * P, device="cuda").reshape(B, P))
         out = []
-        for t in range(steps):
-            pos = torch.full((B,), t, dtype=torch.int32, device="cuda")
-            lg, cache = T.decode_step(cfg, p, cache, tokens[t][:, None], pos,
-                                      use_kernel=use_kernel)
-            out.append(lg[:, 0].float())
+        with shared.run(record=use_kernel):
+            for t in range(steps):
+                pos = torch.full((B,), t, dtype=torch.int32, device="cuda")
+                lg, cache = T.decode_step(cfg, p, cache, tokens[t][:, None], pos,
+                                          use_kernel=use_kernel)
+                out.append(lg[:, 0].float())
         logits[name] = torch.stack(out)
     torch.cuda.synchronize()
     a, b = logits["kernels"], logits["plain"]
@@ -1978,6 +2062,9 @@ def _path_parity(torch, cfg, params, label: str, gen) -> None:
     log(f"parity {label}: {steps} teacher-forced steps x {B} sequences, max |dlogit| / "
         f"max |logit| = {worst:.3e} (tolerance {PATH_RTOL}), greedy agreement {agree:.4f}, "
         f"kernel path's greedy tokens {token_digest(greedy)}")
+    if shared.moe:
+        log(f"parity {label}: the plain pass, given the kernel pass's routing, would have "
+            f"sent {shared.flips} of {shared.total} (token, k) assignments to another expert")
     if not worst <= PATH_RTOL:
         raise AssertionError(f"{label}: kernel path logits differ from the plain path: "
                              f"{worst:.3e}")
@@ -2332,25 +2419,32 @@ def _engine_like(engine, plan, params=None, **changes):
                          plan=plan, device=engine.device, config=EngineConfig.of(**flat))
 
 
-def _family_serve(torch, results, arch: str, card: str):
+def _family_serve(torch, arch: str, card: str):
     """One family at full width with the quickstart flags: the kernel path's
     streams, its launches (B1, B2, B3; B5 only for an untied head; no B4),
     tok/s and step time, then the plain path's streams, held to each other
-    by the near-tie rule.  Returns (serve, cfg, engine, plan, outputs)."""
+    by the near-tie rule.  Returns (serve, cfg, engine, plan, outputs, the
+    kernel run's {"launches", "by_t": B3's launches by query positions,
+    "stacked": B1/B2/B4's (stacked launches, experts covered)})."""
     from repro_torch.core.weight_plan import with_use_kernel
     from repro_torch.kernels import flash_attention as FA
 
     serve, ap, args = _serve_args(["--arch", arch])
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     cfg, engine, plan = serve.build_engine(args, ap)
     torch.cuda.synchronize()
     log(f"{arch}: model + plan + engine built in {time.perf_counter() - t0:.1f}s "
         f"({cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} kv, "
-        f"hd {cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, tied {cfg.tie_embeddings}; "
-        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated)")
+        f"hd {cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, tied {cfg.tie_embeddings}"
+        f"{_moe_label(cfg)}; {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB during the build)")
     ticks = []
     outputs, launches, dt = _serve_and_check(serve, engine, cfg, args.max_new, arch,
                                              ticks=ticks)
+    run = {"launches": dict(launches), "by_t": dict(FA.paged_decode_attention.launches_by_t),
+           "stacked": {c.__name__: (c.stacked_launches, c.stacked_experts)
+                       for c in _served_kernels() if hasattr(c, "stacked_launches")}}
     if launches.pop("block_sparse_matmul_col"):
         raise AssertionError(f"{arch}: B4 launched, but every served leaf carries its walk")
     for name in ("block_sparse_matmul", "fused_gate_up", "paged_decode_attention"):
@@ -2365,11 +2459,6 @@ def _family_serve(torch, results, arch: str, card: str):
         f"pages shared, {engine.stats.decode_tokens / dt:.1f} tok/s, decode tick "
         f"{step_ms:.2f} ms (median of {n_steps}, batch {engine.stats.mean_batch:.2f}) on "
         f"{card}")
-    if cfg.hd != 64:  # the rows of B3 at the new head dims
-        _row(results, "paged_decode_attention", f"hd{cfg.hd} serve")["launches"] = \
-            FA.paged_decode_attention.launches_by_t.get(1, 0)
-    if arch == "gemma3-4b":
-        _row(results, "fused_gate_up", "gelu")["launches"] = launches["fused_gate_up"]
 
     plain = _engine_like(engine, plan, params=with_use_kernel(engine.params, False))
     plain.attention_kernel = False
@@ -2382,16 +2471,17 @@ def _family_serve(torch, results, arch: str, card: str):
     log(f"{arch} plain: {plain.stats.decode_tokens / p_dt:.1f} tok/s on {card}")
     del plain
     torch.cuda.empty_cache()
-    return serve, cfg, engine, plan, outputs
+    return serve, cfg, engine, plan, outputs, run
 
 
-def _family_long(torch, results, serve, cfg, engine, plan, card: str) -> None:
+def _family_long(torch, results, serve, cfg, engine, plan, card: str, key=None) -> dict:
     """One 2032-token prompt (16 new tokens, max_len 2048) served through
     the family's engine: every layer's prefill attention runs B6 at the
     family's head dim (gemma3: windowed on its local layers), counted by
-    window at the launch site; the first tick (the prefill and one decode
-    step) timed; the first token held to the plain path's by the near-tie
-    rule (``_path_parity`` holds the logits)."""
+    window at the launch site into B6's row ``key`` (default "hd<hd>"); the
+    first tick (the prefill and one decode step) timed; the first token held
+    to the plain path's by the near-tie rule (``_path_parity`` holds the
+    logits).  Returns the run's launches."""
     import numpy as np
 
     from repro_torch.kernels import flash_attention as FA
@@ -2421,19 +2511,22 @@ def _family_long(torch, results, serve, cfg, engine, plan, card: str) -> None:
     for name in ("block_sparse_matmul", "fused_gate_up", "paged_decode_attention"):
         if launches[name] <= 0:
             raise AssertionError(f"{arch} long: kernel {name} was not launched")
-    _row(results, "flash_attention", f"hd{cfg.hd}")["launches"] = by_w.get(0, 0)
+    _row(results, "flash_attention", key or f"hd{cfg.hd}")["launches"] = by_w.get(0, 0)
     if "local" in cfg.layer_kinds:
         _row(results, "flash_attention", f"hd{cfg.hd} window")["launches"] = \
             by_w.get(cfg.local_window, 0)
     del eng
     torch.cuda.empty_cache()
+    return launches
 
 
-def _family_spec(torch, results, serve, cfg, engine, plan, outputs, card: str) -> None:
+def _family_spec(torch, results, serve, cfg, engine, plan, outputs, card: str,
+                 key="") -> dict:
     """The family with its own plan as the draft (k = SPEC_K; a model with
     local layers widens their rings by k): B3 at T = 5 on the global layers
-    at the family's head dim, accept rate over 0.5, streams held to the
-    serve run's by the near-tie rule."""
+    at the family's head dim, counted into B3's row ``key`` (default
+    "hd<hd> verify"; None: no row), accept rate over 0.5, streams held to
+    the serve run's by the near-tie rule.  Returns the run's launches."""
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.serving.config import SpecConfig
     from repro_torch.serving.engine import ServingEngine
@@ -2454,13 +2547,15 @@ def _family_spec(torch, results, serve, cfg, engine, plan, outputs, card: str) -
     if not spec.stats.accept_rate > 0.5 or not per_seq > 1.0:
         raise AssertionError(f"{arch} spec: accept rate {spec.stats.accept_rate:.4f}, "
                              f"{per_seq:.3f} tokens a sequence a tick")
-    _row(results, "paged_decode_attention", f"hd{cfg.hd} verify")["launches"] = \
-        by_t[SPEC_K + 1]
+    if key is not None:
+        _row(results, "paged_decode_attention", key or f"hd{cfg.hd} verify")["launches"] = \
+            by_t[SPEC_K + 1]
     prompts = [r.prompt for r in _serve_requests(cfg, 16)]
     _streams_near_tie(torch, cfg, engine.params, f"{arch} spec vs serve", prompts, outputs,
                       out_spec)
     del spec
     torch.cuda.empty_cache()
+    return launches
 
 
 def _gemma_chunked(torch, serve, cfg, engine, plan, card: str) -> None:
@@ -2496,8 +2591,8 @@ def _gemma_chunked(torch, serve, cfg, engine, plan, card: str) -> None:
 
 
 def _check_family_rows(results: dict) -> None:
-    """Every kernel row of the families phase carries the launches that a
-    served run at its shape counted."""
+    """Every kernel row of the families and MoE phases carries the launches
+    that a served run at its shape counted (checked once both have run)."""
     for name, r in results.items():
         for row in r.get("rows", []):
             if "key" in row and not (row["launches"] or 0) > 0:
@@ -2512,9 +2607,14 @@ def phase_families(torch, results: dict, card: str) -> None:
     tokens and teacher-forced decode, kernels vs plain versions), then for
     glm4-9b and gemma3-4b a served 2032-token prompt (``_family_long``) and
     self-draft speculation (``_family_spec``), and for gemma3-4b chunked
-    prefill."""
+    prefill.  Its kernel rows are checked after the MoE phase."""
     for arch in FAMILIES:
-        serve, cfg, engine, plan, outputs = _family_serve(torch, results, arch, card)
+        serve, cfg, engine, plan, outputs, run = _family_serve(torch, arch, card)
+        if cfg.hd != 64:  # the rows of B3 at the new head dims
+            _row(results, "paged_decode_attention", f"hd{cfg.hd} serve")["launches"] = \
+                run["by_t"].get(1, 0)
+        if arch == "gemma3-4b":
+            _row(results, "fused_gate_up", "gelu")["launches"] = run["launches"]["fused_gate_up"]
         gen = torch.Generator(device="cuda")
         gen.manual_seed(11)
         _path_parity(torch, cfg, engine.params, f"{arch} quant_sparse", gen)
@@ -2523,6 +2623,357 @@ def phase_families(torch, results: dict, card: str) -> None:
             _family_spec(torch, results, serve, cfg, engine, plan, outputs, card)
         if arch == "gemma3-4b":
             _gemma_chunked(torch, serve, cfg, engine, plan, card)
+        del engine, plan
+        torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# the MoE family: stacked experts through B1, B2 and B4
+# ---------------------------------------------------------------------------
+
+MOE_ARCHS = ("granite-moe-1b-a400m", "qwen2-moe-a2.7b")
+
+
+def _moe_label(cfg) -> str:
+    """The MoE part of a model's description (empty for a dense model)."""
+    m = cfg.moe
+    if m is None:
+        return ""
+    return (f", MoE {m.n_experts} experts ({m.n_experts_padded} stacked) top-{m.top_k}, "
+            f"expert d_ff {m.expert_d_ff}, {m.n_shared_experts} shared")
+
+
+def _expert(p, e: int):
+    """Expert ``e`` of a packed stack as a 2-D PackedLinear (views)."""
+    return dataclasses.replace(p, blocks=p.blocks[e], block_rows=p.block_rows[e],
+                               counts=p.counts[e], scales=p.scales[e], walk=None)
+
+
+def _packed_stack(torch, E: int, K: int, N: int, gen):
+    """A stack of E random (K, N) experts, int8 block-sparse at q 0.5 (each
+    pruned on its own, one mb), as compress packs a layer's expert leaf."""
+    from repro_torch.core.weight_plan import PlanConfig, pack_block_sparse
+
+    w = torch.randn((E, K, N), generator=gen, device="cuda") / K ** 0.5
+    return pack_block_sparse(w, PlanConfig(q_prune=0.5), quant=True)
+
+
+def _stack_bytes(E: int, M: int, K: int, N: int, packs) -> float:
+    """Bytes a stacked launch must move: x and y once, and per packed
+    operand its surviving payload with one row index a block, its counts
+    and its scales."""
+    nbytes = E * M * K * 2 + E * M * N * 2
+    for p in packs:
+        nbytes += (int(p.counts.sum()) * (128 * 128 + 4) + p.counts.numel() * 4
+                   + p.scales.numel() * 4)
+    return nbytes
+
+
+def _per_expert_equal(torch, label: str, E: int, y, one) -> None:
+    """A stacked launch equals E single-expert launches (``one(e)``) bit for
+    bit, in the stack's regime: the split orders a column's partial sums,
+    so the single launches take the split ``launch_plan`` gives the stack."""
+    from repro_torch.kernels import block_sparse as BS
+
+    plan = BS.launch_plan
+    BS.launch_plan = lambda M, n_cols, mb, n_sm, n_stack=1: plan(M, n_cols, mb, n_sm, E)
+    try:
+        ys = torch.stack([one(e) for e in range(E)])
+    finally:
+        BS.launch_plan = plan
+    torch.cuda.synchronize()
+    if not torch.equal(ys, y):
+        raise AssertionError(f"{label}: the stacked launch differs from {E} single-expert "
+                             f"launches")
+    log(f"{label}: one stacked launch equals {E} single-expert launches bit for bit")
+
+
+def _moe_pair_row(torch, timer, gen, results, key: str, E: int, K: int, N: int,
+                  M: int = 8) -> None:
+    """Stacked B2 at one arch's expert gate/up stacks (E x K x N, silu):
+    held to its plain version (the 2-D plain version over each expert),
+    twice for the same bits, equal to E single-expert launches, timed beside
+    the plain version and one torch.bmm on the dequantized bf16 [Wg | Wu]
+    stack plus the gate."""
+    from repro_torch.kernels import fused_gate_up as FG
+
+    g, u = _packed_stack(torch, E, K, N, gen), _packed_stack(torch, E, K, N, gen)
+    ga, ua = (g.blocks, g.block_rows, g.counts), (u.blocks, u.block_rows, u.counts)
+    x = torch.randn((E, M, K), generator=gen, device="cuda").to(torch.bfloat16)
+    label = f"stacked B2 {E}x{K}x{N} M={M}"
+
+    def fn():
+        return FG.fused_gate_up(x, ga, ua, g.scales, u.scales)
+
+    y = fn()
+    d, r = _held(torch, label, y, FG.fused_gate_up(x, ga, ua, g.scales, u.scales,
+                                                   use_kernel=False), KERNEL_RTOL)
+    _deterministic(torch, label, y, fn())
+    _per_expert_equal(torch, label, E, y, lambda e: FG.fused_gate_up(
+        x[e], [t[e] for t in ga], [t[e] for t in ua], g.scales[e], u.scales[e]))
+    surv = int(g.counts.sum() + u.counts.sum())
+    b_ms, b_by = bound(_stack_bytes(E, M, K, N, (g, u)), 2.0 * M * surv * 128 * 128)
+    wgu = torch.stack([torch.cat([_dense_bf16(torch, _expert(g, e)),
+                                  _dense_bf16(torch, _expert(u, e))], dim=1) for e in range(E)])
+    silu = torch.nn.functional.silu
+
+    def library():
+        h = torch.bmm(x, wgu)
+        return silu(h[..., :N]) * h[..., N:]
+
+    ms = timer(fn)
+    plain_ms = timer(lambda: FG.fused_gate_up(x, ga, ua, g.scales, u.scales, use_kernel=False))
+    lib_ms = timer(library)
+    log(f"{label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.bmm(dense [Wg|Wu] bf16) "
+        f"+ gate {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; {surv} surviving blocks)")
+    _add_row(results, "fused_gate_up", {
+        "key": key, "shape": f"stack of {E} experts {K}x{N} gate+up silu at M={M} an expert",
+        "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
+        "bound_by": b_by}, d, r)
+
+
+def _moe_down_rows(torch, timer, gen, results, key: str, E: int, K: int, N: int,
+                   M: int = 8, b4: bool = False) -> None:
+    """Stacked B1 at one arch's expert down-projection stack (E x K x N):
+    held to its plain version, twice for the same bits, equal to E
+    single-expert launches, timed beside the plain version and torch.bmm on
+    the dequantized bf16 stack; with ``b4`` also stacked B4 on the same
+    operands, equal to stacked B1 bit for bit, as B4's row."""
+    from repro_torch.kernels import block_sparse as BS
+
+    p = _packed_stack(torch, E, K, N, gen)
+    args = (p.blocks, p.block_rows, p.counts, p.scales)
+    x = torch.randn((E, M, K), generator=gen, device="cuda").to(torch.bfloat16)
+    wd = torch.stack([_dense_bf16(torch, _expert(p, e)) for e in range(E)])
+    surv = int(p.counts.sum())
+    b_ms, b_by = bound(_stack_bytes(E, M, K, N, (p,)), 2.0 * M * surv * 128 * 128)
+    lib_ms = timer(lambda: torch.bmm(x, wd))
+    plain_ms = timer(lambda: BS.block_sparse_matmul(x, *args, use_kernel=False))
+    want = BS.block_sparse_matmul(x, *args, use_kernel=False)
+    kernels = [("B1", BS.block_sparse_matmul)]
+    if b4:
+        kernels.append(("B4", BS.block_sparse_matmul_col))
+    y1 = None
+    for tag, fn in kernels:
+        label = f"stacked {tag} {E}x{K}x{N} M={M}"
+        y = fn(x, *args)
+        d, r = _held(torch, label, y, want, KERNEL_RTOL)
+        _deterministic(torch, label, y, fn(x, *args))
+        if y1 is None:
+            y1 = y
+            _per_expert_equal(torch, label, E, y, lambda e: fn(x[e], *[t[e] for t in args]))
+        elif not torch.equal(y, y1):
+            raise AssertionError(f"{label}: stacked B4 differs from stacked B1")
+        else:
+            log(f"{label}: equals stacked B1 bit for bit")
+        ms = timer(lambda: fn(x, *args))
+        log(f"{label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.bmm(dense bf16) "
+            f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; {surv} surviving blocks)")
+        _add_row(results, fn.__name__, {
+            "key": key, "shape": f"stack of {E} experts {K}x{N} at M={M} an expert",
+            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
+            "bound_by": b_by}, d, r)
+
+
+def _b5_head_row(torch, timer, gen, results, key: str, K: int, N: int, M: int = 8) -> None:
+    """B5 at an untied int8 head (K x N, M rows): held to its plain version,
+    twice for the same bits, timed beside torch.matmul on the dequantized
+    bf16 weight."""
+    from repro_torch.core.weight_plan import quantize_leaf
+    from repro_torch.kernels import block_sparse as BS
+    from repro_torch.kernels import quant_matmul as QM
+
+    leaf = quantize_leaf(torch.randn((K, N), generator=gen, device="cuda") / K ** 0.5)
+    wq, sc = leaf.q, leaf.s
+    x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+    label = f"B5 {K}x{N} M={M} bf16"
+    log(f"{label}: regime {QM.regime(x.dtype, M, K, N, K, N, BS.sm_count(x.device))}")
+    y = QM.quant_matmul(x, wq, sc)
+    d, r = _held(torch, label, y, QM.quant_matmul(x, wq, sc, use_kernel=False), KERNEL_RTOL)
+    _deterministic(torch, label, y, QM.quant_matmul(x, wq, sc))
+    b_ms, b_by = bound(M * K * 2 + K * N + N * 4 + M * N * 2, 2.0 * M * K * N)
+    wd = (wq.float() * sc).to(torch.bfloat16)
+    ms = timer(lambda: QM.quant_matmul(x, wq, sc))
+    plain_ms = timer(lambda: QM.quant_matmul(x, wq, sc, use_kernel=False))
+    lib_ms = timer(lambda: torch.matmul(x, wd))
+    log(f"{label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.matmul(dequantized bf16) "
+        f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    _add_row(results, "quant_matmul", {
+        "key": key, "shape": f"int8 {K}x{N}, bf16 x at M={M}", "ms": ms, "plain_ms": plain_ms,
+        "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by}, d, r)
+
+
+def phase_moe_kernels(torch, results: dict) -> None:
+    """The kernels at the MoE family's shapes, each against its plain
+    version: stacked B2 and B1 at granite-moe's 32 x 1024 x 512 / 32 x 512
+    x 1024 and qwen2-moe's 64 x 2048 x 1408 / 64 x 1408 x 2048 expert stacks
+    at M 8 (each also equal to its single-expert launches), stacked B4 at
+    granite's down stack (equal to stacked B1), B3 at qwen2-moe's 16/16
+    heads at hd 128 (serve and verify steps), B6 at its 2048-token prefill,
+    B5 at its 2048 x 151936 head."""
+    from repro_torch.configs import get_config
+
+    timer = Timer(torch)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(22)
+    for arch in MOE_ARCHS:
+        cfg = get_config(arch)
+        d, E, f = cfg.d_model, cfg.moe.n_experts_padded, cfg.moe.expert_d_ff
+        _moe_pair_row(torch, timer, gen, results, arch, E, d, f)
+        _moe_down_rows(torch, timer, gen, results, arch, E, f, d,
+                       b4=arch == "granite-moe-1b-a400m")
+        torch.cuda.empty_cache()
+    q = get_config("qwen2-moe-a2.7b")
+    _b3_row(torch, timer, gen, results, "qwen2-moe serve", q.n_heads, q.n_kv_heads, q.hd, 1)
+    _b3_row(torch, timer, gen, results, "qwen2-moe verify", q.n_heads, q.n_kv_heads, q.hd,
+            SPEC_K + 1)
+    _b6_row(torch, timer, gen, results, "qwen2-moe", q.n_heads, q.n_kv_heads, q.hd)
+    _b5_head_row(torch, timer, gen, results, "qwen2-moe head", q.d_model, q.vocab)
+    torch.cuda.empty_cache()
+
+
+def _step_launches(torch, cfg, params) -> dict:
+    """Each served kernel's (launches, stacked launches) in one batch-8
+    decode step (paged int8 KV at 40-token contexts)."""
+    from repro_torch.models import transformer as T
+
+    B, ps, ctx = 8, 16, 40
+    P = -(-(ctx + 1) // ps)
+    cache = T.init_cache(cfg, B, P * ps, torch.bfloat16, kv_dtype=torch.int8, page_size=ps,
+                         num_pages=1 + B * P, device="cuda")
+    cache["page_table"].copy_(1 + torch.arange(B * P, device="cuda").reshape(B, P))
+    tokens = torch.zeros((B, 1), dtype=torch.long, device="cuda")
+    pos = torch.full((B,), ctx, dtype=torch.int32, device="cuda")
+    counters = _served_kernels()
+    _zero_launches(counters)
+    T.decode_step(cfg, params, cache, tokens, pos)
+    torch.cuda.synchronize()
+    return {c.__name__: (c.launches, getattr(c, "stacked_launches", 0)) for c in counters}
+
+
+def _moe_checks(torch, results, arch: str, cfg, engine, run) -> None:
+    """A MoE serve run reached every expert stack through the stacked
+    kernels: stacked B1 (down) and B2 (gate/up) launches, each over all
+    ``Ep`` experts, counted into the rows keyed ``arch``; and one decode
+    step launches each once a layer."""
+    Ep = cfg.moe.n_experts_padded
+    for name in ("block_sparse_matmul", "fused_gate_up"):
+        n, experts = run["stacked"][name]
+        if n <= 0 or experts != n * Ep:
+            raise AssertionError(f"{arch}: {n} stacked {name} launches over {experts} experts "
+                                 f"(each must cover all {Ep})")
+        _row(results, name, arch)["launches"] = n
+    log(f"{arch}: stacked launches in the served run (launches, experts covered): B1 "
+        f"{run['stacked']['block_sparse_matmul']}, B2 {run['stacked']['fused_gate_up']}")
+    step = _step_launches(torch, cfg, engine.params)
+    log(f"{arch}: one decode step at batch 8 launches (all, stacked) {step}")
+    for name in ("block_sparse_matmul", "fused_gate_up"):
+        if step[name][1] != cfg.n_layers:
+            raise AssertionError(f"{arch}: a decode step launched stacked {name} "
+                                 f"{step[name][1]} times, not once a layer ({cfg.n_layers})")
+
+
+def _moe_walkless(torch, results, arch: str, plan, outputs, card: str) -> None:
+    """The served plan saved without walks and booted from --plan-cache: every
+    packed leaf runs B4 (the expert stacks as stacked B4), none B1, and B4
+    equals B1 bit for bit, so the greedy tokens equal the walk plan's,
+    every one."""
+    import shutil
+    import tempfile
+
+    from repro_torch.core import weight_plan as W
+    from repro_torch.kernels import block_sparse as BS
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_moe_plan_")
+    try:
+        bare = W.map_tree(lambda _, n: dataclasses.replace(n, walk=None)
+                          if isinstance(n, W.PackedLinear) else n, plan.params)
+        W.save_plan(tmp, dataclasses.replace(plan, params=bare))
+        del bare
+        serve, ap, args = _serve_args(["--arch", arch, "--plan-cache", tmp])
+        out, cfg, engine, plan2, boot_s = _boot(torch, serve, ap, args)
+        if "plan cache hit" not in out:
+            raise AssertionError(f"{arch} walk-less: the boot did not hit the plan cache")
+        bare_out, launches, dt = _serve_and_check(serve, engine, cfg, args.max_new,
+                                                  f"{arch} walk-less")
+        n4 = BS.block_sparse_matmul_col.stacked_launches
+        if launches["block_sparse_matmul"] or n4 <= 0:
+            raise AssertionError(f"{arch} walk-less: B1 {launches['block_sparse_matmul']}, "
+                                 f"stacked B4 {n4} launches (B4 only, stacks included)")
+        _row(results, "block_sparse_matmul_col", arch)["launches"] = n4
+        if bare_out != outputs:
+            raise AssertionError(f"{arch} walk-less: greedy tokens differ from the walk plan's")
+        log(f"{arch} walk-less: boot {boot_s:.2f}s from the plan cache, B4 launches "
+            f"{launches['block_sparse_matmul_col']} ({n4} stacked), all "
+            f"{sum(map(len, outputs))} greedy tokens equal the walk plan's "
+            f"({engine.stats.decode_tokens / dt:.1f} tok/s on {card})")
+        del engine, plan2
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _moe_long(torch, results, serve, cfg, engine, plan, card: str) -> None:
+    """qwen2-moe's served 2032-token prompt: B6 at hd 128 (16/16 heads) once
+    a layer, and the MoE past full capacity (T 2032 > 256: groups of 508,
+    ceil(508 * 4 / 60 * 1.25) = 43 slots an expert a group, assignments past
+    them dropped) through stacked B2 and B1 at M 4 x 43 = 172 an expert,
+    recorded at the dispatch."""
+    import math
+
+    from repro_torch.kernels import ops
+
+    m = cfg.moe
+    G = 508  # the largest divisor of 2032 up to 512
+    want = (m.n_experts_padded, LONG_M // G * math.ceil(G * m.top_k / m.n_experts
+                                                          * m.capacity_factor), cfg.d_model)
+    shapes = set()
+    inner = ops.fused_gate_up
+
+    def spy(x2, g, u, activation):
+        if x2.dim() == 3:
+            shapes.add(tuple(x2.shape))
+        return inner(x2, g, u, activation)
+
+    ops.fused_gate_up = spy
+    try:
+        _family_long(torch, results, serve, cfg, engine, plan, card, key="qwen2-moe")
+    finally:
+        ops.fused_gate_up = inner
+    log(f"{cfg.name} long: stacked B2 (E, M, K) {sorted(shapes)}; the {LONG_M}-token prefill "
+        f"must route {want}")
+    if want not in shapes:
+        raise AssertionError(f"{cfg.name} long: the prefill did not reach stacked B2 at {want}")
+
+
+def phase_moe(torch, results: dict, card: str) -> None:
+    """granite-moe-1b-a400m and qwen2-moe-a2.7b at published widths and
+    depths (random weights from seed 0, the quickstart flags): for each, the
+    serve run and the plain path's (``_family_serve``: streams by the
+    near-tie rule, the build's peak memory), the stacked launches
+    (``_moe_checks``), ``_path_parity`` (prefills of 36, 40 and 2032 tokens
+    -- the last past full capacity -- and teacher-forced decode); granite's
+    walk-less plan through stacked B4 and its self-draft speculation (the
+    verify step's T = 40 through the MoE); qwen2-moe's served 2032-token
+    prompt and its self-draft speculation (B3 at T = 5, hd 128).  Then
+    every kernel row must carry launches from a served run."""
+    for arch in MOE_ARCHS:
+        serve, cfg, engine, plan, outputs, run = _family_serve(torch, arch, card)
+        _moe_checks(torch, results, arch, cfg, engine, run)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(12)
+        _path_parity(torch, cfg, engine.params, f"{arch} quant_sparse", gen)
+        if arch == "granite-moe-1b-a400m":
+            _moe_walkless(torch, results, arch, plan, outputs, card)
+            _family_spec(torch, results, serve, cfg, engine, plan, outputs, card, key=None)
+        else:
+            _row(results, "paged_decode_attention", "qwen2-moe serve")["launches"] = \
+                run["by_t"].get(1, 0)
+            _row(results, "quant_matmul", "qwen2-moe head")["launches"] = \
+                run["launches"]["quant_matmul"]
+            _moe_long(torch, results, serve, cfg, engine, plan, card)
+            _family_spec(torch, results, serve, cfg, engine, plan, outputs, card,
+                         key="qwen2-moe verify")
         del engine, plan
         torch.cuda.empty_cache()
     _check_family_rows(results)
@@ -2557,6 +3008,7 @@ def main(argv=None) -> int:
     phase_flash(torch, results)
     phase_dense_kernels(torch, results)
     phase_family_kernels(torch, results)
+    phase_moe_kernels(torch, results)
     phase_fcnet(torch, results)
     cfg, engine, serve_outputs, serve_launches = phase_serve(torch, results)
     phase_plancache(torch, results, serve_outputs, serve_launches, card)
@@ -2566,6 +3018,7 @@ def main(argv=None) -> int:
     phase_chunked(torch, long_prompts, long_outputs, card)
     phase_faults(torch, card)
     phase_families(torch, results, card)
+    phase_moe(torch, results, card)
     if args.profile:
         phase_profile(torch, cfg, engine)
     kernels = []

@@ -15,6 +15,8 @@ _MODULES = {
     "glm4-9b": "glm4_9b",
     "tinyllama-1.1b": "tinyllama_1_1b",
     "gemma3-4b": "gemma3_4b",
+    "granite-moe-1b-a400m": "granite_moe_1b_a400m",
+    "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
 }
 
 ARCH_IDS = tuple(_MODULES)

@@ -640,6 +640,21 @@ def compress(params, cfg: PlanConfig = PlanConfig()) -> WeightPlan:
 # ---------------------------------------------------------------------------
 
 
+def is_stacked(w) -> bool:
+    """A layer's stack of experts: one lead dim over the (K, N) weight."""
+    if isinstance(w, PackedLinear):
+        return w.blocks.dim() == 4
+    if isinstance(w, QuantLinear):
+        return w.q.dim() == 3
+    return w.dim() == 3
+
+
+def _rows(x: torch.Tensor, stacked: bool, K: int) -> torch.Tensor:
+    """x as the kernels take it: (M, K), or (E, M, K) for a stack of E
+    experts (x's lead dim is the stack's; its other dims fold into M)."""
+    return x.reshape(x.shape[0], -1, K) if stacked else x.reshape(-1, K)
+
+
 def _fusable_pair(g, u) -> bool:
     return (
         isinstance(g, PackedLinear)
@@ -648,42 +663,53 @@ def _fusable_pair(g, u) -> bool:
         and g.shape == u.shape
         and (g.bk, g.bn) == (u.bk, u.bn)
         and (g.scales is None) == (u.scales is None)
+        and g.blocks.dim() == u.blocks.dim()
     )
 
 
 def apply_gate_up(x: torch.Tensor, w_gate, w_up, activation: str = "silu") -> torch.Tensor:
     """act(x @ Wg) * (x @ Wu).  A fusable packed pair runs as ONE kernel
-    launch (B2); any other representation mix is two ``apply_linear``
-    dispatches plus the elementwise gate."""
+    launch (B2), a stack of expert pairs too (x (E, ..., K), one launch
+    over the experts, where the reference vmaps the kernel); any other
+    representation mix is two ``apply_linear`` dispatches plus the
+    elementwise gate."""
     if activation not in GATE_ACTS:
         raise ValueError(f"unknown gate activation {activation!r}")
     if _fusable_pair(w_gate, w_up):
         K, N = w_gate.shape
-        lead = x.shape[:-1]
-        y = ops.fused_gate_up(x.reshape(-1, K), w_gate, w_up, activation)
-        return y.reshape(*lead, N)
+        y = ops.fused_gate_up(_rows(x, is_stacked(w_gate), K), w_gate, w_up, activation)
+        return y.reshape(*x.shape[:-1], N)
     return GATE_ACTS[activation](apply_linear(x, w_gate)) * apply_linear(x, w_up)
 
 
 def apply_linear(x: torch.Tensor, w) -> torch.Tensor:
     """y = x @ W for a dense tensor, a QuantLinear or a PackedLinear of one
-    layer."""
+    layer, or a stack of E experts of any of them with x (E, ..., K): a
+    packed stack is ONE launch of B1 (B4 without walks), an int8 stack one
+    B5 launch per expert, a dense stack one batched matmul."""
     if isinstance(w, PackedLinear):
         K, N = w.shape
-        lead = x.shape[:-1]
-        return ops.block_sparse_matmul(x.reshape(-1, K), w).reshape(*lead, N)
+        y = ops.block_sparse_matmul(_rows(x, is_stacked(w), K), w)
+        return y.reshape(*x.shape[:-1], N)
     if isinstance(w, QuantLinear):
         return _apply_quant(x, w)
+    if w.dim() == 3:
+        E, K, N = w.shape
+        return torch.bmm(_rows(x, True, K), w.to(x.dtype)).reshape(*x.shape[:-1], N)
     return x @ w.to(x.dtype)
 
 
 def _apply_quant(x, w: QuantLinear):
     """int8 path through kernel B5 (its plain version on the CPU): (x @ q)
     * s with fp32 accumulation, in x's dtype; the scales factor out of the
-    contraction."""
-    if w.q.dim() != 2:
-        raise ValueError("_apply_quant needs an unstacked leaf")
-    K, N = w.q.shape
+    contraction.  A stack of experts runs B5 once per expert (ROADMAP:
+    a stacked B5)."""
+    K, N = w.q.shape[-2:]
+    if w.q.dim() == 3:
+        x3 = _rows(x, True, K)
+        y = torch.stack([ops.quant_matmul(x3[e], dataclasses.replace(w, q=w.q[e], s=w.s[e]))
+                         for e in range(w.q.shape[0])])
+        return y.reshape(*x.shape[:-1], N)
     return ops.quant_matmul(x.reshape(-1, K), w).reshape(*x.shape[:-1], N)
 
 

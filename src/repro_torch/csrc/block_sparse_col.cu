@@ -45,26 +45,29 @@ bsmm_col_kernel(const __grid_constant__ CUtensorMap xmap, const wcol::ColList w,
 // int8|f32; block_rows (N/128, mb) int32; counts (N/128,) int32; scales (N,)
 // f32 or null; y (M, N) in x's dtype; bm (128 or 64) and split (1..8, 1
 // when bm is 128) the host's regime for the bf16-x/int8 pair, unused by
-// the fp32 pairs.  Returns a cudaError_t code (0 = launched).
+// the fp32 pairs.  n_experts > 1: a stack of that many weights, every
+// operand with that lead dim (x (E, M, K), y (E, M, N)), one launch.
+// Returns a cudaError_t code (0 = launched).
 extern "C" int bsmm_col_launch(const void* x, const void* blocks, const int* block_rows,
                                const int* counts, const float* scales, void* y, int M, int K,
-                               int N, int mb, int x_dtype, int w_dtype, int bm, int split,
-                               void* stream) {
+                               int N, int mb, int n_experts, int x_dtype, int w_dtype, int bm,
+                               int split, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (M <= 0) return 0;
+  if (M <= 0 || n_experts <= 0) return 0;
   if (w_dtype == DT_I8 && x_dtype == DT_BF16) {
     if (!wcol::valid_regime(bm, split)) return static_cast<int>(cudaErrorInvalidValue);
     CUtensorMap xmap;
-    if (!wcol::encode_x_map(&xmap, x, M, K, bm)) return static_cast<int>(cudaErrorInvalidValue);
+    if (!wcol::encode_x_map(&xmap, x, n_experts * M, K, bm))
+      return static_cast<int>(cudaErrorInvalidValue);
     const wcol::ColList w{static_cast<const int8_t*>(blocks), block_rows, counts, scales, mb};
     auto* yb = static_cast<__nv_bfloat16*>(y);
     if (bm == 128)
-      return wcol::launch_column<2, 3>(bsmm_col_kernel<2, 3>, M, N / 128, 1, s, xmap, w, yb, M,
-                                       N, 1);
-    return wcol::launch_column<1, 4>(bsmm_col_kernel<1, 4>, M, N / 128, split, s, xmap, w, yb,
-                                     M, N, split);
+      return wcol::launch_column<2, 3>(bsmm_col_kernel<2, 3>, M, N / 128, 1, n_experts, s, xmap,
+                                       w, yb, M, N, 1);
+    return wcol::launch_column<1, 4>(bsmm_col_kernel<1, 4>, M, N / 128, split, n_experts, s,
+                                     xmap, w, yb, M, N, split);
   }
-#define B4_ARGS x, blocks, block_rows, counts, scales, y, M, K, N, mb, s
+#define B4_ARGS x, blocks, block_rows, counts, scales, y, M, K, N, mb, n_experts, s
   if (w_dtype == DT_I8 && x_dtype == DT_F32) return fcol::launch_column_fma<float, int8_t>(B4_ARGS);
   if (w_dtype == DT_F32) {
     if (x_dtype == DT_BF16) return fcol::launch_column_fma<__nv_bfloat16, float>(B4_ARGS);

@@ -9,7 +9,9 @@
 // payload block by cp.async, double-buffered so that block s+1 is in flight
 // while block s multiplies, and the matching (BM, BK) x slice as fp32.
 // Rows past M are zero-filled in shared memory (never read) and threads
-// whose rows all lie past M skip their FMAs.
+// whose rows all lie past M skip their FMAs.  A stack of experts runs with
+// gridDim.z = E, CTA z on expert z's operands (as wgmma_column.cuh lays
+// them out: x (E, M, K), blocks (E, N/128 * mb, ...), y (E, M, N)).
 #pragma once
 
 #include "common.cuh"
@@ -92,6 +94,13 @@ column_fma_kernel(const XT* __restrict__ x, const WT* __restrict__ blocks,
   extern __shared__ __align__(16) unsigned char smem[];
   const int j = blockIdx.x;
   const int m0 = blockIdx.y * BM;
+  const size_t z = blockIdx.z, n_cols = N / BN;
+  x += z * M * K;
+  y += z * M * N;
+  blocks += z * n_cols * mb * BK * BN;
+  block_rows += z * n_cols * mb;
+  counts += z * n_cols;
+  if (scales != nullptr) scales += z * N;
   float acc[kRows];
 #pragma unroll
   for (int r = 0; r < kRows; ++r) acc[r] = 0.0f;
@@ -108,14 +117,14 @@ column_fma_kernel(const XT* __restrict__ x, const WT* __restrict__ blocks,
 
 template <typename XT, typename WT>
 int launch_column_fma(const void* x, const void* blocks, const int* rows, const int* counts,
-                      const float* scales, void* y, int M, int K, int N, int mb,
+                      const float* scales, void* y, int M, int K, int N, int mb, int n_stack,
                       cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<WT>();
   auto kern = column_fma_kernel<XT, WT>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(N / BN, (M + BM - 1) / BM);
+  dim3 grid(N / BN, (M + BM - 1) / BM, n_stack);
   kern<<<grid, kThreads, smem, stream>>>(static_cast<const XT*>(x), static_cast<const WT*>(blocks),
                                          rows, counts, scales, static_cast<XT*>(y), M, K, N, mb);
   return static_cast<int>(cudaGetLastError());

@@ -45,6 +45,17 @@ fused_gate_up_fma_kernel(const XT* __restrict__ x,
   extern __shared__ __align__(1024) unsigned char smem[];  // as the wgmma kernel declares it
   const int j = blockIdx.x;
   const int m0 = blockIdx.y * BM;
+  const size_t z = blockIdx.z, n_cols = N / BN;  // expert z of a stack
+  x += z * M * K;
+  y += z * M * N;
+  g_blocks += z * n_cols * mb_g * BK * BN;
+  g_rows += z * n_cols * mb_g;
+  g_counts += z * n_cols;
+  u_blocks += z * n_cols * mb_u * BK * BN;
+  u_rows += z * n_cols * mb_u;
+  u_counts += z * n_cols;
+  if (g_scales != nullptr) g_scales += z * N;
+  if (u_scales != nullptr) u_scales += z * N;
   float hg[kRows], hu[kRows];
 #pragma unroll
   for (int r = 0; r < kRows; ++r) hg[r] = hu[r] = 0.0f;
@@ -68,13 +79,14 @@ template <typename XT, typename WT>
 static int launch_fma(const void* x, const void* gb, const int* gr, const int* gc,
                       const float* gs,
                       const void* ub, const int* ur, const int* uc, const float* us, void* y,
-                      int M, int K, int N, int mb_g, int mb_u, int act, cudaStream_t stream) {
+                      int M, int K, int N, int mb_g, int mb_u, int act, int n_stack,
+                      cudaStream_t stream) {
   constexpr size_t smem = fcol::smem_bytes<WT>();
   auto kern = fused_gate_up_fma_kernel<XT, WT>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(N / fcol::BN, (M + fcol::BM - 1) / fcol::BM);
+  dim3 grid(N / fcol::BN, (M + fcol::BM - 1) / fcol::BM, n_stack);
   kern<<<grid, fcol::kThreads, smem, stream>>>(
       static_cast<const XT*>(x), static_cast<const WT*>(gb), gr, gc, gs,
       static_cast<const WT*>(ub), ur, uc, us, static_cast<XT*>(y), M, K, N, mb_g, mb_u, act);
@@ -84,30 +96,33 @@ static int launch_fma(const void* x, const void* gb, const int* gr, const int* g
 // Gate and up share dtype, dense shape (K, N) and the 128x128 block
 // geometry; each has its own (N/128 * mb, 128, 128) payload, (N/128, mb)
 // rows and (N/128,) counts.  Scales are both given or both null.  x is
-// 16-byte aligned; bm and split as for bsmm_launch.
+// 16-byte aligned; bm, split and n_experts (a stack of pairs, every operand
+// with that lead dim) as for bsmm_launch.
 extern "C" int fused_gate_up_launch(const void* x,
                                     const void* g_blocks, const int* g_rows, const int* g_counts,
                                     const float* g_scales,
                                     const void* u_blocks, const int* u_rows, const int* u_counts,
                                     const float* u_scales,
                                     void* y, int M, int K, int N, int mb_g, int mb_u, int act,
-                                    int x_dtype, int w_dtype, int bm, int split, void* stream) {
+                                    int x_dtype, int w_dtype, int bm, int split, int n_experts,
+                                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (M <= 0) return 0;
+  if (M <= 0 || n_experts <= 0) return 0;
   if (w_dtype == DT_I8 && x_dtype == DT_BF16) {
     if (!wcol::valid_regime(bm, split)) return static_cast<int>(cudaErrorInvalidValue);
     CUtensorMap xmap;
-    if (!wcol::encode_x_map(&xmap, x, M, K, bm)) return static_cast<int>(cudaErrorInvalidValue);
+    if (!wcol::encode_x_map(&xmap, x, n_experts * M, K, bm))
+      return static_cast<int>(cudaErrorInvalidValue);
     const wcol::ColList g{static_cast<const int8_t*>(g_blocks), g_rows, g_counts, g_scales, mb_g};
     const wcol::ColList u{static_cast<const int8_t*>(u_blocks), u_rows, u_counts, u_scales, mb_u};
     auto* yb = static_cast<__nv_bfloat16*>(y);
     if (bm == 128)
-      return wcol::launch_column<2, 3>(fused_gate_up_kernel<2, 3>, M, N / 128, 1, s, xmap, g, u,
-                                       yb, M, N, 1, act);
-    return wcol::launch_column<1, 4>(fused_gate_up_kernel<1, 4>, M, N / 128, split, s, xmap, g,
-                                     u, yb, M, N, split, act);
+      return wcol::launch_column<2, 3>(fused_gate_up_kernel<2, 3>, M, N / 128, 1, n_experts, s,
+                                       xmap, g, u, yb, M, N, 1, act);
+    return wcol::launch_column<1, 4>(fused_gate_up_kernel<1, 4>, M, N / 128, split, n_experts, s,
+                                     xmap, g, u, yb, M, N, split, act);
   }
-#define FGU_ARGS x, g_blocks, g_rows, g_counts, g_scales, u_blocks, u_rows, u_counts, u_scales, y, M, K, N, mb_g, mb_u, act, s
+#define FGU_ARGS x, g_blocks, g_rows, g_counts, g_scales, u_blocks, u_rows, u_counts, u_scales, y, M, K, N, mb_g, mb_u, act, n_experts, s
   if (w_dtype == DT_I8 && x_dtype == DT_F32) return launch_fma<float, int8_t>(FGU_ARGS);
   if (w_dtype == DT_F32) {
     if (x_dtype == DT_BF16) return launch_fma<__nv_bfloat16, float>(FGU_ARGS);

@@ -120,9 +120,9 @@ extern "C" int quant_matmul_launch(const void* x, const int8_t* w, const float* 
     const wcol::ColList wl{nullptr, nullptr, nullptr, scales, (K + wcol::kBK - 1) / wcol::kBK};
     auto* yb = static_cast<__nv_bfloat16*>(y);
     if (bm == 128)
-      return wcol::launch_column<2, 3>(quant_matmul_wgmma_kernel<2, 3>, M, n_cols, 1, s, xmap,
+      return wcol::launch_column<2, 3>(quant_matmul_wgmma_kernel<2, 3>, M, n_cols, 1, 1, s, xmap,
                                        wmap, wl, yb, M, N, 1, act);
-    return wcol::launch_column<1, 4>(quant_matmul_wgmma_kernel<1, 4>, M, n_cols, split, s, xmap,
+    return wcol::launch_column<1, 4>(quant_matmul_wgmma_kernel<1, 4>, M, n_cols, split, 1, s, xmap,
                                      wmap, wl, yb, M, N, split, act);
   }
   if (x_dtype == DT_F32) return launch_quant<float>(x, w, scales, y, M, K, N, ldx, ldw, act, s);

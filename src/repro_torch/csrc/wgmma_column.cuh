@@ -32,6 +32,17 @@
 // gate slots, then the up slots, into two accumulators and writes
 // act(hg * sg) * (hu * su).
 //
+// A stack of E experts (a MoE layer's (E, K, N) leaf, B1/B2/B4): one launch
+// with gridDim.z = E, every operand rectangular over the stack -- blocks
+// (E, N/128 * mb, 128, 128), rows (E, N/128, mb), counts (E, N/128), scales
+// (E, N), x (E, M, K), y (E, M, N), one mb for the whole stack.  CTA z takes
+// expert z's lists (``expert``), y rows and x rows: x's TMA map spans all
+// E * M rows, so a tile's rows past M (its expert's) hold the next expert's
+// rows or zeros past the last one; they are never stored, and a wgmma row
+// never mixes into another, so every stored row equals a single-expert
+// launch's bit for bit in the same regime.  A cluster is (split, 1, 1), so
+// its CTAs share blockIdx.z.
+//
 // DENSE (B5): slot s of column j is k block s of a dense (K, N) int8
 // weight, ``g.mb`` = ceil(K / 128) slots for every column (a kernel
 // argument: nothing is read from the device).  Its stage is one 2-D TMA
@@ -62,6 +73,13 @@ struct ColList {              // one packed weight's operands
   const float* scales;        // (N,) or null
   int mb;
 };
+
+// expert z's lists of a stack of ``n_cols``-column weights
+__device__ __forceinline__ ColList expert(const ColList& c, int z, int n_cols) {
+  const size_t col0 = static_cast<size_t>(z) * n_cols;
+  return ColList{c.blocks + col0 * c.mb * kRawBytes, c.rows + col0 * c.mb, c.counts + col0,
+                 c.scales != nullptr ? c.scales + col0 * kBN : nullptr, c.mb};
+}
 
 template <int NC, int S>
 struct Geometry {
@@ -183,13 +201,15 @@ __device__ __forceinline__ void store_dense(const float (&h)[64], const float* _
 }
 
 // The kernel body (see the file comment).  ``split`` > 1 needs NC == 1 and
-// a cluster launch of ``split`` CTAs along x.  DENSE reads the weight
-// through ``wmap`` (g.blocks, rows and counts unused) and needs !GATED.
+// a cluster launch of ``split`` CTAs along x.  blockIdx.z picks the expert
+// of a stack (0 for one weight; M is one expert's rows).  DENSE reads the
+// weight through ``wmap`` (g.blocks, rows and counts unused), needs !GATED
+// and takes no stack.
 template <int NC, int S, bool GATED, bool DENSE = false>
-__device__ __forceinline__ void column_body(const CUtensorMap* xmap, const ColList& g,
-                                            const ColList& u, __nv_bfloat16* __restrict__ y,
-                                            int M, int N, int split, int act,
-                                            unsigned char* smem_raw,
+__device__ __forceinline__ void column_body(const CUtensorMap* xmap, const ColList& g_stack,
+                                            const ColList& u_stack,
+                                            __nv_bfloat16* __restrict__ y_stack, int M, int N,
+                                            int split, int act, unsigned char* smem_raw,
                                             const CUtensorMap* wmap = nullptr) {
   using G = Geometry<NC, S>;
   static_assert(NC == 1 || NC == 2, "one or two consumer warpgroups");
@@ -202,6 +222,11 @@ __device__ __forceinline__ void column_body(const CUtensorMap* xmap, const ColLi
   const int j = blockIdx.x / split;
   const int rank = blockIdx.x % split;
   const int m0 = blockIdx.y * G::kBM;
+  const int z = DENSE ? 0 : static_cast<int>(blockIdx.z);
+  const ColList g = DENSE ? g_stack : expert(g_stack, z, N / kBN);
+  const ColList u = GATED ? expert(u_stack, z, N / kBN) : g;
+  __nv_bfloat16* __restrict__ y = y_stack + static_cast<size_t>(z) * M * N;
+  const int xrow = z * M + m0;  // this tile's first row in x's map of E * M rows
   int cg;
   if constexpr (DENSE)
     cg = g.mb;
@@ -239,8 +264,8 @@ __device__ __forceinline__ void column_body(const CUtensorMap* xmap, const ColLi
           unsigned char* xd = smem + G::kX + st * G::kXBytes;
           mbar_arrive_expect_tx(&full[st], kRawBytes + G::kXBytes);
           tma_load_2d(smem + G::kRaw + st * kRawBytes, wmap, j * kBN, k0, &full[st]);
-          tma_load_2d(xd, xmap, k0, m0, &full[st]);
-          tma_load_2d(xd + G::kBM * 128, xmap, k0 + 64, m0, &full[st]);
+          tma_load_2d(xd, xmap, k0, xrow, &full[st]);
+          tma_load_2d(xd + G::kBM * 128, xmap, k0 + 64, xrow, &full[st]);
           continue;
         }
         const bool gate = i < ng;
@@ -251,8 +276,8 @@ __device__ __forceinline__ void column_body(const CUtensorMap* xmap, const ColLi
         mbar_arrive_expect_tx(&full[st], kRawBytes + G::kXBytes);
         const int8_t* src = (gate ? g.blocks : u.blocks) + b * kRawBytes;
         bulk_copy_g2s(smem + G::kRaw + st * kRawBytes, src, kRawBytes, &full[st]);
-        tma_load_2d(xd, xmap, k0, m0, &full[st]);
-        tma_load_2d(xd + G::kBM * 128, xmap, k0 + 64, m0, &full[st]);
+        tma_load_2d(xd, xmap, k0, xrow, &full[st]);
+        tma_load_2d(xd + G::kBM * 128, xmap, k0 + 64, xrow, &full[st]);
       }
     }
   } else {
@@ -389,14 +414,15 @@ inline bool encode_w_map(CUtensorMap* map, const void* w, int K, int N, int ldw)
 }
 
 // Launch ``kern`` (a __global__ wrapper of column_body<NC, S, *>) over
-// (n_cols * split, M tiles), with a cluster of ``split`` CTAs along x when
-// split > 1.  bm is the host's regime: 128 (NC = 2, split 1) or 64 (NC = 1,
+// (n_cols * split, M tiles, n_stack experts), with a cluster of ``split``
+// CTAs along x when split > 1.  bm is the host's regime: 128 (NC = 2, split 1) or 64 (NC = 1,
 // split 1..8).  static: B1 and B4 pass kernels of one type from two
 // libraries, and the static ``configured`` of an inline template would be
 // one process-wide (unique) symbol -- one library's flag would skip the
 // other's shared-memory attribute.
 template <int NC, int S, typename Kern, typename... Args>
-static int launch_column(Kern kern, int M, int n_cols, int split, cudaStream_t stream, Args... args) {
+static int launch_column(Kern kern, int M, int n_cols, int split, int n_stack,
+                         cudaStream_t stream, Args... args) {
   using G = Geometry<NC, S>;
   static bool configured = false;
   if (!configured) {
@@ -406,7 +432,7 @@ static int launch_column(Kern kern, int M, int n_cols, int split, cudaStream_t s
     configured = true;
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(n_cols * split, (M + G::kBM - 1) / G::kBM, 1);
+  cfg.gridDim = dim3(n_cols * split, (M + G::kBM - 1) / G::kBM, n_stack);
   cfg.blockDim = dim3(G::kThreads, 1, 1);
   cfg.dynamicSmemBytes = G::kSmem;
   cfg.stream = stream;

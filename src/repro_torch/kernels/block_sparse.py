@@ -31,6 +31,16 @@ picks for B1 -- on the same operands its output equals B1's bit for bit.
 their kernel for CUDA tensors and run the plain version for CPU tensors;
 on CUDA the plain version runs only when the caller passes
 ``use_kernel=False``.
+
+Both also take a stack of experts (a MoE layer's ``(E, d, f)`` leaf): x
+``(E, M, K)`` against operands with the same lead dim E, in ONE launch
+whose grid's z axis runs over the experts, as the reference's ``jax.vmap``
+of the Pallas call adds a grid axis (``repro/core/weight_plan.py:870-873``).  Each
+CTA offsets its expert's blocks, rows, counts, scales, x rows and y rows
+by ``blockIdx.z``; x's TMA map spans all E * M rows, and a tile's rows past
+its expert's M are read but never stored.  ``launch_plan`` counts the
+E * n_cols CTAs.  A stacked launch adds one to ``launches`` and to
+``stacked_launches``, and E to ``stacked_experts``.
 """
 
 from __future__ import annotations
@@ -63,27 +73,40 @@ def block_sparse_fp32(x, blocks, block_rows, scales=None) -> torch.Tensor:
 
 
 def block_sparse_matmul_plain(x, blocks, block_rows, counts, scales=None) -> torch.Tensor:
-    """The plain PyTorch version of the kernel (output in x's dtype)."""
+    """The plain PyTorch version of the kernel (output in x's dtype); a
+    stack of experts runs the 2-D version once per expert."""
+    if x.dim() == 3:
+        return torch.stack([
+            block_sparse_matmul_plain(x[e], blocks[e], block_rows[e], counts[e],
+                                      None if scales is None else scales[e])
+            for e in range(x.shape[0])])
     return block_sparse_fp32(x, blocks, block_rows, scales).to(x.dtype)
 
 
 def check_operands(x, blocks, block_rows, counts, scales) -> None:
-    """Raise on anything the CUDA kernel does not take."""
+    """Raise on anything the CUDA kernel does not take.  x (M, K) pairs with
+    one packed weight, x (E, M, K) with a stack of E: every operand then
+    carries the same lead dim E."""
     dev = x.device
-    if x.dim() != 2 or x.dtype not in X_DTYPES:
-        raise ValueError(f"x must be 2-D {X_DTYPES}, got {tuple(x.shape)} {x.dtype}")
-    n_cols, mb = block_rows.shape
-    if blocks.dtype not in W_DTYPES or tuple(blocks.shape) != (n_cols * mb, BLOCK, BLOCK):
-        raise ValueError(f"blocks must be ({n_cols * mb}, {BLOCK}, {BLOCK}) in {W_DTYPES}, "
+    if x.dim() not in (2, 3) or x.dtype not in X_DTYPES:
+        raise ValueError(f"x must be 2-D or 3-D {X_DTYPES}, got {tuple(x.shape)} {x.dtype}")
+    lead = tuple(x.shape[:-2])
+    if block_rows.dim() != len(lead) + 2 or tuple(block_rows.shape[:-2]) != lead:
+        raise ValueError(f"block_rows {tuple(block_rows.shape)} does not stack as x "
+                         f"{tuple(x.shape)} does (lead dims {lead})")
+    n_cols, mb = block_rows.shape[-2:]
+    if blocks.dtype not in W_DTYPES or tuple(blocks.shape) != lead + (n_cols * mb, BLOCK, BLOCK):
+        raise ValueError(f"blocks must be {lead + (n_cols * mb, BLOCK, BLOCK)} in {W_DTYPES}, "
                          f"got {tuple(blocks.shape)} {blocks.dtype}")
     if block_rows.dtype != torch.int32 or counts.dtype != torch.int32 \
-            or tuple(counts.shape) != (n_cols,):
-        raise ValueError("block_rows (n_cols, mb) and counts (n_cols,) must be int32")
-    if x.shape[1] % BLOCK:
-        raise ValueError(f"K={x.shape[1]} is not a multiple of {BLOCK}")
+            or tuple(counts.shape) != lead + (n_cols,):
+        raise ValueError(f"block_rows {lead + (n_cols, mb)} and counts {lead + (n_cols,)} "
+                         f"must be int32, got {tuple(counts.shape)} counts")
+    if x.shape[-1] % BLOCK:
+        raise ValueError(f"K={x.shape[-1]} is not a multiple of {BLOCK}")
     if scales is not None and (scales.dtype != torch.float32
-                               or tuple(scales.shape) != (n_cols * BLOCK,)):
-        raise ValueError(f"scales must be float32 ({n_cols * BLOCK},)")
+                               or tuple(scales.shape) != lead + (n_cols * BLOCK,)):
+        raise ValueError(f"scales must be float32 {lead + (n_cols * BLOCK,)}")
     for name, t in (("x", x), ("blocks", blocks), ("block_rows", block_rows),
                     ("counts", counts), ("scales", scales)):
         if t is None:
@@ -102,11 +125,13 @@ def check_x_aligned(x) -> None:
         raise ValueError("x must be 16-byte aligned (cp.async, TMA)")
 
 
-def launch_plan(M: int, n_cols: int, mb: int, n_sm: int) -> tuple:
+def launch_plan(M: int, n_cols: int, mb: int, n_sm: int, n_stack: int = 1) -> tuple:
     """(bm, split) of B1 and B2 for an (M, K) x against ``n_cols`` output
     block-columns of ``mb`` slots each (B2: the larger of its two mb), on a
-    card of ``n_sm`` SMs -- from shapes alone, never from ``counts``, which
-    lie on the card and would synchronise every launch.
+    card of ``n_sm`` SMs, for one weight or a stack of ``n_stack`` experts
+    (M rows each, ``n_stack * n_cols`` columns in all) -- from shapes
+    alone, never from ``counts``, which lie on the card and would
+    synchronise every launch.
 
     Prefill (M > DECODE_MAX_M): 128-row tiles, no split.  Decode: one
     64-row tile, and each column's slots dealt round-robin to ``split``
@@ -118,7 +143,7 @@ def launch_plan(M: int, n_cols: int, mb: int, n_sm: int) -> tuple:
     sweep)."""
     if M > DECODE_MAX_M:
         return 128, 1
-    return 64, max(1, min(MAX_SPLIT, mb, (3 * n_sm // 4) // max(1, n_cols)))
+    return 64, max(1, min(MAX_SPLIT, mb, (3 * n_sm // 4) // max(1, n_stack * n_cols)))
 
 
 def sm_count(device) -> int:
@@ -128,25 +153,43 @@ def sm_count(device) -> int:
 def regime(x, block_rows) -> tuple:
     """(bm, split) of a B1 or B4 launch on x against packed operands with
     ``block_rows``: ``launch_plan`` from host ints (x's rows, the columns and
-    slots, the card's SMs)."""
-    return launch_plan(x.shape[0], *block_rows.shape, sm_count(x.device))
+    slots, the card's SMs, the experts of a stack)."""
+    return launch_plan(x.shape[-2], *block_rows.shape[-2:], sm_count(x.device), n_experts(x))
 
 
 def _launch(source: str, entry: str, x, blocks, block_rows, counts, scales) -> torch.Tensor:
     """Allocate y and launch C entry ``entry`` of library ``source`` in the
     regime ``regime`` picks; the operands have passed ``check_operands``."""
-    M, K = x.shape
-    n_cols, mb = block_rows.shape
+    M, K = x.shape[-2:]
+    n_cols, mb = block_rows.shape[-2:]
     N = n_cols * BLOCK
-    y = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    y = torch.empty(x.shape[:-1] + (N,), dtype=x.dtype, device=x.device)
     lib = build.load(source)
     code = getattr(lib, entry)(
         build.ptr(x), build.ptr(blocks), build.ptr(block_rows), build.ptr(counts),
-        build.ptr(scales), build.ptr(y), M, K, N, mb,
+        build.ptr(scales), build.ptr(y), M, K, N, mb, n_experts(x),
         build.DTYPE_CODES[x.dtype], build.DTYPE_CODES[blocks.dtype], *regime(x, block_rows),
         build.stream_ptr(x.device))
     build.check(lib, code, entry)
     return y
+
+
+def n_experts(x) -> int:
+    """The experts a launch covers: E for x (E, M, K), 1 for x (M, K)."""
+    return x.shape[0] if x.dim() == 3 else 1
+
+
+def count_launch(fn, x) -> None:
+    """One launch of ``fn`` on x; a stacked one also adds to
+    ``stacked_launches`` and its E to ``stacked_experts``."""
+    fn.launches += 1
+    if x.dim() == 3:
+        fn.stacked_launches += 1
+        fn.stacked_experts += x.shape[0]
+
+
+def zero_counts(fn) -> None:
+    fn.launches = fn.stacked_launches = fn.stacked_experts = 0
 
 
 def block_sparse_matmul(x, blocks, block_rows, counts, scales=None, *,
@@ -155,18 +198,20 @@ def block_sparse_matmul(x, blocks, block_rows, counts, scales=None, *,
 
     blocks (N/128 * mb, 128, 128) int8 or float32; block_rows (N/128, mb)
     and counts (N/128,) int32; scales (N,) float32 per-output-channel
-    dequant scales or None.  ``use_kernel=False`` runs the plain version
-    on CUDA tensors too; x must be 16-byte aligned."""
+    dequant scales or None.  A stack of E experts: x (E, M, K), each
+    operand with the lead dim E, y (E, M, N), one launch.
+    ``use_kernel=False`` runs the plain version on CUDA tensors too; x
+    must be 16-byte aligned."""
     if not x.is_cuda or not use_kernel:
         return block_sparse_matmul_plain(x, blocks, block_rows, counts, scales)
     check_operands(x, blocks, block_rows, counts, scales)
     check_x_aligned(x)
     y = _launch("block_sparse", "bsmm_launch", x, blocks, block_rows, counts, scales)
-    block_sparse_matmul.launches += 1
+    count_launch(block_sparse_matmul, x)
     return y
 
 
-block_sparse_matmul.launches = 0
+zero_counts(block_sparse_matmul)
 
 
 # B4 computes B1's function (padded slots hold zero blocks, so the plain
@@ -177,16 +222,16 @@ block_sparse_matmul_col_plain = block_sparse_matmul_plain
 def block_sparse_matmul_col(x, blocks, block_rows, counts, scales=None, *,
                             use_kernel: bool = True) -> torch.Tensor:
     """y (M, N) = x (M, K) @ W through kernel B4, in x's dtype; operands as
-    for ``block_sparse_matmul``, and x 16-byte aligned (its tiles come by
-    TMA).  ``use_kernel=False`` runs the plain version on
+    for ``block_sparse_matmul`` (also a stack of experts), and x 16-byte
+    aligned (its tiles come by TMA).  ``use_kernel=False`` runs the plain version on
     CUDA tensors too."""
     if not x.is_cuda or not use_kernel:
         return block_sparse_matmul_col_plain(x, blocks, block_rows, counts, scales)
     check_operands(x, blocks, block_rows, counts, scales)
     check_x_aligned(x)
     y = _launch("block_sparse_col", "bsmm_col_launch", x, blocks, block_rows, counts, scales)
-    block_sparse_matmul_col.launches += 1
+    count_launch(block_sparse_matmul_col, x)
     return y
 
 
-block_sparse_matmul_col.launches = 0
+zero_counts(block_sparse_matmul_col)

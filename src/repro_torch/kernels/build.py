@@ -43,19 +43,19 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     "block_sparse": {
-        # x, blocks, rows, counts, scales, y, M, K, N, mb, x_dtype, w_dtype,
-        # bm, split, stream
-        "bsmm_launch": ([_P] * 6 + [_I] * 8 + [_P], _I),
+        # x, blocks, rows, counts, scales, y, M, K, N, mb, n_experts, x_dtype,
+        # w_dtype, bm, split, stream
+        "bsmm_launch": ([_P] * 6 + [_I] * 9 + [_P], _I),
     },
     "block_sparse_col": {
-        # x, blocks, rows, counts, scales, y, M, K, N, mb, x_dtype, w_dtype,
-        # bm, split, stream (B1's arguments)
-        "bsmm_col_launch": ([_P] * 6 + [_I] * 8 + [_P], _I),
+        # x, blocks, rows, counts, scales, y, M, K, N, mb, n_experts, x_dtype,
+        # w_dtype, bm, split, stream (B1's arguments)
+        "bsmm_col_launch": ([_P] * 6 + [_I] * 9 + [_P], _I),
     },
     "fused_gate_up": {
         # x, gate (blocks, rows, counts, scales), up (...), y,
-        # M, K, N, mb_g, mb_u, act, x_dtype, w_dtype, bm, split, stream
-        "fused_gate_up_launch": ([_P] * 10 + [_I] * 10 + [_P], _I),
+        # M, K, N, mb_g, mb_u, act, x_dtype, w_dtype, bm, split, n_experts, stream
+        "fused_gate_up_launch": ([_P] * 10 + [_I] * 11 + [_P], _I),
     },
     "paged_attention": {
         # q, k_pages, v_pages, k_scales, v_scales, table, pos, out,

@@ -272,7 +272,7 @@ def _check_flash_features(q_offset, softcap):
                          "prefill)")
     if softcap:
         raise ValueError(f"flash attention kernel B6 takes no logit softcap (got {softcap}): "
-                         "softcapped attention is ROADMAP A8b")
+                         "softcapped attention is ROADMAP A8c")
 
 
 def _check_flash(q, k, v, k_scale, v_scale):

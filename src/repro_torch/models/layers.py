@@ -30,7 +30,7 @@ def dense_init(shape, generator: torch.Generator, device, fan_in: Optional[int] 
     """LeCun-normal over the fan-in (the contraction axis, -2, by default)."""
     fan_in = shape[-2] if fan_in is None else fan_in
     w = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
-    return w * (1.0 / math.sqrt(fan_in))
+    return w.mul_(1.0 / math.sqrt(fan_in))  # in place: a stack of experts is GBs
 
 
 def embed_init(shape, generator: torch.Generator, device):
@@ -422,7 +422,7 @@ def unembed(cfg, p, x):
     and for an int8 table ``(x * s) @ q.T``: its scales lie on the
     contraction axis, so this product is plain torch, not kernel B5, which
     scales output channels (the reference contracts it with ``dot_general``
-    outside any Pallas kernel as well).  Softcapped logits are ROADMAP A8b
+    outside any Pallas kernel as well).  Softcapped logits are ROADMAP A8c
     (``transformer.check_supported``)."""
     if "head" in p:
         return apply_linear(x, p["head"])

@@ -1,0 +1,182 @@
+"""Top-k routed Mixture-of-Experts FFN with optional shared experts (port
+of ``repro/models/moe.py``).
+
+The reference dispatches tokens with one-hot einsums over capacity buckets:
+tokens are split into groups of ``_group_size(T)``, each (token, k)
+assignment takes the next slot of its expert's group buffer, and an
+assignment past the expert's capacity is dropped (its combine weight is
+zero).  The port computes the same routing -- the same kept and dropped
+assignments, the same slots, the same combine weights rounded to the
+compute dtype -- with index arithmetic instead (``route``): a scatter of
+the kept tokens into an ``(Ep, nG * C, d)`` expert buffer and a gather of
+their outputs.  The expert FFNs run through the weight-plan dispatch over
+the stacked ``(Ep, d, f)`` leaves: a packed stack is one launch of B2 for
+every gate/up pair of the layer and one of B1 (B4 without walks) for every
+down-projection (``weight_plan.apply_gate_up`` / ``apply_linear``).  The
+padded experts ``E..Ep`` receive no token but are launched over, as the
+reference's vmap runs them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from repro_torch.core.weight_plan import apply_gate_up, apply_linear
+from repro_torch.models import layers as L
+
+# at most this many tokens a step, every expert takes all its assignments
+# (a dropped token at decode would corrupt that sequence's output)
+FULL_CAPACITY_TOKENS = 256
+
+
+def moe_shapes(cfg) -> dict:
+    """{name: (shape, init)} of one MoE FFN: the router over the real
+    experts, the expert stacks over the padded ones.  The reference draws
+    the stacks with fan-in on axis 1 (d for gate/up, f for down), which is
+    axis -2, the default of ``layers.dense_init`` -- also once the layers
+    are stacked in front."""
+    m = cfg.moe
+    d, f = cfg.d_model, m.expert_d_ff
+    Ep = m.n_experts_padded
+    p = {
+        "router": ((d, m.n_experts), "dense"),
+        "w_gate": ((Ep, d, f), "dense"),
+        "w_up": ((Ep, d, f), "dense"),
+        "w_down": ((Ep, f, d), "dense"),
+    }
+    if m.n_shared_experts:
+        sf = (m.shared_d_ff or m.expert_d_ff) * m.n_shared_experts
+        p["shared"] = {"w_gate": ((d, sf), "dense"), "w_up": ((d, sf), "dense"),
+                       "w_down": ((sf, d), "dense")}
+    return p
+
+
+def init_moe(cfg, generator: torch.Generator, device) -> dict:
+    """Random params of one MoE FFN with ``moe_shapes``' shapes and scales."""
+    def make(node):
+        if isinstance(node, dict):
+            return {k: make(v) for k, v in node.items()}
+        return L.dense_init(node[0], generator, device)
+
+    return make(moe_shapes(cfg))
+
+
+def _group_size(T: int, target: int = 512) -> int:
+    """Largest divisor of T that is <= target (dispatch group size)."""
+    g = min(T, target)
+    while T % g:
+        g -= 1
+    return g
+
+
+def top_k(probs: torch.Tensor, k: int) -> tuple:
+    """(values, indices) of the k largest along the last axis, largest
+    first and ties to the lower index, as ``jax.lax.top_k`` orders them
+    (``torch.topk`` does not promise an order among ties)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+@dataclasses.dataclass(frozen=True)
+class Routing:
+    """One MoE call's routing over nG groups of G tokens (K assignments a
+    token, in the reference's order: token-major, k-minor).
+
+      probs:    (nG, G, E) fp32 router softmax over the real experts
+      idx:      (nG, G, K) int64 expert of each assignment
+      gates:    (nG, G, K) fp32 renormalised gate values
+      slot:     (nG, G, K) int64 place in its expert's group buffer
+      keep:     (nG, G, K) bool  slot < capacity (else dropped)
+      capacity: slots per (expert, group)
+    """
+
+    probs: torch.Tensor
+    idx: torch.Tensor
+    gates: torch.Tensor
+    slot: torch.Tensor
+    keep: torch.Tensor
+    capacity: int
+
+
+def route(cfg, xg: torch.Tensor, router: torch.Tensor) -> Routing:
+    """The reference's routing of xg (nG, G, d): the router in the compute
+    dtype, softmax in fp32, top-k renormalised; full capacity up to
+    FULL_CAPACITY_TOKENS tokens, else ceil(G * K / E * capacity_factor)
+    slots an expert a group, filled in (token, k) order."""
+    m = cfg.moe
+    nG, G, _ = xg.shape
+    K, Ep = m.top_k, m.n_experts_padded
+    logits = (xg @ router.to(xg.dtype)).to(torch.float32)
+    probs = torch.softmax(logits, dim=-1)
+    gates, idx = top_k(probs, K)
+    gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+    if nG * G <= FULL_CAPACITY_TOKENS:
+        capacity = G
+    else:
+        capacity = max(1, int(math.ceil(G * K / m.n_experts * m.capacity_factor)))
+    # an assignment's slot: the earlier assignments of its group to its expert
+    onehot = torch.nn.functional.one_hot(idx.reshape(nG, G * K), Ep)
+    before = onehot.cumsum(dim=1) - onehot
+    slot = before.gather(2, idx.reshape(nG, G * K, 1)).reshape(nG, G, K)
+    return Routing(probs, idx, gates, slot, slot < capacity, capacity)
+
+
+def apply_moe(cfg, p, x: torch.Tensor, return_aux: bool = False):
+    """x (B, S, d) -> (B, S, d) [, the Switch load-balancing loss].
+
+    Kept tokens are scattered into an (Ep, nG * C, d) buffer (row
+    (g * C + slot) of their expert; empty rows are zero, as the reference's
+    dispatch einsum leaves them), the experts run over the whole stack, and
+    each token sums its kept assignments' outputs weighted by its gate
+    values rounded to the compute dtype (the reference's combine tensor)."""
+    m = cfg.moe
+    B, S, d = x.shape
+    T = B * S
+    dt = x.dtype
+    G = _group_size(T)
+    nG = T // G
+    Ep, K = m.n_experts_padded, m.top_k
+    xg = x.reshape(nG, G, d)
+    r = route(cfg, xg, p["router"])
+    C = r.capacity
+
+    # a dropped assignment points at one spare row past the buffer
+    group = torch.arange(nG, device=x.device)[:, None, None]
+    dest = torch.where(r.keep, (r.idx * nG + group) * C + r.slot, Ep * nG * C).reshape(-1)
+    src = xg.reshape(T, 1, d).expand(T, K, d).reshape(T * K, d)
+    buf = x.new_zeros((Ep * nG * C + 1, d))
+    buf.index_copy_(0, dest, src)
+    xe = buf[:-1].view(Ep, nG * C, d)
+
+    h = apply_gate_up(xe, p["w_gate"], p["w_up"], cfg.activation)
+    ye = apply_linear(h, p["w_down"]).reshape(Ep * nG * C, d)
+
+    comb = torch.where(r.keep, r.gates, 0.0).to(dt).to(torch.float32)
+    rows = ye[dest.clamp_max(Ep * nG * C - 1)].to(torch.float32).reshape(nG, G, K, d)
+    y = (comb[..., None] * rows).sum(dim=2).to(dt)
+
+    if m.n_shared_experts:
+        s = p["shared"]
+        hs = apply_gate_up(xg, s["w_gate"], s["w_up"], cfg.activation)
+        y = y + apply_linear(hs, s["w_down"])
+    y = y.reshape(B, S, d)
+    if not return_aux:
+        return y
+    # Switch-style load balancing over the real experts, before capacity
+    E = m.n_experts
+    frac_tokens = torch.nn.functional.one_hot(r.idx, E).sum(2).to(torch.float32).mean((0, 1))
+    frac_probs = r.probs.mean((0, 1))
+    aux = E * (frac_tokens * frac_probs).sum() * m.router_aux_weight
+    return y, aux
+
+
+def moe_n_params(cfg) -> int:
+    m = cfg.moe
+    d = cfg.d_model
+    n = d * m.n_experts + m.n_experts * 3 * d * m.expert_d_ff
+    if m.n_shared_experts:
+        n += 3 * d * (m.shared_d_ff or m.expert_d_ff) * m.n_shared_experts
+    return n

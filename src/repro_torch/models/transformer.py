@@ -8,10 +8,11 @@ reference scans over the stack, the port runs a Python loop over layers:
 ``unstack`` turns the tree into a list of per-layer views once, when a
 model is set up, and ``init_cache`` makes one cache dict per layer.
 
-What the dense families use is ported (tinyllama-1.1b, llama3.2-1b,
-glm4-9b, gemma3-4b): ``global`` and sliding-window ``local`` attention
-layers with RMSNorm and a dense gated MLP, tied or untied heads, gemma's
-embedding scale and global RoPE base.  A ``local`` layer keeps a
+What the dense and MoE families use is ported (tinyllama-1.1b,
+llama3.2-1b, glm4-9b, gemma3-4b, granite-moe-1b-a400m, qwen2-moe-a2.7b):
+``global`` and sliding-window ``local`` attention layers with RMSNorm and
+a dense gated MLP or a routed MoE FFN (``models/moe.py``), tied or untied
+heads, gemma's embedding scale and global RoPE base.  A ``local`` layer keeps a
 contiguous ring of ``local_window (+ spec_k)`` slots, also when the global
 layers are paged.  ``check_supported`` names the ROADMAP item of
 everything else.
@@ -26,6 +27,7 @@ import torch
 from repro_torch.core.weight_plan import PackedLinear, QuantLinear, apply_linear, map_tree
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 
 
 def find_unit(kinds: tuple) -> tuple:
@@ -71,11 +73,10 @@ def check_supported(cfg):
     """Raise NotImplementedError, naming the ROADMAP item, for any part of
     ``cfg`` the port does not serve yet."""
     unported = [
-        (cfg.moe is not None, "MoE layers", "A8b"),
         (any(k not in ATTN_KINDS for k in cfg.layer_kinds),
          "recurrent / xLSTM layers", "A10"),
         (cfg.norm != "rmsnorm", "layernorm", "A9"),
-        (cfg.logit_softcap > 0.0, "logit softcaps", "A8b"),
+        (cfg.logit_softcap > 0.0, "logit softcaps", "A8c"),
     ]
     for bad, what, item in unported:
         if bad:
@@ -83,18 +84,23 @@ def check_supported(cfg):
 
 
 def _layer_shapes(cfg) -> dict:
-    """{name: (shape, init)} of one layer; init is 'dense' or 'zeros'."""
+    """{name: (shape, init)} of one layer; init is 'dense' or 'zeros'.  A
+    MoE config's FFN is ``moe`` (``moe.moe_shapes``), a dense one's
+    ``mlp``, as the reference's ``init_layer`` names them."""
     d, H, KVH, hd, f = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_ff
-    mlp = {"w_up": ((d, f), "dense"), "w_down": ((f, d), "dense")}
-    if cfg.activation in L.GATED:
-        mlp["w_gate"] = ((d, f), "dense")
-    return {
+    layer = {
         "ln1": {"scale": ((d,), "zeros")},
         "attn": {"wq": ((d, H * hd), "dense"), "wk": ((d, KVH * hd), "dense"),
                  "wv": ((d, KVH * hd), "dense"), "wo": ((H * hd, d), "dense")},
         "ln2": {"scale": ((d,), "zeros")},
-        "mlp": mlp,
     }
+    if cfg.moe is not None:
+        layer["moe"] = MOE.moe_shapes(cfg)
+        return layer
+    layer["mlp"] = {"w_up": ((d, f), "dense"), "w_down": ((f, d), "dense")}
+    if cfg.activation in L.GATED:
+        layer["mlp"]["w_gate"] = ((d, f), "dense")
+    return layer
 
 
 def param_shapes(cfg) -> dict:
@@ -248,6 +254,8 @@ def apply_layer(cfg, kind: str, p, x, *, cache, pos=None, page_table=None,
                          page_table=page_table, use_kernel=use_kernel)
     x = x + a
     h = L.apply_norm(p["ln2"], x)
+    if "moe" in p:  # routed over all of h's B * S tokens, as the reference's step does
+        return x + MOE.apply_moe(cfg, p["moe"], h)
     return x + L.apply_mlp(cfg, p["mlp"], h)
 
 

@@ -101,10 +101,10 @@ def test_layer_kind_sets_window_and_rope_base(arch):
 
 def test_check_supported_still_names_what_is_not_ported():
     cfg = get_config("gemma3-4b", smoke=True)
-    with pytest.raises(NotImplementedError, match="A8b"):
+    with pytest.raises(NotImplementedError, match="A8c"):
         T.check_supported(dataclasses.replace(cfg, logit_softcap=30.0))
-    with pytest.raises(NotImplementedError, match="A8b"):
-        T.check_supported(ref_get_config("granite-moe-1b-a400m", smoke=True))
+    with pytest.raises(NotImplementedError, match="A10"):
+        T.check_supported(ref_get_config("xlstm-350m", smoke=True))
 
 
 # ---------------------------------------------------------------------------

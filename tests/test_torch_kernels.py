@@ -197,7 +197,8 @@ def test_cpu_tensors_take_the_plain_versions():
 def test_apply_quant_takes_the_b5_plain_version_and_matches(lead):
     """A 2-D QuantLinear runs through ops.quant_matmul (B5's plain version
     on the CPU, no launch) and equals the reference's _apply_quant; a
-    stacked one is refused (the model runs per-layer views)."""
+    stack of experts (x's lead dim is the stack's) runs it once per
+    expert, as the reference vmaps _apply_quant."""
     ref, tw = _leaves("quant", seed=15)
     x = _rng(16).normal(size=(*lead, 64)).astype(np.float32)
     n = QM.quant_matmul.launches
@@ -209,8 +210,11 @@ def test_apply_quant_takes_the_b5_plain_version_and_matches(lead):
     plain = QM.quant_matmul_plain(torch.from_numpy(x).reshape(-1, 64), tw.q, tw.s)
     assert torch.equal(got.reshape(-1, 96), plain)
     stacked = TW.QuantLinear(q=torch.stack([tw.q, tw.q]), s=torch.stack([tw.s, tw.s]))
-    with pytest.raises(ValueError, match="unstacked"):
-        TW._apply_quant(torch.from_numpy(x), stacked)
+    xs = torch.from_numpy(np.stack([x, 2 * x]))
+    got_s = TW._apply_quant(xs, stacked)
+    assert got_s.shape == (2, *lead, 96) and QM.quant_matmul.launches == n
+    assert torch.equal(got_s[0], got)
+    assert torch.equal(got_s[1], TW._apply_quant(xs[1], tw))
 
 
 def test_with_use_kernel_reaches_quant_leaves():
