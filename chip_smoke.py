@@ -62,7 +62,16 @@ Phases, in order; any failure raises and the script exits non-zero:
                launches in the stack's regime and timed beside torch.bmm on
                the dequantized stack; stacked B4 equal to stacked B1; B3 at
                qwen2-moe's 16/16 heads, hd 128 (T 1, T 5), B6 at its
-               2048-token prefill, B5 at its 2048 x 151936 head.
+               2048-token prefill, B5 at its 2048 x 151936 head.  Then
+               the enc-dec and VLM shapes (``phase_encdec_kernels``): B3
+               non-causal over whisper-tiny's 1500 frames in 94 bf16 pages
+               of 16 (B 8, 6/6 heads, hd 64), B6 non-causal at whisper's
+               encoder (1500 x 1500) and its prefill's cross-attention (40
+               queries x 1500 keys), B3 at internvl2-2b's 16/8 heads (hd
+               128, int8 pages, after its 256 patches), B6 at internvl's
+               16/8 heads at 2032 positions, B5 at its 2048 x 92553 head
+               (the dense_tile regime: its rows are no multiple of 16
+               bytes).
 4. fcnet    -- the paper's four FC nets (Table 2) at published widths,
                random weights from a seed: forward_fp32 / forward_pruned
                (B7) held to the plain path, forward_q78 (B8) equal to it
@@ -171,7 +180,23 @@ Phases, in order; any failure raises and the script exits non-zero:
                B2 at M 172 an expert) and its self-draft speculation (B3 at
                T 5).  Every kernel row must carry launches from a served
                run.
-14. summary -- one JSON line of per-kernel numbers, then the result line.
+14. encdec_vlm -- whisper-tiny (4 encoder + 4 decoder layers, d 384, 1500
+               frames, tied 51865 head) and internvl2-2b (24 layers, d 2048,
+               16/8 heads, hd 128, 256 patches, untied 92553 head) at full
+               width and depth, random weights from a seed, the serve
+               phase's flags and prompts with random frames or patches
+               (whisper: --pool-pages 785, its 94 frame pages a request
+               included; internvl: --max-len 320): the engine's warnings
+               (int8 KV ignored by the enc-dec, prefix sharing off), each
+               through the kernels and the plain versions (streams by the
+               near-tie rule), launches exact: whisper's B6 non-causal
+               (enc_layers + n_layers) a prefill, B3 non-causal n_layers a
+               decode step, B1 only for its projections; internvl's B5 one
+               a prefill and a step, all dense_tile.  whisper's prefill and
+               paged decode held to the plain versions; internvl's
+               ``_path_parity`` with 1776-token prompts (B6 at 2032
+               positions) and its served long prompt.
+15. summary -- one JSON line of per-kernel numbers, then the result line.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -1266,19 +1291,23 @@ def _zero_launches(counters) -> None:
     QM.quant_matmul.wgmma_launches = QM.quant_matmul.dense_tile_launches = 0
     FA.paged_decode_attention.launches_by_t.clear()
     FA.flash_attention.launches_by_window.clear()
+    FA.paged_decode_attention.launches_noncausal = FA.flash_attention.launches_noncausal = 0
 
 
-def _b5_all_wgmma(label: str) -> None:
+def _b5_all_wgmma(label: str, regime: str = "wgmma") -> None:
     """Every B5 launch since ``_zero_launches`` ran in the wgmma regime (the
-    served model's int8 leaves are all TMA-addressable bf16 products)."""
+    served model's int8 leaves are all TMA-addressable bf16 products), or
+    every one in ``regime`` where the caller names another (internvl2-2b's
+    head, whose 92553-byte rows TMA cannot address, runs ``dense_tile``)."""
     from repro_torch.kernels import quant_matmul as QM
 
     f = QM.quant_matmul
     log(f"{label}: B5 launches {f.launches}: wgmma {f.wgmma_launches}, dense_tile "
         f"{f.dense_tile_launches}")
-    if f.dense_tile_launches or f.wgmma_launches != f.launches:
-        raise AssertionError(f"{label}: a B5 launch left the wgmma regime "
-                             f"({f.dense_tile_launches} dense_tile of {f.launches})")
+    n = f.wgmma_launches if regime == "wgmma" else f.dense_tile_launches
+    if n != f.launches:
+        raise AssertionError(f"{label}: a B5 launch left the {regime} regime ({n} of "
+                             f"{f.launches})")
 
 
 def _run_ticks(torch, engine, reqs, ticks: list) -> float:
@@ -1306,7 +1335,7 @@ def _decode_tick_ms(ticks: list) -> tuple:
 
 
 def _serve_and_check(serve, engine, cfg, max_new: int, label: str, reqs=None,
-                     ticks=None) -> tuple:
+                     ticks=None, b5_regime: str = "wgmma") -> tuple:
     """Serve the 8 requests (or ``reqs``) from zeroed launch counters; every
     request must finish with in-vocabulary tokens, no page may leak and the
     degradation ladder must stay untouched.  With a list ``ticks`` the run
@@ -1326,7 +1355,7 @@ def _serve_and_check(serve, engine, cfg, max_new: int, label: str, reqs=None,
     launches = {c.__name__: c.launches for c in counters}
     serve.report(engine, dt)
     log(f"{label}: launches during the run {launches}")
-    _b5_all_wgmma(label)
+    _b5_all_wgmma(label, b5_regime)
     engine.audit_pages()
     bad = [r.uid for r in reqs if r.state is not RequestState.FINISHED
            or len(r.output) != max_new]
@@ -1572,19 +1601,26 @@ def phase_long(torch, results: dict) -> tuple:
     return [r.prompt for r in reqs], outputs
 
 
-def _prefill_logits(torch, cfg, params, tokens):
-    """Last-position logits (fp32) of a batch-1 prefill over ``tokens`` through
+def _prefill_logits(torch, cfg, params, tokens, extras=None):
+    """Last-position logits (fp32) of a batch-1 prefill over ``tokens`` (and
+    a request's ``extras``: a VLM's patches, an enc-dec's frames) through
     the served kernels: the plain, non-speculative path teacher-forced."""
-    from repro_torch.models import transformer as T
+    import numpy as np
 
+    from repro_torch.models.api import get_api
+
+    api = get_api(cfg)
     dev = params["final_norm"]["scale"].device
     t = torch.as_tensor([int(x) for x in tokens], device=dev)[None]
-    cache = T.init_cache(cfg, 1, len(tokens), getattr(torch, cfg.compute_dtype),
-                         kv_dtype=torch.int8, device=dev)
-    return T.prefill(cfg, params, t, cache)[0][0, -1].float()
+    batch = {"tokens": t}
+    for k, v in (extras or {}).items():
+        batch[k] = torch.as_tensor(np.asarray(v), device=dev)[None]
+    cache = api.init_cache(cfg, 1, len(tokens) + api.prefix_len(cfg),
+                           getattr(torch, cfg.compute_dtype), kv_dtype=torch.int8, device=dev)
+    return api.prefill(cfg, params, batch, cache)[0][0, -1].float()
 
 
-def near_tie(torch, cfg, params, label: str, prompt, want, got) -> int:
+def near_tie(torch, cfg, params, label: str, prompt, want, got, extras=None) -> int:
     """The near-tie rule: streams ``got`` and ``want`` (the plain path's) are
     equal, or at the first position j where they differ the top-2 gap of
     the plain path's logits there (teacher-forced over prompt + want[:j]) is
@@ -1597,7 +1633,7 @@ def near_tie(torch, cfg, params, label: str, prompt, want, got) -> int:
     if not diff:
         return 0
     j = diff[0]
-    lg = _prefill_logits(torch, cfg, params, list(prompt) + list(want[:j]))
+    lg = _prefill_logits(torch, cfg, params, list(prompt) + list(want[:j]), extras)
     top = torch.topk(lg, 2).values
     gap = float(top[0] - top[1])
     pair = float((lg[want[j]] - lg[got[j]]).abs())
@@ -1611,10 +1647,12 @@ def near_tie(torch, cfg, params, label: str, prompt, want, got) -> int:
     return len(diff)
 
 
-def _streams_near_tie(torch, cfg, params, label, prompts, want, got) -> int:
-    """near_tie over every request; logs and returns the differing tokens."""
-    n = sum(near_tie(torch, cfg, params, f"{label} request {i}", p, w, g)
-            for i, (p, w, g) in enumerate(zip(prompts, want, got)))
+def _streams_near_tie(torch, cfg, params, label, prompts, want, got, extras=None) -> int:
+    """near_tie over every request (with its ``extras``, where given); logs
+    and returns the differing tokens."""
+    extras = extras or [None] * len(prompts)
+    n = sum(near_tie(torch, cfg, params, f"{label} request {i}", p, w, g, e)
+            for i, (p, w, g, e) in enumerate(zip(prompts, want, got, extras)))
     log(f"{label}: {n} of {sum(map(len, want))} tokens differ from the plain path's "
         f"(near-tie rule, tolerance {PATH_RTOL} of the largest logit)")
     return n
@@ -2000,37 +2038,47 @@ class _SharedRouting:
             MOE.route = inner
 
 
-def _path_parity(torch, cfg, params, label: str, gen) -> None:
+def _path_parity(torch, cfg, params, label: str, gen, lengths=(36, 40, LONG_M)) -> None:
     """Prefill at the serve phase's prompt lengths and at LONG_M (past the
-    dense threshold: B6), then teacher-forced paged int8-KV decode, through
-    the kernels and through the plain versions (``with_use_kernel(params,
-    False)``, ``prefill(use_kernel=False)``) on the same tokens; the logits
-    must agree within PATH_RTOL at every step.  A MoE model's plain pass
-    takes the kernel pass's expert choices (``_SharedRouting``)."""
+    dense threshold: B6), or at ``lengths``, then teacher-forced paged
+    int8-KV decode, through the kernels and through the plain versions
+    (``with_use_kernel(params, False)``, ``prefill(use_kernel=False)``) on
+    the same tokens; the logits must agree within PATH_RTOL at every step.
+    A VLM's prompts follow random patches (n_patches more positions).  A
+    MoE model's plain pass takes the kernel pass's expert choices
+    (``_SharedRouting``)."""
     from repro_torch.core.weight_plan import with_use_kernel
     from repro_torch.models import transformer as T
+    from repro_torch.models import vlm as V
 
     B, steps, ps = 4, 24, 16
     tokens = torch.randint(0, cfg.vocab, (steps, B), generator=gen, device="cuda")
     paths = {"kernels": (params, True), "plain": (with_use_kernel(params, False), False)}
     shared = _SharedRouting(cfg)
+    patches = None
+    if cfg.family == "vlm":
+        patches = torch.randn((1, cfg.n_patches, cfg.d_model), generator=gen, device="cuda")
 
     greedy = []  # the kernel path's greedy tokens: each prefill's, then each step's
-    for S in (36, 40, LONG_M):
+    for S in lengths:
         prompt = torch.randint(0, cfg.vocab, (1, S), generator=gen, device="cuda")
         lg = {}
         for name, (p, use_kernel) in paths.items():
-            cache = T.init_cache(cfg, 1, S, torch.bfloat16, kv_dtype=torch.int8, device="cuda")
+            n = S + (0 if patches is None else cfg.n_patches)
+            cache = T.init_cache(cfg, 1, n, torch.bfloat16, kv_dtype=torch.int8, device="cuda")
             with shared.run(record=use_kernel):
-                lg[name] = T.prefill(cfg, p, prompt, cache,
-                                     use_kernel=use_kernel)[0][0, -1].float()
+                if patches is None:
+                    out = T.prefill(cfg, p, prompt, cache, use_kernel=use_kernel)
+                else:
+                    out = V.prefill(cfg, p, prompt, patches, cache, use_kernel=use_kernel)
+                lg[name] = out[0][0, -1].float()
         torch.cuda.synchronize()
         a, b = lg["kernels"], lg["plain"]
         greedy.append(int(a.argmax()))
         if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
             raise AssertionError(f"{label}: non-finite prefill logits")
         worst = float((a - b).abs().max() / b.abs().max())
-        log(f"parity {label}: prefill of {S} tokens, max |dlogit| / max |logit| = {worst:.3e} "
+        log(f"parity {label}: prefill of {n} positions, max |dlogit| / max |logit| = {worst:.3e} "
             f"(tolerance {PATH_RTOL}), same greedy token {bool(a.argmax() == b.argmax())}")
         if not worst <= PATH_RTOL:
             raise AssertionError(f"{label}: kernel prefill logits differ from the plain path: "
@@ -2269,13 +2317,12 @@ def _add_row(results: dict, name: str, row: dict, err: float, rel: float) -> Non
     r["max_rel_err"] = max(r.get("max_rel_err", 0.0), rel)
 
 
-def _b6_row(torch, timer, gen, results, key, H, KVH, hd, window=None) -> None:
-    """B6 at one family's long prefill (B 1, 2048 tokens, causal, bf16):
+def _b6_row(torch, timer, gen, results, key, H, KVH, hd, window=None, S=2048) -> None:
+    """B6 at one family's long prefill (B 1, S = 2048 tokens, causal, bf16):
     held to its plain version, launched twice for the same bits, timed
     beside the plain version and SDPA on the same inputs."""
     from repro_torch.kernels import flash_attention as FA
 
-    S = 2048
     q = torch.randn((1, S, H, hd), generator=gen, device="cuda").to(torch.bfloat16)
     k = torch.randn((1, S, KVH, hd), generator=gen, device="cuda").to(torch.bfloat16)
     v = torch.randn(k.shape, generator=gen, device="cuda").to(torch.bfloat16)
@@ -2308,16 +2355,16 @@ def _b6_row(torch, timer, gen, results, key, H, KVH, hd, window=None) -> None:
         "bound_by": b_by}, d, r)
 
 
-def _b3_row(torch, timer, gen, results, key, H, KVH, hd, T) -> None:
+def _b3_row(torch, timer, gen, results, key, H, KVH, hd, T, prefix=0, P=8) -> None:
     """B3 at one family's serve step (T 1) or verify step (T 5): 8
-    sequences at the serve phase's contexts, int8 pages of 16, 8 pages a
-    sequence, sequences 1-3 sharing sequence 0's first page; held to its
-    plain version, twice for the same bits, timed beside SDPA on the
-    gathered bf16 K/V."""
+    sequences at the serve phase's contexts (after ``prefix`` positions of
+    a VLM's patches), int8 pages of 16, ``P`` pages a sequence, sequences
+    1-3 sharing sequence 0's first page; held to its plain version, twice
+    for the same bits, timed beside SDPA on the gathered bf16 K/V."""
     from repro_torch.kernels import flash_attention as FA
 
-    B, ps, P = 8, 16, 8
-    ctx = [c + 8 for c in (36, 40, 40, 40, 40, 40, 40, 40)]
+    B, ps = 8, 16
+    ctx = [c + 8 + prefix for c in (36, 40, 40, 40, 40, 40, 40, 40)]
     pos = torch.tensor([c - 1 for c in ctx], dtype=torch.int32, device="cuda")
     table = (1 + torch.randperm(B * P, generator=gen, device="cuda")).reshape(B, P)
     table[1:4, 0] = table[0, 0]
@@ -2406,15 +2453,18 @@ def _engine_like(engine, plan, params=None, **changes):
     """A new engine over ``engine``'s plan (or ``params``) with its config
     changed by ``changes``: top-level fields, ``cache``/``scheduler``/
     ``spec`` fields by their flat names (``EngineConfig.of``), and a pool
-    sized for the new max_batch x max_len."""
+    sized for the new max_batch x max_len (and an enc-dec's frame pages)
+    unless ``changes`` sets ``num_pages``."""
     from repro_torch.serving.config import EngineConfig
     from repro_torch.serving.engine import ServingEngine
     from repro_torch.core.perf_model import paged_pool_pages
 
     flat = engine.config.flat()
     flat.update(changes)
-    flat["num_pages"] = 1 + paged_pool_pages(flat["max_batch"], flat["max_len"],
-                                             flat["page_size"])
+    if "num_pages" not in changes:
+        frames = engine.xpages_per_seq * flat["page_size"]
+        flat["num_pages"] = 1 + paged_pool_pages(flat["max_batch"], flat["max_len"] + frames,
+                                                 flat["page_size"])
     return ServingEngine(engine.cfg, params if params is not None else engine.params,
                          plan=plan, device=engine.device, config=EngineConfig.of(**flat))
 
@@ -2591,8 +2641,9 @@ def _gemma_chunked(torch, serve, cfg, engine, plan, card: str) -> None:
 
 
 def _check_family_rows(results: dict) -> None:
-    """Every kernel row of the families and MoE phases carries the launches
-    that a served run at its shape counted (checked once both have run)."""
+    """Every kernel row of the families, MoE and encdec_vlm phases carries
+    the launches that a served run at its shape counted (checked once all
+    three have run)."""
     for name, r in results.items():
         for row in r.get("rows", []):
             if "key" in row and not (row["launches"] or 0) > 0:
@@ -2955,8 +3006,9 @@ def phase_moe(torch, results: dict, card: str) -> None:
     -- the last past full capacity -- and teacher-forced decode); granite's
     walk-less plan through stacked B4 and its self-draft speculation (the
     verify step's T = 40 through the MoE); qwen2-moe's served 2032-token
-    prompt and its self-draft speculation (B3 at T = 5, hd 128).  Then
-    every kernel row must carry launches from a served run."""
+    prompt and its self-draft speculation (B3 at T = 5, hd 128).  Every
+    kernel row must carry launches from a served run (checked after the
+    encdec_vlm phase)."""
     for arch in MOE_ARCHS:
         serve, cfg, engine, plan, outputs, run = _family_serve(torch, arch, card)
         _moe_checks(torch, results, arch, cfg, engine, run)
@@ -2976,7 +3028,395 @@ def phase_moe(torch, results: dict, card: str) -> None:
                          key="qwen2-moe verify")
         del engine, plan
         torch.cuda.empty_cache()
-    _check_family_rows(results)
+
+
+# ---------------------------------------------------------------------------
+# the enc-dec and VLM families: frame pages read by a non-causal B3, and a
+# non-causal B6 over 1500 frames
+# ---------------------------------------------------------------------------
+
+WHISPER, INTERNVL = "whisper-tiny", "internvl2-2b"
+# whisper-tiny's pool: the null page, and for each of the 8 requests 4
+# decoder pages (40 + 16 tokens) and 94 frame pages (1500 frames).  The
+# CLI's own sizing leaves the frame pages out, as the reference's does
+# (ROADMAP C5): such a pool admits no request at full width
+WHISPER_POOL = 1 + 8 * (4 + 94)
+# internvl2-2b's sequences: 256 patches + 40 prompt + 16 new tokens
+INTERNVL_MAX_LEN = 320
+# internvl2-2b's long prompt: 256 patches + 1776 tokens = LONG_M positions
+INTERNVL_LONG = LONG_M - 256
+
+
+def _b3_cross_row(torch, timer, gen, results) -> None:
+    """B3 non-causal at whisper-tiny's decode cross-attention: 8 sequences,
+    T 1, 6/6 heads, hd 64, bf16 frame pages of 16 -- 1500 frames in 94 pages
+    a sequence under a scrambled table, pos 1499 (the last page's 4 stale
+    slots mask out); held to its plain version, twice for the same bits,
+    timed beside SDPA on the gathered frames, unmasked."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import layers as L
+
+    B, H, KVH, hd, ps, nf = 8, 6, 6, 64, 16, 1500
+    P = -(-nf // ps)
+    table = (1 + torch.randperm(B * P, generator=gen, device="cuda")).reshape(B, P)
+    table = table.to(torch.int32).contiguous()
+    shape = (1 + B * P, ps, KVH, hd)
+    kp = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    vp = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    q = torch.randn((B, 1, H, hd), generator=gen, device="cuda").to(torch.bfloat16)
+    pos = torch.full((B,), nf - 1, dtype=torch.int32, device="cuda")
+    label = f"B3 non-causal hd {hd} B={B} T=1 H={H}/{KVH} bf16, {P} frame pages of {ps}"
+    o = FA.paged_decode_attention(q, kp, vp, table, pos, causal=False)
+    d, r = _held(torch, label, o, FA.paged_decode_attention(q, kp, vp, table, pos, causal=False,
+                                                            use_kernel=False), KERNEL_RTOL)
+    _deterministic(torch, label, o, FA.paged_decode_attention(q, kp, vp, table, pos,
+                                                              causal=False))
+    nbytes = 2 * B * nf * KVH * hd * 2 + 2 * q.numel() * 2 + table.numel() * 4 + B * 4
+    b_ms, b_by = bound(nbytes, 4.0 * B * nf * H * hd)
+    ms = timer(lambda: FA.paged_decode_attention(q, kp, vp, table, pos, causal=False))
+    plain_ms = timer(lambda: FA.paged_decode_attention(q, kp, vp, table, pos, causal=False,
+                                                       use_kernel=False))
+    kd = L.gather_pages(kp, table)[:, :nf].transpose(1, 2)
+    vd = L.gather_pages(vp, table)[:, :nf].transpose(1, 2)
+    qt = q.transpose(1, 2)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_ms = timer(lambda: sdpa(qt, kd, vd))
+    log(f"{label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA(gathered frames, no "
+        f"mask) {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    _add_row(results, "paged_decode_attention", {
+        "key": "whisper cross", "shape": f"B={B} T=1 H={H} KVH={KVH} hd={hd} non-causal, bf16 "
+                                         f"frame pages of {ps}, {nf} frames (pos {nf - 1})",
+        "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
+        "bound_by": b_by}, d, r)
+
+
+def _b6_noncausal_row(torch, timer, gen, results, key: str, Sq: int, Sk: int = 1500) -> None:
+    """B6 non-causal at whisper-tiny's 6/6 heads, hd 64, B 1 (a batch-1
+    prefill): Sq = Sk = 1500 is the encoder, Sq 40 against Sk 1500 the
+    decoder prefill's cross-attention (Sq != Sk, ragged against 128-key
+    tiles); held to its plain version, twice for the same bits, timed beside
+    SDPA without a mask."""
+    from repro_torch.kernels import flash_attention as FA
+
+    H = KVH = 6
+    hd = 64
+    q = torch.randn((1, Sq, H, hd), generator=gen, device="cuda").to(torch.bfloat16)
+    k = torch.randn((1, Sk, KVH, hd), generator=gen, device="cuda").to(torch.bfloat16)
+    v = torch.randn(k.shape, generator=gen, device="cuda").to(torch.bfloat16)
+    label = f"B6 non-causal hd {hd} Sq={Sq} Sk={Sk} H={H}/{KVH} bf16"
+    o = FA.flash_attention(q, k, v, causal=False)
+    d, r = _held(torch, label, o, FA.flash_attention(q, k, v, causal=False, use_kernel=False),
+                 KERNEL_RTOL)
+    _deterministic(torch, label, o, FA.flash_attention(q, k, v, causal=False))
+    nbytes = 2 * (2 * q.numel() + 2 * k.numel())
+    flops = 4.0 * hd * H * _visible_pairs(Sq, Sk, False, None)
+    b_ms, b_by = bound(nbytes, flops)
+    ms = timer(lambda: FA.flash_attention(q, k, v, causal=False))
+    plain_ms = timer(lambda: FA.flash_attention(q, k, v, causal=False, use_kernel=False))
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_ms = timer(lambda: sdpa(qt, kt, vt))
+    log(f"{label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA(no mask) {lib_ms:.4f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP)")
+    _add_row(results, "flash_attention", {
+        "key": key, "shape": f"B=1 Sq={Sq} Sk={Sk} H={H} KVH={KVH} hd={hd} non-causal bf16",
+        "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
+        "bound_by": b_by}, d, r)
+
+
+def phase_encdec_kernels(torch, results: dict) -> None:
+    """The kernels at the enc-dec and VLM families' new modes and shapes,
+    each against its plain version: B3 non-causal over whisper-tiny's frame
+    pages, B6 non-causal at whisper's encoder (1500 x 1500) and its
+    prefill's cross-attention (40 x 1500), B3 at internvl2-2b's 16/8 heads
+    (hd 128, int8 pages, contexts after its 256 patches), B6 at internvl's
+    16/8 heads at 2032 positions, B5 at internvl's 2048 x 92553 head (its
+    regime logged: dense_tile)."""
+    from repro_torch.configs import get_config
+
+    timer = Timer(torch)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(23)
+    _b3_cross_row(torch, timer, gen, results)
+    _b6_noncausal_row(torch, timer, gen, results, "whisper encoder", 1500)
+    _b6_noncausal_row(torch, timer, gen, results, "whisper cross", 40)
+    c = get_config(INTERNVL)
+    _b3_row(torch, timer, gen, results, "internvl serve", c.n_heads, c.n_kv_heads, c.hd, 1,
+            prefix=c.n_patches, P=INTERNVL_MAX_LEN // 16)
+    _b6_row(torch, timer, gen, results, "internvl", c.n_heads, c.n_kv_heads, c.hd, S=LONG_M)
+    _b5_head_row(torch, timer, gen, results, "internvl head", c.d_model, c.vocab)
+    torch.cuda.empty_cache()
+
+
+def _extras_requests(serve, cfg, max_new: int) -> list:
+    """The serve phase's 8 requests, each with its frontend-stub inputs (an
+    enc-dec's frames, a VLM's patches) drawn by ``serve.request_extras``
+    from seed 2: the same for every run of a family."""
+    import numpy as np
+
+    reqs = _serve_requests(cfg, max_new)
+    rng = np.random.default_rng(2)
+    for r in reqs:
+        r.extras = serve.request_extras(cfg, rng)
+    return reqs
+
+
+@contextlib.contextmanager
+def _flash_shapes(shapes: list):
+    """Records (Sq, Sk, causal) of every B6 launch the model path makes:
+    ``layers.attention`` calls ``ops.flash_attention`` only to launch B6
+    (on CUDA tensors, with the kernel on), which launches or raises."""
+    from repro_torch.kernels import ops
+
+    inner = ops.flash_attention
+
+    def spy(q, k, v, **kw):
+        out = inner(q, k, v, **kw)
+        shapes.append((q.shape[1], k.shape[1], kw.get("causal", True)))
+        return out
+
+    ops.flash_attention = spy
+    try:
+        yield
+    finally:
+        ops.flash_attention = inner
+
+
+def _encdec_serve(torch, results, arch: str, card: str):
+    """One family at full width with the quickstart flags (whisper: a pool
+    with its frame pages, --pool-pages; internvl: --max-len 320): the
+    engine's warnings, the kernel path's streams, launches counted exactly,
+    tok/s and the decode tick; then the plain path's streams (flash
+    attention in prefill included), held to each other by the near-tie
+    rule.  Returns (serve, cfg, engine, plan, outputs)."""
+    import functools
+    import warnings
+
+    from repro_torch.core.weight_plan import with_use_kernel
+    from repro_torch.kernels import flash_attention as FA
+
+    flags = (["--pool-pages", str(WHISPER_POOL)] if arch == WHISPER
+             else ["--max-len", str(INTERNVL_MAX_LEN)])
+    serve, ap, args = _serve_args(["--arch", arch, *flags])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        cfg, engine, plan = serve.build_engine(args, ap)
+    torch.cuda.synchronize()
+    said = [str(w.message) for w in caught if issubclass(w.category, UserWarning)]
+    for m in said:
+        log(f"{arch}: engine warning: {m}")
+    want = ["share_prefix"] + (["kv_dtype=int8"] if arch == WHISPER else [])
+    if any(not any(w in m for m in said) for w in want) or engine.registry is not None:
+        raise AssertionError(f"{arch}: expected the warnings {want} and no prefix sharing")
+    if (engine.kv_dtype is None) != (arch == WHISPER):
+        raise AssertionError(f"{arch}: KV cache dtype {engine.kv_dtype}")
+    log(f"{arch}: model + plan + engine built in {time.perf_counter() - t0:.1f}s "
+        f"({cfg.n_layers} layers{f' + {cfg.enc_layers} encoder' if cfg.enc_layers else ''}, "
+        f"d {cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} kv, hd {cfg.hd}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab}, tied {cfg.tie_embeddings}; pool {engine.num_pages} "
+        f"pages, {engine.xpages_per_seq} frame pages a request; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB during the build)")
+    b5 = "wgmma" if arch == WHISPER else "dense_tile"
+    reqs = _extras_requests(serve, cfg, args.max_new)
+    ticks, shapes = [], []
+    with _flash_shapes(shapes):
+        outputs, launches, dt = _serve_and_check(serve, engine, cfg, args.max_new, arch,
+                                                 reqs=reqs, ticks=ticks, b5_regime=b5)
+    st = engine.stats
+    b3, b6 = FA.paged_decode_attention, FA.flash_attention
+    log(f"{arch}: {st.prefills} prefills, {st.decode_steps} decode steps; B3 by query "
+        f"positions {b3.launches_by_t}, non-causal {b3.launches_noncausal}; B6 by window "
+        f"{b6.launches_by_window}, non-causal {b6.launches_noncausal}; B6 (Sq, Sk, causal) "
+        f"{sorted(set(shapes))}")
+    n_dec = cfg.n_layers * st.decode_steps
+    if launches["block_sparse_matmul_col"] or launches["block_sparse_matmul"] <= 0:
+        raise AssertionError(f"{arch}: B1 must serve every packed leaf, B4 none: {launches}")
+    if b3.launches_by_t != {1: n_dec}:
+        raise AssertionError(f"{arch}: B3 causal launches {b3.launches_by_t}, expected "
+                             f"{{1: {n_dec}}}")
+    if arch == WHISPER:
+        enc = [s for s in shapes if s == (cfg.n_frames, cfg.n_frames, False)]
+        cross = [s for s in shapes if s[1] == cfg.n_frames and s[0] != cfg.n_frames
+                 and not s[2]]
+        want6 = (cfg.enc_layers + cfg.n_layers) * st.prefills
+        if (b3.launches_noncausal != n_dec or b6.launches_noncausal != want6
+                or b6.launches_by_window or len(enc) != cfg.enc_layers * st.prefills
+                or len(cross) != cfg.n_layers * st.prefills):
+            raise AssertionError(
+                f"{arch}: B3 non-causal {b3.launches_noncausal} (expected {n_dec}), B6 "
+                f"non-causal {b6.launches_noncausal} (expected {want6}: encoder {len(enc)}, "
+                f"cross {len(cross)}), causal {b6.launches_by_window}")
+        if launches["fused_gate_up"] or launches["quant_matmul"]:
+            raise AssertionError(f"{arch}: the gelu MLP and the tied head take B1 only: "
+                                 f"{launches}")
+        _row(results, "paged_decode_attention", "whisper cross")["launches"] = n_dec
+        _row(results, "flash_attention", "whisper encoder")["launches"] = len(enc)
+        _row(results, "flash_attention", "whisper cross")["launches"] = len(cross)
+    else:
+        if launches["quant_matmul"] != st.prefills + st.decode_steps or b3.launches_noncausal \
+                or launches["fused_gate_up"] <= 0 or b6.launches_noncausal \
+                or b6.launches_by_window:
+            raise AssertionError(f"{arch}: B5 {launches['quant_matmul']} (expected one a "
+                                 f"prefill and a step: {st.prefills + st.decode_steps}), B2 "
+                                 f"{launches['fused_gate_up']}, B3 non-causal "
+                                 f"{b3.launches_noncausal}, B6 {b6.launches_by_window} / "
+                                 f"{b6.launches_noncausal}")
+        _row(results, "paged_decode_attention", "internvl serve")["launches"] = n_dec
+        _row(results, "quant_matmul", "internvl head")["launches"] = launches["quant_matmul"]
+    step_ms, n_steps = _decode_tick_ms(ticks)
+    log(f"{arch}: {st.completed}/8 FINISHED, audit clean, {st.decode_tokens / dt:.1f} tok/s, "
+        f"decode tick {step_ms:.2f} ms (median of {n_steps}, batch {st.mean_batch:.2f}) on "
+        f"{card}")
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the build's warnings again, logged above
+        plain = _engine_like(engine, plan, params=with_use_kernel(engine.params, False),
+                             num_pages=engine.num_pages)
+    plain.attention_kernel = False
+    plain.api = dataclasses.replace(plain.api, prefill=functools.partial(plain.api.prefill,
+                                                                         use_kernel=False))
+    p_reqs = _extras_requests(serve, cfg, args.max_new)
+    p_out, p_launches, p_dt = _serve_and_check(serve, plain, cfg, args.max_new, f"{arch} plain",
+                                               reqs=p_reqs, b5_regime=b5)
+    if any(p_launches.values()) or b6.launches_noncausal or b6.launches_by_window:
+        raise AssertionError(f"{arch} plain: a kernel launched on the plain path: {p_launches}, "
+                             f"B6 {b6.launches_noncausal} / {b6.launches_by_window}")
+    _streams_near_tie(torch, cfg, plain.params, f"{arch} kernels vs plain",
+                      [r.prompt for r in p_reqs], p_out, outputs, [r.extras for r in p_reqs])
+    log(f"{arch} plain: {plain.stats.decode_tokens / p_dt:.1f} tok/s on {card}")
+    del plain
+    torch.cuda.empty_cache()
+    return serve, cfg, engine, plan, outputs
+
+
+def _encdec_parity(torch, cfg, params, gen) -> None:
+    """whisper-tiny at full width, kernels vs plain versions on the same
+    inputs: a batch of 2 prefills of 40 tokens over 1500 random frames (the
+    encoder and the cross prefill through B6 non-causal), then 16
+    teacher-forced decode steps on a paged cache filled from the prefill
+    (self-attention B3 causal, cross-attention B3 non-causal over the frame
+    pages); the logits must agree within PATH_RTOL at every step, and the
+    kernel pass launches B6 (enc_layers + n_layers) times and B3
+    non-causal n_layers a step."""
+    from repro_torch.core.weight_plan import with_use_kernel
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import encdec as E
+
+    B, S, steps, ps, nf = 2, 40, 16, 16, cfg.n_frames
+    P, Px = -(-(S + steps) // ps), -(-nf // ps)
+    frames = torch.randn((B, nf, cfg.d_model), generator=gen, device="cuda")
+    prompt = torch.randint(0, cfg.vocab, (B, S), generator=gen, device="cuda")
+    tokens = torch.randint(0, cfg.vocab, (steps, B), generator=gen, device="cuda")
+    logits, counts = {}, {}
+    for name, (p, uk) in {"kernels": (params, True),
+                          "plain": (with_use_kernel(params, False), False)}.items():
+        FA.flash_attention.launches_noncausal = FA.paged_decode_attention.launches_noncausal = 0
+        c1 = E.init_cache(cfg, B, S, torch.bfloat16, device="cuda")
+        lg, c1 = E.prefill(cfg, p, prompt, frames, c1, use_kernel=uk)
+        out = [lg[:, 0].float()]
+        cache = E.init_cache(cfg, B, P * ps, torch.bfloat16, page_size=ps,
+                             num_pages=1 + B * (P + Px), device="cuda")
+        cache["page_table"].copy_(1 + torch.arange(B * P, device="cuda").reshape(B, P))
+        cache["xpage_table"].copy_(1 + B * P + torch.arange(B * Px, device="cuda")
+                                   .reshape(B, Px))
+        for c, cx, one in zip(cache["layers"], cache["x"], c1["layers"]):
+            for pk, ck in (("k_pages", "k"), ("v_pages", "v")):
+                c[pk][1:1 + B * P].view(B, P * ps, cfg.n_kv_heads, cfg.hd)[:, :S] = one[ck]
+            for pk, ck in (("k_pages", "xk"), ("v_pages", "xv")):
+                cx[pk][1 + B * P:].view(B, Px * ps, cfg.n_kv_heads, cfg.hd)[:, :nf] = one[ck]
+        for t in range(steps):
+            pos = torch.full((B,), S + t, dtype=torch.int32, device="cuda")
+            lg, cache = E.decode_step(cfg, p, cache, tokens[t][:, None], pos, use_kernel=uk)
+            out.append(lg[:, 0].float())
+        logits[name] = torch.stack(out)
+        counts[name] = (FA.flash_attention.launches_noncausal,
+                        FA.paged_decode_attention.launches_noncausal)
+    torch.cuda.synchronize()
+    a, b = logits["kernels"], logits["plain"]
+    if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+        raise AssertionError("whisper parity: non-finite logits")
+    worst = float(((a - b).abs().amax(dim=(1, 2)) / b.abs().amax(dim=(1, 2))).max())
+    agree = float((a.argmax(-1) == b.argmax(-1)).float().mean())
+    want = ((cfg.enc_layers + cfg.n_layers, cfg.n_layers * steps), (0, 0))
+    log(f"parity whisper-tiny: prefill of {S} tokens over {nf} frames + {steps} paged decode "
+        f"steps x {B}, max |dlogit| / max |logit| = {worst:.3e} (tolerance {PATH_RTOL}), "
+        f"greedy agreement {agree:.4f}; (B6, B3) non-causal launches kernels / plain "
+        f"{counts['kernels']} / {counts['plain']}")
+    if (counts["kernels"], counts["plain"]) != want:
+        raise AssertionError(f"whisper parity: non-causal launches {counts}, expected {want}")
+    if not worst <= PATH_RTOL:
+        raise AssertionError(f"whisper parity: kernel path logits differ from the plain path: "
+                             f"{worst:.3e}")
+
+
+def _internvl_long(torch, results, serve, cfg, engine, plan, card: str) -> None:
+    """internvl2-2b's served long prompt: 256 patches + 1776 tokens = 2032
+    positions (max_len 2048), so the prefill runs B6 causal at hd 128, 16/8
+    heads, once a layer, counted into B6's "internvl" row; the first tick
+    (the prefill and one decode step) timed."""
+    import warnings
+
+    import numpy as np
+
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.serving.engine import Request
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # prefix sharing off, logged by the serve run
+        eng = _engine_like(engine, plan, max_len=2048, max_batch=1)
+    rng = np.random.default_rng(3)
+    prompt = rng.integers(0, cfg.vocab, size=INTERNVL_LONG).astype(np.int32)
+    reqs = [Request(uid=0, prompt=prompt, max_new_tokens=16,
+                    extras=serve.request_extras(cfg, rng))]
+    ticks = []
+    FA.flash_attention.launches = 0
+    _, launches, dt = _serve_and_check(serve, eng, cfg, 16, f"{cfg.name} long", reqs,
+                                       ticks=ticks, b5_regime="dense_tile")
+    by_w = dict(FA.flash_attention.launches_by_window)
+    log(f"{cfg.name} long: B6 launches {FA.flash_attention.launches}, by window {by_w}, first "
+        f"tick (prefill of {cfg.n_patches} patches + {INTERNVL_LONG} tokens + one decode step) "
+        f"{1e3 * ticks[0][0]:.3f} ms, {eng.stats.decode_tokens / dt:.1f} tok/s on {card}")
+    if by_w != {0: cfg.n_layers} or FA.flash_attention.launches != cfg.n_layers:
+        raise AssertionError(f"{cfg.name} long: B6 launches by window {by_w}, expected "
+                             f"{{0: {cfg.n_layers}}}")
+    _row(results, "flash_attention", "internvl")["launches"] = by_w[0]
+    del eng
+    torch.cuda.empty_cache()
+
+
+def phase_encdec_vlm(torch, results: dict, card: str) -> None:
+    """whisper-tiny (4 + 4 layers, d 384, 6/6 heads, hd 64, 1500 frames,
+    tied 51865 head) and internvl2-2b (24 layers, d 2048, 16/8 heads, hd
+    128, 256 patches, untied 92553 head) at full width and depth, random
+    weights from seed 0, the quickstart flags, the serve phase's prompts
+    with random frames or patches: each through the kernels and the plain
+    versions (``_encdec_serve``); whisper's model path held to its plain
+    versions (``_encdec_parity``); internvl's ``_path_parity`` at prompts
+    of 36, 40 and 1776 tokens after its patches (B6 at 2032 positions, once
+    a layer) and its served long prompt (``_internvl_long``)."""
+    from repro_torch.kernels import flash_attention as FA
+
+    for arch in (WHISPER, INTERNVL):
+        serve, cfg, engine, plan, outputs = _encdec_serve(torch, results, arch, card)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(13)
+        if arch == WHISPER:
+            _encdec_parity(torch, cfg, engine.params, gen)
+        else:
+            _zero_launches((FA.flash_attention,))
+            _path_parity(torch, cfg, engine.params, f"{arch} quant_sparse", gen,
+                         lengths=(36, 40, INTERNVL_LONG))
+            log(f"parity {arch}: B6 by window {FA.flash_attention.launches_by_window} (the "
+                f"kernel pass's {cfg.n_patches} + {INTERNVL_LONG} positions)")
+            if FA.flash_attention.launches_by_window != {0: cfg.n_layers}:
+                raise AssertionError(f"{arch} parity: B6 did not run once a layer at "
+                                     f"{LONG_M} positions")
+            _internvl_long(torch, results, serve, cfg, engine, plan, card)
+        del engine, plan
+        torch.cuda.empty_cache()
 
 
 def main(argv=None) -> int:
@@ -3009,6 +3449,7 @@ def main(argv=None) -> int:
     phase_dense_kernels(torch, results)
     phase_family_kernels(torch, results)
     phase_moe_kernels(torch, results)
+    phase_encdec_kernels(torch, results)
     phase_fcnet(torch, results)
     cfg, engine, serve_outputs, serve_launches = phase_serve(torch, results)
     phase_plancache(torch, results, serve_outputs, serve_launches, card)
@@ -3019,6 +3460,8 @@ def main(argv=None) -> int:
     phase_faults(torch, card)
     phase_families(torch, results, card)
     phase_moe(torch, results, card)
+    phase_encdec_vlm(torch, results, card)
+    _check_family_rows(results)
     if args.profile:
         phase_profile(torch, cfg, engine)
     kernels = []

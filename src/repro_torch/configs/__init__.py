@@ -17,6 +17,8 @@ _MODULES = {
     "gemma3-4b": "gemma3_4b",
     "granite-moe-1b-a400m": "granite_moe_1b_a400m",
     "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
+    "whisper-tiny": "whisper_tiny",
+    "internvl2-2b": "internvl2_2b",
 }
 
 ARCH_IDS = tuple(_MODULES)

@@ -46,9 +46,10 @@ SMEM_LIMIT = 232448  # bytes of shared memory one CTA may use on Hopper
 
 
 def paged_decode_attention_plain(q, k_pages, v_pages, page_table, pos, *,
-                                 window=None, softcap=0.0,
-                                 k_scale_pages=None, v_scale_pages=None) -> torch.Tensor:
-    """Gather each sequence's pages, then contiguous decode attention."""
+                                 window=None, softcap=0.0, k_scale_pages=None,
+                                 v_scale_pages=None, causal: bool = True) -> torch.Tensor:
+    """Gather each sequence's pages, then contiguous decode attention
+    (non-causal: every query sees [0, pos])."""
     from repro_torch.models import layers as L  # layers imports this module
 
     kc = L.gather_pages(k_pages, page_table)
@@ -58,7 +59,7 @@ def paged_decode_attention_plain(q, k_pages, v_pages, page_table, pos, *,
         ksc = L.gather_pages(k_scale_pages, page_table)
         vsc = L.gather_pages(v_scale_pages, page_table)
     return L.decode_attention(q, kc, vc, pos, window=window, softcap=softcap,
-                              k_scale=ksc, v_scale=vsc)
+                              k_scale=ksc, v_scale=vsc, causal=causal)
 
 
 PAGED_HEAD_DIMS = (64, 128, 256)  # the head dims of the repo's configs
@@ -178,11 +179,15 @@ def _check(q, k_pages, v_pages, page_table, pos, k_scale_pages, v_scale_pages):
 
 def paged_decode_attention(q, k_pages, v_pages, page_table, pos, *, window=None,
                            softcap: float = 0.0, k_scale_pages=None,
-                           v_scale_pages=None, use_kernel: bool = True) -> torch.Tensor:
+                           v_scale_pages=None, causal: bool = True,
+                           use_kernel: bool = True) -> torch.Tensor:
     """Attention of q (B, T, H, hd) -- query t of sequence b at position
-    pos[b] + t -- against the paged pools (num_pages, ps, KVH, hd) through
-    page_table (B, pages_per_seq).  int8 pools come with (num_pages, ps,
-    KVH) float32 scale pools.
+    pos[b] + t, seeing kv_pos <= pos[b] + t -- against the paged pools
+    (num_pages, ps, KVH, hd) through page_table (B, pages_per_seq).  int8
+    pools come with (num_pages, ps, KVH) float32 scale pools.
+    ``causal=False`` gives every query the positions [0, pos[b]]: the
+    enc-dec cross-attention over a sequence's frame pages, pos[b] its last
+    frame (the stale tail of the last page lies past it).
 
     The table is clamped to [0, num_pages - 1] first (the reference's
     guardrail, ``repro/kernels/ops.py:251``): a corrupted entry reads a
@@ -191,7 +196,7 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, pos, *, window=None,
     if not q.is_cuda or not use_kernel:
         return paged_decode_attention_plain(
             q, k_pages, v_pages, page_table, pos, window=window, softcap=softcap,
-            k_scale_pages=k_scale_pages, v_scale_pages=v_scale_pages)
+            k_scale_pages=k_scale_pages, v_scale_pages=v_scale_pages, causal=causal)
     page_table = page_table.contiguous()
     _check(q, k_pages, v_pages, page_table, pos, k_scale_pages, v_scale_pages)
     B, T, H, hd = q.shape
@@ -218,19 +223,24 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, pos, *, window=None,
         build.ptr(q), build.ptr(k_pages), build.ptr(v_pages),
         build.ptr(k_scale_pages), build.ptr(v_scale_pages),
         build.ptr(page_table), build.ptr(pos), build.ptr(out),
-        B, T, H, KVH, hd, P, ps, num_pages, 1, int(window or 0), float(softcap),
+        B, T, H, KVH, hd, P, ps, num_pages, int(bool(causal)), int(window or 0), float(softcap),
         1.0 / math.sqrt(hd), build.DTYPE_CODES[q.dtype], build.DTYPE_CODES[k_pages.dtype],
         split, paged_stages(hd, ps, k_pages.dtype), groups, build.stream_ptr(q.device))
     build.check(lib, code, "paged_decode_attention")
     paged_decode_attention.launches += 1
-    by_t = paged_decode_attention.launches_by_t
-    by_t[T] = by_t.get(T, 0) + 1
+    if causal:
+        by_t = paged_decode_attention.launches_by_t
+        by_t[T] = by_t.get(T, 0) + 1
+    else:
+        paged_decode_attention.launches_noncausal += 1
     return out
 
 
 paged_decode_attention.launches = 0
-# launches by query positions per sequence: T = 1 decode, T = k + 1 verify
+# causal launches by query positions per sequence: T = 1 decode, T = k + 1 verify
 paged_decode_attention.launches_by_t = {}
+# non-causal launches (enc-dec cross-attention over frame pages)
+paged_decode_attention.launches_noncausal = 0
 
 
 # ---------------------------------------------------------------------------
@@ -334,11 +344,16 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None, k_scale=None,
         build.stream_ptr(q.device))
     build.check(lib, code, "flash_attention")
     flash_attention.launches += 1
-    by_w = flash_attention.launches_by_window
-    by_w[int(window or 0)] = by_w.get(int(window or 0), 0) + 1
+    if causal:
+        by_w = flash_attention.launches_by_window
+        by_w[int(window or 0)] = by_w.get(int(window or 0), 0) + 1
+    else:
+        flash_attention.launches_noncausal += 1
     return out
 
 
 flash_attention.launches = 0
-# launches by window: 0 = full causal (or none), else the sliding window
+# causal launches by window: 0 = full causal, else the sliding window
 flash_attention.launches_by_window = {}
+# non-causal launches (the enc-dec encoder and cross-attention prefill)
+flash_attention.launches_noncausal = 0

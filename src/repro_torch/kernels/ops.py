@@ -11,6 +11,8 @@ the plan nodes' ``use_kernel``, ``layers.paged_decode_attention(use_kernel=)``,
 
 from __future__ import annotations
 
+import torch
+
 from repro_torch.kernels import batched_ffn as _bffn
 from repro_torch.kernels import block_sparse as _bs
 from repro_torch.kernels import flash_attention as _fa
@@ -44,11 +46,37 @@ def fused_gate_up(x2, g, u, activation: str):
 
 def paged_decode_attention(q, k_pages, v_pages, page_table, pos, *, window=None,
                            softcap=0.0, k_scale_pages=None, v_scale_pages=None,
-                           use_kernel: bool = True):
+                           causal: bool = True, use_kernel: bool = True):
     """Decode attention through the page table (kernel B3)."""
     return _fa.paged_decode_attention(
         q, k_pages, v_pages, page_table, pos, window=window, softcap=softcap,
-        k_scale_pages=k_scale_pages, v_scale_pages=v_scale_pages, use_kernel=use_kernel)
+        k_scale_pages=k_scale_pages, v_scale_pages=v_scale_pages, causal=causal,
+        use_kernel=use_kernel)
+
+
+CROSS_PAGE = 16  # slots of the identity table's pages (the served frame pages')
+
+
+def cross_decode_attention(q, k, v, *, softcap: float = 0.0, use_kernel: bool = True):
+    """Decode-time enc-dec cross-attention of q (B, T, H, hd) against a
+    contiguous encoder pool k/v (B, Sf, KVH, hd) through kernel B3, as the
+    reference's ``ops.cross_decode_attention`` runs its Pallas kernel: the
+    frames padded to whole pages of CROSS_PAGE slots, an identity page
+    table, ``causal=False`` at pos = Sf - 1 (the padded slots lie past pos
+    and mask out).  The served path reads the paged frame pool in place
+    (``models/encdec.py``); this one pads a copy every call."""
+    B, Sf, KVH, hd = k.shape
+    P = -(-Sf // CROSS_PAGE)
+    pad = P * CROSS_PAGE - Sf
+
+    def pool(x):
+        x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad)) if pad else x
+        return x.contiguous().reshape(B * P, CROSS_PAGE, KVH, hd)
+
+    table = torch.arange(B * P, dtype=torch.int32, device=q.device).reshape(B, P)
+    pos = torch.full((B,), Sf - 1, dtype=torch.int32, device=q.device)
+    return _fa.paged_decode_attention(q, pool(k), pool(v), table, pos, softcap=softcap,
+                                      causal=False, use_kernel=use_kernel)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window=None, q_offset: int = 0,

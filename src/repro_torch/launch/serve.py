@@ -18,6 +18,13 @@ TTFT and latency percentiles; ``--request-timeout``, ``--ttft-deadline``,
 ``--max-retries`` and ``--evict-policy`` the failure model.  Reports the
 machine-balance n_opt from the H100 data-sheet constants, the plan summary,
 and throughput next to the device's name.
+
+``--arch whisper-tiny`` and ``--arch internvl2-2b`` draw each request's
+frames or patches after its prompt from the ``--seed`` stream, as the
+reference's CLI does.  The default pool holds each request's decoder
+pages, a VLM's patch positions included, but not an enc-dec's frame pages,
+as in the reference: at full width whisper-tiny needs ``--pool-pages``
+(1 + max_batch x (decoder pages + 94 frame pages)).
 """
 
 from __future__ import annotations
@@ -33,7 +40,12 @@ from repro_torch.core.batching import UNBOUNDED_NOPT, BatchSizer, mean_decode_co
 from repro_torch.core.perf_model import HARDWARE_LABEL, paged_pool_pages
 from repro_torch.core.weight_plan import PlanConfig, compress, load_plan, map_tree, save_plan
 from repro_torch.device import resolve_device
-from repro_torch.models.api import get_api, kv_bytes_per_token, supports_paged_kv
+from repro_torch.models.api import (
+    get_api,
+    kv_bytes_per_token,
+    supports_int8_kv,
+    supports_paged_kv,
+)
 from repro_torch.serving.config import config_from_args
 from repro_torch.serving.engine import Request, ServingEngine
 from repro_torch.serving.faultinject import TickClock
@@ -184,10 +196,12 @@ def build_engine(args, ap=None):
     cfg = C.get_config(args.arch, smoke=args.smoke)
     api = get_api(cfg)
     n_params = api.n_params_exact(cfg)
-    kv_dtype = "int8" if args.kv_dtype == "int8" else None
+    kv_dtype = "int8" if args.kv_dtype == "int8" and supports_int8_kv(cfg) else None
     paged = args.page_size > 0 and supports_paged_kv(cfg)
-    ctx = mean_decode_context(args.prompt_len, args.max_new) if paged else args.max_len
-    kv_tok = kv_bytes_per_token(cfg, kv_dtype)
+    # a VLM's sequence starts with its patches: they take positions and pages
+    prefix = api.prefix_len(cfg)
+    ctx = mean_decode_context(args.prompt_len + prefix, args.max_new) if paged else args.max_len
+    kv_tok = kv_bytes_per_token(cfg, kv_dtype, context_len=ctx)
     sizer = BatchSizer(n_params=n_params, kv_bytes_per_token=kv_tok, context_len=ctx,
                        spec_k=max(0, args.spec_k))
     print(f"[serve] {cfg.name}: n_params={n_params:,} machine-balance "
@@ -219,9 +233,12 @@ def build_engine(args, ap=None):
         params = plan.params
     if paged and not args.pool_pages:
         # size the pool for the workload: max_batch sequences at their
-        # allocated context (prompt + max_new), plus the null page
+        # allocated context (prefix + prompt + max_new), plus the null page.
+        # As in the reference, an enc-dec request's frame pages are not
+        # counted: at full width such a pool admits nothing (pass
+        # --pool-pages)
         args.pool_pages = 1 + paged_pool_pages(
-            args.max_batch, args.prompt_len + args.max_new, args.page_size)
+            args.max_batch, args.prompt_len + prefix + args.max_new, args.page_size)
     open_loop = bool(args.trace) or args.arrival_rate > 0
     engine = ServingEngine(cfg, params, plan=plan, device=device, config=config_from_args(
         args, expected_context=ctx if paged else None,
@@ -236,7 +253,7 @@ def build_engine(args, ap=None):
         print(f"[serve] paged KV cache: {engine.num_pages} pages x {engine.page_size} tok "
               f"(pool {engine.num_pages * engine.page_size} tok vs contiguous reservation "
               f"{engine.max_batch * args.max_len} tok), prefix sharing "
-              f"{'on' if args.share_prefix else 'off'}")
+              f"{'on' if engine.registry is not None else 'off'}")
     if plan is not None:
         print(f"[serve] {plan.summary(kv_bytes_per_token=kv_tok, context_len=args.max_len, batch=engine.max_batch)}")
         n_corr = plan.sizer(n_params=n_params, kv_bytes_per_token=kv_tok,
@@ -260,13 +277,14 @@ def run_requests(engine, reqs) -> float:
 
 def open_loop_arrivals(args, engine) -> list:
     """The run's arrivals: ``--trace``, else seeded Poisson arrivals at
-    ``--arrival-rate`` over the chat-style mixture (clamped so that prompt +
-    max_new + spec_k fits ``--max-len``)."""
+    ``--arrival-rate`` over the chat-style mixture (clamped so that prefix +
+    prompt + max_new + spec_k fits ``--max-len``)."""
     if args.trace:
         arrivals = load_trace(args.trace)
         print(f"[serve] replaying {len(arrivals)} arrivals from {args.trace}")
         return arrivals
-    mix = _open_loop_mixture(args.prompt_len, args.max_new, args.max_len - engine.spec_k)
+    cap = args.max_len - engine.api.prefix_len(engine.cfg) - engine.spec_k
+    mix = _open_loop_mixture(args.prompt_len, args.max_new, cap)
     arrivals = poisson_trace(args.arrival_rate, args.requests, mix, seed=args.seed)
     print(f"[serve] poisson arrivals: {args.arrival_rate}/tick, n={len(arrivals)}, "
           f"seed={args.seed}")
@@ -323,21 +341,40 @@ def report(engine, dt: float, load=None) -> None:
               + (f"; degraded: {engine.degraded}" if engine.degraded else ""))
 
 
+def request_extras(cfg, rng):
+    """One request's frontend-stub inputs, drawn from ``rng`` as the
+    reference's CLI draws them: a VLM's patches (n_patches, d), an
+    enc-dec's frames (n_frames, d), float32 normals; None for the other
+    families."""
+    keys = get_api(cfg).extra_keys
+    extras = {}
+    if "patches" in keys:
+        extras["patches"] = rng.normal(size=(cfg.n_patches, cfg.d_model)).astype(np.float32)
+    if "frames" in keys:
+        extras["frames"] = rng.normal(size=(cfg.n_frames, cfg.d_model)).astype(np.float32)
+    return extras or None
+
+
 def main(argv=None):
     ap = build_parser()
     args = ap.parse_args(argv)
     cfg, engine, _ = build_engine(args, ap)
+    rng = np.random.default_rng(args.seed)
     if bool(args.trace) or args.arrival_rate > 0:
         arrivals = open_loop_arrivals(args, engine)
         reqs = make_requests(arrivals, cfg.vocab, seed=args.seed)
+        for r in reqs:
+            r.extras = request_extras(cfg, rng)
         load, dt = run_open_loop_timed(engine, arrivals, reqs, seed=args.seed)
         report(engine, dt, load)
         return engine
-    rng = np.random.default_rng(args.seed)
-    reqs = [Request(uid=uid,
-                    prompt=rng.integers(0, cfg.vocab, size=args.prompt_len).astype(np.int32),
-                    max_new_tokens=args.max_new)
-            for uid in range(args.requests)]
+    # each request's prompt, then its extras, from one stream: the
+    # reference's order, so that both CLIs serve the same requests
+    reqs = []
+    for uid in range(args.requests):
+        prompt = rng.integers(0, cfg.vocab, size=args.prompt_len).astype(np.int32)
+        reqs.append(Request(uid=uid, prompt=prompt, max_new_tokens=args.max_new,
+                            extras=request_extras(cfg, rng)))
     dt = run_requests(engine, reqs)
     report(engine, dt)
     return engine

@@ -1,0 +1,268 @@
+"""Whisper-style encoder-decoder (port of ``repro/models/encdec.py``).
+
+The conv / log-mel frontend is a stub in the reference too: the encoder
+takes precomputed frame embeddings (B, n_frames, d).  The encoder is a
+bidirectional transformer over the frames; the decoder a causal one with
+learned positions (``pos_dec``, no RoPE) and cross-attention into the
+encoder's output.  Every norm is a LayerNorm.
+
+The params tree keeps the reference's layout -- ``enc`` and ``dec`` stacked
+over their layers -- so reference params convert and compress leaf for
+leaf; ``unstack`` turns it into per-layer lists once, when a model is set
+up (``enc`` and ``layers``), and the caches hold one dict per decoder layer.
+
+Kernels on the card: every projection through the plan (B1 for the
+quant_sparse leaves; the gelu MLP is two B1 launches, not gated);
+the encoder's self-attention and the prefill's cross-attention are
+non-causal flash attention (B6) past the dense threshold (the encoder's
+1500 frames); the paged decoder's self-attention is B3, and its
+cross-attention B3 with ``causal=False`` read in place from the slot's
+frame pages through ``xpage_table`` at pos = n_frames - 1.  The
+reference's paged step gathers the frame pages, slices them to n_frames
+and runs its kernel over an identity table; B3's plain version (gather,
+then non-causal decode attention) is that path.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.weight_plan import apply_linear
+from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
+
+NORM = "layernorm"
+
+
+def _block_shapes(cfg, cross: bool) -> dict:
+    d = cfg.d_model
+    p = {"ln1": L.norm_shapes(d, NORM), "attn": T.attn_shapes(cfg),
+         "ln2": L.norm_shapes(d, NORM), "mlp": T.mlp_shapes(cfg)}
+    if cross:
+        p["lnx"] = L.norm_shapes(d, NORM)
+        p["xattn"] = T.attn_shapes(cfg)
+    return p
+
+
+def param_shapes(cfg) -> dict:
+    """The params tree of ``init_params`` as (shape, init) leaves, keyed as
+    the reference's ``init_params``."""
+    embed = {"tok": ((cfg.vocab, cfg.d_model), "embed")}
+    if not cfg.tie_embeddings:
+        embed["head"] = ((cfg.d_model, cfg.vocab), "dense")
+    return {
+        "embed": embed,
+        "pos_dec": ((cfg.max_pos, cfg.d_model), "embed"),
+        "enc": T.stack_shapes(_block_shapes(cfg, cross=False), cfg.enc_layers),
+        "enc_norm": L.norm_shapes(cfg.d_model, NORM),
+        "dec": T.stack_shapes(_block_shapes(cfg, cross=True), cfg.n_layers),
+        "final_norm": L.norm_shapes(cfg.d_model, NORM),
+    }
+
+
+def init_params(cfg, seed: int = 0, *, device=None):
+    """Random params with the reference's shapes and scales
+    (``transformer.make_params``)."""
+    return T.make_params(param_shapes(cfg), seed, device)
+
+
+def n_params_exact(cfg) -> int:
+    return T.count_params(param_shapes(cfg))
+
+
+def unstack(cfg, params) -> dict:
+    """The per-layer view ``prefill`` and ``decode_step`` take: the stacked
+    ``enc`` and ``dec`` trees become lists of per-layer views, ``enc`` and
+    ``layers``.  A tree that is already unstacked is returned as it is."""
+    if "layers" in params:
+        return params
+    out = {k: v for k, v in params.items() if k not in ("enc", "dec")}
+    out["enc"] = [T.layer_view(params["enc"], i) for i in range(cfg.enc_layers)]
+    out["layers"] = [T.layer_view(params["dec"], i) for i in range(cfg.n_layers)]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# blocks
+# ---------------------------------------------------------------------------
+
+
+def _qkv(cfg, p, h):
+    B, S, _ = h.shape
+    H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = apply_linear(h, p["wq"]).reshape(B, S, H, hd)
+    k = apply_linear(h, p["wk"]).reshape(B, S, KVH, hd)
+    v = apply_linear(h, p["wv"]).reshape(B, S, KVH, hd)
+    return q, k, v
+
+
+def _out(cfg, p, o):
+    B, S = o.shape[:2]
+    return apply_linear(o.reshape(B, S, cfg.n_heads * cfg.hd), p["wo"])
+
+
+def _self_block(cfg, p, x, *, causal: bool, use_kernel: bool = True):
+    """Self-attention over all of x (encoder: non-causal; decoder prefill:
+    causal); returns (x + attention, k, v)."""
+    h = L.apply_norm(p["ln1"], x, NORM)
+    q, k, v = _qkv(cfg, p["attn"], h)
+    o = L.attention(q, k, v, causal=causal, use_kernel=use_kernel)
+    return x + _out(cfg, p["attn"], o), k, v
+
+
+def _mlp_block(cfg, p, x):
+    return x + L.apply_mlp(cfg, p["mlp"], L.apply_norm(p["ln2"], x, NORM))
+
+
+def _cross_q(cfg, p, x):
+    h = L.apply_norm(p["lnx"], x, NORM)
+    B, S, _ = h.shape
+    return apply_linear(h, p["xattn"]["wq"]).reshape(B, S, cfg.n_heads, cfg.hd)
+
+
+def encode(cfg, params, frames, *, use_kernel: bool = True):
+    """frames (B, n_frames, d) precomputed frame embeddings (the frontend
+    stub) -> the encoder's output (B, n_frames, d) in the compute dtype."""
+    x = frames.to(getattr(torch, cfg.compute_dtype))
+    for p in params["enc"]:
+        x, _, _ = _self_block(cfg, p, x, causal=False, use_kernel=use_kernel)
+        x = _mlp_block(cfg, p, x)
+    return L.apply_norm(params["enc_norm"], x, NORM)
+
+
+def _enc_cross_kv(cfg, layers, enc_out) -> list:
+    """Each decoder layer's cross-attention (k, v), (B, Sf, KVH, hd), from
+    the encoder's output."""
+    B, Sf, _ = enc_out.shape
+    KVH, hd = cfg.n_kv_heads, cfg.hd
+    return [(apply_linear(enc_out, p["xattn"]["wk"]).reshape(B, Sf, KVH, hd),
+             apply_linear(enc_out, p["xattn"]["wv"]).reshape(B, Sf, KVH, hd))
+            for p in layers]
+
+
+# ---------------------------------------------------------------------------
+# caches
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg, batch: int, length: int, dtype=torch.bfloat16, kv_dtype=None,
+               page_size=None, num_pages=None, device="cpu", spec_k: int = 0):
+    """{"layers": one dict per decoder layer}.  Contiguous: the
+    self-attention k/v (batch, length, KVH, hd) and the cross-attention
+    xk/xv (batch, n_frames, KVH, hd).  Paged: the self-attention pools
+    (num_pages, page_size, KVH, hd) under "layers" and each layer's frame
+    pools of the same shape under "x", a ``page_table`` (batch,
+    ceil(length / page_size)) and an ``xpage_table`` (batch, ceil(n_frames
+    / page_size)), both owned by the engine; a request's frames take pages
+    of the same allocator as its decoder KV.  ``kv_dtype`` and ``spec_k``
+    are taken for the API's sake and ignored, as the reference ignores
+    kv_dtype: the cache is always in ``dtype``."""
+    KVH, hd = cfg.n_kv_heads, cfg.hd
+    if page_size is not None:
+        def pools():
+            return [L.init_paged_attn_cache(cfg, num_pages, page_size, dtype, device)
+                    for _ in range(cfg.n_layers)]
+
+        return {
+            "layers": pools(),
+            "x": pools(),
+            "page_table": torch.zeros((batch, -(-length // page_size)), dtype=torch.int32,
+                                      device=device),
+            "xpage_table": torch.zeros((batch, -(-cfg.n_frames // page_size)),
+                                       dtype=torch.int32, device=device),
+        }
+    xshape = (batch, cfg.n_frames, KVH, hd)
+    return {"layers": [
+        {**L.init_attn_cache(cfg, batch, length, dtype, device),
+         "xk": torch.zeros(xshape, dtype=dtype, device=device),
+         "xv": torch.zeros(xshape, dtype=dtype, device=device)}
+        for _ in range(cfg.n_layers)]}
+
+
+# ---------------------------------------------------------------------------
+# serving entry points
+# ---------------------------------------------------------------------------
+
+
+def prefill(cfg, params, tokens, frames, cache, *, use_kernel: bool = True):
+    """Encode the frames, then the teacher-forced decoder pass over the
+    prompt, filling the contiguous cache in place (self-attention k/v at
+    positions 0..S-1, the cross-attention xk/xv).  Returns (last-position
+    logits (B, 1, V), cache).  ``use_kernel=False`` runs the flash
+    attention's plain version on the card."""
+    enc_out = encode(cfg, params, frames, use_kernel=use_kernel)
+    xkv = _enc_cross_kv(cfg, params["layers"], enc_out)
+    B, S = tokens.shape
+    x = L.embed_tokens(cfg, params["embed"], tokens)
+    x = x + params["pos_dec"][None, :S].to(x.dtype)
+    for p, c, (xk, xv) in zip(params["layers"], cache["layers"], xkv):
+        x, k, v = _self_block(cfg, p, x, causal=True, use_kernel=use_kernel)
+        c["k"][:, :S] = k.to(c["k"].dtype)
+        c["v"][:, :S] = v.to(c["v"].dtype)
+        o = L.attention(_cross_q(cfg, p, x), xk, xv, causal=False, use_kernel=use_kernel)
+        x = _mlp_block(cfg, p, x + _out(cfg, p["xattn"], o))
+        c["xk"].copy_(xk.to(c["xk"].dtype))
+        c["xv"].copy_(xv.to(c["xv"].dtype))
+    x = L.apply_norm(params["final_norm"], x[:, -1:], NORM)
+    return L.unembed(cfg, params["embed"], x), cache
+
+
+def _embed_decode(cfg, params, tokens, pos):
+    """Token embeddings plus the learned positions pos..pos+T-1, clamped to
+    the table's last row."""
+    T_ = tokens.shape[1]
+    x = L.embed_tokens(cfg, params["embed"], tokens)
+    positions = pos[:, None].long() + torch.arange(T_, device=tokens.device)[None]
+    table = params["pos_dec"]
+    return x + table[positions.clamp(max=table.shape[0] - 1)].to(x.dtype)
+
+
+def decode_step(cfg, params, cache, tokens, pos, *, use_kernel: bool = True):
+    """One decoder step over T new tokens per sequence (tokens (B, T), pos
+    (B,) int32 the position of tokens[:, 0]) against the self and cross
+    caches, updated in place.  Returns (logits (B, T, V), cache).  A paged
+    cache (with ``page_table``) goes through ``_paged_decode_step``.  On
+    the contiguous cache the cross-attention is ``layers.
+    cross_decode_attention`` (B3 over an identity table on the card).
+    ``use_kernel=False`` runs B3's plain version on the card."""
+    if "page_table" in cache:
+        return _paged_decode_step(cfg, params, cache, tokens, pos, use_kernel=use_kernel)
+    x = _embed_decode(cfg, params, tokens, pos)
+    for p, c in zip(params["layers"], cache["layers"]):
+        h = L.apply_norm(p["ln1"], x, NORM)
+        q, k, v = _qkv(cfg, p["attn"], h)
+        kc = L._cache_update(c["k"], k, pos)
+        vc = L._cache_update(c["v"], v, pos)
+        x = x + _out(cfg, p["attn"], L.decode_attention(q, kc, vc, pos))
+        o = L.cross_decode_attention(_cross_q(cfg, p, x), c["xk"].to(x.dtype),
+                                     c["xv"].to(x.dtype), use_kernel=use_kernel)
+        x = _mlp_block(cfg, p, x + _out(cfg, p["xattn"], o))
+    x = L.apply_norm(params["final_norm"], x, NORM)
+    return L.unembed(cfg, params["embed"], x), cache
+
+
+def _paged_decode_step(cfg, params, cache, tokens, pos, *, use_kernel: bool = True):
+    """Paged decode: the self-attention writes and reads through
+    ``page_table`` like the transformer families (B3, causal); the
+    cross-attention reads each slot's frame pages through ``xpage_table``,
+    B3 with ``causal=False`` at pos = n_frames - 1, so every query sees the
+    frames and none of the last page's stale tail.  Dead slots' rows point
+    at the null page: their writes and reads are row-local garbage nobody
+    reads."""
+    table, xtable = cache["page_table"], cache["xpage_table"]
+    B = tokens.shape[0]
+    xpos = torch.full((B,), cfg.n_frames - 1, dtype=torch.int32, device=tokens.device)
+    x = _embed_decode(cfg, params, tokens, pos)
+    for p, c, cx in zip(params["layers"], cache["layers"], cache["x"]):
+        h = L.apply_norm(p["ln1"], x, NORM)
+        q, k, v = _qkv(cfg, p["attn"], h)
+        L.paged_cache_update(c["k_pages"], k, table, pos)
+        L.paged_cache_update(c["v_pages"], v, table, pos)
+        o = L.paged_decode_attention(q, c["k_pages"], c["v_pages"], table, pos,
+                                     use_kernel=use_kernel)
+        x = x + _out(cfg, p["attn"], o)
+        o = L.paged_decode_attention(_cross_q(cfg, p, x), cx["k_pages"], cx["v_pages"], xtable,
+                                     xpos, causal=False, use_kernel=use_kernel)
+        x = _mlp_block(cfg, p, x + _out(cfg, p["xattn"], o))
+    x = L.apply_norm(params["final_norm"], x, NORM)
+    return L.unembed(cfg, params["embed"], x), cache

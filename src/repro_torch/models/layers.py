@@ -1,8 +1,10 @@
-"""Shared model layers (port of ``repro/models/layers.py``): RMSNorm, RoPE,
-GQA attention (dense and chunked flash prefill, contiguous and paged
-decode, sliding windows), the int8 KV cache, the gated MLP, embedding
-(with gemma's scale) and unembedding (tied or untied) -- what the dense
-families run (``transformer.check_supported`` names the rest).
+"""Shared model layers (port of ``repro/models/layers.py``): RMSNorm and
+LayerNorm, RoPE, GQA attention (dense and chunked flash prefill,
+contiguous and paged decode, sliding windows, enc-dec cross-attention),
+the int8 KV cache, the gated and ungated MLP, embedding
+(with gemma's scale) and unembedding (tied or untied) -- what the
+transformer, MoE, VLM and enc-dec families run (``transformer.check_supported``
+names the rest).
 
 Functions take and return tensors in the reference's layouts: activations
 (B, S, d), q (B, S, H, hd), KV caches (B, S, KVH, hd) and page pools
@@ -33,6 +35,14 @@ def dense_init(shape, generator: torch.Generator, device, fan_in: Optional[int] 
     return w.mul_(1.0 / math.sqrt(fan_in))  # in place: a stack of experts is GBs
 
 
+def norm_shapes(d: int, kind: str = "rmsnorm") -> dict:
+    """A norm's params as {name: (shape, init)}: RMSNorm's zero scale (it
+    multiplies by 1 + scale), LayerNorm's unit scale and zero bias."""
+    if kind == "rmsnorm":
+        return {"scale": ((d,), "zeros")}
+    return {"scale": ((d,), "ones"), "bias": ((d,), "zeros")}
+
+
 def embed_init(shape, generator: torch.Generator, device):
     return torch.randn(shape, generator=generator, device=device, dtype=torch.float32) * 0.02
 
@@ -42,11 +52,18 @@ def embed_init(shape, generator: torch.Generator, device):
 # ---------------------------------------------------------------------------
 
 
-def apply_norm(p, x, eps: float = 1e-6):
-    """RMSNorm in fp32, scaled by (1 + scale) as the reference does."""
+def apply_norm(p, x, kind: str = "rmsnorm", eps: float = 1e-6):
+    """RMSNorm ({"scale"}, scaled by 1 + scale) or LayerNorm ({"scale",
+    "bias"}), in fp32, as the reference's ``apply_norm`` does."""
     xf = x.to(torch.float32)
-    var = (xf * xf).mean(dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(var + eps) * (1.0 + p["scale"])).to(x.dtype)
+    if kind == "rmsnorm":
+        var = (xf * xf).mean(dim=-1, keepdim=True)
+        y = xf * torch.rsqrt(var + eps) * (1.0 + p["scale"])
+    else:
+        c = xf - xf.mean(dim=-1, keepdim=True)
+        var = (c * c).mean(dim=-1, keepdim=True)
+        y = c * torch.rsqrt(var + eps) * p["scale"] + p["bias"]
+    return y.to(x.dtype)
 
 
 def rope_freqs(hd: int, base: float, device=None) -> torch.Tensor:
@@ -186,9 +203,12 @@ def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
 
 
 def decode_attention(q, k_cache, v_cache, pos, *, window: Optional[int] = None,
-                     softcap: float = 0.0, k_scale=None, v_scale=None):
+                     softcap: float = 0.0, k_scale=None, v_scale=None, causal: bool = True):
     """Attention of T new tokens per sequence against a ring-buffer cache of
-    length S (slot i holds the newest position p with p % S == i).
+    length S (slot i holds the newest position p with p % S == i).  Query t
+    sits at pos + t and sees kv_pos <= pos + t; ``causal=False`` gives every
+    query the view [0, pos] (enc-dec cross-attention over a static pool of
+    pos + 1 frames).
 
     int8 caches (``k_scale``/``v_scale`` (B, S, KVH)) fold their scales into
     the score and probability tensors: (q . k*s) == (q . k) * s and
@@ -207,10 +227,11 @@ def decode_attention(q, k_cache, v_cache, pos, *, window: Optional[int] = None,
                          k_cache.to(torch.float32)) * scale
         s = s * k_scale.to(torch.float32).permute(0, 2, 1)[:, :, None, None, :]
     s = _softcap(s, softcap)
-    newest = pos[:, None].long() + (T - 1)  # (B, 1)
+    newest = pos[:, None].long() + ((T - 1) if causal else 0)  # (B, 1)
     slot = torch.arange(S, device=dev)[None]
     kv_pos = newest - ((newest - slot) % S)  # (B, S) absolute position per slot
-    q_pos = pos[:, None].long() + torch.arange(T, device=dev)[None]  # (B, T)
+    q_pos = pos[:, None].long() + (torch.arange(T, device=dev)[None] if causal else 0)
+    q_pos = q_pos.expand(B, T)  # (B, T)
     mask = (kv_pos[:, None, :] >= 0) & (kv_pos[:, None, :] <= q_pos[:, :, None])
     if window is not None:
         mask &= kv_pos[:, None, :] > (q_pos[:, :, None] - window)
@@ -309,13 +330,27 @@ def gather_pages(pool, page_table):
 
 def paged_decode_attention(q, k_pages, v_pages, page_table, pos, *, window=None,
                            softcap: float = 0.0, k_scale_pages=None, v_scale_pages=None,
-                           use_kernel: bool = True):
+                           causal: bool = True, use_kernel: bool = True):
     """Attention for T new tokens per sequence through the page table:
     kernel B3 for CUDA tensors (unless ``use_kernel=False``), its plain
-    version (gather + ``decode_attention``) otherwise."""
+    version (gather + ``decode_attention``) otherwise.  ``causal=False``
+    gives every query the positions [0, pos] (``decode_attention``)."""
     return ops.paged_decode_attention(
         q, k_pages, v_pages, page_table, pos, window=window, softcap=softcap,
-        k_scale_pages=k_scale_pages, v_scale_pages=v_scale_pages, use_kernel=use_kernel)
+        k_scale_pages=k_scale_pages, v_scale_pages=v_scale_pages, causal=causal,
+        use_kernel=use_kernel)
+
+
+def cross_decode_attention(q, xk, xv, *, softcap: float = 0.0, use_kernel: bool = True):
+    """Decode-time enc-dec cross-attention: T queries (B, T, H, hd) against
+    a static encoder pool xk/xv (B, Sf, KVH, hd).  For CUDA tensors kernel
+    B3 over an identity page table, non-causal at pos = Sf - 1
+    (``ops.cross_decode_attention``); otherwise, and for
+    ``use_kernel=False``, plain non-causal attention, as the reference's
+    gather path runs it."""
+    if q.is_cuda and use_kernel:
+        return ops.cross_decode_attention(q, xk, xv, softcap=softcap)
+    return attention(q, xk, xv, causal=False, softcap=softcap, use_kernel=use_kernel)
 
 
 def finite_rows(logits: torch.Tensor) -> torch.Tensor:

@@ -8,19 +8,22 @@ reference scans over the stack, the port runs a Python loop over layers:
 ``unstack`` turns the tree into a list of per-layer views once, when a
 model is set up, and ``init_cache`` makes one cache dict per layer.
 
-What the dense and MoE families use is ported (tinyllama-1.1b,
-llama3.2-1b, glm4-9b, gemma3-4b, granite-moe-1b-a400m, qwen2-moe-a2.7b):
-``global`` and sliding-window ``local`` attention layers with RMSNorm and
-a dense gated MLP or a routed MoE FFN (``models/moe.py``), tied or untied
-heads, gemma's embedding scale and global RoPE base.  A ``local`` layer keeps a
-contiguous ring of ``local_window (+ spec_k)`` slots, also when the global
-layers are paged.  ``check_supported`` names the ROADMAP item of
+What the dense, MoE and VLM families use is ported (tinyllama-1.1b,
+llama3.2-1b, glm4-9b, gemma3-4b, granite-moe-1b-a400m, qwen2-moe-a2.7b,
+the backbone of internvl2-2b): ``global`` and sliding-window ``local``
+attention layers with the config's norm and a dense gated MLP or a routed
+MoE FFN (``models/moe.py``), tied or untied heads, gemma's embedding scale
+and global RoPE base, and the VLM's prepended patch embeddings
+(``prefill(extra_embeds=)``, ``models/vlm.py``).  A ``local`` layer keeps
+a contiguous ring of ``local_window (+ spec_k)`` slots, also when the
+global layers are paged.  ``check_supported`` names the ROADMAP item of
 everything else.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -75,7 +78,6 @@ def check_supported(cfg):
     unported = [
         (any(k not in ATTN_KINDS for k in cfg.layer_kinds),
          "recurrent / xLSTM layers", "A10"),
-        (cfg.norm != "rmsnorm", "layernorm", "A9"),
         (cfg.logit_softcap > 0.0, "logit softcaps", "A8c"),
     ]
     for bad, what, item in unported:
@@ -83,24 +85,39 @@ def check_supported(cfg):
             raise NotImplementedError(f"{cfg.name}: {what} are not ported yet (ROADMAP {item})")
 
 
+def attn_shapes(cfg) -> dict:
+    """The q/k/v/o projections of one attention block as (shape, init)."""
+    d, H, KVH, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    return {"wq": ((d, H * hd), "dense"), "wk": ((d, KVH * hd), "dense"),
+            "wv": ((d, KVH * hd), "dense"), "wo": ((H * hd, d), "dense")}
+
+
+def mlp_shapes(cfg) -> dict:
+    """A dense MLP's up/down (and, gated, gate) projections as (shape, init)."""
+    d, f = cfg.d_model, cfg.d_ff
+    mlp = {"w_up": ((d, f), "dense"), "w_down": ((f, d), "dense")}
+    if cfg.activation in L.GATED:
+        mlp["w_gate"] = ((d, f), "dense")
+    return mlp
+
+
 def _layer_shapes(cfg) -> dict:
     """{name: (shape, init)} of one layer; init is 'dense' or 'zeros'.  A
     MoE config's FFN is ``moe`` (``moe.moe_shapes``), a dense one's
     ``mlp``, as the reference's ``init_layer`` names them."""
-    d, H, KVH, hd, f = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_ff
-    layer = {
-        "ln1": {"scale": ((d,), "zeros")},
-        "attn": {"wq": ((d, H * hd), "dense"), "wk": ((d, KVH * hd), "dense"),
-                 "wv": ((d, KVH * hd), "dense"), "wo": ((H * hd, d), "dense")},
-        "ln2": {"scale": ((d,), "zeros")},
-    }
+    layer = {"ln1": L.norm_shapes(cfg.d_model, cfg.norm), "attn": attn_shapes(cfg),
+             "ln2": L.norm_shapes(cfg.d_model, cfg.norm)}
     if cfg.moe is not None:
         layer["moe"] = MOE.moe_shapes(cfg)
-        return layer
-    layer["mlp"] = {"w_up": ((d, f), "dense"), "w_down": ((f, d), "dense")}
-    if cfg.activation in L.GATED:
-        layer["mlp"]["w_gate"] = ((d, f), "dense")
+    else:
+        layer["mlp"] = mlp_shapes(cfg)
     return layer
+
+
+def stack_shapes(tree, n: int) -> dict:
+    """A tree of (shape, init) leaves stacked over ``n`` layers."""
+    return {k: stack_shapes(v, n) if isinstance(v, dict) else ((n,) + v[0], v[1])
+            for k, v in tree.items()}
 
 
 def param_shapes(cfg) -> dict:
@@ -108,25 +125,21 @@ def param_shapes(cfg) -> dict:
     check_supported(cfg)
     unit, n_units, rem = find_unit(cfg.layer_kinds)
 
-    def stack(tree, n):
-        return {k: stack(v, n) if isinstance(v, dict) else ((n,) + v[0], v[1])
-                for k, v in tree.items()}
-
     embed = {"tok": ((cfg.vocab, cfg.d_model), "embed")}
     if not cfg.tie_embeddings:  # a tied model unembeds through tok
         embed["head"] = ((cfg.d_model, cfg.vocab), "dense")
     return {
         "embed": embed,
-        "final_norm": {"scale": ((cfg.d_model,), "zeros")},
-        "unit": [stack(_layer_shapes(cfg), n_units) for _ in unit],
-        "rem": [stack(_layer_shapes(cfg), c) for _, c in rem_runs(rem)],
+        "final_norm": L.norm_shapes(cfg.d_model, cfg.norm),
+        "unit": [stack_shapes(_layer_shapes(cfg), n_units) for _ in unit],
+        "rem": [stack_shapes(_layer_shapes(cfg), c) for _, c in rem_runs(rem)],
     }
 
 
-def init_params(cfg, seed: int = 0, *, device=None):
-    """Random params with the reference's shapes and scales: LeCun-normal
-    matmul weights (fan-in = contraction axis), N(0, 0.02) token embedding,
-    zero norm scales (RMSNorm multiplies by 1 + scale).  Drawn from a
+def make_params(shapes, seed: int = 0, device=None):
+    """Random params of a tree of (shape, init) leaves, with the reference's
+    scales: LeCun-normal matmul weights (fan-in = contraction axis), N(0,
+    0.02) embeddings, zero or unit norm params.  Drawn from a
     ``torch.Generator`` seeded with ``seed`` on ``device`` (the CUDA device
     unless device="cpu"); this does not reproduce the reference's
     ``jax.random`` bits -- parity tests convert reference params through
@@ -141,34 +154,32 @@ def init_params(cfg, seed: int = 0, *, device=None):
         if isinstance(node, list):
             return [make(v) for v in node]
         shape, init = node
-        if init == "zeros":
-            return torch.zeros(shape, dtype=torch.float32, device=dev)
+        if init in ("zeros", "ones"):
+            fill = torch.zeros if init == "zeros" else torch.ones
+            return fill(shape, dtype=torch.float32, device=dev)
         if init == "embed":
             return L.embed_init(shape, gen, dev)
         return L.dense_init(shape, gen, dev)
 
-    return make(param_shapes(cfg))
+    return make(shapes)
+
+
+def count_params(shapes) -> int:
+    """The number of parameters in a tree of (shape, init) leaves."""
+    if isinstance(shapes, dict):
+        return sum(count_params(v) for v in shapes.values())
+    if isinstance(shapes, list):
+        return sum(count_params(v) for v in shapes)
+    return math.prod(shapes[0])
+
+
+def init_params(cfg, seed: int = 0, *, device=None):
+    """Random params of ``param_shapes(cfg)`` (``make_params``)."""
+    return make_params(param_shapes(cfg), seed, device)
 
 
 def n_params_exact(cfg) -> int:
-    total = 0
-
-    def visit(node):
-        nonlocal total
-        if isinstance(node, dict):
-            for v in node.values():
-                visit(v)
-        elif isinstance(node, list):
-            for v in node:
-                visit(v)
-        else:
-            n = 1
-            for s in node[0]:
-                n *= s
-            total += n
-
-    visit(param_shapes(cfg))
-    return total
+    return count_params(param_shapes(cfg))
 
 
 def _layer_leaf(node, i: int):
@@ -186,7 +197,8 @@ def _layer_leaf(node, i: int):
     return node[i]
 
 
-def _layer(tree, i: int) -> dict:
+def layer_view(tree, i: int) -> dict:
+    """Layer ``i`` of a stacked params tree (views of its leaves)."""
     return map_tree(lambda _, n: _layer_leaf(n, i), tree)
 
 
@@ -200,9 +212,9 @@ def unstack(cfg, params) -> dict:
     if "layers" in params:
         return params
     unit, n_units, rem = find_unit(cfg.layer_kinds)
-    layers = [_layer(params["unit"][pi], u) for u in range(n_units) for pi in range(len(unit))]
+    layers = [layer_view(params["unit"][pi], u) for u in range(n_units) for pi in range(len(unit))]
     for ri, (_, count) in enumerate(rem_runs(rem)):
-        layers += [_layer(params["rem"][ri], i) for i in range(count)]
+        layers += [layer_view(params["rem"][ri], i) for i in range(count)]
     return {"embed": params["embed"], "final_norm": params["final_norm"], "layers": layers}
 
 
@@ -246,14 +258,14 @@ def apply_layer(cfg, kind: str, p, x, *, cache, pos=None, page_table=None,
     ``pos`` None is the prefill over x (filling the contiguous cache),
     else a decode step at ``pos``; the kind sets the window and the RoPE
     base (``layers.attn_window_and_base``)."""
-    h = L.apply_norm(p["ln1"], x)
+    h = L.apply_norm(p["ln1"], x, cfg.norm)
     if pos is None:
         a = _attn_prefill(cfg, p["attn"], h, kind, cache, use_kernel=use_kernel)
     else:
         a = L.apply_attn(cfg, p["attn"], h, kind=kind, cache=cache, pos=pos,
                          page_table=page_table, use_kernel=use_kernel)
     x = x + a
-    h = L.apply_norm(p["ln2"], x)
+    h = L.apply_norm(p["ln2"], x, cfg.norm)
     if "moe" in p:  # routed over all of h's B * S tokens, as the reference's step does
         return x + MOE.apply_moe(cfg, p["moe"], h)
     return x + L.apply_mlp(cfg, p["mlp"], h)
@@ -303,14 +315,18 @@ def _run_layers(cfg, params, x, cache, pos=None, use_kernel: bool = True):
     return x
 
 
-def prefill(cfg, params, tokens, cache, *, use_kernel: bool = True):
+def prefill(cfg, params, tokens, cache, *, extra_embeds=None, use_kernel: bool = True):
     """Serving prefill into a contiguous cache: (last-position logits
     (B, 1, V), the filled cache).  ``params`` is the ``unstack`` view.
-    ``use_kernel=False`` runs the flash attention's plain version on the
-    card (the params' own ``use_kernel`` fields switch B1, B2 and B5)."""
+    ``extra_embeds`` (B, P, d) (a VLM's projected patches) go before the
+    tokens' embeddings, at positions 0..P-1.  ``use_kernel=False`` runs the
+    flash attention's plain version on the card (the params' own
+    ``use_kernel`` fields switch B1, B2 and B5)."""
     x = L.embed_tokens(cfg, params["embed"], tokens)
+    if extra_embeds is not None:
+        x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
     x = _run_layers(cfg, params, x, cache, use_kernel=use_kernel)
-    x = L.apply_norm(params["final_norm"], x[:, -1:])
+    x = L.apply_norm(params["final_norm"], x[:, -1:], cfg.norm)
     return L.unembed(cfg, params["embed"], x), cache
 
 
@@ -322,5 +338,5 @@ def decode_step(cfg, params, cache, tokens, pos, *, use_kernel: bool = True):
     plain version on the card."""
     x = L.embed_tokens(cfg, params["embed"], tokens)
     x = _run_layers(cfg, params, x, cache, pos=pos, use_kernel=use_kernel)
-    x = L.apply_norm(params["final_norm"], x)
+    x = L.apply_norm(params["final_norm"], x, cfg.norm)
     return L.unembed(cfg, params["embed"], x), cache

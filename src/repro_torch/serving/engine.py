@@ -13,7 +13,14 @@ the null page that dead slots point at, a page with refcount > 1 is
 read-only, and every write goes through ``_ensure_private``
 (copy-on-write).  ``share_prefix`` maps the full pages of a registered
 prompt prefix into a new sequence by refcount and copies the partial
-boundary page at admission.
+boundary page at admission.  An enc-dec request's encoded frames take
+pages of the same allocator at admission (``slot_xpages``, a frame table
+``xpage_table``), written once and read by every decode step's
+cross-attention, freed with the slot; a request's ``extras`` (an enc-dec's
+frames, a VLM's patches) go into its batch-1 prefill, and a VLM's patches
+take the first positions of its sequence (``api.prefix_len``).  Prefix
+sharing is off for those families: equal prompts with other frames or
+patches are not equal cache entries.
 
 Speculative decode (``SpecConfig``: ``draft_cfg``, ``draft_params``,
 ``spec_k`` = k).  A dense draft model with its own contiguous cache
@@ -153,6 +160,7 @@ class Request:
     prompt: np.ndarray  # (S,) int32
     max_new_tokens: int
     temperature: float = 0.0
+    extras: Optional[dict] = None  # a VLM's "patches", an enc-dec's "frames" (numpy)
     # failure-model knobs (engine defaults apply when None): priority orders
     # preemption under evict_policy="priority"; deadlines are budgets
     # relative to submit time on the engine clock
@@ -260,7 +268,13 @@ class ServingEngine:
         self.params = self.api.unstack(cfg, tree_to(params, self.device))
         self.plan = plan
         self.max_len = max_len = int(config.max_len)
-        self.kv_dtype = torch.int8 if is_int8(cc.kv_dtype) and supports_int8_kv(cfg) else None
+        self.kv_dtype = torch.int8 if is_int8(cc.kv_dtype) else None
+        if self.kv_dtype is not None and not supports_int8_kv(cfg):
+            # the enc-dec cache ignores kv_dtype: the sizer must not charge
+            # an int8 stream that was never allocated
+            warnings.warn(f"{cfg.name}: kv_dtype=int8 requested but the {cfg.family} cache "
+                          f"does not support it; serving fp", stacklevel=2)
+            self.kv_dtype = None
         self.paged = cc.page_size is not None and supports_paged_kv(cfg)
         self.page_size = cc.page_size if self.paged else None
         # speculative decode: the validated k (raises on a missing draft or a
@@ -284,7 +298,7 @@ class ServingEngine:
                 self.prefill_budget = max(int(sc.prefill_budget or 0), chunk)
         ctx = min(int(cc.expected_context) if cc.expected_context else max_len, max_len)
         self.expected_context = ctx
-        kv_tok = kv_bytes_per_token(cfg, self.kv_dtype)
+        kv_tok = kv_bytes_per_token(cfg, self.kv_dtype, context_len=ctx)
         if sizer is None:
             n_params = self.api.n_params_exact(cfg)
             mp_kw = dict(model_parallel=1, kv_parallel=1, spec_k=self.spec_k)
@@ -344,18 +358,37 @@ class ServingEngine:
         # host RNG of the speculative draft/accept chain (the torch generator
         # above stays the plain sampler)
         self._np_rng = np.random.default_rng(config.seed)
+        # enc-dec paged serving: the frame pages' lists and table (below)
+        self.xpages_per_seq = 0
+        self.slot_xpages: Optional[List[List[int]]] = None
+        self._xtable = None
         if self.paged:
             self.pages_per_seq = math.ceil(max_len / self.page_size)
             # default pool: byte parity with the contiguous reservation
             self.num_pages = cc.num_pages or (1 + max_batch * self.pages_per_seq)
             self.allocator = PageAllocator(self.num_pages)
-            self.registry = PrefixRegistry() if cc.share_prefix else None
+            share_prefix = cc.share_prefix
+            if share_prefix and self.api.extra_keys:
+                # prefix sharing keys on prompt tokens only; this family's KV
+                # also depends on each request's patches or frames
+                warnings.warn(
+                    f"{cfg.name}: share_prefix keys on prompt tokens but this family's "
+                    f"cache also depends on {self.api.extra_keys}; serving without "
+                    f"prefix sharing", stacklevel=2)
+                share_prefix = False
+            self.registry = PrefixRegistry() if share_prefix else None
             self.slot_pages: List[List[int]] = [[] for _ in range(max_batch)]
             self._table = np.full((max_batch, self.pages_per_seq), NULL_PAGE, np.int32)
             self.cache = self.api.init_cache(
                 cfg, max_batch, max_len, self.dtype, kv_dtype=self.kv_dtype,
                 page_size=self.page_size, num_pages=self.num_pages, device=self.device,
                 spec_k=self.spec_k)
+            if "xpage_table" in self.cache:
+                # enc-dec: each slot's encoded frames take pages of the same
+                # allocator, written once at admission, read-only after
+                self.xpages_per_seq = int(self.cache["xpage_table"].shape[1])
+                self.slot_xpages = [[] for _ in range(max_batch)]
+                self._xtable = np.full((max_batch, self.xpages_per_seq), NULL_PAGE, np.int32)
         else:
             self.allocator = None
             self.registry = None
@@ -551,6 +584,8 @@ class ServingEngine:
                                      kv_dtype=self.kv_dtype, device=self.device,
                                      spec_k=self.spec_k)
         batch = {"tokens": self._on_device(np.asarray(tokens, np.int32))[None]}
+        for k, v in (req.extras or {}).items():
+            batch[k] = self._on_device(np.asarray(v))[None]
         logits, cache1 = self.api.prefill(self.cfg, self.params, batch, cache1)
         self.stats.prefill_tokens += len(tokens)
         row = logits[:, -1]
@@ -608,7 +643,7 @@ class ServingEngine:
                 continue  # the evictee re-entered the queue: re-select
             slot = free[0]
             tokens = self._resume_tokens(req)
-            S = len(tokens)
+            S = len(tokens) + self.api.prefix_len(self.cfg)
             remaining = req.max_new_tokens - len(req.output)
             # the last verify tick writes up to spec_k positions past the
             # final committed token; the cache ring must never wrap
@@ -649,7 +684,7 @@ class ServingEngine:
                 continue
             slot = free[0]
             tokens = self._resume_tokens(req)
-            S = len(tokens)
+            S = len(tokens) + self.api.prefix_len(self.cfg)
             remaining = req.max_new_tokens - len(req.output or [])
             total = S + remaining
             capacity = self.pages_per_seq * ps
@@ -666,7 +701,10 @@ class ServingEngine:
             n_total = math.ceil(total / ps)
             n_full = shared_len // ps  # full pages mapped by refcount
             boundary = 1 if shared_len % ps else 0  # partial page: eager COW
-            if not self._can_alloc_pages(n_total - n_full):
+            # enc-dec: the encoded frames claim their own pages from the same
+            # pool, so admission back-pressure covers the whole request
+            x_need = self.xpages_per_seq
+            if not self._can_alloc_pages(n_total - n_full + x_need):
                 victim = self._pick_victim(req, now)
                 if victim is None:
                     break  # pool exhausted: the request stays queued
@@ -682,6 +720,13 @@ class ServingEngine:
             n_fresh = boundary if self.prefill_chunk is not None else n_total - n_full
             try:
                 fresh = self._alloc_pages(n_fresh)
+                xpages: List[int] = []
+                if x_need:
+                    try:
+                        xpages = self._alloc_pages(x_need)
+                    except PoolExhausted:
+                        self.allocator.release(fresh)
+                        raise
             except PoolExhausted as e:
                 # raced an (injected) failure between can_alloc and alloc
                 self.allocator.release(retained)
@@ -701,6 +746,10 @@ class ServingEngine:
                 continue
             self._table[slot, :] = NULL_PAGE
             self._table[slot, : len(pages)] = pages
+            if x_need:
+                self.slot_xpages[slot] = xpages
+                self._xtable[slot, :] = NULL_PAGE
+                self._xtable[slot, : len(xpages)] = xpages
             try:
                 tok, cache1, ok = self._prefill_request(req, tokens)
             except Exception:
@@ -833,7 +882,10 @@ class ServingEngine:
         slot still prefilling).  Raises ``PageAuditError``."""
         if not self.paged:
             return
-        self.allocator.audit([p for pages in self.slot_pages for p in pages])
+        refs = [p for pages in self.slot_pages for p in pages]
+        if self.slot_xpages is not None:
+            refs += [p for pages in self.slot_xpages for p in pages]
+        self.allocator.audit(refs)
         for slot in range(self.max_batch):
             pages = self.slot_pages[slot]
             row = self._table[slot]
@@ -850,6 +902,16 @@ class ServingEngine:
                     f"mapping {pages}")
             if self.slot_req[slot] is None and pages:
                 raise PageAuditError(f"slot {slot}: free slot still owns pages {pages}")
+            if self.slot_xpages is not None:
+                xpages, xrow = self.slot_xpages[slot], self._xtable[slot]
+                if not (np.array_equal(xrow[: len(xpages)], np.asarray(xpages, np.int32))
+                        and np.all(xrow[len(xpages):] == NULL_PAGE)):
+                    raise PageAuditError(
+                        f"slot {slot}: frame table row {xrow.tolist()} does not mirror the "
+                        f"slot mapping {xpages}")
+                if self.slot_req[slot] is None and xpages:
+                    raise PageAuditError(f"slot {slot}: free slot still owns frame pages "
+                                         f"{xpages}")
 
     def _copy_page(self, src: int, dst: int):
         """pool[dst] <- pool[src] for every paged leaf of every layer (in place)."""
@@ -894,6 +956,21 @@ class ServingEngine:
             for pk, ck in _PAGED_KEYS:
                 if pk in entry:
                     entry[pk][phys, off] = one[ck][0, src].to(entry[pk].dtype)
+        if self.slot_xpages is not None:
+            self._write_slot_xpages(slot, cache1)
+
+    def _write_slot_xpages(self, slot: int, cache1):
+        """Scatter the prefill's cross-attention K/V (the encoded frames) of
+        every decoder layer into this slot's frame pages (in place).  They
+        are written once and only this slot reads them: no COW guard."""
+        ps, nf = self.page_size, self.cfg.n_frames
+        frames = np.arange(nf)
+        phys = torch.as_tensor([self.slot_xpages[slot][f // ps] for f in frames],
+                               dtype=torch.long, device=self.device)
+        off = torch.as_tensor(frames % ps, dtype=torch.long, device=self.device)
+        for pools, one in zip(self.cache["x"], cache1["layers"]):
+            for pk, ck in (("k_pages", "xk"), ("v_pages", "xv")):
+                pools[pk][phys, off] = one[ck][0, :nf].to(pools[pk].dtype)
 
     def _free_slot_pages(self, slot: int):
         freed = self.allocator.release(self.slot_pages[slot])
@@ -901,6 +978,10 @@ class ServingEngine:
             self.registry.evict(freed)
         self.slot_pages[slot] = []
         self._table[slot, :] = NULL_PAGE
+        if self.slot_xpages is not None:
+            self.allocator.release(self.slot_xpages[slot])
+            self.slot_xpages[slot] = []
+            self._xtable[slot, :] = NULL_PAGE
 
     @staticmethod
     def _write_slot(slot: int, cache1, cache):
@@ -946,6 +1027,8 @@ class ServingEngine:
                 continue
             ok_live.append(slot)
         self.cache["page_table"].copy_(torch.from_numpy(self._table))
+        if self._xtable is not None:
+            self.cache["xpage_table"].copy_(torch.from_numpy(self._xtable))
         return ok_live
 
     # -- degradation ladder -------------------------------------------------

@@ -33,7 +33,9 @@ def test_import_leaves_jax_and_repro_out():
         "       'repro_torch.kernels.batched_ffn', 'repro_torch.kernels.quant_matmul',\n"
         "       'repro_torch.checkpoint.store', 'repro_torch.serving.scheduler',\n"
         "       'repro_torch.serving.loadgen', 'repro_torch.serving.faultinject',\n"
-        "       'repro_torch.distributed.fault'}\n"
+        "       'repro_torch.distributed.fault', 'repro_torch.models.encdec',\n"
+        "       'repro_torch.models.vlm', 'repro_torch.configs.whisper_tiny',\n"
+        "       'repro_torch.configs.internvl2_2b'}\n"
         "assert new <= set(mods), new - set(mods)\n"
         "print('BAD', bad)\n"
         "sys.exit(1 if bad else 0)\n"
