@@ -71,7 +71,14 @@ Phases, in order; any failure raises and the script exits non-zero:
                128, int8 pages, after its 256 patches), B6 at internvl's
                16/8 heads at 2032 positions, B5 at its 2048 x 92553 head
                (the dense_tile regime: its rows are no multiple of 16
-               bytes).
+               bytes).  Then the recurrent families' and the mixed run's
+               shapes (``phase_recurrent_kernels``): B6 at recurrentgemma's
+               10/1 heads (G 10), hd 256, window 2048, at 2048 and 4096
+               tokens (the window bites), B2 gelu_glu at its 2560 x 7680
+               pair, B1 at both families' projections (summed, M 8), B5 in
+               dense_tile at xlstm-350m's ragged leaves (1024 x 8, 1024 x
+               2730, 1365 x 1024) and in wgmma at its 1024 x 50304 head, B3
+               over bf16 pages at tinyllama's 32/4 heads.
 4. fcnet    -- the paper's four FC nets (Table 2) at published widths,
                random weights from a seed: forward_fp32 / forward_pruned
                (B7) held to the plain path, forward_q78 (B8) equal to it
@@ -196,7 +203,30 @@ Phases, in order; any failure raises and the script exits non-zero:
                paged decode held to the plain versions; internvl's
                ``_path_parity`` with 1776-token prompts (B6 at 2032
                positions) and its served long prompt.
-15. summary -- one JSON line of per-kernel numbers, then the result line.
+15. recurrent -- recurrentgemma-2b (18 RG-LRU + 8 local layers of window
+               2048, d 2560, 10/1 heads, hd 256, tied 256000 head) and
+               xlstm-350m (12 mLSTM + 12 sLSTM, d 1024, untied 50304 head)
+               at full width and depth, random weights from a seed, the
+               serve phase's flags and requests (a contiguous cache: neither
+               pages; xlstm serves int8 KV as fp; the warnings logged), each
+               through the kernels and the plain versions (streams by the
+               near-tie rule), launches by (kernel, K, N) exactly the plan's
+               leaves a pass (B5's dense_tile / wgmma split included; B3,
+               B4, B6 none), ``_path_parity`` (xlstm's long prefill 512
+               tokens: its sLSTM prefill is a loop over the tokens),
+               recurrentgemma's served 2032- and 4080-token prompts (B6
+               windowed once a local layer each, by (Sq, Sk)), and a timed
+               long prefill each, the recurrent cells and the RG-LRU scan
+               timed apart.
+16. mixed   -- ``--workload-mix tinyllama-1.1b:2,recurrentgemma-2b:1,
+               whisper-tiny:1 --compress none --page-size 16`` at full width:
+               one shared pool of 881 pages for the two paged families,
+               audited every tick; every request finishes, B3 runs causal
+               once a global layer a step (bf16 pages) and non-causal once a
+               whisper decoder layer a step, B6 non-causal once a whisper
+               layer a prefill, the weight kernels never; each member's
+               streams equal it served alone.
+17. summary -- one JSON line of per-kernel numbers, then the result line.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -625,12 +655,14 @@ def _sdpa_gathered(torch, q, kp, vp, ks, vs, table, pos):
     """B3's yardstick: scaled_dot_product_attention on the gathered,
     dequantized bf16 K/V (expanded to the query heads) under the causal
     mask of the T new tokens at pos .. pos + T - 1; returns a thunk for the
-    timer."""
+    timer.  ``ks``/``vs`` None: bf16 pages, no scales."""
     from repro_torch.models import layers as L
 
     T, H, KVH = q.shape[1], q.shape[2], kp.shape[2]
-    kd = L.gather_pages(kp, table).float() * L.gather_pages(ks, table)[..., None]
-    vd = L.gather_pages(vp, table).float() * L.gather_pages(vs, table)[..., None]
+    kd, vd = L.gather_pages(kp, table).float(), L.gather_pages(vp, table).float()
+    if ks is not None:
+        kd = kd * L.gather_pages(ks, table)[..., None]
+        vd = vd * L.gather_pages(vs, table)[..., None]
     kd = kd.to(torch.bfloat16).repeat_interleave(H // KVH, dim=2).transpose(1, 2)
     vd = vd.to(torch.bfloat16).repeat_interleave(H // KVH, dim=2).transpose(1, 2)
     S = kd.shape[2]
@@ -1298,12 +1330,15 @@ def _b5_all_wgmma(label: str, regime: str = "wgmma") -> None:
     """Every B5 launch since ``_zero_launches`` ran in the wgmma regime (the
     served model's int8 leaves are all TMA-addressable bf16 products), or
     every one in ``regime`` where the caller names another (internvl2-2b's
-    head, whose 92553-byte rows TMA cannot address, runs ``dense_tile``)."""
+    head, whose 92553-byte rows TMA cannot address, runs ``dense_tile``);
+    ``regime`` None only logs the split."""
     from repro_torch.kernels import quant_matmul as QM
 
     f = QM.quant_matmul
     log(f"{label}: B5 launches {f.launches}: wgmma {f.wgmma_launches}, dense_tile "
         f"{f.dense_tile_launches}")
+    if regime is None:  # both regimes (xlstm-350m): the caller checks them by shape
+        return
     n = f.wgmma_launches if regime == "wgmma" else f.dense_tile_launches
     if n != f.launches:
         raise AssertionError(f"{label}: a B5 launch left the {regime} regime ({n} of "
@@ -2355,12 +2390,14 @@ def _b6_row(torch, timer, gen, results, key, H, KVH, hd, window=None, S=2048) ->
         "bound_by": b_by}, d, r)
 
 
-def _b3_row(torch, timer, gen, results, key, H, KVH, hd, T, prefix=0, P=8) -> None:
+def _b3_row(torch, timer, gen, results, key, H, KVH, hd, T, prefix=0, P=8,
+            int8=True) -> None:
     """B3 at one family's serve step (T 1) or verify step (T 5): 8
     sequences at the serve phase's contexts (after ``prefix`` positions of
-    a VLM's patches), int8 pages of 16, ``P`` pages a sequence, sequences
-    1-3 sharing sequence 0's first page; held to its plain version, twice
-    for the same bits, timed beside SDPA on the gathered bf16 K/V."""
+    a VLM's patches), int8 pages of 16 (bf16 where ``int8`` is False), ``P``
+    pages a sequence, sequences 1-3 sharing sequence 0's first page; held
+    to its plain version, twice for the same bits, timed beside SDPA on the
+    gathered bf16 K/V."""
     from repro_torch.kernels import flash_attention as FA
 
     B, ps = 8, 16
@@ -2370,40 +2407,48 @@ def _b3_row(torch, timer, gen, results, key, H, KVH, hd, T, prefix=0, P=8) -> No
     table[1:4, 0] = table[0, 0]
     table = table.to(torch.int32).contiguous()
     shape = (1 + B * P, ps, KVH, hd)
-    kp = torch.randint(-127, 128, shape, generator=gen, device="cuda", dtype=torch.int8)
-    vp = torch.randint(-127, 128, shape, generator=gen, device="cuda", dtype=torch.int8)
-    kw = dict(k_scale_pages=torch.rand(shape[:3], generator=gen, device="cuda") * 0.02 + 0.005,
-              v_scale_pages=torch.rand(shape[:3], generator=gen, device="cuda") * 0.02 + 0.005)
+    if int8:
+        kp = torch.randint(-127, 128, shape, generator=gen, device="cuda", dtype=torch.int8)
+        vp = torch.randint(-127, 128, shape, generator=gen, device="cuda", dtype=torch.int8)
+        kw = dict(
+            k_scale_pages=torch.rand(shape[:3], generator=gen, device="cuda") * 0.02 + 0.005,
+            v_scale_pages=torch.rand(shape[:3], generator=gen, device="cuda") * 0.02 + 0.005)
+    else:
+        kp = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+        vp = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+        kw = {}
     q = torch.randn((B, T, H, hd), generator=gen, device="cuda").to(torch.bfloat16)
-    label = f"B3 int8 hd {hd} B={B} T={T} H={H}/{KVH}"
+    kind = "int8" if int8 else "bf16"
+    label = f"B3 {kind} hd {hd} B={B} T={T} H={H}/{KVH}"
     o = FA.paged_decode_attention(q, kp, vp, table, pos, **kw)
     d, r = _held(torch, label, o,
                  FA.paged_decode_attention(q, kp, vp, table, pos, use_kernel=False, **kw),
                  KERNEL_RTOL)
     _deterministic(torch, label, o, FA.paged_decode_attention(q, kp, vp, table, pos, **kw))
-    b_ms, b_by = _b3_bound(q, table, pos, ps, KVH, hd, H)
+    b_ms, b_by = (_b3_bound(q, table, pos, ps, KVH, hd, H) if int8 else
+                  _b3_bound(q, table, pos, ps, KVH, hd, H, elem=2, scale_bytes=0))
     ms = timer(lambda: FA.paged_decode_attention(q, kp, vp, table, pos, **kw))
     plain_ms = timer(lambda: FA.paged_decode_attention(q, kp, vp, table, pos, use_kernel=False,
                                                        **kw))
-    lib_ms = timer(_sdpa_gathered(torch, q, kp, vp, kw["k_scale_pages"], kw["v_scale_pages"],
-                                  table, pos))
+    lib_ms = timer(_sdpa_gathered(torch, q, kp, vp, kw.get("k_scale_pages"),
+                                  kw.get("v_scale_pages"), table, pos))
     log(f"{label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA(gathered bf16) "
         f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     _add_row(results, "paged_decode_attention", {
-        "key": key, "shape": f"B={B} T={T} H={H} KVH={KVH} hd={hd} int8 pages of 16, pos "
+        "key": key, "shape": f"B={B} T={T} H={H} KVH={KVH} hd={hd} {kind} pages of 16, pos "
                              f"{'/'.join(map(str, pos.tolist()))}{' (verify)' if T > 1 else ''}",
         "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
         "bound_by": b_by}, d, r)
 
 
-def _b2_gelu_row(torch, timer, gen, results) -> None:
-    """B2 with gemma3's gelu_glu epilogue at its gate/up pair, 2560 x 10240
-    (80 block-columns), M = 8 (the serve batch) and 40 (a prefill); held to
-    its plain version, twice for the same bits, timed at M = 8 beside one
-    torch.matmul on the dequantized [Wg | Wu]."""
+def _b2_gelu_row(torch, timer, gen, results, key="gelu", K=2560, N=10240) -> None:
+    """B2 with the gelu_glu epilogue at a gate/up pair: gemma3's 2560 x 10240
+    (80 block-columns) by default, recurrentgemma's 2560 x 7680; M = 8 (the
+    serve batch) and 40 (a prefill); held to its plain version, twice for
+    the same bits, timed at M = 8 beside one torch.matmul on the
+    dequantized [Wg | Wu]."""
     from repro_torch.kernels import fused_gate_up as FG
 
-    K, N = 2560, 10240
     g, u = _packed(torch, K, N, gen), _packed(torch, K, N, gen)
     ga, ua = (g.blocks, g.block_rows, g.counts), (u.blocks, u.block_rows, u.counts)
     err = rel = 0.0
@@ -2427,7 +2472,7 @@ def _b2_gelu_row(torch, timer, gen, results) -> None:
     log(f"B2 gelu_glu {K}x{N} M=8: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.matmul("
         f"dense [Wg|Wu] bf16) {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     _add_row(results, "fused_gate_up", {
-        "key": "gelu", "shape": f"{K}x{N} gate+up gelu_glu at M=8", "ms": ms,
+        "key": key, "shape": f"{K}x{N} gate+up gelu_glu at M=8", "ms": ms,
         "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by},
         err, rel)
 
@@ -2826,10 +2871,12 @@ def _moe_down_rows(torch, timer, gen, results, key: str, E: int, K: int, N: int,
             "bound_by": b_by}, d, r)
 
 
-def _b5_head_row(torch, timer, gen, results, key: str, K: int, N: int, M: int = 8) -> None:
-    """B5 at an untied int8 head (K x N, M rows): held to its plain version,
-    twice for the same bits, timed beside torch.matmul on the dequantized
-    bf16 weight."""
+def _b5_head_row(torch, timer, gen, results, key: str, K: int, N: int, M: int = 8,
+                 regime=None) -> None:
+    """B5 at an untied int8 head, or any int8 leaf (K x N, M rows): held to
+    its plain version, twice for the same bits, timed beside torch.matmul
+    on the dequantized bf16 weight; its regime must be ``regime`` where
+    given."""
     from repro_torch.core.weight_plan import quantize_leaf
     from repro_torch.kernels import block_sparse as BS
     from repro_torch.kernels import quant_matmul as QM
@@ -2838,7 +2885,10 @@ def _b5_head_row(torch, timer, gen, results, key: str, K: int, N: int, M: int = 
     wq, sc = leaf.q, leaf.s
     x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
     label = f"B5 {K}x{N} M={M} bf16"
-    log(f"{label}: regime {QM.regime(x.dtype, M, K, N, K, N, BS.sm_count(x.device))}")
+    plan = QM.regime(x.dtype, M, K, N, K, N, BS.sm_count(x.device))
+    log(f"{label}: regime {plan}")
+    if regime is not None and plan[0] != regime:
+        raise AssertionError(f"{label}: regime {plan[0]}, expected {regime}")
     y = QM.quant_matmul(x, wq, sc)
     d, r = _held(torch, label, y, QM.quant_matmul(x, wq, sc, use_kernel=False), KERNEL_RTOL)
     _deterministic(torch, label, y, QM.quant_matmul(x, wq, sc))
@@ -3419,6 +3469,536 @@ def phase_encdec_vlm(torch, results: dict, card: str) -> None:
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# the recurrent families (recurrentgemma-2b, xlstm-350m), then mixed serving
+# ---------------------------------------------------------------------------
+
+RG, XLSTM = "recurrentgemma-2b", "xlstm-350m"
+# recurrentgemma's second long prompt: past its 2048-token window, so a
+# late query sees only the last 2048 keys (the window bites)
+RG_BITES = 4080
+# xlstm-350m's long prompt: its sLSTM prefill is a loop over the tokens
+XLSTM_LONG = 512
+# the mixed phase's workload (closed-loop, --compress none, pages of 16)
+MIX = "tinyllama-1.1b:2,recurrentgemma-2b:1,whisper-tiny:1"
+
+
+@contextlib.contextmanager
+def _shape_launches(counts: dict):
+    """Counts the launches of B1, B4, B2 and B5 by (kernel, K, N) that the
+    model path makes: ``weight_plan`` calls them through ``ops``, whose
+    wrappers launch (the inputs are on the card) unless the plan node says
+    ``use_kernel=False``."""
+    from repro_torch.kernels import ops
+
+    names = ("block_sparse_matmul", "fused_gate_up", "quant_matmul")
+    inner = {n: getattr(ops, n) for n in names}
+
+    def count(key):
+        counts[key] = counts.get(key, 0) + 1
+
+    def bsm(x2, w):
+        y = inner["block_sparse_matmul"](x2, w)
+        if w.use_kernel:
+            count(("B1" if w.walk is not None else "B4",) + tuple(w.shape))
+        return y
+
+    def fgu(x2, g, u, activation):
+        y = inner["fused_gate_up"](x2, g, u, activation)
+        if g.use_kernel and u.use_kernel:
+            count(("B2",) + tuple(g.shape))
+        return y
+
+    def qmm(x2, w, activation="linear"):
+        y = inner["quant_matmul"](x2, w, activation)
+        if w.use_kernel:
+            count(("B5",) + tuple(w.q.shape))
+        return y
+
+    ops.block_sparse_matmul, ops.fused_gate_up, ops.quant_matmul = bsm, fgu, qmm
+    try:
+        yield
+    finally:
+        for n, f in inner.items():
+            setattr(ops, n, f)
+
+
+@contextlib.contextmanager
+def _paged_shapes(shapes: list):
+    """Records (H, KVH, hd, page dtype, causal) of every B3 launch the model
+    path makes (``layers.paged_decode_attention`` calls
+    ``ops.paged_decode_attention``, which launches unless
+    ``use_kernel=False``)."""
+    from repro_torch.kernels import ops
+
+    inner = ops.paged_decode_attention
+
+    def spy(q, k_pages, v_pages, page_table, pos, **kw):
+        out = inner(q, k_pages, v_pages, page_table, pos, **kw)
+        if kw.get("use_kernel", True):
+            shapes.append((q.shape[2], k_pages.shape[2], q.shape[3], str(k_pages.dtype),
+                           kw.get("causal", True)))
+        return out
+
+    ops.paged_decode_attention = spy
+    try:
+        yield
+    finally:
+        ops.paged_decode_attention = inner
+
+
+def _pass_launches(cfg) -> dict:
+    """{(kernel, K, N): launches} of one model pass (a prefill or a decode
+    step) of a recurrent family under the quickstart plan (blocks of 128):
+    a ``rec`` layer's w_gate / w_x / w_out and a ``local`` layer's q/k/v/o
+    through B1, their gelu_glu pair through B2 and w_down through B1; an
+    mLSTM's w_u / w_z / w_down through B1 and its w_if (N 8) through B5; an
+    sLSTM's w_gates through B1 and its w_up (N 2730) and w_down (K 1365)
+    through B5; an untied head through B5."""
+    from repro_torch.models import ssm as SSM
+
+    d, out = cfg.d_model, {}
+
+    def add(key, n=1):
+        out[key] = out.get(key, 0) + n
+
+    for kind in cfg.layer_kinds:
+        if kind == "rec":
+            w = cfg.lru_dim or d
+            add(("B1", d, w), 2)
+            add(("B1", w, d))
+        elif kind == "local":
+            qd, kvd = cfg.n_heads * cfg.hd, cfg.n_kv_heads * cfg.hd
+            add(("B1", d, qd))
+            add(("B1", d, kvd), 2)
+            add(("B1", qd, d))
+        elif kind == "mlstm":
+            add(("B1", d, 2 * d), 2)
+            add(("B5", d, 2 * cfg.n_heads))
+            add(("B1", 2 * d, d))
+        elif kind == "slstm":
+            f = SSM.slstm_up(cfg)
+            add(("B1", d, 4 * d))
+            add(("B5", d, 2 * f))
+            add(("B5", f, d))
+        if kind in ("rec", "local"):
+            add(("B2", d, cfg.d_ff))
+            add(("B1", cfg.d_ff, d))
+    if not cfg.tie_embeddings:
+        add(("B5", d, cfg.vocab))
+    return out
+
+
+def _b1_row(torch, timer, gen, results, key: str, shapes, M: int = 8) -> None:
+    """B1 over a family's packed projection shapes (K x N each, int8, q
+    0.5) at M 8, summed as the tinyllama row sums one layer's five: each
+    held to its plain version and launched twice for the same bits; timed
+    beside torch.matmul on the dequantized bf16 weights."""
+    from repro_torch.kernels import block_sparse as BS
+
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0, flops=0.0)
+    err = rel = 0.0
+    for K, N in shapes:
+        p = _packed(torch, K, N, gen)
+        args = (p.blocks, p.block_rows, p.counts, p.scales)
+        x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+        y = BS.block_sparse_matmul(x, *args)
+        d, r = _held(torch, f"B1 {K}x{N} M={M}", y,
+                     BS.block_sparse_matmul(x, *args, use_kernel=False), KERNEL_RTOL)
+        err, rel = max(err, d), max(rel, r)
+        _deterministic(torch, f"B1 {K}x{N} M={M}", y, BS.block_sparse_matmul(x, *args))
+        surv = int(p.counts.sum())
+        tot["bytes"] += (M * K * 2 + surv * 128 * 128 + surv * 4 + p.counts.numel() * 4
+                         + N * 4 + M * N * 2)
+        tot["flops"] += 2.0 * M * surv * 128 * 128
+        wd = _dense_bf16(torch, p)
+        tot["ms"] += timer(lambda: BS.block_sparse_matmul(x, *args))
+        tot["plain_ms"] += timer(lambda: BS.block_sparse_matmul(x, *args, use_kernel=False))
+        tot["library_ms"] += timer(lambda: torch.matmul(x, wd))
+    b_ms, b_by = bound(tot["bytes"], tot["flops"])
+    label = " + ".join(f"{K}x{N}" for K, N in shapes)
+    log(f"B1 {key} ({label}) M={M}: kernel {tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, "
+        f"torch.matmul(dense bf16) {tot['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    _add_row(results, "block_sparse_matmul", {
+        "key": key, "shape": f"sum of {label} at M={M}", "ms": tot["ms"],
+        "plain_ms": tot["plain_ms"], "library_ms": tot["library_ms"], "bound_ms": b_ms,
+        "bound_by": b_by}, err, rel)
+
+
+# the recurrent families' B1 shapes, one of each (the rows sum them)
+RG_B1 = ((2560, 2560), (2560, 256), (7680, 2560))
+XLSTM_B1 = ((1024, 2048), (2048, 1024), (1024, 4096))
+
+
+def phase_recurrent_kernels(torch, results: dict) -> None:
+    """The kernels at the recurrent families' and the mixed run's new
+    shapes, each against its plain version, twice for the same bits, timed
+    beside its plain version and its library call: B6 at recurrentgemma's
+    10/1 heads (G 10), hd 256, window 2048, at 2048 tokens and at 4096
+    (where the window bites); B2 gelu_glu at its 2560 x 7680 pair; B1 at
+    its projections (2560x2560, 2560x256, 7680x2560) and at xlstm-350m's
+    (1024x2048, 2048x1024, 1024x4096); B5 at xLSTM's ragged leaves in the
+    dense_tile regime (w_if 1024x8, sLSTM w_up 1024x2730, w_down 1365x1024)
+    and at its 1024x50304 head (wgmma); B3 over bf16 pages at tinyllama's
+    32/4 heads (the mixed run serves --compress none with an fp cache)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm as SSM
+
+    timer = Timer(torch)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(25)
+    rg, xl = get_config(RG), get_config(XLSTM)
+    for key, S in (("rg window", 2048), ("rg window bites", 4096)):
+        _b6_row(torch, timer, gen, results, key, rg.n_heads, rg.n_kv_heads, rg.hd,
+                window=rg.local_window, S=S)
+    _b2_gelu_row(torch, timer, gen, results, "rg gelu", rg.d_model, rg.d_ff)
+    _b1_row(torch, timer, gen, results, "rg", RG_B1)
+    _b1_row(torch, timer, gen, results, "xlstm", XLSTM_B1)
+    d, f = xl.d_model, SSM.slstm_up(xl)
+    for key, K, N in (("xlstm w_if", d, 2 * xl.n_heads), ("xlstm w_up", d, 2 * f),
+                      ("xlstm w_down", f, d)):
+        _b5_head_row(torch, timer, gen, results, key, K, N, regime="dense_tile")
+    _b5_head_row(torch, timer, gen, results, "xlstm head", d, xl.vocab, regime="wgmma")
+    tl = get_config("tinyllama-1.1b")
+    _b3_row(torch, timer, gen, results, "mixed bf16", tl.n_heads, tl.n_kv_heads, tl.hd, 1,
+            int8=False)
+    torch.cuda.empty_cache()
+
+
+def _recurrent_serve(torch, results, arch: str, card: str):
+    """One recurrent family at full width with the quickstart flags: the
+    engine's warnings (no global layer to page; xlstm-350m has no KV for
+    int8), the kernel path's streams with its launches by shape exactly
+    ``_pass_launches`` a pass (B3, B4 and B6 none: the local rings are read
+    by plain decode attention and the prompts are short), tok/s and the
+    decode tick; then the plain path's streams, held to the kernels' by the
+    near-tie rule.  Returns (serve, cfg, engine, plan)."""
+    import warnings
+
+    from repro_torch.core.weight_plan import with_use_kernel
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import quant_matmul as QM
+    from repro_torch.models import ssm as SSM
+
+    serve, ap, args = _serve_args(["--arch", arch])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        cfg, engine, plan = serve.build_engine(args, ap)
+    torch.cuda.synchronize()
+    said = [str(w.message) for w in caught if issubclass(w.category, UserWarning)]
+    for m in said:
+        log(f"{arch}: engine warning: {m}")
+    want = ["does not thread a page table"] + (["kv_dtype=int8"] if arch == XLSTM else [])
+    if any(not any(w in m for m in said) for w in want) or engine.paged:
+        raise AssertionError(f"{arch}: expected the warnings {want} and a contiguous cache")
+    if (engine.kv_dtype is None) != (arch == XLSTM):
+        raise AssertionError(f"{arch}: KV cache dtype {engine.kv_dtype}")
+    log(f"{arch}: model + plan + engine built in {time.perf_counter() - t0:.1f}s "
+        f"({cfg.n_layers} layers {dict((k, cfg.layer_kinds.count(k)) for k in set(cfg.layer_kinds))}, "
+        f"d {cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} kv, hd {cfg.hd}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab}, tied {cfg.tie_embeddings}; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB during the build)")
+    ticks, counts = [], {}
+    FA.flash_attention.launches = 0
+    with _shape_launches(counts):
+        outputs, launches, dt = _serve_and_check(serve, engine, cfg, args.max_new, arch,
+                                                 ticks=ticks, b5_regime=None)
+    st = engine.stats
+    passes = st.prefills + st.decode_steps
+    want = {k: n * passes for k, n in _pass_launches(cfg).items()}
+    log(f"{arch}: {st.prefills} prefills + {st.decode_steps} decode steps; launches by "
+        f"(kernel, K, N) {dict(sorted(counts.items()))}")
+    if counts != want:
+        raise AssertionError(f"{arch}: launches by shape {counts}, expected {want}")
+    head = want.get(("B5", cfg.d_model, cfg.vocab), 0)
+    tile = sum(n for k, n in want.items() if k[0] == "B5") - head
+    f5 = QM.quant_matmul
+    if (f5.wgmma_launches, f5.dense_tile_launches) != (head, tile):
+        raise AssertionError(f"{arch}: B5 wgmma / dense_tile {f5.wgmma_launches} / "
+                             f"{f5.dense_tile_launches}, expected {head} / {tile}")
+    if launches["paged_decode_attention"] or launches["block_sparse_matmul_col"] \
+            or FA.flash_attention.launches:
+        raise AssertionError(f"{arch}: B3 / B4 / B6 launched: {launches}, B6 "
+                             f"{FA.flash_attention.launches}")
+    d, f = cfg.d_model, SSM.slstm_up(cfg)
+    rows = ({"rg gelu": ("fused_gate_up", [("B2", d, cfg.d_ff)]),
+             "rg": ("block_sparse_matmul", [("B1",) + s for s in RG_B1])} if arch == RG else
+            {"xlstm": ("block_sparse_matmul", [("B1",) + s for s in XLSTM_B1]),
+             "xlstm w_if": ("quant_matmul", [("B5", d, 2 * cfg.n_heads)]),
+             "xlstm w_up": ("quant_matmul", [("B5", d, 2 * f)]),
+             "xlstm w_down": ("quant_matmul", [("B5", f, d)]),
+             "xlstm head": ("quant_matmul", [("B5", d, cfg.vocab)])})
+    for key, (name, keys) in rows.items():
+        _row(results, name, key)["launches"] = sum(counts.get(k, 0) for k in keys)
+    step_ms, n_steps = _decode_tick_ms(ticks)
+    log(f"{arch}: {st.completed}/8 FINISHED, {st.decode_tokens / dt:.1f} tok/s, decode tick "
+        f"{step_ms:.2f} ms (median of {n_steps}, batch {st.mean_batch:.2f}) on {card}")
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the build's warnings again, logged above
+        plain = _engine_like(engine, plan, params=with_use_kernel(engine.params, False))
+    plain.attention_kernel = False
+    p_out, p_launches, p_dt = _serve_and_check(serve, plain, cfg, args.max_new, f"{arch} plain",
+                                               b5_regime=None)
+    if any(p_launches.values()):
+        raise AssertionError(f"{arch} plain: a kernel launched on the plain path: {p_launches}")
+    prompts = [r.prompt for r in _serve_requests(cfg, args.max_new)]
+    _streams_near_tie(torch, cfg, plain.params, f"{arch} kernels vs plain", prompts, p_out,
+                      outputs)
+    log(f"{arch} plain: {plain.stats.decode_tokens / p_dt:.1f} tok/s on {card}")
+    del plain
+    torch.cuda.empty_cache()
+    return serve, cfg, engine, plan
+
+
+def _timed_prefill(torch, cfg, params, S: int, gen, card: str) -> None:
+    """A batch-1 prefill of S random tokens through the kernels: its device
+    time (CUDA events, after a first untimed call), then, in a second call
+    with the card synchronized around each, the recurrent cells' own time
+    by kind and the RG-LRU's log-depth scan apart (host clock)."""
+    from repro_torch.models import recurrent as R
+    from repro_torch.models import transformer as T
+
+    tokens = torch.randint(0, cfg.vocab, (1, S), generator=gen, device="cuda")
+
+    def run():
+        cache = T.init_cache(cfg, 1, S, torch.bfloat16, kv_dtype=torch.int8, device="cuda")
+        return T.prefill(cfg, params, tokens, cache)[0]
+
+    first = run()
+    if not bool(torch.isfinite(first).all()):
+        raise AssertionError(f"{cfg.name}: non-finite logits from a {S}-token prefill")
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    e0.record()
+    run()
+    e1.record()
+    torch.cuda.synchronize()
+    total, wall = e0.elapsed_time(e1), 1e3 * (time.perf_counter() - t0)
+    parts: dict = {}
+
+    def timed(fn, key):
+        def inner(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            parts[key] = parts.get(key, 0.0) + 1e3 * (time.perf_counter() - t)
+            return out
+        return inner
+
+    cells, scan = dict(T._CELLS), R.linear_scan
+    T._CELLS.update({k: timed(f, f"{k} cells") for k, f in cells.items()})
+    R.linear_scan = timed(scan, "RG-LRU scan")
+    try:
+        run()
+    finally:
+        T._CELLS.update(cells)
+        R.linear_scan = scan
+    log(f"{cfg.name} prefill of {S} tokens: {total:.3f} ms (events; {wall:.3f} ms wall) on "
+        f"{card}; with a sync around each cell: "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in sorted(parts.items())))
+
+
+def _rg_long(torch, results, serve, cfg, engine, plan, card: str) -> None:
+    """recurrentgemma-2b's long prompts served one at a time (max_len
+    4096): LONG_M and RG_BITES tokens, each prefill's local layers through
+    B6 windowed at G 10 (once a layer, counted by window and by (Sq, Sk) at
+    the launch site into the two B6 rows); each prefill tick timed."""
+    import warnings
+
+    import numpy as np
+
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.serving.engine import Request
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the paging fallback, logged by the serve run
+        eng = _engine_like(engine, plan, max_len=RG_BITES + 16, max_batch=1)
+    rng = np.random.default_rng(5)
+    reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab, size=n).astype(np.int32),
+                    max_new_tokens=16) for i, n in enumerate((LONG_M, RG_BITES))]
+    ticks, shapes = [], []
+    FA.flash_attention.launches = 0
+    with _flash_shapes(shapes):
+        _, launches, dt = _serve_and_check(serve, eng, cfg, 16, f"{cfg.name} long", reqs,
+                                           ticks=ticks)
+    n_local = cfg.layer_kinds.count("local")
+    by_w = dict(FA.flash_attention.launches_by_window)
+    first = [1e3 * t for t, p, _ in ticks if p]
+    log(f"{cfg.name} long: B6 launches {FA.flash_attention.launches}, by window {by_w}, (Sq, Sk, "
+        f"causal) {sorted(set(shapes))}; prefill ticks (prefill + one decode step) "
+        + ", ".join(f"{n} tokens {ms:.3f} ms" for n, ms in zip((LONG_M, RG_BITES), first))
+        + f" on {card}")
+    want = {(LONG_M, LONG_M, True): n_local, (RG_BITES, RG_BITES, True): n_local}
+    got = {k: shapes.count(k) for k in set(shapes)}
+    if by_w != {cfg.local_window: 2 * n_local} or got != want:
+        raise AssertionError(f"{cfg.name} long: B6 by window {by_w}, by shape {got}; expected "
+                             f"{n_local} windowed launches at each length")
+    _row(results, "flash_attention", "rg window")["launches"] = got[(LONG_M, LONG_M, True)]
+    _row(results, "flash_attention", "rg window bites")["launches"] = \
+        got[(RG_BITES, RG_BITES, True)]
+    del eng
+    torch.cuda.empty_cache()
+
+
+def phase_recurrent(torch, results: dict, card: str) -> None:
+    """recurrentgemma-2b (26 layers: 18 RG-LRU, 8 local attention of window
+    2048; d 2560, 10/1 heads, hd 256, d_ff 7680, tied 256000 head) and
+    xlstm-350m (24 layers: 12 mLSTM, 12 sLSTM; d 1024, 4 heads, untied
+    50304 head) at full width and depth, random weights from seed 0, the
+    quickstart flags and the serve phase's requests: each through the
+    kernels and the plain versions (``_recurrent_serve``), then
+    ``_path_parity`` (prefills of 36, 40 and 2032 tokens -- xlstm: 512 --
+    and teacher-forced decode), then the long prefill: recurrentgemma's
+    served long prompts (``_rg_long``) and a timed prefill for each
+    (``_timed_prefill``: 2032 tokens, and xlstm's 512)."""
+    for arch in (RG, XLSTM):
+        serve, cfg, engine, plan = _recurrent_serve(torch, results, arch, card)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(17)
+        long_n = LONG_M if arch == RG else XLSTM_LONG
+        _path_parity(torch, cfg, engine.params, f"{arch} quant_sparse", gen,
+                     lengths=(36, 40, long_n))
+        if arch == RG:
+            _rg_long(torch, results, serve, cfg, engine, plan, card)
+        _timed_prefill(torch, cfg, engine.params, long_n, gen, card)
+        del engine, plan
+        torch.cuda.empty_cache()
+
+
+def phase_mixed(torch, results: dict, card: str) -> None:
+    """``--workload-mix tinyllama-1.1b:2,recurrentgemma-2b:1,whisper-tiny:1
+    --compress none --page-size 16`` at full width (random weights from
+    seed 0; 8 requests of 40 tokens split 4/2/2, 16 new each, batch 8),
+    every member auditing every tick and the mixed engine auditing the
+    shared pool's union every tick: every request finishes, the pool ends
+    empty; B3 launches causal once a global layer a decode step of
+    tinyllama and whisper (bf16 pages) and non-causal once a whisper
+    decoder layer a step, B6 non-causal once a whisper encoder or decoder
+    layer a prefill, and B1, B2, B4, B5 never (no plan); each member's
+    streams equal the member served alone over the same weights and
+    requests.  The tick time, tok/s and the pool's peak use are logged."""
+    import dataclasses as dc
+    import warnings
+
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch import serve
+    from repro_torch.serving import mixed as PM
+    from repro_torch.serving.engine import Request, RequestState, ServingEngine
+
+    ap = serve.build_parser()
+    args = ap.parse_args(["--workload-mix", MIX, "--compress", "none", "--page-size", "16",
+                          "--requests", "8", "--max-new", "16", "--prompt-len", "40",
+                          "--max-batch", "8", "--max-len", "128"])
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        mix, apis, engine = serve.build_mixed(args, ap)
+    torch.cuda.synchronize()
+    for w in caught:
+        log(f"mixed: engine warning: {w.message}")
+    paged = sorted(n for n, e in engine.engines.items() if e.paged)
+    log(f"mixed: {len(engine.engines)} members built in {time.perf_counter() - t0:.1f}s; shared "
+        f"pool {engine.num_pages} pages of 16 for {paged}; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    if paged != ["tinyllama-1.1b", "whisper-tiny"] or engine.engine(RG).paged:
+        raise AssertionError(f"mixed: paged members {paged}")
+    for e in engine.engines.values():
+        e.audit_every_step = True
+    engine._audit_every_step = True
+    reqs = serve.mixed_requests(args, mix, apis, engine)
+    counters = _served_kernels()
+    _zero_launches(counters)
+    FA.flash_attention.launches = 0
+    b3 = []
+    for arch, r in reqs:
+        engine.submit(arch, r)
+    torch.cuda.synchronize()
+    ticks, peak, t_all = [], 0, time.perf_counter()
+    with _paged_shapes(b3):
+        while engine._busy():
+            s0 = engine.aggregate_stats()
+            t = time.perf_counter()
+            engine.step()
+            torch.cuda.synchronize()
+            s1 = engine.aggregate_stats()
+            ticks.append((time.perf_counter() - t, s1.prefills - s0.prefills,
+                          s1.decode_steps - s0.decode_steps))
+            peak = max(peak, engine.allocator.used_pages)
+    dt = time.perf_counter() - t_all
+    engine.audit_pages()
+    launches = {c.__name__: c.launches for c in counters}
+    st = engine.stats
+    bad = [r.uid for _, r in reqs if r.state is not RequestState.FINISHED
+           or len(r.output) != args.max_new]
+    if bad or engine.allocator.used_pages:
+        raise AssertionError(f"mixed: unfinished {bad}, {engine.allocator.used_pages} pages live")
+    tl, wh = st["tinyllama-1.1b"], st["whisper-tiny"]
+    wcfg = engine.engine("whisper-tiny").cfg
+    tcfg = engine.engine("tinyllama-1.1b").cfg
+    b3_by = {k: b3.count(k) for k in set(b3)}
+    fa, pa = FA.flash_attention, FA.paged_decode_attention
+    log(f"mixed: launches {launches}; B3 by (H, KVH, hd, pages, causal) {b3_by}; B6 non-causal "
+        f"{fa.launches_noncausal}, by window {fa.launches_by_window}; members' prefills / decode "
+        f"steps " + ", ".join(f"{n} {s.prefills}/{s.decode_steps}" for n, s in st.items()))
+    pages = str(getattr(torch, tcfg.compute_dtype))  # --compress none: an fp cache
+    text_key = (tcfg.n_heads, tcfg.n_kv_heads, tcfg.hd, pages, True)
+    want_b3 = {}
+    for key, n in ((text_key, tcfg.n_layers * tl.decode_steps),
+                   ((wcfg.n_heads, wcfg.n_kv_heads, wcfg.hd, pages, True),
+                    wcfg.n_layers * wh.decode_steps),
+                   ((wcfg.n_heads, wcfg.n_kv_heads, wcfg.hd, pages, False),
+                    wcfg.n_layers * wh.decode_steps)):
+        want_b3[key] = want_b3.get(key, 0) + n
+    # past the 1024-token dense threshold, whisper's encoder and cross
+    # prefill run B6 (its 1500 frames at full width)
+    want_b6 = (wcfg.enc_layers + wcfg.n_layers) * wh.prefills if wcfg.n_frames > 1024 else 0
+    if b3_by != want_b3 or fa.launches_noncausal != want_b6 \
+            or fa.launches_by_window or pa.launches_noncausal != wcfg.n_layers * wh.decode_steps \
+            or any(launches[n] for n in ("block_sparse_matmul", "block_sparse_matmul_col",
+                                         "fused_gate_up", "quant_matmul")):
+        raise AssertionError(f"mixed: launches {launches}, B3 {b3_by} (expected {want_b3}), B6 "
+                             f"non-causal {fa.launches_noncausal} (expected {want_b6})")
+    _row(results, "paged_decode_attention", "mixed bf16")["launches"] = b3_by[text_key]
+    agg = engine.aggregate_stats()
+    dec = [t for t, p, d in ticks if p == 0 and d > 0]  # a tick steps every live member
+    step_ms, n_steps = 1e3 * statistics.median(dec), len(dec)
+    log(f"mixed: {agg.completed}/{len(reqs)} FINISHED, audit clean every tick, pool peak "
+        f"{peak} of {engine.num_pages - 1} pages, {engine.tick} ticks, {agg.decode_tokens / dt:.1f} "
+        f"tok/s, decode tick {step_ms:.2f} ms (median of {n_steps} ticks with no prefill) on "
+        f"{card}")
+    outputs = {}
+    for arch, r in reqs:
+        outputs.setdefault(arch, []).append([int(t) for t in r.output])
+    for arch, eng in engine.engines.items():
+        cache = eng.config.cache
+        spec = PM.WorkloadSpec(name=arch, cfg=eng.cfg, params=None, config=eng.config)
+        pool = 1 + eng.max_batch * PM._pages_per_request(spec) if eng.paged else None
+        conf = dc.replace(eng.config, cache=dc.replace(cache, allocator=None, num_pages=pool))
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            solo = ServingEngine(eng.cfg, eng.params, config=conf, device=eng.device)
+        mine = [Request(uid=r.uid, prompt=r.prompt, max_new_tokens=r.max_new_tokens,
+                        extras=r.extras) for a, r in reqs if a == arch]
+        for r in mine:
+            solo.submit(r)
+        solo.run_until_done()
+        solo.audit_pages()
+        got = [[int(t) for t in r.output] for r in mine]
+        log(f"mixed: {arch} alone: greedy tokens {token_digest(got)}, in the mix "
+            f"{token_digest(outputs[arch])}")
+        if got != outputs[arch]:
+            raise AssertionError(f"mixed: {arch}'s streams in the mix differ from it served alone")
+        del solo
+    del engine
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="on-card smoke test of the CUDA port")
     ap.add_argument("--profile", action="store_true",
@@ -3450,6 +4030,7 @@ def main(argv=None) -> int:
     phase_family_kernels(torch, results)
     phase_moe_kernels(torch, results)
     phase_encdec_kernels(torch, results)
+    phase_recurrent_kernels(torch, results)
     phase_fcnet(torch, results)
     cfg, engine, serve_outputs, serve_launches = phase_serve(torch, results)
     phase_plancache(torch, results, serve_outputs, serve_launches, card)
@@ -3461,6 +4042,8 @@ def main(argv=None) -> int:
     phase_families(torch, results, card)
     phase_moe(torch, results, card)
     phase_encdec_vlm(torch, results, card)
+    phase_recurrent(torch, results, card)
+    phase_mixed(torch, results, card)
     _check_family_rows(results)
     if args.profile:
         phase_profile(torch, cfg, engine)

@@ -1,7 +1,7 @@
 """Architecture registry: --arch <id> resolves here.
 
-The port serves only the architectures listed in ``ARCH_IDS``; the rest of
-the reference registry (``repro/configs``) waits for later slices.
+The port serves every architecture of the reference registry
+(``repro/configs``).
 """
 
 from __future__ import annotations
@@ -19,6 +19,8 @@ _MODULES = {
     "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
     "whisper-tiny": "whisper_tiny",
     "internvl2-2b": "internvl2_2b",
+    "recurrentgemma-2b": "recurrentgemma_2b",
+    "xlstm-350m": "xlstm_350m",
 }
 
 ARCH_IDS = tuple(_MODULES)

@@ -10,9 +10,10 @@ Ported:
    ``models.fcnet.forward_q78_sectioned`` runs in this order.
 2. ``mean_decode_context``, ``BatchSizer`` (the balance point, the
    latency clamp, the multi-card and speculative terms, the acceptance EMA
-   the engine feeds back) and ``efficiency_curve``.  ``MixedSizer`` waits
-   for mixed serving (ROADMAP A10).  The sizer's defaults are the H100
-   data-sheet constants of ``core.perf_model``.
+   the engine feeds back), ``efficiency_curve`` and ``MixedSizer`` (the
+   blend of several families' sizers under one mixed engine,
+   ``serving/mixed.py``).  The sizer's defaults are the H100 data-sheet
+   constants of ``core.perf_model``.
 """
 
 from __future__ import annotations
@@ -266,3 +267,64 @@ def efficiency_curve(sizer: BatchSizer, batches: Sequence[int]) -> list[dict]:
                 / (t * sizer.peak_flops)),
         })
     return out
+
+
+# ---------------------------------------------------------------------------
+# mixed-workload sizing (heterogeneous serving)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class MixedSizer:
+    """Machine-balance accounting for a blend of model families served by
+    one engine (``serving/mixed.py``).  Each family keeps its own
+    ``BatchSizer`` -- its own weight stream and bytes/token (``api.
+    kv_bytes_per_token`` folds recurrent-state and encoder-frame streams
+    into the rate) -- and a mixed tick runs one step per family, so its
+    time is the SUM of the member steps at their batch shares.
+
+    ``weights`` are traffic fractions (any positive scale).  ``n_opt``
+    stays per family: mixing never moves a family's own balance point, it
+    only divides the tick, which is why the blend's floor is the
+    time-weighted solo rate (``blended_floor``), not the mean of the solo
+    rates."""
+
+    sizers: dict  # family name -> BatchSizer
+    weights: dict  # family name -> traffic fraction
+
+    def __post_init__(self):
+        if set(self.sizers) != set(self.weights):
+            raise ValueError(f"sizers/weights keys differ: {sorted(self.sizers)} vs "
+                             f"{sorted(self.weights)}")
+        if not self.sizers:
+            raise ValueError("MixedSizer needs at least one family")
+        if sum(self.weights.values()) <= 0:
+            raise ValueError("weights must sum to a positive value")
+
+    def share(self, name: str) -> float:
+        return self.weights[name] / sum(self.weights.values())
+
+    @property
+    def n_opt(self) -> dict:
+        """Per-family balance points, unchanged by mixing."""
+        return {name: s.n_opt for name, s in self.sizers.items()}
+
+    def batches(self, batch: int) -> dict:
+        """A total batch split across the families by traffic share (each
+        family at least 1)."""
+        return {name: max(1, round(batch * self.share(name))) for name in self.sizers}
+
+    def step_time(self, batch: int) -> float:
+        """One mixed tick: every family's step at its share of the batch, one
+        after another (one device)."""
+        return sum(self.sizers[n].step_time(b) for n, b in self.batches(batch).items())
+
+    def tokens_per_s(self, batch: int) -> float:
+        return sum(self.batches(batch).values()) / self.step_time(batch)
+
+    def blended_floor(self, batch: int) -> float:
+        """The traffic-weighted solo rate a mixed engine is measured
+        against: total tokens over the sum of each family's solo time for
+        its share (the time-weighted harmonic blend)."""
+        bs = self.batches(batch)
+        return sum(bs.values()) / sum(self.sizers[n].step_time(b) for n, b in bs.items())

@@ -6,8 +6,8 @@
 
 Runs on the CUDA device (``--device cpu`` runs the plain versions on the
 CPU).  Takes the reference's flags; those the port does not serve yet
-(``--autotune-plan``, ``--mesh``, ``--workload-mix``) exit with an error
-naming their ROADMAP item.  ``--plan-cache DIR`` stores the packed tree
+(``--autotune-plan``, ``--mesh``) exit with an error naming their ROADMAP
+item.  ``--plan-cache DIR`` stores the packed tree
 (``weight_plan.save_plan``) so that later boots skip packing; it also reads
 a directory the reference's CLI wrote.  ``--draft-config ARCH --spec-k K``
 serves speculative decode (a dense draft from ``--seed`` + 1 proposes K
@@ -24,12 +24,25 @@ frames or patches after its prompt from the ``--seed`` stream, as the
 reference's CLI does.  The default pool holds each request's decoder
 pages, a VLM's patch positions included, but not an enc-dec's frame pages,
 as in the reference: at full width whisper-tiny needs ``--pool-pages``
-(1 + max_batch x (decoder pages + 94 frame pages)).
+(1 + max_batch x (decoder pages + 94 frame pages)).  ``--arch
+recurrentgemma-2b`` and ``--arch xlstm-350m`` have no global attention
+layer to page: with ``--page-size`` they serve on the contiguous cache, as
+the reference does (the engine warns), and xlstm-350m, which has no KV at
+all, serves ``--kv-dtype int8`` in the compute dtype.
+
+``--workload-mix ARCH:W,ARCH:W,...`` (instead of ``--arch``) serves the
+families through one ``MixedServingEngine``: one tick runs each family's
+own step, the paged families draw from one shared page pool, and
+``--requests`` splits by weight.  It is closed-loop and uncompressed, as in
+the reference: ``--compress``, ``--draft-config``, ``--trace`` and
+``--arrival-rate`` are refused, and an enc-dec member serves an fp cache
+under ``--kv-dtype int8`` while the others serve int8.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -56,12 +69,12 @@ from repro_torch.serving.loadgen import (
     poisson_trace,
     run_open_loop,
 )
+from repro_torch.serving.mixed import MixedServingEngine, WorkloadSpec
 
 # flag -> (is it set?, the ROADMAP item that ports it)
 _UNSERVED_FLAGS = {
     "--autotune-plan": (lambda a: a.autotune_plan is not None, "A12 (autotuner)"),
     "--mesh": (lambda a: a.mesh != "none", "A13 (sharding)"),
-    "--workload-mix": (lambda a: a.workload_mix is not None, "A10 (mixed serving)"),
 }
 
 
@@ -127,7 +140,9 @@ def _build_plan(params, pc: PlanConfig, cache_dir):
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default=None, choices=C.ARCH_IDS)
-    ap.add_argument("--workload-mix", default=None, metavar="SPEC")
+    ap.add_argument("--workload-mix", default=None, metavar="SPEC",
+                    help="heterogeneous serving: 'arch:weight,...' through one mixed "
+                         "engine with one shared page pool (closed-loop, replaces --arch)")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--max-new", type=int, default=16)
@@ -183,15 +198,19 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+def _refuse_unserved(args, ap) -> None:
+    for flag, (is_set, item) in _UNSERVED_FLAGS.items():
+        if is_set(args):
+            ap.error(f"{flag} is not served by the port yet: ROADMAP {item}")
+
+
 def build_engine(args, ap=None):
     """Model, plan and engine for parsed ``args``; prints the sizing lines.
     Returns (cfg, engine, plan)."""
     ap = ap or build_parser()
-    for flag, (is_set, item) in _UNSERVED_FLAGS.items():
-        if is_set(args):
-            ap.error(f"{flag} is not served by the port yet: ROADMAP {item}")
+    _refuse_unserved(args, ap)
     if not args.arch:
-        ap.error("--arch is required")
+        ap.error("one of --arch / --workload-mix is required")
     device = resolve_device(args.device)
     cfg = C.get_config(args.arch, smoke=args.smoke)
     api = get_api(cfg)
@@ -355,9 +374,122 @@ def request_extras(cfg, rng):
     return extras or None
 
 
+def parse_mix(spec: str, ap) -> list:
+    """'arch:weight,arch:weight' -> [(arch, weight)] (weight 1 when left out)."""
+    out = []
+    for part in spec.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        arch, _, w = part.partition(":")
+        if arch not in C.ARCH_IDS:
+            ap.error(f"--workload-mix: unknown arch {arch!r} (choose from "
+                     f"{', '.join(C.ARCH_IDS)})")
+        try:
+            weight = float(w) if w else 1.0
+        except ValueError:
+            ap.error(f"--workload-mix: bad weight {w!r} for {arch}")
+        out.append((arch, weight))
+    if not out:
+        ap.error("--workload-mix: empty spec")
+    return out
+
+
+# flags a mixed run refuses, as the reference's CLI does: it is closed-loop
+# and uncompressed, and one --arch does not apply
+_MIX_REFUSED = (
+    ("--arch", lambda a: not a.arch),
+    ("--autotune-plan", lambda a: not a.autotune_plan),
+    ("--compress", lambda a: a.compress == "none"),
+    ("--draft-config", lambda a: not a.draft_config),
+    ("--trace", lambda a: not a.trace),
+    ("--arrival-rate", lambda a: a.arrival_rate == 0),
+)
+
+
+def build_mixed(args, ap):
+    """The mixed engine for ``--workload-mix``: each family's params from
+    ``--seed`` and its EngineConfig from the flags (the sizer charged the
+    mean decode context of a paged family, ``--max-len`` of a contiguous
+    one; an enc-dec member's int8 KV downgraded to fp).  Returns (the mix,
+    {arch: (cfg, api)}, the engine)."""
+    for flag, ok in _MIX_REFUSED:
+        if not ok(args):
+            ap.error(f"--workload-mix is closed-loop heterogeneous serving; drop {flag}")
+    _refuse_unserved(args, ap)
+    mix = parse_mix(args.workload_mix, ap)
+    device = resolve_device(args.device)
+    specs, apis = [], {}
+    for arch, weight in mix:
+        cfg = C.get_config(arch, smoke=args.smoke)
+        api = get_api(cfg)
+        params = api.init_params(cfg, args.seed, device=device)
+        paged = args.page_size > 0 and supports_paged_kv(cfg)
+        ctx = mean_decode_context(args.prompt_len + api.prefix_len(cfg), args.max_new)
+        ec = config_from_args(args, expected_context=ctx if paged else None)
+        if ec.cache.kv_dtype and not supports_int8_kv(cfg):
+            # per family, not per run: whisper keeps an fp cache while the
+            # text member of the same mix serves int8
+            ec = dataclasses.replace(ec, cache=dataclasses.replace(ec.cache, kv_dtype=None))
+        specs.append(WorkloadSpec(name=arch, cfg=cfg, params=params, config=ec, weight=weight))
+        apis[arch] = (cfg, api)
+    engine = MixedServingEngine(specs, num_pages=args.pool_pages or None, device=device)
+    print("[serve] workload mix: " + ", ".join(f"{a}:{w:g}" for a, w in mix)
+          + f" (one engine, {len(mix)} families' steps)")
+    if engine.allocator is not None:
+        print(f"[serve] shared page pool: {engine.num_pages} pages x {args.page_size} tok "
+              f"across {sum(e.paged for e in engine.engines.values())} paged families")
+    return mix, apis, engine
+
+
+def mixed_requests(args, mix, apis, engine) -> list:
+    """(arch, Request) pairs: each family's share of ``--requests`` (at
+    least 1), in mix order, each request's frames or patches drawn before
+    its prompt from one ``--seed`` stream, as the reference's CLI draws
+    them."""
+    rng = np.random.default_rng(args.seed)
+    out = []
+    for arch, _ in mix:
+        cfg, _api = apis[arch]
+        for _ in range(max(1, round(args.requests * engine.sizer.share(arch)))):
+            extras = request_extras(cfg, rng)
+            prompt = rng.integers(0, cfg.vocab, size=args.prompt_len).astype(np.int32)
+            out.append((arch, Request(uid=len(out), prompt=prompt,
+                                      max_new_tokens=args.max_new, extras=extras)))
+    return out
+
+
+def main_mixed(args, ap):
+    """Closed-loop heterogeneous serving; the page audit runs once the
+    requests are done and raises on a leak in any family."""
+    mix, apis, engine = build_mixed(args, ap)
+    reqs = mixed_requests(args, mix, apis, engine)
+    for arch, r in reqs:
+        engine.submit(arch, r)
+    sync = engine.device.type == "cuda"
+    if sync:
+        torch.cuda.synchronize(engine.device)
+    t0 = time.perf_counter()
+    stats = engine.run_until_done()
+    if sync:
+        torch.cuda.synchronize(engine.device)
+    dt = time.perf_counter() - t0
+    engine.audit_pages()
+    for arch, s in stats.items():
+        print(f"[serve]   {arch}: {s.completed} completed, {s.decode_tokens} tokens, mean "
+              f"batch {s.mean_batch:.2f} (n_opt {_fmt_nopt(engine.sizer.n_opt[arch])})")
+    agg = engine.aggregate_stats()
+    print(f"[serve] mixed: {agg.completed}/{len(reqs)} requests in {dt:.2f}s; "
+          f"{agg.decode_tokens} tokens ({agg.decode_tokens / max(dt, 1e-9):.1f} tok/s on "
+          f"{device_name(engine.device)}), {engine.tick} ticks, page audit clean")
+    return engine
+
+
 def main(argv=None):
     ap = build_parser()
     args = ap.parse_args(argv)
+    if args.workload_mix:
+        return main_mixed(args, ap)
     cfg, engine, _ = build_engine(args, ap)
     rng = np.random.default_rng(args.seed)
     if bool(args.trace) or args.arrival_rate > 0:

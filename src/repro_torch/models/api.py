@@ -1,7 +1,7 @@
 """Uniform model API (port of ``repro/models/api.py``): one namespace of
-functions per family -- the transformer (dense and MoE), the VLM and the
-enc-dec -- the cache capability probes and ``kv_bytes_per_token``.  The
-recurrent and SSM families are ROADMAP A10."""
+functions per family -- the transformer (dense, MoE, and the recurrent
+``hybrid`` and xLSTM ``ssm`` stacks), the VLM and the enc-dec -- the cache
+capability probes, ``state_bytes_per_step`` and ``kv_bytes_per_token``."""
 
 from __future__ import annotations
 
@@ -68,15 +68,17 @@ def get_api(cfg) -> ModelAPI:
         return _ENCDEC_API
     if cfg.family == "vlm":
         return _VLM_API
-    if cfg.family in ("ssm", "hybrid"):
-        raise NotImplementedError(f"{cfg.family} models are not ported yet (ROADMAP A10)")
-    return _TRANSFORMER_API
+    return _TRANSFORMER_API  # dense / moe / ssm / hybrid
 
 
 def supports_int8_kv(cfg) -> bool:
-    """Whether the family's cache holds int8 KV when asked: the transformer
-    and VLM caches do; the enc-dec cache ignores kv_dtype."""
-    return get_api(cfg) is not _ENCDEC_API
+    """Whether the family's cache holds int8 KV when asked: a transformer or
+    VLM stack with attention layers does; the enc-dec cache ignores
+    kv_dtype, and an attention-free stack (xLSTM) has no KV at all -- its
+    states keep the compute dtype."""
+    if get_api(cfg) is _ENCDEC_API:
+        return False
+    return any(k in T.ATTN_KINDS for k in cfg.layer_kinds)
 
 
 def supports_paged_kv(cfg) -> bool:
@@ -92,9 +94,9 @@ def supports_spec_decode(cfg) -> bool:
     decode (and serve chunked prefill): every piece of per-sequence state
     must be positionally addressed, so that rejected speculative writes
     stay masked until the next verify step overwrites them.  Attention KV
-    caches qualify; recurrent / xLSTM states (ROADMAP A10) do not, and
-    the VLM and enc-dec stay out as in the reference: the engine's draft
-    prefill carries tokens only, no patches or frames."""
+    caches qualify; recurrent / xLSTM states, which a step rewrites whole,
+    do not, and the VLM and enc-dec stay out as in the reference: the
+    engine's draft prefill carries tokens only, no patches or frames."""
     if get_api(cfg) is not _TRANSFORMER_API:
         return False
     kinds = getattr(cfg, "layer_kinds", ()) or ()
@@ -106,28 +108,44 @@ def is_int8(kv_dtype) -> bool:
 
 
 def state_bytes_per_step(cfg) -> float:
-    """Cache bytes a decode step reads per sequence whatever its context:
+    """Cache bytes a decode step reads per sequence whatever its context --
+    the leaves of the reference's cache probe that have no sequence axis:
     the enc-dec's cross-attention frames (K and V of n_frames positions in
-    every decoder layer, in the compute dtype), 0 for the other families --
-    the leaves of the reference's cache probe that have no sequence axis."""
-    if get_api(cfg) is not _ENCDEC_API:
-        return 0.0
-    item = getattr(torch, cfg.compute_dtype).itemsize
-    return float(2 * cfg.n_layers * cfg.n_frames * cfg.n_kv_heads * cfg.hd * item)
+    every decoder layer, in the compute dtype), and every leaf of a
+    recurrent or xLSTM layer's state (RG-LRU h and conv; mLSTM C, n, m and
+    conv; sLSTM c, n, h, m), probed on the meta device.  0 for a stack of
+    attention layers only."""
+    dtype = getattr(torch, cfg.compute_dtype)
+    if get_api(cfg) is _ENCDEC_API:
+        return float(2 * cfg.n_layers * cfg.n_frames * cfg.n_kv_heads * cfg.hd * dtype.itemsize)
+    total = 0
+    for kind in cfg.layer_kinds:
+        if kind not in T.ATTN_KINDS:
+            state = T.init_layer_cache(cfg, kind, 1, 2, dtype, device="meta")
+            total += sum(t.numel() * t.element_size() for t in state.values())
+    return float(total)
 
 
 def kv_bytes_per_token(cfg, kv_dtype=None, context_len=None) -> float:
     """Cache bytes read per decoded token per unit of context: K and V of
-    every global attention layer, 1-byte payloads plus one fp32 scale per
-    (token, head) for an int8 cache; with ``context_len``, plus the
-    per-step state (``state_bytes_per_step``) spread over it, so that rate
-    x context_len is the bytes a step reads."""
+    every attention layer, 1-byte payloads plus one fp32 scale per (token,
+    head) for an int8 cache.  With ``context_len``, a sliding-window layer
+    counts min(context_len, local_window) / context_len of its rate (its
+    ring holds at most the window) and the per-step state
+    (``state_bytes_per_step``) is spread over the context, so that rate x
+    context_len is the bytes a step reads."""
     per_kv = cfg.n_kv_heads * cfg.hd
     if is_int8(kv_dtype):
         per_layer = 2.0 * (per_kv * 1 + cfg.n_kv_heads * 4)
     else:
         per_layer = 2.0 * per_kv * getattr(torch, cfg.compute_dtype).itemsize
-    total = float(per_layer * cfg.layer_kinds.count("global"))
+    total = 0.0
+    for kind in cfg.layer_kinds:
+        if kind == "global":
+            total += per_layer
+        elif kind == "local":
+            frac = min(context_len, cfg.local_window) / context_len if context_len else 1.0
+            total += per_layer * frac
     if context_len:
         total += state_bytes_per_step(cfg) / context_len
     return float(total)

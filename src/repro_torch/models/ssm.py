@@ -1,0 +1,252 @@
+"""xLSTM blocks (port of ``repro/models/ssm.py``; arXiv:2405.04517): the
+mLSTM (a per-head matrix memory, exponential gating) and the sLSTM (scalar
+memory, exponential gating, a per-head recurrence), and the depthwise
+causal convolution they share with the RG-LRU block (``models/recurrent``).
+
+Each block maps (B, S, d) to (B, S, d) and returns its new state, a dict of
+fixed-size tensors: prefill (S > 1) and decode (S == 1) run the same code.
+The states are not positionally addressed -- a step rewrites them whole --
+so they are neither paged nor written speculatively
+(``api.supports_spec_decode``).  The reference has no Pallas kernel here:
+the recurrences are plain PyTorch, and every projection goes through
+``apply_linear`` (kernels B1/B4 or B5 under a compressed plan).
+
+The mLSTM's prefill is the chunkwise-parallel form (``_mlstm_chunkwise``,
+chunks of ``min(MLSTM_CHUNK, S)``); ``mlstm_sequential`` is the per-token
+recurrence it equals, which decode runs one step of.  The sLSTM's prefill
+is a loop over the tokens.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.weight_plan import GATE_ACTS, apply_linear
+
+# the sequence-start value of the mLSTM / sLSTM stabilizer m
+M_INIT = -1e30
+# the mLSTM prefill's chunk length (min(MLSTM_CHUNK, S) tokens a chunk)
+MLSTM_CHUNK = 64
+
+
+def _log_sigmoid(x):
+    """log sigmoid(x) as the reference writes it: -softplus(-x)."""
+    return -F.softplus(-x)
+
+
+def causal_conv(u, w, state=None):
+    """Depthwise causal convolution: u (B, S, F), w (W, F); ``state`` (B,
+    W-1, F) carries the last W-1 inputs across calls (zeros when None).
+    Returns (y (B, S, F), the new state), in u's dtype, summed tap by tap
+    in the reference's order."""
+    B, S, Fd = u.shape
+    W = w.shape[0]
+    if state is None:
+        state = torch.zeros((B, W - 1, Fd), dtype=u.dtype, device=u.device)
+    full = torch.cat([state.to(u.dtype), u], dim=1)  # (B, S + W - 1, F)
+    y = full[:, 0:S] * w[0].to(u.dtype)
+    for i in range(1, W):
+        y = y + full[:, i:i + S] * w[i].to(u.dtype)
+    return y, full[:, S:]
+
+
+# ---------------------------------------------------------------------------
+# mLSTM
+# ---------------------------------------------------------------------------
+
+
+def mlstm_shapes(cfg) -> dict:
+    """One mLSTM cell's params as {name: (shape, init)} (``init_mlstm``)."""
+    d, H = cfg.d_model, cfg.n_heads
+    up = 2 * d
+    return {
+        "w_u": ((d, up), "dense"), "w_z": ((d, up), "dense"),
+        "conv": ((cfg.conv_width, up), "conv"),
+        "s_q": ((up,), "ones"), "s_k": ((up,), "ones"), "s_v": ((up,), "ones"),
+        "w_if": ((d, 2 * H), "dense"),
+        # forget-gate bias 3: remember by default
+        "b_if": ((2 * H,), "forget_bias/2"),
+        "w_down": ((up, d), "dense"),
+    }
+
+
+def init_mlstm_state(cfg, batch: int, dtype=torch.float32, device="cpu") -> dict:
+    """C (B, H, hd, hd), n (B, H, hd) and m (B, H) in fp32, m at M_INIT; the
+    conv state (B, W-1, 2d) in ``dtype`` (the compute dtype)."""
+    up, H = 2 * cfg.d_model, cfg.n_heads
+    hd = up // H
+    f32 = dict(dtype=torch.float32, device=device)
+    return {
+        "C": torch.zeros((batch, H, hd, hd), **f32),
+        "n": torch.zeros((batch, H, hd), **f32),
+        "m": torch.full((batch, H), M_INIT, **f32),
+        "conv": torch.zeros((batch, cfg.conv_width - 1, up), dtype=dtype, device=device),
+    }
+
+
+def mlstm_sequential(q, k, v, i_raw, f_raw, C, n, m):
+    """The exact per-token recurrence: q/k/v (B, S, H, hd), i/f (B, S, H);
+    state C (B, H, hd, hd), n (B, H, hd), m (B, H), all fp32.  Returns (h
+    (B, S, H * hd) fp32, C, n, m)."""
+    B, S, H, hd = q.shape
+    q, k, v = q.float(), k.float(), v.float()
+    hs = []
+    for t in range(S):
+        logf = _log_sigmoid(f_raw[:, t])
+        m_new = torch.maximum(logf + m, i_raw[:, t])
+        fg = torch.exp(logf + m - m_new)
+        ig = torch.exp(i_raw[:, t] - m_new)
+        C = fg[..., None, None] * C + ig[..., None, None] * (
+            v[:, t, :, :, None] * k[:, t, :, None, :])
+        n = fg[..., None] * n + ig[..., None] * k[:, t]
+        h_num = torch.einsum("bhvk,bhk->bhv", C, q[:, t])
+        h_den = torch.einsum("bhk,bhk->bh", n, q[:, t]).abs().clamp_min(1.0)
+        hs.append(h_num / h_den[..., None])
+        m = m_new
+    return torch.stack(hs, dim=1).reshape(B, S, H * hd), C, n, m
+
+
+def _mlstm_chunkwise(q, k, v, i_raw, f_raw, C0, n0, m0, chunk: int):
+    """The chunkwise-parallel mLSTM, equal to ``mlstm_sequential`` (the
+    reference's derivation, ``ssm.py:159-240``): inside a chunk of L
+    tokens the outputs are (L x L) and (L x hd) products against the
+    carried state, which updates once a chunk.  Padded tokens (S not a
+    multiple of L) take i = -1e30 (weight 0) and f = +1e30 (no decay).
+    Shapes as ``mlstm_sequential``'s."""
+    B, S, H, hd = q.shape
+    Lc = chunk
+    pad = (-S) % Lc
+    if pad:
+        q, k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (q, k, v))
+        i_raw = F.pad(i_raw, (0, 0, 0, pad), value=-1e30)
+        f_raw = F.pad(f_raw, (0, 0, 0, pad), value=1e30)
+    nC = q.shape[1] // Lc
+
+    def chunks(x):  # (B, S, H, ...) -> (nC, B, H, Lc, ...)
+        x = x.reshape((B, nC, Lc) + tuple(x.shape[2:]))
+        return x.permute((1, 0, 3, 2) + tuple(range(4, x.dim())))
+
+    qc, kc, vc = (chunks(t).float() for t in (q, k, v))
+    ic, fc = chunks(i_raw), chunks(f_raw)  # (nC, B, H, Lc)
+    causal = torch.tril(torch.ones((Lc, Lc), dtype=torch.bool, device=q.device))
+    C, n, m = C0, n0, m0
+    hs = []
+    for c in range(nC):
+        qi, ki, vi, ii = qc[c], kc[c], vc[c], ic[c]
+        Fc = torch.cumsum(_log_sigmoid(fc[c]), dim=-1)  # (B, H, Lc)
+        u = ii - Fc
+        M = torch.maximum(m[..., None], torch.cummax(u, dim=2).values)
+        w_mem = torch.exp(m[..., None] - M)
+        D = torch.exp(u[..., None, :] - M[..., :, None])  # (B, H, Lc_t, Lc_tau)
+        D = torch.where(causal, D, torch.zeros_like(D))
+        s = torch.einsum("bhtd,bhsd->bhts", qi, ki) * D
+        intra = torch.einsum("bhts,bhsv->bhtv", s, vi)
+        inter = torch.einsum("bhvk,bhtk->bhtv", C, qi) * w_mem[..., None]
+        den = torch.einsum("bhk,bhtk->bht", n, qi) * w_mem + s.sum(-1)
+        hs.append((inter + intra) / den.abs().clamp_min(1.0)[..., None])
+        ML = torch.maximum(m, u.amax(-1))
+        wL_mem = torch.exp(m - ML)
+        wL = torch.exp(u - ML[..., None])
+        C = wL_mem[..., None, None] * C + torch.einsum("bhs,bhsv,bhsk->bhvk", wL, vi, ki)
+        n = wL_mem[..., None] * n + torch.einsum("bhs,bhsk->bhk", wL, ki)
+        m = Fc[..., -1] + ML
+    h = torch.stack(hs).permute(1, 0, 3, 2, 4).reshape(B, nC * Lc, H * hd)[:, :S]
+    return h, C, n, m
+
+
+def apply_mlstm(cfg, p, x, state=None):
+    """x (B, S, d) -> (y, new state).  S == 1 (decode) is one step of the
+    exact recurrence; S > 1 the chunkwise form with chunks of
+    min(MLSTM_CHUNK, S)."""
+    B, S, d = x.shape
+    up, H = 2 * d, cfg.n_heads
+    hd = up // H
+    dt = x.dtype
+    if state is None:
+        state = init_mlstm_state(cfg, B, dt, x.device)
+    u = apply_linear(x, p["w_u"])
+    z = apply_linear(x, p["w_z"])
+    uc, conv_state = causal_conv(u, p["conv"], state["conv"])
+    uc = F.silu(uc)
+    q = (uc * p["s_q"].to(dt)).reshape(B, S, H, hd)
+    k = (uc * p["s_k"].to(dt)).reshape(B, S, H, hd) / math.sqrt(hd)
+    v = (u * p["s_v"].to(dt)).reshape(B, S, H, hd)
+    gates = apply_linear(x, p["w_if"]) + p["b_if"].to(dt)
+    i_raw, f_raw = gates.float().chunk(2, dim=-1)  # (B, S, H)
+    if S > 1:
+        h, C, n, m = _mlstm_chunkwise(q, k, v, i_raw, f_raw, state["C"], state["n"],
+                                      state["m"], chunk=min(MLSTM_CHUNK, S))
+    else:
+        h, C, n, m = mlstm_sequential(q, k, v, i_raw, f_raw, state["C"], state["n"],
+                                      state["m"])
+    y = apply_linear(h.to(dt) * F.silu(z), p["w_down"])
+    return y, {"C": C, "n": n, "m": m, "conv": conv_state}
+
+
+# ---------------------------------------------------------------------------
+# sLSTM
+# ---------------------------------------------------------------------------
+
+
+def slstm_up(cfg) -> int:
+    """The width of the sLSTM's gated up projection: round(4 d / 3)."""
+    return max(8, int(round(cfg.d_model * 4 / 3)))
+
+
+def slstm_shapes(cfg) -> dict:
+    """One sLSTM cell's params as {name: (shape, init)} (``init_slstm``)."""
+    d, H = cfg.d_model, cfg.n_heads
+    hd, f_up = d // H, slstm_up(cfg)
+    return {
+        "w_gates": ((d, 4 * d), "dense"),  # i, f, z, o
+        "r_gates": ((4, H, hd, hd), "recurrent"),
+        "b_gates": ((4 * d,), "forget_bias/4"),
+        "w_up": ((d, 2 * f_up), "dense"),
+        "w_down": ((f_up, d), "dense"),
+    }
+
+
+def init_slstm_state(cfg, batch: int, dtype=torch.float32, device="cpu") -> dict:
+    """c, n, h (B, d) at 0 and m at M_INIT, all fp32 (the reference keeps
+    every sLSTM state in fp32; ``dtype`` is taken for a uniform
+    signature)."""
+    d = cfg.d_model
+    f32 = dict(dtype=torch.float32, device=device)
+    return {"c": torch.zeros((batch, d), **f32), "n": torch.zeros((batch, d), **f32),
+            "h": torch.zeros((batch, d), **f32), "m": torch.full((batch, d), M_INIT, **f32)}
+
+
+def apply_slstm(cfg, p, x, state=None):
+    """x (B, S, d) -> (y, new state): the gate pre-activations of every
+    token in one projection, then the recurrence token by token (each step
+    a (4, H, hd, hd) product with the previous h), then the gated up/down
+    projection (tanh GELU)."""
+    B, S, d = x.shape
+    H = cfg.n_heads
+    hd = d // H
+    dt = x.dtype
+    if state is None:
+        state = init_slstm_state(cfg, B, dt, x.device)
+    gates_x = (apply_linear(x, p["w_gates"]) + p["b_gates"].to(dt)).float()
+    r = p["r_gates"].float()
+    c, n, h, m = state["c"], state["n"], state["h"], state["m"]
+    hs = []
+    for t in range(S):
+        rec = torch.einsum("ghij,bhj->gbhi", r, h.reshape(B, H, hd)).reshape(4, B, d)
+        gi, gf, gz, go = (g + rec[j] for j, g in enumerate(gates_x[:, t].chunk(4, dim=-1)))
+        logf = _log_sigmoid(gf)
+        m_new = torch.maximum(logf + m, gi)
+        fg = torch.exp(logf + m - m_new)
+        ig = torch.exp(gi - m_new)
+        c = fg * c + ig * torch.tanh(gz)
+        n = fg * n + ig
+        h = torch.sigmoid(go) * c / n.clamp_min(1.0)
+        m = m_new
+        hs.append(h)
+    y = torch.stack(hs, dim=1).to(dt)
+    a, b = apply_linear(y, p["w_up"]).chunk(2, dim=-1)
+    y = apply_linear(GATE_ACTS["gelu"](a) * b, p["w_down"])
+    return y, {"c": c, "n": n, "h": h, "m": m}

@@ -8,16 +8,18 @@ reference scans over the stack, the port runs a Python loop over layers:
 ``unstack`` turns the tree into a list of per-layer views once, when a
 model is set up, and ``init_cache`` makes one cache dict per layer.
 
-What the dense, MoE and VLM families use is ported (tinyllama-1.1b,
-llama3.2-1b, glm4-9b, gemma3-4b, granite-moe-1b-a400m, qwen2-moe-a2.7b,
-the backbone of internvl2-2b): ``global`` and sliding-window ``local``
-attention layers with the config's norm and a dense gated MLP or a routed
-MoE FFN (``models/moe.py``), tied or untied heads, gemma's embedding scale
-and global RoPE base, and the VLM's prepended patch embeddings
-(``prefill(extra_embeds=)``, ``models/vlm.py``).  A ``local`` layer keeps
-a contiguous ring of ``local_window (+ spec_k)`` slots, also when the
-global layers are paged.  ``check_supported`` names the ROADMAP item of
-everything else.
+Every layer kind of the reference is ported: ``global`` and
+sliding-window ``local`` attention layers with the config's norm and a
+dense gated MLP or a routed MoE FFN (``models/moe.py``), the RG-LRU ``rec``
+block with its MLP (``models/recurrent.py``, recurrentgemma-2b) and the
+xLSTM ``mlstm`` / ``slstm`` cells (``models/ssm.py``, xlstm-350m); tied or
+untied heads, gemma's embedding scale and global RoPE base, and the VLM's
+prepended patch embeddings (``prefill(extra_embeds=)``, ``models/vlm.py``).
+A ``local`` layer keeps a contiguous ring of ``local_window (+ spec_k)``
+slots, also when the global layers are paged; a recurrent or xLSTM layer
+keeps a fixed-size state in the compute dtype (fp32 for its integrators),
+whatever ``kv_dtype`` says.  ``check_supported`` names the ROADMAP item of
+what is not ported (logit softcaps).
 """
 
 from __future__ import annotations
@@ -31,6 +33,8 @@ from repro_torch.core.weight_plan import PackedLinear, QuantLinear, apply_linear
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
+from repro_torch.models import recurrent as R
+from repro_torch.models import ssm as SSM
 
 
 def find_unit(kinds: tuple) -> tuple:
@@ -75,14 +79,8 @@ ATTN_KINDS = ("global", "local")
 def check_supported(cfg):
     """Raise NotImplementedError, naming the ROADMAP item, for any part of
     ``cfg`` the port does not serve yet."""
-    unported = [
-        (any(k not in ATTN_KINDS for k in cfg.layer_kinds),
-         "recurrent / xLSTM layers", "A10"),
-        (cfg.logit_softcap > 0.0, "logit softcaps", "A8c"),
-    ]
-    for bad, what, item in unported:
-        if bad:
-            raise NotImplementedError(f"{cfg.name}: {what} are not ported yet (ROADMAP {item})")
+    if cfg.logit_softcap > 0.0:
+        raise NotImplementedError(f"{cfg.name}: logit softcaps are not ported yet (ROADMAP A8c)")
 
 
 def attn_shapes(cfg) -> dict:
@@ -101,17 +99,27 @@ def mlp_shapes(cfg) -> dict:
     return mlp
 
 
-def _layer_shapes(cfg) -> dict:
-    """{name: (shape, init)} of one layer; init is 'dense' or 'zeros'.  A
-    MoE config's FFN is ``moe`` (``moe.moe_shapes``), a dense one's
-    ``mlp``, as the reference's ``init_layer`` names them."""
-    layer = {"ln1": L.norm_shapes(cfg.d_model, cfg.norm), "attn": attn_shapes(cfg),
-             "ln2": L.norm_shapes(cfg.d_model, cfg.norm)}
-    if cfg.moe is not None:
-        layer["moe"] = MOE.moe_shapes(cfg)
-    else:
-        layer["mlp"] = mlp_shapes(cfg)
-    return layer
+def _layer_shapes(cfg, kind: str) -> dict:
+    """{name: (shape, init)} of one layer of ``kind`` (``make_params`` lists
+    the inits), named as the reference's ``init_layer`` names them: an
+    attention layer's FFN is ``moe`` (``moe.moe_shapes``) for a MoE config,
+    else ``mlp``; a ``rec`` layer is ln1 / rec / ln2 / mlp, an ``mlstm`` or
+    ``slstm`` layer ln / cell."""
+    norm = L.norm_shapes(cfg.d_model, cfg.norm)
+    if kind in ATTN_KINDS:
+        layer = {"ln1": norm, "attn": attn_shapes(cfg), "ln2": norm}
+        if cfg.moe is not None:
+            layer["moe"] = MOE.moe_shapes(cfg)
+        else:
+            layer["mlp"] = mlp_shapes(cfg)
+        return layer
+    if kind == "rec":
+        return {"ln1": norm, "rec": R.rglru_shapes(cfg), "ln2": norm, "mlp": mlp_shapes(cfg)}
+    if kind == "mlstm":
+        return {"ln": norm, "cell": SSM.mlstm_shapes(cfg)}
+    if kind == "slstm":
+        return {"ln": norm, "cell": SSM.slstm_shapes(cfg)}
+    raise ValueError(kind)
 
 
 def stack_shapes(tree, n: int) -> dict:
@@ -131,17 +139,21 @@ def param_shapes(cfg) -> dict:
     return {
         "embed": embed,
         "final_norm": L.norm_shapes(cfg.d_model, cfg.norm),
-        "unit": [stack_shapes(_layer_shapes(cfg), n_units) for _ in unit],
-        "rem": [stack_shapes(_layer_shapes(cfg), c) for _, c in rem_runs(rem)],
+        "unit": [stack_shapes(_layer_shapes(cfg, k), n_units) for k in unit],
+        "rem": [stack_shapes(_layer_shapes(cfg, k), c) for k, c in rem_runs(rem)],
     }
 
 
 def make_params(shapes, seed: int = 0, device=None):
     """Random params of a tree of (shape, init) leaves, with the reference's
-    scales: LeCun-normal matmul weights (fan-in = contraction axis), N(0,
-    0.02) embeddings, zero or unit norm params.  Drawn from a
-    ``torch.Generator`` seeded with ``seed`` on ``device`` (the CUDA device
-    unless device="cpu"); this does not reproduce the reference's
+    scales: LeCun-normal matmul weights ("dense", fan-in = contraction
+    axis), N(0, 0.02) embeddings ("embed"), "zeros" and "ones"; the
+    recurrent cells' normal conv taps of std 0.1 ("conv"), gate vectors of
+    std 0.5 ("gate") and recurrent matrices of std 1 / sqrt(hd)
+    ("recurrent"), the RG-LRU's lambda ("lru_lambda") and forget-gate
+    biases of 3 on part 1 of k of the last axis ("forget_bias/k").  Drawn
+    from a ``torch.Generator`` seeded with ``seed`` on ``device`` (the CUDA
+    device unless device="cpu"); this does not reproduce the reference's
     ``jax.random`` bits -- parity tests convert reference params through
     ``interop`` instead."""
     dev = resolve_device(device)
@@ -159,9 +171,24 @@ def make_params(shapes, seed: int = 0, device=None):
             return fill(shape, dtype=torch.float32, device=dev)
         if init == "embed":
             return L.embed_init(shape, gen, dev)
+        if init in _NORMAL_STD:
+            std = _NORMAL_STD[init] or 1.0 / math.sqrt(shape[-1])
+            return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32) * std
+        if init == "lru_lambda":
+            return R.lru_lambda(shape, gen, dev)
+        if init.startswith("forget_bias/"):
+            k = int(init.split("/")[1])
+            b = torch.zeros(shape, dtype=torch.float32, device=dev)
+            part = shape[-1] // k
+            b[..., part:2 * part] = 3.0
+            return b
         return L.dense_init(shape, gen, dev)
 
     return make(shapes)
+
+
+# init -> the std of its normal draw (None: 1 / sqrt(last axis))
+_NORMAL_STD = {"conv": 0.1, "gate": 0.5, "recurrent": None}
 
 
 def count_params(shapes) -> int:
@@ -219,32 +246,43 @@ def unstack(cfg, params) -> dict:
 
 
 def init_layer_cache(cfg, kind: str, batch: int, length: int, dtype=torch.bfloat16,
-                     page_size=None, num_pages=None, device="cpu", spec_k: int = 0):
-    """One layer's KV cache.  ``page_size``/``num_pages`` page a ``global``
-    layer; a ``local`` layer keeps its contiguous ring of
-    ``min(length, local_window + spec_k)`` slots either way -- the window
-    already bounds it, which is what paging would buy.  ``spec_k``
-    (speculative decode) widens the ring because a verify step writes k+1
-    positions before it attends: with exactly ``window`` slots the newest
-    draft entries would overwrite positions the earliest verify query still
-    reads."""
+                     kv_dtype=None, page_size=None, num_pages=None, device="cpu",
+                     spec_k: int = 0):
+    """One layer's cache.  An attention layer's KV cache takes ``kv_dtype``
+    where given (torch.int8: the quantized cache), else ``dtype``;
+    ``page_size``/``num_pages`` page a ``global`` layer; a ``local`` layer
+    keeps its contiguous ring of ``min(length, local_window + spec_k)``
+    slots either way -- the window already bounds it, which is what paging
+    would buy.  ``spec_k`` (speculative decode) widens the ring because a
+    verify step writes k+1 positions before it attends: with exactly
+    ``window`` slots the newest draft entries would overwrite positions the
+    earliest verify query still reads.  A ``rec``, ``mlstm`` or ``slstm``
+    layer's state is a numerical integrator: it keeps ``dtype`` (its conv
+    taps) and fp32 (the rest), never ``kv_dtype``, as in the reference."""
+    if kind == "rec":
+        return R.init_rglru_state(cfg, batch, dtype, device)
+    if kind == "mlstm":
+        return SSM.init_mlstm_state(cfg, batch, dtype, device)
+    if kind == "slstm":
+        return SSM.init_slstm_state(cfg, batch, dtype, device)
+    dt = kv_dtype if kv_dtype is not None else dtype
     if kind == "global" and page_size is not None:
-        return L.init_paged_attn_cache(cfg, num_pages, page_size, dtype, device)
+        return L.init_paged_attn_cache(cfg, num_pages, page_size, dt, device)
     ln = min(length, cfg.local_window + spec_k) if kind == "local" else length
-    return L.init_attn_cache(cfg, batch, ln, dtype, device)
+    return L.init_attn_cache(cfg, batch, ln, dt, device)
 
 
 def init_cache(cfg, batch: int, length: int, dtype=torch.bfloat16, kv_dtype=None,
                page_size=None, num_pages=None, device="cpu", spec_k: int = 0):
-    """{"layers": one KV cache dict per layer, in execution order}.
+    """{"layers": one cache dict per layer, in execution order}.
     ``page_size``/``num_pages`` select the paged cache for the global
     layers and add a ``page_table`` (batch, ceil(length / page_size)) int32
-    leaf, owned by the engine.  ``spec_k`` widens the local layers' rings
+    leaf, owned by the engine.  ``kv_dtype`` reaches the attention layers
+    only and ``spec_k`` widens the local layers' rings
     (``init_layer_cache``)."""
     check_supported(cfg)
-    dt = kv_dtype if kv_dtype is not None else dtype
-    cache = {"layers": [init_layer_cache(cfg, kind, batch, length, dt, page_size, num_pages,
-                                         device, spec_k)
+    cache = {"layers": [init_layer_cache(cfg, kind, batch, length, dtype, kv_dtype, page_size,
+                                         num_pages, device, spec_k)
                         for kind in cfg.layer_kinds]}
     if page_size is not None:
         cache["page_table"] = torch.zeros((batch, -(-length // page_size)),
@@ -254,10 +292,14 @@ def init_cache(cfg, batch: int, length: int, dtype=torch.bfloat16, kv_dtype=None
 
 def apply_layer(cfg, kind: str, p, x, *, cache, pos=None, page_table=None,
                 use_kernel: bool = True):
-    """One attention layer of ``kind`` ("global" or "local"); returns x.
-    ``pos`` None is the prefill over x (filling the contiguous cache),
-    else a decode step at ``pos``; the kind sets the window and the RoPE
-    base (``layers.attn_window_and_base``)."""
+    """One layer of ``kind``; returns x.  For an attention layer ("global"
+    or "local") ``pos`` None is the prefill over x (filling the contiguous
+    cache), else a decode step at ``pos``; the kind sets the window and the
+    RoPE base (``layers.attn_window_and_base``).  A recurrent or xLSTM
+    layer runs its cell over x from its state and writes the new state
+    into ``cache`` in place (positions play no part)."""
+    if kind not in ATTN_KINDS:
+        return _apply_recurrent_layer(cfg, kind, p, x, cache)
     h = L.apply_norm(p["ln1"], x, cfg.norm)
     if pos is None:
         a = _attn_prefill(cfg, p["attn"], h, kind, cache, use_kernel=use_kernel)
@@ -268,6 +310,25 @@ def apply_layer(cfg, kind: str, p, x, *, cache, pos=None, page_table=None,
     h = L.apply_norm(p["ln2"], x, cfg.norm)
     if "moe" in p:  # routed over all of h's B * S tokens, as the reference's step does
         return x + MOE.apply_moe(cfg, p["moe"], h)
+    return x + L.apply_mlp(cfg, p["mlp"], h)
+
+
+_CELLS = {"rec": R.apply_rglru, "mlstm": SSM.apply_mlstm, "slstm": SSM.apply_slstm}
+
+
+def _apply_recurrent_layer(cfg, kind: str, p, x, state):
+    """A ``rec`` layer (norm, RG-LRU, residual, norm, MLP, residual) or an
+    ``mlstm`` / ``slstm`` one (norm, cell, residual); the cell's new state
+    is copied into ``state``."""
+    cell = "rec" if kind == "rec" else "cell"
+    h = L.apply_norm(p["ln1" if kind == "rec" else "ln"], x, cfg.norm)
+    y, new = _CELLS[kind](cfg, p[cell], h, state)
+    for k, v in new.items():
+        state[k].copy_(v)
+    x = x + y
+    if kind != "rec":
+        return x
+    h = L.apply_norm(p["ln2"], x, cfg.norm)
     return x + L.apply_mlp(cfg, p["mlp"], h)
 
 

@@ -3,10 +3,10 @@
 
 Four frozen dataclasses group the knobs by subsystem and compose into the
 one ``EngineConfig`` the engine accepts.  The port serves plain, paged,
-speculative and chunked decode, deadlines, eviction and fault injection;
-the fields of a feature it does not serve yet (a shared allocator, ROADMAP
-A10; a mesh, A13) must keep their defaults, and ``EngineConfig`` raises
-``NotImplementedError`` naming the ROADMAP item otherwise.
+speculative and chunked decode, deadlines, eviction, fault injection and a
+shared page allocator (mixed-family serving); a mesh (ROADMAP A13) must
+keep its default, and ``EngineConfig`` raises ``NotImplementedError``
+naming the item otherwise.
 ``EngineConfig.of``/``flat`` route the reference's flat keyword names into
 the sub-configs and back, and ``from_legacy`` is the deprecation shim
 behind ``ServingEngine(**legacy)``.
@@ -43,7 +43,7 @@ class CacheConfig:
     num_pages: Optional[int] = None  # pool capacity (None: contiguous parity)
     share_prefix: bool = False  # map common prompt prefixes copy-on-write
     expected_context: Optional[int] = None  # mean (S + max_new) for the sizer
-    allocator: Any = None  # shared PageAllocator (mixed serving, ROADMAP A10)
+    allocator: Any = None  # shared PageAllocator (serving/mixed.py injects it)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,12 +102,6 @@ class FaultConfig:
     audit_every_step: bool = False  # audit the allocator every tick
 
 
-# (sub-config, field) -> the ROADMAP item that ports it
-_UNSERVED = {
-    ("cache", "allocator"): "A10 (mixed-family serving)",
-}
-
-
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
     """The whole serving surface: top-level shape knobs plus the four
@@ -126,13 +120,6 @@ class EngineConfig:
     def __post_init__(self):
         if self.mesh is not None or self.rules is not None:
             raise NotImplementedError("sharded serving (mesh/rules) is ROADMAP A13")
-        defaults = {"cache": CacheConfig(), "scheduler": SchedulerConfig(),
-                    "spec": SpecConfig(), "fault": FaultConfig()}
-        for (group, field), item in _UNSERVED.items():
-            if getattr(getattr(self, group), field) != getattr(defaults[group], field):
-                raise NotImplementedError(
-                    f"EngineConfig.{group}.{field} is not served by the port yet: "
-                    f"ROADMAP {item}")
 
     @classmethod
     def of(cls, **flat) -> "EngineConfig":

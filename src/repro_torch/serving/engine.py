@@ -20,7 +20,15 @@ cross-attention, freed with the slot; a request's ``extras`` (an enc-dec's
 frames, a VLM's patches) go into its batch-1 prefill, and a VLM's patches
 take the first positions of its sequence (``api.prefix_len``).  Prefix
 sharing is off for those families: equal prompts with other frames or
-patches are not equal cache entries.
+patches are not equal cache entries.  A family with no global attention
+layer (recurrentgemma's local rings and RG-LRU states, xLSTM's states)
+cannot page: it serves on the contiguous per-slot cache, with the
+reference's warning, and each admission rewrites every leaf of its slot,
+fixed-size states included (``_write_slot``).  Mixed-family serving
+(``serving/mixed.py``) injects one ``PageAllocator`` into several engines
+(``CacheConfig.allocator``): each engine then checks only its own table
+mirrors, and the owner audits the allocator against the union of every
+member's ``_page_refs``.
 
 Speculative decode (``SpecConfig``: ``draft_cfg``, ``draft_params``,
 ``spec_k`` = k).  A dense draft model with its own contiguous cache
@@ -62,7 +70,7 @@ non-finite logits): a real build, launch or CUDA error propagates out of
 
 Where the reference jit-compiles one decode step over a donated cache, the
 port runs the decode step eagerly and updates the cache in place.  Not
-ported yet: sharding (ROADMAP A13) and a shared allocator (A10).
+ported yet: sharding (ROADMAP A13).
 """
 
 from __future__ import annotations
@@ -275,7 +283,12 @@ class ServingEngine:
             warnings.warn(f"{cfg.name}: kv_dtype=int8 requested but the {cfg.family} cache "
                           f"does not support it; serving fp", stacklevel=2)
             self.kv_dtype = None
-        self.paged = cc.page_size is not None and supports_paged_kv(cfg)
+        self.paged = cc.page_size is not None
+        if self.paged and not supports_paged_kv(cfg):
+            warnings.warn(f"{cfg.name}: paged KV cache requested but the {cfg.family} decode "
+                          f"path does not thread a page table; serving the contiguous cache",
+                          stacklevel=2)
+            self.paged = False
         self.page_size = cc.page_size if self.paged else None
         # speculative decode: the validated k (raises on a missing draft or a
         # vocab mismatch); chunked prefill shares its positional-cache gate
@@ -362,11 +375,20 @@ class ServingEngine:
         self.xpages_per_seq = 0
         self.slot_xpages: Optional[List[List[int]]] = None
         self._xtable = None
+        self._owns_allocator = False
         if self.paged:
             self.pages_per_seq = math.ceil(max_len / self.page_size)
-            # default pool: byte parity with the contiguous reservation
-            self.num_pages = cc.num_pages or (1 + max_batch * self.pages_per_seq)
-            self.allocator = PageAllocator(self.num_pages)
+            if cc.allocator is not None:
+                # mixed-family serving: several engines draw from one
+                # allocator (shared capacity, disjoint page ownership); the
+                # pools span its page ids and its owner runs the union audit
+                self.allocator = cc.allocator
+                self.num_pages = self.allocator.num_pages
+            else:
+                # default pool: byte parity with the contiguous reservation
+                self.num_pages = cc.num_pages or (1 + max_batch * self.pages_per_seq)
+                self.allocator = PageAllocator(self.num_pages)
+                self._owns_allocator = True
             share_prefix = cc.share_prefix
             if share_prefix and self.api.extra_keys:
                 # prefix sharing keys on prompt tokens only; this family's KV
@@ -879,13 +901,14 @@ class ServingEngine:
     def audit_pages(self):
         """Allocator refcounts and free list must equal the live slot->page
         mapping exactly, and the host table must mirror it (all-NULL for a
-        slot still prefilling).  Raises ``PageAuditError``."""
+        slot still prefilling).  A shared allocator's refcounts span several
+        engines: its owner (``MixedServingEngine``) audits it against the
+        union of their ``_page_refs``, and this engine checks its tables
+        only.  Raises ``PageAuditError``."""
         if not self.paged:
             return
-        refs = [p for pages in self.slot_pages for p in pages]
-        if self.slot_xpages is not None:
-            refs += [p for pages in self.slot_xpages for p in pages]
-        self.allocator.audit(refs)
+        if self._owns_allocator:
+            self.allocator.audit(self._page_refs())
         for slot in range(self.max_batch):
             pages = self.slot_pages[slot]
             row = self._table[slot]
@@ -912,6 +935,14 @@ class ServingEngine:
                 if self.slot_req[slot] is None and xpages:
                     raise PageAuditError(f"slot {slot}: free slot still owns frame pages "
                                          f"{xpages}")
+
+    def _page_refs(self) -> List[int]:
+        """Every page reference this engine holds: its slots' decoder pages
+        and (enc-dec) frame pages."""
+        refs = [p for pages in self.slot_pages for p in pages]
+        if self.slot_xpages is not None:
+            refs += [p for pages in self.slot_xpages for p in pages]
+        return refs
 
     def _copy_page(self, src: int, dst: int):
         """pool[dst] <- pool[src] for every paged leaf of every layer (in place)."""
@@ -986,7 +1017,9 @@ class ServingEngine:
     @staticmethod
     def _write_slot(slot: int, cache1, cache):
         """Copy a batch-1 contiguous cache into slot ``slot`` of ``cache``
-        (the target's or the draft's; in place): every leaf is (batch, ...)."""
+        (the target's or the draft's; in place): every leaf is (batch, ...),
+        so the slot's KV rows and its recurrent / xLSTM states are all
+        rewritten, and nothing of the slot's previous owner survives."""
         for entry, one in zip(cache["layers"], cache1["layers"]):
             for k, pool in entry.items():
                 pool[slot] = one[k][0].to(pool.dtype)

@@ -144,12 +144,20 @@ def test_serve_rejects_unserved_flags(flag, capsys):
     with pytest.raises(SystemExit) as e:
         serve.main(["--arch", "tinyllama-1.1b", "--smoke", "--device", "cpu"] + flag)
     assert e.value.code == 2
-    assert "ROADMAP" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    if flag[0] == "--workload-mix":
+        # served now, but closed-loop over its own families: --arch is refused
+        assert "--workload-mix is closed-loop heterogeneous serving; drop --arch" in err
+    else:
+        assert "ROADMAP" in err
 
 
 @pytest.mark.parametrize("kw", [dict(cache=CacheConfig(allocator=object())),
                                 dict(mesh=object())])
 def test_engine_config_rejects_unserved_fields(kw):
+    if "cache" in kw:  # a shared allocator is served now (serving/mixed.py)
+        assert EngineConfig(**kw).cache.allocator is kw["cache"].allocator
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         EngineConfig(**kw)
 

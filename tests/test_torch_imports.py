@@ -35,7 +35,9 @@ def test_import_leaves_jax_and_repro_out():
         "       'repro_torch.serving.loadgen', 'repro_torch.serving.faultinject',\n"
         "       'repro_torch.distributed.fault', 'repro_torch.models.encdec',\n"
         "       'repro_torch.models.vlm', 'repro_torch.configs.whisper_tiny',\n"
-        "       'repro_torch.configs.internvl2_2b'}\n"
+        "       'repro_torch.configs.internvl2_2b', 'repro_torch.models.recurrent',\n"
+        "       'repro_torch.models.ssm', 'repro_torch.serving.mixed',\n"
+        "       'repro_torch.configs.recurrentgemma_2b', 'repro_torch.configs.xlstm_350m'}\n"
         "assert new <= set(mods), new - set(mods)\n"
         "print('BAD', bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -70,7 +72,9 @@ def test_entry_points_raise_without_gpu(monkeypatch):
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
     from repro_torch.models.transformer import init_params
+    from repro_torch.serving.config import EngineConfig
     from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.mixed import MixedServingEngine, WorkloadSpec
 
     _no_cuda(monkeypatch)
     cfg = get_config("tinyllama-1.1b", smoke=True)
@@ -81,8 +85,17 @@ def test_entry_points_raise_without_gpu(monkeypatch):
         ServingEngine(cfg, params)
     with pytest.raises(RuntimeError, match="--device cpu"):
         serve.main(["--arch", "tinyllama-1.1b", "--smoke", "--requests", "1"])
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        serve.main(["--workload-mix", "tinyllama-1.1b:1", "--smoke", "--requests", "1"])
     eng = ServingEngine(cfg, params, device="cpu")
     assert eng.device.type == "cpu"
+    spec = [WorkloadSpec(name="t", cfg=cfg, params=params, config=EngineConfig(max_batch=1))]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        MixedServingEngine(spec)
+    assert MixedServingEngine(spec, device="cpu").engine("t").device.type == "cpu"
+    for arch in ("recurrentgemma-2b", "xlstm-350m"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            init_params(get_config(arch, smoke=True), 0)
 
 
 def test_kernel_library_is_not_built_at_import():
