@@ -226,7 +226,28 @@ Phases, in order; any failure raises and the script exits non-zero:
                whisper decoder layer a step, B6 non-causal once a whisper
                layer a prefill, the weight kernels never; each member's
                streams equal it served alone.
-17. summary -- one JSON line of per-kernel numbers, then the result line.
+17. train   -- training, no kernel of its own (no Pallas kernel lies on the
+               reference's training path; B6 has no backward and must not
+               launch here): a 2-layer full-width tinyllama in fp32 compute,
+               one synthetic batch's loss and gradients on the card against
+               the port's CPU run (1e-4 / 1e-3 of each leaf's max), then
+               apply_updates on identical gradients on both (1e-6); the
+               flash Function's dq/dk/dv against dense_attention's autograd
+               (S 2048, 32/4 heads, hd 64, causal and window 256; 1e-4);
+               full-width tinyllama-1.1b (fp32 params, bf16 compute) through
+               launch.train.run: 8 steps at B 8 x 128, 3 at B 1 x 2048 (the
+               flash Function, 22 forward and 22 backward calls a step), 3
+               with --accum 2 and 3 with --compression int8 (step 0's loss
+               equal to the B 8 x 128 run's), 3 at B 8 x 512 with and
+               without --remat (losses to 1e-4, the peak lower); every loss,
+               the median step after step 1, tok/s, max_memory_allocated,
+               0 restarts; a smoke run restarted after a RuntimeError at
+               step 4 equal to the uninterrupted one; mnist-4 and har-4 at
+               published widths trained and pruned as Table 4 does (400 base
+               steps, 4 stages of 200), base and pruned accuracy, q, the
+               1.5% objective, B7's pruned accuracy against the plain
+               version's, Q7.8's through B8.
+18. summary -- one JSON line of per-kernel numbers, then the result line.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -3999,6 +4020,322 @@ def phase_mixed(torch, results: dict, card: str) -> None:
     torch.cuda.empty_cache()
 
 
+def _train_args(*flags):
+    """The train CLI's args for full-width tinyllama-1.1b with ``flags``, at
+    lr 3e-4: the CLI's default 3e-3 (the reference's, sized for the smoke
+    configs) makes the 1.1B model's loss rise, 10.87 to 11.34 over 8 steps
+    at B 8 x 128 on the card."""
+    from repro_torch.launch import train
+
+    return train.build_parser().parse_args(["--arch", "tinyllama-1.1b", "--log-every", "1",
+                                            "--lr", "3e-4", *flags])
+
+
+def _train_run(torch, label: str, card: str, *flags) -> dict:
+    """``launch.train.run`` on the card from reset peak-memory stats: logs
+    every loss, the median step after step 1 (host clock; each step ends in
+    the loss's read), tok/s and the peak memory; fails on a loss that is not
+    finite, a missing step or a restart.  Returns the run's losses, its
+    median step ms and its peak memory above what was held before it."""
+    import math
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+
+    args = _train_args(*flags)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = train.run(args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    med = statistics.median(out["step_s"][1:]) * 1e3
+    log(f"train {label}: losses {out['losses']}; median step {med:.3f} ms after step 1 "
+        f"(step 1 {out['step_s'][0] * 1e3:.1f} ms), {args.batch * args.seq / med * 1e3:.1f} tok/s; "
+        f"max_memory_allocated {peak / 1e9:.3f} GB ({(peak - held) / 1e9:.3f} GB above the "
+        f"{held / 1e9:.3f} GB held before); restarts {out['restarts']} ({card})")
+    if len(out["losses"]) != args.steps or not all(map(math.isfinite, out["losses"])):
+        raise AssertionError(f"train {label}: losses {out['losses']}")
+    if out["restarts"]:
+        raise AssertionError(f"train {label}: {out['restarts']} restarts where none was injected")
+    return {"losses": out["losses"], "med_ms": med, "peak": peak - held,
+            "layers": get_config(args.arch, smoke=args.smoke).n_layers}
+
+
+def _train_profile(torch, card: str, batch: int, seq: int) -> None:
+    """Where a full-width train step's time goes, after two warm-up steps:
+    the forward + backward and ``apply_updates`` on the host's clock (each
+    ended by a synchronize), then one whole step under torch.profiler --
+    the device's busy time against the step's wall time, and its largest
+    kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.weight_plan import flatten_leaves, unflatten_leaves
+    from repro_torch.data import LMDataConfig, synthetic_lm_batch
+    from repro_torch.models import transformer as T
+    from repro_torch.training import optimizer as O
+    from repro_torch.training.trainer import make_train_step
+
+    cfg = get_config("tinyllama-1.1b")
+    params = T.init_params(cfg, 0)
+    oc = O.OptimizerConfig(lr=3e-4, warmup_steps=2, decay_steps=100)
+    opt = O.init_opt_state(oc, params)
+    step = make_train_step(cfg, T.loss_fn, oc)
+    dc = LMDataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=batch)
+    data = lambda s: {k: torch.from_numpy(v).cuda() for k, v in synthetic_lm_batch(dc, s).items()}
+    for s in range(2):
+        params, opt, m = step(params, opt, data(s))
+        float(m["loss"])
+    b = data(2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, _ = T.loss_fn(cfg, params, b)
+    grads = torch.autograd.grad(loss, flatten_leaves(params))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    O.apply_updates(oc, params, unflatten_leaves(params, list(grads)), opt)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    del loss, grads
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t3 = time.perf_counter()
+        params, opt, m = step(params, opt, data(3))
+        float(m["loss"])
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t3) * 1e3
+    rows = _device_rows(torch, prof)
+    busy = sum(r[0] for r in rows)
+    log(f"train profile B {batch} x {seq}: forward + backward {(t1 - t0) * 1e3:.3f} ms, "
+        f"apply_updates {(t2 - t1) * 1e3:.3f} ms (host clock); a profiled step: wall "
+        f"{wall:.3f} ms, device busy {busy:.3f} ms ({busy / wall:.3f}) in "
+        f"{sum(r[1] for r in rows)} kernels ({card})")
+    for t, c, name in rows[:8]:
+        log(f"train profile:   {t:9.3f} ms  {c:5d} calls  {name[:90]}")
+
+
+def _train_parity(torch) -> None:
+    """A 2-layer tinyllama at full width in fp32 compute: the loss and every
+    gradient leaf of one synthetic batch (B 2 x 64) on the card against the
+    port's CPU run of the same step (loss to 1e-4 relative, each leaf to
+    1e-3 of its max |g|); then ``apply_updates`` on the CPU's gradients on
+    both devices, the params equal to 1e-6."""
+    import dataclasses as dc
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.weight_plan import flatten_leaves, unflatten_leaves
+    from repro_torch.data import LMDataConfig, synthetic_lm_batch
+    from repro_torch.models import transformer as T
+    from repro_torch.training import optimizer as O
+
+    cfg = dc.replace(get_config("tinyllama-1.1b"), n_layers=2, compute_dtype="float32")
+    cpu = T.init_params(cfg, 0, device="cpu")
+    gpu = unflatten_leaves(cpu, [t.cuda() for t in flatten_leaves(cpu)])
+    batch = synthetic_lm_batch(LMDataConfig(vocab=cfg.vocab, seq_len=64, global_batch=2), 0)
+
+    def grads(params, dev):
+        leaves = flatten_leaves(params)
+        for t in leaves:
+            t.requires_grad_(True)
+        loss, _ = T.loss_fn(cfg, params, {k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+        return float(loss.detach()), torch.autograd.grad(loss, leaves)
+
+    l_cpu, g_cpu = grads(cpu, "cpu")
+    l_gpu, g_gpu = grads(gpu, "cuda")
+    worst = max(float((g.cpu() - w).abs().max() / w.abs().max().clamp_min(1e-30))
+                for g, w in zip(g_gpu, g_cpu))
+    log(f"train parity (2 layers, full width, fp32): loss card {l_gpu:.6f} cpu {l_cpu:.6f} "
+        f"(rel {abs(l_gpu - l_cpu) / abs(l_cpu):.2e}); worst gradient leaf "
+        f"{worst:.2e} of its max |g| over {len(g_cpu)} leaves")
+    if abs(l_gpu - l_cpu) > 1e-4 * abs(l_cpu) or worst > 1e-3:
+        raise AssertionError("train parity: the card's step differs from the CPU's")
+    oc = O.OptimizerConfig(lr=1e-3)
+    O.apply_updates(oc, cpu, unflatten_leaves(cpu, list(g_cpu)), O.init_opt_state(oc, cpu))
+    O.apply_updates(oc, gpu, unflatten_leaves(gpu, [g.cuda() for g in g_cpu]),
+                    O.init_opt_state(oc, gpu))
+    diff = max(float((a.detach().cpu() - b.detach()).abs().max())
+               for a, b in zip(flatten_leaves(gpu), flatten_leaves(cpu)))
+    log(f"train parity: apply_updates on identical gradients, max |params card - cpu| {diff:.2e}")
+    if diff > 1e-6:
+        raise AssertionError(f"train parity: apply_updates differs by {diff:.2e}")
+
+
+def _flash_grad_parity(torch) -> None:
+    """dq, dk, dv of the flash ``Function`` (``layers.train_attention`` past
+    the dense threshold) against ``dense_attention`` under autograd at B 1,
+    S 2048, 32/4 heads, hd 64, fp32, causal and under a 256-token window;
+    to 1e-4 of each gradient's max."""
+    from repro_torch.models import layers as L
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    shapes = ((1, 2048, 32, 64), (1, 2048, 4, 64), (1, 2048, 4, 64), (1, 2048, 32, 64))
+    for window in (None, 256):
+        q, k, v, do = (torch.randn(s, generator=gen, device="cuda") for s in shapes)
+        f0 = L.FlashAttention.forward_calls
+        xs = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        got = torch.autograd.grad(L.train_attention(*xs, causal=True, window=window), xs, do)
+        if L.FlashAttention.forward_calls != f0 + 1:
+            raise AssertionError("train_attention at 2048 tokens did not take FlashAttention")
+        xs = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        want = torch.autograd.grad(L.dense_attention(*xs, causal=True, window=window), xs, do)
+        rels = [float((g - w).abs().max() / w.abs().max()) for g, w in zip(got, want)]
+        log(f"train flash backward vs dense autograd (S 2048, 32/4, hd 64, window {window}): "
+            f"dq/dk/dv rel {rels[0]:.2e} / {rels[1]:.2e} / {rels[2]:.2e}")
+        if max(rels) > 1e-4:
+            raise AssertionError(f"flash backward differs from dense autograd: {rels}")
+
+
+def _train_resume(torch) -> None:
+    """A smoke config on the card: 6 steps, then the same 6 steps with
+    checkpoints every 3 steps and a RuntimeError injected before step 4's
+    batch: one restart, resumed at step 4, and the uninterrupted run's
+    losses to 1e-5 relative (the embedding's backward accumulates with
+    atomics on the card, so the runs are not held bit for bit)."""
+    import tempfile
+
+    from repro_torch.launch import train
+
+    flags = ["--smoke", "--steps", "6", "--batch", "4", "--seq", "32"]
+    full = train.run(_train_args(*flags))
+    real, failed = train.synthetic_lm_batch, []
+
+    def flaky(cfg, step):
+        if step == 4 and not failed:
+            failed.append(step)
+            raise RuntimeError("injected fault before step 4")
+        return real(cfg, step)
+
+    with tempfile.TemporaryDirectory() as d:
+        train.synthetic_lm_batch = flaky
+        try:
+            out = train.run(_train_args(*flags, "--ckpt-dir", d, "--ckpt-every", "3"))
+        finally:
+            train.synthetic_lm_batch = real
+    worst = max(abs(a - b) / abs(b) for a, b in zip(out["losses"], full["losses"]))
+    log(f"train resume: {out['restarts']} restart, losses {out['losses']} vs uninterrupted "
+        f"{full['losses']} (worst rel {worst:.2e})")
+    if failed != [4] or out["restarts"] != 1 or len(out["losses"]) != 6 or worst > 1e-5:
+        raise AssertionError("train resume: the restarted run differs from the uninterrupted one")
+
+
+def _fcnet_train(torch, card: str) -> None:
+    """Table 4's flow (``benchmarks/table4_accuracy.py``'s default cases) on
+    the card: mnist-4 and har-4 at published widths on their synthetic
+    tasks, 400 base steps, ``iterative_prune`` toward the paper's q in 4
+    stages of 200 refine steps, batch 128, evaluated through B7; then the
+    pruned net's test accuracy through B7 (``forward_fp32`` on the masked
+    params) against ``forward_pruned``'s plain version (every argmax that
+    differs must be a near-tie of the plain outputs), and through B8
+    (``forward_q78``)."""
+    from repro_torch.core import pruning as PR
+    from repro_torch.data import ClassifyDataConfig, minibatches, synthetic_classification
+    from repro_torch.models import fcnet as F
+    from repro_torch.training import optimizer as O
+    from repro_torch.training.trainer import make_train_step
+
+    base_steps, refine = 400, 200
+    for cfg, dims, q_target in ((F.MNIST_4, (784, 10), 0.72), (F.HAR_4, (561, 6), 0.88)):
+        t0 = time.perf_counter()
+        data = synthetic_classification(ClassifyDataConfig(
+            n_features=dims[0], n_classes=dims[1], n_train=4096, n_test=1024, seed=0))
+        xte, yte = (torch.from_numpy(data[k]).cuda() for k in ("x_test", "y_test"))
+        params = F.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+        opt_cfg = O.OptimizerConfig(lr=2e-3, warmup_steps=20,
+                                    decay_steps=base_steps + 4 * refine, weight_decay=0.0)
+
+        def train_some(params, masks, steps):
+            opt = O.init_opt_state(opt_cfg, params)
+            batches = minibatches(data["x_train"], data["y_train"], 128, seed=1)
+            step = make_train_step(cfg, lambda c, p, b: F.loss_fn(c, p, b, masks), opt_cfg)
+            for _ in range(steps):
+                b = {k: torch.from_numpy(v).cuda() for k, v in next(batches).items()}
+                params, opt, _ = step(params, opt, b)
+                if masks is not None:
+                    params = PR.apply_masks(params, masks)
+            return params
+
+        evaluate = lambda p: F.accuracy(cfg, p, xte, yte)
+        params = train_some(params, None, base_steps)
+        base = evaluate(params)
+        params, masks, q, hist = PR.iterative_prune(params, train_some, evaluate, q_target,
+                                                    stages=4, refine_steps=refine)
+        masked = PR.apply_masks(params, masks)
+        with torch.no_grad():
+            kern = F.forward_fp32(cfg, masked, xte)
+            plain = F.forward_pruned(cfg, params, masks, xte, use_kernel=False)
+            q78 = F.forward_q78(cfg, masked, xte)
+        acc = {k: float((o.argmax(-1) == yte).float().mean())
+               for k, o in (("b7", kern), ("plain", plain), ("q78", q78))}
+        rows = (kern.argmax(-1) != plain.argmax(-1)).nonzero().flatten().tolist()
+        top2 = plain.topk(2, dim=-1).values
+        gaps = [float(top2[r, 0] - top2[r, 1]) for r in rows]
+        tie = FP32_RTOL * float(plain.abs().max())
+        log(f"train fcnet {cfg.name}: base acc {base:.4f}, pruned acc {acc['b7']:.4f} at q "
+            f"{q:.2f} (target {q_target}; history {[(round(h['q'], 2), h['acc']) for h in hist]}); "
+            f"1.5% objective met: {base - acc['b7'] <= 0.015}; plain forward_pruned acc "
+            f"{acc['plain']:.4f} ({len(rows)} argmax differ, top-2 gaps {gaps}, tie bound "
+            f"{tie:.2e}); Q7.8 (B8) acc {acc['q78']:.4f}; {time.perf_counter() - t0:.1f}s ({card})")
+        if any(g > tie for g in gaps):
+            raise AssertionError(f"fcnet {cfg.name}: B7's pruned accuracy differs from plain")
+
+
+def phase_train(torch, card: str) -> None:
+    """Training on the card (see the module doc): the parity checks, the
+    full-width runs through ``launch.train.run``, the resume, the FC nets."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import layers as L
+
+    t0 = time.perf_counter()
+    _train_parity(torch)
+    _flash_grad_parity(torch)
+    b6 = FA.flash_attention.launches
+    L.FlashAttention.forward_calls = L.FlashAttention.backward_calls = 0
+    dense = _train_run(torch, "B 8 x 128", card, "--steps", "8", "--batch", "8", "--seq", "128")
+    calls = (L.FlashAttention.forward_calls, L.FlashAttention.backward_calls)
+    if calls != (0, 0):
+        raise AssertionError(f"train B 8 x 128 ran the flash Function: {calls}")
+    long = _train_run(torch, "B 1 x 2048", card, "--steps", "3", "--batch", "1", "--seq", "2048")
+    calls = (L.FlashAttention.forward_calls, L.FlashAttention.backward_calls)
+    want = (3 * long["layers"],) * 2  # one forward and one backward a layer a step
+    log(f"train B 1 x 2048: FlashAttention forward/backward calls {calls} over 3 steps "
+        f"({want} expected)")
+    if calls != want:
+        raise AssertionError(f"train B 1 x 2048: flash Function calls {calls} != {want}")
+    accum = _train_run(torch, "B 8 x 128 --accum 2", card, "--steps", "3", "--batch", "8",
+                       "--seq", "128", "--accum", "2")
+    int8 = _train_run(torch, "B 8 x 128 --compression int8", card, "--steps", "3", "--batch",
+                      "8", "--seq", "128", "--compression", "int8")
+    # step 0's loss is the same forward on the same params and batch in
+    # every run (1e-6 for int8, which changes only the update; two
+    # microbatches of 4 rows for --accum 2: other matmul shapes, bf16
+    # roundings, held to 5e-3)
+    d_acc = abs(accum["losses"][0] - dense["losses"][0]) / dense["losses"][0]
+    log(f"train step 0 loss: dense {dense['losses'][0]:.6f}, accum 2 {accum['losses'][0]:.6f} "
+        f"(rel {d_acc:.2e}), int8 {int8['losses'][0]:.6f}")
+    d_int8 = abs(int8["losses"][0] - dense["losses"][0]) / dense["losses"][0]
+    if d_acc > 5e-3 or d_int8 > 1e-6:
+        raise AssertionError("train: step 0's loss differs between runs of the same forward")
+    # remat where activations outweigh the optimizer's temporaries: B 8 x
+    # 512 (dense attention); losses to 1e-4 relative (atomics in the
+    # embedding's backward), the peak lower
+    flags = ("--steps", "3", "--batch", "8", "--seq", "512")
+    plain = _train_run(torch, "B 8 x 512", card, *flags)
+    remat = _train_run(torch, "B 8 x 512 --remat", card, *flags, "--remat")
+    worst = max(abs(a - b) / abs(b) for a, b in zip(remat["losses"], plain["losses"]))
+    log(f"train remat: losses worst rel {worst:.2e}; peak {remat['peak'] / 1e9:.3f} GB vs "
+        f"{plain['peak'] / 1e9:.3f} GB without")
+    if worst > 1e-4 or remat["peak"] >= plain["peak"]:
+        raise AssertionError("train remat: losses differ or the peak is not lower")
+    _train_profile(torch, card, 8, 128)
+    _train_profile(torch, card, 1, 2048)
+    if FA.flash_attention.launches != b6:
+        raise AssertionError(f"B6 launched in training: {FA.flash_attention.launches - b6}")
+    _train_resume(torch)
+    _fcnet_train(torch, card)
+    log(f"train: phase {time.perf_counter() - t0:.1f}s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="on-card smoke test of the CUDA port")
     ap.add_argument("--profile", action="store_true",
@@ -4044,6 +4381,7 @@ def main(argv=None) -> int:
     phase_encdec_vlm(torch, results, card)
     phase_recurrent(torch, results, card)
     phase_mixed(torch, results, card)
+    phase_train(torch, card)
     _check_family_rows(results)
     if args.profile:
         phase_profile(torch, cfg, engine)

@@ -21,8 +21,15 @@ reference's bf16 arrays writes raw 2-byte records (descr ``<V2``) that
 are: ``restore_flat`` reinterprets such records as ``torch.bfloat16``, and
 ``save`` writes a bf16 tensor the same way.
 
-The reference's ``restore`` (re-sharding onto a mesh) and
-``AsyncCheckpointer`` are ROADMAP A13/A14.
+Trees: ``save`` takes any params-like tree (nested dicts, lists and
+tuples of tensors or arrays, plan nodes; a flat list is one) and stores
+its leaves in the order the reference's ``jax.tree_util.tree_flatten``
+gives the same tree (``weight_plan.flatten_leaves``: dict keys sorted).
+``restore`` puts them back into the structure of a ``tree_like``, so a
+``(params, opt_state)`` checkpoint goes both ways between the packages.
+``AsyncCheckpointer`` copies every leaf to the host synchronously and
+writes on a worker thread.  Restoring onto a mesh (the reference's
+``shardings``) is ROADMAP A13.
 """
 
 from __future__ import annotations
@@ -31,10 +38,13 @@ import json
 import os
 import re
 import shutil
-from typing import Optional
+import threading
+from typing import Any, Optional
 
 import numpy as np
 import torch
+
+from repro_torch.core.weight_plan import flatten_leaves, map_tree, unflatten_leaves
 
 _STEP_RE = re.compile(r"^step_(\d{9})$")
 
@@ -55,11 +65,12 @@ def _to_numpy(leaf) -> tuple:
     return arr, str(arr.dtype)
 
 
-def save(base: str, step: int, leaves: list, metadata: Optional[dict] = None,
+def save(base: str, step: int, tree: Any, metadata: Optional[dict] = None,
          keep: int = 3) -> str:
-    """Synchronous atomic write of ``leaves`` (tensors or arrays, in the
-    caller's flatten order) and ``metadata``.  Returns the final
-    directory."""
+    """Synchronous atomic write of the leaves of ``tree`` (tensors or
+    arrays) in the reference's flatten order, and ``metadata``.  Returns
+    the final directory."""
+    leaves = flatten_leaves(tree)
     final = _step_dir(base, step)
     tmp = final + ".tmp"
     if os.path.exists(tmp):
@@ -75,7 +86,7 @@ def save(base: str, step: int, leaves: list, metadata: Optional[dict] = None,
         "n_leaves": len(leaves),
         # the reference stores jax's treedef string here, which the port
         # cannot build; its readers check shapes instead
-        "treedef": "repro_torch: leaves in the caller's flatten order",
+        "treedef": "repro_torch: leaves in jax.tree_util's flatten order",
         "leaves": entries,
         "metadata": metadata or {},
     }
@@ -136,3 +147,64 @@ def restore_flat(base: str, step: Optional[int] = None) -> tuple:
         for i, entry in enumerate(manifest["leaves"])
     ]
     return leaves, manifest
+
+
+def restore(base: str, tree_like: Any, step: Optional[int] = None, shardings: Any = None) -> tuple:
+    """Restore the newest complete step (or ``step``) into the structure of
+    ``tree_like``: each stored leaf keeps its stored dtype and goes to the
+    device of the ``tree_like`` leaf in its place.  Raises ValueError when
+    the leaf count or a shape differs.  Returns (tree, metadata)."""
+    if shardings is not None:
+        raise NotImplementedError("restoring onto a mesh is not ported yet (ROADMAP A13)")
+    arrs, manifest = restore_flat(base, step)
+    leaves_like = flatten_leaves(tree_like)
+    if manifest["n_leaves"] != len(leaves_like):
+        raise ValueError(
+            f"checkpoint has {manifest['n_leaves']} leaves, expected {len(leaves_like)}")
+    out = []
+    for i, (arr, like) in enumerate(zip(arrs, leaves_like)):
+        if tuple(arr.shape) != tuple(like.shape):
+            raise ValueError(f"leaf {i}: shape {tuple(arr.shape)} != expected {tuple(like.shape)}")
+        out.append(arr.to(like.device) if isinstance(like, torch.Tensor) else arr)
+    return unflatten_leaves(tree_like, out), manifest["metadata"]
+
+
+def _host_copy(leaf):
+    """A host copy of one leaf that later in-place updates cannot reach
+    (``.cpu()`` of a CPU tensor is the same storage)."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().to("cpu", copy=True)
+    return np.array(leaf, copy=True)
+
+
+class AsyncCheckpointer:
+    """Copy to the host synchronously, write to disk on a worker thread; one
+    save in flight at a time, and a worker's error is raised by the next
+    ``save`` or ``wait``."""
+
+    def __init__(self, base: str, keep: int = 3):
+        self.base = base
+        self.keep = keep
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+
+    def save(self, step: int, tree: Any, metadata: Optional[dict] = None):
+        self.wait()  # one in-flight save at a time
+        host_tree = map_tree(lambda _, leaf: _host_copy(leaf), tree)
+
+        def work():
+            try:
+                save(self.base, step, host_tree, metadata, keep=self.keep)
+            except BaseException as e:  # raised by the next wait()
+                self._error = e
+
+        self._thread = threading.Thread(target=work, daemon=True)
+        self._thread.start()
+
+    def wait(self):
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err

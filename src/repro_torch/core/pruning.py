@@ -6,7 +6,8 @@ Two granularities:
    magnitude threshold, as masks (``sparsity_target_mask`` and friends);
    ``models.fcnet.forward_pruned`` runs on the masked weights and the
    (w, z)^3 stream codec of ``core.sparse_format`` is their storage format.
-   ``iterative_prune`` needs training and waits for it (ROADMAP A14).
+   ``iterative_prune`` is the paper's prune-refine schedule under its 1.5%
+   accuracy objective.
 2. **Block pruning**: weights are scored and removed in (bk, bn) blocks, so
    a kernel can skip a whole block: both the bytes streamed and the MACs
    scale with (1 - q_prune), the paper's claim at a granularity the
@@ -103,13 +104,55 @@ def update_masks(params, q_prune: float, filter_fn: Callable | None = None):
     return _map_leaves(_m, params)
 
 
+@torch.no_grad()
 def apply_masks(params, masks):
-    """params * masks, leaf for leaf (the trees share their structure)."""
+    """params * masks, leaf for leaf (the trees share their structure): new
+    tensors, outside autograd."""
     if isinstance(params, dict):
         return {k: apply_masks(v, masks[k]) for k, v in params.items()}
     if isinstance(params, (list, tuple)):
         return type(params)(apply_masks(p, m) for p, m in zip(params, masks))
     return params * masks
+
+
+def iterative_prune(
+    params,
+    train_some: Callable,  # (params, masks, steps) -> params
+    evaluate: Callable,  # (params) -> accuracy in [0,1]
+    target_q: float,
+    *,
+    stages: int = 4,
+    refine_steps: int = 200,
+    max_acc_drop: float = 0.015,
+    filter_fn: Callable | None = None,
+):
+    """Prune in ``stages`` steps toward target_q, refining in between, as
+    the reference does: stage i masks the smallest target_q * i / stages
+    of every >= 2-D leaf, refines ``refine_steps`` steps on the masked
+    weights and evaluates; the first stage whose accuracy falls more than
+    ``max_acc_drop`` below the unpruned accuracy ends the schedule (the
+    paper's "maximum accuracy deviation of 1.5%", Section 6.4).  Returns
+    (params, masks, achieved_q, history) of the last stage that met it (q
+    0 and all-ones masks if none did).  Each stage trains a fresh masked
+    copy (``apply_masks``), so ``train_some`` may update its params in
+    place without touching a kept stage."""
+    base_acc = evaluate(params)
+    best = (params, update_masks(params, 0.0, filter_fn), 0.0)
+    history = [{"q": 0.0, "acc": base_acc}]
+    for i in range(1, stages + 1):
+        q = target_q * i / stages
+        masks = update_masks(params, q, filter_fn)
+        params = apply_masks(params, masks)
+        params = train_some(params, masks, refine_steps)
+        params = apply_masks(params, masks)
+        acc = evaluate(params)
+        history.append({"q": q, "acc": acc})
+        if base_acc - acc <= max_acc_drop:
+            best = (params, masks, q)
+        else:
+            break
+    params, masks, q = best
+    return params, masks, q, history
 
 
 # ---------------------------------------------------------------------------

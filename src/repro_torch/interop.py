@@ -8,6 +8,10 @@ a compressed tree whose leaves are the reference's ``PackedLinear`` nodes
 and returns the same tree of torch tensors, with port ``PackedLinear`` and
 ``QuantLinear`` nodes.  ``plan_from_reference`` does the same for a reference
 ``WeightPlan``, so both packages can serve the identical packed payload.
+``opt_state_from_reference`` carries the reference's optimizer state
+(``step``, ``mu``/``nu`` or ``mom``, ``ef``) across the same way, and
+``tree_to_numpy`` goes back: a dense tree of port tensors as numpy arrays
+in the same nesting, which the reference takes as its params or state.
 """
 
 from __future__ import annotations
@@ -71,3 +75,25 @@ def plan_from_reference(ref_plan, device="cpu", use_kernel: bool = True) -> Weig
         for p, l in ref_plan.leaves.items()
     }
     return WeightPlan(cfg=cfg, leaves=leaves, params=params, _by_path=_index_nodes(params))
+
+
+OPT_STATE_KEYS = ("step", "mu", "nu", "mom", "ef")
+
+
+def opt_state_from_reference(state, device="cpu") -> dict:
+    """The reference's optimizer state as port tensors: the int32 ``step``
+    and every moment tree, leaf for leaf."""
+    unknown = set(state) - set(OPT_STATE_KEYS)
+    if unknown:
+        raise ValueError(f"not an optimizer state: unknown keys {sorted(unknown)}")
+    return {k: params_from_reference(v, device) for k, v in state.items()}
+
+
+def tree_to_numpy(tree):
+    """A dense tree of tensors (dicts, lists, tuples) as numpy arrays in the
+    same nesting; the reference takes such a tree through ``jnp.asarray``."""
+    if isinstance(tree, dict):
+        return {k: tree_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_to_numpy(v) for v in tree)
+    return tree.detach().cpu().numpy()

@@ -1,7 +1,11 @@
 """Uniform model API (port of ``repro/models/api.py``): one namespace of
 functions per family -- the transformer (dense, MoE, and the recurrent
 ``hybrid`` and xLSTM ``ssm`` stacks), the VLM and the enc-dec -- the cache
-capability probes, ``state_bytes_per_step`` and ``kv_bytes_per_token``."""
+capability probes, ``state_bytes_per_step`` and ``kv_bytes_per_token``.
+
+``loss_fn`` trains the decoder-only transformer with attention layers and
+dense MLPs; ``check_trainable`` refuses every other config by the ROADMAP
+item that ports its training."""
 
 from __future__ import annotations
 
@@ -18,6 +22,7 @@ from repro_torch.models import vlm as V
 @dataclasses.dataclass(frozen=True)
 class ModelAPI:
     init_params: Callable
+    loss_fn: Callable  # (cfg, params, batch) -> (loss, metrics)
     # (cfg, params, batch, cache, use_kernel=True) -> (logits, cache); False
     # runs the flash attention's plain version on the card
     prefill: Callable
@@ -29,6 +34,11 @@ class ModelAPI:
     # absolute decode positions = prefix_len(cfg) + text position: a VLM
     # prepends its patches, so its KV positions are offset by n_patches
     prefix_len: Callable = staticmethod(lambda cfg: 0)
+
+
+def _untrained(cfg, params=None, batch=None):
+    raise NotImplementedError(
+        f"{cfg.name}: training the {cfg.family} family is not ported yet (ROADMAP A14b)")
 
 
 def _t_prefill(cfg, params, batch, cache, *, use_kernel: bool = True):
@@ -46,18 +56,18 @@ def _e_prefill(cfg, params, batch, cache, *, use_kernel: bool = True):
 
 
 _TRANSFORMER_API = ModelAPI(
-    init_params=T.init_params, prefill=_t_prefill, decode_step=T.decode_step,
+    init_params=T.init_params, loss_fn=T.loss_fn, prefill=_t_prefill, decode_step=T.decode_step,
     init_cache=T.init_cache, n_params_exact=T.n_params_exact, unstack=T.unstack,
 )
 
 _VLM_API = ModelAPI(
-    init_params=V.init_params, prefill=_v_prefill, decode_step=V.decode_step,
+    init_params=V.init_params, loss_fn=_untrained, prefill=_v_prefill, decode_step=V.decode_step,
     init_cache=V.init_cache, n_params_exact=V.n_params_exact, unstack=V.unstack,
     extra_keys=("patches",), prefix_len=staticmethod(lambda cfg: cfg.n_patches),
 )
 
 _ENCDEC_API = ModelAPI(
-    init_params=E.init_params, prefill=_e_prefill, decode_step=E.decode_step,
+    init_params=E.init_params, loss_fn=_untrained, prefill=_e_prefill, decode_step=E.decode_step,
     init_cache=E.init_cache, n_params_exact=E.n_params_exact, unstack=E.unstack,
     extra_keys=("frames",),
 )
@@ -69,6 +79,15 @@ def get_api(cfg) -> ModelAPI:
     if cfg.family == "vlm":
         return _VLM_API
     return _TRANSFORMER_API  # dense / moe / ssm / hybrid
+
+
+def check_trainable(cfg):
+    """Raise NotImplementedError, naming the ROADMAP item, unless the port
+    trains ``cfg``: a decoder-only stack of attention layers with dense
+    MLPs (``transformer.check_trainable``)."""
+    if get_api(cfg) is not _TRANSFORMER_API:
+        _untrained(cfg)
+    T.check_trainable(cfg)
 
 
 def supports_int8_kv(cfg) -> bool:

@@ -25,8 +25,10 @@ bit: batch processing changes the schedule, never the numbers.
 Params are the reference's layout: a list of {"w": (s_in, s_out), "b":
 (s_out,)} fp32 dicts.  Every forward takes ``use_kernel``: True launches
 the kernels for CUDA tensors (the plain versions run for CPU tensors),
-False runs the plain versions on the card too.  ``loss_fn`` (training)
-waits for ROADMAP A14.
+False runs the plain versions on the card too.  ``loss_fn`` is the
+training loss (a softmax classifier over the last layer's pre-activation,
+masked weights for pruning's refinement), in plain torch: B7 and B8 are
+inference kernels without a backward.
 """
 
 from __future__ import annotations
@@ -146,6 +148,27 @@ def forward_q78_sectioned(cfg: FCNetConfig, params, x: torch.Tensor, m: int = 11
     return Q.q78_decode(a_q)
 
 
+def loss_fn(cfg: FCNetConfig, params, batch, masks=None):
+    """Softmax cross entropy of the hidden-activated layers' logits (the
+    output activation is left out), on weights times ``masks`` where given
+    (a list of {"w": mask} per layer).  batch: {"x": (B, s_0), "y": (B,)
+    int}.  Returns (nll, {"loss": nll})."""
+    x, y = batch["x"], batch["y"]
+    L = len(params)
+    for j, p in enumerate(params):
+        w = p["w"] if masks is None else p["w"] * masks[j]["w"]
+        x = x @ w + p["b"]
+        if j < L - 1:
+            x = _ACT[cfg.hidden_act](x)
+    logp = torch.log_softmax(x, dim=-1)
+    nll = -logp.gather(-1, y.long()[:, None]).mean()
+    return nll, {"loss": nll}
+
+
+_ACT = {"relu": torch.relu, "sigmoid": torch.sigmoid, "linear": lambda x: x}
+
+
+@torch.no_grad()
 def accuracy(cfg: FCNetConfig, params, x, y, masks=None) -> float:
     """Top-1 accuracy of the fp32 (or masked) forward on labels ``y``."""
     if masks is None:

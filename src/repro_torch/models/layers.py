@@ -4,7 +4,10 @@ contiguous and paged decode, sliding windows, enc-dec cross-attention),
 the int8 KV cache, the gated and ungated MLP, embedding
 (with gemma's scale) and unembedding (tied or untied) -- what the
 transformer, MoE, VLM and enc-dec families run (``transformer.check_supported``
-names the rest).
+names the rest).  Training attends through ``train_attention``: dense
+attention under autograd, or past ``dense_threshold`` the
+``FlashAttention`` Function (the reference's custom VJP: the chunked
+forward, a backward that recomputes each tile from the saved log-sum-exp).
 
 Functions take and return tensors in the reference's layouts: activations
 (B, S, d), q (B, S, H, hd), KV caches (B, S, KVH, hd) and page pools
@@ -122,7 +125,7 @@ def dense_attention(q, k, v, *, causal: bool = True, window: Optional[int] = Non
 
 
 def flash_rows(qs, k, v, qpos, *, causal: bool, window: Optional[int], softcap: float,
-               chunk_k: int, k_scale=None, v_scale=None):
+               chunk_k: int, k_scale=None, v_scale=None, with_lse: bool = False):
     """Online softmax of pre-scaled fp32 queries ``qs`` (B, KVH, G, n, hd)
     at absolute positions ``qpos`` (n,) over k/v (B, Sk, KVH, hd) in key
     chunks of ``chunk_k``; (m, l, acc) stay in fp32.  Returns the
@@ -133,7 +136,9 @@ def flash_rows(qs, k, v, qpos, *, causal: bool, window: Optional[int], softcap: 
     clamped at 1e-30, and writes 0.  P is rounded to V's dtype before PV
     (bf16 V: as the reference); int8 K/V (``k_scale``/``v_scale`` (B, Sk,
     KVH)) fold their scales into the scores and into P in fp32, as the
-    Pallas kernel's fp32 dequantized tiles do."""
+    Pallas kernel's fp32 dequantized tiles do.  ``with_lse`` also returns
+    each row's log-sum-exp m + log(l) (B, KVH, G, n), which the backward
+    of ``FlashAttention`` reads."""
     B, KVH, G, n, hd = qs.shape
     Sk = k.shape[1]
     dev = qs.device
@@ -158,29 +163,141 @@ def flash_rows(qs, k, v, qpos, *, causal: bool, window: Optional[int], softcap: 
         pv = p.to(vj.dtype).to(torch.float32) if v_scale is None else p * per_key(v_scale, j0)
         acc = acc * alpha[..., None] + torch.einsum("bkgqc,bckd->bkgqd", pv, vj.to(torch.float32))
         m = m_new
-    return acc / l.clamp_min(1e-30)[..., None]
+    l = l.clamp_min(1e-30)
+    o = acc / l[..., None]
+    return (o, m + torch.log(l)) if with_lse else o
 
 
-def flash_attention(q, k, v, causal: bool = True, window: Optional[int] = None,
-                    q_offset: int = 0, softcap: float = 0.0, chunk_q: int = 512,
-                    chunk_k: int = 512):
+def flash_forward(q, k, v, causal: bool = True, window: Optional[int] = None,
+                  q_offset: int = 0, softcap: float = 0.0, chunk_q: int = 512,
+                  chunk_k: int = 512):
     """Exact attention in (chunk_q x chunk_k) tiles with an online softmax:
     the forward of the reference's ``layers.flash_attention`` (plain torch;
     what the CPU runs past ``dense_threshold``).  ``q_offset`` is the
     absolute position of q[:, 0].  q is scaled in its own dtype before QK^T,
-    as the reference does."""
+    as the reference does.  Returns (o in q's dtype, the rows' log-sum-exp
+    (B, KVH, G, Sq) in fp32)."""
     B, Sq, H, hd = q.shape
     KVH = k.shape[2]
     G = H // KVH
     qs = (q * (1.0 / math.sqrt(hd))).reshape(B, Sq, KVH, G, hd).permute(0, 2, 3, 1, 4)
     qs = qs.to(torch.float32)
-    outs = []
+    outs, lses = [], []
     for i0 in range(0, Sq, chunk_q):
         qpos = torch.arange(i0, min(i0 + chunk_q, Sq), device=q.device) + q_offset
-        outs.append(flash_rows(qs[:, :, :, i0:i0 + chunk_q], k, v, qpos, causal=causal,
-                               window=window, softcap=softcap, chunk_k=chunk_k))
+        o, lse = flash_rows(qs[:, :, :, i0:i0 + chunk_q], k, v, qpos, causal=causal,
+                            window=window, softcap=softcap, chunk_k=chunk_k, with_lse=True)
+        outs.append(o)
+        lses.append(lse)
     o = torch.cat(outs, dim=3)
-    return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd).to(q.dtype)
+    return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd).to(q.dtype), torch.cat(lses, dim=3)
+
+
+def flash_attention(q, k, v, causal: bool = True, window: Optional[int] = None,
+                    q_offset: int = 0, softcap: float = 0.0, chunk_q: int = 512,
+                    chunk_k: int = 512):
+    """The output of ``flash_forward`` (no autograd through its loops; the
+    training path takes ``FlashAttention``)."""
+    return flash_forward(q, k, v, causal, window, q_offset, softcap, chunk_q, chunk_k)[0]
+
+
+def flash_backward(q, k, v, o, lse, do, causal: bool, window: Optional[int], q_offset: int,
+                   softcap: float, chunk_q: int, chunk_k: int) -> tuple:
+    """(dq, dk, dv) of ``flash_forward``, recomputing each (chunk_q x
+    chunk_k) tile of probabilities from q, k and the saved log-sum-exp --
+    the reference's ``_flash_bwd``: scores of the unscaled q times
+    1/sqrt(hd) in fp32, P and dS rounded to K's dtype before their
+    products (bf16 K: as the reference), the softcap's derivative 1 - t^2
+    applied to dS, masked entries zero; dK and dV sum over the G query
+    heads of their KV head.  Gradients are accumulated in fp32 and
+    returned in the inputs' dtypes."""
+    B, Sq, H, hd = q.shape
+    Sk, KVH = k.shape[1], k.shape[2]
+    G = H // KVH
+    scale = 1.0 / math.sqrt(hd)
+    f32 = torch.float32
+    dev = q.device
+
+    def heads(x):  # (B, Sq, H, hd) -> (B, KVH, G, Sq, hd)
+        return x.reshape(B, Sq, KVH, G, hd).permute(0, 2, 3, 1, 4)
+
+    qh, doh = heads(q), heads(do.to(q.dtype))
+    delta = (doh.to(f32) * heads(o).to(f32)).sum(dim=-1)  # rowsum(dO * O), (B, KVH, G, Sq)
+    kf, vf = k.to(f32), v.to(f32)
+    dq = torch.zeros((B, KVH, G, Sq, hd), dtype=f32, device=dev)
+    dk = torch.zeros((B, Sk, KVH, hd), dtype=f32, device=dev)
+    dv = torch.zeros((B, Sk, KVH, hd), dtype=f32, device=dev)
+    for i0 in range(0, Sq, chunk_q):
+        i1 = min(i0 + chunk_q, Sq)
+        q_i, do_i = qh[:, :, :, i0:i1].to(f32), doh[:, :, :, i0:i1].to(f32)
+        lse_i, delta_i = lse[..., i0:i1, None], delta[..., i0:i1, None]
+        qpos = torch.arange(i0, i1, device=dev) + q_offset
+        for j0 in range(0, Sk, chunk_k):
+            j1 = min(j0 + chunk_k, Sk)
+            k_j, v_j = kf[:, j0:j1], vf[:, j0:j1]
+            s = torch.einsum("bkgqd,bckd->bkgqc", q_i, k_j) * scale
+            dcap = None
+            if softcap > 0.0:
+                t = torch.tanh(s / softcap)
+                s, dcap = t * softcap, 1.0 - t * t
+            mask = _chunk_mask(qpos, torch.arange(j0, j1, device=dev), causal, window)
+            s = torch.where(mask, s, torch.full_like(s, -1e30))
+            p = torch.exp(s - lse_i)
+            pc = p.to(k.dtype).to(f32)
+            dv[:, j0:j1] += torch.einsum("bkgqc,bkgqd->bckd", pc, do_i)
+            dp = torch.einsum("bkgqd,bckd->bkgqc", do_i, v_j)
+            ds = p * (dp - delta_i)
+            if dcap is not None:
+                ds = ds * dcap
+            ds = torch.where(mask, ds, torch.zeros_like(ds)).to(k.dtype).to(f32)
+            dq[:, :, :, i0:i1] += torch.einsum("bkgqc,bckd->bkgqd", ds, k_j) * scale
+            dk[:, j0:j1] += torch.einsum("bkgqc,bkgqd->bckd", ds, q_i) * scale
+    dq = dq.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class FlashAttention(torch.autograd.Function):
+    """The reference's ``flash_attention`` custom VJP: ``flash_forward``
+    forward, ``flash_backward`` backward.  It saves q, k, v, o and the
+    log-sum-exp only -- no (S, S) residual.  ``forward_calls`` and
+    ``backward_calls`` count its calls (a rematerialized layer runs its
+    forward twice), as the kernel wrappers count ``.launches``."""
+
+    forward_calls = 0
+    backward_calls = 0
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset, softcap, chunk_q, chunk_k):
+        FlashAttention.forward_calls += 1
+        o, lse = flash_forward(q, k, v, causal, window, q_offset, softcap, chunk_q, chunk_k)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.args = (causal, window, q_offset, softcap, chunk_q, chunk_k)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        FlashAttention.backward_calls += 1
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_backward(q, k, v, o, lse, do, *ctx.args)
+        return dq, dk, dv, None, None, None, None, None, None
+
+
+def _flash_chunks(Sq: int, Sk: int, chunk: int) -> tuple:
+    """The reference's (chunk_q, chunk_k) for sequences past the dense
+    threshold."""
+    return min(chunk, max(128, Sq)), min(chunk, max(128, Sk))
+
+
+def train_attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
+                    softcap: float = 0.0, dense_threshold: int = 1024, chunk: int = 512):
+    """The training path's attention, differentiable on every device:
+    ``dense_attention`` (autograd) while both q and k are at most
+    ``dense_threshold`` long, else ``FlashAttention`` -- never kernel B6,
+    which has no backward."""
+    if q.shape[1] <= dense_threshold and k.shape[1] <= dense_threshold:
+        return dense_attention(q, k, v, causal=causal, window=window, softcap=softcap)
+    cq, ck = _flash_chunks(q.shape[1], k.shape[1], chunk)
+    return FlashAttention.apply(q, k, v, causal, window, 0, softcap, cq, ck)
 
 
 def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
@@ -197,8 +314,7 @@ def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
     if q.is_cuda and use_kernel:
         return ops.flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset,
                                    softcap=softcap)
-    cq = min(chunk, max(128, q.shape[1]))
-    ck = min(chunk, max(128, k.shape[1]))
+    cq, ck = _flash_chunks(q.shape[1], k.shape[1], chunk)
     return flash_attention(q, k, v, causal, window, q_offset, softcap, cq, ck)
 
 

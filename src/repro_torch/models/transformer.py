@@ -20,16 +20,33 @@ slots, also when the global layers are paged; a recurrent or xLSTM layer
 keeps a fixed-size state in the compute dtype (fp32 for its integrators),
 whatever ``kv_dtype`` says.  ``check_supported`` names the ROADMAP item of
 what is not ported (logit softcaps).
+
+Training (``forward``, ``loss_fn``) runs the reference's ``train`` mode
+for stacks of attention layers with dense MLPs: full-sequence attention
+without a cache through ``layers.train_attention`` (never kernel B6,
+which has no backward), on the stacked tree itself -- each step takes its
+per-layer views anew (``_unbind_layers``), so the gradients reach the
+stacked leaves that the optimizer updates in place.  ``check_trainable``
+names the ROADMAP item of the rest.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
+import torch.utils.checkpoint
 
-from repro_torch.core.weight_plan import PackedLinear, QuantLinear, apply_linear, map_tree
+from repro_torch.core.weight_plan import (
+    PackedLinear,
+    QuantLinear,
+    apply_linear,
+    flatten_leaves,
+    map_tree,
+    unflatten_leaves,
+)
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
@@ -332,13 +349,11 @@ def _apply_recurrent_layer(cfg, kind: str, p, x, state):
     return x + L.apply_mlp(cfg, p["mlp"], h)
 
 
-def _attn_prefill(cfg, p, h, kind: str, cache, use_kernel: bool = True):
-    """Full-sequence causal attention (windowed on a ``local`` layer) that
-    also fills the contiguous KV cache, in place; int8 caches get the
-    quantized K/V of every position.  A local layer's ring of Sc < Sq slots
-    keeps the last Sc positions, rolled so that slot = pos % Sc.  Past
-    ``dense_threshold`` the attention is kernel B6 on the card unless
-    ``use_kernel=False``."""
+def _attn_seq(cfg, p, h, kind: str, attend) -> tuple:
+    """Full-sequence causal attention of an attention block (windowed on a
+    ``local`` layer) through ``attend(q, k, v, causal=, window=,
+    softcap=)``.  Returns (the block's output, the roped K and V) -- what a
+    prefill writes into its cache; the training forward writes none."""
     B, Sq, _ = h.shape
     H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     window, base = L.attn_window_and_base(cfg, kind)
@@ -348,9 +363,19 @@ def _attn_prefill(cfg, p, h, kind: str, cache, use_kernel: bool = True):
     positions = torch.arange(Sq, device=h.device)[None].expand(B, Sq)
     q = L.apply_rope(q, positions, base)
     k = L.apply_rope(k, positions, base)
-    o = L.attention(q, k, v, causal=True, window=window, softcap=cfg.logit_softcap,
-                    use_kernel=use_kernel)
-    out = apply_linear(o.reshape(B, Sq, H * hd), p["wo"])
+    o = attend(q, k, v, causal=True, window=window, softcap=cfg.logit_softcap)
+    return apply_linear(o.reshape(B, Sq, H * hd), p["wo"]), k, v
+
+
+def _attn_prefill(cfg, p, h, kind: str, cache, use_kernel: bool = True):
+    """Full-sequence causal attention (windowed on a ``local`` layer) that
+    also fills the contiguous KV cache, in place; int8 caches get the
+    quantized K/V of every position.  A local layer's ring of Sc < Sq slots
+    keeps the last Sc positions, rolled so that slot = pos % Sc.  Past
+    ``dense_threshold`` the attention is kernel B6 on the card unless
+    ``use_kernel=False``."""
+    Sq = h.shape[1]
+    out, k, v = _attn_seq(cfg, p, h, kind, functools.partial(L.attention, use_kernel=use_kernel))
     Sc = cache["k"].shape[1]
 
     def fill(c, new):
@@ -401,3 +426,105 @@ def decode_step(cfg, params, cache, tokens, pos, *, use_kernel: bool = True):
     x = _run_layers(cfg, params, x, cache, pos=pos, use_kernel=use_kernel)
     x = L.apply_norm(params["final_norm"], x, cfg.norm)
     return L.unembed(cfg, params["embed"], x), cache
+
+
+# ---------------------------------------------------------------------------
+# training: the full-sequence forward and the next-token loss
+# ---------------------------------------------------------------------------
+
+
+def check_trainable(cfg):
+    """Raise NotImplementedError, naming the ROADMAP item, for a config whose
+    training the port does not run yet: a MoE FFN (its aux loss's
+    backward) or a ``rec`` / ``mlstm`` / ``slstm`` layer (their train
+    forwards); then ``check_supported``."""
+    if cfg.moe is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: training a MoE stack is not ported yet (ROADMAP A14b)")
+    cells = sorted(set(cfg.layer_kinds) - set(ATTN_KINDS))
+    if cells:
+        raise NotImplementedError(
+            f"{cfg.name}: training {'/'.join(cells)} layers is not ported yet (ROADMAP A14b)")
+    check_supported(cfg)
+
+
+def _check_dense(params):
+    """Training takes the stacked tree of dense tensors of ``init_params``:
+    a compressed tree (a plan node) or the ``unstack`` view is refused."""
+    if "layers" in params:
+        raise ValueError("training takes the stacked params tree, not the unstack view")
+
+    def one(path, node):
+        if not isinstance(node, torch.Tensor):
+            raise ValueError(f"training takes dense weights: {path} is a {type(node).__name__}")
+        return node
+
+    map_tree(one, params)
+
+
+def _unbind_layers(cfg, params) -> list:
+    """One params dict per layer, in execution order (``unstack``'s),
+    made of ``unbind`` views of the stacked leaves.  Taken inside the
+    recorded step, so each stacked leaf gets its layers' gradients through
+    one backward node (a stack of them), and an in-place optimizer update
+    between steps meets no stale view."""
+    unit, n_units, rem = find_unit(cfg.layer_kinds)
+
+    def split(tree, n):
+        parts = [t.unbind(0) for t in flatten_leaves(tree)]
+        return [unflatten_leaves(tree, [u[i] for u in parts]) for i in range(n)]
+
+    per_unit = [split(t, n_units) for t in params["unit"]]
+    layers = [per_unit[pi][u] for u in range(n_units) for pi in range(len(unit))]
+    for ri, (_, count) in enumerate(rem_runs(rem)):
+        layers += split(params["rem"][ri], count)
+    return layers
+
+
+def _train_layer(cfg, kind: str, p, x):
+    """One attention layer without a cache: norm, attention
+    (``layers.train_attention``), residual, norm, MLP, residual."""
+    h = L.apply_norm(p["ln1"], x, cfg.norm)
+    x = x + _attn_seq(cfg, p["attn"], h, kind, L.train_attention)[0]
+    h = L.apply_norm(p["ln2"], x, cfg.norm)
+    return x + L.apply_mlp(cfg, p["mlp"], h)
+
+
+def forward(cfg, params, tokens, extra_embeds=None):
+    """Training/eval forward: (logits (B, S, V) over the full sequence, the
+    aux loss (fp32 0: no MoE)).  ``params`` is the stacked tree of dense
+    tensors (``init_params``); ``extra_embeds`` (B, P, d) go before the
+    tokens' embeddings and their logits are dropped.  With ``cfg.remat``
+    each layer is rematerialized in the backward
+    (``torch.utils.checkpoint``, the reference's per-layer
+    ``jax.checkpoint``)."""
+    check_trainable(cfg)
+    _check_dense(params)
+    x = L.embed_tokens(cfg, params["embed"], tokens)
+    if extra_embeds is not None:
+        x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
+    for kind, p in zip(cfg.layer_kinds, _unbind_layers(cfg, params)):
+        if cfg.remat:
+            x = torch.utils.checkpoint.checkpoint(_train_layer, cfg, kind, p, x,
+                                                  use_reentrant=False)
+        else:
+            x = _train_layer(cfg, kind, p, x)
+    x = L.apply_norm(params["final_norm"], x, cfg.norm)
+    logits = L.unembed(cfg, params["embed"], x)
+    if extra_embeds is not None:
+        logits = logits[:, extra_embeds.shape[1]:]
+    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def loss_fn(cfg, params, batch, extra_embeds=None):
+    """Next-token cross entropy: fp32 logsumexp minus the label's logit,
+    averaged over the positions whose label is >= 0.  batch: {"tokens":
+    (B, S), "labels": (B, S)}.  Returns (loss + aux, {"loss", "aux"})."""
+    logits, aux = forward(cfg, params, batch["tokens"], extra_embeds)
+    labels = batch["labels"].long()
+    mask = (labels >= 0).to(torch.float32)
+    lf = logits.to(torch.float32)
+    label_logit = lf.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
+    nll = torch.logsumexp(lf, dim=-1) - label_logit
+    loss = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return loss + aux, {"loss": loss, "aux": aux}

@@ -37,7 +37,10 @@ def test_import_leaves_jax_and_repro_out():
         "       'repro_torch.models.vlm', 'repro_torch.configs.whisper_tiny',\n"
         "       'repro_torch.configs.internvl2_2b', 'repro_torch.models.recurrent',\n"
         "       'repro_torch.models.ssm', 'repro_torch.serving.mixed',\n"
-        "       'repro_torch.configs.recurrentgemma_2b', 'repro_torch.configs.xlstm_350m'}\n"
+        "       'repro_torch.configs.recurrentgemma_2b', 'repro_torch.configs.xlstm_350m',\n"
+        "       'repro_torch.data.pipeline', 'repro_torch.training.optimizer',\n"
+        "       'repro_torch.training.trainer', 'repro_torch.distributed.compression',\n"
+        "       'repro_torch.launch.train'}\n"
         "assert new <= set(mods), new - set(mods)\n"
         "print('BAD', bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -70,7 +73,7 @@ def _no_cuda(monkeypatch):
 def test_entry_points_raise_without_gpu(monkeypatch):
     """No GPU and no explicit CPU request: every entry point raises."""
     from repro_torch.configs import get_config
-    from repro_torch.launch import serve
+    from repro_torch.launch import serve, train
     from repro_torch.models.transformer import init_params
     from repro_torch.serving.config import EngineConfig
     from repro_torch.serving.engine import ServingEngine
@@ -87,6 +90,8 @@ def test_entry_points_raise_without_gpu(monkeypatch):
         serve.main(["--arch", "tinyllama-1.1b", "--smoke", "--requests", "1"])
     with pytest.raises(RuntimeError, match="--device cpu"):
         serve.main(["--workload-mix", "tinyllama-1.1b:1", "--smoke", "--requests", "1"])
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        train.main(["--arch", "tinyllama-1.1b", "--smoke", "--steps", "1"])
     eng = ServingEngine(cfg, params, device="cpu")
     assert eng.device.type == "cpu"
     spec = [WorkloadSpec(name="t", cfg=cfg, params=params, config=EngineConfig(max_batch=1))]
