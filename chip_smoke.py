@@ -226,7 +226,33 @@ Phases, in order; any failure raises and the script exits non-zero:
                whisper decoder layer a step, B6 non-causal once a whisper
                layer a prefill, the weight kernels never; each member's
                streams equal it served alone.
-17. train   -- training, no kernel of its own (no Pallas kernel lies on the
+17. autotune -- the offline autotuner at full width (tinyllama-1.1b, random
+               weights from seed 0): (a) ``python -m repro_torch.launch.autotune``'s
+               main with the default space, calibration task and
+               constraints, anneal, 64 trials, seed 0, into a temporary
+               directory with --plan-cache (the search's seconds, every
+               oracle run, the winner, its predicted tok/s against the
+               uniform candidate's; H100 data-sheet constants, not
+               measurements); (b) the winner served through
+               ``serve.build_engine`` with --autotune-plan (the serve
+               phase's 8 requests, the per-leaf summary logged): the
+               kernels its kinds imply launch and no other (B1's wgmma and
+               FMA bodies counted apart, B2 only for a gate/up pair of one
+               kind, B5 for int8 projections and the head, B3 when paged,
+               B4 never), streams held to the same plan's plain versions by
+               the near-tie rule, and ``predict_plan_stats`` equal to
+               ``compress()`` at full width; (c) the same for a hand-made
+               artifact giving every representation a group (w_gate/w_up
+               quant_sparse: B2; wq block_sparse: B1's FMA body; wo
+               quant_sparse; wk/wv/head/tok quant; w_down dense; int8
+               pages); (d) the winner and the uniform candidate each at its
+               artifact's max_batch requests of 32 tokens, 16 new: the
+               median decode tick at full occupancy, tok/s and the measured
+               against the predicted speedup; B1 on an fp32 payload at the
+               winner's block_sparse shapes and batch, held to its plain
+               version and timed (a row of the kernels line); (e) a boot
+               from the CLI's plan cache (a hit) giving (b)'s streams.
+18. train   -- training, no kernel of its own (no Pallas kernel lies on the
                reference's training path; B6 has no backward and must not
                launch here): a 2-layer full-width tinyllama in fp32 compute,
                one synthetic batch's loss and gradients on the card against
@@ -247,7 +273,7 @@ Phases, in order; any failure raises and the script exits non-zero:
                steps, 4 stages of 200), base and pruned accuracy, q, the
                1.5% objective, B7's pruned accuracy against the plain
                version's, Q7.8's through B8.
-18. summary -- one JSON line of per-kernel numbers, then the result line.
+19. summary -- one JSON line of per-kernel numbers, then the result line.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -435,11 +461,11 @@ def phase_build() -> None:
             f"largest spill {spill} bytes, largest stack frame {stack} bytes")
 
 
-def _packed(torch, K, N, gen):
+def _packed(torch, K, N, gen, q=0.5):
     from repro_torch.core.weight_plan import PlanConfig, pack_block_sparse
 
     w = torch.randn((K, N), generator=gen, device="cuda") / K ** 0.5
-    return pack_block_sparse(w, PlanConfig(q_prune=0.5), quant=True)
+    return pack_block_sparse(w, PlanConfig(q_prune=q), quant=True)
 
 
 def _dense_bf16(torch, p):
@@ -1332,15 +1358,15 @@ def _served_kernels():
 
 
 def _zero_launches(counters) -> None:
-    """Set the launch counters of ``counters`` to 0, B5's per-regime ones and
-    B3's by query positions too."""
+    """Set the launch counters of ``counters`` to 0, B5's per-regime ones,
+    B1/B2/B4's stacked and FMA-body ones and B3's by query positions too."""
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import quant_matmul as QM
 
     for c in counters:
         c.launches = 0
         if hasattr(c, "stacked_launches"):  # B1, B2, B4: a stack of experts' launches
-            c.stacked_launches = c.stacked_experts = 0
+            c.stacked_launches = c.stacked_experts = c.fma_launches = 0
     QM.quant_matmul.wgmma_launches = QM.quant_matmul.dense_tile_launches = 0
     FA.paged_decode_attention.launches_by_t.clear()
     FA.flash_attention.launches_by_window.clear()
@@ -1660,20 +1686,49 @@ def phase_long(torch, results: dict) -> tuple:
 def _prefill_logits(torch, cfg, params, tokens, extras=None):
     """Last-position logits (fp32) of a batch-1 prefill over ``tokens`` (and
     a request's ``extras``: a VLM's patches, an enc-dec's frames) through
-    the served kernels: the plain, non-speculative path teacher-forced."""
+    the served kernels: the plain, non-speculative path teacher-forced.
+    ``tokens`` may also be a list of equal-length token lists without
+    extras: one batched prefill, logits (B, vocab)."""
     import numpy as np
 
     from repro_torch.models.api import get_api
 
     api = get_api(cfg)
     dev = params["final_norm"]["scale"].device
-    t = torch.as_tensor([int(x) for x in tokens], device=dev)[None]
+    rows = tokens if tokens and isinstance(tokens[0], (list, tuple)) else [tokens]
+    t = torch.as_tensor([[int(x) for x in r] for r in rows], device=dev)
     batch = {"tokens": t}
     for k, v in (extras or {}).items():
         batch[k] = torch.as_tensor(np.asarray(v), device=dev)[None]
-    cache = api.init_cache(cfg, 1, len(tokens) + api.prefix_len(cfg),
+    cache = api.init_cache(cfg, len(rows), t.shape[1] + api.prefix_len(cfg),
                            getattr(torch, cfg.compute_dtype), kv_dtype=torch.int8, device=dev)
-    return api.prefill(cfg, params, batch, cache)[0][0, -1].float()
+    lg = api.prefill(cfg, params, batch, cache)[0][:, -1].float()
+    return lg if rows is tokens else lg[0]
+
+
+def _first_diff(label: str, want, got):
+    """(first differing position or None, differing tokens) of two streams
+    of one length."""
+    if len(want) != len(got):
+        raise AssertionError(f"{label}: streams of {len(want)} and {len(got)} tokens")
+    diff = [i for i, (a, b) in enumerate(zip(want, got)) if a != b]
+    return (diff[0] if diff else None), len(diff)
+
+
+def _tie_at(torch, label: str, lg, want, got, j: int, n_diff: int) -> int:
+    """The near-tie rule at the first differing token j, from the plain
+    path's logits ``lg`` there; returns n_diff or raises."""
+    top = torch.topk(lg, 2).values
+    gap = float(top[0] - top[1])
+    pair = float((lg[want[j]] - lg[got[j]]).abs())
+    tol = PATH_RTOL * float(lg.abs().max())
+    log(f"{label}: streams differ from token {j} on ({n_diff} of {len(want)} tokens "
+        f"differ); plain logits there: top-2 gap {gap:.4e}, |dlogit| of the two tokens "
+        f"{pair:.4e}, tolerance {tol:.4e}")
+    if not gap <= tol:
+        raise AssertionError(f"{label}: streams differ at token {j} where the plain path has "
+                             f"no near-tie (top-2 gap {gap:.4e} > {tol:.4e})")
+    return n_diff
 
 
 def near_tie(torch, cfg, params, label: str, prompt, want, got, extras=None) -> int:
@@ -1683,32 +1738,31 @@ def near_tie(torch, cfg, params, label: str, prompt, want, got, extras=None) -> 
     at most PATH_RTOL of their largest magnitude: the two paths' logits may
     differ that much (the parity phase's tolerance), so such a token flips on
     a near-tie.  Returns the count of differing tokens; raises otherwise."""
-    if len(want) != len(got):
-        raise AssertionError(f"{label}: streams of {len(want)} and {len(got)} tokens")
-    diff = [i for i, (a, b) in enumerate(zip(want, got)) if a != b]
-    if not diff:
+    j, n_diff = _first_diff(label, want, got)
+    if j is None:
         return 0
-    j = diff[0]
     lg = _prefill_logits(torch, cfg, params, list(prompt) + list(want[:j]), extras)
-    top = torch.topk(lg, 2).values
-    gap = float(top[0] - top[1])
-    pair = float((lg[want[j]] - lg[got[j]]).abs())
-    tol = PATH_RTOL * float(lg.abs().max())
-    log(f"{label}: streams differ from token {j} on ({len(diff)} of {len(want)} tokens "
-        f"differ); plain logits there: top-2 gap {gap:.4e}, |dlogit| of the two tokens "
-        f"{pair:.4e}, tolerance {tol:.4e}")
-    if not gap <= tol:
-        raise AssertionError(f"{label}: streams differ at token {j} where the plain path has "
-                             f"no near-tie (top-2 gap {gap:.4e} > {tol:.4e})")
-    return len(diff)
+    return _tie_at(torch, label, lg, want, got, j, n_diff)
 
 
 def _streams_near_tie(torch, cfg, params, label, prompts, want, got, extras=None) -> int:
-    """near_tie over every request (with its ``extras``, where given); logs
-    and returns the differing tokens."""
+    """near_tie over every request (with its ``extras``, where given); the
+    requests without extras whose teacher-forced prefixes have one length
+    share one batched prefill.  Logs and returns the differing tokens."""
     extras = extras or [None] * len(prompts)
-    n = sum(near_tie(torch, cfg, params, f"{label} request {i}", p, w, g, e)
-            for i, (p, w, g, e) in enumerate(zip(prompts, want, got, extras)))
+    n, by_len = 0, {}
+    for i, (p, w, g, e) in enumerate(zip(prompts, want, got, extras)):
+        if e is not None:
+            n += near_tie(torch, cfg, params, f"{label} request {i}", p, w, g, e)
+            continue
+        j, n_diff = _first_diff(f"{label} request {i}", w, g)
+        if j is not None:
+            by_len.setdefault(len(p) + j, []).append((i, j, n_diff))
+    for length, reqs in sorted(by_len.items()):
+        lg = _prefill_logits(torch, cfg, params,
+                             [list(prompts[i]) + list(want[i][:j]) for i, j, _ in reqs])
+        for row, (i, j, n_diff) in enumerate(reqs):
+            n += _tie_at(torch, f"{label} request {i}", lg[row], want[i], got[i], j, n_diff)
     log(f"{label}: {n} of {sum(map(len, want))} tokens differ from the plain path's "
         f"(near-tie rule, tolerance {PATH_RTOL} of the largest logit)")
     return n
@@ -2412,17 +2466,17 @@ def _b6_row(torch, timer, gen, results, key, H, KVH, hd, window=None, S=2048) ->
 
 
 def _b3_row(torch, timer, gen, results, key, H, KVH, hd, T, prefix=0, P=8,
-            int8=True) -> None:
-    """B3 at one family's serve step (T 1) or verify step (T 5): 8
+            int8=True, B=8) -> None:
+    """B3 at one family's serve step (T 1) or verify step (T 5): B (8)
     sequences at the serve phase's contexts (after ``prefix`` positions of
-    a VLM's patches), int8 pages of 16 (bf16 where ``int8`` is False), ``P``
-    pages a sequence, sequences 1-3 sharing sequence 0's first page; held
-    to its plain version, twice for the same bits, timed beside SDPA on the
-    gathered bf16 K/V."""
+    a VLM's patches; the 8 repeat past the eighth), int8 pages of 16 (bf16
+    where ``int8`` is False), ``P`` pages a sequence, sequences 1-3 sharing
+    sequence 0's first page; held to its plain version, twice for the same
+    bits, timed beside SDPA on the gathered bf16 K/V."""
     from repro_torch.kernels import flash_attention as FA
 
-    B, ps = 8, 16
-    ctx = [c + 8 + prefix for c in (36, 40, 40, 40, 40, 40, 40, 40)]
+    ps = 16
+    ctx = [(36, 40, 40, 40, 40, 40, 40, 40)[i % 8] + 8 + prefix for i in range(B)]
     pos = torch.tensor([c - 1 for c in ctx], dtype=torch.int32, device="cuda")
     table = (1 + torch.randperm(B * P, generator=gen, device="cuda")).reshape(B, P)
     table[1:4, 0] = table[0, 0]
@@ -2455,47 +2509,51 @@ def _b3_row(torch, timer, gen, results, key, H, KVH, hd, T, prefix=0, P=8,
                                   kw.get("v_scale_pages"), table, pos))
     log(f"{label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA(gathered bf16) "
         f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    pos_s = ("/".join(map(str, pos.tolist())) if B <= 8 else
+             f"{int(pos.min())}..{int(pos.max())}")
     _add_row(results, "paged_decode_attention", {
         "key": key, "shape": f"B={B} T={T} H={H} KVH={KVH} hd={hd} {kind} pages of 16, pos "
-                             f"{'/'.join(map(str, pos.tolist()))}{' (verify)' if T > 1 else ''}",
+                             f"{pos_s}{' (verify)' if T > 1 else ''}",
         "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
         "bound_by": b_by}, d, r)
 
 
-def _b2_gelu_row(torch, timer, gen, results, key="gelu", K=2560, N=10240) -> None:
-    """B2 with the gelu_glu epilogue at a gate/up pair: gemma3's 2560 x 10240
-    (80 block-columns) by default, recurrentgemma's 2560 x 7680; M = 8 (the
-    serve batch) and 40 (a prefill); held to its plain version, twice for
-    the same bits, timed at M = 8 beside one torch.matmul on the
-    dequantized [Wg | Wu]."""
+def _b2_row(torch, timer, gen, results, key="gelu", K=2560, N=10240, act="gelu_glu",
+            Ms=(40, 8), q=0.5) -> None:
+    """B2 with the ``act`` epilogue at a gate/up pair at q ``q``: gemma3's
+    2560 x 10240 (80 block-columns) with gelu_glu by default,
+    recurrentgemma's 2560 x 7680; at each M of ``Ms`` (the default: a
+    40-token prefill and the serve batch of 8) held to its plain version,
+    twice for the same bits, timed at the last beside one torch.matmul on
+    the dequantized [Wg | Wu]."""
     from repro_torch.kernels import fused_gate_up as FG
 
-    g, u = _packed(torch, K, N, gen), _packed(torch, K, N, gen)
+    g, u = _packed(torch, K, N, gen, q), _packed(torch, K, N, gen, q)
     ga, ua = (g.blocks, g.block_rows, g.counts), (u.blocks, u.block_rows, u.counts)
     err = rel = 0.0
-    for M in (40, 8):
+    for M in Ms:
         x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
-        y = FG.fused_gate_up(x, ga, ua, g.scales, u.scales, activation="gelu_glu")
-        d, r = _held(torch, f"B2 gelu_glu {K}x{N} M={M}", y,
-                     FG.fused_gate_up(x, ga, ua, g.scales, u.scales, activation="gelu_glu",
+        y = FG.fused_gate_up(x, ga, ua, g.scales, u.scales, activation=act)
+        d, r = _held(torch, f"B2 {act} {K}x{N} M={M}", y,
+                     FG.fused_gate_up(x, ga, ua, g.scales, u.scales, activation=act,
                                       use_kernel=False), KERNEL_RTOL)
         err, rel = max(err, d), max(rel, r)
-        _deterministic(torch, f"B2 gelu_glu M={M}", y,
-                       FG.fused_gate_up(x, ga, ua, g.scales, u.scales, activation="gelu_glu"))
+        _deterministic(torch, f"B2 {act} M={M}", y,
+                       FG.fused_gate_up(x, ga, ua, g.scales, u.scales, activation=act))
     surv = int(g.counts.sum() + u.counts.sum())
     nbytes = M * K * 2 + surv * (128 * 128 + 4) + 2 * (N // 128) * 4 + 2 * N * 4 + M * N * 2
     b_ms, b_by = bound(nbytes, 2.0 * M * surv * 128 * 128)
     wgu = torch.cat([_dense_bf16(torch, g), _dense_bf16(torch, u)], dim=1)
-    ms = timer(lambda: FG.fused_gate_up(x, ga, ua, g.scales, u.scales, activation="gelu_glu"))
+    ms = timer(lambda: FG.fused_gate_up(x, ga, ua, g.scales, u.scales, activation=act))
     plain_ms = timer(lambda: FG.fused_gate_up(x, ga, ua, g.scales, u.scales,
-                                              activation="gelu_glu", use_kernel=False))
+                                              activation=act, use_kernel=False))
     lib_ms = timer(lambda: torch.matmul(x, wgu))
-    log(f"B2 gelu_glu {K}x{N} M=8: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.matmul("
+    log(f"B2 {act} {K}x{N} M={M}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.matmul("
         f"dense [Wg|Wu] bf16) {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     _add_row(results, "fused_gate_up", {
-        "key": key, "shape": f"{K}x{N} gate+up gelu_glu at M=8", "ms": ms,
-        "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by},
-        err, rel)
+        "key": key, "shape": f"{K}x{N} gate+up {act} at M={M}" + (f" q {q}" if q != 0.5 else ""),
+        "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
+        "bound_by": b_by}, err, rel)
 
 
 def phase_family_kernels(torch, results: dict) -> None:
@@ -2512,7 +2570,7 @@ def phase_family_kernels(torch, results: dict) -> None:
     for hd, H, KVH in ((128, 32, 2), (256, 8, 4)):
         _b3_row(torch, timer, gen, results, f"hd{hd} serve", H, KVH, hd, 1)
         _b3_row(torch, timer, gen, results, f"hd{hd} verify", H, KVH, hd, SPEC_K + 1)
-    _b2_gelu_row(torch, timer, gen, results)
+    _b2_row(torch, timer, gen, results)
 
 
 def _engine_like(engine, plan, params=None, **changes):
@@ -3611,16 +3669,17 @@ def _pass_launches(cfg) -> dict:
 
 
 def _b1_row(torch, timer, gen, results, key: str, shapes, M: int = 8) -> None:
-    """B1 over a family's packed projection shapes (K x N each, int8, q
-    0.5) at M 8, summed as the tinyllama row sums one layer's five: each
-    held to its plain version and launched twice for the same bits; timed
-    beside torch.matmul on the dequantized bf16 weights."""
+    """B1 over a family's packed projection shapes (K x N each, int8, at q
+    0.5 or the q of a (K, N, q) shape) at M rows (8), summed as the
+    tinyllama row sums one layer's five: each held to its plain version
+    and launched twice for the same bits; timed beside torch.matmul on the
+    dequantized bf16 weights."""
     from repro_torch.kernels import block_sparse as BS
 
     tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0, flops=0.0)
     err = rel = 0.0
-    for K, N in shapes:
-        p = _packed(torch, K, N, gen)
+    for K, N, *q in shapes:
+        p = _packed(torch, K, N, gen, *q)
         args = (p.blocks, p.block_rows, p.counts, p.scales)
         x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
         y = BS.block_sparse_matmul(x, *args)
@@ -3637,7 +3696,7 @@ def _b1_row(torch, timer, gen, results, key: str, shapes, M: int = 8) -> None:
         tot["plain_ms"] += timer(lambda: BS.block_sparse_matmul(x, *args, use_kernel=False))
         tot["library_ms"] += timer(lambda: torch.matmul(x, wd))
     b_ms, b_by = bound(tot["bytes"], tot["flops"])
-    label = " + ".join(f"{K}x{N}" for K, N in shapes)
+    label = " + ".join(f"{K}x{N}" + "".join(f" q {v}" for v in q) for K, N, *q in shapes)
     log(f"B1 {key} ({label}) M={M}: kernel {tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, "
         f"torch.matmul(dense bf16) {tot['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     _add_row(results, "block_sparse_matmul", {
@@ -3672,7 +3731,7 @@ def phase_recurrent_kernels(torch, results: dict) -> None:
     for key, S in (("rg window", 2048), ("rg window bites", 4096)):
         _b6_row(torch, timer, gen, results, key, rg.n_heads, rg.n_kv_heads, rg.hd,
                 window=rg.local_window, S=S)
-    _b2_gelu_row(torch, timer, gen, results, "rg gelu", rg.d_model, rg.d_ff)
+    _b2_row(torch, timer, gen, results, "rg gelu", rg.d_model, rg.d_ff)
     _b1_row(torch, timer, gen, results, "rg", RG_B1)
     _b1_row(torch, timer, gen, results, "xlstm", XLSTM_B1)
     d, f = xl.d_model, SSM.slstm_up(xl)
@@ -4017,6 +4076,412 @@ def phase_mixed(torch, results: dict, card: str) -> None:
             raise AssertionError(f"mixed: {arch}'s streams in the mix differ from it served alone")
         del solo
     del engine
+    torch.cuda.empty_cache()
+
+
+# the autotune phase's tuned run: the CLI's defaults (the search space, the
+# calibration task, its budget and workload), anneal, 64 trials, seed 0
+TUNE_FLAGS = ("--arch", "tinyllama-1.1b", "--strategy", "anneal", "--trials", "64",
+              "--seed", "0")
+# (d)'s workload: each artifact's max_batch requests of 32 tokens, 16 new
+TUNED_PROMPT, TUNED_NEW = 32, 16
+
+
+def _tuned_args(path: str, *flags):
+    """The serve CLI's parser and args for full-width tinyllama-1.1b served
+    from the TunedPlan at ``path`` (its serving knobs override the flags)."""
+    from repro_torch.launch import serve
+
+    ap = serve.build_parser()
+    return serve, ap, ap.parse_args(["--arch", "tinyllama-1.1b", "--autotune-plan", path,
+                                     *flags])
+
+
+def _hand_doc(cfg, cand, label: str) -> dict:
+    """A TunedPlan artifact for a hand-made ``Candidate`` (no search): its
+    prediction at the default space and constraints, the uniform
+    candidate's beside it."""
+    from repro_torch.core import autotune as AT
+
+    space, cons = AT.SearchSpace(), AT.Constraints()
+    pred = AT.predict(cfg, cand, space, cons)
+    uni = AT.predict(cfg, AT.uniform_candidate(cfg, space), space, cons)
+    if not pred.feasible:
+        raise AssertionError(f"autotune: the {label} candidate is infeasible ({pred.reason})")
+    res = AT.TuneResult(strategy=label, trials=0, seed=0, best=cand, prediction=pred,
+                        uniform=uni, trace=(), acc_evals=(), budget=cons.max_acc_drop)
+    return AT.tuned_plan_doc(cfg, res, space=space, constraints=cons)
+
+
+def _doc_candidate(doc: dict):
+    """The winning Candidate a TunedPlan artifact records."""
+    from repro_torch.core import autotune as AT
+
+    s = doc["serving"]
+    return AT.Candidate(assign=tuple(tuple(a) for a in doc["assignments"]),
+                        block=doc["plan"]["bk"], kv_dtype=s["kv_dtype"],
+                        page_size=s["page_size"], spec_k=s["spec_k"], mesh=tuple(s["mesh"]))
+
+
+def _implied_launches(plan, paged: bool) -> dict:
+    """Which kernels (B1 and B2 by body) the plan's kinds make a served run
+    launch (``_plan_kernel_shapes``); B3 reads a paged cache."""
+    sh = _plan_kernel_shapes(plan)
+    return {"block_sparse_matmul wgmma": bool(sh["b1 int8"]),
+            "block_sparse_matmul fma": bool(sh["b1 fp32"]),
+            "fused_gate_up wgmma": bool(sh["b2 int8"]), "fused_gate_up fma": bool(sh["b2 fp32"]),
+            "quant_matmul": bool(sh["b5"]), "paged_decode_attention": paged}
+
+
+def _plan_kernel_shapes(plan) -> dict:
+    """The shapes each kernel takes in the plan, with their launches a
+    forward (a stacked leaf's layers, else 1): a packed w_gate/w_up pair of
+    one kind runs B2 -- (K, N, q, launches) under "b2 int8" or "b2 fp32" --
+    any other packed leaf B1, on the wgmma body for an int8 payload ("b1
+    int8") and the CUDA-core FMA body for block_sparse's fp32 one ("b1
+    fp32"); an int8 leaf runs B5, (leaf, K, N, launches) under "b5" (an
+    int8 ``tok`` is gathered: no kernel)."""
+    out = {"b1 int8": [], "b1 fp32": [], "b2 int8": [], "b2 fp32": [], "b5": []}
+    for path in sorted(plan.leaves):
+        leaf = plan.leaves[path]
+        name = path.rsplit("/", 1)[-1]
+        K, N = leaf.shape[-2:] if len(leaf.shape) >= 2 else (0, 0)
+        n = leaf.shape[0] if len(leaf.shape) == 3 else 1
+        payload = "int8" if leaf.kind == "quant_sparse" else "fp32"
+        pair = {"w_gate": "w_up", "w_up": "w_gate"}.get(name)
+        other = plan.leaves.get(path[: -len(name)] + pair) if pair else None
+        fused = other is not None and other.kind == leaf.kind and other.shape == leaf.shape
+        if leaf.kind in ("quant_sparse", "block_sparse") and fused:
+            if name == "w_gate":
+                out[f"b2 {payload}"].append((K, N, leaf.q_prune, n))
+        elif leaf.kind in ("quant_sparse", "block_sparse"):
+            out[f"b1 {payload}"].append((K, N, leaf.q_prune, n))
+        elif leaf.kind == "quant" and name != "tok":
+            out["b5"].append((name, K, N, n))
+    return out
+
+
+def _check_implied(label: str, plan, paged: bool, launches: dict) -> dict:
+    """Every kernel the plan implies launched, and no other (B4 never:
+    every leaf carries its walk).  Returns the served kernels' launches
+    with B1's and B2's split by body."""
+    from repro_torch.kernels import block_sparse as BS
+    from repro_torch.kernels import fused_gate_up as FG
+
+    by_body = {k: launches[k] for k in ("quant_matmul", "paged_decode_attention",
+                                        "block_sparse_matmul_col")}
+    for fn in (BS.block_sparse_matmul, FG.fused_gate_up):
+        by_body[f"{fn.__name__} fma"] = fn.fma_launches
+        by_body[f"{fn.__name__} wgmma"] = fn.launches - fn.fma_launches
+    want = _implied_launches(plan, paged)
+    log(f"{label}: launches by kernel and body {by_body}; implied by the plan "
+        f"{sorted(k for k, v in want.items() if v)}")
+    bad = [k for k, v in want.items() if bool(by_body[k]) != v]
+    if bad or by_body["block_sparse_matmul_col"]:
+        raise AssertionError(f"{label}: launches {by_body} disagree with the plan at {bad}")
+    return by_body
+
+
+def _tuned_serve(torch, path: str, label: str, card: str):
+    """Serve the serve phase's 8 requests from the TunedPlan at ``path``
+    (build_engine with --autotune-plan and --share-prefix, under a tee):
+    the launches the plan's kinds imply, and the greedy streams held to
+    the same plan's plain versions (with_use_kernel(params, False), B3
+    off) by the near-tie rule.  Returns (cfg, engine, plan, outputs,
+    launches by body)."""
+    from repro_torch.core.weight_plan import with_use_kernel
+
+    serve, ap, args = _tuned_args(path, "--requests", "8", "--max-new", "16", "--prompt-len",
+                                  "40", "--share-prefix")
+    text, cfg, engine, plan, boot = _boot(torch, serve, ap, args)
+    per_leaf = [ln for ln in text.splitlines() if ln.startswith("  ") and ": " in ln]
+    if len(per_leaf) != len(plan.leaves):
+        raise AssertionError(f"{label}: {len(per_leaf)} per-leaf summary lines for "
+                             f"{len(plan.leaves)} leaves")
+    log(f"{label}: booted in {boot:.1f}s: max_batch {engine.max_batch}, max_len "
+        f"{engine.max_len}, kv {engine.kv_dtype}, paged {engine.paged} ({engine.page_size}, "
+        f"{engine.num_pages if engine.paged else 0} pages); the plan's leaves:\n"
+        + "\n".join(per_leaf))
+    outputs, launches, dt = _serve_and_check(serve, engine, cfg, args.max_new, label)
+    by_body = _check_implied(label, plan, engine.paged, launches)
+    log(f"{label}: {engine.stats.decode_tokens / dt:.1f} tok/s at 8 requests on {card}")
+    p_eng = _engine_like(engine, plan, params=with_use_kernel(engine.params, False),
+                         num_pages=engine.config.cache.num_pages)
+    p_eng.attention_kernel = False
+    p_out, p_launches, _ = _serve_and_check(serve, p_eng, cfg, args.max_new, f"{label} plain")
+    if any(p_launches.values()):
+        raise AssertionError(f"{label} plain: a kernel launched: {p_launches}")
+    prompts = [r.prompt for r in _serve_requests(cfg, args.max_new)]
+    _streams_near_tie(torch, cfg, p_eng.params, f"{label} kernels vs plain", prompts, p_out,
+                      outputs)
+    del p_eng
+    return cfg, engine, plan, outputs, by_body
+
+
+def _tuned_ticks(torch, path: str, label: str, card: str) -> dict:
+    """Serve the artifact's max_batch requests of TUNED_PROMPT random tokens
+    (seed 3), TUNED_NEW new each, tick by tick: the median decode tick at
+    full occupancy (ticks with one decode step at max_batch and no prefill)
+    and its tok/s, against the artifact's predicted tok/s.  Then the same
+    requests on the same plan's plain versions (B3 off), their greedy
+    streams held to the kernels' by the near-tie rule: the kernels at the
+    tuned batch's shapes, end to end."""
+    import json as _json
+
+    import numpy as np
+
+    from repro_torch.core.weight_plan import with_use_kernel
+    from repro_torch.serving.engine import Request
+
+    with open(path) as f:
+        doc = _json.load(f)
+    B = int(doc["serving"]["max_batch"])
+    serve, ap, args = _tuned_args(path, "--requests", str(B), "--max-new", str(TUNED_NEW),
+                                  "--prompt-len", str(TUNED_PROMPT))
+    _, cfg, engine, plan, boot = _boot(torch, serve, ap, args)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab, TUNED_PROMPT).astype(np.int32) for _ in range(B)]
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=TUNED_NEW) for i, p in enumerate(prompts)]
+    counters = _served_kernels()
+    _zero_launches(counters)
+    ticks, full = [], []
+    for r in reqs:
+        engine.submit(r)
+    torch.cuda.synchronize()
+    t_all = time.perf_counter()
+    s = engine.stats
+    while not all(r.terminal for r in reqs):
+        p0, d0, n0 = s.prefills, s.decode_steps, s.decode_tokens
+        t0 = time.perf_counter()
+        engine.step()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        ticks.append((dt, s.prefills - p0, s.decode_steps - d0))
+        if s.prefills == p0 and s.decode_steps - d0 == 1 and s.decode_tokens - n0 == B:
+            full.append(dt)
+    wall = time.perf_counter() - t_all
+    engine.audit_pages()
+    if any(len(r.output) != TUNED_NEW for r in reqs) or not full:
+        raise AssertionError(f"{label}: unfinished requests or no tick at full occupancy")
+    by_body = _check_implied(label, plan, engine.paged, {c.__name__: c.launches
+                                                          for c in counters})
+    tick_ms = 1e3 * statistics.median(full)
+    tok_s = B / (tick_ms / 1e3)
+    pred = doc["predicted"]["tokens_per_s"]
+    shapes, forwards = _plan_kernel_shapes(plan), s.prefills + s.decode_steps
+    log(f"{label}: {B} requests of {TUNED_PROMPT} tokens, {TUNED_NEW} new, in {wall:.2f}s "
+        f"(boot {boot:.1f}s, {s.prefills} prefills); decode tick at full occupancy "
+        f"{tick_ms:.3f} ms (median of {len(full)}), {tok_s:.1f} tok/s measured vs "
+        f"{pred:.1f} predicted ({tok_s / pred:.4f} of it) on {card}")
+    p_eng = _engine_like(engine, plan, params=with_use_kernel(engine.params, False),
+                         num_pages=engine.config.cache.num_pages)
+    p_eng.attention_kernel = False
+    outputs = [[int(t) for t in r.output] for r in reqs]
+    del engine, plan
+    p_reqs = [Request(uid=i, prompt=p, max_new_tokens=TUNED_NEW) for i, p in enumerate(prompts)]
+    p_out, p_launches, _ = _serve_and_check(serve, p_eng, cfg, TUNED_NEW, f"{label} plain",
+                                            reqs=p_reqs)
+    if any(p_launches.values()):
+        raise AssertionError(f"{label} plain: a kernel launched: {p_launches}")
+    _streams_near_tie(torch, cfg, p_eng.params, f"{label} kernels vs plain at batch {B}",
+                      prompts, p_out, outputs)
+    del p_eng
+    torch.cuda.empty_cache()
+    return {"batch": B, "tick_ms": tick_ms, "tok_s": tok_s, "predicted": pred,
+            "by_body": by_body, "shapes": shapes, "forwards": forwards,
+            "kv_int8": doc["serving"]["kv_dtype"] == "int8"}
+
+
+def _b1_fp32_row(torch, timer, gen, results, key: str, shapes, M: int) -> None:
+    """B1 on an fp32 payload (a block_sparse leaf: the CUDA-core FMA body) at
+    (K, N, q) ``shapes`` and M rows of bf16 x, summed: each held to its plain
+    version (1e-2 of the max) and launched twice for the same bits; timed
+    beside its plain version and torch.matmul of the fp32 x on the dense
+    fp32 weight (TF32 off: the CUDA cores, as the kernel).  Bound: bytes
+    over 3.35 TB/s vs fp32 operations over 67 TFLOP/s."""
+    from repro_torch.core.sparse_format import block_sparse_to_dense
+    from repro_torch.core.weight_plan import PlanConfig, pack_block_sparse
+    from repro_torch.kernels import block_sparse as BS
+
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0, flops=0.0)
+    err = rel = 0.0
+    for K, N, q in shapes:
+        w = torch.randn((K, N), generator=gen, device="cuda") / K ** 0.5
+        p = pack_block_sparse(w, PlanConfig(q_prune=q), quant=False)
+        args = (p.blocks, p.block_rows, p.counts, None)
+        x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+        n0 = BS.block_sparse_matmul.fma_launches
+        y = BS.block_sparse_matmul(x, *args)
+        if BS.block_sparse_matmul.fma_launches != n0 + 1:
+            raise AssertionError(f"B1 {K}x{N} fp32 payload did not run the FMA body")
+        d, r = _held(torch, f"B1 fp32 payload {K}x{N} q {q} M={M}", y,
+                     BS.block_sparse_matmul(x, *args, use_kernel=False), KERNEL_RTOL)
+        err, rel = max(err, d), max(rel, r)
+        _deterministic(torch, f"B1 fp32 payload {K}x{N} M={M}", y,
+                       BS.block_sparse_matmul(x, *args))
+        surv = int(p.counts.sum())
+        tot["bytes"] += (M * K * 2 + surv * 128 * 128 * 4 + surv * 4 + p.counts.numel() * 4
+                         + M * N * 2)
+        tot["flops"] += 2.0 * M * surv * 128 * 128
+        wd, xf = block_sparse_to_dense(p.to_block_sparse()), x.float()
+        tot["ms"] += timer(lambda: BS.block_sparse_matmul(x, *args))
+        tot["plain_ms"] += timer(lambda: BS.block_sparse_matmul(x, *args, use_kernel=False))
+        tot["library_ms"] += timer(lambda: torch.matmul(xf, wd))
+    b_ms, b_by = bound(tot["bytes"], tot["flops"], FP32_FLOPS)
+    label = " + ".join(f"{K}x{N} q {q}" for K, N, q in shapes)
+    log(f"B1 {key} ({label}) M={M}: kernel {tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, "
+        f"torch.matmul(fp32) {tot['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    _add_row(results, "block_sparse_matmul", {
+        "key": key, "shape": f"sum of {label} at M={M}, fp32 payload", "ms": tot["ms"],
+        "plain_ms": tot["plain_ms"], "library_ms": tot["library_ms"], "bound_ms": b_ms,
+        "bound_by": b_by}, err, rel)
+
+
+def _tuned_rows(torch, timer, gen, results, cfg, name: str, run: dict) -> None:
+    """The kernels of a timed TunedPlan at its batch and its shapes (B1 on
+    int8 payloads, B2, B5, B3 over its pages), each held to its plain
+    version and timed; each row's launches are the timed run's, which must
+    equal its leaves' launches a forward times the run's forwards."""
+    sh, M, bb, fw = run["shapes"], run["batch"], run["by_body"], run["forwards"]
+
+    def launched(kernel: str, key: str, want: int) -> None:
+        if bb[kernel] != want:
+            raise AssertionError(f"autotune {name}: {kernel} launched {bb[kernel]} times, its "
+                                 f"leaves imply {want}")
+        _row(results, kernel.split()[0], key)["launches"] = bb[kernel]
+
+    if sh["b1 int8"]:
+        _b1_row(torch, timer, gen, results, f"tuned {name}",
+                [(K, N, q) for K, N, q, _ in sh["b1 int8"]], M=M)
+        launched("block_sparse_matmul wgmma", f"tuned {name}",
+                 fw * sum(n for *_, n in sh["b1 int8"]))
+    if len(sh["b2 int8"]) == 1:  # the gate/up pair
+        (K, N, q, n), = sh["b2 int8"]
+        _b2_row(torch, timer, gen, results, f"tuned {name}", K, N, act="silu", Ms=(M,), q=q)
+        launched("fused_gate_up wgmma", f"tuned {name}", fw * n)
+    for leaf, K, N, _ in sh["b5"]:
+        _b5_head_row(torch, timer, gen, results, f"tuned {name} {leaf}", K, N, M=M)
+    if sh["b5"]:
+        want = fw * sum(n for *_, n in sh["b5"])
+        if bb["quant_matmul"] != want:
+            raise AssertionError(f"autotune {name}: B5 launched {bb['quant_matmul']} times, "
+                                 f"its leaves imply {want}")
+        for leaf, _, _, n in sh["b5"]:
+            _row(results, "quant_matmul", f"tuned {name} {leaf}")["launches"] = fw * n
+    if bb["paged_decode_attention"]:
+        _b3_row(torch, timer, gen, results, f"tuned {name}", cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                1, int8=run["kv_int8"], B=M)
+        _row(results, "paged_decode_attention", f"tuned {name}")["launches"] = \
+            bb["paged_decode_attention"]
+
+
+def phase_autotune(torch, results: dict, card: str) -> None:
+    """The offline autotuner at full width (see the module doc): (a) the CLI
+    tunes tinyllama-1.1b and packs the winner into a plan cache, (b) the
+    winner served against its plain versions, (c) a hand-made artifact that
+    gives every representation a group, (d) the winner and the uniform
+    candidate timed at their tuned batches, (e) a boot from the cache."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="autotune_")
+    try:
+        _autotune_steps(torch, results, card, tmp)
+    finally:  # the plan cache holds 2 GB
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"autotune: phase {time.perf_counter() - t_phase:.1f}s")
+
+
+def _autotune_steps(torch, results: dict, card: str, tmp: str) -> None:
+    """phase_autotune's steps (a)-(e), its files under ``tmp``."""
+    from repro_torch.core import autotune as AT
+    from repro_torch.core.perf_model import HARDWARE_LABEL
+    from repro_torch.launch import autotune as tune_cli
+
+    out, cache = os.path.join(tmp, "tuned.json"), os.path.join(tmp, "plan")
+    # (a) tune
+    tee = _Tee(sys.stdout)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        rc = tune_cli.main([*TUNE_FLAGS, "--out", out, "--plan-cache", cache])
+    torch.cuda.synchronize()
+    if rc != 0:
+        raise AssertionError(f"autotune: the CLI returned {rc}")
+    doc = AT.load_tuned(out)
+    text = "".join(tee.text)
+    search_s = float(re.search(r"in ([0-9.]+)s; ", text).group(1))
+    log(f"autotune: CLI {time.perf_counter() - t0:.1f}s (search {search_s:.1f}s, with the "
+        f"calibration oracle on {card}; the rest packs and saves the plan cache)")
+    for e in doc["accuracy"]["evals"]:
+        log(f"autotune: oracle q {e['q']:.2f}: achieved q {e['achieved_q']:.2f}, base acc "
+            f"{e['base_acc']:.4f}, acc {e['acc']:.4f}, drop {e['drop']:.4f}, ok {e['ok']}")
+    s, p = doc["serving"], doc["predicted"]
+    log(f"autotune: winner {doc['assignments']}; block {doc['plan']['bk']}, kv "
+        f"{s['kv_dtype']}, page {s['page_size']} ({s['num_pages']} pages), batch "
+        f"{s['max_batch']}; predicted {p['tokens_per_s']:.1f} tok/s vs uniform "
+        f"{p['uniform_tokens_per_s']:.1f} ({p['speedup']:.4f}x; {HARDWARE_LABEL})")
+    # (b) the winner through build_engine --autotune-plan, against plain
+    cfg, engine, plan, win_out, _ = _tuned_serve(torch, out, "autotune winner", card)
+    want = AT.predict_plan_stats(AT.model_leaves(cfg), _doc_candidate(doc), AT.SearchSpace())
+    got = (plan.n_weights, plan.surviving_weights, plan.weight_bytes,
+           plan.b_weight_effective, plan.q_overhead_effective)
+    if got != (want.n_weights, want.surviving, want.weight_bytes, want.b_weight_effective,
+               want.q_overhead_effective):
+        raise AssertionError(f"autotune: predicted stats {want} != compress() {got}")
+    log(f"autotune: predict_plan_stats equals compress() at full width: {want.n_weights:,} "
+        f"weights, {want.surviving:,} streamed, {want.weight_bytes:,.0f} bytes a step")
+    fp32_shapes = [(K, N, q) for K, N, q, _ in _plan_kernel_shapes(plan)["b1 fp32"]]
+    del engine, plan
+    torch.cuda.empty_cache()
+    # (c) every representation at least once: B1 on both bodies, B2, B5, B3
+    # over int8 pages
+    uni = AT.uniform_candidate(cfg, AT.SearchSpace())
+    kinds = {"w_gate": ("quant_sparse", 0.5), "w_up": ("quant_sparse", 0.5),
+             "wq": ("block_sparse", 0.5), "wo": ("quant_sparse", 0.5), "w_down": ("dense", 0.0)}
+    cand = dataclasses.replace(uni, kv_dtype="int8", page_size=16, assign=tuple(
+        (g,) + kinds.get(g, ("quant", 0.0)) for g, _, _ in uni.assign))
+    all_path = AT.save_tuned(os.path.join(tmp, "all_kinds.json"),
+                             _hand_doc(cfg, cand, "all-kinds"))
+    _, engine, plan, _, by_body = _tuned_serve(torch, all_path, "autotune all-kinds", card)
+    if not all(by_body[k] for k in ("block_sparse_matmul wgmma", "block_sparse_matmul fma",
+                                    "fused_gate_up wgmma", "quant_matmul",
+                                    "paged_decode_attention")):
+        raise AssertionError(f"autotune all-kinds: a kernel did not launch: {by_body}")
+    if not fp32_shapes:  # the winner packs no fp32 payload: time the all-kinds wq
+        fp32_shapes = [(cfg.d_model, cfg.d_model, 0.5)]
+    del engine, plan
+    torch.cuda.empty_cache()
+    # (d) the winner and the uniform candidate at their tuned batches
+    uni_path = AT.save_tuned(os.path.join(tmp, "uniform.json"), _hand_doc(cfg, uni, "uniform"))
+    runs = {name: _tuned_ticks(torch, path, f"autotune {name} timed", card)
+            for name, path in (("winner", out), ("uniform", uni_path))}
+    w, u = runs["winner"], runs["uniform"]
+    log(f"autotune: measured speedup {w['tok_s'] / u['tok_s']:.4f}x vs predicted "
+        f"{w['predicted'] / u['predicted']:.4f}x (winner {w['tok_s']:.1f} / uniform "
+        f"{u['tok_s']:.1f} tok/s at batches {w['batch']} / {u['batch']}) on {card}")
+    timer = Timer(torch)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(26)
+    M = w["batch"] if w["by_body"]["block_sparse_matmul fma"] else 8
+    _b1_fp32_row(torch, timer, gen, results, "fp32 payload", fp32_shapes, M)
+    n_fma = w["by_body"]["block_sparse_matmul fma"] or by_body["block_sparse_matmul fma"]
+    _row(results, "block_sparse_matmul", "fp32 payload")["launches"] = n_fma
+    for name, run in runs.items():
+        _tuned_rows(torch, timer, gen, results, cfg, name, run)
+    # (e) the CLI's plan cache: a hit, and (b)'s streams
+    serve, ap, args = _tuned_args(out, "--requests", "8", "--max-new", "16", "--prompt-len",
+                                  "40", "--share-prefix", "--plan-cache", cache)
+    text, cfg, engine, plan, boot = _boot(torch, serve, ap, args)
+    if f"plan cache hit: {cache}" not in text:
+        raise AssertionError("autotune: serving did not boot from the CLI's plan cache")
+    c_out, launches, _ = _serve_and_check(serve, engine, cfg, args.max_new, "autotune cache")
+    _check_implied("autotune cache", plan, engine.paged, launches)
+    log(f"autotune: booted from the CLI's plan cache in {boot:.1f}s ({_dir_bytes(cache) / 1e9:.3f}"
+        f" GB); greedy tokens {token_digest(c_out)} vs the winner's {token_digest(win_out)}")
+    if c_out != win_out:
+        raise AssertionError("autotune: the plan cache's streams differ from the winner's")
+    del engine, plan
     torch.cuda.empty_cache()
 
 
@@ -4381,6 +4846,7 @@ def main(argv=None) -> int:
     phase_encdec_vlm(torch, results, card)
     phase_recurrent(torch, results, card)
     phase_mixed(torch, results, card)
+    phase_autotune(torch, results, card)
     phase_train(torch, card)
     _check_family_rows(results)
     if args.profile:

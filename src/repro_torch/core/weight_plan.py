@@ -357,10 +357,12 @@ class WeightPlan:
         return n
 
     def summary(self, *, kv_bytes_per_token: float = 0.0, context_len: int = 0,
-                batch: Optional[int] = None) -> str:
+                batch: Optional[int] = None, per_leaf: bool = False) -> str:
         """One traffic budget in the sizer's bytes/token units: the weight
         stream charged once per step and amortized over the batch, the KV
-        stream per live token."""
+        stream per live token.  Each kind's aggregate carries its q_prune
+        range; ``per_leaf=True`` appends one line per leaf with its kind,
+        q_prune, bytes and shape (what an autotuned plan assigned)."""
         from repro_torch.core.batching import UNBOUNDED_NOPT
 
         by_kind: dict = {}
@@ -385,7 +387,7 @@ class WeightPlan:
         n_label = "inf" if (batch is None and n >= UNBOUNDED_NOPT) else str(n)
         w_tok = self.weight_bytes / max(1, n)
         kv_tok = kv_bytes_per_token * context_len
-        return (
+        s = (
             f"plan[{', '.join(parts)}] "
             f"q_prune={self.q_prune_effective:.3f} "
             f"b_weight={self.b_weight_effective:.2f} "
@@ -395,6 +397,11 @@ class WeightPlan:
             f"bytes/tok@n={n_label}: weights={w_tok:.0f} kv={kv_tok:.0f} "
             f"total={w_tok + kv_tok:.0f}"
         )
+        if per_leaf:
+            s += "\n" + "\n".join(
+                f"  {p}: {l.kind} q={l.q_prune:.2f} {l.bytes/1e3:.1f} kB ({l.shape})"
+                for p, l in sorted(self.leaves.items()))
+        return s
 
 
 PLAN_NODES = (PackedLinear, QuantLinear)

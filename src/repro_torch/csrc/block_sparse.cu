@@ -40,10 +40,12 @@ bsmm_kernel(const __grid_constant__ CUtensorMap xmap, const wcol::ColList w,
 
 // x (M, K) f32|bf16, 16-byte aligned; blocks (N/128 * mb, 128, 128)
 // int8|f32; block_rows (N/128, mb) int32; counts (N/128,) int32; scales (N,)
-// f32 or null; y (M, N) in x's dtype; bm (128 or 64) and split (1..8, 1
-// when bm is 128) the host's regime for the bf16-x/int8 pair, unused by
-// the fp32 pairs.  n_experts > 1: a stack of that many weights, every
-// operand with that lead dim (x (E, M, K), y (E, M, N)), one launch.
+// f32 or null; y (M, N) in x's dtype.  bm 0 selects the CUDA-core FMA
+// body (fp32 x or an f32 payload); bm 128 (split 1) or 64 (split 1..8) the
+// wgmma body, which takes bf16 x against an int8 payload.  The host picks
+// the body (kernels/block_sparse.body_plan).  n_experts > 1: a stack of
+// that many weights, every operand with that lead dim (x (E, M, K), y (E,
+// M, N)), one launch.
 // Returns a cudaError_t code (0 = launched).
 extern "C" int bsmm_launch(const void* x, const void* blocks, const int* block_rows,
                            const int* counts, const float* scales, void* y, int M, int K, int N,
@@ -51,8 +53,9 @@ extern "C" int bsmm_launch(const void* x, const void* blocks, const int* block_r
                            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (M <= 0 || n_experts <= 0) return 0;
-  if (w_dtype == DT_I8 && x_dtype == DT_BF16) {
-    if (!wcol::valid_regime(bm, split)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bm != 0) {
+    if (w_dtype != DT_I8 || x_dtype != DT_BF16 || !wcol::valid_regime(bm, split))
+      return static_cast<int>(cudaErrorInvalidValue);
     CUtensorMap xmap;
     if (!wcol::encode_x_map(&xmap, x, n_experts * M, K, bm))
       return static_cast<int>(cudaErrorInvalidValue);

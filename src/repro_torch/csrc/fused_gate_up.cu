@@ -96,8 +96,8 @@ static int launch_fma(const void* x, const void* gb, const int* gr, const int* g
 // Gate and up share dtype, dense shape (K, N) and the 128x128 block
 // geometry; each has its own (N/128 * mb, 128, 128) payload, (N/128, mb)
 // rows and (N/128,) counts.  Scales are both given or both null.  x is
-// 16-byte aligned; bm, split and n_experts (a stack of pairs, every operand
-// with that lead dim) as for bsmm_launch.
+// 16-byte aligned; bm (0 for the CUDA-core FMA body), split and n_experts
+// (a stack of pairs, every operand with that lead dim) as for bsmm_launch.
 extern "C" int fused_gate_up_launch(const void* x,
                                     const void* g_blocks, const int* g_rows, const int* g_counts,
                                     const float* g_scales,
@@ -108,8 +108,9 @@ extern "C" int fused_gate_up_launch(const void* x,
                                     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (M <= 0 || n_experts <= 0) return 0;
-  if (w_dtype == DT_I8 && x_dtype == DT_BF16) {
-    if (!wcol::valid_regime(bm, split)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bm != 0) {
+    if (w_dtype != DT_I8 || x_dtype != DT_BF16 || !wcol::valid_regime(bm, split))
+      return static_cast<int>(cudaErrorInvalidValue);
     CUtensorMap xmap;
     if (!wcol::encode_x_map(&xmap, x, n_experts * M, K, bm))
       return static_cast<int>(cudaErrorInvalidValue);

@@ -40,7 +40,9 @@ CTA offsets its expert's blocks, rows, counts, scales, x rows and y rows
 by ``blockIdx.z``; x's TMA map spans all E * M rows, and a tile's rows past
 its expert's M are read but never stored.  ``launch_plan`` counts the
 E * n_cols CTAs.  A stacked launch adds one to ``launches`` and to
-``stacked_launches``, and E to ``stacked_experts``.
+``stacked_launches``, and E to ``stacked_experts``; a launch on the fp32
+CUDA-core body (fp32 x, or the fp32 payload of a ``block_sparse`` leaf)
+adds one to ``fma_launches``, so ``launches - fma_launches`` ran ``wgmma``.
 """
 
 from __future__ import annotations
@@ -157,20 +159,35 @@ def regime(x, block_rows) -> tuple:
     return launch_plan(x.shape[-2], *block_rows.shape[-2:], sm_count(x.device), n_experts(x))
 
 
-def _launch(source: str, entry: str, x, blocks, block_rows, counts, scales) -> torch.Tensor:
-    """Allocate y and launch C entry ``entry`` of library ``source`` in the
-    regime ``regime`` picks; the operands have passed ``check_operands``."""
+def body_plan(x, blocks, block_rows) -> tuple:
+    """(bm, split) a B1, B2 or B4 launch hands its C entry, which picks the
+    body from it: ``regime``'s for bf16 x against an int8 payload (the
+    ``wgmma`` body), (0, 1) for any other pair (fp32 x, or the fp32 payload
+    of a ``block_sparse`` leaf: the CUDA-core body of
+    ``csrc/fma_column.cuh``)."""
+    if x.dtype == torch.bfloat16 and blocks.dtype == torch.int8:
+        return regime(x, block_rows)
+    return 0, 1
+
+
+def _launch(fn, source: str, entry: str, x, blocks, block_rows, counts,
+            scales) -> torch.Tensor:
+    """Allocate y, launch C entry ``entry`` of library ``source`` on the
+    body ``body_plan`` picks and count it on ``fn``; the operands have
+    passed ``check_operands``."""
     M, K = x.shape[-2:]
     n_cols, mb = block_rows.shape[-2:]
     N = n_cols * BLOCK
     y = torch.empty(x.shape[:-1] + (N,), dtype=x.dtype, device=x.device)
+    bm, split = body_plan(x, blocks, block_rows)
     lib = build.load(source)
     code = getattr(lib, entry)(
         build.ptr(x), build.ptr(blocks), build.ptr(block_rows), build.ptr(counts),
         build.ptr(scales), build.ptr(y), M, K, N, mb, n_experts(x),
-        build.DTYPE_CODES[x.dtype], build.DTYPE_CODES[blocks.dtype], *regime(x, block_rows),
+        build.DTYPE_CODES[x.dtype], build.DTYPE_CODES[blocks.dtype], bm, split,
         build.stream_ptr(x.device))
     build.check(lib, code, entry)
+    count_launch(fn, x, bm)
     return y
 
 
@@ -179,17 +196,20 @@ def n_experts(x) -> int:
     return x.shape[0] if x.dim() == 3 else 1
 
 
-def count_launch(fn, x) -> None:
-    """One launch of ``fn`` on x; a stacked one also adds to
-    ``stacked_launches`` and its E to ``stacked_experts``."""
+def count_launch(fn, x, bm: int) -> None:
+    """One launch of ``fn`` on x with the ``bm`` of ``body_plan``; a stacked
+    one also adds to ``stacked_launches`` and its E to ``stacked_experts``,
+    and one on the CUDA-core body (bm 0) to ``fma_launches``."""
     fn.launches += 1
     if x.dim() == 3:
         fn.stacked_launches += 1
         fn.stacked_experts += x.shape[0]
+    if bm == 0:
+        fn.fma_launches += 1
 
 
 def zero_counts(fn) -> None:
-    fn.launches = fn.stacked_launches = fn.stacked_experts = 0
+    fn.launches = fn.stacked_launches = fn.stacked_experts = fn.fma_launches = 0
 
 
 def block_sparse_matmul(x, blocks, block_rows, counts, scales=None, *,
@@ -206,9 +226,8 @@ def block_sparse_matmul(x, blocks, block_rows, counts, scales=None, *,
         return block_sparse_matmul_plain(x, blocks, block_rows, counts, scales)
     check_operands(x, blocks, block_rows, counts, scales)
     check_x_aligned(x)
-    y = _launch("block_sparse", "bsmm_launch", x, blocks, block_rows, counts, scales)
-    count_launch(block_sparse_matmul, x)
-    return y
+    return _launch(block_sparse_matmul, "block_sparse", "bsmm_launch", x, blocks, block_rows,
+                   counts, scales)
 
 
 zero_counts(block_sparse_matmul)
@@ -229,9 +248,8 @@ def block_sparse_matmul_col(x, blocks, block_rows, counts, scales=None, *,
         return block_sparse_matmul_col_plain(x, blocks, block_rows, counts, scales)
     check_operands(x, blocks, block_rows, counts, scales)
     check_x_aligned(x)
-    y = _launch("block_sparse_col", "bsmm_col_launch", x, blocks, block_rows, counts, scales)
-    count_launch(block_sparse_matmul_col, x)
-    return y
+    return _launch(block_sparse_matmul_col, "block_sparse_col", "bsmm_col_launch", x, blocks,
+                   block_rows, counts, scales)
 
 
 zero_counts(block_sparse_matmul_col)

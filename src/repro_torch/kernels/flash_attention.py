@@ -278,8 +278,8 @@ def _check_flash_features(q_offset, softcap):
     softcap, as the Pallas kernel has neither."""
     if q_offset:
         raise ValueError(f"flash attention kernel B6 takes no q_offset (got {q_offset}): a "
-                         "prefill continued from cached positions is ROADMAP A7 (chunked "
-                         "prefill)")
+                         "prefill continued from cached positions (a chunk of chunked "
+                         "prefill) reads them through paged decode attention, kernel B3")
     if softcap:
         raise ValueError(f"flash attention kernel B6 takes no logit softcap (got {softcap}): "
                          "softcapped attention is ROADMAP A8c")

@@ -85,8 +85,8 @@ def fused_gate_up(x, gate, up, gate_scales=None, up_scales=None, *,
     n_cols = gate[1].shape[-2]
     N = n_cols * 128
     E = _bs.n_experts(x)
-    bm, split = _bs.launch_plan(M, n_cols, max(gate[1].shape[-1], up[1].shape[-1]),
-                                _bs.sm_count(x.device), E)
+    rows = gate[1] if gate[1].shape[-1] >= up[1].shape[-1] else up[1]
+    bm, split = _bs.body_plan(x, gate[0], rows)
     y = torch.empty(x.shape[:-1] + (N,), dtype=x.dtype, device=x.device)
     lib = build.load("fused_gate_up")
     code = lib.fused_gate_up_launch(
@@ -97,7 +97,7 @@ def fused_gate_up(x, gate, up, gate_scales=None, up_scales=None, *,
         build.DTYPE_CODES[x.dtype], build.DTYPE_CODES[gate[0].dtype], bm, split, E,
         build.stream_ptr(x.device))
     build.check(lib, code, "fused_gate_up")
-    _bs.count_launch(fused_gate_up, x)
+    _bs.count_launch(fused_gate_up, x, bm)
     return y
 
 

@@ -5,9 +5,14 @@
         --kv-dtype int8 --page-size 16 --share-prefix --plan-cache /tmp/plan
 
 Runs on the CUDA device (``--device cpu`` runs the plain versions on the
-CPU).  Takes the reference's flags; those the port does not serve yet
-(``--autotune-plan``, ``--mesh``) exit with an error naming their ROADMAP
-item.  ``--plan-cache DIR`` stores the packed tree
+CPU).  Takes the reference's flags; the one the port does not serve yet
+(``--mesh``) exits with an error naming its ROADMAP item.
+``--autotune-plan PATH`` serves a TunedPlan artifact (``core/autotune``,
+written by ``python -m repro_torch.launch.autotune`` or the reference's
+tool): its plan replaces ``--compress`` (refused beside it), its serving
+knobs (KV dtype, page size, pool, max batch, max length) override the
+flags, and the plan summary lists every leaf's kind.  ``--plan-cache DIR``
+stores the packed tree
 (``weight_plan.save_plan``) so that later boots skip packing; it also reads
 a directory the reference's CLI wrote.  ``--draft-config ARCH --spec-k K``
 serves speculative decode (a dense draft from ``--seed`` + 1 proposes K
@@ -49,6 +54,7 @@ import numpy as np
 import torch
 
 import repro_torch.configs as C
+from repro_torch.core import autotune as AT
 from repro_torch.core.batching import UNBOUNDED_NOPT, BatchSizer, mean_decode_context
 from repro_torch.core.perf_model import HARDWARE_LABEL, paged_pool_pages
 from repro_torch.core.weight_plan import PlanConfig, compress, load_plan, map_tree, save_plan
@@ -73,7 +79,6 @@ from repro_torch.serving.mixed import MixedServingEngine, WorkloadSpec
 
 # flag -> (is it set?, the ROADMAP item that ports it)
 _UNSERVED_FLAGS = {
-    "--autotune-plan": (lambda a: a.autotune_plan is not None, "A12 (autotuner)"),
     "--mesh": (lambda a: a.mesh != "none", "A13 (sharding)"),
 }
 
@@ -204,6 +209,41 @@ def _refuse_unserved(args, ap) -> None:
             ap.error(f"{flag} is not served by the port yet: ROADMAP {item}")
 
 
+# EngineConfig flat name -> the serve flag it overrides, and the flag's
+# value where a TunedPlan leaves the knob out (AT.engine_kwargs)
+_TUNED_FLAGS = {"kv_dtype": ("kv_dtype", "fp"), "page_size": ("page_size", 0),
+                "num_pages": ("pool_pages", 0), "max_batch": ("max_batch", None),
+                "max_len": ("max_len", None)}
+
+
+def load_autotune_plan(args, ap, cfg) -> tuple:
+    """The ``--autotune-plan`` artifact and its ``AT.engine_kwargs``, the one
+    mapping of its serving knobs: they overwrite the flags in ``args`` and
+    the sizer's expected context comes from them.  Flags they do not cover
+    stay as given: speculative decode needs ``--draft-config``, so the
+    artifact's spec_k is dropped, as ``AT.engine_config`` drops it without a
+    draft.  Refused beside ``--compress`` and for another arch, as the
+    reference's CLI refuses them."""
+    if args.compress != "none":
+        ap.error("--autotune-plan carries its own plan; drop --compress")
+    tuned = AT.load_tuned(args.autotune_plan)
+    if tuned["arch"] != cfg.name:
+        ap.error(f"--autotune-plan was searched for {tuned['arch']!r}, "
+                 f"this run serves {cfg.name!r}")
+    kw = AT.engine_kwargs(tuned)
+    for name, (flag, unset) in _TUNED_FLAGS.items():
+        setattr(args, flag, kw.get(name, unset))
+    pr = tuned.get("predicted", {})
+    print(f"[serve] autotune plan {args.autotune_plan}: "
+          f"strategy={tuned['strategy']} trials={tuned['trials']} "
+          f"seed={tuned['seed']}; predicted "
+          f"{pr.get('tokens_per_s') or 0:.0f} tok/s "
+          f"({pr.get('speedup') or 1:.2f}x uniform), accuracy budget "
+          f"{tuned['accuracy']['budget']:.1%} at max "
+          f"q={tuned['accuracy']['max_q']:.2f}")
+    return tuned, kw
+
+
 def build_engine(args, ap=None):
     """Model, plan and engine for parsed ``args``; prints the sizing lines.
     Returns (cfg, engine, plan)."""
@@ -213,6 +253,7 @@ def build_engine(args, ap=None):
         ap.error("one of --arch / --workload-mix is required")
     device = resolve_device(args.device)
     cfg = C.get_config(args.arch, smoke=args.smoke)
+    tuned, tuned_kw = load_autotune_plan(args, ap, cfg) if args.autotune_plan else (None, {})
     api = get_api(cfg)
     n_params = api.n_params_exact(cfg)
     kv_dtype = "int8" if args.kv_dtype == "int8" and supports_int8_kv(cfg) else None
@@ -220,6 +261,7 @@ def build_engine(args, ap=None):
     # a VLM's sequence starts with its patches: they take positions and pages
     prefix = api.prefix_len(cfg)
     ctx = mean_decode_context(args.prompt_len + prefix, args.max_new) if paged else args.max_len
+    ctx = tuned_kw.get("expected_context", ctx)
     kv_tok = kv_bytes_per_token(cfg, kv_dtype, context_len=ctx)
     sizer = BatchSizer(n_params=n_params, kv_bytes_per_token=kv_tok, context_len=ctx,
                        spec_k=max(0, args.spec_k))
@@ -246,7 +288,10 @@ def build_engine(args, ap=None):
               f"verified in one (B, {spec_k + 1}) target step")
     params = api.init_params(cfg, args.seed, device=device)
     plan = None
-    if args.compress != "none":
+    if tuned is not None:
+        plan = _build_plan(params, AT.plan_config(tuned), args.plan_cache)
+        params = plan.params
+    elif args.compress != "none":
         plan = _build_plan(params, PlanConfig(default=args.compress, q_prune=args.q_prune,
                                               bk=args.block, bn=args.block), args.plan_cache)
         params = plan.params
@@ -274,7 +319,11 @@ def build_engine(args, ap=None):
               f"{engine.max_batch * args.max_len} tok), prefix sharing "
               f"{'on' if engine.registry is not None else 'off'}")
     if plan is not None:
-        print(f"[serve] {plan.summary(kv_bytes_per_token=kv_tok, context_len=args.max_len, batch=engine.max_batch)}")
+        # a tuned plan lists every leaf's kind and q_prune (what the search
+        # picked, also when the plan came from a cache)
+        summary = plan.summary(kv_bytes_per_token=kv_tok, context_len=args.max_len,
+                               batch=engine.max_batch, per_leaf=tuned is not None)
+        print(f"[serve] {summary}")
         n_corr = plan.sizer(n_params=n_params, kv_bytes_per_token=kv_tok,
                             context_len=args.max_len).n_opt
         print(f"[serve] plan-corrected n_opt={_fmt_nopt(n_corr)} ({HARDWARE_LABEL})")

@@ -22,6 +22,8 @@ from repro_torch.models import vlm as V
 @dataclasses.dataclass(frozen=True)
 class ModelAPI:
     init_params: Callable
+    # (cfg) -> init_params' tree with (shape, init) leaves, nothing allocated
+    param_shapes: Callable
     loss_fn: Callable  # (cfg, params, batch) -> (loss, metrics)
     # (cfg, params, batch, cache, use_kernel=True) -> (logits, cache); False
     # runs the flash attention's plain version on the card
@@ -56,18 +58,21 @@ def _e_prefill(cfg, params, batch, cache, *, use_kernel: bool = True):
 
 
 _TRANSFORMER_API = ModelAPI(
-    init_params=T.init_params, loss_fn=T.loss_fn, prefill=_t_prefill, decode_step=T.decode_step,
+    init_params=T.init_params, param_shapes=T.param_shapes,
+    loss_fn=T.loss_fn, prefill=_t_prefill, decode_step=T.decode_step,
     init_cache=T.init_cache, n_params_exact=T.n_params_exact, unstack=T.unstack,
 )
 
 _VLM_API = ModelAPI(
-    init_params=V.init_params, loss_fn=_untrained, prefill=_v_prefill, decode_step=V.decode_step,
+    init_params=V.init_params, param_shapes=V.param_shapes,
+    loss_fn=_untrained, prefill=_v_prefill, decode_step=V.decode_step,
     init_cache=V.init_cache, n_params_exact=V.n_params_exact, unstack=V.unstack,
     extra_keys=("patches",), prefix_len=staticmethod(lambda cfg: cfg.n_patches),
 )
 
 _ENCDEC_API = ModelAPI(
-    init_params=E.init_params, loss_fn=_untrained, prefill=_e_prefill, decode_step=E.decode_step,
+    init_params=E.init_params, param_shapes=E.param_shapes,
+    loss_fn=_untrained, prefill=_e_prefill, decode_step=E.decode_step,
     init_cache=E.init_cache, n_params_exact=E.n_params_exact, unstack=E.unstack,
     extra_keys=("frames",),
 )

@@ -428,6 +428,25 @@ class ServingEngine:
                 self.draft_cfg, max_batch, max_len, self.draft_dtype, device=self.device,
                 spec_k=self.spec_k)
 
+    @classmethod
+    def from_tuned(cls, cfg, params, tuned: dict, *, plan=None, device=None, **overrides):
+        """An engine at a TunedPlan artifact's serving point
+        (``core/autotune``): its knobs (kv_dtype, page geometry, max_batch,
+        expected context, spec_k) become the EngineConfig, ``overrides``
+        (flat names) win over them.  ``plan`` is the WeightPlan the
+        artifact's PlanConfig materializes (``autotune.plan_config`` +
+        ``compress``, or a ``load_plan`` cache); pass it so that the sizer
+        charges the tuned weight stream.  spec_k is kept only when a draft
+        is passed (``draft_cfg``/``draft_params``): the artifact carries
+        none."""
+        from repro_torch.core import autotune as AT
+
+        if tuned.get("arch") != cfg.name:
+            raise ValueError(f"TunedPlan was searched for arch {tuned.get('arch')!r}, "
+                             f"engine config is {cfg.name!r}")
+        return cls(cfg, params, plan=plan, device=device,
+                   config=AT.engine_config(tuned, **overrides))
+
     # -- host-side plumbing -------------------------------------------------
 
     def submit(self, req: Request):

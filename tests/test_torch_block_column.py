@@ -175,3 +175,39 @@ def test_b4_refuses_misaligned_x_before_any_launch(no_launch):
     with pytest.raises(RuntimeError, match="launch reached"):
         BS.block_sparse_matmul_col(_x(True), *args)
     assert no_launch == ["block_sparse_col"]
+
+
+# the host picks B1's, B2's and B4's body (``body_plan``) and counts what it
+# handed the C entry: bf16 x against an int8 payload runs wgmma in
+# launch_plan's regime, any other pair runs the CUDA-core body (bm 0)
+
+
+@pytest.mark.parametrize("x_dtype,quant", [(torch.bfloat16, True), (torch.float32, True),
+                                           (torch.bfloat16, False), (torch.float32, False)])
+@pytest.mark.parametrize("M", [8, 2032])
+def test_wrappers_launch_and_count_the_body_they_pick(x_dtype, quant, M, monkeypatch):
+    libs = {}
+    monkeypatch.setattr(build, "load", lambda name: libs.setdefault(name, _Lib()))
+    monkeypatch.setattr(build, "stream_ptr", lambda device: 0)
+    monkeypatch.setattr(BS, "sm_count", lambda device: H100_SMS)
+    gen = torch.Generator().manual_seed(1)
+    packs = [pack_block_sparse(torch.randn((256, 256), generator=gen),
+                               PlanConfig(q_prune=0.5), quant=quant) for _ in range(2)]
+    (b, r, c, s), (ub, ur, uc, us) = [(p.blocks, p.block_rows, p.counts, p.scales)
+                                       for p in packs]
+    base = torch.zeros(M * 256 + 8, dtype=x_dtype)
+    x = base[8:].view(M, 256).as_subclass(_OnCard)
+    wgmma = x_dtype == torch.bfloat16 and quant
+    want = BS.launch_plan(M, *r.shape, H100_SMS) if wgmma else (0, 1)
+    fns = (BS.block_sparse_matmul, BS.block_sparse_matmul_col, FG.fused_gate_up)
+    before = [(f.launches, f.fma_launches) for f in fns]
+    BS.block_sparse_matmul(x, b, r, c, s)
+    BS.block_sparse_matmul_col(x, b, r, c, s)
+    FG.fused_gate_up(x, (b, r, c), (ub, ur, uc), s, us)
+    (_, a1), = libs["block_sparse"].calls
+    (_, a4), = libs["block_sparse_col"].calls
+    (_, a2), = libs["fused_gate_up"].calls
+    # B1/B4: ..., bm, split, stream; B2: ..., bm, split, n_experts, stream
+    assert a1[-3:-1] == a4[-3:-1] == a2[-4:-2] == want
+    for f, (n, n_fma) in zip(fns, before):
+        assert (f.launches, f.fma_launches) == (n + 1, n_fma + (not wgmma))

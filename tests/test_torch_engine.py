@@ -136,8 +136,8 @@ def test_serve_cli_on_cpu(capsys):
     assert eng.pages_in_use == 0
 
 
-@pytest.mark.parametrize("flag", [["--autotune-plan", "x"], ["--mesh", "host"],
-                                  ["--workload-mix", "tinyllama-1.1b:1"]])
+@pytest.mark.parametrize("flag", [["--autotune-plan", "x", "--compress", "quant"],
+                                  ["--mesh", "host"], ["--workload-mix", "tinyllama-1.1b:1"]])
 def test_serve_rejects_unserved_flags(flag, capsys):
     from repro_torch.launch import serve
 
@@ -148,6 +148,9 @@ def test_serve_rejects_unserved_flags(flag, capsys):
     if flag[0] == "--workload-mix":
         # served now, but closed-loop over its own families: --arch is refused
         assert "--workload-mix is closed-loop heterogeneous serving; drop --arch" in err
+    elif flag[0] == "--autotune-plan":
+        # served now, and it carries its own plan: --compress is refused
+        assert "--autotune-plan carries its own plan; drop --compress" in err
     else:
         assert "ROADMAP" in err
 

@@ -205,7 +205,7 @@ def test_attention_dispatch_matches_reference(S, threshold, flash, window, cap, 
 
 def test_b6_refuses_q_offset_and_softcap():
     q, k, v = _t(*_qkv(1, 64, 64, 4, 2, 64), dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="A7"):
+    with pytest.raises(ValueError, match="kernel B3"):
         ops.flash_attention(q, k, v, q_offset=8)
     with pytest.raises(ValueError, match="A8"):
         ops.flash_attention(q, k, v, softcap=30.0)

@@ -40,7 +40,8 @@ def test_import_leaves_jax_and_repro_out():
         "       'repro_torch.configs.recurrentgemma_2b', 'repro_torch.configs.xlstm_350m',\n"
         "       'repro_torch.data.pipeline', 'repro_torch.training.optimizer',\n"
         "       'repro_torch.training.trainer', 'repro_torch.distributed.compression',\n"
-        "       'repro_torch.launch.train'}\n"
+        "       'repro_torch.launch.train', 'repro_torch.core.autotune',\n"
+        "       'repro_torch.launch.autotune'}\n"
         "assert new <= set(mods), new - set(mods)\n"
         "print('BAD', bad)\n"
         "sys.exit(1 if bad else 0)\n"
