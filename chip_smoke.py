@@ -267,7 +267,22 @@ Phases, in order; any failure raises and the script exits non-zero:
                equal to the B 8 x 128 run's), 3 at B 8 x 512 with and
                without --remat (losses to 1e-4, the peak lower); every loss,
                the median step after step 1, tok/s, max_memory_allocated,
-               0 restarts; a smoke run restarted after a RuntimeError at
+               0 restarts; then the other families: each at full width
+               with the fewest layers that hold its kinds (granite-moe 2,
+               recurrentgemma rec/rec/local, xlstm mLSTM/sLSTM, whisper 1
+               encoder + 1 decoder layer at 1500 frames, internvl 2 after
+               256 patches) in fp32 compute, one B 2 x 64 batch's loss and
+               gradients on the card against the CPU (1e-4 / 1e-3), MoE
+               routing compared token for token (flips logged with their
+               top-k gap); then granite-moe-1b-a400m (B 8 x 128: two
+               dispatch groups of 512, the dropped share logged),
+               recurrentgemma-2b (B 4 x 128), xlstm-350m (B 8 x 128; the
+               sLSTM cells' share of a step), whisper-tiny (B 8 x 128 text
+               tokens over 1500 frames: one flash Function forward and
+               backward an encoder layer and a cross-attention a step) and
+               internvl2-2b (B 4 x 128 after 256 patches) through
+               launch.train.run at full width, 5 steps each, as above;
+               B6 unchanged over the phase; a smoke run restarted after a RuntimeError at
                step 4 equal to the uninterrupted one; mnist-4 and har-4 at
                published widths trained and pruned as Table 4 does (400 base
                steps, 4 stages of 200), base and pruned accuracy, q, the
@@ -4485,18 +4500,18 @@ def _autotune_steps(torch, results: dict, card: str, tmp: str) -> None:
     torch.cuda.empty_cache()
 
 
-def _train_args(*flags):
-    """The train CLI's args for full-width tinyllama-1.1b with ``flags``, at
-    lr 3e-4: the CLI's default 3e-3 (the reference's, sized for the smoke
+def _train_args(*flags, arch: str = "tinyllama-1.1b"):
+    """The train CLI's args for full-width ``arch`` with ``flags``, at lr
+    3e-4: the CLI's default 3e-3 (the reference's, sized for the smoke
     configs) makes the 1.1B model's loss rise, 10.87 to 11.34 over 8 steps
     at B 8 x 128 on the card."""
     from repro_torch.launch import train
 
-    return train.build_parser().parse_args(["--arch", "tinyllama-1.1b", "--log-every", "1",
+    return train.build_parser().parse_args(["--arch", arch, "--log-every", "1",
                                             "--lr", "3e-4", *flags])
 
 
-def _train_run(torch, label: str, card: str, *flags) -> dict:
+def _train_run(torch, label: str, card: str, *flags, arch: str = "tinyllama-1.1b") -> dict:
     """``launch.train.run`` on the card from reset peak-memory stats: logs
     every loss, the median step after step 1 (host clock; each step ends in
     the loss's read), tok/s and the peak memory; fails on a loss that is not
@@ -4507,7 +4522,7 @@ def _train_run(torch, label: str, card: str, *flags) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.launch import train
 
-    args = _train_args(*flags)
+    args = _train_args(*flags, arch=arch)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     held = torch.cuda.memory_allocated()
@@ -4684,6 +4699,215 @@ def _train_resume(torch) -> None:
         raise AssertionError("train resume: the restarted run differs from the uninterrupted one")
 
 
+# the other families' full-width runs: (arch, batch, text tokens a row)
+TRAIN_FAMILIES = (("granite-moe-1b-a400m", 8, 128), ("recurrentgemma-2b", 4, 128),
+                  ("xlstm-350m", 8, 128), ("whisper-tiny", 8, 128), ("internvl2-2b", 4, 128))
+TRAIN_FAMILY_STEPS = 5
+# card-vs-CPU parity: the fewest layers that hold every kind of the arch
+TRAIN_PARITY = (("granite-moe-1b-a400m", dict(n_layers=2)),
+                ("recurrentgemma-2b", dict(n_layers=3, pattern=("rec", "rec", "local"))),
+                ("xlstm-350m", dict(n_layers=2, pattern=("mlstm", "slstm"))),
+                ("whisper-tiny", dict(n_layers=1, enc_layers=1)),
+                ("internvl2-2b", dict(n_layers=2)))
+
+
+@contextlib.contextmanager
+def _routes():
+    """Records every ``moe.route`` call's Routing while in use."""
+    from repro_torch.models import moe as MOE
+
+    calls, real = [], MOE.route
+
+    def spy(cfg, xg, router):
+        r = real(cfg, xg, router)
+        calls.append(dataclasses.replace(r, probs=r.probs.detach(), gates=r.gates.detach()))
+        return r
+
+    MOE.route = spy
+    try:
+        yield calls
+    finally:
+        MOE.route = real
+
+
+def _routing_flips(torch, label: str, cpu: list, gpu: list) -> int:
+    """Compares the card's routing with the CPU's call by call: logs every
+    token whose experts differ, with the CPU's gap between its k-th and
+    (k+1)-th router probability (a near-tie if tiny).  Returns the count."""
+    flips = 0
+    for layer, (rc, rg) in enumerate(zip(cpu, gpu)):
+        differ = (rc.idx != rg.idx.cpu()).any(-1)  # (nG, G)
+        K = rc.idx.shape[-1]
+        for g, t in differ.nonzero().tolist():
+            p = torch.sort(rc.probs[g, t], descending=True).values
+            log(f"train parity {label}: routing flip at call {layer} token {g * rc.idx.shape[1] + t}: "
+                f"cpu {rc.idx[g, t].tolist()} card {rg.idx[g, t].tolist()}, top-{K} gap "
+                f"{float(p[K - 1] - p[K]):.3e}")
+            flips += 1
+    dropped = [int((~r.keep).sum()) for r in gpu]
+    log(f"train parity {label}: {len(gpu)} routing calls, {flips} tokens routed differently; "
+        f"dropped assignments on the card {dropped}")
+    return flips
+
+
+def _family_parity(torch, arch: str, changes: dict) -> None:
+    """``arch`` at full width in fp32 compute with ``changes`` (the fewest
+    layers that hold its kinds): the loss and every gradient leaf of one
+    synthetic batch (B 2 x 64, with the launcher's ``extras``) on the card
+    against the port's CPU run (loss to 1e-4 relative, each leaf to 1e-3 of
+    its max |g|); for a MoE config the routing of both runs compared
+    (``_routing_flips``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.weight_plan import flatten_leaves, unflatten_leaves
+    from repro_torch.data import LMDataConfig, synthetic_lm_batch
+    from repro_torch.launch.train import extras
+    from repro_torch.models.api import get_api
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(arch), compute_dtype="float32", **changes)
+    api = get_api(cfg)
+    cpu = api.init_params(cfg, 0, device="cpu")
+    gpu = unflatten_leaves(cpu, [t.cuda() for t in flatten_leaves(cpu)])
+    batch = synthetic_lm_batch(LMDataConfig(vocab=cfg.vocab, seq_len=64, global_batch=2), 0)
+    batch.update(extras(cfg, api, 2, 0))
+
+    def grads(params, dev):
+        leaves = flatten_leaves(params)
+        for t in leaves:
+            t.requires_grad_(True)
+        with _routes() as routes:
+            loss, _ = api.loss_fn(cfg, params,
+                                  {k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+            g = torch.autograd.grad(loss, leaves)
+        return float(loss.detach()), g, routes
+
+    l_cpu, g_cpu, r_cpu = grads(cpu, "cpu")
+    l_gpu, g_gpu, r_gpu = grads(gpu, "cuda")
+    flips = _routing_flips(torch, arch, r_cpu, r_gpu) if cfg.moe is not None else 0
+    worst = max(float((g.cpu() - w).abs().max() / w.abs().max().clamp_min(1e-30))
+                for g, w in zip(g_gpu, g_cpu))
+    rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+    log(f"train parity {arch} ({changes}, full width, fp32, B 2 x 64, extras "
+        f"{ {k: v.shape for k, v in batch.items() if k not in ('tokens', 'labels')} }): loss card "
+        f"{l_gpu:.6f} cpu {l_cpu:.6f} (rel {rel:.2e}); worst gradient leaf {worst:.2e} of its "
+        f"max |g| over {len(g_cpu)} leaves; {time.perf_counter() - t0:.1f}s")
+    if rel > 1e-4 or worst > 1e-3:
+        raise AssertionError(f"train parity {arch}: the card's step differs from the CPU's "
+                             f"({flips} routing flips)")
+
+
+def _slstm_share(torch, card: str) -> None:
+    """xlstm-350m at full width, B 8 x 128: after two warm-up steps, one
+    train step whose 12 sLSTM cells are timed on the host's clock, each
+    forward between two synchronizes and each backward from the gradient
+    of its output to that of its input (tensor hooks that synchronize);
+    logs their share of that step's wall time."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import LMDataConfig, synthetic_lm_batch
+    from repro_torch.models import transformer as T
+    from repro_torch.training import optimizer as O
+    from repro_torch.training.trainer import make_train_step
+
+    cfg = get_config("xlstm-350m")
+    params = T.init_params(cfg, 0)
+    oc = O.OptimizerConfig(lr=3e-4, warmup_steps=2, decay_steps=100)
+    opt = O.init_opt_state(oc, params)
+    step = make_train_step(cfg, T.loss_fn, oc)
+    dc = LMDataConfig(vocab=cfg.vocab, seq_len=128, global_batch=8)
+    data = lambda s: {k: torch.from_numpy(v).cuda() for k, v in synthetic_lm_batch(dc, s).items()}
+    for s in range(2):
+        params, opt, m = step(params, opt, data(s))
+        float(m["loss"])
+    real, spent, n = T._CELLS["slstm"], {"fwd": 0.0, "bwd": 0.0}, [0]
+
+    def timed(cfg, p, x, state=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y, new = real(cfg, p, x, state)
+        torch.cuda.synchronize()
+        spent["fwd"] += time.perf_counter() - t0
+        n[0] += 1
+        mark = {}
+
+        def start(g):
+            torch.cuda.synchronize()
+            mark["t"] = time.perf_counter()
+
+        def end(g):
+            torch.cuda.synchronize()
+            spent["bwd"] += time.perf_counter() - mark["t"]
+
+        y.register_hook(start)
+        x.register_hook(end)
+        return y, new
+
+    T._CELLS["slstm"] = timed
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, data(2))
+        float(m["loss"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        T._CELLS["slstm"] = real
+    share = (spent["fwd"] + spent["bwd"]) / wall
+    log(f"train xlstm-350m B 8 x 128: {n[0]} sLSTM cells took {spent['fwd'] * 1e3:.3f} ms forward"
+        f" + {spent['bwd'] * 1e3:.3f} ms backward of a {wall * 1e3:.3f} ms step ({share:.3f}; "
+        f"host clock, synchronized around each cell) ({card})")
+    if n[0] != cfg.layer_kinds.count("slstm"):
+        raise AssertionError(f"train xlstm: {n[0]} sLSTM cells timed")
+
+
+def _train_families(torch, card: str) -> list:
+    """Every card-vs-CPU parity of ``TRAIN_PARITY``, then the other
+    families at full width through ``launch.train.run``
+    (``TRAIN_FAMILIES``, lr 3e-4, ``TRAIN_FAMILY_STEPS`` steps each):
+    granite-moe's dropped share of its routed assignments (1024 tokens:
+    two dispatch groups of 512, capacity on), xlstm's sLSTM share
+    (``_slstm_share``), and the ``FlashAttention`` calls: whisper's encoder
+    self-attention and cross-attention over 1500 frames, one forward and
+    one backward a layer a step; none for the others.  Returns each run's
+    summary for the log's table."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+
+    for arch, changes in TRAIN_PARITY:
+        _family_parity(torch, arch, changes)
+    rows = []
+    for arch, batch, seq in TRAIN_FAMILIES:
+        cfg = get_config(arch)
+        L.FlashAttention.forward_calls = L.FlashAttention.backward_calls = 0
+        with _routes() as routes:
+            run = _train_run(torch, f"{arch} B {batch} x {seq}", card, "--steps",
+                             str(TRAIN_FAMILY_STEPS), "--batch", str(batch), "--seq", str(seq),
+                             arch=arch)
+        calls = (L.FlashAttention.forward_calls, L.FlashAttention.backward_calls)
+        want = (TRAIN_FAMILY_STEPS * (cfg.enc_layers + cfg.n_layers),) * 2 \
+            if cfg.family == "audio" else (0, 0)
+        log(f"train {arch}: FlashAttention forward/backward calls {calls} ({want} expected)")
+        if calls != want:
+            raise AssertionError(f"train {arch}: flash Function calls {calls} != {want}")
+        if cfg.moe is not None:
+            per_step = len(routes) // TRAIN_FAMILY_STEPS
+            drop = [int((~r.keep).sum()) for r in routes]
+            total = sum(r.keep.numel() for r in routes)
+            log(f"train {arch}: {len(routes)} routing calls ({per_step} a step), capacity "
+                f"{routes[0].capacity} slots an expert a group of {routes[0].idx.shape[1]} tokens; "
+                f"dropped {sum(drop)} of {total} assignments ({sum(drop) / total:.4f}); per "
+                f"step {[sum(drop[i * per_step:(i + 1) * per_step]) for i in range(TRAIN_FAMILY_STEPS)]}")
+            if per_step != cfg.n_layers or routes[0].idx.shape[:2] != (2, 512):
+                raise AssertionError(f"train {arch}: routing calls {len(routes)}, groups "
+                                     f"{tuple(routes[0].idx.shape)}")
+        if arch == "xlstm-350m":
+            _slstm_share(torch, card)
+        pos = seq + (cfg.n_patches if cfg.family == "vlm" else 0)
+        rows.append(f"{arch} B {batch} x {seq} ({pos} positions a row): {run['med_ms']:.3f} ms, "
+                    f"{batch * seq / run['med_ms'] * 1e3:.1f} tok/s, peak {run['peak'] / 1e9:.3f} GB")
+        torch.cuda.empty_cache()
+    return rows
+
+
 def _fcnet_train(torch, card: str) -> None:
     """Table 4's flow (``benchmarks/table4_accuracy.py``'s default cases) on
     the card: mnist-4 and har-4 at published widths on their synthetic
@@ -4794,6 +5018,8 @@ def phase_train(torch, card: str) -> None:
         raise AssertionError("train remat: losses differ or the peak is not lower")
     _train_profile(torch, card, 8, 128)
     _train_profile(torch, card, 1, 2048)
+    for row in _train_families(torch, card):
+        log(f"train families: {row} ({card})")
     if FA.flash_attention.launches != b6:
         raise AssertionError(f"B6 launched in training: {FA.flash_attention.launches - b6}")
     _train_resume(torch)

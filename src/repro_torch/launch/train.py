@@ -4,13 +4,15 @@
         --steps 50 --batch 8 --seq 128 --ckpt-dir /tmp/ckpt
 
 Runs on the CUDA device (``--device cpu`` trains on the CPU; without a GPU
-and without it, it raises).  It trains the decoder-only transformers with
-attention layers and dense MLPs (tinyllama-1.1b, llama3.2-1b, glm4-9b,
-gemma3-4b); the other families and ``--mesh pod|multipod`` are refused by
-the ROADMAP item that ports them.  Params come from the port's
-``init_params(cfg, --seed)``, data from ``synthetic_lm_batch`` (a pure
-function of (seed, step)).  The warmup is ``min(20, max(1, steps // 4))``
-steps, as in the reference.
+and without it, it raises).  It trains every arch of the registry: the
+dense and MoE decoder-only transformers, recurrentgemma-2b and xlstm-350m,
+the VLM (internvl2-2b) and the enc-dec (whisper-tiny); ``--mesh
+pod|multipod`` is refused (ROADMAP A13).  Params come from the port's
+``init_params(cfg, --seed)``, tokens from ``synthetic_lm_batch`` (a pure
+function of (seed, step)) and a VLM's patches or an enc-dec's frames from
+``extras`` (N(0, 1) from ``np.random.default_rng(step)``, the reference's
+draws).  The warmup is ``min(20, max(1, steps // 4))`` steps, as in the
+reference.
 
 Fault tolerance: every ``--ckpt-every`` steps an ``AsyncCheckpointer``
 writes ``(params, opt_state)``; on start the latest complete checkpoint is
@@ -27,6 +29,7 @@ import argparse
 import dataclasses
 import time
 
+import numpy as np
 import torch
 
 import repro_torch.configs as C
@@ -34,9 +37,23 @@ from repro_torch.checkpoint import store
 from repro_torch.data import LMDataConfig, synthetic_lm_batch
 from repro_torch.device import resolve_device
 from repro_torch.distributed.fault import RestartSupervisor, StragglerDetector
-from repro_torch.models.api import check_trainable, get_api
+from repro_torch.models.api import get_api
 from repro_torch.training import optimizer as O
 from repro_torch.training.trainer import make_train_step
+
+
+def extras(cfg, api, host_batch: int, step: int) -> dict:
+    """The frontend-stub inputs of step ``step``'s batch, as the reference's
+    launcher draws them: a VLM's ``patches`` (host_batch, n_patches, d) or an
+    enc-dec's ``frames`` (host_batch, n_frames, d), fp32 N(0, 1) from
+    ``np.random.default_rng(step)``; {} for the other families."""
+    out = {}
+    rng = np.random.default_rng(step)
+    if "patches" in api.extra_keys:
+        out["patches"] = rng.normal(size=(host_batch, cfg.n_patches, cfg.d_model)).astype(np.float32)
+    if "frames" in api.extra_keys:
+        out["frames"] = rng.normal(size=(host_batch, cfg.n_frames, cfg.d_model)).astype(np.float32)
+    return out
 
 
 def run(args, cfg=None) -> dict:
@@ -52,7 +69,6 @@ def run(args, cfg=None) -> dict:
         cfg = C.get_config(args.arch, smoke=args.smoke)
     if args.remat:
         cfg = dataclasses.replace(cfg, remat=True)
-    check_trainable(cfg)
     api = get_api(cfg)
     device = resolve_device(args.device)
     # warmup scales with the run, so a short run does not stay in the ramp
@@ -75,8 +91,9 @@ def run(args, cfg=None) -> dict:
         nonlocal params, opt_state
         for step in range(start, args.steps):
             t0 = time.perf_counter()
-            batch = {k: torch.from_numpy(v).to(device)
-                     for k, v in synthetic_lm_batch(data_cfg, step).items()}
+            batch = synthetic_lm_batch(data_cfg, step)
+            batch.update(extras(cfg, api, data_cfg.host_batch, step))
+            batch = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
             params, opt_state, metrics = step_fn(params, opt_state, batch)
             loss = float(metrics["loss"])
             dt = time.perf_counter() - t0

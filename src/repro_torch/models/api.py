@@ -3,9 +3,10 @@ functions per family -- the transformer (dense, MoE, and the recurrent
 ``hybrid`` and xLSTM ``ssm`` stacks), the VLM and the enc-dec -- the cache
 capability probes, ``state_bytes_per_step`` and ``kv_bytes_per_token``.
 
-``loss_fn`` trains the decoder-only transformer with attention layers and
-dense MLPs; ``check_trainable`` refuses every other config by the ROADMAP
-item that ports its training."""
+``loss_fn`` trains every family: the transformer stacks (dense, MoE with
+its aux loss, recurrent and xLSTM), the VLM after its projected patches
+and the enc-dec over its frames, refusing only what
+``transformer.check_supported`` refuses."""
 
 from __future__ import annotations
 
@@ -38,11 +39,6 @@ class ModelAPI:
     prefix_len: Callable = staticmethod(lambda cfg: 0)
 
 
-def _untrained(cfg, params=None, batch=None):
-    raise NotImplementedError(
-        f"{cfg.name}: training the {cfg.family} family is not ported yet (ROADMAP A14b)")
-
-
 def _t_prefill(cfg, params, batch, cache, *, use_kernel: bool = True):
     return T.prefill(cfg, params, batch["tokens"], cache, use_kernel=use_kernel)
 
@@ -65,14 +61,14 @@ _TRANSFORMER_API = ModelAPI(
 
 _VLM_API = ModelAPI(
     init_params=V.init_params, param_shapes=V.param_shapes,
-    loss_fn=_untrained, prefill=_v_prefill, decode_step=V.decode_step,
+    loss_fn=V.loss_fn, prefill=_v_prefill, decode_step=V.decode_step,
     init_cache=V.init_cache, n_params_exact=V.n_params_exact, unstack=V.unstack,
     extra_keys=("patches",), prefix_len=staticmethod(lambda cfg: cfg.n_patches),
 )
 
 _ENCDEC_API = ModelAPI(
     init_params=E.init_params, param_shapes=E.param_shapes,
-    loss_fn=_untrained, prefill=_e_prefill, decode_step=E.decode_step,
+    loss_fn=E.loss_fn, prefill=_e_prefill, decode_step=E.decode_step,
     init_cache=E.init_cache, n_params_exact=E.n_params_exact, unstack=E.unstack,
     extra_keys=("frames",),
 )
@@ -84,15 +80,6 @@ def get_api(cfg) -> ModelAPI:
     if cfg.family == "vlm":
         return _VLM_API
     return _TRANSFORMER_API  # dense / moe / ssm / hybrid
-
-
-def check_trainable(cfg):
-    """Raise NotImplementedError, naming the ROADMAP item, unless the port
-    trains ``cfg``: a decoder-only stack of attention layers with dense
-    MLPs (``transformer.check_trainable``)."""
-    if get_api(cfg) is not _TRANSFORMER_API:
-        _untrained(cfg)
-    T.check_trainable(cfg)
 
 
 def supports_int8_kv(cfg) -> bool:

@@ -21,9 +21,18 @@ frame pages through ``xpage_table`` at pos = n_frames - 1.  The
 reference's paged step gathers the frame pages, slices them to n_frames
 and runs its kernel over an identity table; B3's plain version (gather,
 then non-causal decode attention) is that path.
+
+Training (``forward``, ``loss_fn``) is the reference's teacher-forced
+pass on the stacked tree, with per-layer ``unbind`` views taken anew each
+step (``transformer.unbind_stack``): every attention goes through
+``layers.train_attention`` -- the encoder's non-causal self-attention and
+the non-causal cross-attention are the ``FlashAttention`` Function past
+1024 frames, never kernel B6, which has no backward.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -101,12 +110,12 @@ def _out(cfg, p, o):
     return apply_linear(o.reshape(B, S, cfg.n_heads * cfg.hd), p["wo"])
 
 
-def _self_block(cfg, p, x, *, causal: bool, use_kernel: bool = True):
-    """Self-attention over all of x (encoder: non-causal; decoder prefill:
-    causal); returns (x + attention, k, v)."""
+def _self_block(cfg, p, x, *, causal: bool, attend):
+    """Self-attention over all of x (encoder: non-causal; decoder: causal)
+    through ``attend(q, k, v, causal=)``; returns (x + attention, k, v)."""
     h = L.apply_norm(p["ln1"], x, NORM)
     q, k, v = _qkv(cfg, p["attn"], h)
-    o = L.attention(q, k, v, causal=causal, use_kernel=use_kernel)
+    o = attend(q, k, v, causal=causal)
     return x + _out(cfg, p["attn"], o), k, v
 
 
@@ -120,14 +129,20 @@ def _cross_q(cfg, p, x):
     return apply_linear(h, p["xattn"]["wq"]).reshape(B, S, cfg.n_heads, cfg.hd)
 
 
+def _encode(cfg, layers, enc_norm, frames, attend):
+    x = frames.to(getattr(torch, cfg.compute_dtype))
+    for p in layers:
+        x, _, _ = _self_block(cfg, p, x, causal=False, attend=attend)
+        x = _mlp_block(cfg, p, x)
+    return L.apply_norm(enc_norm, x, NORM)
+
+
 def encode(cfg, params, frames, *, use_kernel: bool = True):
     """frames (B, n_frames, d) precomputed frame embeddings (the frontend
-    stub) -> the encoder's output (B, n_frames, d) in the compute dtype."""
-    x = frames.to(getattr(torch, cfg.compute_dtype))
-    for p in params["enc"]:
-        x, _, _ = _self_block(cfg, p, x, causal=False, use_kernel=use_kernel)
-        x = _mlp_block(cfg, p, x)
-    return L.apply_norm(params["enc_norm"], x, NORM)
+    stub) -> the encoder's output (B, n_frames, d) in the compute dtype.
+    ``params`` is the ``unstack`` view."""
+    return _encode(cfg, params["enc"], params["enc_norm"], frames,
+                   functools.partial(L.attention, use_kernel=use_kernel))
 
 
 def _enc_cross_kv(cfg, layers, enc_out) -> list:
@@ -138,6 +153,47 @@ def _enc_cross_kv(cfg, layers, enc_out) -> list:
     return [(apply_linear(enc_out, p["xattn"]["wk"]).reshape(B, Sf, KVH, hd),
              apply_linear(enc_out, p["xattn"]["wv"]).reshape(B, Sf, KVH, hd))
             for p in layers]
+
+
+# ---------------------------------------------------------------------------
+# training: the teacher-forced forward and its loss
+# ---------------------------------------------------------------------------
+
+
+def decode_train(cfg, params, tokens, enc_out):
+    """Teacher-forced decoder forward: tokens (B, S) -> logits (B, S, V)
+    against the encoder's output, every attention through
+    ``layers.train_attention`` (causal self-attention, non-causal
+    cross-attention).  ``params`` is the stacked tree."""
+    layers = T.unbind_stack(params["dec"], cfg.n_layers)
+    S = tokens.shape[1]
+    x = L.embed_tokens(cfg, params["embed"], tokens)
+    x = x + params["pos_dec"][None, :S].to(x.dtype)
+    for p, (xk, xv) in zip(layers, _enc_cross_kv(cfg, layers, enc_out)):
+        x, _, _ = _self_block(cfg, p, x, causal=True, attend=L.train_attention)
+        o = L.train_attention(_cross_q(cfg, p, x), xk, xv, causal=False)
+        x = _mlp_block(cfg, p, x + _out(cfg, p["xattn"], o))
+    x = L.apply_norm(params["final_norm"], x, NORM)
+    return L.unembed(cfg, params["embed"], x)
+
+
+def forward(cfg, params, tokens, frames):
+    """Training/eval forward: encode the frames, then ``decode_train``.
+    ``params`` is the stacked tree of dense tensors (``init_params``)."""
+    T.check_supported(cfg)
+    T._check_dense(params)
+    enc = T.unbind_stack(params["enc"], cfg.enc_layers)
+    enc_out = _encode(cfg, enc, params["enc_norm"], frames, L.train_attention)
+    return decode_train(cfg, params, tokens, enc_out)
+
+
+def loss_fn(cfg, params, batch):
+    """Next-token cross entropy over the text positions (no aux, as the
+    reference's).  batch: {"tokens", "labels": (B, S), "frames": (B,
+    n_frames, d)}.  Returns (loss, {"loss"})."""
+    logits = forward(cfg, params, batch["tokens"], batch["frames"])
+    loss = T.next_token_nll(logits, batch["labels"])
+    return loss, {"loss": loss}
 
 
 # ---------------------------------------------------------------------------
@@ -196,7 +252,8 @@ def prefill(cfg, params, tokens, frames, cache, *, use_kernel: bool = True):
     x = L.embed_tokens(cfg, params["embed"], tokens)
     x = x + params["pos_dec"][None, :S].to(x.dtype)
     for p, c, (xk, xv) in zip(params["layers"], cache["layers"], xkv):
-        x, k, v = _self_block(cfg, p, x, causal=True, use_kernel=use_kernel)
+        x, k, v = _self_block(cfg, p, x, causal=True,
+                              attend=functools.partial(L.attention, use_kernel=use_kernel))
         c["k"][:, :S] = k.to(c["k"].dtype)
         c["v"][:, :S] = v.to(c["v"].dtype)
         o = L.attention(_cross_q(cfg, p, x), xk, xv, causal=False, use_kernel=use_kernel)

@@ -131,7 +131,10 @@ def apply_moe(cfg, p, x: torch.Tensor, return_aux: bool = False):
     (g * C + slot) of their expert; empty rows are zero, as the reference's
     dispatch einsum leaves them), the experts run over the whole stack, and
     each token sums its kept assignments' outputs weighted by its gate
-    values rounded to the compute dtype (the reference's combine tensor)."""
+    values rounded to the compute dtype (the reference's combine tensor).
+    Every dropped assignment is copied to the same spare row, which is
+    discarded: under autograd its gradient is zero, and a rematerialized
+    layer that routes again keeps the same assignments."""
     m = cfg.moe
     B, S, d = x.shape
     T = B * S

@@ -9,7 +9,8 @@ The recurrence h_t = a_t * h_{t-1} + b_t runs as one fused step at decode
 passes where the reference calls ``jax.lax.associative_scan`` (no Pallas
 kernel either way; a loop over 2048 positions would be thousands of eager
 launches a layer).  The state -- h (B, W) fp32 and the conv's last W-1
-inputs -- is fixed-size and rewritten whole each step.
+inputs -- is fixed-size and rewritten whole each step; training runs the
+scan under autograd from a zero state (``state=None``).
 """
 
 from __future__ import annotations

@@ -14,7 +14,8 @@ the recurrences are plain PyTorch, and every projection goes through
 The mLSTM's prefill is the chunkwise-parallel form (``_mlstm_chunkwise``,
 chunks of ``min(MLSTM_CHUNK, S)``); ``mlstm_sequential`` is the per-token
 recurrence it equals, which decode runs one step of.  The sLSTM's prefill
-is a loop over the tokens.
+is a loop over the tokens.  Training runs the same forwards under autograd
+from a zero state (``state=None``).
 """
 
 from __future__ import annotations

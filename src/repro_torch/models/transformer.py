@@ -22,12 +22,13 @@ whatever ``kv_dtype`` says.  ``check_supported`` names the ROADMAP item of
 what is not ported (logit softcaps).
 
 Training (``forward``, ``loss_fn``) runs the reference's ``train`` mode
-for stacks of attention layers with dense MLPs: full-sequence attention
-without a cache through ``layers.train_attention`` (never kernel B6,
-which has no backward), on the stacked tree itself -- each step takes its
-per-layer views anew (``_unbind_layers``), so the gradients reach the
-stacked leaves that the optimizer updates in place.  ``check_trainable``
-names the ROADMAP item of the rest.
+for every layer kind: attention without a cache through
+``layers.train_attention`` (never kernel B6, which has no backward), a MoE
+FFN with its Switch aux loss (summed over the layers in fp32), and the
+``rec`` / ``mlstm`` / ``slstm`` cells from a zero state; on the stacked
+tree itself -- each step takes its per-layer views anew
+(``_unbind_layers``), so the gradients reach the stacked leaves that the
+optimizer updates in place.  It refuses what ``check_supported`` refuses.
 """
 
 from __future__ import annotations
@@ -336,12 +337,14 @@ _CELLS = {"rec": R.apply_rglru, "mlstm": SSM.apply_mlstm, "slstm": SSM.apply_sls
 def _apply_recurrent_layer(cfg, kind: str, p, x, state):
     """A ``rec`` layer (norm, RG-LRU, residual, norm, MLP, residual) or an
     ``mlstm`` / ``slstm`` one (norm, cell, residual); the cell's new state
-    is copied into ``state``."""
+    is copied into ``state``.  ``state`` None (training) runs the cell from
+    a zero state and keeps nothing."""
     cell = "rec" if kind == "rec" else "cell"
     h = L.apply_norm(p["ln1" if kind == "rec" else "ln"], x, cfg.norm)
     y, new = _CELLS[kind](cfg, p[cell], h, state)
-    for k, v in new.items():
-        state[k].copy_(v)
+    if state is not None:
+        for k, v in new.items():
+            state[k].copy_(v)
     x = x + y
     if kind != "rec":
         return x
@@ -433,21 +436,6 @@ def decode_step(cfg, params, cache, tokens, pos, *, use_kernel: bool = True):
 # ---------------------------------------------------------------------------
 
 
-def check_trainable(cfg):
-    """Raise NotImplementedError, naming the ROADMAP item, for a config whose
-    training the port does not run yet: a MoE FFN (its aux loss's
-    backward) or a ``rec`` / ``mlstm`` / ``slstm`` layer (their train
-    forwards); then ``check_supported``."""
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: training a MoE stack is not ported yet (ROADMAP A14b)")
-    cells = sorted(set(cfg.layer_kinds) - set(ATTN_KINDS))
-    if cells:
-        raise NotImplementedError(
-            f"{cfg.name}: training {'/'.join(cells)} layers is not ported yet (ROADMAP A14b)")
-    check_supported(cfg)
-
-
 def _check_dense(params):
     """Training takes the stacked tree of dense tensors of ``init_params``:
     a compressed tree (a plan node) or the ``unstack`` view is refused."""
@@ -462,6 +450,12 @@ def _check_dense(params):
     map_tree(one, params)
 
 
+def unbind_stack(tree, n: int) -> list:
+    """``n`` dicts of ``unbind`` views of a tree stacked over ``n`` layers."""
+    parts = [t.unbind(0) for t in flatten_leaves(tree)]
+    return [unflatten_leaves(tree, [u[i] for u in parts]) for i in range(n)]
+
+
 def _unbind_layers(cfg, params) -> list:
     """One params dict per layer, in execution order (``unstack``'s),
     made of ``unbind`` views of the stacked leaves.  Taken inside the
@@ -469,62 +463,74 @@ def _unbind_layers(cfg, params) -> list:
     one backward node (a stack of them), and an in-place optimizer update
     between steps meets no stale view."""
     unit, n_units, rem = find_unit(cfg.layer_kinds)
-
-    def split(tree, n):
-        parts = [t.unbind(0) for t in flatten_leaves(tree)]
-        return [unflatten_leaves(tree, [u[i] for u in parts]) for i in range(n)]
-
-    per_unit = [split(t, n_units) for t in params["unit"]]
+    per_unit = [unbind_stack(t, n_units) for t in params["unit"]]
     layers = [per_unit[pi][u] for u in range(n_units) for pi in range(len(unit))]
     for ri, (_, count) in enumerate(rem_runs(rem)):
-        layers += split(params["rem"][ri], count)
+        layers += unbind_stack(params["rem"][ri], count)
     return layers
 
 
 def _train_layer(cfg, kind: str, p, x):
-    """One attention layer without a cache: norm, attention
-    (``layers.train_attention``), residual, norm, MLP, residual."""
+    """One layer without a cache, as the reference's ``apply_layer(mode=
+    "train")``: returns (x, the MoE aux loss or None).  An attention layer
+    is norm, attention (``layers.train_attention``), residual, norm, MLP or
+    MoE FFN, residual; a recurrent or xLSTM layer runs its cell from a zero
+    state."""
+    if kind not in ATTN_KINDS:
+        return _apply_recurrent_layer(cfg, kind, p, x, None), None
     h = L.apply_norm(p["ln1"], x, cfg.norm)
     x = x + _attn_seq(cfg, p["attn"], h, kind, L.train_attention)[0]
     h = L.apply_norm(p["ln2"], x, cfg.norm)
-    return x + L.apply_mlp(cfg, p["mlp"], h)
+    if "moe" in p:
+        f, aux = MOE.apply_moe(cfg, p["moe"], h, return_aux=True)
+        return x + f, aux
+    return x + L.apply_mlp(cfg, p["mlp"], h), None
 
 
 def forward(cfg, params, tokens, extra_embeds=None):
     """Training/eval forward: (logits (B, S, V) over the full sequence, the
-    aux loss (fp32 0: no MoE)).  ``params`` is the stacked tree of dense
-    tensors (``init_params``); ``extra_embeds`` (B, P, d) go before the
-    tokens' embeddings and their logits are dropped.  With ``cfg.remat``
-    each layer is rematerialized in the backward
-    (``torch.utils.checkpoint``, the reference's per-layer
+    layers' MoE aux losses summed in fp32 (0 without MoE)).  ``params`` is
+    the stacked tree of dense tensors (``init_params``); ``extra_embeds``
+    (B, P, d) go before the tokens' embeddings and their logits are
+    dropped.  With ``cfg.remat`` each layer is rematerialized in the
+    backward (``torch.utils.checkpoint``, the reference's per-layer
     ``jax.checkpoint``)."""
-    check_trainable(cfg)
+    check_supported(cfg)
     _check_dense(params)
     x = L.embed_tokens(cfg, params["embed"], tokens)
     if extra_embeds is not None:
         x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for kind, p in zip(cfg.layer_kinds, _unbind_layers(cfg, params)):
         if cfg.remat:
-            x = torch.utils.checkpoint.checkpoint(_train_layer, cfg, kind, p, x,
-                                                  use_reentrant=False)
+            x, a = torch.utils.checkpoint.checkpoint(_train_layer, cfg, kind, p, x,
+                                                     use_reentrant=False)
         else:
-            x = _train_layer(cfg, kind, p, x)
+            x, a = _train_layer(cfg, kind, p, x)
+        if a is not None:
+            aux = aux + a
     x = L.apply_norm(params["final_norm"], x, cfg.norm)
     logits = L.unembed(cfg, params["embed"], x)
     if extra_embeds is not None:
         logits = logits[:, extra_embeds.shape[1]:]
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits, aux
 
 
-def loss_fn(cfg, params, batch, extra_embeds=None):
-    """Next-token cross entropy: fp32 logsumexp minus the label's logit,
-    averaged over the positions whose label is >= 0.  batch: {"tokens":
-    (B, S), "labels": (B, S)}.  Returns (loss + aux, {"loss", "aux"})."""
-    logits, aux = forward(cfg, params, batch["tokens"], extra_embeds)
-    labels = batch["labels"].long()
+def next_token_nll(logits, labels):
+    """The mean next-token cross entropy: fp32 logsumexp minus the label's
+    logit, averaged over the positions whose label is >= 0."""
+    labels = labels.long()
     mask = (labels >= 0).to(torch.float32)
     lf = logits.to(torch.float32)
     label_logit = lf.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
     nll = torch.logsumexp(lf, dim=-1) - label_logit
-    loss = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+def loss_fn(cfg, params, batch, extra_embeds=None):
+    """Next-token cross entropy (``next_token_nll``) plus the MoE aux loss.
+    batch: {"tokens": (B, S), "labels": (B, S)}.  Returns (loss + aux,
+    {"loss", "aux"})."""
+    logits, aux = forward(cfg, params, batch["tokens"], extra_embeds)
+    loss = next_token_nll(logits, batch["labels"])
     return loss + aux, {"loss": loss, "aux": aux}

@@ -7,7 +7,8 @@ is the transformer (``models/transformer.py``) as it is; this module adds
 the multimodal splice: a norm and a learned d x d projection of the
 patches (``proj``: B1 on the card for a quant_sparse plan), prepended to
 the prompt's embeddings, so a sequence's positions and KV pages start with
-its n_patches patches (``api.prefix_len``).
+its n_patches patches (``api.prefix_len``).  ``forward`` and ``loss_fn``
+train through the transformer's training forward after the same splice.
 """
 
 from __future__ import annotations
@@ -55,6 +56,20 @@ def prefill(cfg, params, tokens, patches, cache, *, use_kernel: bool = True):
     """The transformer's prefill over [projected patches; tokens]."""
     return T.prefill(cfg, params, tokens, cache, extra_embeds=_project(cfg, params, patches),
                      use_kernel=use_kernel)
+
+
+def forward(cfg, params, tokens, patches):
+    """tokens (B, S), patches (B, P, d) -> (logits over the text positions,
+    aux): the transformer's training forward after the projected patches.
+    ``params`` is the stacked tree of dense tensors."""
+    return T.forward(cfg, params, tokens, extra_embeds=_project(cfg, params, patches))
+
+
+def loss_fn(cfg, params, batch):
+    """The transformer's loss over the text positions, after the projected
+    ``batch["patches"]``."""
+    return T.loss_fn(cfg, params, {"tokens": batch["tokens"], "labels": batch["labels"]},
+                     extra_embeds=_project(cfg, params, batch["patches"]))
 
 
 init_cache = T.init_cache

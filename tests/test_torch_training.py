@@ -38,7 +38,7 @@ from repro_torch.core.weight_plan import flatten_leaves
 from repro_torch.data import LMDataConfig, synthetic_lm_batch
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
-from repro_torch.models.api import check_trainable, get_api
+from repro_torch.models.api import get_api
 from repro_torch.training import optimizer as O
 from repro_torch.training.trainer import make_eval_step, make_train_step
 
@@ -264,17 +264,6 @@ def test_long_sequence_train_step_matches():
 
 
 # --- refusals ---------------------------------------------------------------
-
-@pytest.mark.parametrize("arch,item", [("granite-moe-1b-a400m", "A14b"),
-                                       ("recurrentgemma-2b", "A14b"), ("xlstm-350m", "A14b"),
-                                       ("whisper-tiny", "A14b"), ("internvl2-2b", "A14b")])
-def test_untrained_families_refused_by_name(arch, item):
-    cfg = get_config(arch, smoke=True)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        check_trainable(cfg)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        get_api(cfg).loss_fn(cfg, {}, {"tokens": None, "labels": None})
-
 
 def test_compressed_or_unstacked_tree_refused():
     from repro_torch.core.weight_plan import PlanConfig, compress
