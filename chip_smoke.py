@@ -114,6 +114,31 @@ Phases, in order; any failure raises and the script exits non-zero:
                request must finish and the page audit must be clean; each
                prefill is timed on the card's clock, the 2032-token one
                also against the last measurement before B1/B2 ran on wgmma.
+7b. mesh    -- sharded serving: full-width tinyllama-1.1b with the serve
+               flags and --mesh 1x2, 2x2 and 1x8 (kv fallback: 4 KV heads
+               on 8 ranks, wk/wv split within a KV head), ranks sharing the
+               one card over gloo (--share-card; one process a rank, the
+               serve CLI's own ``spawn_ranks``); at 1x2 also --compress
+               quant (wo and w_down split on their contraction: an
+               all-reduce after B5) and the long phase's 2032-token prompt
+               (B6 over a rank's 16 q heads).  Each rank holds its
+               streams to the unsharded ones (the serve and long phases',
+               or its own unsharded engine's on the same plan) by the
+               near-tie rule, one decode step's logits to the unsharded
+               engine's (PATH_RTOL of the largest logit), its B1, B2 and B5
+               launches on its shards to the matching columns of the whole
+               leaf's launch and to the plain versions (KERNEL_RTOL), B3's
+               first launch of its run (its q heads against the pools, at
+               1x8 one KV head at an offset into pools that hold all 4) and
+               B6's (the long prompt, its q and KV heads) replayed on the
+               same inputs against their plain versions (KERNEL_RTOL); the
+               launches of B1, B2, B3 and B5 (B6 for the long prompt) during
+               its run above zero and equal across the ranks of a data
+               replica; a clean page audit; gloo's all_gather and
+               all_reduce on CUDA tensors of every dtype the model path
+               sends, exact.  Logs each rank's weight bytes and rank 0's
+               median decode tick ("ranks sharing one card over gloo: not a
+               multi-card speed").
 8. parity   -- prefill of the serve phase's prompt lengths and of 2032
                tokens, then teacher-forced decode, through the kernels and
                through the plain versions (with_use_kernel(False),
@@ -2241,6 +2266,363 @@ def _path_parity(torch, cfg, params, label: str, gen, lengths=(36, 40, LONG_M)) 
     if not worst <= PATH_RTOL:
         raise AssertionError(f"{label}: kernel path logits differ from the plain path: "
                              f"{worst:.3e}")
+
+
+# --mesh runs of the mesh phase: (mesh, the cases its ranks serve)
+MESH_RUNS = (("1x2", ("serve", "long", "quant")), ("2x2", ("serve",)), ("1x8", ("serve",)))
+MESH_KERNELS = ("block_sparse_matmul", "fused_gate_up", "paged_decode_attention",
+                "quant_matmul")
+
+
+def _first_decode_logits(engine) -> list:
+    """Records (the input tokens, the logits (fp32, host)) of ``engine``'s
+    first decode step into the returned list."""
+    rec, real = [], engine._decode
+
+    def spy(tokens, pos, poison):
+        lg = real(tokens, pos, poison)
+        if not rec:
+            rec.append((tokens[:, 0].cpu(), lg[:, 0].float().cpu()))
+        return lg
+
+    engine._decode = spy
+    return rec
+
+
+def _shard_checks(torch, cfg, plan, engine) -> dict:
+    """Layer 0's wq, wo, w_gate/w_up (B2 where packed) and the head on this
+    rank's shards against the matching columns of the whole leaf's launch
+    and against the plain versions, on one seeded (8, K) bf16 input: {name:
+    (kernel, max rel err vs the whole launch's columns or None for a split
+    contraction, max rel err vs plain)}."""
+    from repro_torch.core import weight_plan as WP
+    from repro_torch.distributed import shardlib as sl
+    from repro_torch.models import transformer as T
+
+    whole = T.unstack(cfg, plan.params)
+    mine = engine.params
+    dev = engine.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    out = {}
+
+    def x_for(K):
+        return torch.randn(8, K, generator=gen, device=dev).to(getattr(torch, cfg.compute_dtype))
+
+    def kernel_of(w):
+        if isinstance(w, WP.QuantLinear):
+            return "quant_matmul"
+        return "block_sparse_matmul" if isinstance(w, WP.PackedLinear) else "dense"
+
+    with engine._on_mesh():
+        m, M = sl.axis_index("model"), sl.axis_size("model")
+        leaves = [("wq", whole["layers"][0]["attn"]["wq"], mine["layers"][0]["attn"]["wq"]),
+                  ("wo", whole["layers"][0]["attn"]["wo"], mine["layers"][0]["attn"]["wo"]),
+                  ("head", whole["embed"]["head"], mine["embed"]["head"])]
+        for name, w, loc in leaves:
+            K = WP.contraction(w)
+            x = x_for(K)
+            split = isinstance(loc, WP.ShardedLeaf)
+            local = loc.local if split else loc
+            xl = x[:, m * K // M:(m + 1) * K // M] if split and loc.k_split else x
+            y = WP.apply_linear(xl, local)
+            plain = WP.apply_linear(xl, WP.with_use_kernel(local, False))
+            ref = None
+            if not (split and loc.k_split):
+                full = WP.apply_linear(x, w)
+                n = y.shape[-1]
+                ref = rel_err(torch, y, full[:, m * n:(m + 1) * n] if split else full)[1]
+            out[name] = (kernel_of(local), ref, rel_err(torch, y, plain)[1])
+        g, u = whole["layers"][0]["mlp"]["w_gate"], whole["layers"][0]["mlp"]["w_up"]
+        lg, lu = mine["layers"][0]["mlp"]["w_gate"], mine["layers"][0]["mlp"]["w_up"]
+        x = x_for(WP.contraction(g))
+        split = isinstance(lg, WP.ShardedLeaf)
+        lg, lu = (lg.local, lu.local) if split else (lg, lu)
+        y = WP.apply_gate_up(x, lg, lu, cfg.activation)
+        full = WP.apply_gate_up(x, g, u, cfg.activation)
+        n = y.shape[-1]
+        plain = WP.apply_gate_up(x, WP.with_use_kernel(lg, False), WP.with_use_kernel(lu, False),
+                                 cfg.activation)
+        out["gate_up"] = ("fused_gate_up" if isinstance(lg, WP.PackedLinear) else "quant_matmul",
+                          rel_err(torch, y, full[:, m * n:(m + 1) * n] if split else full)[1],
+                          rel_err(torch, y, plain)[1])
+    return out
+
+
+@contextlib.contextmanager
+def _first_attention_inputs(first: dict):
+    """Records into ``first`` the inputs of the first B3 launch
+    ("paged_decode_attention") and the first B6 launch ("flash_attention")
+    that the model path makes through ``ops``, cloned: (args, kwargs)."""
+    from repro_torch.kernels import ops
+
+    inner = {name: getattr(ops, name) for name in ("paged_decode_attention",
+                                                   "flash_attention")}
+
+    def spy(name):
+        def call(*args, **kw):
+            if name not in first and kw.get("use_kernel", True):
+                first[name] = ([a.clone() if hasattr(a, "clone") else a for a in args],
+                               {k: v.clone() if hasattr(v, "clone") else v
+                                for k, v in kw.items()})
+            return inner[name](*args, **kw)
+        return call
+
+    for name in inner:
+        setattr(ops, name, spy(name))
+    try:
+        yield
+    finally:
+        for name, f in inner.items():
+            setattr(ops, name, f)
+
+
+def _attention_checks(torch, first: dict) -> dict:
+    """B3's and B6's recorded launches (``_first_attention_inputs``)
+    replayed through the kernel and through the plain version on the same
+    inputs: {name: (kernel, None, max rel err vs plain, heads)}, heads
+    (q heads, kv_heads or None, the pools' KV heads) for B3 and (q heads,
+    KV heads) for B6.  These launches come after the run's counts are
+    read."""
+    from repro_torch.kernels import flash_attention as FA
+
+    out = {}
+    for name, fn in (("paged_decode_attention", FA.paged_decode_attention),
+                     ("flash_attention", FA.flash_attention)):
+        if name not in first:
+            continue
+        args, kw = first[name]
+        kw = dict(kw, use_kernel=True)
+        got = fn(*args, **kw)
+        want = fn(*args, **dict(kw, use_kernel=False))
+        heads = [args[0].shape[2], args[1].shape[2]]
+        if name == "paged_decode_attention":
+            kv = kw.get("kv_heads")
+            heads.insert(1, None if kv is None else list(kv))
+        out[f"{name} {list(args[0].shape)}"] = (name, None, rel_err(torch, got, want)[1], heads)
+    return out
+
+
+def _gloo_cuda_probe(torch, rank: int, world: int) -> list:
+    """gloo's all_gather and all_reduce over the world on CUDA tensors of
+    each dtype the model path sends (bf16 activations and logits, fp32
+    logits, int32/int64 positions), checked exactly; returns the dtypes."""
+    import torch.distributed as dist
+
+    names = []
+    for dtype in (torch.bfloat16, torch.float32, torch.int32, torch.int64):
+        # small integers: every partial sum is exact in bf16, in any order
+        want = [(torch.arange(12, device="cuda").reshape(3, 4) % 4 + r).to(dtype)
+                for r in range(world)]
+        x = want[rank]
+        parts = [torch.empty_like(x) for _ in range(world)]
+        dist.all_gather(parts, x)
+        total = x.clone()
+        dist.all_reduce(total)
+        if not (all(p.is_cuda and torch.equal(p, w) for p, w in zip(parts, want))
+                and total.is_cuda and torch.equal(total, sum(w.float() for w in want).to(dtype))):
+            raise AssertionError(f"mesh rank {rank}: gloo's collectives on CUDA {dtype} are "
+                                 f"wrong")
+        names.append(str(dtype).replace("torch.", ""))
+    return names
+
+
+def _mesh_case(torch, serve, job: dict, case: str, state: dict) -> dict:
+    """One case of a rank (see the module doc): builds (or reuses) the
+    meshed engine and an unsharded one on the same plan, checks and serves,
+    and returns what the parent compares."""
+    import numpy as np
+
+    from repro_torch.core.perf_model import paged_pool_pages
+    from repro_torch.distributed import shardlib as sl
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import Request, RequestState, ServingEngine
+
+    extra = ["--mesh", job["mesh"], "--share-card"]
+    if case == "quant":
+        extra += ["--compress", "quant"]
+    if case == "long":
+        cfg, plan, mesh, rules = state["cfg"], state["plan"], state["mesh"], state["rules"]
+        _, ap, args = _serve_args(extra + ["--prompt-len", str(LONG_M), "--max-len", "2048"])
+        args.pool_pages = 1 + paged_pool_pages(args.max_batch, LONG_M + args.max_new,
+                                               args.page_size)
+        engine = ServingEngine(cfg, None, plan=plan, device=state["device"],
+                               config=serve.config_from_args(args, mesh=mesh, rules=rules))
+        prompts = [np.asarray(job["long_prompt"], np.int32)]
+    else:
+        _, ap, args = _serve_args(extra)
+        cfg, engine, plan = serve.build_engine(args, ap)
+        state.update(cfg=cfg, plan=plan, mesh=engine.mesh, rules=engine.rules,
+                     device=engine.device)
+        prompts = [r.prompt for r in _serve_requests(cfg, args.max_new)]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # the dense init's blocks: the other ranks share the card
+    solo = ServingEngine(cfg, None, plan=plan, device=engine.device,
+                         config=serve.config_from_args(args))
+
+    def requests():
+        return [Request(uid=i, prompt=p, max_new_tokens=args.max_new)
+                for i, p in enumerate(prompts)]
+
+    res = {"case": case, "coords": sl.mesh_coords(engine.mesh),
+           "weight_bytes": engine.weight_bytes(), "whole_bytes": solo.weight_bytes()}
+    if case != "long":
+        res["shards"] = _shard_checks(torch, cfg, plan, engine)
+    # one decode step's logits: the unsharded engine's first step, then the
+    # meshed engine's, over the same admitted requests
+    want_lg = _first_decode_logits(solo)
+    solo_reqs = requests()
+    for r in solo_reqs:
+        solo.submit(r)
+    if case == "quant":
+        solo.run_until_done()
+        want = [[int(t) for t in r.output] for r in solo_reqs]
+    else:
+        solo.step()
+        want = job["want"][case]
+    del solo
+    got_lg = _first_decode_logits(engine)
+    counters = (*_served_kernels(), FA.flash_attention)
+    _zero_launches(counters)
+    reqs, ticks, first = requests(), [], {}
+    with _first_attention_inputs(first):
+        _run_ticks(torch, engine, reqs, ticks)
+    res["launches"] = {c.__name__: c.launches for c in counters}
+    res["attention"] = _attention_checks(torch, first)
+    engine.audit_pages()
+    res["finished"] = all(r.state is RequestState.FINISHED for r in reqs) \
+        and engine.pages_in_use == 0 and not engine.degraded
+    got = [[int(t) for t in r.output] for r in reqs]
+    # teacher-forced: the rows (slots 0.. hold the requests) whose first
+    # sampled token, this step's input, is the same in both engines (a
+    # first token that flipped on a near-tie is held by the stream check)
+    live = len(prompts)
+    same = (got_lg[0][0][:live] == want_lg[0][0][:live]).nonzero().flatten()
+    res["logit_err"] = float("inf")  # no row to hold: fails the check
+    if len(same):
+        diff = (got_lg[0][1][same] - want_lg[0][1][same]).abs().max().item()
+        res["logit_err"] = diff / want_lg[0][1][same].abs().max().item()
+    res["logit_rows"] = [len(same), live]
+    res["n_diff"] = _streams_near_tie(torch, cfg, T.unstack(cfg, plan.params),
+                                      f"mesh {job['mesh']} {case} rank {state['rank']}",
+                                      prompts, want, got)
+    res["digest"] = token_digest(got)
+    res["tick_ms"] = _decode_tick_ms(ticks)
+    del engine
+    torch.cuda.empty_cache()
+    return res
+
+
+def _mesh_rank(rank: int, job: dict) -> None:
+    """A rank of the mesh phase: its cases, its results to ``job["out"]``."""
+    import io
+
+    import torch
+
+    from repro_torch.launch import serve
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    import torch.distributed as dist
+
+    quiet = contextlib.redirect_stdout(io.StringIO()) if rank else contextlib.nullcontext()
+    state: dict = {"rank": rank}
+    with quiet:
+        gloo = _gloo_cuda_probe(torch, rank, dist.get_world_size())
+        results = [_mesh_case(torch, serve, job, case, state) for case in job["cases"]]
+    with open(os.path.join(job["out"], f"rank{rank}.json"), "w") as f:
+        json.dump({"gloo_cuda": gloo, "cases": results}, f)
+
+
+def phase_mesh(torch, serve_outputs: list, long_prompts: list, long_outputs: list,
+               card: str) -> None:
+    """Sharded serving (see the module doc): each of MESH_RUNS spawns its
+    ranks on the card over gloo and checks what they return."""
+    import tempfile
+
+    from repro_torch.launch import mesh as M
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    want = {"serve": serve_outputs, "long": [long_outputs[-1]]}
+    if len(long_prompts[-1]) != LONG_M:
+        raise AssertionError("mesh: the long phase's last prompt is not the LONG_M one")
+    for spec, cases in MESH_RUNS:
+        d, m = M.parse_mesh(spec, "cuda")
+        world = d * m
+        backend = M.choose_backend(world, "cuda", share_card=True)
+        with tempfile.TemporaryDirectory() as out:
+            job = {"mesh": spec, "cases": cases, "out": out, "want": want,
+                   "long_prompt": [int(t) for t in long_prompts[-1]]}
+            t0 = time.perf_counter()
+            M.spawn_ranks(_mesh_rank, (job,), world, backend)
+            runs, gloo = [], []
+            for r in range(world):
+                with open(os.path.join(out, f"rank{r}.json")) as f:
+                    got = json.load(f)
+                runs.append(got["cases"])
+                gloo.append(got["gloo_cuda"])
+        log(f"mesh {spec}: {world} ranks over {backend} (ranks sharing one card) ran "
+            f"{', '.join(cases)} in {time.perf_counter() - t0:.1f}s; {backend}'s all_gather "
+            f"and all_reduce on CUDA {', '.join(gloo[0])} exact on every rank")
+        for ci, case in enumerate(cases):
+            rows = [run[ci] for run in runs]
+            label = f"mesh {spec} {case}"
+            for r, row in enumerate(rows):
+                log(f"{label} rank {r} {row['coords']}: weight bytes {row['weight_bytes']:,} "
+                    f"of {row['whole_bytes']:,} whole; step logits max |d| "
+                    f"{row['logit_err']:.3e} of the largest over {row['logit_rows'][0]} of "
+                    f"{row['logit_rows'][1]} rows; {row['n_diff']} stream tokens "
+                    f"differ (near-tie rule); launches {row['launches']}; tokens "
+                    f"{row['digest']}")
+                for name, (kern, vs_whole, vs_plain) in row.get("shards", {}).items():
+                    log(f"{label} rank {r} {name}: {kern} on its shard, max rel err vs the "
+                        f"whole leaf's columns {vs_whole if vs_whole is None else f'{vs_whole:.3e}'}"
+                        f", vs plain {vs_plain:.3e}")
+                    if max(vs_plain, vs_whole or 0.0) > KERNEL_RTOL:
+                        raise AssertionError(f"{label} rank {r}: {name} on its shard disagrees")
+                for name, (kern, _, vs_plain, heads) in row["attention"].items():
+                    log(f"{label} rank {r} {name}: {kern} on its heads "
+                        + (f"({heads[0]} q, kv_heads {heads[1]} of the pools' {heads[2]})"
+                           if kern == "paged_decode_attention"
+                           else f"({heads[0]} q, {heads[1]} KV)")
+                        + f", its run's first launch replayed: max rel err vs plain "
+                        f"{vs_plain:.3e}")
+                    if not vs_plain <= KERNEL_RTOL:
+                        raise AssertionError(f"{label} rank {r}: {kern} on its heads disagrees "
+                                             f"with plain")
+                    # 1x8: a rank's 4 q heads read KV head m // 2 of the 4 in its pools
+                    if (spec == "1x8" and kern == "paged_decode_attention"
+                            and heads[1] != [row["coords"]["model"] // 2, 1]):
+                        raise AssertionError(f"{label} rank {r}: B3 read kv_heads {heads}")
+                want_attn = ["paged_decode_attention"] + (["flash_attention"] if case == "long"
+                                                          else [])
+                if sorted(v[0] for v in row["attention"].values()) != sorted(want_attn):
+                    raise AssertionError(f"{label} rank {r}: replayed {row['attention'].keys()}, "
+                                         f"want {want_attn}")
+                if not row["finished"]:
+                    raise AssertionError(f"{label} rank {r}: a request did not finish, a page "
+                                         f"leaked or the ladder triggered")
+                if row["logit_err"] > PATH_RTOL:
+                    raise AssertionError(f"{label} rank {r}: the step's logits differ from the "
+                                         f"unsharded step's by {row['logit_err']:.3e}")
+                kernels = MESH_KERNELS if case != "quant" else ("paged_decode_attention",
+                                                                "quant_matmul")
+                if case == "long":
+                    kernels = kernels + ("flash_attention",)
+                for k in kernels:
+                    if row["launches"][k] <= 0:
+                        raise AssertionError(f"{label} rank {r}: {k} was not launched")
+            for data in {row["coords"]["data"] for row in rows}:
+                peers = [row["launches"] for row in rows if row["coords"]["data"] == data]
+                if any(p != peers[0] for p in peers):
+                    raise AssertionError(f"{label}: launches differ within data replica {data}: "
+                                         f"{peers}")
+            ms, n = rows[0]["tick_ms"]
+            log(f"{label}: rank 0's median decode tick {ms:.3f} ms over {n} ticks (ranks "
+                f"sharing one card over gloo: not a multi-card speed) ({card})")
+    log(f"mesh: phase {time.perf_counter() - t_phase:.1f}s")
 
 
 def phase_parity(torch, cfg, engine) -> None:
@@ -5063,6 +5445,7 @@ def main(argv=None) -> int:
     cfg, engine, serve_outputs, serve_launches = phase_serve(torch, results)
     phase_plancache(torch, results, serve_outputs, serve_launches, card)
     long_prompts, long_outputs = phase_long(torch, results)
+    phase_mesh(torch, serve_outputs, long_prompts, long_outputs, card)
     phase_parity(torch, cfg, engine)
     phase_spec(torch, results, serve_outputs, card)
     phase_chunked(torch, long_prompts, long_outputs, card)

@@ -28,8 +28,8 @@ gives the same tree (``weight_plan.flatten_leaves``: dict keys sorted).
 ``restore`` puts them back into the structure of a ``tree_like``, so a
 ``(params, opt_state)`` checkpoint goes both ways between the packages.
 ``AsyncCheckpointer`` copies every leaf to the host synchronously and
-writes on a worker thread.  Restoring onto a mesh (the reference's
-``shardings``) is ROADMAP A13.
+writes on a worker thread.  ``restore(shardings=)`` restores onto a mesh:
+each rank keeps its pieces of the whole stored leaves.
 """
 
 from __future__ import annotations
@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.weight_plan import flatten_leaves, map_tree, unflatten_leaves
+from repro_torch.distributed import shardlib as sl
 
 _STEP_RE = re.compile(r"^step_(\d{9})$")
 
@@ -152,18 +153,24 @@ def restore_flat(base: str, step: Optional[int] = None) -> tuple:
 def restore(base: str, tree_like: Any, step: Optional[int] = None, shardings: Any = None) -> tuple:
     """Restore the newest complete step (or ``step``) into the structure of
     ``tree_like``: each stored leaf keeps its stored dtype and goes to the
-    device of the ``tree_like`` leaf in its place.  Raises ValueError when
-    the leaf count or a shape differs.  Returns (tree, metadata)."""
-    if shardings is not None:
-        raise NotImplementedError("restoring onto a mesh is not ported yet (ROADMAP A13)")
+    device of the ``tree_like`` leaf in its place.  ``shardings`` (a tree of
+    ``shardlib.Spec`` matching ``tree_like``, from ``shardlib.tree_specs``
+    on this rank's mesh) keeps each leaf's local piece on this rank.
+    Raises ValueError when the leaf count or a shape differs, TypeError
+    when a sharding is not a Spec.  Returns (tree, metadata)."""
     arrs, manifest = restore_flat(base, step)
+    if shardings is not None:
+        specs = flatten_leaves(shardings)
+        if len(specs) != len(arrs) or not all(isinstance(s, sl.Spec) for s in specs):
+            raise TypeError("shardings must be a tree of shardlib.Spec, one per stored leaf")
+        arrs = [sl.local_piece(a, s.spec, s.mesh).contiguous() for a, s in zip(arrs, specs)]
     leaves_like = flatten_leaves(tree_like)
     if manifest["n_leaves"] != len(leaves_like):
         raise ValueError(
             f"checkpoint has {manifest['n_leaves']} leaves, expected {len(leaves_like)}")
     out = []
     for i, (arr, like) in enumerate(zip(arrs, leaves_like)):
-        if tuple(arr.shape) != tuple(like.shape):
+        if shardings is None and tuple(arr.shape) != tuple(like.shape):
             raise ValueError(f"leaf {i}: shape {tuple(arr.shape)} != expected {tuple(like.shape)}")
         out.append(arr.to(like.device) if isinstance(like, torch.Tensor) else arr)
     return unflatten_leaves(tree_like, out), manifest["metadata"]

@@ -21,8 +21,8 @@ ships as a plan artifact that the serving engine loads.
                  (B1, B2, B4) needs at the candidate's block edge.
 
 Search knobs (one ``Candidate``): per-leaf-group (kind, q_prune), block
-size, kv_dtype, page size, spec_k and the mesh, which the port serves only
-as (1, 1) (sharding is ROADMAP A13).  Two strategies behind one
+size, kv_dtype, page size, spec_k and the mesh, which the tuner takes
+only as (1, 1) (meshes in the search are ROADMAP A13b).  Two strategies behind one
 ``search()``: a seeded random sweep and simulated annealing with per-knob
 neighbourhood moves, both seeded by ``np.random.default_rng(seed)`` and
 drawing as the reference's do, so that equal inputs give the reference's
@@ -79,7 +79,7 @@ class SearchSpace:
     every search seeds trial 0 with.  Ordered knobs (q_prunes, blocks,
     page_sizes, spec_ks) are listed monotonically: the annealer's moves
     step to adjacent values.  ``meshes`` other than ((1, 1),) are refused:
-    sharded serving is ROADMAP A13."""
+    tuning over meshes is ROADMAP A13b."""
 
     q_prunes: tuple = (0.0, 0.25, 0.5, 0.75)
     kinds: tuple = ("quant_sparse", "block_sparse", "quant", "dense")
@@ -111,8 +111,8 @@ class SearchSpace:
             raise ValueError("spec_k values must be >= 0")
         if tuple(tuple(m) for m in self.meshes) != ((1, 1),):
             raise NotImplementedError(
-                f"meshes {self.meshes}: the port serves one card; sharded serving is "
-                "ROADMAP A13")
+                f"meshes {self.meshes}: the tuner searches one card; meshes in the "
+                "search are ROADMAP A13b")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -37,6 +37,7 @@ import torch
 
 from repro_torch.core.pruning import BlockPruneConfig, block_mask
 from repro_torch.core.sparse_format import BlockSparse, build_walk, pad_walk
+from repro_torch.distributed import shardlib as sl
 from repro_torch.kernels import ops
 from repro_torch.kernels.fused_gate_up import ACTS
 
@@ -97,6 +98,22 @@ class QuantLinear:
     q: Any
     s: Any
     use_kernel: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedLeaf:
+    """A rank's local shard of one matmul weight of whole shape (K, N) on
+    the model axis of a mesh (``local_params``): ``local`` is a tensor, a
+    QuantLinear or a PackedLinear holding the rank's piece, ``k_split``
+    says that its rows are this rank's K / M (the contraction is split: the
+    product is partial and takes an all-reduce), ``n_split`` that its
+    columns are this rank's N / M (whole block columns of a packed leaf).
+    A leaf with neither is whole on every rank and stays unwrapped."""
+
+    local: Any
+    k_split: bool
+    n_split: bool
+    shape: tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -232,14 +249,7 @@ def pack_block_sparse(leaf: torch.Tensor, cfg: PlanConfig, quant: bool) -> Packe
         payload = torch.where(valid[i][..., None, None], payload, torch.zeros_like(payload))
         blocks[i] = payload.to(blocks.dtype).reshape(ncb * mb, bk, bn)
     rows = rows.to(torch.int32)
-
-    # the TPU kernel's walk (pack-time static, built and kept on the host)
-    rows_np, counts_np = rows.cpu().numpy(), counts.cpu().numpy()
-    walks = [build_walk(rows_np[i], counts_np[i], mb) for i in range(L)]
-    n_walk = max(wk["idx"].shape[0] for wk in walks)
-    walks = [pad_walk(wk, n_walk) for wk in walks]
-    walk = {k: torch.from_numpy(np.stack([wk[k] for wk in walks]).reshape(lead + (n_walk,)))
-            for k in ("idx", "rows", "cols", "flags")}
+    walk = _host_walk(rows, counts, mb, lead)
 
     return PackedLinear(
         blocks=blocks.reshape(lead + blocks.shape[1:]),
@@ -250,6 +260,57 @@ def pack_block_sparse(leaf: torch.Tensor, cfg: PlanConfig, quant: bool) -> Packe
         kind="quant_sparse" if quant else "block_sparse",
         shape=(K, N), bk=bk, bn=bn, use_kernel=cfg.use_kernel,
     )
+
+
+def _host_walk(rows: torch.Tensor, counts: torch.Tensor, mb: int, lead: tuple) -> dict:
+    """The TPU kernel's walk of (L, ncb, mb) row blocks and (L, ncb) counts
+    (pack-time static, built and kept on the host), each slice's padded to
+    the longest, with ``lead`` dims in front."""
+    rows_np = rows.reshape(-1, *rows.shape[-2:]).cpu().numpy()
+    counts_np = counts.reshape(-1, counts.shape[-1]).cpu().numpy()
+    walks = [build_walk(rows_np[i], counts_np[i], mb) for i in range(rows_np.shape[0])]
+    n_walk = max(wk["idx"].shape[0] for wk in walks)
+    walks = [pad_walk(wk, n_walk) for wk in walks]
+    return {k: torch.from_numpy(np.stack([wk[k] for wk in walks]).reshape(lead + (n_walk,)))
+            for k in ("idx", "rows", "cols", "flags")}
+
+
+# ---------------------------------------------------------------------------
+# axis-rules registry entries (distributed/shardlib): how the compressed
+# representations shard, registered where their layouts are defined
+# ---------------------------------------------------------------------------
+
+
+def _packed_leaf_axes(node: PackedLinear, axes):
+    """A dense weight's logical axes (..., in_ax, out_ax) expanded to the
+    PackedLinear's children: every child with a block-column dimension
+    takes the output-feature axis, the walk and the contraction axis stay
+    whole (the reference's expansion)."""
+    lead_n = node.blocks.dim() - 3
+    ax = tuple(axes) if axes is not None else ()
+    out_ax = ax[-1] if len(ax) >= 2 else None
+    lead = ax[:-2] if len(ax) == lead_n + 2 else (None,) * lead_n
+    return dataclasses.replace(
+        node,
+        blocks=lead + (out_ax, None, None),
+        block_rows=lead + (out_ax, None),
+        counts=lead + (out_ax,),
+        scales=None if node.scales is None else lead + (out_ax,),
+        walk=None if node.walk is None else {k: lead + (None,) for k in node.walk},
+    )
+
+
+def _quant_leaf_axes(node: QuantLinear, axes):
+    """The int8 payload keeps the dense weight's axes; the per-output
+    scales drop the contraction axis."""
+    if axes is None:
+        return dataclasses.replace(node, q=None, s=None)
+    ax = tuple(axes)
+    return dataclasses.replace(node, q=ax, s=ax[:-2] + ax[-1:])
+
+
+sl.register_node_axes("packed", lambda n: isinstance(n, PackedLinear), _packed_leaf_axes)
+sl.register_node_axes("quant", lambda n: isinstance(n, QuantLinear), _quant_leaf_axes)
 
 
 # ---------------------------------------------------------------------------
@@ -268,6 +329,10 @@ class LeafPlan:
     surviving: int  # weights actually streamed (== n_weights unless pruned)
     payload_bytes: float
     metadata_bytes: float
+    # the dense leaf's logical sharding axes (e.g. ("d", "ff")); the
+    # registry expands them to the packed children.  () for a plan built
+    # without axes.
+    axes: tuple = ()
 
     @property
     def bytes(self) -> float:
@@ -278,12 +343,12 @@ class LeafPlan:
         return 1.0 - self.surviving / max(1, self.n_weights)
 
 
-def _leaf_stats(path: str, kind: str, shape: tuple, packed) -> LeafPlan:
+def _leaf_stats(path: str, kind: str, shape: tuple, packed, axes: tuple = ()) -> LeafPlan:
     n = int(np.prod(shape)) if shape else 1
     if kind == "dense":
-        return LeafPlan(path, kind, shape, n, n, n * _DENSE_STREAM_BYTES, 0.0)
+        return LeafPlan(path, kind, shape, n, n, n * _DENSE_STREAM_BYTES, 0.0, axes)
     if kind == "quant":
-        return LeafPlan(path, kind, shape, n, n, float(n), 4.0 * packed.s.numel())
+        return LeafPlan(path, kind, shape, n, n, float(n), 4.0 * packed.s.numel(), axes)
     counts = packed.counts.cpu().numpy()
     surv_blocks = int(counts.sum())
     surviving = surv_blocks * packed.bk * packed.bn
@@ -291,7 +356,7 @@ def _leaf_stats(path: str, kind: str, shape: tuple, packed) -> LeafPlan:
     meta = 4.0 * surv_blocks + 4.0 * counts.size  # row idx per block + counts
     if packed.scales is not None:
         meta += 4.0 * packed.scales.numel()
-    return LeafPlan(path, kind, shape, n, surviving, payload, meta)
+    return LeafPlan(path, kind, shape, n, surviving, payload, meta, axes)
 
 
 @dataclasses.dataclass
@@ -330,6 +395,21 @@ class WeightPlan:
     def q_overhead_effective(self) -> float:
         payload = sum(l.payload_bytes for l in self.leaves.values())
         return self.weight_bytes / max(1.0, payload)
+
+    def axes_tree(self):
+        """The dense logical axes of every leaf of ``params`` (from
+        ``LeafPlan.axes``; None where the plan recorded none)."""
+        def ax(path, _):
+            lp = self.leaves.get(path)
+            return tuple(lp.axes) if lp is not None and lp.axes else None
+
+        return map_tree(ax, self.params)
+
+    def param_specs(self, mesh=None, rules=None):
+        """The spec of every tensor of the compressed ``params`` under
+        (mesh, rules), through the registry (``shardlib.tree_specs``): the
+        counterpart of the reference's ``param_shardings``."""
+        return sl.tree_specs(self.params, self.axes_tree(), mesh=mesh, rules=rules)
 
     def sizer(self, *, sparse_compute: bool = True, **kw):
         """A BatchSizer charged with this plan's weight stream."""
@@ -404,7 +484,7 @@ class WeightPlan:
         return s
 
 
-PLAN_NODES = (PackedLinear, QuantLinear)
+PLAN_NODES = (PackedLinear, QuantLinear, ShardedLeaf)
 
 
 def map_tree(fn, tree, path: str = ""):
@@ -422,7 +502,9 @@ def with_use_kernel(params, use_kernel: bool):
     """The same tree with every plan node's ``use_kernel`` replaced
     (tensors shared): ``False`` runs the plain versions on the card."""
     def one(_, n):
-        if isinstance(n, PLAN_NODES):
+        if isinstance(n, ShardedLeaf):
+            return dataclasses.replace(n, local=one(_, n.local))
+        if isinstance(n, (PackedLinear, QuantLinear)):
             return dataclasses.replace(n, use_kernel=use_kernel)
         return n
 
@@ -453,6 +535,8 @@ def flatten_leaves(tree) -> list:
     as q, s."""
     if tree is None:
         return []
+    if isinstance(tree, ShardedLeaf):
+        return flatten_leaves(tree.local)
     if isinstance(tree, PackedLinear):
         walk = [] if tree.walk is None else [tree.walk[k] for k in sorted(tree.walk)]
         return [tree.blocks, tree.block_rows, tree.counts,
@@ -546,8 +630,8 @@ def save_plan(base: str, plan: WeightPlan) -> str:
                if f.name != "rules"},
             "rules": [list(r) for r in plan.cfg.rules],
         },
-        # "axes" as the reference writes it for a plan built without axes
-        "leaves": {p: {**dataclasses.asdict(l), "shape": list(l.shape), "axes": []}
+        "leaves": {p: {**dataclasses.asdict(l), "shape": list(l.shape),
+                       "axes": list(l.axes)}
                    for p, l in plan.leaves.items()},
         "packed": {p: _node_meta(n) for p, n in _index_nodes(plan.params).items()},
     }
@@ -566,8 +650,8 @@ def load_plan(base: str, dense_params, *, use_kernel: bool = True) -> WeightPlan
     int8 leaf and every packed leaf's dense shape instead, and raises
     ValueError on a mismatch (another arch or shape).  ``use_kernel`` is the run's choice,
     not the file's: it goes into every node and into ``plan.cfg``; the
-    reference's ``interpret`` flags and its per-leaf ``axes`` (ROADMAP A13)
-    are ignored."""
+    reference's ``interpret`` flags are ignored; each leaf's ``axes`` are
+    read back, so a directory either package wrote places the same specs."""
     from repro_torch.checkpoint import store
 
     leaves_t, manifest = store.restore_flat(base)
@@ -613,15 +697,31 @@ def load_plan(base: str, dense_params, *, use_kernel: bool = True) -> WeightPlan
     params = unflatten_leaves(skel, leaves_t)
     fields = {f.name for f in dataclasses.fields(LeafPlan)}
     leaves = {p: LeafPlan(**{**{k: v for k, v in d.items() if k in fields},
-                             "shape": tuple(d["shape"])})
+                             "shape": tuple(d["shape"]),
+                             "axes": tuple(d.get("axes") or ())})
               for p, d in meta["leaves"].items()}
     return WeightPlan(cfg=cfg, leaves=leaves, params=params, _by_path=_index_nodes(params))
 
 
-def compress(params, cfg: PlanConfig = PlanConfig()) -> WeightPlan:
-    """Assign each leaf a representation, pack, and return the WeightPlan."""
+def _axes_by_path(axes, path: str = "") -> dict:
+    """path -> logical-axes tuple of an axes tree (``map_tree``'s paths)."""
+    if isinstance(axes, dict):
+        join = (lambda k: f"{path}/{k}") if path else str
+        return {p: a for k, v in axes.items() for p, a in _axes_by_path(v, join(k)).items()}
+    if isinstance(axes, list):
+        join = (lambda k: f"{path}/{k}") if path else str
+        return {p: a for i, v in enumerate(axes) for p, a in _axes_by_path(v, join(i)).items()}
+    return {path: axes}
+
+
+def compress(params, cfg: PlanConfig = PlanConfig(), *, axes=None) -> WeightPlan:
+    """Assign each leaf a representation, pack, and return the WeightPlan.
+    ``axes`` (optional, ``api.param_axes(cfg)``) is the tree of dense
+    logical axes: each leaf's are recorded in its LeafPlan, so the plan can
+    place its packed tree on a mesh (``param_specs``)."""
     leaves: dict = {}
     by_path: dict = {}
+    ax_of = _axes_by_path(axes) if axes is not None else {}
 
     def _one(path, leaf):
         if not isinstance(leaf, torch.Tensor):
@@ -634,7 +734,9 @@ def compress(params, cfg: PlanConfig = PlanConfig()) -> WeightPlan:
         else:
             pc = cfg if q == cfg.q_prune else dataclasses.replace(cfg, q_prune=q)
             packed = pack_block_sparse(leaf, pc, quant=(kind == "quant_sparse"))
-        leaves[path] = _leaf_stats(path, kind, tuple(leaf.shape), packed)
+        ax = ax_of.get(path)
+        leaves[path] = _leaf_stats(path, kind, tuple(leaf.shape), packed,
+                                   tuple(ax) if ax else ())
         by_path[path] = packed
         return packed
 
@@ -724,6 +826,8 @@ def tree_to(tree, device):
     """Move every tensor of a (possibly compressed) params tree to
     ``device``; walks stay on the host (no kernel reads them)."""
     def mv(_, n):
+        if isinstance(n, ShardedLeaf):
+            return dataclasses.replace(n, local=mv(_, n.local))
         if isinstance(n, PackedLinear):
             return dataclasses.replace(
                 n, blocks=n.blocks.to(device), block_rows=n.block_rows.to(device),
@@ -734,3 +838,134 @@ def tree_to(tree, device):
         return n.to(device) if isinstance(n, torch.Tensor) else n
 
     return map_tree(mv, tree)
+
+
+# ---------------------------------------------------------------------------
+# a rank's local shards on a mesh (distributed/shardlib)
+# ---------------------------------------------------------------------------
+
+
+def _model_split(entry, what: str) -> bool:
+    """Whether a spec entry splits its dimension over the model axis
+    (True) or leaves it whole (False).  Serving weights shard over "model"
+    only: any other mesh axis is refused."""
+    if entry is None or entry is sl.UNCONSTRAINED:
+        return False
+    if entry == "model":
+        return True
+    raise NotImplementedError(f"{what}: a weight sharded over {entry!r}; serving shards "
+                              f"weights over the model axis only (ROADMAP A13b)")
+
+
+def _local_packed(node: PackedLinear, parts: int, idx: int) -> PackedLinear:
+    """Block columns [idx * n, (idx + 1) * n) of a packed leaf (n = ncb /
+    parts), with their row blocks, counts, scales and a walk of their own."""
+    ncb, mb = node.counts.shape[-1], node.block_rows.shape[-1]
+    n, c0 = ncb // parts, idx * (ncb // parts)
+    rows = node.block_rows.narrow(-2, c0, n).contiguous().clone()
+    counts = node.counts.narrow(-1, c0, n).contiguous().clone()
+    lead = tuple(node.counts.shape[:-1])
+    return dataclasses.replace(
+        node,
+        blocks=node.blocks.narrow(-3, c0 * mb, n * mb).contiguous().clone(),
+        block_rows=rows, counts=counts,
+        scales=None if node.scales is None
+        else node.scales.narrow(-1, c0 * node.bn, n * node.bn).contiguous().clone(),
+        walk=None if node.walk is None else _host_walk(rows, counts, mb, lead),
+        shape=(node.shape[0], n * node.bn))
+
+
+def _piece(x: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
+    return sl.local_piece(x, spec, mesh).contiguous().clone()
+
+
+def local_leaf(node, axes, mesh, rules):
+    """This rank's piece of one leaf of a params tree, by its dense logical
+    axes under (mesh, rules).  A matmul weight (a tensor of 2+ dims, a
+    QuantLinear, a PackedLinear) split over the model axis becomes a
+    ``ShardedLeaf``; anything the spec leaves whole is returned as it is.
+
+    A packed leaf splits only into whole block columns: by its ``counts``'
+    spec (n_cols divisible by the model axis).  Where the reference's spec
+    shards ``blocks`` but not ``counts`` (n_cols * mb divides, n_cols does
+    not) the leaf stays whole on every rank (ROADMAP C1)."""
+    if isinstance(node, PackedLinear):
+        specs = sl.tree_specs(node, axes, mesh=mesh, rules=rules)
+        if not _model_split(specs.counts.spec[-1], "counts"):
+            return node
+        coords, sizes = sl.mesh_coords(mesh), sl.axis_sizes(mesh)
+        return ShardedLeaf(_local_packed(node, sizes["model"], coords["model"]),
+                           k_split=False, n_split=True, shape=tuple(node.shape))
+    if isinstance(node, QuantLinear):
+        specs = sl.tree_specs(node, axes, mesh=mesh, rules=rules)
+        q_spec = specs.q.spec
+        k_split = _model_split(q_spec[-2], "q rows")
+        n_split = _model_split(q_spec[-1], "q columns")
+        if not (k_split or n_split):
+            return node
+        local = dataclasses.replace(node, q=_piece(node.q, q_spec, mesh),
+                                    s=_piece(node.s, specs.s.spec, mesh))
+        return ShardedLeaf(local, k_split, n_split, tuple(node.q.shape[-2:]))
+    if not isinstance(node, torch.Tensor):
+        return node
+    spec = sl.tree_specs(node, axes, mesh=mesh, rules=rules).spec
+    if node.dim() < 2:
+        return _piece(node, spec, mesh) if any(e is not None for e in spec) else node
+    k_split = _model_split(spec[-2], "rows")
+    n_split = _model_split(spec[-1], "columns")
+    if not (k_split or n_split):
+        return node
+    return ShardedLeaf(_piece(node, spec, mesh), k_split, n_split, tuple(node.shape[-2:]))
+
+
+def local_params(params, axes_tree, mesh, rules):
+    """This rank's tree of a whole (stacked) params tree, dense or
+    compressed: ``local_leaf`` of every leaf by its axes (``axes_tree``
+    None: everything whole).  The pieces are copies, so the whole tree can
+    be dropped after."""
+    ax_of = _axes_by_path(axes_tree) if axes_tree is not None else {}
+
+    def one(path, node):
+        ax = ax_of.get(path)
+        return local_leaf(node, tuple(ax) if ax else None, mesh, rules)
+
+    return map_tree(one, params)
+
+
+def contraction(w) -> int:
+    """K of a whole matmul leaf."""
+    if isinstance(w, PackedLinear):
+        return w.shape[0]
+    return (w.q if isinstance(w, QuantLinear) else w).shape[-2]
+
+
+def sharded_linear(x: torch.Tensor, w, x_split: bool = False) -> tuple:
+    """y = x @ W on this rank's shard: (y, y_split).  ``x`` holds the whole
+    contraction axis or (``x_split``) this rank's piece of it; the result
+    holds the whole output axis or (``y_split``) this rank's columns.  A
+    split contraction sums its partial products over the model axis (an
+    int8 leaf's per-column scales commute with that sum: B5 runs with no
+    activation).  A whole leaf gathers a split ``x`` first."""
+    if not isinstance(w, ShardedLeaf):
+        return apply_linear(sl.cols(x, x_split, 0, contraction(w)), w), False
+    K = w.shape[0]
+    if w.k_split:
+        m, M = sl.axis_index("model"), sl.axis_size("model")
+        x = sl.cols(x, x_split, m * K // M, K // M)
+        return sl.all_reduce(apply_linear(x, w.local), "model"), False
+    x = sl.cols(x, x_split, 0, K)
+    return apply_linear(x, w.local), w.n_split
+
+
+def sharded_gate_up(x: torch.Tensor, w_gate, w_up, activation: str) -> tuple:
+    """act(x @ Wg) * (x @ Wu) on this rank's shards: (y, y_split); ``x``
+    whole.  A fusable packed pair of local columns is one B2 launch.  The
+    activation does not commute with a sum, so a split contraction is
+    refused."""
+    if not isinstance(w_gate, ShardedLeaf):
+        return apply_gate_up(x, w_gate, w_up, activation), False
+    if w_gate.k_split or not isinstance(w_up, ShardedLeaf) or w_up.k_split \
+            or w_up.n_split != w_gate.n_split:
+        raise ValueError("gate/up shards must split the same output columns and no "
+                         "contraction (the activation does not commute with a sum)")
+    return apply_gate_up(x, w_gate.local, w_up.local, activation), w_gate.n_split

@@ -151,13 +151,14 @@ __global__ void __launch_bounds__(threads(max_groups(HD)))
 paged_decode_kernel(const __grid_constant__ CUtensorMap kmap,
                     const __grid_constant__ CUtensorMap vmap,
                     const QT* __restrict__ q,              // (B, T, H, HD)
-                    const float* __restrict__ k_scales,    // (num_pages, ps, KVH) or null
+                    const float* __restrict__ k_scales,    // (num_pages, ps, pool_kvh) or null
                     const float* __restrict__ v_scales,
                     const int* __restrict__ table,         // (B, P), clamped by the wrapper
                     const int* __restrict__ pos,           // (B,)
                     QT* __restrict__ out,                  // (B, T, H, HD)
-                    int T, int H, int KVH, int P, int ps, int causal, int window,
-                    float softcap, float scale, int split, int stages, int groups) {
+                    int T, int H, int KVH, int pool_kvh, int kv_off, int P, int ps,
+                    int causal, int window, float softcap, float scale, int split, int stages,
+                    int groups) {
   constexpr bool kQuant = std::is_same<KT, int8_t>::value;
   constexpr int kHalf = HD / 2;  // columns of a lane's half of a dot product
   constexpr int kPV = HD / 32;   // accumulator columns per lane
@@ -229,7 +230,7 @@ paged_decode_kernel(const __grid_constant__ CUtensorMap kmap,
           float* ksd = reinterpret_cast<float*>(sb + 2 * L.tile());
           float* vsd = ksd + L.scales() / 4;
           for (int l = lane; l < ps; l += 32) {
-            const size_t row = (static_cast<size_t>(phys) * ps + l) * KVH + kvh;
+            const size_t row = (static_cast<size_t>(phys) * ps + l) * pool_kvh + kv_off + kvh;
             cp_async4(ksd + l, k_scales + row);
             cp_async4(vsd + l, v_scales + row);
           }
@@ -237,8 +238,8 @@ paged_decode_kernel(const __grid_constant__ CUtensorMap kmap,
         }
         if (lane == 0) {
           mbar_arrive_expect_tx(&full[st], tx);
-          tma_load_4d(sb, &kmap, 0, kvh, 0, phys, &full[st]);
-          tma_load_4d(sb + L.tile(), &vmap, 0, kvh, 0, phys, &full[st]);
+          tma_load_4d(sb, &kmap, 0, kv_off + kvh, 0, phys, &full[st]);
+          tma_load_4d(sb + L.tile(), &vmap, 0, kv_off + kvh, 0, phys, &full[st]);
         }
         __syncwarp();
       }
@@ -466,9 +467,9 @@ template <> constexpr CUtensorMapDataType map_type<float>() { return CU_TENSOR_M
 template <int HD, typename QT, typename KT>
 static int launch(const void* q, const void* kp, const void* vp, const float* ksc,
                   const float* vsc, const int* table, const int* pos, void* out, int B, int T,
-                  int H, int KVH, int P, int ps, int num_pages, int causal, int window,
-                  float softcap, float scale, int split, int stages, int groups,
-                  cudaStream_t stream) {
+                  int H, int KVH, int pool_kvh, int kv_off, int P, int ps, int num_pages,
+                  int causal, int window, float softcap, float scale, int split, int stages,
+                  int groups, cudaStream_t stream) {
   // a group waits on the stage of its next page, ``groups`` pages on: more
   // groups than stages would let that stage's barrier be two phases behind,
   // which its parity cannot tell
@@ -477,8 +478,8 @@ static int launch(const void* q, const void* kp, const void* vp, const float* ks
   const Layout L{T * (H / KVH), HD, ps, static_cast<int>(sizeof(KT)),
                  std::is_same<KT, int8_t>::value, stages, groups};
   CUtensorMap kmap, vmap;
-  if (!encode_page_map(&kmap, kp, num_pages, ps, KVH, HD, sizeof(KT), map_type<KT>()) ||
-      !encode_page_map(&vmap, vp, num_pages, ps, KVH, HD, sizeof(KT), map_type<KT>()))
+  if (!encode_page_map(&kmap, kp, num_pages, ps, pool_kvh, HD, sizeof(KT), map_type<KT>()) ||
+      !encode_page_map(&vmap, vp, num_pages, ps, pool_kvh, HD, sizeof(KT), map_type<KT>()))
     return static_cast<int>(cudaErrorInvalidValue);
   auto kern = paged_decode_kernel<HD, QT, KT>;
   // set on every call, as the attribute is per device
@@ -498,8 +499,8 @@ static int launch(const void* q, const void* kp, const void* vp, const float* ks
   cfg.attrs = attr;
   cfg.numAttrs = split > 1 ? 1 : 0;
   err = cudaLaunchKernelEx(&cfg, kern, kmap, vmap, static_cast<const QT*>(q), ksc, vsc, table,
-                           pos, static_cast<QT*>(out), T, H, KVH, P, ps, causal, window, softcap,
-                           scale, split, stages, groups);
+                           pos, static_cast<QT*>(out), T, H, KVH, pool_kvh, kv_off, P, ps, causal,
+                           window, softcap, scale, split, stages, groups);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -507,10 +508,10 @@ static int launch(const void* q, const void* kp, const void* vp, const float* ks
 template <int HD>
 static int launch_hd(int q_dtype, int kv_dtype, const void* q, const void* kp, const void* vp,
                      const float* ksc, const float* vsc, const int* table, const int* pos,
-                     void* out, int B, int T, int H, int KVH, int P, int ps, int num_pages,
-                     int causal, int window, float softcap, float scale, int split, int stages,
-                     int groups, cudaStream_t s) {
-#define PDA_ARGS q, kp, vp, ksc, vsc, table, pos, out, B, T, H, KVH, P, ps, num_pages, causal, window, softcap, scale, split, stages, groups, s
+                     void* out, int B, int T, int H, int KVH, int pool_kvh, int kv_off, int P,
+                     int ps, int num_pages, int causal, int window, float softcap, float scale,
+                     int split, int stages, int groups, cudaStream_t s) {
+#define PDA_ARGS q, kp, vp, ksc, vsc, table, pos, out, B, T, H, KVH, pool_kvh, kv_off, P, ps, num_pages, causal, window, softcap, scale, split, stages, groups, s
   if (kv_dtype == DT_I8) {
     if (q_dtype == DT_BF16) return launch<HD, __nv_bfloat16, int8_t>(PDA_ARGS);
     if (q_dtype == DT_F32) return launch<HD, float, int8_t>(PDA_ARGS);
@@ -531,8 +532,10 @@ extern "C" size_t paged_decode_smem_bytes(int R, int hd, int ps, int kv_dtype, i
   return pda::Layout{R, hd, ps, elem, kv_dtype == DT_I8, stages, groups}.total();
 }
 
-// q/out (B, T, H, hd) f32|bf16; k/v pages (num_pages, ps, KVH, hd) in q's
-// dtype, or int8 with (num_pages, ps, KVH) f32 scale pools; pools 16-byte
+// q/out (B, T, H, hd) f32|bf16; k/v pages (num_pages, ps, pool_kvh, hd) in
+// q's dtype, or int8 with (num_pages, ps, pool_kvh) f32 scale pools, of
+// which the launch reads KV heads [kv_off, kv_off + KVH) (a rank's heads
+// of a pool that holds them all), H / KVH query heads each; pools 16-byte
 // aligned; hd 64, 128 or 256; ps <= 256; split 1..8 CTAs per (b, kvh) in a
 // cluster; stages >= 1 pages in flight per CTA; groups 1..max_groups(hd)
 // groups of four consumer warps.  Returns a cudaError_t code (0 =
@@ -542,13 +545,15 @@ extern "C" int paged_decode_launch(const void* q, const void* k_pages, const voi
                                    const int* table, const int* pos, void* out,
                                    int B, int T, int H, int KVH, int hd, int P, int ps,
                                    int num_pages, int causal, int window, float softcap,
-                                   float scale, int q_dtype, int kv_dtype, int split, int stages,
-                                   int groups, void* stream) {
+                                   float scale, int q_dtype, int kv_dtype, int pool_kvh,
+                                   int kv_off, int split, int stages, int groups,
+                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || T <= 0) return 0;
-  if (split < 1 || split > pda::kMaxSplit || stages < 1 || ps < 1 || ps > 256 || P < 1)
+  if (split < 1 || split > pda::kMaxSplit || stages < 1 || ps < 1 || ps > 256 || P < 1 ||
+      kv_off < 0 || kv_off + KVH > pool_kvh)
     return static_cast<int>(cudaErrorInvalidValue);
-#define PDA_ARGS q_dtype, kv_dtype, q, k_pages, v_pages, k_scales, v_scales, table, pos, out, B, T, H, KVH, P, ps, num_pages, causal, window, softcap, scale, split, stages, groups, s
+#define PDA_ARGS q_dtype, kv_dtype, q, k_pages, v_pages, k_scales, v_scales, table, pos, out, B, T, H, KVH, pool_kvh, kv_off, P, ps, num_pages, causal, window, softcap, scale, split, stages, groups, s
   if (hd == 64) return pda::launch_hd<64>(PDA_ARGS);
   if (hd == 128) return pda::launch_hd<128>(PDA_ARGS);
   if (hd == 256) return pda::launch_hd<256>(PDA_ARGS);

@@ -1,0 +1,510 @@
+"""Logical-axis sharding (port of ``repro/distributed/shardlib.py``).
+
+Models name each tensor dimension by a *logical* axis ("d", "qkv", "ff",
+"vocab", "batch", "kv_heads", ...); a rule table maps logical axes to the
+physical axes of a mesh ("data", "model").  A mapping that the dimension
+cannot honor (its size does not divide by the mesh axes' product) is
+dropped and the dimension stays whole -- the reference's divisibility
+rule, so every (arch x mesh) cell has a layout without per-arch cases.
+
+The placement half is the reference's, function for function:
+``DEFAULT_RULES``, ``_resolve`` (a spec is a tuple with one entry a
+dimension: None, a mesh-axis name or a tuple of them, or ``UNCONSTRAINED``),
+the axis registry (``register_axes``, ``axes_for``, ``register_node_axes``,
+``expand_axes``, ``registry_table``), the cache-kind registry
+(``CacheKind``, ``register_cache_kind``, ``cache_kind_table``),
+``tree_specs`` (the counterpart of ``tree_shardings``: the spec of every
+leaf of a params or cache tree), ``shard_degree``, ``parallelism_degrees``
+and ``spec_for``.
+
+The execution half replaces GSPMD.  The reference shards one jitted
+program over a mesh and lets the compiler insert the collectives; the port
+runs one process per rank, each holding its *local piece* of every leaf
+(``local_piece``: the dims a spec shards are cut to this rank's slice, in
+rank order), and the model code moves activations between layouts with
+``torch.distributed`` collectives over the mesh's process groups
+(``all_gather``, ``all_reduce``, ``cols``, ``gather_batch``).  ``shard`` /
+``shard_pinned`` are the relayout their call sites need: a whole tensor to
+this rank's piece.  Without an active mesh (``use_mesh``) every one of them
+does nothing.
+
+A mesh is a ``torch.distributed`` ``DeviceMesh`` with dim names ("data",
+"model") (``launch/mesh.py`` builds it), or a ``MeshShape``: axis sizes
+and, optionally, this rank's coordinates, with no process group -- what the
+placement functions and the tests need (``make_production_mesh``'s 256
+ranks are shapes only).  A collective takes the tensors where they lie:
+over NCCL on the card, over gloo on the CPU or, for CUDA tensors, through
+gloo's own CUDA path (the backend is chosen up front, never after a
+failure).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import threading
+from typing import Any, Optional, Sequence, Union
+
+import torch
+import torch.distributed as dist
+
+_state = threading.local()
+
+
+class _Unconstrained:
+    """A dropped mapping in an activation spec: the reference's
+    ``P.UNCONSTRAINED`` (GSPMD picks the layout)."""
+
+    def __repr__(self):
+        return "UNCONSTRAINED"
+
+
+UNCONSTRAINED = _Unconstrained()
+
+# logical axis name -> mesh axis name (or tuple of mesh axes)
+DEFAULT_RULES = {
+    "batch": ("pod", "data"),  # data parallel
+    "seq": None,  # sequence: unsharded by default (overridden for long ctx)
+    "seq_sp": None,  # residual-stream seq dim (Megatron-style SP, launcher opt-in)
+    "cache_seq": None,  # decode KV cache length (sharded for long_500k)
+    "d": None,  # d_model: replicated on activations
+    "heads": "model",  # attention heads -- tensor parallel
+    "kv_heads": "model",
+    "qkv": "model",  # fused qkv feature dim
+    "ff": "model",  # FFN hidden
+    "vocab": "model",  # embedding/LM-head vocab shard
+    "experts": "model",  # MoE expert parallelism
+    "expert_ff": None,  # intra-expert TP (used when E % model != 0)
+    "zero": ("pod", "data"),  # optimizer-state sharding axis (ZeRO)
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshShape:
+    """A mesh without processes: ``shape`` maps axis names to sizes (in
+    mesh order); ``coords`` optionally places this rank on each axis (for
+    ``local_piece`` without a process group)."""
+
+    shape: dict
+    coords: Optional[dict] = None
+
+
+def axis_sizes(mesh) -> dict:
+    """{axis name: size} of a DeviceMesh or a MeshShape, in mesh order."""
+    if mesh is None:
+        return {}
+    if isinstance(mesh, MeshShape):
+        return dict(mesh.shape)
+    return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+
+
+def mesh_coords(mesh) -> dict:
+    """{axis name: this rank's index on it}."""
+    if isinstance(mesh, MeshShape):
+        if mesh.coords is None:
+            raise ValueError("a MeshShape without coords places no rank")
+        return dict(mesh.coords)
+    return {a: mesh.get_local_rank(a) for a in mesh.mesh_dim_names}
+
+
+def _get():
+    if not hasattr(_state, "stack"):
+        _state.stack = []
+    return _state.stack
+
+
+@contextlib.contextmanager
+def use_mesh(mesh, rules: Optional[dict] = None):
+    """Activate a mesh + logical rules for the model code's relayouts."""
+    merged = dict(DEFAULT_RULES)
+    if rules:
+        merged.update(rules)
+    _get().append((mesh, merged))
+    try:
+        yield
+    finally:
+        _get().pop()
+
+
+def current_mesh():
+    s = _get()
+    return s[-1][0] if s else None
+
+
+def current_rules() -> dict:
+    s = _get()
+    return s[-1][1] if s else dict(DEFAULT_RULES)
+
+
+def _axes_size(sizes: dict, axes: Union[str, Sequence[str], None]) -> int:
+    if axes is None:
+        return 1
+    if isinstance(axes, str):
+        axes = (axes,)
+    n = 1
+    for a in axes:
+        n *= sizes.get(a, 1)
+    return n
+
+
+def _resolve(mesh, rules: dict, logical: Sequence[Optional[str]], shape,
+             unconstrained_ok: bool = False) -> tuple:
+    """Logical axes -> spec tuple, dropping non-divisible mappings (to
+    ``UNCONSTRAINED`` for activation constraints, else None: replicated)."""
+    sizes = axis_sizes(mesh)
+    spec = []
+    used: set = set()
+    dropped = UNCONSTRAINED if unconstrained_ok else None
+    for dim, name in zip(shape, logical):
+        mapped = rules.get(name) if name else None
+        if mapped is None:
+            spec.append(None)
+            continue
+        axes = (mapped,) if isinstance(mapped, str) else tuple(mapped)
+        axes = tuple(a for a in axes if a in sizes and a not in used)
+        size = _axes_size(sizes, axes)
+        if size <= 1 or dim % size != 0:
+            spec.append(dropped)
+            continue
+        used.update(axes)
+        spec.append(axes[0] if len(axes) == 1 else axes)
+    return tuple(spec)
+
+
+# ---------------------------------------------------------------------------
+# axis-rules registry: ONE table from leaf kind to logical axes
+# ---------------------------------------------------------------------------
+#
+# Named leaf kinds (KV caches, scale leaves, page pools, the page table)
+# register their logical axes where their layout is defined; structured
+# kinds (PackedLinear, QuantLinear) register an expander from the dense
+# weight's axes to their children's.  ``tree_specs`` resolves any params or
+# cache tree, dense or compressed, through them.
+
+AXIS_REGISTRY: dict = {}
+
+_NODE_RULES: list = []  # (name, predicate, expander) -- first match wins
+
+
+def register_axes(kind: str, axes: Sequence[Optional[str]]) -> tuple:
+    """Register canonical logical axes for a named leaf kind; returns them."""
+    AXIS_REGISTRY[kind] = tuple(axes)
+    return AXIS_REGISTRY[kind]
+
+
+def axes_for(kind: str) -> tuple:
+    return AXIS_REGISTRY[kind]
+
+
+def register_node_axes(name: str, predicate, expander):
+    """Register a structured leaf kind: ``predicate(node)`` recognizes it,
+    ``expander(node, dense_axes)`` returns the node with each tensor child
+    replaced by its logical axes (``dense_axes`` None: replicated)."""
+    _NODE_RULES.append((name, predicate, expander))
+
+
+def is_registered_node(x) -> bool:
+    return any(pred(x) for _, pred, _ in _NODE_RULES)
+
+
+def expand_axes(node, axes):
+    """Logical axes for one leaf: dense leaves keep ``axes``; registered
+    node kinds expand to per-child axes."""
+    for _, pred, exp in _NODE_RULES:
+        if pred(node):
+            return exp(node, axes)
+    return axes
+
+
+def registry_table() -> dict:
+    """Named kinds -> axes, plus the structured kinds' names."""
+    return {**{k: AXIS_REGISTRY[k] for k in sorted(AXIS_REGISTRY)},
+            "node_kinds": tuple(name for name, _, _ in _NODE_RULES)}
+
+
+CACHE_KIND_REGISTRY: dict = {}
+
+
+@dataclasses.dataclass(frozen=True)
+class CacheKind:
+    """One serving-state leaf kind: its logical axes (a tuple, or a dict of
+    sub-leaf -> tuple), whether it is positionally addressed (paging,
+    speculation and chunked prefill need that), whether it is a pool-resident
+    paged layout, and the family that owns it."""
+
+    name: str
+    axes: Any
+    positional: bool
+    paged: bool = False
+    family: str = "attn"
+
+
+def register_cache_kind(name: str, axes, *, positional: bool, paged: bool = False,
+                        family: str = "attn"):
+    """Register a serving-state leaf kind (its axes also enter the axis
+    registry, as ``name`` or ``name.sub``); returns the stored axes."""
+    if isinstance(axes, dict):
+        stored = {k: register_axes(f"{name}.{k}", v) for k, v in axes.items()}
+    else:
+        stored = register_axes(name, axes)
+    CACHE_KIND_REGISTRY[name] = CacheKind(name=name, axes=stored, positional=positional,
+                                          paged=paged, family=family)
+    return stored
+
+
+def cache_kind(name: str) -> CacheKind:
+    return CACHE_KIND_REGISTRY[name]
+
+
+def cache_kind_table() -> dict:
+    return {k: CACHE_KIND_REGISTRY[k] for k in sorted(CACHE_KIND_REGISTRY)}
+
+
+@dataclasses.dataclass(frozen=True)
+class Spec:
+    """The resolved spec of one tensor leaf (a leaf of ``tree_specs``' tree,
+    where a bare tuple would read as a container), with the mesh it was
+    resolved on (``checkpoint.store.restore(shardings=)`` cuts by it)."""
+
+    spec: tuple
+    mesh: Any = dataclasses.field(default=None, compare=False, repr=False)
+
+
+def _leaf_spec(mesh, rules, leaf, ax) -> tuple:
+    shape = tuple(leaf.shape)
+    if ax is None:
+        ax = (None,) * len(shape)
+    ax = tuple(ax)
+    if len(ax) != len(shape):
+        raise ValueError(f"{len(ax)} logical axes {ax} for shape {shape}")
+    return _resolve(mesh, rules, ax, shape)
+
+
+def map_leaves(fn, tree, axes_tree):
+    """fn(leaf, axes) over a tree of tensors (nested dicts/lists, plan nodes
+    expanded through the registry) and its axes tree; ``axes_tree`` None
+    anywhere means replicated below it.  Returns the same structure."""
+    if tree is None:
+        return None
+    if is_registered_node(tree):
+        node = expand_axes(tree, axes_tree)
+        return _map_node(fn, tree, node)
+    if isinstance(tree, dict):
+        return {k: map_leaves(fn, v, None if axes_tree is None else axes_tree.get(k))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_leaves(fn, v, None if axes_tree is None else axes_tree[i])
+                          for i, v in enumerate(tree))
+    if not isinstance(tree, torch.Tensor):
+        return tree
+    return fn(tree, axes_tree)
+
+
+def _map_node(fn, node, axes_node):
+    """A plan node with each tensor child (and each tensor of a dict child)
+    replaced by fn(child, its axes)."""
+    out = {}
+    for f in dataclasses.fields(node):
+        v, a = getattr(node, f.name), getattr(axes_node, f.name)
+        if isinstance(v, torch.Tensor):
+            out[f.name] = fn(v, a)
+        elif isinstance(v, dict):
+            out[f.name] = {k: fn(t, None if a is None else a[k]) for k, t in v.items()}
+    return dataclasses.replace(node, **out)
+
+
+def tree_specs(tree, axes_tree, *, mesh=None, rules: Optional[dict] = None):
+    """The resolved spec (a ``Spec``) of every tensor leaf of a params or
+    cache tree (tensors, or meta tensors for shapes only), dense or
+    compressed: the counterpart of the reference's ``tree_shardings``.
+    ``axes_tree`` carries the dense logical axes; registered nodes expand."""
+    mesh = mesh if mesh is not None else current_mesh()
+    rules = rules if rules is not None else current_rules()
+    if mesh is None:
+        raise ValueError("tree_specs needs a mesh (argument or use_mesh)")
+    return map_leaves(lambda leaf, ax: Spec(_leaf_spec(mesh, rules, leaf, ax), mesh),
+                      tree, axes_tree)
+
+
+def shard_degree(mesh, rules: dict, logical: Sequence[Optional[str]], shape, *,
+                 dim: Optional[int] = None) -> int:
+    """The shard degree ``_resolve`` achieves for a leaf (over all dims, or
+    over ``dim``): 1 where divisibility dropped the mapping."""
+    spec = _resolve(mesh, rules, logical, shape)
+    sizes = axis_sizes(mesh)
+    deg = 1
+    for d in (range(len(spec)) if dim is None else (dim,)):
+        entry = spec[d] if d < len(spec) else None
+        if entry is None or entry is UNCONSTRAINED:
+            continue
+        deg *= _axes_size(sizes, entry)
+    return deg
+
+
+def parallelism_degrees(mesh, rules: dict, n_kv_heads: int = 0) -> tuple:
+    """(data, model, kv) degrees for serving accounting: the batch axis's
+    nominal degree, the model axis's size, and the degree the kv_heads
+    dimension actually achieves (1 when it cannot split)."""
+    if mesh is None:
+        return 1, 1, 1
+    sizes = axis_sizes(mesh)
+    data = _axes_size(sizes, rules.get("batch"))
+    model = int(sizes.get("model", 1))
+    kv = shard_degree(mesh, rules, ("kv_heads",), (n_kv_heads,)) if n_kv_heads else 1
+    return data, model, kv
+
+
+def spec_for(shape: Sequence[int], *logical: Optional[str], mesh=None,
+             rules: Optional[dict] = None) -> tuple:
+    """The spec of a leaf of ``shape`` with logical axes (() without a mesh)."""
+    mesh = mesh if mesh is not None else current_mesh()
+    rules = rules or current_rules()
+    if mesh is None:
+        return ()
+    return _resolve(mesh, rules, logical, shape)
+
+
+# ---------------------------------------------------------------------------
+# a rank's pieces: placement and relayout
+# ---------------------------------------------------------------------------
+
+
+def _piece(sizes: dict, coords: dict, entry) -> tuple:
+    """(parts, index) of one spec entry: how many pieces its axes cut the
+    dimension into, and this rank's (row-major over the axes)."""
+    if entry is None or entry is UNCONSTRAINED:
+        return 1, 0
+    axes = (entry,) if isinstance(entry, str) else tuple(entry)
+    parts, idx = 1, 0
+    for a in axes:
+        parts *= sizes[a]
+        idx = idx * sizes[a] + coords[a]
+    return parts, idx
+
+
+def local_piece(x: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
+    """This rank's piece of a whole tensor under ``spec`` (a view: each
+    sharded dim narrowed to the rank's slice, pieces in rank order)."""
+    sizes, coords = axis_sizes(mesh), mesh_coords(mesh)
+    for d, entry in enumerate(spec):
+        parts, idx = _piece(sizes, coords, entry)
+        if parts > 1:
+            n = x.shape[d] // parts
+            x = x.narrow(d, idx * n, n)
+    return x
+
+
+def local_shape(shape, spec: tuple, mesh) -> tuple:
+    """The shape of this rank's piece of a leaf of ``shape`` under ``spec``."""
+    sizes = axis_sizes(mesh)
+    return tuple(n // _axes_size(sizes, None if e is UNCONSTRAINED else e)
+                 for n, e in zip(shape, tuple(spec) + (None,) * (len(shape) - len(spec))))
+
+
+def local_zeros(tree, axes_tree, mesh, rules: dict, device):
+    """Zeros of this rank's piece of every leaf of ``tree`` (meta tensors
+    give the whole shapes and dtypes) by its logical axes: a sharded cache
+    allocated as pieces."""
+    def one(t, ax):
+        spec = _resolve(mesh, rules, tuple(ax) if ax else (None,) * t.dim(), t.shape)
+        return torch.zeros(local_shape(t.shape, spec, mesh), dtype=t.dtype, device=device)
+
+    return map_leaves(one, tree, axes_tree)
+
+
+def shard(x: torch.Tensor, *logical: Optional[str]) -> torch.Tensor:
+    """This rank's piece of the whole tensor ``x`` by logical axis names
+    (the relayout of the reference's activation constraint); ``x`` itself
+    without an active mesh."""
+    s = _get()
+    if not s:
+        return x
+    mesh, rules = s[-1]
+    if len(logical) != x.dim():
+        raise ValueError(f"{len(logical)} axes for rank-{x.dim()} tensor")
+    return local_piece(x, _resolve(mesh, rules, logical, x.shape), mesh)
+
+
+# a rank's piece keeps a dropped dimension whole, pinned or not
+shard_pinned = shard
+
+
+def axis_size(axis: str) -> int:
+    """The active mesh's size on ``axis`` (1 without a mesh)."""
+    mesh = current_mesh()
+    return axis_sizes(mesh).get(axis, 1) if mesh is not None else 1
+
+
+def axis_index(axis: str) -> int:
+    """This rank's index on ``axis`` of the active mesh (0 without one)."""
+    mesh = current_mesh()
+    return mesh_coords(mesh).get(axis, 0) if mesh is not None else 0
+
+
+def _group(axis: str):
+    mesh = current_mesh()
+    if isinstance(mesh, MeshShape):
+        raise RuntimeError(f"a MeshShape has no process group for a collective over {axis!r}")
+    return mesh.get_group(axis)
+
+
+def all_gather(x: torch.Tensor, axis: str, dim: int = -1) -> torch.Tensor:
+    """The ``axis`` group's pieces of ``x`` concatenated along ``dim`` in
+    rank order (``x`` itself on a 1-wide axis)."""
+    n = axis_size(axis)
+    if n == 1:
+        return x
+    src = x.contiguous()
+    parts = [torch.empty_like(src) for _ in range(n)]
+    dist.all_gather(parts, src, group=_group(axis))
+    return torch.cat(parts, dim=dim)
+
+
+def all_reduce(x: torch.Tensor, axis: str) -> torch.Tensor:
+    """The sum of ``x`` over the ``axis`` group (a new tensor)."""
+    if axis_size(axis) == 1:
+        return x
+    out = x.detach().clone().contiguous()
+    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=_group(axis))
+    return out
+
+
+def cols(y: torch.Tensor, split: bool, start: int, size: int) -> torch.Tensor:
+    """Columns [start, start + size) of the whole last axis, from ``y`` that
+    holds either the whole axis or (``split``) this rank's piece of M equal
+    pieces over the model axis: a slice where the piece covers them, else
+    an all-gather first."""
+    if split:
+        n = y.shape[-1]
+        lo = axis_index("model") * n
+        if lo <= start and start + size <= lo + n:
+            return y.narrow(-1, start - lo, size)
+        y = all_gather(y, "model", dim=-1)
+    return y.narrow(-1, start, size)
+
+
+def data_rows(batch: int) -> Optional[slice]:
+    """This data replica's rows of a batch of ``batch`` rows under the
+    active rules (the ``batch`` mapping), or None when the batch stays whole
+    (no mesh, a 1-wide data axis, or a batch that does not divide)."""
+    mesh = current_mesh()
+    if mesh is None:
+        return None
+    spec = _resolve(mesh, current_rules(), ("batch",), (batch,))
+    parts, idx = _piece(axis_sizes(mesh), mesh_coords(mesh), spec[0])
+    if parts == 1:
+        return None
+    n = batch // parts
+    return slice(idx * n, (idx + 1) * n)
+
+
+def gather_batch(x: torch.Tensor, rows: Optional[slice]) -> torch.Tensor:
+    """The whole batch from this replica's ``rows`` of it (dim 0), in data
+    order (``x`` itself when ``rows`` is None)."""
+    if rows is None:
+        return x
+    axes = current_rules().get("batch")
+    axes = (axes,) if isinstance(axes, str) else tuple(axes or ())
+    for a in reversed([a for a in axes if axis_size(a) > 1]):
+        x = all_gather(x, a, dim=0)
+    return x

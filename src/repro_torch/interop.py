@@ -71,7 +71,7 @@ def plan_from_reference(ref_plan, device="cpu", use_kernel: bool = True) -> Weig
     leaves = {
         p: LeafPlan(path=l.path, kind=l.kind, shape=tuple(l.shape), n_weights=int(l.n_weights),
                     surviving=int(l.surviving), payload_bytes=float(l.payload_bytes),
-                    metadata_bytes=float(l.metadata_bytes))
+                    metadata_bytes=float(l.metadata_bytes), axes=tuple(l.axes))
         for p, l in ref_plan.leaves.items()
     }
     return WeightPlan(cfg=cfg, leaves=leaves, params=params, _by_path=_index_nodes(params))

@@ -60,8 +60,8 @@ _SIGNATURES = {
     "paged_attention": {
         # q, k_pages, v_pages, k_scales, v_scales, table, pos, out,
         # B, T, H, KVH, hd, P, ps, num_pages, causal, window, softcap, scale,
-        # q_dtype, kv_dtype, split, stages, groups, stream
-        "paged_decode_launch": ([_P] * 8 + [_I] * 10 + [_F, _F] + [_I] * 5 + [_P], _I),
+        # q_dtype, kv_dtype, pool_kvh, kv_off, split, stages, groups, stream
+        "paged_decode_launch": ([_P] * 8 + [_I] * 10 + [_F, _F] + [_I] * 7 + [_P], _I),
         # rows, hd, ps, kv_dtype, stages, groups
         "paged_decode_smem_bytes": ([_I] * 6, ctypes.c_size_t),
     },

@@ -47,10 +47,17 @@ SMEM_LIMIT = 232448  # bytes of shared memory one CTA may use on Hopper
 
 def paged_decode_attention_plain(q, k_pages, v_pages, page_table, pos, *,
                                  window=None, softcap=0.0, k_scale_pages=None,
-                                 v_scale_pages=None, causal: bool = True) -> torch.Tensor:
+                                 v_scale_pages=None, causal: bool = True,
+                                 kv_heads=None) -> torch.Tensor:
     """Gather each sequence's pages, then contiguous decode attention
-    (non-causal: every query sees [0, pos])."""
+    (non-causal: every query sees [0, pos]); ``kv_heads`` (offset, count)
+    reads those KV heads of the pools only."""
     from repro_torch.models import layers as L  # layers imports this module
+
+    if kv_heads is not None:
+        k_pages, v_pages, k_scale_pages, v_scale_pages = (
+            None if t is None else t.narrow(2, kv_heads[0], kv_heads[1])
+            for t in (k_pages, v_pages, k_scale_pages, v_scale_pages))
 
     kc = L.gather_pages(k_pages, page_table)
     vc = L.gather_pages(v_pages, page_table)
@@ -144,15 +151,18 @@ def paged_split(B: int, KVH: int, pages_per_seq: int, n_sm: int) -> int:
     return max(1, min(PAGED_MAX_SPLIT, pages_per_seq, -(-2 * n_sm // max(1, B * KVH))))
 
 
-def _check(q, k_pages, v_pages, page_table, pos, k_scale_pages, v_scale_pages):
+def _check(q, k_pages, v_pages, page_table, pos, k_scale_pages, v_scale_pages, kv_heads):
     if q.dim() != 4 or q.dtype not in Q_DTYPES:
         raise ValueError(f"q must be (B, T, H, hd) in {Q_DTYPES}, got {tuple(q.shape)} {q.dtype}")
     B, T, H, hd = q.shape
     if k_pages.dim() != 4 or k_pages.shape != v_pages.shape or k_pages.shape[3] != hd:
         raise ValueError(f"k/v pages must be (num_pages, ps, KVH, {hd})")
     num_pages, ps, KVH, _ = k_pages.shape
-    if H % KVH:
-        raise ValueError(f"H={H} is not a multiple of KVH={KVH}")
+    off, n = kv_heads
+    if off < 0 or n < 1 or off + n > KVH:
+        raise ValueError(f"kv_heads {kv_heads} outside the pools' {KVH} KV heads")
+    if H % n:
+        raise ValueError(f"H={H} is not a multiple of the {n} KV heads read")
     quant = k_scale_pages is not None
     if quant:
         if k_pages.dtype != torch.int8 or v_pages.dtype != torch.int8:
@@ -180,14 +190,18 @@ def _check(q, k_pages, v_pages, page_table, pos, k_scale_pages, v_scale_pages):
 def paged_decode_attention(q, k_pages, v_pages, page_table, pos, *, window=None,
                            softcap: float = 0.0, k_scale_pages=None,
                            v_scale_pages=None, causal: bool = True,
-                           use_kernel: bool = True) -> torch.Tensor:
+                           use_kernel: bool = True, kv_heads=None) -> torch.Tensor:
     """Attention of q (B, T, H, hd) -- query t of sequence b at position
     pos[b] + t, seeing kv_pos <= pos[b] + t -- against the paged pools
     (num_pages, ps, KVH, hd) through page_table (B, pages_per_seq).  int8
     pools come with (num_pages, ps, KVH) float32 scale pools.
     ``causal=False`` gives every query the positions [0, pos[b]]: the
     enc-dec cross-attention over a sequence's frame pages, pos[b] its last
-    frame (the stale tail of the last page lies past it).
+    frame (the stale tail of the last page lies past it).  ``kv_heads``
+    (offset, count) reads only those KV heads of the pools, H / count query
+    heads each: a rank's q heads against a pool that holds every KV head
+    (a mesh whose model axis does not divide the KV heads), read in place,
+    without a copy.
 
     The table is clamped to [0, num_pages - 1] first (the reference's
     guardrail, ``repro/kernels/ops.py:251``): a corrupted entry reads a
@@ -196,11 +210,14 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, pos, *, window=None,
     if not q.is_cuda or not use_kernel:
         return paged_decode_attention_plain(
             q, k_pages, v_pages, page_table, pos, window=window, softcap=softcap,
-            k_scale_pages=k_scale_pages, v_scale_pages=v_scale_pages, causal=causal)
+            k_scale_pages=k_scale_pages, v_scale_pages=v_scale_pages, causal=causal,
+            kv_heads=kv_heads)
     page_table = page_table.contiguous()
-    _check(q, k_pages, v_pages, page_table, pos, k_scale_pages, v_scale_pages)
+    kv_heads = (0, k_pages.shape[2]) if kv_heads is None else tuple(kv_heads)
+    _check(q, k_pages, v_pages, page_table, pos, k_scale_pages, v_scale_pages, kv_heads)
     B, T, H, hd = q.shape
-    num_pages, ps, KVH, _ = k_pages.shape
+    num_pages, ps, pool_kvh, _ = k_pages.shape
+    kv_off, KVH = kv_heads
     P = page_table.shape[1]
     if hd not in PAGED_HEAD_DIMS:
         raise ValueError(f"head dim {hd}: paged attention kernel B3 takes {PAGED_HEAD_DIMS}")
@@ -225,7 +242,8 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, pos, *, window=None,
         build.ptr(page_table), build.ptr(pos), build.ptr(out),
         B, T, H, KVH, hd, P, ps, num_pages, int(bool(causal)), int(window or 0), float(softcap),
         1.0 / math.sqrt(hd), build.DTYPE_CODES[q.dtype], build.DTYPE_CODES[k_pages.dtype],
-        split, paged_stages(hd, ps, k_pages.dtype), groups, build.stream_ptr(q.device))
+        pool_kvh, kv_off, split, paged_stages(hd, ps, k_pages.dtype), groups,
+        build.stream_ptr(q.device))
     build.check(lib, code, "paged_decode_attention")
     paged_decode_attention.launches += 1
     if causal:

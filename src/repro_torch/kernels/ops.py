@@ -46,12 +46,13 @@ def fused_gate_up(x2, g, u, activation: str):
 
 def paged_decode_attention(q, k_pages, v_pages, page_table, pos, *, window=None,
                            softcap=0.0, k_scale_pages=None, v_scale_pages=None,
-                           causal: bool = True, use_kernel: bool = True):
-    """Decode attention through the page table (kernel B3)."""
+                           causal: bool = True, use_kernel: bool = True, kv_heads=None):
+    """Decode attention through the page table (kernel B3); ``kv_heads``
+    (offset, count) reads those KV heads of the pools only."""
     return _fa.paged_decode_attention(
         q, k_pages, v_pages, page_table, pos, window=window, softcap=softcap,
         k_scale_pages=k_scale_pages, v_scale_pages=v_scale_pages, causal=causal,
-        use_kernel=use_kernel)
+        use_kernel=use_kernel, kv_heads=kv_heads)
 
 
 CROSS_PAGE = 16  # slots of the identity table's pages (the served frame pages')

@@ -5,8 +5,18 @@
         --kv-dtype int8 --page-size 16 --share-prefix --plan-cache /tmp/plan
 
 Runs on the CUDA device (``--device cpu`` runs the plain versions on the
-CPU).  Takes the reference's flags; the one the port does not serve yet
-(``--mesh``) exits with an error naming its ROADMAP item.
+CPU).  Takes the reference's flags.
+``--mesh DxM`` serves sharded over D data replicas of M tensor-parallel
+ranks (``--mesh host``: 1 x every visible card, 1 x 1 on the CPU): the
+command starts D*M ranks itself (or runs as one rank of ``torchrun``), each
+holds its shards of the plan and the caches (``serving/engine.py``), and
+rank 0 prints the reference's lines plus the ``[serve] mesh`` line.  Ranks
+meet over NCCL when each owns a card, over gloo on the CPU (one torch
+thread each) or, with ``--share-card``, when more ranks than cards share
+them; without it more ranks than cards is refused, as the reference
+refuses more ranks than devices.  Under a mesh the dense decoder families
+serve plain; speculative decode, chunked prefill, the other families and
+``--workload-mix`` are refused by name (ROADMAP A13b).
 ``--autotune-plan PATH`` serves a TunedPlan artifact (``core/autotune``,
 written by ``python -m repro_torch.launch.autotune`` or the reference's
 tool): its plan replaces ``--compress`` (refused beside it), its serving
@@ -47,26 +57,33 @@ under ``--kv-dtype int8`` while the others serve int8.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import os
+import sys
 import time
+import warnings
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 import repro_torch.configs as C
 from repro_torch.core import autotune as AT
 from repro_torch.core.batching import UNBOUNDED_NOPT, BatchSizer, mean_decode_context
 from repro_torch.core.perf_model import HARDWARE_LABEL, paged_pool_pages
-from repro_torch.core.weight_plan import PlanConfig, compress, load_plan, map_tree, save_plan
+from repro_torch.core.weight_plan import PlanConfig, load_plan, map_tree, save_plan
 from repro_torch.device import resolve_device
+from repro_torch.distributed import shardlib as sl
+from repro_torch.launch import mesh as M
 from repro_torch.models.api import (
     get_api,
     kv_bytes_per_token,
     supports_int8_kv,
     supports_paged_kv,
 )
-from repro_torch.serving.config import config_from_args
-from repro_torch.serving.engine import Request, ServingEngine
+from repro_torch.serving.config import SpecConfig, config_from_args
+from repro_torch.serving.engine import Request, ServingEngine, mesh_refusal
 from repro_torch.serving.faultinject import TickClock
 from repro_torch.serving.loadgen import (
     LengthMixture,
@@ -76,12 +93,6 @@ from repro_torch.serving.loadgen import (
     run_open_loop,
 )
 from repro_torch.serving.mixed import MixedServingEngine, WorkloadSpec
-
-# flag -> (is it set?, the ROADMAP item that ports it)
-_UNSERVED_FLAGS = {
-    "--mesh": (lambda a: a.mesh != "none", "A13 (sharding)"),
-}
-
 
 def _fmt_nopt(n: int) -> str:
     return "inf (memory-bound at any batch)" if n >= UNBOUNDED_NOPT else str(n)
@@ -112,12 +123,24 @@ def device_name(device: torch.device) -> str:
     return "cpu"
 
 
-def _build_plan(params, pc: PlanConfig, cache_dir):
-    """Compress (or restore) the serving plan.  With a cache directory: a
-    hit when the stored plan's payload config equals ``pc`` (``use_kernel``
-    is the run's, whatever the file says); stale when it differs, and
-    incompatible when the directory was saved for another arch or shape:
-    both re-pack and overwrite; missing: pack and save."""
+def _build_plan(cfg, params, pc: PlanConfig, cache_dir):
+    """Compress (or restore) the serving plan, with the family's param axes
+    recorded (``api.compress``).  With a cache directory: a hit when the
+    stored plan's payload config equals ``pc`` (``use_kernel`` is the run's,
+    whatever the file says); stale when it differs, and incompatible when
+    the directory was saved for another arch or shape: both re-pack and
+    overwrite; missing: pack and save.  Among several ranks, rank 0 does
+    that first and the others then load its directory."""
+    if cache_dir and dist.is_initialized() and dist.get_world_size() > 1:
+        plan = None
+        if dist.get_rank() == 0:
+            plan = _build_plan_once(cfg, params, pc, cache_dir)
+        dist.barrier()
+        return plan or _build_plan_once(cfg, params, pc, cache_dir)
+    return _build_plan_once(cfg, params, pc, cache_dir)
+
+
+def _build_plan_once(cfg, params, pc: PlanConfig, cache_dir):
     if cache_dir:
         try:
             t0 = time.perf_counter()
@@ -133,7 +156,7 @@ def _build_plan(params, pc: PlanConfig, cache_dir):
             # saved for a different arch/shape: re-pack rather than abort
             print(f"[serve] plan cache incompatible ({e}); re-packing")
     t0 = time.perf_counter()
-    plan = compress(params, pc)
+    plan = get_api(cfg).compress(cfg, params, pc)
     print(f"[serve] packed weights in {time.perf_counter() - t0:.2f}s")
     if cache_dir:
         t0 = time.perf_counter()
@@ -171,7 +194,11 @@ def build_parser() -> argparse.ArgumentParser:
                     help="paged mode: map common prompt prefixes copy-on-write")
     ap.add_argument("--plan-cache", default=None, metavar="DIR")
     ap.add_argument("--autotune-plan", default=None, metavar="PATH")
-    ap.add_argument("--mesh", default="none", metavar="SPEC")
+    ap.add_argument("--mesh", default="none", metavar="SPEC",
+                    help="sharded serving: 'none', 'host' (1 x every card) or 'DxM' "
+                         "(D data replicas of M tensor-parallel ranks)")
+    ap.add_argument("--share-card", action="store_true",
+                    help="let more --mesh ranks than cards share them (over gloo)")
     ap.add_argument("--draft-config", default=None, choices=C.ARCH_IDS, metavar="ARCH",
                     help="speculative decode: the draft model proposing --spec-k tokens "
                          "a tick (same vocab as --arch)")
@@ -203,10 +230,35 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def _refuse_unserved(args, ap) -> None:
-    for flag, (is_set, item) in _UNSERVED_FLAGS.items():
-        if is_set(args):
-            ap.error(f"{flag} is not served by the port yet: ROADMAP {item}")
+def _device_type(args) -> str:
+    return resolve_device(args.device).type
+
+
+def _refuse_on_mesh(args, ap, cfg) -> None:
+    """What a mesh does not serve yet exits before any rank starts
+    (``engine.mesh_refusal``, which reads only whether a mesh is set)."""
+    probe = dataclasses.replace(config_from_args(args), mesh=args.mesh,
+                                spec=SpecConfig(spec_k=max(0, args.spec_k)))
+    reason = mesh_refusal(cfg, probe)
+    if reason is not None:
+        ap.error(reason)
+
+
+def build_mesh(args, ap, cfg):
+    """The run's mesh, its rules and (data, model, kv) degrees; prints the
+    reference's ``[serve] mesh`` line.  (None, None, (1, 1, 1)) without one."""
+    shape = M.parse_mesh(args.mesh, _device_type(args))
+    if shape is None:
+        return None, None, (1, 1, 1)
+    _refuse_on_mesh(args, ap, cfg)
+    backend = (dist.get_backend() if dist.is_initialized()
+               else M.choose_backend(1, _device_type(args)))
+    mesh = M.make_serving_mesh(shape, backend)
+    rules = M.rules_for(cfg, None, mesh=mesh)
+    degrees = sl.parallelism_degrees(mesh, rules, int(getattr(cfg, "n_kv_heads", 0) or 0))
+    print(f"[serve] mesh {sl.axis_sizes(mesh)}: data-parallel {degrees[0]}, model-parallel "
+          f"{degrees[1]}, kv shard degree {degrees[2]}")
+    return mesh, rules, degrees
 
 
 # EngineConfig flat name -> the serve flag it overrides, and the flag's
@@ -248,11 +300,11 @@ def build_engine(args, ap=None):
     """Model, plan and engine for parsed ``args``; prints the sizing lines.
     Returns (cfg, engine, plan)."""
     ap = ap or build_parser()
-    _refuse_unserved(args, ap)
     if not args.arch:
         ap.error("one of --arch / --workload-mix is required")
     device = resolve_device(args.device)
     cfg = C.get_config(args.arch, smoke=args.smoke)
+    mesh, rules, (data_parallel, model_parallel, kv_parallel) = build_mesh(args, ap, cfg)
     tuned, tuned_kw = load_autotune_plan(args, ap, cfg) if args.autotune_plan else (None, {})
     api = get_api(cfg)
     n_params = api.n_params_exact(cfg)
@@ -264,10 +316,14 @@ def build_engine(args, ap=None):
     ctx = tuned_kw.get("expected_context", ctx)
     kv_tok = kv_bytes_per_token(cfg, kv_dtype, context_len=ctx)
     sizer = BatchSizer(n_params=n_params, kv_bytes_per_token=kv_tok, context_len=ctx,
+                       model_parallel=model_parallel, kv_parallel=kv_parallel,
                        spec_k=max(0, args.spec_k))
     print(f"[serve] {cfg.name}: n_params={n_params:,} machine-balance "
-          f"n_opt={_fmt_nopt(sizer.n_opt)} ({HARDWARE_LABEL}, kv={kv_tok:.0f} B/tok "
-          f"@ ctx {ctx})")
+          f"n_opt={_fmt_nopt(sizer.n_opt)}"
+          + (" per model group" if mesh is not None else "")
+          + (f" (x{data_parallel} data replicas for the global batch)"
+             if data_parallel > 1 else "")
+          + f" ({HARDWARE_LABEL}, kv={kv_tok:.0f} B/tok @ ctx {ctx})")
     spec_k = args.spec_k
     draft_cfg = draft_params = None
     if args.draft_config and spec_k <= 0:
@@ -289,11 +345,12 @@ def build_engine(args, ap=None):
     params = api.init_params(cfg, args.seed, device=device)
     plan = None
     if tuned is not None:
-        plan = _build_plan(params, AT.plan_config(tuned), args.plan_cache)
+        plan = _build_plan(cfg, params, AT.plan_config(tuned), args.plan_cache)
         params = plan.params
     elif args.compress != "none":
-        plan = _build_plan(params, PlanConfig(default=args.compress, q_prune=args.q_prune,
-                                              bk=args.block, bn=args.block), args.plan_cache)
+        plan = _build_plan(cfg, params, PlanConfig(default=args.compress, q_prune=args.q_prune,
+                                                   bk=args.block, bn=args.block),
+                           args.plan_cache)
         params = plan.params
     if paged and not args.pool_pages:
         # size the pool for the workload: max_batch sequences at their
@@ -303,21 +360,31 @@ def build_engine(args, ap=None):
         # --pool-pages)
         args.pool_pages = 1 + paged_pool_pages(
             args.max_batch, args.prompt_len + prefix + args.max_new, args.page_size)
+    if paged and model_parallel > 1 and kv_parallel != model_parallel:
+        # the pools' KV heads cannot split this model axis: every rank holds
+        # (and streams) the whole pool, whatever a per-rank budget assumed
+        warnings.warn(
+            f"{cfg.name}: paged pools do not shard across the {model_parallel}-way model "
+            f"axis (n_kv_heads={cfg.n_kv_heads} -> kv shard degree {kv_parallel}); per-shard "
+            f"pool bytes equal the global pool -- budget --pool-pages accordingly",
+            stacklevel=1)
     open_loop = bool(args.trace) or args.arrival_rate > 0
     engine = ServingEngine(cfg, params, plan=plan, device=device, config=config_from_args(
         args, expected_context=ctx if paged else None,
         # open-loop time is simulated: one tick is one unit of the arrival
         # schedule, so deadlines, TTFT and latency are seed-reproducible
         clock=TickClock() if open_loop else None,
-        draft_cfg=draft_cfg, draft_params=draft_params))
+        draft_cfg=draft_cfg, draft_params=draft_params, mesh=mesh, rules=rules))
     if engine.prefill_chunk is not None:
         print(f"[serve] continuous batching: {engine.prefill_chunk}-token prefill chunks, "
               f"{engine.prefill_budget} tok/tick budget")
     if engine.paged:
         print(f"[serve] paged KV cache: {engine.num_pages} pages x {engine.page_size} tok "
               f"(pool {engine.num_pages * engine.page_size} tok vs contiguous reservation "
-              f"{engine.max_batch * args.max_len} tok), prefix sharing "
-              f"{'on' if engine.registry is not None else 'off'}")
+              f"{engine.max_batch * args.max_len} tok"
+              + (f"; {engine.kv_parallel}-way kv shard -> 1/{engine.kv_parallel} of each "
+                 f"page's bytes per rank" if engine.kv_parallel > 1 else "")
+              + f"), prefix sharing {'on' if engine.registry is not None else 'off'}")
     if plan is not None:
         # a tuned plan lists every leaf's kind and q_prune (what the search
         # picked, also when the plan came from a cache)
@@ -325,7 +392,8 @@ def build_engine(args, ap=None):
                                batch=engine.max_batch, per_leaf=tuned is not None)
         print(f"[serve] {summary}")
         n_corr = plan.sizer(n_params=n_params, kv_bytes_per_token=kv_tok,
-                            context_len=args.max_len).n_opt
+                            context_len=args.max_len, model_parallel=model_parallel,
+                            kv_parallel=kv_parallel).n_opt
         print(f"[serve] plan-corrected n_opt={_fmt_nopt(n_corr)} ({HARDWARE_LABEL})")
     return cfg, engine, plan
 
@@ -465,7 +533,8 @@ def build_mixed(args, ap):
     for flag, ok in _MIX_REFUSED:
         if not ok(args):
             ap.error(f"--workload-mix is closed-loop heterogeneous serving; drop {flag}")
-    _refuse_unserved(args, ap)
+    if args.mesh != "none":
+        ap.error("--mesh: mixed-family serving under a mesh is not served yet: ROADMAP A13b")
     mix = parse_mix(args.workload_mix, ap)
     device = resolve_device(args.device)
     specs, apis = [], {}
@@ -534,11 +603,91 @@ def main_mixed(args, ap):
     return engine
 
 
+@contextlib.contextmanager
+def _stdout_off(off: bool):
+    """Nothing printed to stdout inside, where ``off`` (a rank other than 0)."""
+    if not off:
+        yield
+        return
+    with open(os.devnull, "w") as sink, contextlib.redirect_stdout(sink):
+        yield
+
+
+def _rank_main(rank: int, argv, device_type: str) -> None:
+    """One spawned rank of ``--mesh``: its own card (or the CPU, on one
+    torch thread), ``main`` again; rank 0 alone prints."""
+    if device_type == "cpu":
+        torch.set_num_threads(1)
+    else:
+        torch.cuda.set_device(M.rank_device(rank, device_type))
+    with _stdout_off(rank != 0):
+        main(argv)
+
+
+def launch_ranks(argv, args, ap) -> bool:
+    """Start the ranks of ``--mesh DxM`` (D*M > 1) unless this process is
+    one already (spawned, or under torchrun).  Returns whether it did."""
+    if args.workload_mix or dist.is_initialized() or "WORLD_SIZE" in os.environ:
+        return False
+    device_type = _device_type(args)
+    shape = M.parse_mesh(args.mesh, device_type)
+    if shape is None or shape[0] * shape[1] == 1:
+        return False
+    if args.arch:
+        _refuse_on_mesh(args, ap, C.get_config(args.arch, smoke=args.smoke))
+    world = shape[0] * shape[1]
+    try:
+        backend = M.choose_backend(world, device_type, args.share_card)
+    except ValueError as e:
+        ap.error(str(e))
+    print(f"[serve] mesh {args.mesh}: starting {world} ranks over {backend} "
+          + ("on the CPU" if device_type == "cpu" else
+             f"on {min(world, torch.cuda.device_count())} card(s)"), flush=True)
+    M.spawn_ranks(_rank_main, (list(sys.argv[1:] if argv is None else argv), device_type),
+                  world, backend)
+    return True
+
+
+def _join_torchrun(args) -> bool:
+    """Join ``torchrun``'s group when this process is one of its ranks and
+    ``--mesh`` asks for more than one rank: its card, the backend chosen
+    from the ranks on this host (LOCAL_WORLD_SIZE) and its cards.  Returns
+    whether it joined."""
+    if "WORLD_SIZE" not in os.environ:
+        return False
+    device_type = _device_type(args)
+    shape = M.parse_mesh(args.mesh, device_type)
+    if shape is None or shape[0] * shape[1] == 1:
+        return False
+    local = int(os.environ.get("LOCAL_WORLD_SIZE", os.environ["WORLD_SIZE"]))
+    backend = M.choose_backend(local, device_type, args.share_card)
+    if device_type == "cuda":
+        torch.cuda.set_device(M.rank_device(int(os.environ.get("LOCAL_RANK", 0)), "cuda"))
+    M.init_rank(int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"]), backend)
+    return True
+
+
 def main(argv=None):
     ap = build_parser()
     args = ap.parse_args(argv)
     if args.workload_mix:
         return main_mixed(args, ap)
+    if launch_ranks(argv, args, ap):
+        return None
+    own = not dist.is_initialized()  # a group this call joins, it leaves
+    if own:
+        _join_torchrun(args)
+    try:
+        with _stdout_off(own and dist.is_initialized() and dist.get_rank() != 0):
+            return serve_args(args, ap)
+    finally:
+        if own and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def serve_args(args, ap):
+    """Build the engine for parsed ``args``, serve their requests (closed
+    or open loop) and print the report; returns the engine."""
     cfg, engine, _ = build_engine(args, ap)
     rng = np.random.default_rng(args.seed)
     if bool(args.trace) or args.arrival_rate > 0:

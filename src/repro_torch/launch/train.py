@@ -7,8 +7,8 @@ Runs on the CUDA device (``--device cpu`` trains on the CPU; without a GPU
 and without it, it raises).  It trains every arch of the registry: the
 dense and MoE decoder-only transformers, recurrentgemma-2b and xlstm-350m,
 the VLM (internvl2-2b) and the enc-dec (whisper-tiny); ``--mesh
-pod|multipod`` is refused (ROADMAP A13).  Params come from the port's
-``init_params(cfg, --seed)``, tokens from ``synthetic_lm_batch`` (a pure
+pod|multipod`` is refused (meshed training is ROADMAP A13c).  Params come
+from the port's ``init_params(cfg, --seed)``, tokens from ``synthetic_lm_batch`` (a pure
 function of (seed, step)) and a VLM's patches or an enc-dec's frames from
 ``extras`` (N(0, 1) from ``np.random.default_rng(step)``, the reference's
 draws).  The warmup is ``min(20, max(1, steps // 4))`` steps, as in the
@@ -64,7 +64,7 @@ def run(args, cfg=None) -> dict:
     steps this call ran, and the supervisor's restart count."""
     if args.mesh != "host":
         raise NotImplementedError(
-            f"--mesh {args.mesh} is not trained by the port yet: ROADMAP A13 (sharding)")
+            f"--mesh {args.mesh} is not trained by the port yet: ROADMAP A13c (meshed training)")
     if cfg is None:
         cfg = C.get_config(args.arch, smoke=args.smoke)
     if args.remat:

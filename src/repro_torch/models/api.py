@@ -15,9 +15,17 @@ from typing import Callable
 
 import torch
 
+from repro_torch.core import weight_plan as WP
 from repro_torch.models import encdec as E
 from repro_torch.models import transformer as T
 from repro_torch.models import vlm as V
+
+
+def _compress(cfg, params, plan_cfg: WP.PlanConfig) -> WP.WeightPlan:
+    """Compression with the family's dense param axes riding along, as the
+    reference's (``api.py:40``): every LeafPlan records its logical axes,
+    which place the packed tree on a mesh (``weight_plan.param_specs``)."""
+    return WP.compress(params, plan_cfg, axes=get_api(cfg).param_axes(cfg))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -25,6 +33,7 @@ class ModelAPI:
     init_params: Callable
     # (cfg) -> init_params' tree with (shape, init) leaves, nothing allocated
     param_shapes: Callable
+    param_axes: Callable  # (cfg) -> init_params' tree of logical-axis tuples
     loss_fn: Callable  # (cfg, params, batch) -> (loss, metrics)
     # (cfg, params, batch, cache, use_kernel=True) -> (logits, cache); False
     # runs the flash attention's plain version on the card
@@ -33,10 +42,14 @@ class ModelAPI:
     init_cache: Callable
     n_params_exact: Callable
     unstack: Callable  # (cfg, params) -> the per-layer view prefill/decode_step take
+    # (cfg, quantized_kv, paged) -> init_cache's tree of logical-axis tuples
+    cache_axes: Callable
     extra_keys: tuple = ()  # frontend-stub inputs of a request, besides its tokens
     # absolute decode positions = prefix_len(cfg) + text position: a VLM
     # prepends its patches, so its KV positions are offset by n_patches
     prefix_len: Callable = staticmethod(lambda cfg: 0)
+    # (cfg, params, PlanConfig) -> WeightPlan with the axes recorded
+    compress: Callable = staticmethod(_compress)
 
 
 def _t_prefill(cfg, params, batch, cache, *, use_kernel: bool = True):
@@ -54,22 +67,25 @@ def _e_prefill(cfg, params, batch, cache, *, use_kernel: bool = True):
 
 
 _TRANSFORMER_API = ModelAPI(
-    init_params=T.init_params, param_shapes=T.param_shapes,
+    init_params=T.init_params, param_shapes=T.param_shapes, param_axes=T.param_axes,
     loss_fn=T.loss_fn, prefill=_t_prefill, decode_step=T.decode_step,
     init_cache=T.init_cache, n_params_exact=T.n_params_exact, unstack=T.unstack,
+    cache_axes=T.cache_axes,
 )
 
 _VLM_API = ModelAPI(
-    init_params=V.init_params, param_shapes=V.param_shapes,
+    init_params=V.init_params, param_shapes=V.param_shapes, param_axes=V.param_axes,
     loss_fn=V.loss_fn, prefill=_v_prefill, decode_step=V.decode_step,
     init_cache=V.init_cache, n_params_exact=V.n_params_exact, unstack=V.unstack,
+    cache_axes=T.cache_axes,
     extra_keys=("patches",), prefix_len=staticmethod(lambda cfg: cfg.n_patches),
 )
 
 _ENCDEC_API = ModelAPI(
-    init_params=E.init_params, param_shapes=E.param_shapes,
+    init_params=E.init_params, param_shapes=E.param_shapes, param_axes=E.param_axes,
     loss_fn=E.loss_fn, prefill=_e_prefill, decode_step=E.decode_step,
     init_cache=E.init_cache, n_params_exact=E.n_params_exact, unstack=E.unstack,
+    cache_axes=E.cache_axes,
     extra_keys=("frames",),
 )
 

@@ -37,6 +37,7 @@ import functools
 import torch
 
 from repro_torch.core.weight_plan import apply_linear
+from repro_torch.distributed import shardlib as sl
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
@@ -66,6 +67,28 @@ def param_shapes(cfg) -> dict:
         "enc_norm": L.norm_shapes(cfg.d_model, NORM),
         "dec": T.stack_shapes(_block_shapes(cfg, cross=True), cfg.n_layers),
         "final_norm": L.norm_shapes(cfg.d_model, NORM),
+    }
+
+
+def _block_axes(cfg, cross: bool) -> dict:
+    na = L.norm_axes(NORM)
+    a = {"ln1": na, "attn": L.attn_axes(), "ln2": na, "mlp": L.mlp_axes(cfg)}
+    if cross:
+        a["lnx"] = na
+        a["xattn"] = L.attn_axes()
+    return a
+
+
+def param_axes(cfg) -> dict:
+    """Logical axes of ``init_params``' tree, the reference's."""
+    na = L.norm_axes(NORM)
+    return {
+        "embed": L.embed_axes(cfg),
+        "pos_dec": (None, "d"),
+        "enc": T._stack_axes(_block_axes(cfg, cross=False)),
+        "enc_norm": na,
+        "dec": T._stack_axes(_block_axes(cfg, cross=True)),
+        "final_norm": na,
     }
 
 
@@ -199,6 +222,32 @@ def loss_fn(cfg, params, batch):
 # ---------------------------------------------------------------------------
 # caches
 # ---------------------------------------------------------------------------
+
+
+# cross-attention K/V are written once at prefill and read-only after:
+# frames whole, heads tensor-parallel like the self-attention cache; the
+# paged frame pools shard like the attention pools, and the frame table is
+# host-owned per replica like the decoder's.
+_XKV_AXES = sl.register_cache_kind(
+    "encdec.xkv", ("batch", None, "kv_heads", None), positional=True, family="encdec")
+_XKV_PAGES_AXES = sl.register_cache_kind(
+    "encdec.xkv_pages", (None, None, "kv_heads", None), positional=True, paged=True,
+    family="encdec")
+_XPAGE_TABLE_AXES = sl.register_cache_kind(
+    "encdec.xpage_table", ("batch", None), positional=True, paged=True, family="encdec")
+
+
+def cache_axes(cfg, quantized_kv: bool = False, paged: bool = False) -> dict:
+    """Logical axes of ``init_cache``'s tree (always the fp layout: the
+    cache ignores kv_dtype)."""
+    if paged:
+        pools = [L.paged_attn_cache_axes() for _ in range(cfg.n_layers)]
+        xpools = [{"k_pages": _XKV_PAGES_AXES, "v_pages": _XKV_PAGES_AXES}
+                  for _ in range(cfg.n_layers)]
+        return {"layers": pools, "x": xpools, "page_table": sl.axes_for("page_table"),
+                "xpage_table": _XPAGE_TABLE_AXES}
+    return {"layers": [{**L.attn_cache_axes(), "xk": _XKV_AXES, "xv": _XKV_AXES}
+                       for _ in range(cfg.n_layers)]}
 
 
 def init_cache(cfg, batch: int, length: int, dtype=torch.bfloat16, kv_dtype=None,

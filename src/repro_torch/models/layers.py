@@ -18,12 +18,20 @@ and says so.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Optional
 
 import torch
 
-from repro_torch.core.weight_plan import GATE_ACTS, QuantLinear, apply_gate_up, apply_linear
+from repro_torch.core.weight_plan import (
+    GATE_ACTS,
+    QuantLinear,
+    ShardedLeaf,
+    sharded_gate_up,
+    sharded_linear,
+)
+from repro_torch.distributed import shardlib as sl
 from repro_torch.kernels import ops
 
 # ---------------------------------------------------------------------------
@@ -44,6 +52,33 @@ def norm_shapes(d: int, kind: str = "rmsnorm") -> dict:
     if kind == "rmsnorm":
         return {"scale": ((d,), "zeros")}
     return {"scale": ((d,), "ones"), "bias": ((d,), "zeros")}
+
+
+def norm_axes(kind: str = "rmsnorm") -> dict:
+    """A norm's logical axes (replicated: "d" maps to no mesh axis)."""
+    if kind == "rmsnorm":
+        return {"scale": ("d",)}
+    return {"scale": ("d",), "bias": ("d",)}
+
+
+def attn_axes() -> dict:
+    """q/k/v shard their output features ("qkv"), o its input features."""
+    return {"wq": ("d", "qkv"), "wk": ("d", "qkv"), "wv": ("d", "qkv"), "wo": ("qkv", "d")}
+
+
+def mlp_axes(cfg) -> dict:
+    a = {"w_up": ("d", "ff"), "w_down": ("ff", "d")}
+    if cfg.activation in GATED:
+        a["w_gate"] = ("d", "ff")
+    return a
+
+
+def embed_axes(cfg) -> dict:
+    """The token table and the untied head shard on the vocabulary."""
+    a = {"tok": ("vocab", "d")}
+    if not cfg.tie_embeddings:
+        a["head"] = ("d", "vocab")
+    return a
 
 
 def embed_init(shape, generator: torch.Generator, device):
@@ -397,6 +432,23 @@ def init_attn_cache(cfg, batch: int, length: int, dtype=torch.bfloat16, device="
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+# cache-kind registry entries (distributed/shardlib): the KV layouts
+# register their logical axes and their serving classification here, where
+# they are defined; the engine's cache placement reads the same entries.
+_KV_AXES = sl.register_cache_kind(
+    "attn.kv", ("batch", "cache_seq", "kv_heads", None), positional=True)
+_KV_SCALE_AXES = sl.register_cache_kind(
+    "attn.kv_scale", ("batch", "cache_seq", "kv_heads"), positional=True)
+
+
+def attn_cache_axes(quantized: bool = False) -> dict:
+    axes = {"k": _KV_AXES, "v": _KV_AXES}
+    if quantized:
+        axes["k_scale"] = _KV_SCALE_AXES
+        axes["v_scale"] = _KV_SCALE_AXES
+    return axes
+
+
 # ---------------------------------------------------------------------------
 # paged KV cache: per-layer pools of fixed-size pages + a page table
 # ---------------------------------------------------------------------------
@@ -419,6 +471,22 @@ def init_paged_attn_cache(cfg, num_pages: int, page_size: int, dtype=torch.bfloa
                 "v_scale_pages": torch.zeros(shape[:3], dtype=torch.float32, device=device)}
     return {"k_pages": torch.zeros(shape, dtype=dtype, device=device),
             "v_pages": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+# Pools have no batch axis: they shard over the model axis on kv_heads, and
+# the page axes stay whole (the table maps any slot to any physical page).
+_KV_PAGES_AXES = sl.register_cache_kind(
+    "attn.kv_pages", (None, None, "kv_heads", None), positional=True, paged=True)
+_KV_SCALE_PAGES_AXES = sl.register_cache_kind(
+    "attn.kv_scale_pages", (None, None, "kv_heads"), positional=True, paged=True)
+
+
+def paged_attn_cache_axes(quantized: bool = False) -> dict:
+    axes = {"k_pages": _KV_PAGES_AXES, "v_pages": _KV_PAGES_AXES}
+    if quantized:
+        axes["k_scale_pages"] = _KV_SCALE_PAGES_AXES
+        axes["v_scale_pages"] = _KV_SCALE_PAGES_AXES
+    return axes
 
 
 def paged_cache_update(pool, new, page_table, pos):
@@ -446,15 +514,16 @@ def gather_pages(pool, page_table):
 
 def paged_decode_attention(q, k_pages, v_pages, page_table, pos, *, window=None,
                            softcap: float = 0.0, k_scale_pages=None, v_scale_pages=None,
-                           causal: bool = True, use_kernel: bool = True):
+                           causal: bool = True, use_kernel: bool = True, kv_heads=None):
     """Attention for T new tokens per sequence through the page table:
     kernel B3 for CUDA tensors (unless ``use_kernel=False``), its plain
     version (gather + ``decode_attention``) otherwise.  ``causal=False``
-    gives every query the positions [0, pos] (``decode_attention``)."""
+    gives every query the positions [0, pos] (``decode_attention``).
+    ``kv_heads`` (offset, count) reads those KV heads of the pools only."""
     return ops.paged_decode_attention(
         q, k_pages, v_pages, page_table, pos, window=window, softcap=softcap,
         k_scale_pages=k_scale_pages, v_scale_pages=v_scale_pages, causal=causal,
-        use_kernel=use_kernel)
+        use_kernel=use_kernel, kv_heads=kv_heads)
 
 
 def cross_decode_attention(q, xk, xv, *, softcap: float = 0.0, use_kernel: bool = True):
@@ -479,6 +548,76 @@ def finite_rows(logits: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+@dataclasses.dataclass(frozen=True)
+class HeadPlan:
+    """A rank's attention heads on the model axis of the active mesh: its
+    q heads [q0, q0 + nq) (``q_split``: the rank's piece of H over the
+    model axis, else all of them), the KV heads its cache holds [pool0,
+    pool0 + npool) (its piece where the model axis divides the KV heads,
+    else all), and the KV heads its q heads read [kv0, kv0 + nkv)."""
+
+    q0: int
+    nq: int
+    q_split: bool
+    pool0: int
+    npool: int
+    kv0: int
+    nkv: int
+
+    @property
+    def kv_in_pool(self) -> tuple:
+        """(offset, count) of the read KV heads within the cache's."""
+        return self.kv0 - self.pool0, self.nkv
+
+
+def head_plan(cfg) -> HeadPlan:
+    """The rank's ``HeadPlan`` (every head without a mesh): q heads split
+    by the "heads" rule, the cache's KV heads by "kv_heads", each where
+    the model axis divides them.  Raises NotImplementedError for a q-head
+    split whose heads do not map onto whole GQA groups or one group."""
+    H, KVH = cfg.n_heads, cfg.n_kv_heads
+    G = H // KVH
+    q_split = sl.spec_for((H,), "heads") == ("model",)
+    kv_split = sl.spec_for((KVH,), "kv_heads") == ("model",)
+    M, m = sl.axis_size("model"), sl.axis_index("model")
+    q0, nq = (m * H // M, H // M) if q_split else (0, H)
+    pool0, npool = (m * KVH // M, KVH // M) if kv_split else (0, KVH)
+    kv0, kv_last = q0 // G, (q0 + nq - 1) // G
+    nkv = kv_last - kv0 + 1
+    if not (nq == nkv * G and q0 % G == 0 or nkv == 1):
+        raise NotImplementedError(f"{cfg.name}: q heads [{q0}, {q0 + nq}) cut GQA groups of {G}")
+    return HeadPlan(q0, nq, q_split, pool0, npool, kv0, nkv)
+
+
+def qkv_heads(cfg, p, x, hp: HeadPlan) -> tuple:
+    """q (B, S, nq, hd) of the rank's q heads and k, v (B, S, npool, hd) of
+    its cache's KV heads, each projected on the rank's shard of its weight
+    and cut (or gathered, then cut) to those heads."""
+    B, S, _ = x.shape
+    hd = cfg.hd
+    q, qs = sharded_linear(x, p["wq"])
+    k, ks = sharded_linear(x, p["wk"])
+    v, vs = sharded_linear(x, p["wv"])
+    q = sl.cols(q, qs, hp.q0 * hd, hp.nq * hd).reshape(B, S, hp.nq, hd)
+    k = sl.cols(k, ks, hp.pool0 * hd, hp.npool * hd).reshape(B, S, hp.npool, hd)
+    v = sl.cols(v, vs, hp.pool0 * hd, hp.npool * hd).reshape(B, S, hp.npool, hd)
+    return q, k, v
+
+
+def out_proj(cfg, p, o, hp: HeadPlan):
+    """The o-projection of o (B, S, nq, hd) on the rank's shard of ``wo``;
+    the whole (B, S, d) on every rank."""
+    B, S = o.shape[:2]
+    y, ys = sharded_linear(o.reshape(B, S, hp.nq * cfg.hd), p["wo"], hp.q_split)
+    return sl.cols(y, ys, 0, cfg.d_model)
+
+
+def read_heads(t: torch.Tensor, hp: HeadPlan) -> torch.Tensor:
+    """The read KV heads of a (B, S, npool, ...) cache tensor (a view)."""
+    off, n = hp.kv_in_pool
+    return t if n == t.shape[2] else t.narrow(2, off, n)
+
+
 def attn_window_and_base(cfg, kind: str) -> tuple:
     """(window, RoPE base) of an attention layer of ``kind``: a ``local``
     layer attends within ``local_window``; a ``global`` one takes
@@ -489,45 +628,54 @@ def attn_window_and_base(cfg, kind: str) -> tuple:
 
 
 def apply_attn(cfg, p, x, *, kind: str = "global", cache: dict, pos, page_table=None,
-               use_kernel: bool = True):
+               use_kernel: bool = True, rows: Optional[slice] = None):
     """A decode step for S new tokens per sequence at ``pos``: writes their
     K/V into the cache in place -- through ``page_table`` for a paged cache
     ({"k_pages", ...}), at pos % length for a contiguous one (a ``local``
     layer's ring) -- and attends, within ``local_window`` on a local
-    layer.  ``use_kernel`` reaches the paged attention dispatch."""
+    layer.  ``use_kernel`` reaches the paged attention dispatch.
+
+    On a mesh (``distributed/shardlib``) the rank attends with its heads
+    (``head_plan``) over its cache's KV heads, and ``x``/``pos`` are its
+    data replica's ``rows`` of the engine batch: the page pools, which
+    every data replica holds whole, take the whole batch's K/V (gathered
+    over the data axis) through the whole ``page_table``; a contiguous
+    cache holds the replica's rows only."""
     B, S, _ = x.shape
-    H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    hp = head_plan(cfg)
     window, base = attn_window_and_base(cfg, kind)
-    q = apply_linear(x, p["wq"]).reshape(B, S, H, hd)
-    k = apply_linear(x, p["wk"]).reshape(B, S, KVH, hd)
-    v = apply_linear(x, p["wv"]).reshape(B, S, KVH, hd)
+    q, k, v = qkv_heads(cfg, p, x, hp)
     positions = pos[:, None].long() + torch.arange(S, device=x.device)[None]
     q = apply_rope(q, positions, base)
     k = apply_rope(k, positions, base)
     if "k_pages" in cache:
+        k, v = sl.gather_batch(k, rows), sl.gather_batch(v, rows)
+        pos_all = sl.gather_batch(pos, rows)
         if "k_scale_pages" in cache:
             k, ks = quantize_kv(k)
             v, vs = quantize_kv(v)
-            paged_cache_update(cache["k_scale_pages"], ks, page_table, pos)
-            paged_cache_update(cache["v_scale_pages"], vs, page_table, pos)
-        paged_cache_update(cache["k_pages"], k, page_table, pos)
-        paged_cache_update(cache["v_pages"], v, page_table, pos)
+            paged_cache_update(cache["k_scale_pages"], ks, page_table, pos_all)
+            paged_cache_update(cache["v_scale_pages"], vs, page_table, pos_all)
+        paged_cache_update(cache["k_pages"], k, page_table, pos_all)
+        paged_cache_update(cache["v_pages"], v, page_table, pos_all)
         o = paged_decode_attention(
-            q, cache["k_pages"], cache["v_pages"], page_table, pos, window=window,
+            q, cache["k_pages"], cache["v_pages"],
+            page_table if rows is None else page_table[rows], pos, window=window,
             softcap=cfg.logit_softcap, k_scale_pages=cache.get("k_scale_pages"),
-            v_scale_pages=cache.get("v_scale_pages"), use_kernel=use_kernel)
+            v_scale_pages=cache.get("v_scale_pages"), use_kernel=use_kernel,
+            kv_heads=None if hp.nkv == hp.npool else hp.kv_in_pool)
     else:
         ksc = vsc = None
         if "k_scale" in cache:
             k, ks = quantize_kv(k)
             v, vs = quantize_kv(v)
-            ksc = _cache_update(cache["k_scale"], ks, pos)
-            vsc = _cache_update(cache["v_scale"], vs, pos)
-        kc = _cache_update(cache["k"], k, pos)
-        vc = _cache_update(cache["v"], v, pos)
+            ksc = read_heads(_cache_update(cache["k_scale"], ks, pos), hp)
+            vsc = read_heads(_cache_update(cache["v_scale"], vs, pos), hp)
+        kc = read_heads(_cache_update(cache["k"], k, pos), hp)
+        vc = read_heads(_cache_update(cache["v"], v, pos), hp)
         o = decode_attention(q, kc, vc, pos, window=window, softcap=cfg.logit_softcap,
                              k_scale=ksc, v_scale=vsc)
-    return apply_linear(o.reshape(B, S, H * hd), p["wo"])
+    return out_proj(cfg, p, o, hp)
 
 
 # ---------------------------------------------------------------------------
@@ -538,12 +686,16 @@ GATED = ("silu", "swiglu", "geglu", "gelu_glu")
 
 
 def apply_mlp(cfg, p, x):
+    """The MLP on the rank's shards (the whole weights without a mesh): the
+    hidden layer keeps the rank's "ff" columns into ``w_down``."""
     if "w_gate" in p:
         # fused-pair node: a packed (w_gate, w_up) pair is ONE kernel launch
-        h = apply_gate_up(x, p["w_gate"], p["w_up"], cfg.activation)
+        h, hs = sharded_gate_up(x, p["w_gate"], p["w_up"], cfg.activation)
     else:
-        h = GATE_ACTS[cfg.activation](apply_linear(x, p["w_up"]))
-    return apply_linear(h, p["w_down"])
+        h, hs = sharded_linear(x, p["w_up"])
+        h = GATE_ACTS[cfg.activation](h)
+    y, ys = sharded_linear(h, p["w_down"], hs)
+    return sl.cols(y, ys, 0, cfg.d_model)
 
 
 def _cdtype(cfg) -> torch.dtype:
@@ -557,11 +709,23 @@ def embed_tokens(cfg, p, tokens):
     the reference's weakly typed Python scalar is."""
     tok = p["tok"]
     idx = tokens.long()
-    if isinstance(tok, QuantLinear):  # int8 table: dequantize the gathered rows
+    if isinstance(tok, ShardedLeaf):
+        # a vocab-sharded table: this rank's rows, masked, summed over the
+        # model axis (one nonzero term per token: exact)
+        tok = tok.local
+        rows = (tok.q if isinstance(tok, QuantLinear) else tok).shape[0]
+        local = idx - sl.axis_index("model") * rows
+        mine = (local >= 0) & (local < rows)
+        local = local.clamp(0, rows - 1)
+        table = tok.q if isinstance(tok, QuantLinear) else tok
+        x = torch.where(mine[..., None], table[local].to(_cdtype(cfg)), 0)
+        x = sl.all_reduce(x, "model")
+    elif isinstance(tok, QuantLinear):
         x = tok.q[idx].to(_cdtype(cfg))
-        x = x * tok.s.to(x.dtype)
     else:
         x = tok[idx].to(_cdtype(cfg))
+    if isinstance(tok, QuantLinear):  # int8 table: dequantize the gathered rows
+        x = x * tok.s.to(x.dtype)
     if cfg.scale_embed:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype, device=x.device)
     return x
@@ -576,8 +740,12 @@ def unembed(cfg, p, x):
     outside any Pallas kernel as well).  Softcapped logits are ROADMAP A8c
     (``transformer.check_supported``)."""
     if "head" in p:
-        return apply_linear(x, p["head"])
-    tok = p["tok"]
+        y, ys = sharded_linear(x, p["head"])
+        return sl.cols(y, ys, 0, cfg.vocab)
+    tok, split = p["tok"], isinstance(p["tok"], ShardedLeaf)
+    tok = tok.local if split else tok
     if isinstance(tok, QuantLinear):
-        return (x * tok.s.to(x.dtype)) @ tok.q.to(x.dtype).T
-    return x @ tok.T.to(x.dtype)
+        y = (x * tok.s.to(x.dtype)) @ tok.q.to(x.dtype).T
+    else:
+        y = x @ tok.T.to(x.dtype)
+    return sl.cols(y, split, 0, cfg.vocab)  # a vocab-sharded table: the rank's columns

@@ -54,6 +54,20 @@ def moe_shapes(cfg) -> dict:
     return p
 
 
+def moe_axes(cfg) -> dict:
+    """Logical axes of ``moe_shapes``' leaves: the expert stacks over
+    "experts", their FFN width over "expert_ff"."""
+    a = {
+        "router": ("d", None),
+        "w_gate": ("experts", "d", "expert_ff"),
+        "w_up": ("experts", "d", "expert_ff"),
+        "w_down": ("experts", "expert_ff", "d"),
+    }
+    if cfg.moe.n_shared_experts:
+        a["shared"] = {"w_gate": ("d", "ff"), "w_up": ("d", "ff"), "w_down": ("ff", "d")}
+    return a
+
+
 def init_moe(cfg, generator: torch.Generator, device) -> dict:
     """Random params of one MoE FFN with ``moe_shapes``' shapes and scales."""
     def make(node):

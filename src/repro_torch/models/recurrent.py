@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.weight_plan import GATE_ACTS, apply_linear
+from repro_torch.distributed import shardlib as sl
 from repro_torch.models.ssm import causal_conv
 
 _C = 8.0  # Griffin's recurrence sharpness constant
@@ -37,6 +38,24 @@ def rglru_shapes(cfg) -> dict:
         "w_igate": ((w,), "gate"), "b_igate": ((w,), "zeros"),
         "w_out": ((w, d), "dense"),
     }
+
+
+def rglru_axes() -> dict:
+    return {
+        "w_x": ("d", "ff"), "w_gate": ("d", "ff"), "conv": (None, "ff"),
+        "lam": ("ff",), "w_rgate": ("ff",), "b_rgate": ("ff",),
+        "w_igate": ("ff",), "b_igate": ("ff",), "w_out": ("ff", "d"),
+    }
+
+
+# the RG-LRU state is a fixed-size summary the step rewrites (not positional)
+_RGLRU_STATE_AXES = sl.register_cache_kind(
+    "rec.state", {"h": ("batch", "ff"), "conv": ("batch", None, "ff")},
+    positional=False, family="recurrent")
+
+
+def rglru_state_axes() -> dict:
+    return dict(_RGLRU_STATE_AXES)
 
 
 def lru_lambda(shape, generator: torch.Generator, device):

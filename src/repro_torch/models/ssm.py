@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.weight_plan import GATE_ACTS, apply_linear
+from repro_torch.distributed import shardlib as sl
 
 # the sequence-start value of the mLSTM / sLSTM stabilizer m
 M_INIT = -1e30
@@ -72,6 +73,25 @@ def mlstm_shapes(cfg) -> dict:
         "b_if": ((2 * H,), "forget_bias/2"),
         "w_down": ((up, d), "dense"),
     }
+
+
+def mlstm_axes(cfg) -> dict:
+    return {
+        "w_u": ("d", "ff"), "w_z": ("d", "ff"), "conv": (None, "ff"),
+        "s_q": ("ff",), "s_k": ("ff",), "s_v": ("ff",),
+        "w_if": ("d", None), "b_if": (None,), "w_down": ("ff", "d"),
+    }
+
+
+_MLSTM_STATE_AXES = sl.register_cache_kind(
+    "mlstm.state",
+    {"C": ("batch", "heads", None, None), "n": ("batch", "heads", None),
+     "m": ("batch", "heads"), "conv": ("batch", None, "ff")},
+    positional=False, family="ssm")
+
+
+def mlstm_state_axes() -> dict:
+    return dict(_MLSTM_STATE_AXES)
 
 
 def init_mlstm_state(cfg, batch: int, dtype=torch.float32, device="cpu") -> dict:
@@ -208,6 +228,23 @@ def slstm_shapes(cfg) -> dict:
         "w_up": ((d, 2 * f_up), "dense"),
         "w_down": ((f_up, d), "dense"),
     }
+
+
+def slstm_axes(cfg) -> dict:
+    return {
+        "w_gates": ("d", "qkv"), "r_gates": (None, "heads", None, None),
+        "b_gates": (None,), "w_up": ("d", "ff"), "w_down": ("ff", "d"),
+    }
+
+
+_SLSTM_STATE_AXES = sl.register_cache_kind(
+    "slstm.state",
+    {"c": ("batch", None), "n": ("batch", None), "h": ("batch", None), "m": ("batch", None)},
+    positional=False, family="ssm")
+
+
+def slstm_state_axes() -> dict:
+    return dict(_SLSTM_STATE_AXES)
 
 
 def init_slstm_state(cfg, batch: int, dtype=torch.float32, device="cpu") -> dict:

@@ -43,12 +43,13 @@ import torch.utils.checkpoint
 from repro_torch.core.weight_plan import (
     PackedLinear,
     QuantLinear,
-    apply_linear,
+    ShardedLeaf,
     flatten_leaves,
     map_tree,
     unflatten_leaves,
 )
 from repro_torch.device import resolve_device
+from repro_torch.distributed import shardlib as sl
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import recurrent as R
@@ -227,10 +228,51 @@ def n_params_exact(cfg) -> int:
     return count_params(param_shapes(cfg))
 
 
+def layer_axes(cfg, kind: str) -> dict:
+    """Logical axes of one layer of ``kind`` (``_layer_shapes``' tree)."""
+    na = L.norm_axes(cfg.norm)
+    if kind in ATTN_KINDS:
+        a = {"ln1": na, "attn": L.attn_axes(), "ln2": na}
+        if cfg.moe is not None:
+            a["moe"] = MOE.moe_axes(cfg)
+        else:
+            a["mlp"] = L.mlp_axes(cfg)
+        return a
+    if kind == "rec":
+        return {"ln1": na, "rec": R.rglru_axes(), "ln2": na, "mlp": L.mlp_axes(cfg)}
+    if kind == "mlstm":
+        return {"ln": na, "cell": SSM.mlstm_axes(cfg)}
+    if kind == "slstm":
+        return {"ln": na, "cell": SSM.slstm_axes(cfg)}
+    raise ValueError(kind)
+
+
+def _stack_axes(tree):
+    """A layer's axes stacked over layers: a leading None (never sharded)."""
+    if isinstance(tree, dict):
+        return {k: _stack_axes(v) for k, v in tree.items()}
+    return (None,) + tuple(tree)
+
+
+def param_axes(cfg) -> dict:
+    """Logical axes of ``init_params``' tree, the reference's: stacked
+    leaves get a leading None."""
+    unit, n_units, rem = find_unit(cfg.layer_kinds)
+    return {
+        "embed": L.embed_axes(cfg),
+        "final_norm": L.norm_axes(cfg.norm),
+        "unit": [_stack_axes(layer_axes(cfg, k)) for k in unit],
+        "rem": [_stack_axes(layer_axes(cfg, k)) for k, _ in rem_runs(rem)],
+    }
+
+
 def _layer_leaf(node, i: int):
     """Layer ``i`` of a stacked leaf (views).  A packed leaf keeps row ``i``
     of its walk, on the host, as the reference's scan slices it: whether a
-    leaf has a walk picks its kernel (B1 with, B4 without)."""
+    leaf has a walk picks its kernel (B1 with, B4 without).  A rank's
+    shard keeps its split."""
+    if isinstance(node, ShardedLeaf):
+        return dataclasses.replace(node, local=_layer_leaf(node.local, i))
     if isinstance(node, PackedLinear):
         return dataclasses.replace(
             node, blocks=node.blocks[i], block_rows=node.block_rows[i],
@@ -290,6 +332,38 @@ def init_layer_cache(cfg, kind: str, batch: int, length: int, dtype=torch.bfloat
     return L.init_attn_cache(cfg, batch, ln, dt, device)
 
 
+# the page table is host-owned per replica (serving/paged.py): batch rides
+# the data axes, the logical-page axis is never sharded
+_PAGE_TABLE_AXES = sl.register_cache_kind(
+    "page_table", ("batch", None), positional=True, paged=True)
+
+
+def layer_cache_axes(kind: str, quantized_kv: bool = False, paged: bool = False) -> dict:
+    """Logical axes of one layer's cache (``init_layer_cache``): a
+    ``local`` layer keeps its contiguous ring when the global ones page."""
+    if kind in ATTN_KINDS:
+        if paged and kind == "global":
+            return L.paged_attn_cache_axes(quantized_kv)
+        return L.attn_cache_axes(quantized_kv)
+    if kind == "rec":
+        return R.rglru_state_axes()
+    if kind == "mlstm":
+        return SSM.mlstm_state_axes()
+    if kind == "slstm":
+        return SSM.slstm_state_axes()
+    raise ValueError(kind)
+
+
+def cache_axes(cfg, quantized_kv: bool = False, paged: bool = False) -> dict:
+    """Logical axes of ``init_cache``'s tree: one dict per layer (the
+    reference's per-layer axes without its stacked leading None) and the
+    page table's."""
+    axes = {"layers": [layer_cache_axes(k, quantized_kv, paged) for k in cfg.layer_kinds]}
+    if paged:
+        axes["page_table"] = _PAGE_TABLE_AXES
+    return axes
+
+
 def init_cache(cfg, batch: int, length: int, dtype=torch.bfloat16, kv_dtype=None,
                page_size=None, num_pages=None, device="cpu", spec_k: int = 0):
     """{"layers": one cache dict per layer, in execution order}.
@@ -309,13 +383,14 @@ def init_cache(cfg, batch: int, length: int, dtype=torch.bfloat16, kv_dtype=None
 
 
 def apply_layer(cfg, kind: str, p, x, *, cache, pos=None, page_table=None,
-                use_kernel: bool = True):
+                use_kernel: bool = True, rows=None):
     """One layer of ``kind``; returns x.  For an attention layer ("global"
     or "local") ``pos`` None is the prefill over x (filling the contiguous
     cache), else a decode step at ``pos``; the kind sets the window and the
     RoPE base (``layers.attn_window_and_base``).  A recurrent or xLSTM
     layer runs its cell over x from its state and writes the new state
-    into ``cache`` in place (positions play no part)."""
+    into ``cache`` in place (positions play no part).  ``rows``: a data
+    replica's rows of the batch on a mesh (``layers.apply_attn``)."""
     if kind not in ATTN_KINDS:
         return _apply_recurrent_layer(cfg, kind, p, x, cache)
     h = L.apply_norm(p["ln1"], x, cfg.norm)
@@ -323,7 +398,7 @@ def apply_layer(cfg, kind: str, p, x, *, cache, pos=None, page_table=None,
         a = _attn_prefill(cfg, p["attn"], h, kind, cache, use_kernel=use_kernel)
     else:
         a = L.apply_attn(cfg, p["attn"], h, kind=kind, cache=cache, pos=pos,
-                         page_table=page_table, use_kernel=use_kernel)
+                         page_table=page_table, use_kernel=use_kernel, rows=rows)
     x = x + a
     h = L.apply_norm(p["ln2"], x, cfg.norm)
     if "moe" in p:  # routed over all of h's B * S tokens, as the reference's step does
@@ -356,18 +431,21 @@ def _attn_seq(cfg, p, h, kind: str, attend) -> tuple:
     """Full-sequence causal attention of an attention block (windowed on a
     ``local`` layer) through ``attend(q, k, v, causal=, window=,
     softcap=)``.  Returns (the block's output, the roped K and V) -- what a
-    prefill writes into its cache; the training forward writes none."""
+    prefill writes into its cache; the training forward writes none.  On a
+    mesh the rank attends with its q heads (``layers.head_plan``) and K/V
+    are its cache's KV heads."""
     B, Sq, _ = h.shape
-    H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    hp = L.head_plan(cfg)
     window, base = L.attn_window_and_base(cfg, kind)
-    q = apply_linear(h, p["wq"]).reshape(B, Sq, H, hd)
-    k = apply_linear(h, p["wk"]).reshape(B, Sq, KVH, hd)
-    v = apply_linear(h, p["wv"]).reshape(B, Sq, KVH, hd)
+    q, k, v = L.qkv_heads(cfg, p, h, hp)
     positions = torch.arange(Sq, device=h.device)[None].expand(B, Sq)
     q = L.apply_rope(q, positions, base)
     k = L.apply_rope(k, positions, base)
-    o = attend(q, k, v, causal=True, window=window, softcap=cfg.logit_softcap)
-    return apply_linear(o.reshape(B, Sq, H * hd), p["wo"]), k, v
+    kr, vr = L.read_heads(k, hp), L.read_heads(v, hp)
+    if kr.shape[2] != k.shape[2]:  # a rank's group of a cache of every KV head
+        kr, vr = kr.contiguous(), vr.contiguous()
+    o = attend(q, kr, vr, causal=True, window=window, softcap=cfg.logit_softcap)
+    return L.out_proj(cfg, p, o, hp), k, v
 
 
 def _attn_prefill(cfg, p, h, kind: str, cache, use_kernel: bool = True):
@@ -397,10 +475,10 @@ def _attn_prefill(cfg, p, h, kind: str, cache, use_kernel: bool = True):
     return out
 
 
-def _run_layers(cfg, params, x, cache, pos=None, use_kernel: bool = True):
+def _run_layers(cfg, params, x, cache, pos=None, use_kernel: bool = True, rows=None):
     for kind, p, c in zip(cfg.layer_kinds, params["layers"], cache["layers"]):
         x = apply_layer(cfg, kind, p, x, cache=c, pos=pos, page_table=cache.get("page_table"),
-                        use_kernel=use_kernel)
+                        use_kernel=use_kernel, rows=rows)
     return x
 
 
@@ -424,11 +502,16 @@ def decode_step(cfg, params, cache, tokens, pos, *, use_kernel: bool = True):
     ``unstack`` view; tokens (B, T) int, pos (B,) int32 absolute position
     of tokens[:, 0].  Returns (logits (B, T, V), cache); the cache is
     updated in place.  ``use_kernel=False`` runs the paged attention's
-    plain version on the card."""
+    plain version on the card.  On a mesh whose data axis splits the batch
+    the rank decodes its replica's rows (``shardlib.data_rows``) and the
+    logits of every row are gathered: each rank returns the same (B, T,
+    V)."""
+    rows = sl.data_rows(tokens.shape[0])
+    tokens, pos = sl.shard(tokens, "batch", None), sl.shard(pos, "batch")
     x = L.embed_tokens(cfg, params["embed"], tokens)
-    x = _run_layers(cfg, params, x, cache, pos=pos, use_kernel=use_kernel)
+    x = _run_layers(cfg, params, x, cache, pos=pos, use_kernel=use_kernel, rows=rows)
     x = L.apply_norm(params["final_norm"], x, cfg.norm)
-    return L.unembed(cfg, params["embed"], x), cache
+    return sl.gather_batch(L.unembed(cfg, params["embed"], x), rows), cache
 
 
 # ---------------------------------------------------------------------------

@@ -28,6 +28,13 @@ def param_shapes(cfg) -> dict:
     return p
 
 
+def param_axes(cfg) -> dict:
+    """The transformer's axes plus ``proj``'s."""
+    a = T.param_axes(cfg)
+    a["proj"] = {"w": ("d", "d"), "ln": L.norm_axes(cfg.norm)}
+    return a
+
+
 def init_params(cfg, seed: int = 0, *, device=None):
     """Random params with the reference's shapes and scales
     (``transformer.make_params``)."""

@@ -3,10 +3,10 @@
 
 Four frozen dataclasses group the knobs by subsystem and compose into the
 one ``EngineConfig`` the engine accepts.  The port serves plain, paged,
-speculative and chunked decode, deadlines, eviction, fault injection and a
-shared page allocator (mixed-family serving); a mesh (ROADMAP A13) must
-keep its default, and ``EngineConfig`` raises ``NotImplementedError``
-naming the item otherwise.
+speculative and chunked decode, deadlines, eviction, fault injection, a
+shared page allocator (mixed-family serving) and a mesh with its rules
+(sharded serving: ``launch/mesh.py``; the engine refuses by name what a
+mesh does not serve yet, ROADMAP A13b).
 ``EngineConfig.of``/``flat`` route the reference's flat keyword names into
 the sub-configs and back, and ``from_legacy`` is the deprecation shim
 behind ``ServingEngine(**legacy)``.
@@ -109,25 +109,19 @@ class EngineConfig:
 
     max_len: int = 256
     max_batch: Optional[int] = None
-    mesh: Any = None  # sharded serving: ROADMAP A13
-    rules: Optional[dict] = None
+    mesh: Any = None  # a (data, model) DeviceMesh: sharded serving
+    rules: Optional[dict] = None  # logical-axis rule overrides (launch.mesh.rules_for)
     seed: int = 0
     cache: CacheConfig = CacheConfig()
     scheduler: SchedulerConfig = SchedulerConfig()
     spec: SpecConfig = SpecConfig()
     fault: FaultConfig = FaultConfig()
 
-    def __post_init__(self):
-        if self.mesh is not None or self.rules is not None:
-            raise NotImplementedError("sharded serving (mesh/rules) is ROADMAP A13")
-
     @classmethod
     def of(cls, **flat) -> "EngineConfig":
         """Build from flat keyword names (the legacy ``ServingEngine``
         kwargs), routing each into its sub-config.  Whole sub-configs may
-        also be passed (``of(max_len=64, cache=CacheConfig(...))``).  The
-        flat ``mesh`` and ``rules`` route to the fields of the same name,
-        which refuse a value (ROADMAP A13)."""
+        also be passed (``of(max_len=64, cache=CacheConfig(...))``)."""
         groups: dict = {"cache": {}, "scheduler": {}, "spec": {}, "fault": {}}
         top: dict = {}
         for name, value in flat.items():
@@ -194,11 +188,11 @@ _FLAT_FIELDS["spec_fallback_min_ticks"] = ("spec", "fallback_min_ticks")
 
 
 def config_from_args(ns, *, clock=None, expected_context=None, draft_cfg=None,
-                     draft_params=None) -> EngineConfig:
+                     draft_params=None, mesh=None, rules=None) -> EngineConfig:
     """The argparse-namespace -> EngineConfig adapter of ``launch/serve.py``.
     Flags use 0/"" as "unset"; missing attributes keep the defaults.  What
     argparse cannot carry (clock, draft model, the sizer's expected
-    context) comes in as keyword arguments."""
+    context, the mesh and its rules) comes in as keyword arguments."""
 
     def get(name, default=None):
         return getattr(ns, name, default)
@@ -206,6 +200,8 @@ def config_from_args(ns, *, clock=None, expected_context=None, draft_cfg=None,
     return EngineConfig(
         max_len=int(get("max_len", 256) or 256),
         max_batch=int(get("max_batch") or 0) or None,
+        mesh=mesh,
+        rules=rules,
         seed=int(get("seed", 0) or 0),
         cache=CacheConfig(
             kv_dtype="int8" if get("kv_dtype") == "int8" else None,

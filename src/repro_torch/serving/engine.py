@@ -68,13 +68,32 @@ for the port's ``FaultInjected`` (and, for rung 1, the draft chain's
 non-finite logits): a real build, launch or CUDA error propagates out of
 ``step``.  ``serving/faultinject.py`` drives every rung deterministically.
 
+Sharded serving (``EngineConfig.mesh``/``rules``).  The reference shards
+one jitted program over a JAX mesh; the port runs one engine per rank of a
+(data, model) ``DeviceMesh`` (``launch/mesh.py``), every rank on the same
+requests and seed.  Params and caches are placed once through the axis
+registry (``distributed/shardlib``): each rank keeps its pieces
+(``weight_plan.local_params``; the plan's recorded axes, else the family's
+dense ones) and allocates its pieces of the caches -- page pools split on
+the KV heads where the model axis divides them and whole on every data
+replica, contiguous caches split on the batch over ``data`` too.  The host
+state (slots, the page table for every slot, the allocator, the prefix
+registry) is the same on every rank: the model gathers each step's logits
+over both axes, so every rank's host takes the same decisions.  The
+sizer's balance point divides the weight stream by the model axis and the
+KV stream by the degree the pools achieve (``shardlib.parallelism_degrees``),
+and a default ``max_batch`` feeds every data replica its n_opt.  Under a
+mesh the engine serves the dense decoder families plain (no speculative
+decode, no chunked prefill, no shared allocator); the rest is refused by
+name (ROADMAP A13b).
+
 Where the reference jit-compiles one decode step over a donated cache, the
-port runs the decode step eagerly and updates the cache in place.  Not
-ported yet: sharding (ROADMAP A13).
+port runs the decode step eagerly and updates the cache in place.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import enum
 import math
@@ -86,8 +105,9 @@ import numpy as np
 import torch
 
 from repro_torch.core.batching import BatchSizer
-from repro_torch.core.weight_plan import tree_to
+from repro_torch.core.weight_plan import flatten_leaves, local_params, tree_to
 from repro_torch.device import resolve_device
+from repro_torch.distributed import shardlib as sl
 from repro_torch.distributed.fault import HeartbeatMonitor
 from repro_torch.models.api import (
     get_api,
@@ -97,6 +117,7 @@ from repro_torch.models.api import (
     supports_paged_kv,
 )
 from repro_torch.models.layers import finite_rows
+from repro_torch.models.transformer import ATTN_KINDS
 from repro_torch.serving.config import EngineConfig, positional_state_gate
 from repro_torch.serving.faultinject import FaultInjected
 from repro_torch.serving.paged import (
@@ -247,12 +268,36 @@ class EngineStats:
         return self.context_tokens / max(1, self.prefills)
 
 
+def mesh_refusal(cfg, config: EngineConfig) -> Optional[str]:
+    """Why ``config``'s mesh cannot serve ``cfg`` (None: it can): under a
+    mesh the engine serves the dense decoder families, plain."""
+    if config.mesh is None:
+        return None
+    what = None
+    if get_api(cfg).extra_keys:
+        what = f"the {cfg.family} family"
+    elif cfg.moe is not None:
+        what = "MoE layers"
+    elif any(k not in ATTN_KINDS for k in cfg.layer_kinds):
+        what = "recurrent and xLSTM layers"
+    elif config.spec.spec_k:
+        what = "speculative decode"
+    elif config.scheduler.prefill_chunk:
+        what = "chunked prefill"
+    elif config.cache.allocator is not None:
+        what = "a shared page allocator (mixed-family serving)"
+    if what is None:
+        return None
+    return f"{cfg.name}: {what} under a mesh is not served yet (ROADMAP A13b)"
+
+
 class ServingEngine:
     """Continuous-batching engine around one model's prefill/decode.
 
     Runs on the CUDA device unless ``device="cpu"``; params (dense or a
     compressed tree, or ``plan.params``) are moved there and unstacked
-    into per-layer views once, the draft's too."""
+    into per-layer views once, the draft's too.  With a mesh, the rank's
+    pieces of them (see the module doc)."""
 
     def __init__(self, cfg, params, *, config: Optional[EngineConfig] = None,
                  plan=None, sizer: Optional[BatchSizer] = None, device=None, **legacy):
@@ -273,6 +318,18 @@ class ServingEngine:
         if plan is not None and params is None:
             params = plan.params
         self.api = get_api(cfg)
+        reason = mesh_refusal(cfg, config)
+        if reason is not None:
+            raise NotImplementedError(reason)
+        self.mesh = config.mesh
+        self.rules = None
+        if self.mesh is not None:
+            self.rules = {**sl.DEFAULT_RULES, **(config.rules or {})}
+            # the plan's recorded per-leaf axes, the family's dense ones
+            # otherwise (the same paths): both expand through the registry
+            axes = (plan.axes_tree() if plan is not None and any(
+                l.axes for l in plan.leaves.values()) else self.api.param_axes(cfg))
+            params = local_params(params, axes, self.mesh, self.rules)
         self.params = self.api.unstack(cfg, tree_to(params, self.device))
         self.plan = plan
         self.max_len = max_len = int(config.max_len)
@@ -312,9 +369,15 @@ class ServingEngine:
         ctx = min(int(cc.expected_context) if cc.expected_context else max_len, max_len)
         self.expected_context = ctx
         kv_tok = kv_bytes_per_token(cfg, self.kv_dtype, context_len=ctx)
+        # multi-rank accounting: the model axis divides the weight stream,
+        # the KV term divides by the degree the pools achieve; data replicas
+        # repeat the whole analysis over the batch
+        self.data_parallel, self.model_parallel, self.kv_parallel = sl.parallelism_degrees(
+            self.mesh, self.rules, int(getattr(cfg, "n_kv_heads", 0) or 0))
         if sizer is None:
             n_params = self.api.n_params_exact(cfg)
-            mp_kw = dict(model_parallel=1, kv_parallel=1, spec_k=self.spec_k)
+            mp_kw = dict(model_parallel=self.model_parallel, kv_parallel=self.kv_parallel,
+                         spec_k=self.spec_k)
             if self.spec_k:
                 mp_kw["draft_n_params"] = get_api(self.draft_cfg).n_params_exact(self.draft_cfg)
             if plan is not None:
@@ -325,7 +388,8 @@ class ServingEngine:
                                    context_len=ctx, **mp_kw)
         max_batch = config.max_batch
         if max_batch is None:
-            max_batch = min(64, sizer.n_opt)
+            # n_opt balances ONE model group: every data replica gets its own
+            max_batch = min(64, sizer.n_opt * self.data_parallel)
         self.max_batch = max_batch
         self.sizer = sizer
         self.dtype = getattr(torch, cfg.compute_dtype)
@@ -401,10 +465,8 @@ class ServingEngine:
             self.registry = PrefixRegistry() if share_prefix else None
             self.slot_pages: List[List[int]] = [[] for _ in range(max_batch)]
             self._table = np.full((max_batch, self.pages_per_seq), NULL_PAGE, np.int32)
-            self.cache = self.api.init_cache(
-                cfg, max_batch, max_len, self.dtype, kv_dtype=self.kv_dtype,
-                page_size=self.page_size, num_pages=self.num_pages, device=self.device,
-                spec_k=self.spec_k)
+            self.cache = self._new_cache(max_batch, page_size=self.page_size,
+                                         num_pages=self.num_pages)
             if "xpage_table" in self.cache:
                 # enc-dec: each slot's encoded frames take pages of the same
                 # allocator, written once at admission, read-only after
@@ -414,9 +476,10 @@ class ServingEngine:
         else:
             self.allocator = None
             self.registry = None
-            self.cache = self.api.init_cache(cfg, max_batch, max_len, self.dtype,
-                                             kv_dtype=self.kv_dtype, device=self.device,
-                                             spec_k=self.spec_k)
+            self.cache = self._new_cache(max_batch)
+        # this data replica's slots of a cache whose batch is split (None: all)
+        with self._on_mesh():
+            self._rows = sl.data_rows(max_batch)
         # the draft side: its own model (dense from the CLI) over a contiguous cache
         self.draft_api = self.draft_params = self.draft_cache = None
         if self.spec_k:
@@ -446,6 +509,51 @@ class ServingEngine:
                              f"engine config is {cfg.name!r}")
         return cls(cfg, params, plan=plan, device=device,
                    config=AT.engine_config(tuned, **overrides))
+
+    # -- sharded placement ---------------------------------------------------
+
+    def _on_mesh(self):
+        """The engine's mesh and rules active for the model code (nothing
+        without a mesh)."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        return sl.use_mesh(self.mesh, self.rules)
+
+    def _new_cache(self, batch: int, **paged):
+        """A cache of ``batch`` slots in the engine's dtypes (paged with
+        ``page_size``/``num_pages``): on a mesh, the rank's pieces of each
+        leaf by the registered cache axes, allocated as such; the page
+        table stays whole (every rank scatters the whole batch's K/V)."""
+        kw = dict(kv_dtype=self.kv_dtype, spec_k=self.spec_k, **paged)
+        if self.mesh is None:
+            return self.api.init_cache(self.cfg, batch, self.max_len, self.dtype,
+                                       device=self.device, **kw)
+        meta = self.api.init_cache(self.cfg, batch, self.max_len, self.dtype, device="meta",
+                                   **kw)
+        axes = self.api.cache_axes(self.cfg, quantized_kv=self.kv_dtype is not None,
+                                   paged=bool(paged))
+        axes.pop("page_table", None)
+        return sl.local_zeros(meta, axes, self.mesh, self.rules, self.device)
+
+    def _local_row(self, slot: int) -> Optional[int]:
+        """``slot``'s row in this rank's piece of a batch-split cache (None:
+        another data replica holds it)."""
+        if self._rows is None:
+            return slot
+        if self._rows.start <= slot < self._rows.stop:
+            return slot - self._rows.start
+        return None
+
+    def weight_bytes(self) -> int:
+        """Bytes of the params this rank holds on its device (its pieces on
+        a mesh; each storage once: the per-layer views share theirs)."""
+        seen, total = set(), 0
+        for t in flatten_leaves(self.params):
+            st = t.untyped_storage()
+            if t.device.type == self.device.type and st.data_ptr() not in seen:
+                seen.add(st.data_ptr())
+                total += st.nbytes()
+        return total
 
     # -- host-side plumbing -------------------------------------------------
 
@@ -621,13 +729,12 @@ class ServingEngine:
     def _prefill_request(self, req: Request, tokens: np.ndarray):
         """Batch-1 prefill into a private contiguous cache.  Returns (first
         sampled token, cache1, logits-finite flag)."""
-        cache1 = self.api.init_cache(self.cfg, 1, self.max_len, self.dtype,
-                                     kv_dtype=self.kv_dtype, device=self.device,
-                                     spec_k=self.spec_k)
+        cache1 = self._new_cache(1)
         batch = {"tokens": self._on_device(np.asarray(tokens, np.int32))[None]}
         for k, v in (req.extras or {}).items():
             batch[k] = self._on_device(np.asarray(v))[None]
-        logits, cache1 = self.api.prefill(self.cfg, self.params, batch, cache1)
+        with self._on_mesh():
+            logits, cache1 = self.api.prefill(self.cfg, self.params, batch, cache1)
         self.stats.prefill_tokens += len(tokens)
         row = logits[:, -1]
         ok = bool(torch.isfinite(row).all())
@@ -996,10 +1103,12 @@ class ServingEngine:
                                dtype=torch.long, device=self.device)
         off = torch.as_tensor(pos_w % ps, dtype=torch.long, device=self.device)
         src = torch.as_tensor(pos_w, dtype=torch.long, device=self.device)
+        row = self._local_row(slot)
         for entry, one in zip(self.cache["layers"], cache1["layers"]):
             if "k_pages" not in entry:
-                for k, ring in entry.items():
-                    ring[slot] = one[k][0].to(ring.dtype)
+                if row is not None:
+                    for k, ring in entry.items():
+                        ring[row] = one[k][0].to(ring.dtype)
                 continue
             if len(pos_w) == 0:
                 continue
@@ -1033,15 +1142,18 @@ class ServingEngine:
             self.slot_xpages[slot] = []
             self._xtable[slot, :] = NULL_PAGE
 
-    @staticmethod
-    def _write_slot(slot: int, cache1, cache):
+    def _write_slot(self, slot: int, cache1, cache):
         """Copy a batch-1 contiguous cache into slot ``slot`` of ``cache``
         (the target's or the draft's; in place): every leaf is (batch, ...),
         so the slot's KV rows and its recurrent / xLSTM states are all
-        rewritten, and nothing of the slot's previous owner survives."""
+        rewritten, and nothing of the slot's previous owner survives.  On a
+        mesh only the data replica that holds the slot's row writes it."""
+        row = self._local_row(slot)
+        if row is None:
+            return
         for entry, one in zip(cache["layers"], cache1["layers"]):
             for k, pool in entry.items():
-                pool[slot] = one[k][0].to(pool.dtype)
+                pool[row] = one[k][0].to(pool.dtype)
 
     def _sample(self, logits: torch.Tensor, temperature: float) -> torch.Tensor:
         """(n, V) logits -> (n,) tokens: argmax when greedy, else a draw
@@ -1115,8 +1227,10 @@ class ServingEngine:
         return torch.from_numpy(mask).to(self.device)
 
     def _decode(self, tokens, pos, poison):
-        logits, self.cache = self.api.decode_step(
-            self.cfg, self.params, self.cache, tokens, pos, use_kernel=self.attention_kernel)
+        with self._on_mesh():
+            logits, self.cache = self.api.decode_step(
+                self.cfg, self.params, self.cache, tokens, pos,
+                use_kernel=self.attention_kernel)
         if poison is not None:
             logits = torch.where(poison[:, None, None], torch.nan, logits)
         return logits

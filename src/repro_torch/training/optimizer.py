@@ -74,7 +74,7 @@ def init_opt_state(cfg: OptimizerConfig, params, error_feedback: bool = False) -
 
 
 def opt_state_axes(cfg: OptimizerConfig, param_axes, error_feedback: bool = False) -> dict:
-    """The logical sharding axes of the state (data for ROADMAP A13): each
+    """The logical sharding axes of the state (data for ROADMAP A13c): each
     moment takes its param's axes, the step none."""
     axes = {"step": ()}
     if cfg.name == "adamw":

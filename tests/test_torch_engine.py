@@ -141,6 +141,16 @@ def test_serve_cli_on_cpu(capsys):
 def test_serve_rejects_unserved_flags(flag, capsys):
     from repro_torch.launch import serve
 
+    if flag[0] == "--mesh":
+        # served now: "host" is 1 x 1 on the CPU, one rank in this process
+        eng = serve.main(["--arch", "tinyllama-1.1b", "--smoke", "--device", "cpu",
+                          "--requests", "3", "--max-new", "3"] + flag)
+        out = capsys.readouterr().out
+        assert ("[serve] mesh {'data': 1, 'model': 1}: data-parallel 1, model-parallel 1, "
+                "kv shard degree 1") in out
+        assert "[serve] completed 3 requests" in out
+        assert (eng.data_parallel, eng.model_parallel, eng.kv_parallel) == (1, 1, 1)
+        return
     with pytest.raises(SystemExit) as e:
         serve.main(["--arch", "tinyllama-1.1b", "--smoke", "--device", "cpu"] + flag)
     assert e.value.code == 2
@@ -161,8 +171,9 @@ def test_engine_config_rejects_unserved_fields(kw):
     if "cache" in kw:  # a shared allocator is served now (serving/mixed.py)
         assert EngineConfig(**kw).cache.allocator is kw["cache"].allocator
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        EngineConfig(**kw)
+    # a mesh is served now (sharded serving): the config keeps it, and the
+    # engine refuses by name only what a mesh does not serve (ROADMAP A13b)
+    assert EngineConfig(**kw).mesh is kw["mesh"]
 
 
 def test_temperature_sampling_uses_the_engine_generator():

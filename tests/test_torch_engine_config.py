@@ -100,15 +100,16 @@ def test_unknown_flat_name_raises_type_error():
 
 @pytest.mark.parametrize("flat", [dict(mesh=object()), dict(rules={}), dict(allocator=object())])
 def test_unserved_flat_names_route_to_the_fields_that_refuse(flat):
-    """mesh and rules (ROADMAP A13) are flat names like any other: they
-    reach their fields, which refuse them.  A shared allocator, refused the
-    same way until mixed serving was ported, reaches cache.allocator and
-    is served."""
+    """mesh and rules are flat names like any other: they reach their
+    fields, which refused them until sharded serving was ported and keep
+    them now; a shared allocator, refused the same way until mixed serving
+    was ported, reaches cache.allocator."""
     if "allocator" in flat:
         assert PC.EngineConfig.of(**flat).cache.allocator is flat["allocator"]
         return
-    with pytest.raises(NotImplementedError, match="A13"):
-        PC.EngineConfig.of(**flat)
+    (name, value), = flat.items()
+    assert getattr(PC.EngineConfig.of(**flat), name) is value
+    assert PC.EngineConfig.of(**flat).flat()[name] is value
 
 
 def _tiny():

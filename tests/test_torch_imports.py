@@ -41,7 +41,8 @@ def test_import_leaves_jax_and_repro_out():
         "       'repro_torch.data.pipeline', 'repro_torch.training.optimizer',\n"
         "       'repro_torch.training.trainer', 'repro_torch.distributed.compression',\n"
         "       'repro_torch.launch.train', 'repro_torch.core.autotune',\n"
-        "       'repro_torch.launch.autotune'}\n"
+        "       'repro_torch.launch.autotune', 'repro_torch.distributed.shardlib',\n"
+        "       'repro_torch.distributed.elastic', 'repro_torch.launch.mesh'}\n"
         "assert new <= set(mods), new - set(mods)\n"
         "print('BAD', bad)\n"
         "sys.exit(1 if bad else 0)\n"

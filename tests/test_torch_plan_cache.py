@@ -382,11 +382,15 @@ def test_reference_cli_repacks_a_port_directory(tmp_path, capsys):
     assert "plan cache missing" in capsys.readouterr().out
     meta = store.restore_flat(str(d))[1]["metadata"]
     assert all(m["interpret"] is False for m in meta["packed"].values() if m["repr"] == "packed")
-    assert all(leaf["axes"] == [] for leaf in meta["leaves"].values())
     shutil.copytree(d, kept)
     ref_serve.main(SMOKE_FLAGS + ["--plan-cache", str(d)])
     out = capsys.readouterr().out
     assert "plan cache incompatible" in out and "packed weights" in out
+    # both CLIs record each leaf's logical axes (``api.compress``), the same
+    ref_meta = store.restore_flat(str(d))[1]["metadata"]
+    assert {p: leaf["axes"] for p, leaf in meta["leaves"].items()} == \
+        {p: leaf["axes"] for p, leaf in ref_meta["leaves"].items()}
+    assert any(leaf["axes"] for leaf in meta["leaves"].values())
     assert TW.load_plan(str(kept), _dense()).cfg.q_prune == 0.5
     serve.main(SMOKE_FLAGS + ["--plan-cache", str(kept), "--device", "cpu"])
     assert "plan cache hit" in capsys.readouterr().out

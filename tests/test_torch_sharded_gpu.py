@@ -1,0 +1,124 @@
+"""A rank's kernels on its shards, on the card: B1, B2 and B5 on the local
+shard of a tinyllama-1.1b-wide leaf (``weight_plan.local_leaf`` at model
+axes of 2 and 8) against the matching columns of the whole leaf's launch
+and against their plain versions; B3 reading a rank's KV heads of a pool
+that holds them all (``kv_heads``, in place) against its plain version on
+the narrowed pools.  These need a CUDA device and nvcc; they carry the
+``gpu`` marker and skip elsewhere (and import no JAX):
+
+    python -m pytest -q -m gpu tests/test_torch_sharded_gpu.py
+
+bf16 outputs are held to 1e-2 of the max (fp32 sums in another order --
+a launch over fewer columns may split its sums otherwise -- rounded once),
+as in tests/test_torch_gpu.py."""
+
+import pytest
+import torch
+
+from repro_torch.core import weight_plan as WP
+from repro_torch.distributed import shardlib as sl
+from repro_torch.kernels import flash_attention as FA
+
+TOL = 1e-2
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _close(got, want):
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= TOL * want.float().abs().max().item(), err
+
+
+def _meshes(M):
+    return [sl.MeshShape({"data": 1, "model": M}, {"data": 0, "model": m}) for m in range(M)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [2, 8])
+def test_b1_b2_on_a_ranks_columns(cuda, M):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    cfg = WP.PlanConfig(q_prune=0.5)
+    wq = WP.pack_block_sparse(torch.randn(2048, 2048, generator=g, device=cuda) / 45.0, cfg, True)
+    gate = WP.pack_block_sparse(torch.randn(2048, 5632, generator=g, device=cuda) / 45.0, cfg, True)
+    up = WP.pack_block_sparse(torch.randn(2048, 5632, generator=g, device=cuda) / 45.0, cfg, True)
+    x = torch.randn(8, 2048, generator=g, device=cuda).to(torch.bfloat16)
+    y_q = WP.apply_linear(x, wq)
+    y_gu = WP.apply_gate_up(x, gate, up, "silu")
+    for mesh in _meshes(M):
+        m = mesh.coords["model"]
+        loc = WP.local_leaf(wq, ("d", "qkv"), mesh, sl.DEFAULT_RULES)
+        assert loc.n_split
+        y = WP.apply_linear(x, loc.local)
+        n = y.shape[-1]
+        _close(y, y_q[:, m * n:(m + 1) * n])
+        _close(y, WP.apply_linear(x, WP.with_use_kernel(loc.local, False)))
+        lg = WP.local_leaf(gate, ("d", "ff"), mesh, sl.DEFAULT_RULES)
+        lu = WP.local_leaf(up, ("d", "ff"), mesh, sl.DEFAULT_RULES)
+        if M == 8:  # 44 block columns do not split 8 ways: whole on every rank
+            assert lg is gate and lu is up
+            continue
+        y = WP.apply_gate_up(x, lg.local, lu.local, "silu")
+        n = y.shape[-1]
+        _close(y, y_gu[:, m * n:(m + 1) * n])
+        _close(y, WP.apply_gate_up(x, WP.with_use_kernel(lg.local, False),
+                                   WP.with_use_kernel(lu.local, False), "silu"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [2, 8])
+def test_b5_on_a_ranks_columns_and_rows(cuda, M):
+    """The head's columns (32000 / M) and wo's rows (a split contraction:
+    the rank's partial product against its plain version)."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    head = WP.quantize_leaf(torch.randn(2048, 32000, generator=g, device=cuda) / 45.0)
+    wo = WP.quantize_leaf(torch.randn(2048, 2048, generator=g, device=cuda) / 45.0)
+    x = torch.randn(8, 2048, generator=g, device=cuda).to(torch.bfloat16)
+    whole = WP.apply_linear(x, head)
+    for mesh in _meshes(M):
+        m = mesh.coords["model"]
+        loc = WP.local_leaf(head, ("d", "vocab"), mesh, sl.DEFAULT_RULES)
+        y = WP.apply_linear(x, loc.local)
+        n = y.shape[-1]
+        _close(y, whole[:, m * n:(m + 1) * n])
+        _close(y, WP.apply_linear(x, WP.with_use_kernel(loc.local, False)))
+        lo = WP.local_leaf(wo, ("qkv", "d"), mesh, sl.DEFAULT_RULES)
+        assert lo.k_split and not lo.n_split
+        k = 2048 // M
+        xl = x[:, m * k:(m + 1) * k]  # the rank's columns of o, a strided view
+        _close(WP.apply_linear(xl, lo.local),
+               WP.apply_linear(xl, WP.with_use_kernel(lo.local, False)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv", [torch.int8, torch.bfloat16])
+@pytest.mark.parametrize("hd,kvh,hq,off,n", [(64, 4, 4, 1, 1), (64, 4, 16, 2, 2),
+                                             (128, 2, 8, 1, 1)])
+def test_b3_reads_a_ranks_kv_heads_in_place(cuda, kv, hd, kvh, hq, off, n):
+    """B3 over ``hq`` q heads against KV heads [off, off + n) of pools of
+    ``kvh`` heads equals its plain version on the narrowed pools."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    B, ps, P, pages = 4, 16, 8, 40
+    q = torch.randn(B, 1, hq, hd, generator=g, device=cuda).to(torch.bfloat16)
+    shape = (pages, ps, kvh, hd)
+    scales = {}
+    if kv == torch.int8:
+        kp = torch.randint(-127, 128, shape, generator=g, device=cuda, dtype=torch.int8)
+        vp = torch.randint(-127, 128, shape, generator=g, device=cuda, dtype=torch.int8)
+        scales = dict(k_scale_pages=torch.rand(shape[:3], generator=g, device=cuda) / 100,
+                      v_scale_pages=torch.rand(shape[:3], generator=g, device=cuda) / 100)
+    else:
+        kp = torch.randn(shape, generator=g, device=cuda).to(torch.bfloat16)
+        vp = torch.randn(shape, generator=g, device=cuda).to(torch.bfloat16)
+    table = torch.randint(1, pages, (B, P), generator=g, device=cuda, dtype=torch.int32)
+    pos = torch.tensor([3, 40, 77, 127], device=cuda, dtype=torch.int32)
+    launches = FA.paged_decode_attention.launches
+    got = FA.paged_decode_attention(q, kp, vp, table, pos, kv_heads=(off, n), **scales)
+    assert FA.paged_decode_attention.launches == launches + 1
+    want = FA.paged_decode_attention(q, kp, vp, table, pos, kv_heads=(off, n), use_kernel=False,
+                                     **scales)
+    _close(got, want)

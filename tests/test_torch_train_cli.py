@@ -27,6 +27,11 @@ from repro_torch.launch import train
 from repro_torch.models.api import get_api
 from repro_torch.training import optimizer as O
 
+from _torch_train import one_thread  # noqa: F401  (the fixture)
+
+# torch on one thread: under the suite's workers a full pool per test crawls
+pytestmark = pytest.mark.usefixtures("one_thread")
+
 
 def _args(**kw):
     base = dict(arch="tinyllama-1.1b", smoke=True, steps=12, batch=4, seq=32, lr=3e-3,
@@ -123,7 +128,7 @@ def test_straggler_detector_flags_the_slow_host():
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--mesh", "pod"], "ROADMAP A13"),
+    (["--mesh", "pod"], "ROADMAP A13c"),
 ])
 def test_refused_by_name(argv, match):
     base = ["--arch", "tinyllama-1.1b", "--smoke", "--steps", "1", "--device", "cpu"]
@@ -213,11 +218,21 @@ def test_async_checkpointer_error_surfaces_on_wait(tmp_path):
 
 
 def test_restore_checks_structure_and_refuses_shardings(tmp_path):
-    store.save(str(tmp_path), 1, {"a": torch.zeros(2, 3), "b": torch.zeros(4)})
+    """Structure and shape are checked; shardings that are not a tree of
+    specs are refused, and a tree of them (a mesh, served since sharded
+    serving) keeps each leaf's local piece."""
+    from repro_torch.distributed import shardlib as sl
+
+    a = torch.arange(6.0).reshape(2, 3)
+    store.save(str(tmp_path), 1, {"a": a, "b": torch.zeros(4)})
     with pytest.raises(ValueError, match="leaves"):
         store.restore(str(tmp_path), {"a": torch.zeros(2, 3)})
     with pytest.raises(ValueError, match="shape"):
         store.restore(str(tmp_path), {"a": torch.zeros(3, 2), "b": torch.zeros(4)})
-    with pytest.raises(NotImplementedError, match="A13"):
-        store.restore(str(tmp_path), {"a": torch.zeros(2, 3), "b": torch.zeros(4)},
-                      shardings=object())
+    like = {"a": torch.zeros(2, 3), "b": torch.zeros(4)}
+    with pytest.raises(TypeError, match="Spec"):
+        store.restore(str(tmp_path), like, shardings=object())
+    mesh = sl.MeshShape({"data": 2, "model": 1}, coords={"data": 1, "model": 0})
+    specs = sl.tree_specs(like, {"a": ("batch", None), "b": (None,)}, mesh=mesh)
+    got, _ = store.restore(str(tmp_path), like, shardings=specs)
+    assert torch.equal(got["a"], a[1:]) and got["b"].shape == (4,)

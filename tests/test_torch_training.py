@@ -42,6 +42,11 @@ from repro_torch.models.api import get_api
 from repro_torch.training import optimizer as O
 from repro_torch.training.trainer import make_eval_step, make_train_step
 
+from _torch_train import one_thread  # noqa: F401  (the fixture)
+
+# torch on one thread: under the suite's workers a full pool per test crawls
+pytestmark = pytest.mark.usefixtures("one_thread")
+
 ARCHS = ["tinyllama-1.1b", "llama3.2-1b", "glm4-9b", "gemma3-4b"]
 OPT = dict(lr=1e-3, grad_clip=1.0, warmup_steps=0, decay_steps=10**9, min_lr_ratio=1.0)
 PARAM_ATOL = 1e-4
