@@ -114,31 +114,6 @@ Phases, in order; any failure raises and the script exits non-zero:
                request must finish and the page audit must be clean; each
                prefill is timed on the card's clock, the 2032-token one
                also against the last measurement before B1/B2 ran on wgmma.
-7b. mesh    -- sharded serving: full-width tinyllama-1.1b with the serve
-               flags and --mesh 1x2, 2x2 and 1x8 (kv fallback: 4 KV heads
-               on 8 ranks, wk/wv split within a KV head), ranks sharing the
-               one card over gloo (--share-card; one process a rank, the
-               serve CLI's own ``spawn_ranks``); at 1x2 also --compress
-               quant (wo and w_down split on their contraction: an
-               all-reduce after B5) and the long phase's 2032-token prompt
-               (B6 over a rank's 16 q heads).  Each rank holds its
-               streams to the unsharded ones (the serve and long phases',
-               or its own unsharded engine's on the same plan) by the
-               near-tie rule, one decode step's logits to the unsharded
-               engine's (PATH_RTOL of the largest logit), its B1, B2 and B5
-               launches on its shards to the matching columns of the whole
-               leaf's launch and to the plain versions (KERNEL_RTOL), B3's
-               first launch of its run (its q heads against the pools, at
-               1x8 one KV head at an offset into pools that hold all 4) and
-               B6's (the long prompt, its q and KV heads) replayed on the
-               same inputs against their plain versions (KERNEL_RTOL); the
-               launches of B1, B2, B3 and B5 (B6 for the long prompt) during
-               its run above zero and equal across the ranks of a data
-               replica; a clean page audit; gloo's all_gather and
-               all_reduce on CUDA tensors of every dtype the model path
-               sends, exact.  Logs each rank's weight bytes and rank 0's
-               median decode tick ("ranks sharing one card over gloo: not a
-               multi-card speed").
 8. parity   -- prefill of the serve phase's prompt lengths and of 2032
                tokens, then teacher-forced decode, through the kernels and
                through the plain versions (with_use_kernel(False),
@@ -243,6 +218,49 @@ Phases, in order; any failure raises and the script exits non-zero:
                windowed once a local layer each, by (Sq, Sk)), and a timed
                long prefill each, the recurrent cells and the RG-LRU scan
                timed apart.
+15b. mesh   -- sharded serving, after the recurrent phase (whose streams,
+               with the serve, long, spec, chunked and moe phases', it
+               holds its cases to): full-width tinyllama-1.1b with the serve
+               flags and --mesh 1x2, 2x2 and 1x8 (kv fallback: 4 KV heads
+               on 8 ranks, wk/wv split within a KV head), ranks sharing the
+               one card over gloo (--share-card; one process a rank, the
+               serve CLI's own ``spawn_ranks``); at 1x2 also --compress
+               quant (wo and w_down split on their contraction: an
+               all-reduce after B5), the long phase's 2032-token prompt
+               (B6 over a rank's 16 q heads), speculative decode (--spec-k
+               4, a seed + 1 dense draft on the rank's shards: B3's verify
+               at T = 5 on the rank's KV heads; also at 2x2), chunked
+               prefill (the long phase's prompts, CHUNK_FLAGS: the chunk
+               steps on the rank's shards over its private batch-1 cache),
+               granite-moe-1b-a400m (16 experts a rank; also 1x4, 8 a rank:
+               stacked B1/B2 over the rank's experts, one all-reduce a MoE
+               layer), qwen2-moe-a2.7b (32 experts a rank; its ranks build
+               in turn, as two fp32 inits do not fit the card at once, and
+               each logs its peak memory), recurrentgemma-2b (the RG-LRU's
+               1280 channels and 5 of 10 q heads a rank) and
+               recurrentgemma-2b --compress quant (w_out's partial sums
+               all-reduced).  Each rank holds its
+               streams to the unsharded ones (the earlier phases', or its
+               own unsharded engine's on the same plan for the two quant
+               cases) by the near-tie rule, one decode step's logits to the
+               unsharded engine's (PATH_RTOL of the largest logit), its
+               B1, B2 and B5 launches on its shards (and a MoE layer's
+               stacked B2 and B1 on its experts) to the matching columns
+               (experts) of the whole leaf's launch and to the plain
+               versions (KERNEL_RTOL), B3's
+               first launch of its run (its q heads against the pools, at
+               1x8 one KV head at an offset into pools that hold all 4; a
+               spec run's at T = 5) and
+               B6's (the long prompt, its q and KV heads) replayed on the
+               same inputs against their plain versions (KERNEL_RTOL); the
+               launches of its case's kernels during its run above zero
+               and equal across the ranks of a data
+               replica; a clean page audit; gloo's all_gather and
+               all_reduce on CUDA tensors of every dtype the model path
+               sends, exact.  Logs each rank's weight bytes, its
+               all-reduces a decode step, its max_memory_allocated, and
+               rank 0's median decode tick ("ranks sharing one card over
+               gloo: not a multi-card speed").
 16. mixed   -- ``--workload-mix tinyllama-1.1b:2,recurrentgemma-2b:1,
                whisper-tiny:1 --compress none --page-size 16`` at full width:
                one shared pool of 881 pages for the two paged families,
@@ -1884,9 +1902,10 @@ def _verify_parity(torch, cfg, params, gen) -> None:
             raise AssertionError(f"verify logits differ from the {name}: {worst:.3e}")
 
 
-def phase_spec(torch, results: dict, serve_outputs: list, card: str) -> None:
+def phase_spec(torch, results: dict, serve_outputs: list, card: str) -> list:
     """Speculative decode at full width through the serve CLI (see the
-    module doc): a seed + 1 draft, then the target's own plan as the draft."""
+    module doc): a seed + 1 draft, then the target's own plan as the draft.
+    Returns the seed + 1 draft's streams."""
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.serving.config import SpecConfig
     from repro_torch.serving.engine import ServingEngine
@@ -1943,6 +1962,7 @@ def phase_spec(torch, results: dict, serve_outputs: list, card: str) -> None:
     _verify_parity(torch, cfg, params, gen)
     del self_eng, params, plan
     torch.cuda.empty_cache()
+    return outputs
 
 
 # the chunked phase: the long phase's prompts, arriving by a seeded Poisson
@@ -2003,8 +2023,9 @@ def _wall_gap_ms(rep, uid: int) -> float:
                for a, b in zip(ticks, ticks[1:]))
 
 
-def phase_chunked(torch, long_prompts: list, long_outputs: list, card: str) -> None:
-    """Chunked prefill under open-loop arrivals (see the module doc)."""
+def phase_chunked(torch, long_prompts: list, long_outputs: list, card: str) -> list:
+    """Chunked prefill under open-loop arrivals (see the module doc).
+    Returns the chunked run's streams, in the prompts' order."""
     cfg, engine, rep, launches = _open_loop(torch, CHUNK_FLAGS, long_prompts, "chunked")
     for name in ("block_sparse_matmul", "fused_gate_up", "quant_matmul",
                  "paged_decode_attention"):
@@ -2017,6 +2038,7 @@ def phase_chunked(torch, long_prompts: list, long_outputs: list, card: str) -> N
     gap = {u: rep.max_intertoken_gap([0], unit=u) for u in ("work", "tick")}
     gap["ms"] = _wall_gap_ms(rep, 0)
     firsts = [o[0] for o in rep.outputs.values()]
+    streams = [[int(t) for t in rep.outputs[i]] for i in range(len(long_prompts))]
     params = engine.params
     del engine
     torch.cuda.empty_cache()
@@ -2034,6 +2056,7 @@ def phase_chunked(torch, long_prompts: list, long_outputs: list, card: str) -> N
             for i, (p, w, f) in enumerate(zip(long_prompts, long_outputs, firsts)))
     log(f"chunked: {len(firsts) - n} of {len(firsts)} first tokens equal the long phase's, "
         f"the rest near-ties")
+    return streams
 
 
 def _chaos_schedule(FI, n_ticks: int, uids: list) -> tuple:
@@ -2149,8 +2172,10 @@ class _SharedRouting:
     experts' logits lie close), which moves its output far more than the
     kernels' rounding does.  With the choices shared the comparison holds
     the kernels' arithmetic to PATH_RTOL; ``flips`` counts the assignments
-    the plain pass would have routed elsewhere.  A dense model runs both
-    passes untouched."""
+    the plain pass would have routed elsewhere.  A replaying pass that
+    outlasts the recording routes on its own from there (the mesh phase
+    shares only its compared ticks).  A dense model runs both passes
+    untouched."""
 
     def __init__(self, cfg):
         self.moe = cfg.moe is not None
@@ -2174,7 +2199,9 @@ class _SharedRouting:
             if record:
                 self.calls.append(r)
                 return r
-            k = next(replay)
+            k = next(replay, None)
+            if k is None:
+                return r
             self.flips += int((r.idx != k.idx).sum())
             self.total += r.idx.numel()
             gates = r.probs.gather(-1, k.idx)
@@ -2269,45 +2296,104 @@ def _path_parity(torch, cfg, params, label: str, gen, lengths=(36, 40, LONG_M)) 
 
 
 # --mesh runs of the mesh phase: (mesh, the cases its ranks serve)
-MESH_RUNS = (("1x2", ("serve", "long", "quant")), ("2x2", ("serve",)), ("1x8", ("serve",)))
+MESH_RUNS = (("1x2", ("serve", "long", "quant", "spec", "chunked", "granite", "rg", "rg quant",
+                      "qwen2-moe")),
+             ("2x2", ("serve", "spec")), ("1x4", ("granite",)), ("1x8", ("serve",)))
 MESH_KERNELS = ("block_sparse_matmul", "fused_gate_up", "paged_decode_attention",
                 "quant_matmul")
+# a case's serve flags (over the quickstart ones)
+MESH_FLAGS = {
+    "quant": ("--compress", "quant"),
+    "spec": ("--draft-config", "tinyllama-1.1b", "--spec-k", str(SPEC_K)),
+    "chunked": CHUNK_FLAGS + ("--prompt-len", str(LONG_M), "--max-len", "2048"),
+    "granite": ("--arch", "granite-moe-1b-a400m"),
+    "qwen2-moe": ("--arch", "qwen2-moe-a2.7b"),
+    "rg": ("--arch", "recurrentgemma-2b"),
+    "rg quant": ("--arch", "recurrentgemma-2b", "--compress", "quant"),
+}
+# the kernels a case's run must launch (above zero on every rank)
+MESH_CASE_KERNELS = {
+    "long": MESH_KERNELS + ("flash_attention",),
+    "quant": ("paged_decode_attention", "quant_matmul"),
+    "granite": ("block_sparse_matmul", "fused_gate_up", "paged_decode_attention"),
+    "rg": ("block_sparse_matmul", "fused_gate_up"),
+    "rg quant": ("quant_matmul",),
+}
+# the attention launches a case's run replays (recurrentgemma's contiguous
+# rings and short prompts reach neither B3 nor B6)
+MESH_CASE_ATTENTION = {"long": ("paged_decode_attention", "flash_attention"), "rg": (),
+                       "rg quant": ()}
+# cases held to the rank's own unsharded engine's streams (no earlier
+# phase served their plan)
+MESH_OWN = ("quant", "rg quant")
 
 
 def _first_decode_logits(engine) -> list:
-    """Records (the input tokens, the logits (fp32, host)) of ``engine``'s
-    first decode step into the returned list."""
+    """Records (the input tokens, the logits (fp32, host), the slots then
+    decoding) of ``engine``'s first decode step into the returned list."""
     rec, real = [], engine._decode
 
     def spy(tokens, pos, poison):
         lg = real(tokens, pos, poison)
         if not rec:
-            rec.append((tokens[:, 0].cpu(), lg[:, 0].float().cpu()))
+            rec.append((tokens[:, 0].cpu(), lg[:, 0].float().cpu(), engine._decoding_slots()))
         return lg
 
     engine._decode = spy
     return rec
 
 
-def _shard_checks(torch, cfg, plan, engine) -> dict:
-    """Layer 0's wq, wo, w_gate/w_up (B2 where packed) and the head on this
-    rank's shards against the matching columns of the whole leaf's launch
-    and against the plain versions, on one seeded (8, K) bf16 input: {name:
-    (kernel, max rel err vs the whole launch's columns or None for a split
-    contraction, max rel err vs plain)}."""
+@contextlib.contextmanager
+def _decode_reduces(engine, counts: list):
+    """Appends to ``counts`` the all-reduces (``shardlib.all_reduce``) each
+    of ``engine``'s decode (or verify) steps issues."""
+    from repro_torch.distributed import shardlib as sl
+
+    real_reduce, real_decode, n = sl.all_reduce, engine._decode, [0]
+
+    def reduce(x, axis):
+        n[0] += 1
+        return real_reduce(x, axis)
+
+    def decode(tokens, pos, poison):
+        before = n[0]
+        lg = real_decode(tokens, pos, poison)
+        counts.append(n[0] - before)
+        return lg
+
+    sl.all_reduce, engine._decode = reduce, decode
+    try:
+        yield
+    finally:
+        sl.all_reduce, engine._decode = real_reduce, real_decode
+
+
+def _first_with(layers: list, key: str) -> int:
+    """The first layer holding ``key`` (its kind's block), or -1."""
+    return next((i for i, layer in enumerate(layers) if key in layer), -1)
+
+
+def _shard_checks(torch, cfg, whole, engine) -> dict:
+    """The first layer's projections of each kind on this rank's shards
+    (attention wq/wo, the RG-LRU's w_x/w_out, the MLP's w_gate/w_up pair --
+    B2 where packed -- and an untied head) against the matching columns of
+    the whole leaf's launch and against the plain versions, on one seeded
+    (8, K) input in the compute dtype; a MoE layer's stacks on the rank's
+    experts (``_expert_checks``).  ``whole``: the unstacked whole tree.
+    {name: (kernel, max rel err vs the whole launch's columns or None for a
+    split contraction, max rel err vs plain)}."""
     from repro_torch.core import weight_plan as WP
     from repro_torch.distributed import shardlib as sl
-    from repro_torch.models import transformer as T
 
-    whole = T.unstack(cfg, plan.params)
     mine = engine.params
     dev = engine.device
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
+    dt = getattr(torch, cfg.compute_dtype)
     out = {}
 
-    def x_for(K):
-        return torch.randn(8, K, generator=gen, device=dev).to(getattr(torch, cfg.compute_dtype))
+    def x_for(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(dt)
 
     def kernel_of(w):
         if isinstance(w, WP.QuantLinear):
@@ -2316,12 +2402,18 @@ def _shard_checks(torch, cfg, plan, engine) -> dict:
 
     with engine._on_mesh():
         m, M = sl.axis_index("model"), sl.axis_size("model")
-        leaves = [("wq", whole["layers"][0]["attn"]["wq"], mine["layers"][0]["attn"]["wq"]),
-                  ("wo", whole["layers"][0]["attn"]["wo"], mine["layers"][0]["attn"]["wo"]),
-                  ("head", whole["embed"]["head"], mine["embed"]["head"])]
+        leaves = []
+        for block, names in (("attn", ("wq", "wo")), ("rec", ("w_x", "w_out"))):
+            i = _first_with(whole["layers"], block)
+            if i >= 0:
+                leaves += [(name if block == "attn" else f"rec {name}",
+                            whole["layers"][i][block][name], mine["layers"][i][block][name])
+                           for name in names]
+        if "head" in whole["embed"]:
+            leaves.append(("head", whole["embed"]["head"], mine["embed"]["head"]))
         for name, w, loc in leaves:
             K = WP.contraction(w)
-            x = x_for(K)
+            x = x_for(8, K)
             split = isinstance(loc, WP.ShardedLeaf)
             local = loc.local if split else loc
             xl = x[:, m * K // M:(m + 1) * K // M] if split and loc.k_split else x
@@ -2333,19 +2425,54 @@ def _shard_checks(torch, cfg, plan, engine) -> dict:
                 n = y.shape[-1]
                 ref = rel_err(torch, y, full[:, m * n:(m + 1) * n] if split else full)[1]
             out[name] = (kernel_of(local), ref, rel_err(torch, y, plain)[1])
-        g, u = whole["layers"][0]["mlp"]["w_gate"], whole["layers"][0]["mlp"]["w_up"]
-        lg, lu = mine["layers"][0]["mlp"]["w_gate"], mine["layers"][0]["mlp"]["w_up"]
-        x = x_for(WP.contraction(g))
-        split = isinstance(lg, WP.ShardedLeaf)
-        lg, lu = (lg.local, lu.local) if split else (lg, lu)
-        y = WP.apply_gate_up(x, lg, lu, cfg.activation)
-        full = WP.apply_gate_up(x, g, u, cfg.activation)
-        n = y.shape[-1]
-        plain = WP.apply_gate_up(x, WP.with_use_kernel(lg, False), WP.with_use_kernel(lu, False),
-                                 cfg.activation)
-        out["gate_up"] = ("fused_gate_up" if isinstance(lg, WP.PackedLinear) else "quant_matmul",
-                          rel_err(torch, y, full[:, m * n:(m + 1) * n] if split else full)[1],
-                          rel_err(torch, y, plain)[1])
+        i = _first_with(whole["layers"], "mlp")
+        if i >= 0:
+            g, u = whole["layers"][i]["mlp"]["w_gate"], whole["layers"][i]["mlp"]["w_up"]
+            lg, lu = mine["layers"][i]["mlp"]["w_gate"], mine["layers"][i]["mlp"]["w_up"]
+            x = x_for(8, WP.contraction(g))
+            split = isinstance(lg, WP.ShardedLeaf)
+            lg, lu = (lg.local, lu.local) if split else (lg, lu)
+            y = WP.apply_gate_up(x, lg, lu, cfg.activation)
+            full = WP.apply_gate_up(x, g, u, cfg.activation)
+            n = y.shape[-1]
+            plain = WP.apply_gate_up(x, WP.with_use_kernel(lg, False),
+                                     WP.with_use_kernel(lu, False), cfg.activation)
+            out["gate_up"] = ("fused_gate_up" if isinstance(lg, WP.PackedLinear)
+                              else "quant_matmul",
+                              rel_err(torch, y, full[:, m * n:(m + 1) * n] if split else full)[1],
+                              rel_err(torch, y, plain)[1])
+        i = _first_with(whole["layers"], "moe")
+        if i >= 0:
+            out.update(_expert_checks(torch, cfg, whole["layers"][i]["moe"],
+                                      mine["layers"][i]["moe"], x_for))
+    return out
+
+
+def _expert_checks(torch, cfg, whole: dict, mine: dict, x_for) -> dict:
+    """A MoE layer's expert stacks on the rank's experts: one stacked B2 over
+    its gate/up sub-stacks and one stacked B1 over its w_down sub-stack, on
+    seeded (Ep, 8, K) rows, each against its plain version and against the
+    whole stack's launch on the same rows (the rank's experts' rows of it)."""
+    from repro_torch.core import weight_plan as WP
+    from repro_torch.models import moe as MOE
+
+    Ep = cfg.moe.n_experts_padded
+    e0, ne = MOE.expert_range(mine, Ep)
+    mine = {k: v.local if isinstance(v, WP.ShardedLeaf) else v for k, v in mine.items()}
+    sel = slice(e0, e0 + ne)
+    x = x_for(Ep, 8, cfg.d_model)
+    h = WP.apply_gate_up(x[sel], mine["w_gate"], mine["w_up"], cfg.activation)
+    plain = WP.apply_gate_up(x[sel], WP.with_use_kernel(mine["w_gate"], False),
+                             WP.with_use_kernel(mine["w_up"], False), cfg.activation)
+    full = WP.apply_gate_up(x, whole["w_gate"], whole["w_up"], cfg.activation)[sel]
+    out = {f"experts [{e0}, {e0 + ne}) gate_up": ("fused_gate_up", rel_err(torch, h, full)[1],
+                                                  rel_err(torch, h, plain)[1])}
+    xd = x_for(Ep, 8, cfg.moe.expert_d_ff)
+    y = WP.apply_linear(xd[sel], mine["w_down"])
+    plain = WP.apply_linear(xd[sel], WP.with_use_kernel(mine["w_down"], False))
+    full = WP.apply_linear(xd, whole["w_down"])[sel]
+    out[f"experts [{e0}, {e0 + ne}) w_down"] = ("block_sparse_matmul", rel_err(torch, y, full)[1],
+                                                rel_err(torch, y, plain)[1])
     return out
 
 
@@ -2427,39 +2554,97 @@ def _gloo_cuda_probe(torch, rank: int, world: int) -> list:
     return names
 
 
+def _build_in_turn(torch, serve, args, state: dict):
+    """(cfg, plan) of a model too large for every rank to build on the
+    shared card at once (qwen2-moe-a2.7b: its whole fp32 draw is 57 GB,
+    and ``serve.build_engine`` peaks at 73.7 GiB): the ranks take turns,
+    each drawing the params leaf by leaf on the card in ``init_params``'s
+    order (the same bits), packing each as ``compress`` does and moving it
+    to the host at once; the card holds one fp32 leaf and its packing at a
+    time.  The engines then place their pieces (and the unsharded engine
+    the whole plan) from the host copy."""
+    import torch.distributed as dist
+
+    import repro_torch.configs as C
+    from repro_torch.core import weight_plan as WP
+    from repro_torch.models import transformer as T
+    from repro_torch.models.api import get_api
+
+    cfg = C.get_config(args.arch, smoke=args.smoke)
+    pc = serve.PlanConfig(default=args.compress, q_prune=args.q_prune, bk=args.block,
+                          bn=args.block)
+    ax_of = WP._axes_by_path(get_api(cfg).param_axes(cfg))
+    leaves, by_path, plan = {}, {}, None
+
+    def pack(path, leaf):
+        packed, leaves[path] = WP.compress_leaf(path, leaf, pc, ax_of.get(path))
+        by_path[path] = WP.tree_to(packed, "cpu")
+        return by_path[path]
+
+    for turn in range(dist.get_world_size()):
+        if turn == state["rank"]:
+            free = torch.cuda.mem_get_info()[0]
+            params = T.make_params(T.param_shapes(cfg), args.seed, state["device"],
+                                   leaf_fn=pack)
+            plan = WP.WeightPlan(cfg=pc, leaves=leaves, params=params, _by_path=by_path)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            state["build"] = (free, torch.cuda.max_memory_allocated())
+        dist.barrier()
+    return cfg, plan
+
+
 def _mesh_case(torch, serve, job: dict, case: str, state: dict) -> dict:
     """One case of a rank (see the module doc): builds (or reuses) the
     meshed engine and an unsharded one on the same plan, checks and serves,
     and returns what the parent compares."""
     import numpy as np
 
+    from repro_torch.core import weight_plan as WP
     from repro_torch.core.perf_model import paged_pool_pages
     from repro_torch.distributed import shardlib as sl
     from repro_torch.kernels import flash_attention as FA
-    from repro_torch.models import transformer as T
+    from repro_torch.launch import mesh as M
     from repro_torch.serving.engine import Request, RequestState, ServingEngine
 
-    extra = ["--mesh", job["mesh"], "--share-card"]
-    if case == "quant":
-        extra += ["--compress", "quant"]
-    if case == "long":
-        cfg, plan, mesh, rules = state["cfg"], state["plan"], state["mesh"], state["rules"]
+    torch.cuda.reset_peak_memory_stats()
+    extra = ["--mesh", job["mesh"], "--share-card", *MESH_FLAGS.get(case, ())]
+    if case in ("long", "chunked"):
         _, ap, args = _serve_args(extra + ["--prompt-len", str(LONG_M), "--max-len", "2048"])
         args.pool_pages = 1 + paged_pool_pages(args.max_batch, LONG_M + args.max_new,
                                                args.page_size)
-        engine = ServingEngine(cfg, None, plan=plan, device=state["device"],
-                               config=serve.config_from_args(args, mesh=mesh, rules=rules))
-        prompts = [np.asarray(job["long_prompt"], np.int32)]
     else:
         _, ap, args = _serve_args(extra)
+    if case == "long":
+        cfg, plan, mesh, rules = state["cfg"], state["plan"], state["mesh"], state["rules"]
+        engine = ServingEngine(cfg, None, plan=plan, device=state["device"],
+                               config=serve.config_from_args(args, mesh=mesh, rules=rules))
+    elif case == "qwen2-moe":
+        cfg, plan = _build_in_turn(torch, serve, args, state)
+        engine = ServingEngine(cfg, None, plan=plan, device=state["device"],
+                               config=serve.config_from_args(
+                                   args, mesh=state["mesh"],
+                                   rules=M.rules_for(cfg, None, mesh=state["mesh"])))
+    else:
         cfg, engine, plan = serve.build_engine(args, ap)
-        state.update(cfg=cfg, plan=plan, mesh=engine.mesh, rules=engine.rules,
-                     device=engine.device)
+        state.update(mesh=engine.mesh, device=engine.device)
+        if case == "serve":
+            state.update(cfg=cfg, plan=plan, rules=engine.rules)
+    if case in ("long", "chunked"):
+        prompts = [np.asarray(p, np.int32) for p in job["long_prompts"]]
+        if case == "long":
+            prompts = prompts[-1:]
+    else:
         prompts = [r.prompt for r in _serve_requests(cfg, args.max_new)]
     torch.cuda.synchronize()
     torch.cuda.empty_cache()  # the dense init's blocks: the other ranks share the card
     solo = ServingEngine(cfg, None, plan=plan, device=engine.device,
-                         config=serve.config_from_args(args))
+                         config=serve.config_from_args(args, draft_cfg=engine.draft_cfg,
+                                                       draft_params=engine.config.spec
+                                                       .draft_params))
+    whole = solo.params
+    if case == "qwen2-moe":
+        del plan  # the host copy: both engines hold theirs on the card
 
     def requests():
         return [Request(uid=i, prompt=p, max_new_tokens=args.max_new)
@@ -2467,49 +2652,81 @@ def _mesh_case(torch, serve, job: dict, case: str, state: dict) -> dict:
 
     res = {"case": case, "coords": sl.mesh_coords(engine.mesh),
            "weight_bytes": engine.weight_bytes(), "whole_bytes": solo.weight_bytes()}
-    if case != "long":
-        res["shards"] = _shard_checks(torch, cfg, plan, engine)
+    if case not in ("long", "chunked", "spec"):
+        res["shards"] = _shard_checks(torch, cfg, whole, engine)
+    layers = engine.params["layers"]
+    i = _first_with(layers, "rec")
+    if i >= 0:
+        w = layers[i]["rec"]["w_out"]
+        res["w_out"] = ("k_split" if isinstance(w, WP.ShardedLeaf) and w.k_split else
+                        "n_split" if isinstance(w, WP.ShardedLeaf) else "whole")
+        res["rec_layers"] = sum(k == "rec" for k in cfg.layer_kinds)
+    i = _first_with(layers, "moe")
+    if i >= 0:
+        from repro_torch.models import moe as MOE
+
+        res["experts"] = [*MOE.expert_range(layers[i]["moe"], cfg.moe.n_experts_padded),
+                          cfg.moe.n_experts_padded]
+        res["moe_layers"] = sum("moe" in layer for layer in layers)
     # one decode step's logits: the unsharded engine's first step, then the
     # meshed engine's, over the same admitted requests
+    # a MoE model's meshed engine takes the unsharded one's expert choices
+    # for the ticks compared (``_SharedRouting``: its prefills and that
+    # step), then routes on its own
     want_lg = _first_decode_logits(solo)
+    routing = _SharedRouting(cfg)
     solo_reqs = requests()
     for r in solo_reqs:
         solo.submit(r)
-    if case == "quant":
+    if case in MESH_OWN:
         solo.run_until_done()
         want = [[int(t) for t in r.output] for r in solo_reqs]
     else:
-        solo.step()
+        with routing.run(record=True):
+            for _ in range(10000):
+                if want_lg:
+                    break
+                solo.step()
         want = job["want"][case]
     del solo
     got_lg = _first_decode_logits(engine)
     counters = (*_served_kernels(), FA.flash_attention)
     _zero_launches(counters)
-    reqs, ticks, first = requests(), [], {}
-    with _first_attention_inputs(first):
+    reqs, ticks, first, reduces = requests(), [], {}, []
+    with routing.run(record=False), _first_attention_inputs(first), \
+            _decode_reduces(engine, reduces):
         _run_ticks(torch, engine, reqs, ticks)
     res["launches"] = {c.__name__: c.launches for c in counters}
+    res["stacked"] = {c.__name__: [c.stacked_launches, c.stacked_experts]
+                      for c in counters if hasattr(c, "stacked_launches")}
+    res["by_t"] = {str(t): n for t, n in FA.paged_decode_attention.launches_by_t.items()}
+    res["reduces"] = sorted(set(reduces))
+    res["chunks"] = engine.stats.prefill_chunks
     res["attention"] = _attention_checks(torch, first)
     engine.audit_pages()
     res["finished"] = all(r.state is RequestState.FINISHED for r in reqs) \
         and engine.pages_in_use == 0 and not engine.degraded
     got = [[int(t) for t in r.output] for r in reqs]
-    # teacher-forced: the rows (slots 0.. hold the requests) whose first
-    # sampled token, this step's input, is the same in both engines (a
+    # teacher-forced: the rows of the slots decoding in that step whose
+    # input token (the first sampled token) is the same in both engines (a
     # first token that flipped on a near-tie is held by the stream check)
-    live = len(prompts)
-    same = (got_lg[0][0][:live] == want_lg[0][0][:live]).nonzero().flatten()
+    live = torch.as_tensor(want_lg[0][2], dtype=torch.long)
+    same = live[got_lg[0][0][live] == want_lg[0][0][live]]
     res["logit_err"] = float("inf")  # no row to hold: fails the check
     if len(same):
         diff = (got_lg[0][1][same] - want_lg[0][1][same]).abs().max().item()
         res["logit_err"] = diff / want_lg[0][1][same].abs().max().item()
-    res["logit_rows"] = [len(same), live]
-    res["n_diff"] = _streams_near_tie(torch, cfg, T.unstack(cfg, plan.params),
+    res["logit_rows"] = [len(same), len(live)]
+    res["route_flips"] = [routing.flips, routing.total]
+    res["n_diff"] = _streams_near_tie(torch, cfg, whole,
                                       f"mesh {job['mesh']} {case} rank {state['rank']}",
                                       prompts, want, got)
     res["digest"] = token_digest(got)
     res["tick_ms"] = _decode_tick_ms(ticks)
-    del engine
+    res["max_mem"] = torch.cuda.max_memory_allocated()
+    if case == "qwen2-moe":  # its build, in the rank's turn, before the engines
+        res["build"] = state.pop("build")
+    del engine, whole
     torch.cuda.empty_cache()
     return res
 
@@ -2535,26 +2752,28 @@ def _mesh_rank(rank: int, job: dict) -> None:
         json.dump({"gloo_cuda": gloo, "cases": results}, f)
 
 
-def phase_mesh(torch, serve_outputs: list, long_prompts: list, long_outputs: list,
-               card: str) -> None:
+def phase_mesh(torch, want: dict, long_prompts: list, card: str) -> None:
     """Sharded serving (see the module doc): each of MESH_RUNS spawns its
-    ranks on the card over gloo and checks what they return."""
+    ranks on the card over gloo and checks what they return.  ``want``:
+    the earlier phases' streams of each case (serve, long, spec, chunked,
+    granite, qwen2-moe, rg)."""
     import tempfile
 
     from repro_torch.launch import mesh as M
 
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
-    want = {"serve": serve_outputs, "long": [long_outputs[-1]]}
     if len(long_prompts[-1]) != LONG_M:
         raise AssertionError("mesh: the long phase's last prompt is not the LONG_M one")
+    log(f"mesh: this process holds {torch.cuda.memory_allocated() / 2**30:.2f} GiB of the "
+        f"card ({torch.cuda.mem_get_info()[0] / 2**30:.2f} GiB free) as the ranks start")
     for spec, cases in MESH_RUNS:
         d, m = M.parse_mesh(spec, "cuda")
         world = d * m
         backend = M.choose_backend(world, "cuda", share_card=True)
         with tempfile.TemporaryDirectory() as out:
             job = {"mesh": spec, "cases": cases, "out": out, "want": want,
-                   "long_prompt": [int(t) for t in long_prompts[-1]]}
+                   "long_prompts": [[int(t) for t in p] for p in long_prompts]}
             t0 = time.perf_counter()
             M.spawn_ranks(_mesh_rank, (job,), world, backend)
             runs, gloo = [], []
@@ -2567,62 +2786,102 @@ def phase_mesh(torch, serve_outputs: list, long_prompts: list, long_outputs: lis
             f"{', '.join(cases)} in {time.perf_counter() - t0:.1f}s; {backend}'s all_gather "
             f"and all_reduce on CUDA {', '.join(gloo[0])} exact on every rank")
         for ci, case in enumerate(cases):
-            rows = [run[ci] for run in runs]
-            label = f"mesh {spec} {case}"
-            for r, row in enumerate(rows):
-                log(f"{label} rank {r} {row['coords']}: weight bytes {row['weight_bytes']:,} "
-                    f"of {row['whole_bytes']:,} whole; step logits max |d| "
-                    f"{row['logit_err']:.3e} of the largest over {row['logit_rows'][0]} of "
-                    f"{row['logit_rows'][1]} rows; {row['n_diff']} stream tokens "
-                    f"differ (near-tie rule); launches {row['launches']}; tokens "
-                    f"{row['digest']}")
-                for name, (kern, vs_whole, vs_plain) in row.get("shards", {}).items():
-                    log(f"{label} rank {r} {name}: {kern} on its shard, max rel err vs the "
-                        f"whole leaf's columns {vs_whole if vs_whole is None else f'{vs_whole:.3e}'}"
-                        f", vs plain {vs_plain:.3e}")
-                    if max(vs_plain, vs_whole or 0.0) > KERNEL_RTOL:
-                        raise AssertionError(f"{label} rank {r}: {name} on its shard disagrees")
-                for name, (kern, _, vs_plain, heads) in row["attention"].items():
-                    log(f"{label} rank {r} {name}: {kern} on its heads "
-                        + (f"({heads[0]} q, kv_heads {heads[1]} of the pools' {heads[2]})"
-                           if kern == "paged_decode_attention"
-                           else f"({heads[0]} q, {heads[1]} KV)")
-                        + f", its run's first launch replayed: max rel err vs plain "
-                        f"{vs_plain:.3e}")
-                    if not vs_plain <= KERNEL_RTOL:
-                        raise AssertionError(f"{label} rank {r}: {kern} on its heads disagrees "
-                                             f"with plain")
-                    # 1x8: a rank's 4 q heads read KV head m // 2 of the 4 in its pools
-                    if (spec == "1x8" and kern == "paged_decode_attention"
-                            and heads[1] != [row["coords"]["model"] // 2, 1]):
-                        raise AssertionError(f"{label} rank {r}: B3 read kv_heads {heads}")
-                want_attn = ["paged_decode_attention"] + (["flash_attention"] if case == "long"
-                                                          else [])
-                if sorted(v[0] for v in row["attention"].values()) != sorted(want_attn):
-                    raise AssertionError(f"{label} rank {r}: replayed {row['attention'].keys()}, "
-                                         f"want {want_attn}")
-                if not row["finished"]:
-                    raise AssertionError(f"{label} rank {r}: a request did not finish, a page "
-                                         f"leaked or the ladder triggered")
-                if row["logit_err"] > PATH_RTOL:
-                    raise AssertionError(f"{label} rank {r}: the step's logits differ from the "
-                                         f"unsharded step's by {row['logit_err']:.3e}")
-                kernels = MESH_KERNELS if case != "quant" else ("paged_decode_attention",
-                                                                "quant_matmul")
-                if case == "long":
-                    kernels = kernels + ("flash_attention",)
-                for k in kernels:
-                    if row["launches"][k] <= 0:
-                        raise AssertionError(f"{label} rank {r}: {k} was not launched")
-            for data in {row["coords"]["data"] for row in rows}:
-                peers = [row["launches"] for row in rows if row["coords"]["data"] == data]
-                if any(p != peers[0] for p in peers):
-                    raise AssertionError(f"{label}: launches differ within data replica {data}: "
-                                         f"{peers}")
-            ms, n = rows[0]["tick_ms"]
-            log(f"{label}: rank 0's median decode tick {ms:.3f} ms over {n} ticks (ranks "
-                f"sharing one card over gloo: not a multi-card speed) ({card})")
+            _check_mesh_case(spec, case, [run[ci] for run in runs], card)
     log(f"mesh: phase {time.perf_counter() - t_phase:.1f}s")
+
+
+def _check_mesh_case(spec: str, case: str, rows: list, card: str) -> None:
+    """Logs and checks one case's rows (one a rank); raises on any miss."""
+    label = f"mesh {spec} {case}"
+    M = int(spec.split("x")[1])
+    for r, row in enumerate(rows):
+        log(f"{label} rank {r} {row['coords']}: weight bytes {row['weight_bytes']:,} "
+            f"of {row['whole_bytes']:,} whole; step logits max |d| "
+            f"{row['logit_err']:.3e} of the largest over {row['logit_rows'][0]} of "
+            f"{row['logit_rows'][1]} rows"
+            + (f" (its first tick took the unsharded one's expert choices, "
+               f"{row['route_flips'][0]} of {row['route_flips'][1]} its own routing would "
+               f"have sent elsewhere)" if row["route_flips"][1] else "")
+            + f"; {row['n_diff']} stream tokens "
+            f"differ (near-tie rule); launches {row['launches']}; stacked (launches, "
+            f"experts) {row['stacked']}; B3 by T {row['by_t']}; all-reduces a decode step "
+            f"{row['reduces']}; max_memory_allocated {row['max_mem'] / 2**30:.2f} GiB"
+            + (f" (its build in its turn: {row['build'][1] / 2**30:.2f} GiB, the card "
+               f"{row['build'][0] / 2**30:.2f} GiB free at its start)"
+               if "build" in row else "") + "; "
+            f"tokens {row['digest']}")
+        for name, (kern, vs_whole, vs_plain) in row.get("shards", {}).items():
+            log(f"{label} rank {r} {name}: {kern} on its shard, max rel err vs the "
+                f"whole leaf's columns {vs_whole if vs_whole is None else f'{vs_whole:.3e}'}"
+                f", vs plain {vs_plain:.3e}")
+            if max(vs_plain, vs_whole or 0.0) > KERNEL_RTOL:
+                raise AssertionError(f"{label} rank {r}: {name} on its shard disagrees")
+        for name, (kern, _, vs_plain, heads) in row["attention"].items():
+            log(f"{label} rank {r} {name}: {kern} on its heads "
+                + (f"({heads[0]} q, kv_heads {heads[1]} of the pools' {heads[2]})"
+                   if kern == "paged_decode_attention"
+                   else f"({heads[0]} q, {heads[1]} KV)")
+                + f", its run's first launch replayed: max rel err vs plain "
+                f"{vs_plain:.3e}")
+            if not vs_plain <= KERNEL_RTOL:
+                raise AssertionError(f"{label} rank {r}: {kern} on its heads disagrees "
+                                     f"with plain")
+            # 1x8: a rank's 4 q heads read KV head m // 2 of the 4 in its pools
+            if (spec == "1x8" and kern == "paged_decode_attention"
+                    and heads[1] != [row["coords"]["model"] // 2, 1]):
+                raise AssertionError(f"{label} rank {r}: B3 read kv_heads {heads}")
+            # spec: the first B3 launch is a verify step's, T = k + 1
+            if case == "spec" and kern == "paged_decode_attention" \
+                    and json.loads(name.split(" ", 1)[1])[1] != SPEC_K + 1:
+                raise AssertionError(f"{label} rank {r}: the first B3 launch is {name}")
+        want_attn = MESH_CASE_ATTENTION.get(case, ("paged_decode_attention",))
+        if sorted(v[0] for v in row["attention"].values()) != sorted(want_attn):
+            raise AssertionError(f"{label} rank {r}: replayed {row['attention'].keys()}, "
+                                 f"want {want_attn}")
+        if not row["finished"]:
+            raise AssertionError(f"{label} rank {r}: a request did not finish, a page "
+                                 f"leaked or the ladder triggered")
+        if row["logit_err"] > PATH_RTOL:
+            raise AssertionError(f"{label} rank {r}: the step's logits differ from the "
+                                 f"unsharded step's by {row['logit_err']:.3e}")
+        for k in MESH_CASE_KERNELS.get(case, MESH_KERNELS):
+            if row["launches"][k] <= 0:
+                raise AssertionError(f"{label} rank {r}: {k} was not launched")
+        if case == "spec" and row["by_t"].get(str(SPEC_K + 1), 0) <= 0:
+            raise AssertionError(f"{label} rank {r}: B3 never launched at T = {SPEC_K + 1}")
+        if case == "chunked" and (row["chunks"] <= 0 or row["launches"]["flash_attention"]):
+            raise AssertionError(f"{label} rank {r}: {row['chunks']} chunks, a chunk reached "
+                                 f"B6: {row['launches']}")
+        if "experts" in row:
+            e0, ne, Ep = row["experts"]
+            if ne * M != Ep or e0 != row["coords"]["model"] * ne:
+                raise AssertionError(f"{label} rank {r}: experts [{e0}, {e0 + ne}) of {Ep}")
+            for name in ("block_sparse_matmul", "fused_gate_up"):
+                n, covered = row["stacked"][name]
+                if n <= 0 or covered != n * ne:
+                    raise AssertionError(f"{label} rank {r}: {n} stacked {name} launches over "
+                                         f"{covered} experts (each over the rank's {ne})")
+            # at least one all-reduce a MoE layer: its experts' partial sums
+            # (with the shared experts' partial product, where it is one)
+            if not row["reduces"] or min(row["reduces"]) < row["moe_layers"]:
+                raise AssertionError(f"{label} rank {r}: all-reduces a step {row['reduces']} "
+                                     f"for {row['moe_layers']} MoE layers")
+        if case == "rg quant":
+            if row["w_out"] != "k_split" or min(row["reduces"]) < row["rec_layers"]:
+                raise AssertionError(f"{label} rank {r}: w_out {row['w_out']}, all-reduces a "
+                                     f"step {row['reduces']} for {row['rec_layers']} RG-LRU "
+                                     f"layers")
+    for data in {row["coords"]["data"] for row in rows}:
+        peers = [row["launches"] for row in rows if row["coords"]["data"] == data]
+        if any(p != peers[0] for p in peers):
+            raise AssertionError(f"{label}: launches differ within data replica {data}: "
+                                 f"{peers}")
+    if "w_out" in rows[0]:
+        log(f"{label}: the RG-LRU's w_out on every rank: {rows[0]['w_out']} "
+            f"({'its partial sum all-reduced' if rows[0]['w_out'] == 'k_split' else 'a packed leaf splits block columns only (C1): the channels are gathered first'})")
+    ms, n = rows[0]["tick_ms"]
+    log(f"{label}: rank 0's median decode tick {ms:.3f} ms over {n} ticks (ranks "
+        f"sharing one card over gloo: not a multi-card speed) ({card})")
 
 
 def phase_parity(torch, cfg, engine) -> None:
@@ -3534,9 +3793,11 @@ def phase_moe(torch, results: dict, card: str) -> None:
     verify step's T = 40 through the MoE); qwen2-moe's served 2032-token
     prompt and its self-draft speculation (B3 at T = 5, hd 128).  Every
     kernel row must carry launches from a served run (checked after the
-    encdec_vlm phase)."""
+    encdec_vlm phase).  Returns {arch: its kernel path's streams}."""
+    streams = {}
     for arch in MOE_ARCHS:
         serve, cfg, engine, plan, outputs, run = _family_serve(torch, arch, card)
+        streams[arch] = outputs
         _moe_checks(torch, results, arch, cfg, engine, run)
         gen = torch.Generator(device="cuda")
         gen.manual_seed(12)
@@ -3554,6 +3815,7 @@ def phase_moe(torch, results: dict, card: str) -> None:
                          key="qwen2-moe verify")
         del engine, plan
         torch.cuda.empty_cache()
+    return streams
 
 
 # ---------------------------------------------------------------------------
@@ -4149,7 +4411,8 @@ def _recurrent_serve(torch, results, arch: str, card: str):
     ``_pass_launches`` a pass (B3, B4 and B6 none: the local rings are read
     by plain decode attention and the prompts are short), tok/s and the
     decode tick; then the plain path's streams, held to the kernels' by the
-    near-tie rule.  Returns (serve, cfg, engine, plan)."""
+    near-tie rule.  Returns (serve, cfg, engine, plan, the kernel path's
+    streams)."""
     import warnings
 
     from repro_torch.core.weight_plan import with_use_kernel
@@ -4228,7 +4491,7 @@ def _recurrent_serve(torch, results, arch: str, card: str):
     log(f"{arch} plain: {plain.stats.decode_tokens / p_dt:.1f} tok/s on {card}")
     del plain
     torch.cuda.empty_cache()
-    return serve, cfg, engine, plan
+    return serve, cfg, engine, plan, outputs
 
 
 def _timed_prefill(torch, cfg, params, S: int, gen, card: str) -> None:
@@ -4333,9 +4596,11 @@ def phase_recurrent(torch, results: dict, card: str) -> None:
     ``_path_parity`` (prefills of 36, 40 and 2032 tokens -- xlstm: 512 --
     and teacher-forced decode), then the long prefill: recurrentgemma's
     served long prompts (``_rg_long``) and a timed prefill for each
-    (``_timed_prefill``: 2032 tokens, and xlstm's 512)."""
+    (``_timed_prefill``: 2032 tokens, and xlstm's 512).  Returns
+    recurrentgemma's kernel path's streams."""
+    streams = {}
     for arch in (RG, XLSTM):
-        serve, cfg, engine, plan = _recurrent_serve(torch, results, arch, card)
+        serve, cfg, engine, plan, streams[arch] = _recurrent_serve(torch, results, arch, card)
         gen = torch.Generator(device="cuda")
         gen.manual_seed(17)
         long_n = LONG_M if arch == RG else XLSTM_LONG
@@ -4346,6 +4611,7 @@ def phase_recurrent(torch, results: dict, card: str) -> None:
         _timed_prefill(torch, cfg, engine.params, long_n, gen, card)
         del engine, plan
         torch.cuda.empty_cache()
+    return streams[RG]
 
 
 def phase_mixed(torch, results: dict, card: str) -> None:
@@ -5429,34 +5695,47 @@ def main(argv=None) -> int:
 
     t_start = time.perf_counter()
     results: dict = {}
-    card = phase_device(torch)
-    phase_build()
-    phase_kernels(torch, results)
+    took: dict = {}
+
+    def run(name, fn, *a):
+        """One phase, its wall seconds kept for the summary."""
+        t0 = time.perf_counter()
+        out = fn(*a)
+        took[name] = round(time.perf_counter() - t0, 1)
+        return out
+
+    card = run("device", phase_device, torch)
+    run("build", phase_build)
+    run("kernels", phase_kernels, torch, results)
     if args.profile:
         phase_sweep(torch)
         phase_b3_sweep(torch)
-    phase_flash(torch, results)
-    phase_dense_kernels(torch, results)
-    phase_family_kernels(torch, results)
-    phase_moe_kernels(torch, results)
-    phase_encdec_kernels(torch, results)
-    phase_recurrent_kernels(torch, results)
-    phase_fcnet(torch, results)
-    cfg, engine, serve_outputs, serve_launches = phase_serve(torch, results)
-    phase_plancache(torch, results, serve_outputs, serve_launches, card)
-    long_prompts, long_outputs = phase_long(torch, results)
-    phase_mesh(torch, serve_outputs, long_prompts, long_outputs, card)
-    phase_parity(torch, cfg, engine)
-    phase_spec(torch, results, serve_outputs, card)
-    phase_chunked(torch, long_prompts, long_outputs, card)
-    phase_faults(torch, card)
-    phase_families(torch, results, card)
-    phase_moe(torch, results, card)
-    phase_encdec_vlm(torch, results, card)
-    phase_recurrent(torch, results, card)
-    phase_mixed(torch, results, card)
-    phase_autotune(torch, results, card)
-    phase_train(torch, card)
+    for name, phase in (("flash", phase_flash), ("dense_kernels", phase_dense_kernels),
+                        ("family_kernels", phase_family_kernels),
+                        ("moe_kernels", phase_moe_kernels),
+                        ("encdec_kernels", phase_encdec_kernels),
+                        ("recurrent_kernels", phase_recurrent_kernels),
+                        ("fcnet", phase_fcnet)):
+        run(name, phase, torch, results)
+    cfg, engine, serve_outputs, serve_launches = run("serve", phase_serve, torch, results)
+    run("plancache", phase_plancache, torch, results, serve_outputs, serve_launches, card)
+    long_prompts, long_outputs = run("long", phase_long, torch, results)
+    run("parity", phase_parity, torch, cfg, engine)
+    want = {"serve": serve_outputs, "long": [long_outputs[-1]]}
+    want["spec"] = run("spec", phase_spec, torch, results, serve_outputs, card)
+    want["chunked"] = run("chunked", phase_chunked, torch, long_prompts, long_outputs, card)
+    run("faults", phase_faults, torch, card)
+    run("families", phase_families, torch, results, card)
+    moe_outputs = run("moe", phase_moe, torch, results, card)
+    want.update(granite=moe_outputs["granite-moe-1b-a400m"],
+                **{"qwen2-moe": moe_outputs["qwen2-moe-a2.7b"]})
+    run("encdec_vlm", phase_encdec_vlm, torch, results, card)
+    want["rg"] = run("recurrent", phase_recurrent, torch, results, card)
+    run("mesh", phase_mesh, torch, want, long_prompts, card)
+    for name, phase in (("mixed", phase_mixed), ("autotune", phase_autotune)):
+        run(name, phase, torch, results, card)
+    run("train", phase_train, torch, card)
+    log(f"phase wall seconds: {json.dumps(took)}")
     _check_family_rows(results)
     if args.profile:
         phase_profile(torch, cfg, engine)

@@ -108,12 +108,15 @@ class ShardedLeaf:
     says that its rows are this rank's K / M (the contraction is split: the
     product is partial and takes an all-reduce), ``n_split`` that its
     columns are this rank's N / M (whole block columns of a packed leaf).
-    A leaf with neither is whole on every rank and stays unwrapped."""
+    ``experts`` (first, count) says that a stack of experts was cut on its
+    expert axis: ``local`` holds experts [first, first + count) whole.  A
+    leaf with none of these is whole on every rank and stays unwrapped."""
 
     local: Any
     k_split: bool
     n_split: bool
     shape: tuple
+    experts: Optional[tuple] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -726,22 +729,27 @@ def compress(params, cfg: PlanConfig = PlanConfig(), *, axes=None) -> WeightPlan
     def _one(path, leaf):
         if not isinstance(leaf, torch.Tensor):
             return leaf
-        kind, q = assign_leaf(path, leaf, cfg)
-        if kind == "dense":
-            packed = leaf
-        elif kind == "quant":
-            packed = quantize_leaf(leaf, cfg.use_kernel)
-        else:
-            pc = cfg if q == cfg.q_prune else dataclasses.replace(cfg, q_prune=q)
-            packed = pack_block_sparse(leaf, pc, quant=(kind == "quant_sparse"))
-        ax = ax_of.get(path)
-        leaves[path] = _leaf_stats(path, kind, tuple(leaf.shape), packed,
-                                   tuple(ax) if ax else ())
+        packed, leaves[path] = compress_leaf(path, leaf, cfg, ax_of.get(path))
         by_path[path] = packed
         return packed
 
     compressed = map_tree(_one, params)
     return WeightPlan(cfg=cfg, leaves=leaves, params=compressed, _by_path=by_path)
+
+
+def compress_leaf(path: str, leaf: torch.Tensor, cfg: PlanConfig, axes=None) -> tuple:
+    """One leaf of ``compress``: (its packed form, its LeafPlan), by
+    ``assign_leaf`` with its dense logical ``axes`` recorded."""
+    kind, q = assign_leaf(path, leaf, cfg)
+    if kind == "dense":
+        packed = leaf
+    elif kind == "quant":
+        packed = quantize_leaf(leaf, cfg.use_kernel)
+    else:
+        pc = cfg if q == cfg.q_prune else dataclasses.replace(cfg, q_prune=q)
+        packed = pack_block_sparse(leaf, pc, quant=(kind == "quant_sparse"))
+    return packed, _leaf_stats(path, kind, tuple(leaf.shape), packed,
+                               tuple(axes) if axes else ())
 
 
 # ---------------------------------------------------------------------------
@@ -875,8 +883,37 @@ def _local_packed(node: PackedLinear, parts: int, idx: int) -> PackedLinear:
         shape=(node.shape[0], n * node.bn))
 
 
+def _packed_experts(node: PackedLinear, dim: int, start: int, n: int) -> PackedLinear:
+    """Experts [start, start + n) of a packed stack whose lead dim ``dim``
+    runs over the experts: every child narrowed there, and one host walk
+    per kept expert (its own rows and counts at the stack's ``mb``, padded
+    to the longest kept walk)."""
+    def cut(t):
+        return None if t is None else t.narrow(dim, start, n).contiguous().clone()
+
+    rows, counts = cut(node.block_rows), cut(node.counts)
+    return dataclasses.replace(
+        node, blocks=cut(node.blocks), block_rows=rows, counts=counts, scales=cut(node.scales),
+        walk=None if node.walk is None
+        else _host_walk(rows, counts, rows.shape[-1], tuple(counts.shape[:-1])))
+
+
 def _piece(x: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
     return sl.local_piece(x, spec, mesh).contiguous().clone()
+
+
+def _split_lead(spec: tuple, n_lead: int) -> Optional[int]:
+    """The lead dim (of the ``n_lead`` in front of a leaf's (K, N), or of a
+    packed leaf's block columns) that ``spec`` splits over the model axis
+    -- a stack's expert axis under the "experts" rule -- or None."""
+    dims = [d for d in range(n_lead) if _model_split(spec[d], "a stack's lead axis")]
+    return dims[0] if dims else None
+
+
+def _expert_range(shape: tuple, dim: int, mesh) -> tuple:
+    """(first, count) of this rank's experts on lead dim ``dim``."""
+    n = shape[dim] // sl.axis_sizes(mesh)["model"]
+    return sl.mesh_coords(mesh)["model"] * n, n
 
 
 def local_leaf(node, axes, mesh, rules):
@@ -885,13 +922,26 @@ def local_leaf(node, axes, mesh, rules):
     QuantLinear, a PackedLinear) split over the model axis becomes a
     ``ShardedLeaf``; anything the spec leaves whole is returned as it is.
 
+    A stack of experts ((L, Ep, K, N) and its int8 and packed forms) whose
+    expert axis the spec splits ("experts" -> "model") keeps the rank's
+    Ep / M experts whole (``ShardedLeaf.experts``); where the model axis
+    does not divide Ep, ``shardlib._resolve`` drops the mapping and the
+    stack stays whole on every rank (its expert FFN width may split
+    instead, under an "expert_ff" rule).
+
     A packed leaf splits only into whole block columns: by its ``counts``'
     spec (n_cols divisible by the model axis).  Where the reference's spec
     shards ``blocks`` but not ``counts`` (n_cols * mb divides, n_cols does
     not) the leaf stays whole on every rank (ROADMAP C1)."""
     if isinstance(node, PackedLinear):
         specs = sl.tree_specs(node, axes, mesh=mesh, rules=rules)
-        if not _model_split(specs.counts.spec[-1], "counts"):
+        c_spec = specs.counts.spec
+        dim = _split_lead(c_spec, len(c_spec) - 1)
+        if dim is not None:
+            first, n = _expert_range(tuple(node.counts.shape), dim, mesh)
+            return ShardedLeaf(_packed_experts(node, dim, first, n), False, False,
+                               tuple(node.shape), experts=(first, n))
+        if not _model_split(c_spec[-1], "counts"):
             return node
         coords, sizes = sl.mesh_coords(mesh), sl.axis_sizes(mesh)
         return ShardedLeaf(_local_packed(node, sizes["model"], coords["model"]),
@@ -901,21 +951,27 @@ def local_leaf(node, axes, mesh, rules):
         q_spec = specs.q.spec
         k_split = _model_split(q_spec[-2], "q rows")
         n_split = _model_split(q_spec[-1], "q columns")
-        if not (k_split or n_split):
+        dim = _split_lead(q_spec, len(q_spec) - 2)
+        if not (k_split or n_split or dim is not None):
             return node
         local = dataclasses.replace(node, q=_piece(node.q, q_spec, mesh),
                                     s=_piece(node.s, specs.s.spec, mesh))
-        return ShardedLeaf(local, k_split, n_split, tuple(node.q.shape[-2:]))
+        return ShardedLeaf(local, k_split, n_split, tuple(node.q.shape[-2:]),
+                           None if dim is None else _expert_range(tuple(node.q.shape), dim, mesh))
     if not isinstance(node, torch.Tensor):
         return node
     spec = sl.tree_specs(node, axes, mesh=mesh, rules=rules).spec
-    if node.dim() < 2:
+    if node.dim() < 2 or not (axes and axes[-2]):
+        # no named contraction axis: a vector, a stack of vectors or a
+        # conv's taps, which the model reads elementwise -- a plain piece
         return _piece(node, spec, mesh) if any(e is not None for e in spec) else node
     k_split = _model_split(spec[-2], "rows")
     n_split = _model_split(spec[-1], "columns")
-    if not (k_split or n_split):
+    dim = _split_lead(spec, len(spec) - 2)
+    if not (k_split or n_split or dim is not None):
         return node
-    return ShardedLeaf(_piece(node, spec, mesh), k_split, n_split, tuple(node.shape[-2:]))
+    return ShardedLeaf(_piece(node, spec, mesh), k_split, n_split, tuple(node.shape[-2:]),
+                       None if dim is None else _expert_range(tuple(node.shape), dim, mesh))
 
 
 def local_params(params, axes_tree, mesh, rules):
@@ -939,21 +995,40 @@ def contraction(w) -> int:
     return (w.q if isinstance(w, QuantLinear) else w).shape[-2]
 
 
+def partial_linear(x: torch.Tensor, w, x_split: bool = False) -> tuple:
+    """y = x @ W on this rank's shard with a split contraction left
+    unreduced: (y, partial).  ``y`` holds the whole output axis; ``partial``
+    says that it is this rank's term of a sum over the model axis (the
+    caller all-reduces it, maybe together with other partial terms)."""
+    if isinstance(w, ShardedLeaf) and w.k_split:
+        K = w.shape[0]
+        m, M = sl.axis_index("model"), sl.axis_size("model")
+        return apply_linear(sl.cols(x, x_split, m * K // M, K // M), w.local), True
+    y, y_split = sharded_linear(x, w, x_split)
+    return sl.cols(y, y_split, 0, output_width(w)), False
+
+
+def output_width(w) -> int:
+    """N of a whole matmul leaf."""
+    if isinstance(w, (PackedLinear, ShardedLeaf)):
+        return w.shape[1]
+    return (w.q if isinstance(w, QuantLinear) else w).shape[-1]
+
+
 def sharded_linear(x: torch.Tensor, w, x_split: bool = False) -> tuple:
     """y = x @ W on this rank's shard: (y, y_split).  ``x`` holds the whole
     contraction axis or (``x_split``) this rank's piece of it; the result
     holds the whole output axis or (``y_split``) this rank's columns.  A
     split contraction sums its partial products over the model axis (an
     int8 leaf's per-column scales commute with that sum: B5 runs with no
-    activation).  A whole leaf gathers a split ``x`` first."""
+    activation).  A whole leaf gathers a split ``x`` first.  A stack cut on
+    its expert axis runs the rank's experts on ``x`` (their rows)."""
     if not isinstance(w, ShardedLeaf):
         return apply_linear(sl.cols(x, x_split, 0, contraction(w)), w), False
-    K = w.shape[0]
     if w.k_split:
-        m, M = sl.axis_index("model"), sl.axis_size("model")
-        x = sl.cols(x, x_split, m * K // M, K // M)
-        return sl.all_reduce(apply_linear(x, w.local), "model"), False
-    x = sl.cols(x, x_split, 0, K)
+        y, _ = partial_linear(x, w, x_split)
+        return sl.all_reduce(y, "model"), False
+    x = sl.cols(x, x_split, 0, w.shape[0])
     return apply_linear(x, w.local), w.n_split
 
 

@@ -14,9 +14,14 @@ rank 0 prints the reference's lines plus the ``[serve] mesh`` line.  Ranks
 meet over NCCL when each owns a card, over gloo on the CPU (one torch
 thread each) or, with ``--share-card``, when more ranks than cards share
 them; without it more ranks than cards is refused, as the reference
-refuses more ranks than devices.  Under a mesh the dense decoder families
-serve plain; speculative decode, chunked prefill, the other families and
-``--workload-mix`` are refused by name (ROADMAP A13b).
+refuses more ranks than devices.  A mesh serves the dense decoder
+families, the MoE family (each rank holds its share of the experts, or
+under ``rules_for``'s "expert_ff" rule its share of every expert's FFN
+width) and recurrentgemma-2b (the RG-LRU's channels split), with
+speculative decode (``--draft-config``/``--spec-k``) and chunked prefill
+(``--prefill-chunk``) too; xLSTM layers, the audio and vlm families and
+``--workload-mix`` are refused by name before any rank starts (ROADMAP
+A13b).
 ``--autotune-plan PATH`` serves a TunedPlan artifact (``core/autotune``,
 written by ``python -m repro_torch.launch.autotune`` or the reference's
 tool): its plan replaces ``--compress`` (refused beside it), its serving
@@ -196,7 +201,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--autotune-plan", default=None, metavar="PATH")
     ap.add_argument("--mesh", default="none", metavar="SPEC",
                     help="sharded serving: 'none', 'host' (1 x every card) or 'DxM' "
-                         "(D data replicas of M tensor-parallel ranks)")
+                         "(D data replicas of M tensor-parallel ranks); serves the dense, "
+                         "MoE and recurrentgemma archs, plain, speculative or chunked; "
+                         "refuses xLSTM, audio, vlm and --workload-mix")
     ap.add_argument("--share-card", action="store_true",
                     help="let more --mesh ranks than cards share them (over gloo)")
     ap.add_argument("--draft-config", default=None, choices=C.ARCH_IDS, metavar="ARCH",

@@ -15,6 +15,17 @@ every gate/up pair of the layer and one of B1 (B4 without walks) for every
 down-projection (``weight_plan.apply_gate_up`` / ``apply_linear``).  The
 padded experts ``E..Ep`` receive no token but are launched over, as the
 reference's vmap runs them.
+
+On a mesh (expert parallelism) a rank holds Ep / M experts of every stack
+(``weight_plan.local_leaf``, ``ShardedLeaf.experts``).  The routing stays
+global: the rank routes every token of its data replica as above, fills
+only its experts' rows of the buffer, runs one stacked B2 and one stacked
+B1 over its experts and combines their outputs into a partial sum.  The
+shared experts run on the rank's "ff" columns, their ``w_down`` product a
+partial sum too, and ONE all-reduce over the model axis a layer adds both.
+Where the model axis does not divide Ep the stacks stay whole and no
+routed all-reduce is issued (an "expert_ff" rule splits their FFN width
+instead, whose ``w_down`` product is then the partial sum).
 """
 
 from __future__ import annotations
@@ -24,7 +35,13 @@ import math
 
 import torch
 
-from repro_torch.core.weight_plan import apply_gate_up, apply_linear
+from repro_torch.core.weight_plan import (
+    ShardedLeaf,
+    apply_gate_up,
+    partial_linear,
+    sharded_gate_up,
+)
+from repro_torch.distributed import shardlib as sl
 from repro_torch.models import layers as L
 
 # at most this many tokens a step, every expert takes all its assignments
@@ -138,6 +155,16 @@ def route(cfg, xg: torch.Tensor, router: torch.Tensor) -> Routing:
     return Routing(probs, idx, gates, slot, slot < capacity, capacity)
 
 
+def expert_range(p, Ep: int) -> tuple:
+    """(first, count) of the experts this rank's stacks hold: all Ep
+    without a mesh or where the stacks stayed whole."""
+    got = {k: p[k].experts if isinstance(p[k], ShardedLeaf) else None
+           for k in ("w_gate", "w_up", "w_down")}
+    if len(set(got.values())) != 1:
+        raise ValueError(f"the expert stacks are cut differently: {got}")
+    return got["w_gate"] or (0, Ep)
+
+
 def apply_moe(cfg, p, x: torch.Tensor, return_aux: bool = False):
     """x (B, S, d) -> (B, S, d) [, the Switch load-balancing loss].
 
@@ -148,7 +175,9 @@ def apply_moe(cfg, p, x: torch.Tensor, return_aux: bool = False):
     values rounded to the compute dtype (the reference's combine tensor).
     Every dropped assignment is copied to the same spare row, which is
     discarded: under autograd its gradient is zero, and a rematerialized
-    layer that routes again keeps the same assignments."""
+    layer that routes again keeps the same assignments.  On a mesh the
+    buffer holds the rank's experts only, and an assignment to another
+    rank's expert goes to the spare row too (see the module doc)."""
     m = cfg.moe
     B, S, d = x.shape
     T = B * S
@@ -159,26 +188,50 @@ def apply_moe(cfg, p, x: torch.Tensor, return_aux: bool = False):
     xg = x.reshape(nG, G, d)
     r = route(cfg, xg, p["router"])
     C = r.capacity
+    e0, ne = expert_range(p, Ep)
+    keep = r.keep if ne == Ep else r.keep & (r.idx >= e0) & (r.idx < e0 + ne)
 
-    # a dropped assignment points at one spare row past the buffer
+    # a dropped (or another rank's) assignment points at one spare row past the buffer
+    spare = ne * nG * C
     group = torch.arange(nG, device=x.device)[:, None, None]
-    dest = torch.where(r.keep, (r.idx * nG + group) * C + r.slot, Ep * nG * C).reshape(-1)
+    dest = torch.where(keep, ((r.idx - e0) * nG + group) * C + r.slot, spare).reshape(-1)
     src = xg.reshape(T, 1, d).expand(T, K, d).reshape(T * K, d)
-    buf = x.new_zeros((Ep * nG * C + 1, d))
+    buf = x.new_zeros((spare + 1, d))
     buf.index_copy_(0, dest, src)
-    xe = buf[:-1].view(Ep, nG * C, d)
+    xe = buf[:-1].view(ne, nG * C, d)
 
-    h = apply_gate_up(xe, p["w_gate"], p["w_up"], cfg.activation)
-    ye = apply_linear(h, p["w_down"]).reshape(Ep * nG * C, d)
+    # the rank's sub-stacks (its experts, or under "expert_ff" its columns
+    # of every expert): one stacked launch each
+    g, u = p["w_gate"], p["w_up"]
+    h_split = isinstance(g, ShardedLeaf) and g.n_split
+    if isinstance(g, ShardedLeaf):
+        g, u = g.local, u.local
+    h = apply_gate_up(xe, g, u, cfg.activation)
+    ye, partial = partial_linear(h, p["w_down"], h_split)
+    ye = ye.reshape(spare, d)
 
-    comb = torch.where(r.keep, r.gates, 0.0).to(dt).to(torch.float32)
-    rows = ye[dest.clamp_max(Ep * nG * C - 1)].to(torch.float32).reshape(nG, G, K, d)
-    y = (comb[..., None] * rows).sum(dim=2).to(dt)
+    comb = torch.where(keep, r.gates, 0.0).to(dt).to(torch.float32)
+    rows = ye[dest.clamp_max(spare - 1)].to(torch.float32).reshape(nG, G, K, d)
+    routed = (comb[..., None] * rows).sum(dim=2)
+    # the rank's experts' share of every token's sum: one all-reduce adds
+    # the ranks' shares (with the shared experts' partial product)
+    partial = partial or ne < Ep
 
+    ys, s_partial = None, False
     if m.n_shared_experts:
         s = p["shared"]
-        hs = apply_gate_up(xg, s["w_gate"], s["w_up"], cfg.activation)
-        y = y + apply_linear(hs, s["w_down"])
+        hs, hs_split = sharded_gate_up(xg, s["w_gate"], s["w_up"], cfg.activation)
+        ys, s_partial = partial_linear(hs, s["w_down"], hs_split)
+    if partial:
+        if s_partial:
+            y = sl.all_reduce(routed + ys.to(torch.float32), "model").to(dt)
+        else:
+            y = sl.all_reduce(routed, "model").to(dt)
+            y = y if ys is None else y + ys
+    else:
+        y = routed.to(dt)
+        if ys is not None:
+            y = y + (sl.all_reduce(ys, "model") if s_partial else ys)
     y = y.reshape(B, S, d)
     if not return_aux:
         return y

@@ -11,6 +11,13 @@ kernel either way; a loop over 2048 positions would be thousands of eager
 launches a layer).  The state -- h (B, W) fp32 and the conv's last W-1
 inputs -- is fixed-size and rewritten whole each step; training runs the
 scan under autograd from a zero state (``state=None``).
+
+On a mesh the block splits its channels over the model axis ("ff"): a
+rank projects ``w_x`` and ``w_gate`` onto its columns, convolves and scans
+its channels only (every op is per channel), and ``w_out`` contracts them
+into a partial sum that ``sharded_linear`` all-reduces.  Its state holds
+the rank's channels of its data replica's rows ("batch", "ff").  Where
+the model axis does not divide the width, everything stays whole.
 """
 
 from __future__ import annotations
@@ -18,7 +25,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.weight_plan import GATE_ACTS, apply_linear
+from repro_torch.core.weight_plan import GATE_ACTS, sharded_linear
 from repro_torch.distributed import shardlib as sl
 from repro_torch.models.ssm import causal_conv
 
@@ -89,13 +96,15 @@ def linear_scan(a, b, h0):
 
 
 def apply_rglru(cfg, p, x, state=None):
-    """x (B, S, d) -> (y, new state)."""
+    """x (B, S, d) -> (y, new state); on a mesh over the rank's channels
+    (see the module doc)."""
     B, S, d = x.shape
     dt = x.dtype
     if state is None:
         state = init_rglru_state(cfg, B, dt, x.device)
-    gate = GATE_ACTS["gelu"](apply_linear(x, p["w_gate"]))
-    u = apply_linear(x, p["w_x"])
+    gate, split = sharded_linear(x, p["w_gate"])
+    gate = GATE_ACTS["gelu"](gate)
+    u, _ = sharded_linear(x, p["w_x"])
     u, conv_state = causal_conv(u, p["conv"], state["conv"])
     uf = u.float()
     # input-dependent diagonal gates
@@ -112,5 +121,5 @@ def apply_rglru(cfg, p, x, state=None):
     else:
         hs = linear_scan(a, b, state["h"])
         h = hs[:, -1]
-    y = apply_linear(hs.to(dt) * gate, p["w_out"])
-    return y, {"h": h, "conv": conv_state}
+    y, y_split = sharded_linear(hs.to(dt) * gate, p["w_out"], split)
+    return sl.cols(y, y_split, 0, d), {"h": h, "conv": conv_state}

@@ -163,7 +163,7 @@ def param_shapes(cfg) -> dict:
     }
 
 
-def make_params(shapes, seed: int = 0, device=None):
+def make_params(shapes, seed: int = 0, device=None, leaf_fn=None):
     """Random params of a tree of (shape, init) leaves, with the reference's
     scales: LeCun-normal matmul weights ("dense", fan-in = contraction
     axis), N(0, 0.02) embeddings ("embed"), "zeros" and "ones"; the
@@ -174,16 +174,24 @@ def make_params(shapes, seed: int = 0, device=None):
     from a ``torch.Generator`` seeded with ``seed`` on ``device`` (the CUDA
     device unless device="cpu"); this does not reproduce the reference's
     ``jax.random`` bits -- parity tests convert reference params through
-    ``interop`` instead."""
+    ``interop`` instead.  ``leaf_fn(path, leaf)``, where given, replaces
+    each leaf as soon as it is drawn (``map_tree``'s paths): a caller that
+    packs or moves each leaf never holds the whole tree (a full-width
+    MoE's fp32 draw is 57 GB)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
 
-    def make(node):
+    def make(node, path=""):
+        join = (lambda k: f"{path}/{k}") if path else str
         if isinstance(node, dict):
-            return {k: make(v) for k, v in node.items()}
+            return {k: make(v, join(k)) for k, v in node.items()}
         if isinstance(node, list):
-            return [make(v) for v in node]
+            return [make(v, join(i)) for i, v in enumerate(node)]
+        leaf = draw(node)
+        return leaf if leaf_fn is None else leaf_fn(path, leaf)
+
+    def draw(node):
         shape, init = node
         if init in ("zeros", "ones"):
             fill = torch.zeros if init == "zeros" else torch.ones

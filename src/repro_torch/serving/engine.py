@@ -83,9 +83,16 @@ over both axes, so every rank's host takes the same decisions.  The
 sizer's balance point divides the weight stream by the model axis and the
 KV stream by the degree the pools achieve (``shardlib.parallelism_degrees``),
 and a default ``max_batch`` feeds every data replica its n_opt.  Under a
-mesh the engine serves the dense decoder families plain (no speculative
-decode, no chunked prefill, no shared allocator); the rest is refused by
-name (ROADMAP A13b).
+mesh the engine serves the dense decoder, MoE (expert parallelism:
+``models/moe.py``) and recurrentgemma families (the RG-LRU's channels
+split: ``models/recurrent.py``), plain, speculative or with chunked
+prefill.  The draft's params and its contiguous cache are placed through
+the same registry (its own ``param_axes`` / ``cache_axes``) and its steps
+run on the mesh; the acceptance stays on the host, where every rank draws
+the same tokens.  A chunk step runs on the rank's shards over a private
+batch-1 cache of its KV heads (a batch of one stays whole over the data
+axis).  xLSTM layers, the enc-dec and VLM families and a shared page
+allocator are refused by name (ROADMAP A13b).
 
 Where the reference jit-compiles one decode step over a donated cache, the
 port runs the decode step eagerly and updates the cache in place.
@@ -117,7 +124,6 @@ from repro_torch.models.api import (
     supports_paged_kv,
 )
 from repro_torch.models.layers import finite_rows
-from repro_torch.models.transformer import ATTN_KINDS
 from repro_torch.serving.config import EngineConfig, positional_state_gate
 from repro_torch.serving.faultinject import FaultInjected
 from repro_torch.serving.paged import (
@@ -128,6 +134,10 @@ from repro_torch.serving.paged import (
     PrefixRegistry,
 )
 from repro_torch.serving.scheduler import PrefillJob, TickBudget, chunk_spans
+
+# the layer kinds a mesh does not serve yet (the sLSTM's gates split over
+# "qkv" while its state stays whole)
+XLSTM_KINDS = ("mlstm", "slstm")
 
 # paged pool leaf -> its name in a contiguous (prefill) cache
 _PAGED_KEYS = (
@@ -270,20 +280,15 @@ class EngineStats:
 
 def mesh_refusal(cfg, config: EngineConfig) -> Optional[str]:
     """Why ``config``'s mesh cannot serve ``cfg`` (None: it can): under a
-    mesh the engine serves the dense decoder families, plain."""
+    mesh the engine serves the decoder families with attention, MoE and
+    RG-LRU layers, plain, speculative or chunked."""
     if config.mesh is None:
         return None
     what = None
     if get_api(cfg).extra_keys:
         what = f"the {cfg.family} family"
-    elif cfg.moe is not None:
-        what = "MoE layers"
-    elif any(k not in ATTN_KINDS for k in cfg.layer_kinds):
-        what = "recurrent and xLSTM layers"
-    elif config.spec.spec_k:
-        what = "speculative decode"
-    elif config.scheduler.prefill_chunk:
-        what = "chunked prefill"
+    elif any(k in XLSTM_KINDS for k in cfg.layer_kinds):
+        what = "xLSTM layers"
     elif config.cache.allocator is not None:
         what = "a shared page allocator (mixed-family serving)"
     if what is None:
@@ -480,16 +485,20 @@ class ServingEngine:
         # this data replica's slots of a cache whose batch is split (None: all)
         with self._on_mesh():
             self._rows = sl.data_rows(max_batch)
-        # the draft side: its own model (dense from the CLI) over a contiguous cache
+        # the draft side: its own model (dense from the CLI) over a contiguous
+        # cache; on a mesh the rank's pieces of both, by the draft's axes
         self.draft_api = self.draft_params = self.draft_cache = None
         if self.spec_k:
             self.draft_api = get_api(self.draft_cfg)
             self.draft_dtype = getattr(torch, self.draft_cfg.compute_dtype)
+            draft_params = pc.draft_params
+            if self.mesh is not None:
+                draft_params = local_params(draft_params,
+                                            self.draft_api.param_axes(self.draft_cfg),
+                                            self.mesh, self.rules)
             self.draft_params = self.draft_api.unstack(
-                self.draft_cfg, tree_to(pc.draft_params, self.device))
-            self.draft_cache = self.draft_api.init_cache(
-                self.draft_cfg, max_batch, max_len, self.draft_dtype, device=self.device,
-                spec_k=self.spec_k)
+                self.draft_cfg, tree_to(draft_params, self.device))
+            self.draft_cache = self._new_cache(max_batch, draft=True)
 
     @classmethod
     def from_tuned(cls, cfg, params, tuned: dict, *, plan=None, device=None, **overrides):
@@ -519,19 +528,22 @@ class ServingEngine:
             return contextlib.nullcontext()
         return sl.use_mesh(self.mesh, self.rules)
 
-    def _new_cache(self, batch: int, **paged):
+    def _new_cache(self, batch: int, draft: bool = False, **paged):
         """A cache of ``batch`` slots in the engine's dtypes (paged with
-        ``page_size``/``num_pages``): on a mesh, the rank's pieces of each
+        ``page_size``/``num_pages``; ``draft``: the draft model's contiguous
+        cache in its compute dtype): on a mesh, the rank's pieces of each
         leaf by the registered cache axes, allocated as such; the page
         table stays whole (every rank scatters the whole batch's K/V)."""
-        kw = dict(kv_dtype=self.kv_dtype, spec_k=self.spec_k, **paged)
+        api, cfg = (self.draft_api, self.draft_cfg) if draft else (self.api, self.cfg)
+        dtype = self.draft_dtype if draft else self.dtype
+        kw = dict(spec_k=self.spec_k, **paged)
+        if not draft:
+            kw["kv_dtype"] = self.kv_dtype
         if self.mesh is None:
-            return self.api.init_cache(self.cfg, batch, self.max_len, self.dtype,
-                                       device=self.device, **kw)
-        meta = self.api.init_cache(self.cfg, batch, self.max_len, self.dtype, device="meta",
-                                   **kw)
-        axes = self.api.cache_axes(self.cfg, quantized_kv=self.kv_dtype is not None,
-                                   paged=bool(paged))
+            return api.init_cache(cfg, batch, self.max_len, dtype, device=self.device, **kw)
+        meta = api.init_cache(cfg, batch, self.max_len, dtype, device="meta", **kw)
+        axes = api.cache_axes(cfg, quantized_kv=kw.get("kv_dtype") is not None,
+                              paged=bool(paged))
         axes.pop("page_table", None)
         return sl.local_zeros(meta, axes, self.mesh, self.rules, self.device)
 
@@ -744,10 +756,10 @@ class ServingEngine:
     def _draft_prefill_slot(self, slot: int, tokens: np.ndarray):
         """Fill the draft's KV for ``tokens`` into its slot of the draft
         cache (the draft's prefill logits are not used)."""
-        cache1 = self.draft_api.init_cache(self.draft_cfg, 1, self.max_len, self.draft_dtype,
-                                           device=self.device, spec_k=self.spec_k)
+        cache1 = self._new_cache(1, draft=True)
         batch = {"tokens": self._on_device(np.asarray(tokens, np.int32))[None]}
-        _, cache1 = self.draft_api.prefill(self.draft_cfg, self.draft_params, batch, cache1)
+        with self._on_mesh():
+            _, cache1 = self.draft_api.prefill(self.draft_cfg, self.draft_params, batch, cache1)
         self._write_slot(slot, cache1, self.draft_cache)
 
     def _start_slot(self, slot: int, req: Request, S: int, first_tok: int,
@@ -952,12 +964,12 @@ class ServingEngine:
         [start, stop) of the job's private contiguous cache.  A non-finite
         chunk sends the request to the retry path."""
         if job.cache1 is None:
-            job.cache1 = self.api.init_cache(self.cfg, 1, self.max_len, self.dtype,
-                                             kv_dtype=self.kv_dtype, device=self.device,
-                                             spec_k=self.spec_k)
+            job.cache1 = self._new_cache(1)
         toks = self._on_device(job.tokens[start:stop])[None]
         pos = self._on_device(np.asarray([start], np.int32))
-        logits, job.cache1 = self.api.decode_step(self.cfg, self.params, job.cache1, toks, pos)
+        with self._on_mesh():
+            logits, job.cache1 = self.api.decode_step(self.cfg, self.params, job.cache1, toks,
+                                                      pos)
         job.done = stop
         self.stats.prefill_chunks += 1
         self.stats.prefill_tokens += stop - start
@@ -1147,7 +1159,8 @@ class ServingEngine:
         (the target's or the draft's; in place): every leaf is (batch, ...),
         so the slot's KV rows and its recurrent / xLSTM states are all
         rewritten, and nothing of the slot's previous owner survives.  On a
-        mesh only the data replica that holds the slot's row writes it."""
+        mesh only the data replica that holds the slot's row writes it, and
+        each rank its pieces (its KV heads, its RG-LRU channels)."""
         row = self._local_row(slot)
         if row is None:
             return
@@ -1462,8 +1475,9 @@ class ServingEngine:
         live_idx = self._on_device(np.asarray(live, np.int64))
         cur = self._on_device(self.slot_last_tok.astype(np.int64))[:, None]
         for j in range(k + 1):
-            dlogits, self.draft_cache = self.draft_api.decode_step(
-                self.draft_cfg, self.draft_params, self.draft_cache, cur, pos0 + j)
+            with self._on_mesh():
+                dlogits, self.draft_cache = self.draft_api.decode_step(
+                    self.draft_cfg, self.draft_params, self.draft_cache, cur, pos0 + j)
             if j == k:
                 break
             rows = dlogits[:, 0]

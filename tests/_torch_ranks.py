@@ -1,12 +1,13 @@
-"""The rank side of tests/test_torch_sharded_serving.py.
+"""The rank side of tests/test_torch_sharded_*.py.
 
 It imports the port only: a spawned rank imports this module, never the
-test module (which imports jax).  ``run`` spawns the ranks of one mesh over
-gloo on the CPU (they meet at a FileStore in a fresh directory, one torch
-thread each); each rank loads the plan a test saved, serves the requests
-through a meshed engine in lockstep with an unsharded one on the same
-plan, holds its pools to its slices of the unsharded pools after every
-step, and writes what the test compares to ``out_dir/rank<r>.json``."""
+test modules (which import jax).  ``run_path`` spawns the ranks of one mesh
+over gloo on the CPU (they meet at a FileStore in a fresh directory, one
+torch thread each); each rank loads the plan (or the dense params) a test
+saved, serves the requests through a meshed engine in lockstep with an
+unsharded one on the same weights, holds its caches to its slices of the
+unsharded engine's after every step, and writes what the test compares to
+``out/rank<r>.json``."""
 
 import json
 import os
@@ -29,81 +30,178 @@ def prompts(vocab: int) -> list:
     return out + [rng.integers(0, vocab, size=8).astype(np.int32) for _ in range(2)]
 
 
-def _pools(engine) -> list:
-    return [{k: t for k, t in layer.items()} for layer in engine.cache["layers"]]
+def _cache_pieces(whole, mine, axes, mesh, rules) -> tuple:
+    """(max |d| of this rank's pieces against its slices of the whole
+    cache, relative to the largest whole value for floats and absolute for
+    int8; whether all are equal bit for bit) over the layers' leaves."""
+    import torch
+
+    from repro_torch.distributed import shardlib as sl
+
+    err, exact = 0.0, True
+    for w_layer, m_layer, a_layer in zip(whole["layers"], mine["layers"], axes["layers"]):
+        for k, t in w_layer.items():
+            spec = sl.spec_for(t.shape, *a_layer[k], mesh=mesh, rules=rules)
+            piece = sl.local_piece(t, spec, mesh)
+            got = m_layer[k]
+            if tuple(piece.shape) != tuple(got.shape):
+                return float("inf"), False
+            exact &= bool(torch.equal(piece, got))
+            d = (piece.double() - got.double()).abs().max().item() if piece.numel() else 0.0
+            if t.is_floating_point():
+                d /= max(t.double().abs().max().item(), 1e-30)
+            err = max(err, d)
+    return err, exact
 
 
-def _serve_rank(rank: int, shape: tuple, plan_dir: str, out_dir: str, max_new: int) -> None:
+def _path_rank(rank: int, shape: tuple, job: dict) -> None:
     torch.set_num_threads(1)
     from repro_torch.configs import get_config
     from repro_torch.core.batching import BatchSizer
-    from repro_torch.core.weight_plan import load_plan
+    from repro_torch.core.weight_plan import ShardedLeaf, load_plan
     from repro_torch.distributed import shardlib as sl
     from repro_torch.launch import mesh as M
-    from repro_torch.models import layers as L
-    from repro_torch.models import transformer as T
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.api import get_api
     from repro_torch.serving.config import EngineConfig
     from repro_torch.serving.engine import Request, ServingEngine
 
-    cfg = get_config(ARCH, smoke=True)
-    plan = load_plan(plan_dir, T.init_params(cfg, 0, device="cpu"))
+    cfg = get_config(job["arch"], smoke=True)
+    api = get_api(cfg)
+    params = plan = None
+    if job.get("plan_dir"):
+        plan = load_plan(job["plan_dir"], api.init_params(cfg, 0, device="cpu"))
+    else:
+        params = torch.load(job["params"])
+    flat = dict(job["flat"])
+    if job.get("draft"):
+        flat.update(draft_cfg=get_config(job["draft"]["arch"], smoke=True),
+                    draft_params=torch.load(job["draft"]["params"]))
     mesh = M.make_serving_mesh(shape, "gloo")
-    rules = M.rules_for(cfg, None, mesh=mesh)
-    solo = ServingEngine(cfg, None, plan=plan, device="cpu", config=EngineConfig.of(**FLAT))
-    meshed = ServingEngine(cfg, None, plan=plan, device="cpu",
-                           config=EngineConfig.of(**FLAT, mesh=mesh, rules=rules))
+    rules = M.rules_for(cfg, None, mesh=mesh) if job.get("rules") == "rules_for" else None
+    solo = ServingEngine(cfg, params, plan=plan, device="cpu", config=EngineConfig.of(**flat))
+    meshed = ServingEngine(cfg, params, plan=plan, device="cpu",
+                           config=EngineConfig.of(**flat, mesh=mesh, rules=rules))
+    rules = meshed.rules
+    # every decode (or verify) step's logits, and the all-reduces its
+    # meshed step issued
+    logits = {"solo": [], "mesh": []}
+    reduces = {"n": 0}
+    real_reduce = sl.all_reduce
+
+    def counted(x, axis):
+        reduces["n"] += 1
+        return real_reduce(x, axis)
+
+    sl.all_reduce = counted
+    step_reduces = []
+    for name, eng in (("solo", solo), ("mesh", meshed)):
+        real = eng._decode
+
+        def spy(tokens, pos, poison, real=real, name=name):
+            before = reduces["n"]
+            lg = real(tokens, pos, poison)
+            if name == "mesh":
+                step_reduces.append(reduces["n"] - before)
+            logits[name].append(lg.float().clone())
+            return lg
+
+        eng._decode = spy
     reqs = {}
     for name, eng in (("solo", solo), ("mesh", meshed)):
-        reqs[name] = [Request(uid=i, prompt=p, max_new_tokens=max_new)
-                      for i, p in enumerate(prompts(cfg.vocab))]
+        reqs[name] = [Request(uid=i, prompt=np.asarray(p, np.int32),
+                              max_new_tokens=job["max_new"])
+                      for i, p in enumerate(job["prompts"])]
         for r in reqs[name]:
             eng.submit(r)
-    axes = L.paged_attn_cache_axes(quantized=True)
-    pools_equal, steps = True, 0
-    while not all(r.terminal for r in reqs["mesh"]):
+    quantized = flat.get("kv_dtype") == "int8"
+    axes = api.cache_axes(cfg, quantized_kv=quantized, paged=meshed.paged)
+    chunk_axes = api.cache_axes(cfg, quantized_kv=quantized)
+    draft_axes = (meshed.draft_api.cache_axes(meshed.draft_cfg) if meshed.spec_k else None)
+    cache_err, cache_exact, draft_err, steps, chunk_checks = 0.0, True, 0.0, 0, 0
+    while not all(r.terminal for r in reqs["mesh"]) and steps < 400:
         solo.step()
         meshed.step()
         meshed.audit_pages()
         steps += 1
-        for whole, mine in zip(_pools(solo), _pools(meshed)):
-            for k, t in whole.items():
-                spec = sl.spec_for(t.shape, *axes[k], mesh=mesh, rules=rules)
-                pools_equal &= torch.equal(sl.local_piece(t, spec, mesh), mine[k])
+        pairs = [(solo.cache, meshed.cache, axes)]
+        for a, b in zip(solo.slot_prefill, meshed.slot_prefill):
+            if a is not None and a.cache1 is not None:
+                pairs.append((a.cache1, b.cache1, chunk_axes))
+                chunk_checks += 1
+        for whole, mine, ax in pairs:
+            e, x = _cache_pieces(whole, mine, ax, mesh, rules)
+            cache_err, cache_exact = max(cache_err, e), cache_exact and x
+        if meshed.spec_k:
+            e, _ = _cache_pieces(solo.draft_cache, meshed.draft_cache, draft_axes, mesh, rules)
+            draft_err = max(draft_err, e)
+    sl.all_reduce = real_reduce
+    logit_err = 0.0
+    for a, b in zip(logits["solo"], logits["mesh"]):
+        logit_err = max(logit_err, (a - b).abs().max().item() / a.abs().max().item())
+    layer0 = meshed.params["layers"][0]
+    experts = None
+    if "moe" in layer0:
+        experts = list(MOE.expert_range(layer0["moe"], cfg.moe.n_experts_padded))
+    kinds = {}
+    for name, leaf in (("rec.w_x", layer0.get("rec", {}).get("w_x")),
+                       ("rec.w_out", layer0.get("rec", {}).get("w_out"))):
+        if leaf is not None:
+            kinds[name] = ("k_split" if isinstance(leaf, ShardedLeaf) and leaf.k_split else
+                           "n_split" if isinstance(leaf, ShardedLeaf) and leaf.n_split else
+                           "whole")
     # max_batch: the sizer's n_opt balances one model group, so a default
     # max_batch feeds every data replica its own
     sizer = BatchSizer(n_params=10**6, hbm_bw=3.35e12 * 20)
-    scaled = ServingEngine(cfg, None, plan=plan, device="cpu", sizer=sizer,
+    scaled = ServingEngine(cfg, params, plan=plan, device="cpu", sizer=sizer,
                            config=EngineConfig.of(max_len=64, mesh=mesh, rules=rules))
     result = {
         "rank": rank,
         "coords": sl.mesh_coords(mesh),
-        "streams": [[int(t) for t in r.output] for r in reqs["mesh"]],
-        "solo_streams": [[int(t) for t in r.output] for r in reqs["solo"]],
-        "tables": meshed._table.tolist(),
-        "solo_tables": solo._table.tolist(),
-        "free": [int(p) for p in meshed.allocator._free],
-        "solo_free": [int(p) for p in solo.allocator._free],
+        "free": [int(p) for p in meshed.allocator._free] if meshed.paged else None,
+        "solo_free": [int(p) for p in solo.allocator._free] if solo.paged else None,
         "pages_shared": meshed.stats.pages_shared,
         "cow_copies": meshed.stats.cow_copies,
-        "pools_equal": bool(pools_equal),
-        "steps": steps,
         "degrees": [meshed.data_parallel, meshed.model_parallel, meshed.kv_parallel],
         "max_batch": [scaled.max_batch, sizer.n_opt],
+        "streams": [[int(t) for t in r.output] for r in reqs["mesh"]],
+        "solo_streams": [[int(t) for t in r.output] for r in reqs["solo"]],
+        "states": [r.state.value for r in reqs["mesh"]],
+        "tables": meshed._table.tolist() if meshed.paged else None,
+        "solo_tables": solo._table.tolist() if solo.paged else None,
+        "cache_err": cache_err,
+        "cache_exact": bool(cache_exact),
+        "draft_err": draft_err,
+        "chunk_checks": chunk_checks,
+        "logit_err": logit_err,
+        "logit_steps": [len(logits["solo"]), len(logits["mesh"])],
+        "step_reduces": step_reduces,
+        "steps": steps,
+        "stats": [meshed.stats.draft_accepted, meshed.stats.verified_positions,
+                  meshed.stats.prefill_chunks],
+        "solo_stats": [solo.stats.draft_accepted, solo.stats.verified_positions,
+                       solo.stats.prefill_chunks],
+        "experts": experts,
+        "kinds": kinds,
         "weight_bytes": [meshed.weight_bytes(), solo.weight_bytes()],
         "pages_in_use": meshed.pages_in_use,
+        "degraded": dict(meshed.degraded),
     }
-    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+    with open(os.path.join(job["out"], f"rank{rank}.json"), "w") as f:
         json.dump(result, f)
 
 
-def run(shape: tuple, plan_dir: str, out_dir: str, max_new: int = 6) -> list:
-    """Spawn the ranks of a (data, model) mesh and return their results."""
+def run_path(shape: tuple, job: dict) -> list:
+    """Spawn the ranks of a (data, model) mesh for one path ``job`` (arch,
+    flat engine settings, a plan directory or a saved dense params tree, an
+    optional draft, the rules -- "rules_for" or the defaults -- prompts,
+    max_new, out) and return their results."""
     from repro_torch.launch import mesh as M
 
     world = shape[0] * shape[1]
-    M.spawn_ranks(_serve_rank, (tuple(shape), plan_dir, out_dir, max_new), world, "gloo")
+    M.spawn_ranks(_path_rank, (tuple(shape), job), world, "gloo")
     out = []
     for r in range(world):
-        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+        with open(os.path.join(job["out"], f"rank{r}.json")) as f:
             out.append(json.load(f))
     return out

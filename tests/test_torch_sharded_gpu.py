@@ -3,7 +3,10 @@ shard of a tinyllama-1.1b-wide leaf (``weight_plan.local_leaf`` at model
 axes of 2 and 8) against the matching columns of the whole leaf's launch
 and against their plain versions; B3 reading a rank's KV heads of a pool
 that holds them all (``kv_heads``, in place) against its plain version on
-the narrowed pools.  These need a CUDA device and nvcc; they carry the
+the narrowed pools, also at a verify step's T = 5; stacked B1 and B2 over
+a rank's experts of a granite-moe-wide stack (``local_leaf``'s cut of the
+expert axis) against their plain versions and the whole stack's launch.
+These need a CUDA device and nvcc; they carry the
 ``gpu`` marker and skip elsewhere (and import no JAX):
 
     python -m pytest -q -m gpu tests/test_torch_sharded_gpu.py
@@ -18,6 +21,7 @@ import torch
 from repro_torch.core import weight_plan as WP
 from repro_torch.distributed import shardlib as sl
 from repro_torch.kernels import flash_attention as FA
+from repro_torch.models import transformer as T
 
 TOL = 1e-2
 
@@ -95,15 +99,59 @@ def test_b5_on_a_ranks_columns_and_rows(cuda, M):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("M", [2, 4])
+def test_stacked_b1_b2_over_a_ranks_experts(cuda, M):
+    """granite-moe's 32 experts (d 1024, expert FFN 512), M 8 rows an
+    expert: the rank's 32 / M experts of the gate/up pair (one stacked B2)
+    and of w_down (one stacked B1), each launch over the sub-stack, equal
+    to their plain versions and to the whole stack's launch on those
+    experts."""
+    from repro_torch.kernels import block_sparse as BS
+    from repro_torch.kernels import fused_gate_up as FG
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    cfg = WP.PlanConfig(q_prune=0.5)
+    E, d, f = 32, 1024, 512
+
+    def stack(K, N):
+        return WP.pack_block_sparse(torch.randn(1, E, K, N, generator=g, device=cuda) / 32.0,
+                                    cfg, True)
+
+    gate, up, down = stack(d, f), stack(d, f), stack(f, d)
+    axes = {"g": (None, "experts", "d", "expert_ff"), "d": (None, "experts", "expert_ff", "d")}
+    x = torch.randn(E, 8, d, generator=g, device=cuda).to(torch.bfloat16)
+    h_all = WP.apply_gate_up(x, T._layer_leaf(gate, 0), T._layer_leaf(up, 0), "silu")
+    for mesh in _meshes(M):
+        m = mesh.coords["model"]
+        lg, lu, ld = (WP.local_leaf(w, axes[a], mesh, sl.DEFAULT_RULES)
+                      for w, a in ((gate, "g"), (up, "g"), (down, "d")))
+        n = E // M
+        assert lg.experts == lu.experts == ld.experts == (m * n, n)
+        one = [T._layer_leaf(w.local, 0) for w in (lg, lu, ld)]  # layer 0's sub-stacks
+        xs = x[m * n:(m + 1) * n]
+        launches = (FG.fused_gate_up.stacked_launches, BS.block_sparse_matmul.stacked_launches)
+        h = WP.apply_gate_up(xs, one[0], one[1], "silu")
+        y = WP.apply_linear(h, one[2])
+        assert (FG.fused_gate_up.stacked_launches,
+                BS.block_sparse_matmul.stacked_launches) == (launches[0] + 1, launches[1] + 1)
+        _close(h, WP.apply_gate_up(xs, WP.with_use_kernel(one[0], False),
+                                   WP.with_use_kernel(one[1], False), "silu"))
+        _close(h, h_all[m * n:(m + 1) * n])
+        _close(y, WP.apply_linear(h, WP.with_use_kernel(one[2], False)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [1, 5])
 @pytest.mark.parametrize("kv", [torch.int8, torch.bfloat16])
 @pytest.mark.parametrize("hd,kvh,hq,off,n", [(64, 4, 4, 1, 1), (64, 4, 16, 2, 2),
                                              (128, 2, 8, 1, 1)])
-def test_b3_reads_a_ranks_kv_heads_in_place(cuda, kv, hd, kvh, hq, off, n):
+def test_b3_reads_a_ranks_kv_heads_in_place(cuda, kv, hd, kvh, hq, off, n, T):
     """B3 over ``hq`` q heads against KV heads [off, off + n) of pools of
-    ``kvh`` heads equals its plain version on the narrowed pools."""
+    ``kvh`` heads equals its plain version on the narrowed pools; T 5 is a
+    verify step of speculative decode at k 4."""
     g = torch.Generator(device=cuda).manual_seed(2)
     B, ps, P, pages = 4, 16, 8, 40
-    q = torch.randn(B, 1, hq, hd, generator=g, device=cuda).to(torch.bfloat16)
+    q = torch.randn(B, T, hq, hd, generator=g, device=cuda).to(torch.bfloat16)
     shape = (pages, ps, kvh, hd)
     scales = {}
     if kv == torch.int8:
@@ -115,7 +163,10 @@ def test_b3_reads_a_ranks_kv_heads_in_place(cuda, kv, hd, kvh, hq, off, n):
         kp = torch.randn(shape, generator=g, device=cuda).to(torch.bfloat16)
         vp = torch.randn(shape, generator=g, device=cuda).to(torch.bfloat16)
     table = torch.randint(1, pages, (B, P), generator=g, device=cuda, dtype=torch.int32)
-    pos = torch.tensor([3, 40, 77, 127], device=cuda, dtype=torch.int32)
+    # the last sequence's last query at the table's last slot: a verify
+    # step's positions stay inside its pages (admission reserves spec_k of
+    # headroom)
+    pos = torch.tensor([3, 40, 77, P * ps - T], device=cuda, dtype=torch.int32)
     launches = FA.paged_decode_attention.launches
     got = FA.paged_decode_attention(q, kp, vp, table, pos, kv_heads=(off, n), **scales)
     assert FA.paged_decode_attention.launches == launches + 1

@@ -63,13 +63,15 @@ def test_meshed_streams_equal_the_reference(reference, shape, tmp_path):
     rank and equals the unsharded engine's; a default max_batch is data x
     n_opt."""
     want, plan_dir = reference
-    res = R.run(shape, plan_dir, str(tmp_path))
+    res = R.run_path(shape, dict(arch=R.ARCH, flat=R.FLAT, plan_dir=plan_dir, rules="rules_for",
+                                 prompts=[p.tolist() for p in R.prompts(256)], max_new=6,
+                                 out=str(tmp_path)))
     D, M = shape
     kv = M if 2 % M == 0 else 1  # smoke tinyllama: 2 KV heads
     for r in res:
         assert r["streams"] == want, r["rank"]
         assert r["solo_streams"] == want
-        assert r["pools_equal"], r["rank"]
+        assert r["cache_exact"], r["rank"]
         assert r["tables"] == r["solo_tables"] and r["free"] == r["solo_free"]
         assert r["degrees"] == [D, M, kv]
         assert r["pages_in_use"] == 0
@@ -111,9 +113,9 @@ def test_serve_cli_mesh_lines():
 
 
 @pytest.mark.parametrize("flags,what", [
-    (["--spec-k", "2", "--draft-config", "tinyllama-1.1b"], "speculative decode"),
-    (["--prefill-chunk", "8"], "chunked prefill"),
-    (["--arch", "granite-moe-1b-a400m"], "MoE layers"),
+    (["--arch", "xlstm-350m"], "xLSTM layers"),
+    (["--arch", "whisper-tiny"], "the audio family"),
+    (["--arch", "internvl2-2b"], "the vlm family"),
 ])
 def test_serve_cli_refuses_what_a_mesh_does_not_serve(flags, what, capsys):
     """Refused by name before any rank starts, with exit code 2."""
@@ -128,12 +130,22 @@ def test_serve_cli_refuses_what_a_mesh_does_not_serve(flags, what, capsys):
     assert "starting" not in cap.out
 
 
+def test_serve_cli_refuses_a_workload_mix_on_a_mesh(capsys):
+    """--workload-mix (a shared page allocator across the families) under
+    --mesh: refused by name with exit code 2, no rank started."""
+    from repro_torch.launch import serve
+
+    with pytest.raises(SystemExit) as e:
+        serve.main(["--workload-mix", "tinyllama-1.1b:2,recurrentgemma-2b:1", "--smoke",
+                    "--device", "cpu", "--page-size", "16", "--mesh", "1x2"])
+    assert e.value.code == 2
+    cap = capsys.readouterr()
+    assert "mixed-family serving under a mesh is not served yet: ROADMAP A13b" in cap.err
+    assert "starting" not in cap.out
+
+
 @pytest.mark.parametrize("arch,flat,what", [
-    ("tinyllama-1.1b", dict(spec_k=1), "speculative decode"),
-    ("tinyllama-1.1b", dict(prefill_chunk=4), "chunked prefill"),
-    ("qwen2-moe-a2.7b", {}, "MoE layers"),
-    ("recurrentgemma-2b", {}, "recurrent and xLSTM layers"),
-    ("xlstm-350m", {}, "recurrent and xLSTM layers"),
+    ("xlstm-350m", {}, "xLSTM layers"),
     ("whisper-tiny", {}, "the audio family"),
     ("internvl2-2b", {}, "the vlm family"),
     ("tinyllama-1.1b", dict(allocator=object()), "a shared page allocator"),
@@ -141,7 +153,43 @@ def test_serve_cli_refuses_what_a_mesh_does_not_serve(flags, what, capsys):
 def test_engine_refuses_what_a_mesh_does_not_serve(arch, flat, what):
     cfg = get_config(arch, smoke=True)
     mesh = sl.MeshShape({"data": 1, "model": 2})
-    if "spec_k" in flat:
-        flat = dict(flat, draft_cfg=cfg, draft_params=init_params(cfg, 1, device="cpu"))
     with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP A13b"):
         ServingEngine(cfg, None, device="cpu", config=EngineConfig.of(mesh=mesh, **flat))
+
+
+def test_mixed_engine_refuses_members_on_a_mesh():
+    """A MixedServingEngine whose paged members carry a mesh: each member
+    would draw from the shared allocator, which a mesh does not serve yet."""
+    from repro_torch.serving.mixed import MixedServingEngine, WorkloadSpec
+
+    mesh = sl.MeshShape({"data": 1, "model": 2})
+    specs = []
+    for arch in ("tinyllama-1.1b", "llama3.2-1b"):
+        cfg = get_config(arch, smoke=True)
+        specs.append(WorkloadSpec(name=arch, cfg=cfg, params=init_params(cfg, 0, device="cpu"),
+                                  config=EngineConfig.of(max_len=32, max_batch=2, page_size=16,
+                                                         mesh=mesh)))
+    with pytest.raises(NotImplementedError, match="a shared page allocator.*ROADMAP A13b"):
+        MixedServingEngine(specs, device="cpu")
+
+
+@pytest.mark.parametrize("flags,line", [
+    (["--spec-k", "2", "--draft-config", "tinyllama-1.1b"],
+     "[serve] speculative: "),
+    (["--prefill-chunk", "8", "--prefill-budget", "16"],
+     "[serve] continuous batching: 8-token prefill chunks, 16 tok/tick budget"),
+    (["--arch", "granite-moe-1b-a400m"], "[serve] granite-moe-smoke: n_params=90,944"),
+    (["--arch", "recurrentgemma-2b", "--page-size", "0"],
+     "[serve] recurrentgemma-smoke: n_params=201,664"),
+])
+def test_serve_cli_serves_the_new_paths_on_a_mesh(flags, line):
+    """--mesh 1x2 with speculative decode, chunked prefill, a MoE arch and
+    recurrentgemma-2b: the ranks start, rank 0 prints the reference's lines
+    (the mesh line, the path's own line) and every request completes."""
+    run = _cli("--mesh", "1x2", *flags)
+    assert run.returncode == 0, run.stderr
+    out = run.stdout
+    assert "[serve] mesh 1x2: starting 2 ranks over gloo on the CPU" in out
+    assert "[serve] mesh {'data': 1, 'model': 2}: data-parallel 1, model-parallel 2" in out
+    assert line in out
+    assert out.count("[serve] completed 6 requests") == 1
