@@ -341,6 +341,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import hashlib
 import json
 import os
@@ -375,6 +376,16 @@ LONG_M = 2032
 # draft tokens a tick of the spec phase: its verify step runs B3 at T = 5
 # (40 rows per KV head) and B1, B2, B5 at M = 8 * 5
 SPEC_K = 4
+WHISPER, INTERNVL = "whisper-tiny", "internvl2-2b"
+# whisper-tiny's pool: the null page, and for each of the 8 requests 4
+# decoder pages (40 + 16 tokens) and 94 frame pages (1500 frames).  The
+# CLI's own sizing leaves the frame pages out, as the reference's does
+# (ROADMAP C5): such a pool admits no request at full width
+WHISPER_POOL = 1 + 8 * (4 + 94)
+# internvl2-2b's sequences: 256 patches + 40 prompt + 16 new tokens
+INTERNVL_MAX_LEN = 320
+# internvl2-2b's long prompt: 256 patches + 1776 tokens = LONG_M positions
+INTERNVL_LONG = LONG_M - 256
 # B1 and B2 switch from the decode regime (one 64-row tile, a cluster split)
 # to the prefill regime (128-row tiles) above 64 rows: the rows each regime
 # and tile edge meet, besides the main path's decode batches and prompts
@@ -2297,8 +2308,9 @@ def _path_parity(torch, cfg, params, label: str, gen, lengths=(36, 40, LONG_M)) 
 
 # --mesh runs of the mesh phase: (mesh, the cases its ranks serve)
 MESH_RUNS = (("1x2", ("serve", "long", "quant", "spec", "chunked", "granite", "rg", "rg quant",
-                      "qwen2-moe")),
-             ("2x2", ("serve", "spec")), ("1x4", ("granite",)), ("1x8", ("serve",)))
+                      "qwen2-moe", "xlstm", "whisper", "internvl", "mix")),
+             ("2x2", ("serve", "spec")), ("1x4", ("granite", "xlstm", "whisper")),
+             ("1x8", ("serve",)))
 MESH_KERNELS = ("block_sparse_matmul", "fused_gate_up", "paged_decode_attention",
                 "quant_matmul")
 # a case's serve flags (over the quickstart ones)
@@ -2310,7 +2322,12 @@ MESH_FLAGS = {
     "qwen2-moe": ("--arch", "qwen2-moe-a2.7b"),
     "rg": ("--arch", "recurrentgemma-2b"),
     "rg quant": ("--arch", "recurrentgemma-2b", "--compress", "quant"),
+    "xlstm": ("--arch", "xlstm-350m"),
+    "whisper": ("--arch", "whisper-tiny", "--pool-pages", str(WHISPER_POOL)),
+    "internvl": ("--arch", "internvl2-2b", "--max-len", str(INTERNVL_MAX_LEN)),
 }
+# the cases whose requests carry frames or patches (``_extras_requests``)
+MESH_EXTRAS = ("whisper", "internvl")
 # the kernels a case's run must launch (above zero on every rank)
 MESH_CASE_KERNELS = {
     "long": MESH_KERNELS + ("flash_attention",),
@@ -2318,25 +2335,36 @@ MESH_CASE_KERNELS = {
     "granite": ("block_sparse_matmul", "fused_gate_up", "paged_decode_attention"),
     "rg": ("block_sparse_matmul", "fused_gate_up"),
     "rg quant": ("quant_matmul",),
+    "xlstm": ("block_sparse_matmul", "quant_matmul"),
+    "whisper": ("block_sparse_matmul", "paged_decode_attention", "flash_attention"),
+    "internvl": MESH_KERNELS,
+    # --compress none: the attention kernels only (B6: whisper's 1500 frames)
+    "mix": ("paged_decode_attention", "flash_attention"),
 }
 # the attention launches a case's run replays (recurrentgemma's contiguous
-# rings and short prompts reach neither B3 nor B6)
+# rings and short prompts reach neither B3 nor B6, nor does xlstm-350m,
+# which has no attention; whisper's first non-causal B3 launch reads its
+# frame pages and its first B6 launch is the encoder's)
 MESH_CASE_ATTENTION = {"long": ("paged_decode_attention", "flash_attention"), "rg": (),
-                       "rg quant": ()}
+                       "rg quant": (), "xlstm": (),
+                       "whisper": ("paged_decode_attention", "paged_decode_attention",
+                                   "flash_attention")}
 # cases held to the rank's own unsharded engine's streams (no earlier
 # phase served their plan)
 MESH_OWN = ("quant", "rg quant")
 
 
-def _first_decode_logits(engine) -> list:
+def _first_decode_logits(engine, snap=None) -> list:
     """Records (the input tokens, the logits (fp32, host), the slots then
-    decoding) of ``engine``'s first decode step into the returned list."""
+    decoding, ``snap(engine)`` after the step or None) of ``engine``'s first
+    decode step into the returned list."""
     rec, real = [], engine._decode
 
     def spy(tokens, pos, poison):
         lg = real(tokens, pos, poison)
         if not rec:
-            rec.append((tokens[:, 0].cpu(), lg[:, 0].float().cpu(), engine._decoding_slots()))
+            rec.append((tokens[:, 0].cpu(), lg[:, 0].float().cpu(), engine._decoding_slots(),
+                        None if snap is None else snap(engine)))
         return lg
 
     engine._decode = spy
@@ -2375,8 +2403,9 @@ def _first_with(layers: list, key: str) -> int:
 
 def _shard_checks(torch, cfg, whole, engine) -> dict:
     """The first layer's projections of each kind on this rank's shards
-    (attention wq/wo, the RG-LRU's w_x/w_out, the MLP's w_gate/w_up pair --
-    B2 where packed -- and an untied head) against the matching columns of
+    (attention wq/wo, the RG-LRU's w_x/w_out, the mLSTM's w_u/w_down, the
+    sLSTM's w_gates/w_up, a gated MLP's w_gate/w_up pair -- B2 where packed
+    -- and an untied head) against the matching columns of
     the whole leaf's launch and against the plain versions, on one seeded
     (8, K) input in the compute dtype; a MoE layer's stacks on the rank's
     experts (``_expert_checks``).  ``whole``: the unstacked whole tree.
@@ -2409,6 +2438,13 @@ def _shard_checks(torch, cfg, whole, engine) -> dict:
                 leaves += [(name if block == "attn" else f"rec {name}",
                             whole["layers"][i][block][name], mine["layers"][i][block][name])
                            for name in names]
+        # xLSTM: the mLSTM's up and down projections, the sLSTM's gates and
+        # its w_up (at 1x2 B5's dense_tile on 1365 of its 2730 columns)
+        for kind, names in (("mlstm", ("w_u", "w_down")), ("slstm", ("w_gates", "w_up"))):
+            if kind in cfg.layer_kinds:
+                i = cfg.layer_kinds.index(kind)
+                leaves += [(f"{kind} {name}", whole["layers"][i]["cell"][name],
+                            mine["layers"][i]["cell"][name]) for name in names]
         if "head" in whole["embed"]:
             leaves.append(("head", whole["embed"]["head"], mine["embed"]["head"]))
         for name, w, loc in leaves:
@@ -2426,7 +2462,7 @@ def _shard_checks(torch, cfg, whole, engine) -> dict:
                 ref = rel_err(torch, y, full[:, m * n:(m + 1) * n] if split else full)[1]
             out[name] = (kernel_of(local), ref, rel_err(torch, y, plain)[1])
         i = _first_with(whole["layers"], "mlp")
-        if i >= 0:
+        if i >= 0 and "w_gate" in whole["layers"][i]["mlp"]:
             g, u = whole["layers"][i]["mlp"]["w_gate"], whole["layers"][i]["mlp"]["w_up"]
             lg, lu = mine["layers"][i]["mlp"]["w_gate"], mine["layers"][i]["mlp"]["w_up"]
             x = x_for(8, WP.contraction(g))
@@ -2480,7 +2516,9 @@ def _expert_checks(torch, cfg, whole: dict, mine: dict, x_for) -> dict:
 def _first_attention_inputs(first: dict):
     """Records into ``first`` the inputs of the first B3 launch
     ("paged_decode_attention") and the first B6 launch ("flash_attention")
-    that the model path makes through ``ops``, cloned: (args, kwargs)."""
+    that the model path makes through ``ops``, cloned: (args, kwargs); a
+    non-causal launch (an enc-dec's frames) under its own key, "<name>
+    non-causal"."""
     from repro_torch.kernels import ops
 
     inner = {name: getattr(ops, name) for name in ("paged_decode_attention",
@@ -2488,10 +2526,11 @@ def _first_attention_inputs(first: dict):
 
     def spy(name):
         def call(*args, **kw):
-            if name not in first and kw.get("use_kernel", True):
-                first[name] = ([a.clone() if hasattr(a, "clone") else a for a in args],
-                               {k: v.clone() if hasattr(v, "clone") else v
-                                for k, v in kw.items()})
+            key = name if kw.get("causal", True) else f"{name} non-causal"
+            if key not in first and kw.get("use_kernel", True):
+                first[key] = ([a.clone() if hasattr(a, "clone") else a for a in args],
+                              {k: v.clone() if hasattr(v, "clone") else v
+                               for k, v in kw.items()})
             return inner[name](*args, **kw)
         return call
 
@@ -2513,20 +2552,21 @@ def _attention_checks(torch, first: dict) -> dict:
     read."""
     from repro_torch.kernels import flash_attention as FA
 
+    fns = {"paged_decode_attention": FA.paged_decode_attention,
+           "flash_attention": FA.flash_attention}
     out = {}
-    for name, fn in (("paged_decode_attention", FA.paged_decode_attention),
-                     ("flash_attention", FA.flash_attention)):
-        if name not in first:
-            continue
-        args, kw = first[name]
+    for key, (args, kw) in first.items():
+        name = key.split()[0]
         kw = dict(kw, use_kernel=True)
-        got = fn(*args, **kw)
-        want = fn(*args, **dict(kw, use_kernel=False))
+        got = fns[name](*args, **kw)
+        want = fns[name](*args, **dict(kw, use_kernel=False))
         heads = [args[0].shape[2], args[1].shape[2]]
         if name == "paged_decode_attention":
             kv = kw.get("kv_heads")
             heads.insert(1, None if kv is None else list(kv))
-        out[f"{name} {list(args[0].shape)}"] = (name, None, rel_err(torch, got, want)[1], heads)
+        causal = "" if key == name else " non-causal"
+        out[f"{name} {list(args[0].shape)}{causal}"] = (name, None,
+                                                        rel_err(torch, got, want)[1], heads)
     return out
 
 
@@ -2607,9 +2647,15 @@ def _mesh_case(torch, serve, job: dict, case: str, state: dict) -> dict:
     from repro_torch.launch import mesh as M
     from repro_torch.serving.engine import Request, RequestState, ServingEngine
 
+    if case == "mix":
+        return _mesh_mix_case(torch, serve, job, state)
     torch.cuda.reset_peak_memory_stats()
     extra = ["--mesh", job["mesh"], "--share-card", *MESH_FLAGS.get(case, ())]
-    if case in ("long", "chunked"):
+    if case == "tuned":  # the autotune phase's one-card artifact, its flags
+        serve, ap, args = _tuned_args(job["tuned"], "--requests", "8", "--max-new", "16",
+                                      "--prompt-len", "40", "--share-prefix", "--mesh",
+                                      job["mesh"], "--share-card")
+    elif case in ("long", "chunked"):
         _, ap, args = _serve_args(extra + ["--prompt-len", str(LONG_M), "--max-len", "2048"])
         args.pool_pages = 1 + paged_pool_pages(args.max_batch, LONG_M + args.max_new,
                                                args.page_size)
@@ -2630,10 +2676,14 @@ def _mesh_case(torch, serve, job: dict, case: str, state: dict) -> dict:
         state.update(mesh=engine.mesh, device=engine.device)
         if case == "serve":
             state.update(cfg=cfg, plan=plan, rules=engine.rules)
+    extras = None
     if case in ("long", "chunked"):
         prompts = [np.asarray(p, np.int32) for p in job["long_prompts"]]
         if case == "long":
             prompts = prompts[-1:]
+    elif case in MESH_EXTRAS:
+        reqs0 = _extras_requests(serve, cfg, args.max_new)
+        prompts, extras = [r.prompt for r in reqs0], [r.extras for r in reqs0]
     else:
         prompts = [r.prompt for r in _serve_requests(cfg, args.max_new)]
     torch.cuda.synchronize()
@@ -2647,11 +2697,16 @@ def _mesh_case(torch, serve, job: dict, case: str, state: dict) -> dict:
         del plan  # the host copy: both engines hold theirs on the card
 
     def requests():
-        return [Request(uid=i, prompt=p, max_new_tokens=args.max_new)
+        return [Request(uid=i, prompt=p, max_new_tokens=args.max_new,
+                        extras=None if extras is None else extras[i])
                 for i, p in enumerate(prompts)]
 
     res = {"case": case, "coords": sl.mesh_coords(engine.mesh),
            "weight_bytes": engine.weight_bytes(), "whole_bytes": solo.weight_bytes()}
+    if engine.slot_xpages is not None:  # the frame pages a request, the rank's frame pools
+        res["xpages"] = [engine.xpages_per_seq,
+                         sum(t.nbytes for pools in engine.cache["x"] for t in pools.values()),
+                         sum(t.nbytes for pools in solo.cache["x"] for t in pools.values())]
     if case not in ("long", "chunked", "spec"):
         res["shards"] = _shard_checks(torch, cfg, whole, engine)
     layers = engine.params["layers"]
@@ -2673,7 +2728,14 @@ def _mesh_case(torch, serve, job: dict, case: str, state: dict) -> dict:
     # a MoE model's meshed engine takes the unsharded one's expert choices
     # for the ticks compared (``_SharedRouting``: its prefills and that
     # step), then routes on its own
-    want_lg = _first_decode_logits(solo)
+    # xLSTM: the first mLSTM layer's C after the first decode step
+    snap = None
+    if "mlstm" in cfg.layer_kinds:
+        i_m = cfg.layer_kinds.index("mlstm")
+
+        def snap(e):
+            return e.cache["layers"][i_m]["C"].to("cpu", torch.float32, copy=True)
+    want_lg = _first_decode_logits(solo, snap)
     routing = _SharedRouting(cfg)
     solo_reqs = requests()
     for r in solo_reqs:
@@ -2689,7 +2751,7 @@ def _mesh_case(torch, serve, job: dict, case: str, state: dict) -> dict:
                 solo.step()
         want = job["want"][case]
     del solo
-    got_lg = _first_decode_logits(engine)
+    got_lg = _first_decode_logits(engine, snap)
     counters = (*_served_kernels(), FA.flash_attention)
     _zero_launches(counters)
     reqs, ticks, first, reduces = requests(), [], {}, []
@@ -2717,16 +2779,95 @@ def _mesh_case(torch, serve, job: dict, case: str, state: dict) -> dict:
         diff = (got_lg[0][1][same] - want_lg[0][1][same]).abs().max().item()
         res["logit_err"] = diff / want_lg[0][1][same].abs().max().item()
     res["logit_rows"] = [len(same), len(live)]
+    if snap is not None and len(same):  # the rank's heads of the unsharded engine's C
+        mine, whole_c = got_lg[0][3][same], want_lg[0][3][same]
+        nh = mine.shape[1]
+        h0 = sl.mesh_coords(engine.mesh)["model"] * nh if nh < whole_c.shape[1] else 0
+        ref_c = whole_c[:, h0:h0 + nh]
+        res["mlstm_c"] = [h0, nh, (mine - ref_c).abs().max().item() / ref_c.abs().max().item()]
     res["route_flips"] = [routing.flips, routing.total]
     res["n_diff"] = _streams_near_tie(torch, cfg, whole,
                                       f"mesh {job['mesh']} {case} rank {state['rank']}",
-                                      prompts, want, got)
+                                      prompts, want, got, extras)
     res["digest"] = token_digest(got)
     res["tick_ms"] = _decode_tick_ms(ticks)
     res["max_mem"] = torch.cuda.max_memory_allocated()
     if case == "qwen2-moe":  # its build, in the rank's turn, before the engines
         res["build"] = state.pop("build")
     del engine, whole
+    torch.cuda.empty_cache()
+    return res
+
+
+def _mesh_mix_case(torch, serve, job: dict, state: dict) -> dict:
+    """The mixed phase's ``--workload-mix`` on the mesh: this rank's mixed
+    engine (every member on the mesh, one shared allocator on the host)
+    serves the phase's requests tick by tick, every member auditing every
+    tick and the union audit every tick; returns each member's streams
+    (held to the mixed phase's by the near-tie rule), the free list's
+    digest after every tick, the launches, bytes, memory and rank 0's
+    tick."""
+    import hashlib
+    import warnings
+
+    from repro_torch.distributed import shardlib as sl
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.serving.engine import RequestState
+
+    torch.cuda.reset_peak_memory_stats()
+    ap, args = _mix_args("--mesh", job["mesh"], "--share-card")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the contiguous member's paging warning
+        mix, apis, engine = serve.build_mixed(args, ap)
+    for e in engine.engines.values():
+        e.audit_every_step = True
+    engine._audit_every_step = True
+    first = next(iter(engine.engines.values()))
+    reqs = serve.mixed_requests(args, mix, apis, engine)
+    counters = (*_served_kernels(), FA.flash_attention)
+    _zero_launches(counters)
+    for arch, r in reqs:
+        engine.submit(arch, r)
+    torch.cuda.synchronize()
+    ticks, frees = [], hashlib.sha256()
+    while engine._busy():
+        s0 = engine.aggregate_stats()
+        t = time.perf_counter()
+        engine.step()  # with the union audit
+        torch.cuda.synchronize()
+        s1 = engine.aggregate_stats()
+        ticks.append((time.perf_counter() - t, s1.prefills - s0.prefills,
+                      s1.decode_steps - s0.decode_steps))
+        frees.update(repr(engine.allocator._free).encode())
+    got = {}
+    for arch, r in reqs:
+        got.setdefault(arch, []).append([int(t) for t in r.output])
+    n_diff = {}
+    for arch, eng in engine.engines.items():
+        want = job["want"]["mix"][arch]
+        mine = [r for a, r in reqs if a == arch]
+        if got[arch] != want:  # the member's whole weights for the near-tie rule
+            cfg = eng.cfg
+            whole = apis[arch][1].unstack(cfg, apis[arch][1].init_params(cfg, args.seed,
+                                                                         device=eng.device))
+            n_diff[arch] = _streams_near_tie(
+                torch, cfg, whole, f"mesh {job['mesh']} mix {arch} rank {state['rank']}",
+                [r.prompt for r in mine], want, got[arch], [r.extras for r in mine])
+            del whole
+        else:
+            n_diff[arch] = 0
+    dec = [t for t, p, d in ticks if p == 0 and d > 0]
+    res = {"case": "mix", "coords": sl.mesh_coords(first.mesh),
+           "weight_bytes": sum(e.weight_bytes() for e in engine.engines.values()),
+           "kv": {a: e.kv_parallel for a, e in engine.engines.items()},
+           "launches": {c.__name__: c.launches for c in counters},
+           "finished": all(r.state is RequestState.FINISHED for _, r in reqs)
+           and engine.allocator.used_pages == 0,
+           "n_diff": n_diff, "frees": frees.hexdigest(), "ticks": engine.tick,
+           "tick_ms": [1e3 * statistics.median(dec), len(dec)],
+           "digest": token_digest([got[a] for a in sorted(got)]),
+           "max_mem": torch.cuda.max_memory_allocated()}
+    del engine
     torch.cuda.empty_cache()
     return res
 
@@ -2745,9 +2886,15 @@ def _mesh_rank(rank: int, job: dict) -> None:
 
     quiet = contextlib.redirect_stdout(io.StringIO()) if rank else contextlib.nullcontext()
     state: dict = {"rank": rank}
+    results = []
     with quiet:
         gloo = _gloo_cuda_probe(torch, rank, dist.get_world_size())
-        results = [_mesh_case(torch, serve, job, case, state) for case in job["cases"]]
+        for case in job["cases"]:
+            results.append(_mesh_case(torch, serve, job, case, state))
+            # a case's engines sit in reference cycles (the spies on their
+            # steps): free them before the next case builds on the shared card
+            gc.collect()
+            torch.cuda.empty_cache()
     with open(os.path.join(job["out"], f"rank{rank}.json"), "w") as f:
         json.dump({"gloo_cuda": gloo, "cases": results}, f)
 
@@ -2756,11 +2903,7 @@ def phase_mesh(torch, want: dict, long_prompts: list, card: str) -> None:
     """Sharded serving (see the module doc): each of MESH_RUNS spawns its
     ranks on the card over gloo and checks what they return.  ``want``:
     the earlier phases' streams of each case (serve, long, spec, chunked,
-    granite, qwen2-moe, rg)."""
-    import tempfile
-
-    from repro_torch.launch import mesh as M
-
+    granite, qwen2-moe, rg, xlstm, whisper, internvl, mix)."""
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
     if len(long_prompts[-1]) != LONG_M:
@@ -2768,30 +2911,78 @@ def phase_mesh(torch, want: dict, long_prompts: list, card: str) -> None:
     log(f"mesh: this process holds {torch.cuda.memory_allocated() / 2**30:.2f} GiB of the "
         f"card ({torch.cuda.mem_get_info()[0] / 2**30:.2f} GiB free) as the ranks start")
     for spec, cases in MESH_RUNS:
-        d, m = M.parse_mesh(spec, "cuda")
-        world = d * m
-        backend = M.choose_backend(world, "cuda", share_card=True)
-        with tempfile.TemporaryDirectory() as out:
-            job = {"mesh": spec, "cases": cases, "out": out, "want": want,
-                   "long_prompts": [[int(t) for t in p] for p in long_prompts]}
-            t0 = time.perf_counter()
-            M.spawn_ranks(_mesh_rank, (job,), world, backend)
-            runs, gloo = [], []
-            for r in range(world):
-                with open(os.path.join(out, f"rank{r}.json")) as f:
-                    got = json.load(f)
-                runs.append(got["cases"])
-                gloo.append(got["gloo_cuda"])
-        log(f"mesh {spec}: {world} ranks over {backend} (ranks sharing one card) ran "
-            f"{', '.join(cases)} in {time.perf_counter() - t0:.1f}s; {backend}'s all_gather "
-            f"and all_reduce on CUDA {', '.join(gloo[0])} exact on every rank")
-        for ci, case in enumerate(cases):
-            _check_mesh_case(spec, case, [run[ci] for run in runs], card)
+        job = {"want": want, "long_prompts": [[int(t) for t in p] for p in long_prompts]}
+        for ci, rows in enumerate(_mesh_run(torch, spec, cases, job)):
+            _check_mesh_case(spec, cases[ci], rows, card)
     log(f"mesh: phase {time.perf_counter() - t_phase:.1f}s")
 
 
-def _check_mesh_case(spec: str, case: str, rows: list, card: str) -> None:
-    """Logs and checks one case's rows (one a rank); raises on any miss."""
+def _mesh_run(torch, spec: str, cases: tuple, job: dict) -> list:
+    """Spawns the ranks of mesh ``spec`` on the card over gloo, each serving
+    ``cases`` (``job`` adds what they need); returns each case's rows, one
+    a rank."""
+    import tempfile
+
+    from repro_torch.launch import mesh as M
+
+    d, m = M.parse_mesh(spec, "cuda")
+    world = d * m
+    backend = M.choose_backend(world, "cuda", share_card=True)
+    with tempfile.TemporaryDirectory() as out:
+        job = dict(job, mesh=spec, cases=cases, out=out)
+        t0 = time.perf_counter()
+        M.spawn_ranks(_mesh_rank, (job,), world, backend)
+        runs, gloo = [], []
+        for r in range(world):
+            with open(os.path.join(out, f"rank{r}.json")) as f:
+                got = json.load(f)
+            runs.append(got["cases"])
+            gloo.append(got["gloo_cuda"])
+    log(f"mesh {spec}: {world} ranks over {backend} (ranks sharing one card) ran "
+        f"{', '.join(cases)} in {time.perf_counter() - t0:.1f}s; {backend}'s all_gather "
+        f"and all_reduce on CUDA {', '.join(gloo[0])} exact on every rank")
+    return [[run[ci] for run in runs] for ci in range(len(cases))]
+
+
+def _check_mesh_mix(spec: str, rows: list, card: str) -> None:
+    """Logs and checks the mix case's rows (one a rank): every request
+    finished with the pool empty and every audit clean, each member's
+    streams the mixed phase's (near-tie rule), the same free list after
+    every tick and the same tick count on every rank, launches equal
+    within a data replica."""
+    label = f"mesh {spec} mix"
+    for r, row in enumerate(rows):
+        log(f"{label} rank {r} {row['coords']}: weight bytes {row['weight_bytes']:,} (its "
+            f"members' shards; kv shard degree {row['kv']}); stream tokens that differ "
+            f"(near-tie rule) {row['n_diff']}; launches {row['launches']}; "
+            f"max_memory_allocated {row['max_mem'] / 2**30:.2f} GiB; union audit clean every "
+            f"one of {row['ticks']} ticks; free lists {row['frees'][:16]}; tokens "
+            f"{row['digest']}")
+        if not row["finished"]:
+            raise AssertionError(f"{label} rank {r}: a request did not finish or a page leaked")
+        for k in MESH_CASE_KERNELS["mix"]:
+            if row["launches"][k] <= 0:
+                raise AssertionError(f"{label} rank {r}: {k} was not launched")
+    if len({(row["frees"], row["ticks"]) for row in rows}) != 1:
+        raise AssertionError(f"{label}: the ranks' free lists or tick counts differ")
+    for data in {row["coords"]["data"] for row in rows}:
+        peers = [row["launches"] for row in rows if row["coords"]["data"] == data]
+        if any(p != peers[0] for p in peers):
+            raise AssertionError(f"{label}: launches differ within data replica {data}: "
+                                 f"{peers}")
+    ms, n = rows[0]["tick_ms"]
+    log(f"{label}: rank 0's median mixed tick {ms:.3f} ms over {n} ticks with no prefill "
+        f"(ranks sharing one card over gloo: not a multi-card speed) ({card})")
+
+
+def _check_mesh_case(spec: str, case: str, rows: list, card: str, kernels=None,
+                     attention=None) -> None:
+    """Logs and checks one case's rows (one a rank); raises on any miss.
+    ``kernels`` / ``attention``: the kernels the run must launch and the
+    attention launches it replays, where MESH_CASE_KERNELS /
+    MESH_CASE_ATTENTION do not say (a tuned plan's)."""
+    if case == "mix":
+        return _check_mesh_mix(spec, rows, card)
     label = f"mesh {spec} {case}"
     M = int(spec.split("x")[1])
     for r, row in enumerate(rows):
@@ -2810,6 +3001,17 @@ def _check_mesh_case(spec: str, case: str, rows: list, card: str) -> None:
                f"{row['build'][0] / 2**30:.2f} GiB free at its start)"
                if "build" in row else "") + "; "
             f"tokens {row['digest']}")
+        if "xpages" in row:
+            n, mine, whole = row["xpages"]
+            log(f"{label} rank {r}: {n} frame pages a request; its frame pools {mine:,} of "
+                f"{whole:,} bytes whole")
+        if "mlstm_c" in row:
+            h0, nh, err = row["mlstm_c"]
+            log(f"{label} rank {r}: the first mLSTM layer's C after the first decode step, "
+                f"heads [{h0}, {h0 + nh}), max |d| {err:.3e} of the largest against the "
+                f"one-card engine's")
+            if not err <= PATH_RTOL:
+                raise AssertionError(f"{label} rank {r}: the mLSTM's C differs by {err:.3e}")
         for name, (kern, vs_whole, vs_plain) in row.get("shards", {}).items():
             log(f"{label} rank {r} {name}: {kern} on its shard, max rel err vs the "
                 f"whole leaf's columns {vs_whole if vs_whole is None else f'{vs_whole:.3e}'}"
@@ -2834,7 +3036,8 @@ def _check_mesh_case(spec: str, case: str, rows: list, card: str) -> None:
             if case == "spec" and kern == "paged_decode_attention" \
                     and json.loads(name.split(" ", 1)[1])[1] != SPEC_K + 1:
                 raise AssertionError(f"{label} rank {r}: the first B3 launch is {name}")
-        want_attn = MESH_CASE_ATTENTION.get(case, ("paged_decode_attention",))
+        want_attn = attention if attention is not None else \
+            MESH_CASE_ATTENTION.get(case, ("paged_decode_attention",))
         if sorted(v[0] for v in row["attention"].values()) != sorted(want_attn):
             raise AssertionError(f"{label} rank {r}: replayed {row['attention'].keys()}, "
                                  f"want {want_attn}")
@@ -2844,7 +3047,7 @@ def _check_mesh_case(spec: str, case: str, rows: list, card: str) -> None:
         if row["logit_err"] > PATH_RTOL:
             raise AssertionError(f"{label} rank {r}: the step's logits differ from the "
                                  f"unsharded step's by {row['logit_err']:.3e}")
-        for k in MESH_CASE_KERNELS.get(case, MESH_KERNELS):
+        for k in kernels or MESH_CASE_KERNELS.get(case, MESH_KERNELS):
             if row["launches"][k] <= 0:
                 raise AssertionError(f"{label} rank {r}: {k} was not launched")
         if case == "spec" and row["by_t"].get(str(SPEC_K + 1), 0) <= 0:
@@ -3823,18 +4026,6 @@ def phase_moe(torch, results: dict, card: str) -> None:
 # non-causal B6 over 1500 frames
 # ---------------------------------------------------------------------------
 
-WHISPER, INTERNVL = "whisper-tiny", "internvl2-2b"
-# whisper-tiny's pool: the null page, and for each of the 8 requests 4
-# decoder pages (40 + 16 tokens) and 94 frame pages (1500 frames).  The
-# CLI's own sizing leaves the frame pages out, as the reference's does
-# (ROADMAP C5): such a pool admits no request at full width
-WHISPER_POOL = 1 + 8 * (4 + 94)
-# internvl2-2b's sequences: 256 patches + 40 prompt + 16 new tokens
-INTERNVL_MAX_LEN = 320
-# internvl2-2b's long prompt: 256 patches + 1776 tokens = LONG_M positions
-INTERNVL_LONG = LONG_M - 256
-
-
 def _b3_cross_row(torch, timer, gen, results) -> None:
     """B3 non-causal at whisper-tiny's decode cross-attention: 8 sequences,
     T 1, 6/6 heads, hd 64, bf16 frame pages of 16 -- 1500 frames in 94 pages
@@ -4184,11 +4375,15 @@ def phase_encdec_vlm(torch, results: dict, card: str) -> None:
     versions (``_encdec_serve``); whisper's model path held to its plain
     versions (``_encdec_parity``); internvl's ``_path_parity`` at prompts
     of 36, 40 and 1776 tokens after its patches (B6 at 2032 positions, once
-    a layer) and its served long prompt (``_internvl_long``)."""
+    a layer) and its served long prompt (``_internvl_long``).  Returns each
+    family's kernel path's streams (the mesh phase holds its cases to
+    them)."""
     from repro_torch.kernels import flash_attention as FA
 
+    streams = {}
     for arch in (WHISPER, INTERNVL):
         serve, cfg, engine, plan, outputs = _encdec_serve(torch, results, arch, card)
+        streams[arch] = outputs
         gen = torch.Generator(device="cuda")
         gen.manual_seed(13)
         if arch == WHISPER:
@@ -4205,6 +4400,7 @@ def phase_encdec_vlm(torch, results: dict, card: str) -> None:
             _internvl_long(torch, results, serve, cfg, engine, plan, card)
         del engine, plan
         torch.cuda.empty_cache()
+    return streams
 
 
 # ---------------------------------------------------------------------------
@@ -4219,6 +4415,16 @@ RG_BITES = 4080
 XLSTM_LONG = 512
 # the mixed phase's workload (closed-loop, --compress none, pages of 16)
 MIX = "tinyllama-1.1b:2,recurrentgemma-2b:1,whisper-tiny:1"
+
+
+def _mix_args(*extra):
+    """The serve CLI's parser and the mixed phase's flags (and ``extra``)."""
+    from repro_torch.launch import serve
+
+    ap = serve.build_parser()
+    return ap, ap.parse_args(["--workload-mix", MIX, "--compress", "none", "--page-size", "16",
+                              "--requests", "8", "--max-new", "16", "--prompt-len", "40",
+                              "--max-batch", "8", "--max-len", "128", *extra])
 
 
 @contextlib.contextmanager
@@ -4596,8 +4802,8 @@ def phase_recurrent(torch, results: dict, card: str) -> None:
     ``_path_parity`` (prefills of 36, 40 and 2032 tokens -- xlstm: 512 --
     and teacher-forced decode), then the long prefill: recurrentgemma's
     served long prompts (``_rg_long``) and a timed prefill for each
-    (``_timed_prefill``: 2032 tokens, and xlstm's 512).  Returns
-    recurrentgemma's kernel path's streams."""
+    (``_timed_prefill``: 2032 tokens, and xlstm's 512).  Returns each
+    family's kernel path's streams."""
     streams = {}
     for arch in (RG, XLSTM):
         serve, cfg, engine, plan, streams[arch] = _recurrent_serve(torch, results, arch, card)
@@ -4611,7 +4817,7 @@ def phase_recurrent(torch, results: dict, card: str) -> None:
         _timed_prefill(torch, cfg, engine.params, long_n, gen, card)
         del engine, plan
         torch.cuda.empty_cache()
-    return streams[RG]
+    return streams
 
 
 def phase_mixed(torch, results: dict, card: str) -> None:
@@ -4625,7 +4831,8 @@ def phase_mixed(torch, results: dict, card: str) -> None:
     decoder layer a step, B6 non-causal once a whisper encoder or decoder
     layer a prefill, and B1, B2, B4, B5 never (no plan); each member's
     streams equal the member served alone over the same weights and
-    requests.  The tick time, tok/s and the pool's peak use are logged."""
+    requests.  The tick time, tok/s and the pool's peak use are logged.
+    Returns each member's streams."""
     import dataclasses as dc
     import warnings
 
@@ -4634,10 +4841,7 @@ def phase_mixed(torch, results: dict, card: str) -> None:
     from repro_torch.serving import mixed as PM
     from repro_torch.serving.engine import Request, RequestState, ServingEngine
 
-    ap = serve.build_parser()
-    args = ap.parse_args(["--workload-mix", MIX, "--compress", "none", "--page-size", "16",
-                          "--requests", "8", "--max-new", "16", "--prompt-len", "40",
-                          "--max-batch", "8", "--max-len", "128"])
+    ap, args = _mix_args()
     t0 = time.perf_counter()
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
@@ -4740,6 +4944,7 @@ def phase_mixed(torch, results: dict, card: str) -> None:
         del solo
     del engine
     torch.cuda.empty_cache()
+    return outputs
 
 
 # the autotune phase's tuned run: the CLI's defaults (the search space, the
@@ -5085,7 +5290,7 @@ def _autotune_steps(torch, results: dict, card: str, tmp: str) -> None:
         f"{s['max_batch']}; predicted {p['tokens_per_s']:.1f} tok/s vs uniform "
         f"{p['uniform_tokens_per_s']:.1f} ({p['speedup']:.4f}x; {HARDWARE_LABEL})")
     # (b) the winner through build_engine --autotune-plan, against plain
-    cfg, engine, plan, win_out, _ = _tuned_serve(torch, out, "autotune winner", card)
+    cfg, engine, plan, win_out, win_body = _tuned_serve(torch, out, "autotune winner", card)
     want = AT.predict_plan_stats(AT.model_leaves(cfg), _doc_candidate(doc), AT.SearchSpace())
     got = (plan.n_weights, plan.surviving_weights, plan.weight_bytes,
            plan.b_weight_effective, plan.q_overhead_effective)
@@ -5146,6 +5351,49 @@ def _autotune_steps(torch, results: dict, card: str, tmp: str) -> None:
         raise AssertionError("autotune: the plan cache's streams differ from the winner's")
     del engine, plan
     torch.cuda.empty_cache()
+    # (f) meshes: the search's screen over them, and (b)'s artifact on 1x2
+    _tuned_meshes(torch, cfg, doc, out, win_out, win_body, card)
+
+
+# the meshes the autotune phase screens (data, model)
+TUNE_MESHES = ((1, 1), (1, 2), (1, 4), (2, 1))
+
+
+def _tuned_meshes(torch, cfg, doc: dict, path: str, win_out: list, win_body: dict,
+                  card: str) -> None:
+    """(f) The tuner's mesh terms at full width: the CLI's search (anneal,
+    64 trials, seed 0) over each of TUNE_MESHES alone and over all of them,
+    its sparsity ceiling the one (a)'s oracle ruled (perf model only, H100
+    data-sheet constants), each predicted winner logged; then (b)'s
+    one-card artifact served by ``serve --autotune-plan PATH --mesh 1x2
+    --share-card`` ranks, its streams held to (b)'s by the near-tie rule and
+    the kernels (b) launched (``win_body``) launched on every rank."""
+    from repro_torch.core import autotune as AT
+    from repro_torch.core.perf_model import HARDWARE_LABEL
+
+    ceiling = float(doc["accuracy"]["max_q"])
+
+    def oracle(q):
+        return q <= ceiling + 1e-12
+
+    t0 = time.perf_counter()
+    for meshes in [(m,) for m in TUNE_MESHES] + [TUNE_MESHES]:
+        res = AT.search(cfg, space=AT.SearchSpace(meshes=meshes), strategy="anneal",
+                        trials=64, seed=0, accuracy=oracle)
+        p, b = res.prediction, res.best
+        log(f"autotune meshes {list(meshes)}: predicted winner on mesh {b.mesh}: "
+            f"{p.tokens_per_s:.1f} tok/s at batch {p.batch} (n_opt {p.n_opt:.1f}, balance "
+            f"{p.balance:.4f}), kv {b.kv_dtype}, page {b.page_size}, max q "
+            f"{p.stats.max_q:.2f}; uniform {res.uniform.tokens_per_s:.1f} ({HARDWARE_LABEL})")
+        if len(meshes) > 1 and tuple(b.mesh) not in TUNE_MESHES:
+            raise AssertionError(f"autotune meshes: a winner off the space: {b.mesh}")
+    log(f"autotune meshes: screened in {time.perf_counter() - t0:.1f}s (sparsity ceiling "
+        f"{ceiling:.2f} from (a)'s oracle)")
+    kernels = sorted({k.split()[0] for k, n in win_body.items() if n})
+    attention = ("paged_decode_attention",) if doc["serving"]["page_size"] else ()
+    job = {"want": {"tuned": win_out}, "tuned": path, "long_prompts": []}
+    rows = _mesh_run(torch, "1x2", ("tuned",), job)[0]
+    _check_mesh_case("1x2", "tuned", rows, card, kernels=kernels, attention=attention)
 
 
 def _train_args(*flags, arch: str = "tinyllama-1.1b"):
@@ -5729,11 +5977,13 @@ def main(argv=None) -> int:
     moe_outputs = run("moe", phase_moe, torch, results, card)
     want.update(granite=moe_outputs["granite-moe-1b-a400m"],
                 **{"qwen2-moe": moe_outputs["qwen2-moe-a2.7b"]})
-    run("encdec_vlm", phase_encdec_vlm, torch, results, card)
-    want["rg"] = run("recurrent", phase_recurrent, torch, results, card)
+    ev = run("encdec_vlm", phase_encdec_vlm, torch, results, card)
+    want.update(whisper=ev[WHISPER], internvl=ev[INTERNVL])
+    rec = run("recurrent", phase_recurrent, torch, results, card)
+    want.update(rg=rec[RG], xlstm=rec[XLSTM])
+    want["mix"] = run("mixed", phase_mixed, torch, results, card)
     run("mesh", phase_mesh, torch, want, long_prompts, card)
-    for name, phase in (("mixed", phase_mixed), ("autotune", phase_autotune)):
-        run(name, phase, torch, results, card)
+    run("autotune", phase_autotune, torch, results, card)
     run("train", phase_train, torch, card)
     log(f"phase wall seconds: {json.dumps(took)}")
     _check_family_rows(results)

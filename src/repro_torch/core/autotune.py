@@ -21,8 +21,10 @@ ships as a plan artifact that the serving engine loads.
                  (B1, B2, B4) needs at the candidate's block edge.
 
 Search knobs (one ``Candidate``): per-leaf-group (kind, q_prune), block
-size, kv_dtype, page size, spec_k and the mesh, which the tuner takes
-only as (1, 1) (meshes in the search are ROADMAP A13b).  Two strategies behind one
+size, kv_dtype, page size, spec_k and the (data, model) mesh, which
+``predict`` charges as the reference does: the weight stream and the MACs
+over the model axis, the KV stream and the pool over the degree the KV
+heads split by, the batch over the data replicas.  Two strategies behind one
 ``search()``: a seeded random sweep and simulated annealing with per-knob
 neighbourhood moves, both seeded by ``np.random.default_rng(seed)`` and
 drawing as the reference's do, so that equal inputs give the reference's
@@ -78,8 +80,10 @@ class SearchSpace:
     The FIRST element of every tuple is the uniform default -- the candidate
     every search seeds trial 0 with.  Ordered knobs (q_prunes, blocks,
     page_sizes, spec_ks) are listed monotonically: the annealer's moves
-    step to adjacent values.  ``meshes`` other than ((1, 1),) are refused:
-    tuning over meshes is ROADMAP A13b."""
+    step to adjacent values.  ``meshes`` lists (data, model) degrees; the
+    CLI searches one card, and a caller reaches meshes through this field
+    (a served artifact takes its mesh from the caller, as the reference's
+    does)."""
 
     q_prunes: tuple = (0.0, 0.25, 0.5, 0.75)
     kinds: tuple = ("quant_sparse", "block_sparse", "quant", "dense")
@@ -109,10 +113,6 @@ class SearchSpace:
             raise ValueError("page sizes must be >= 0 (0 = contiguous)")
         if any(k < 0 for k in self.spec_ks):
             raise ValueError("spec_k values must be >= 0")
-        if tuple(tuple(m) for m in self.meshes) != ((1, 1),):
-            raise NotImplementedError(
-                f"meshes {self.meshes}: the tuner searches one card; meshes in the "
-                "search are ROADMAP A13b")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -389,11 +389,15 @@ def _infeasible(reason: str, stats: PlanStats, kv_tok: float, ctx: int) -> Predi
 
 def predict(cfg, cand: Candidate, space: SearchSpace, cons: Constraints) -> Prediction:
     """Score one candidate: modeled tokens/s at its feasible batch, or the
-    ceiling it violates.  Perf-model arithmetic only; one card (the only
-    mesh ``SearchSpace`` admits)."""
+    ceiling it violates.  Perf-model arithmetic only; the candidate's mesh
+    (d, m) charges d data replicas, m model-parallel cards and a KV split
+    of m where m divides the KV heads (else 1), line for line as the
+    reference's."""
     from repro_torch.models import api as MA
 
     stats = predict_plan_stats(model_leaves(cfg), cand, space)
+    d, m = int(cand.mesh[0]), int(cand.mesh[1])
+    kv_m = m if (m > 1 and cfg.n_kv_heads % m == 0) else 1
     kv_dt = "int8" if cand.kv_dtype == "int8" else None
     paged = cand.page_size > 0
     alloc_ctx = min(cons.max_len, cons.prompt_len + cons.max_new)
@@ -415,11 +419,14 @@ def predict(cfg, cand: Candidate, space: SearchSpace, cons: Constraints) -> Pred
         b_weight=stats.b_weight_effective,
         peak_flops=cons.peak_flops,
         hbm_bw=cons.hbm_bw,
+        n_chips=d,
         q_prune=stats.q_prune_effective,
         q_overhead=stats.q_overhead_effective,
         sparse_compute=True,
         kv_bytes_per_token=kv_tok,
         context_len=ctx,
+        model_parallel=m,
+        kv_parallel=kv_m,
         spec_k=cand.spec_k,
         spec_accept=space.spec_accept if cand.spec_k > 0 else 0.0,
         draft_n_params=space.draft_n_params if cand.spec_k > 0 else 0,
@@ -428,7 +435,7 @@ def predict(cfg, cand: Candidate, space: SearchSpace, cons: Constraints) -> Pred
 
     # -- KV memory ceiling (pool bytes per card) ----------------------------
     if paged:
-        page_bytes = cand.page_size * store_tok
+        page_bytes = cand.page_size * store_tok / kv_m
         per_seq = pm.pages_for_context(alloc_ctx, cand.page_size)
         cap = int((cons.pool_bytes / page_bytes) / max(1, per_seq) / 1.1) + 2
         while cap > 0 and (pm.paged_pool_pages(cap, alloc_ctx, cand.page_size) * page_bytes
@@ -436,7 +443,7 @@ def predict(cfg, cand: Candidate, space: SearchSpace, cons: Constraints) -> Pred
             cap -= 1
         batch = min(batch, cap)
     else:
-        per_seq_bytes = cons.max_len * store_tok
+        per_seq_bytes = cons.max_len * store_tok / kv_m
         batch = min(batch, int(cons.pool_bytes // max(1.0, per_seq_bytes)))
     if batch < 1:
         return _infeasible("kv-pool", stats, kv_tok, ctx)
@@ -450,7 +457,7 @@ def predict(cfg, cand: Candidate, space: SearchSpace, cons: Constraints) -> Pred
     # check; memory-bound candidates (n_opt = inf) report balance 0
     kw = dict(q_prune=stats.q_prune_effective, q_overhead=stats.q_overhead_effective,
               sparse_compute=True, n_params=stats.n_weights, kv_bytes_per_token=kv_tok,
-              context_len=ctx)
+              context_len=ctx, model_parallel=m, kv_parallel=kv_m)
     if cand.spec_k > 0:
         n_f = pm.spec_decode_n_opt(cand.spec_k, cons.peak_flops, cons.hbm_bw,
                                    stats.b_weight_effective, **kw)
@@ -461,8 +468,9 @@ def predict(cfg, cand: Candidate, space: SearchSpace, cons: Constraints) -> Pred
         tt = pm.decode_step_time(
             stats.n_weights, n_f * (cand.spec_k + 1),
             kv_tok / (cand.spec_k + 1) if cand.spec_k > 0 else kv_tok, ctx,
-            cons.peak_flops, cons.hbm_bw, stats.b_weight_effective, 1,
-            stats.q_prune_effective, stats.q_overhead_effective, True)
+            cons.peak_flops, cons.hbm_bw, stats.b_weight_effective, d,
+            stats.q_prune_effective, stats.q_overhead_effective, True,
+            model_parallel=m, kv_parallel=kv_m)
         balance = tt["t_calc"] / tt["t_mem"]
     return Prediction(True, "", tps, int(batch), float(n_f), balance, kv_tok, ctx,
                       num_pages, stats)

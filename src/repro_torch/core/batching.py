@@ -132,15 +132,18 @@ class BatchSizer:
     1 - q_prune).  ``kv_bytes_per_token`` at ``context_len``: per-sample
     cache reads, which never amortize with the batch.  ``model_parallel`` /
     ``kv_parallel``: the cards of one model group and the degree the KV
-    cache shards by.  ``spec_k`` draft tokens a tick make the verify step's
-    batch B * (k+1) (the KV pages are read once a tick); ``spec_accept`` is
-    the per-draft acceptance the engine feeds back (``observe_accept``), and
-    ``draft_n_params`` charges the k+1 draft steps a tick."""
+    cache shards by; ``n_chips`` scales a tick's time uniformly (data
+    replicas splitting the batch), as in the reference.  ``spec_k`` draft
+    tokens a tick make the verify step's batch B * (k+1) (the KV pages are
+    read once a tick); ``spec_accept`` is the per-draft acceptance the
+    engine feeds back (``observe_accept``), and ``draft_n_params`` charges
+    the k+1 draft steps a tick."""
 
     n_params: int
     b_weight: float = 2.0
     peak_flops: float = pm.H100_PEAK_FLOPS
     hbm_bw: float = pm.H100_HBM_BW
+    n_chips: int = 1
     max_latency_s: float | None = None
     q_prune: float = 0.0
     q_overhead: float = 1.0
@@ -209,7 +212,8 @@ class BatchSizer:
         kv0 = self.kv_bytes_per_token if kv_bytes_per_token is None else kv_bytes_per_token
         kv = kv0 / (self.spec_k + 1) if self.spec_k > 0 else kv0
         ctx = self.context_len if context_len is None else context_len
-        common = dict(peak_flops=self.peak_flops, hbm_bw=self.hbm_bw, b_weight=self.b_weight)
+        common = dict(peak_flops=self.peak_flops, hbm_bw=self.hbm_bw, b_weight=self.b_weight,
+                      n_chips=self.n_chips)
         model = dict(q_prune=self.q_prune, q_overhead=self.q_overhead,
                      sparse_compute=self.sparse_compute, model_parallel=self.model_parallel,
                      kv_parallel=self.kv_parallel)

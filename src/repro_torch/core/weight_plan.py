@@ -862,7 +862,7 @@ def _model_split(entry, what: str) -> bool:
     if entry == "model":
         return True
     raise NotImplementedError(f"{what}: a weight sharded over {entry!r}; serving shards "
-                              f"weights over the model axis only (ROADMAP A13b)")
+                              f"weights over the model axis only (ROADMAP A13c)")
 
 
 def _local_packed(node: PackedLinear, parts: int, idx: int) -> PackedLinear:

@@ -401,13 +401,22 @@ def local_shape(shape, spec: tuple, mesh) -> tuple:
                  for n, e in zip(shape, tuple(spec) + (None,) * (len(shape) - len(spec))))
 
 
-def local_zeros(tree, axes_tree, mesh, rules: dict, device):
+def local_zeros(tree, axes_tree, mesh, rules: dict, device, start=None):
     """Zeros of this rank's piece of every leaf of ``tree`` (meta tensors
     give the whole shapes and dtypes) by its logical axes: a sharded cache
-    allocated as pieces."""
+    allocated as pieces.  ``start``, a tree like ``tree`` whose every leaf
+    holds one value throughout (a cache of one slot), gives each leaf that
+    value instead of zero (the xLSTM stabilizers start at -1e30)."""
+    values = []
+    if start is not None:
+        map_leaves(lambda t, ax: values.append(t.flatten()[0].item()), start, None)
+    values = iter(values)
+
     def one(t, ax):
         spec = _resolve(mesh, rules, tuple(ax) if ax else (None,) * t.dim(), t.shape)
-        return torch.zeros(local_shape(t.shape, spec, mesh), dtype=t.dtype, device=device)
+        out = torch.zeros(local_shape(t.shape, spec, mesh), dtype=t.dtype, device=device)
+        v = next(values, 0)
+        return out.fill_(v) if v else out
 
     return map_leaves(one, tree, axes_tree)
 

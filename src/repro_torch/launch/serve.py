@@ -14,14 +14,17 @@ rank 0 prints the reference's lines plus the ``[serve] mesh`` line.  Ranks
 meet over NCCL when each owns a card, over gloo on the CPU (one torch
 thread each) or, with ``--share-card``, when more ranks than cards share
 them; without it more ranks than cards is refused, as the reference
-refuses more ranks than devices.  A mesh serves the dense decoder
-families, the MoE family (each rank holds its share of the experts, or
-under ``rules_for``'s "expert_ff" rule its share of every expert's FFN
-width) and recurrentgemma-2b (the RG-LRU's channels split), with
-speculative decode (``--draft-config``/``--spec-k``) and chunked prefill
-(``--prefill-chunk``) too; xLSTM layers, the audio and vlm families and
-``--workload-mix`` are refused by name before any rank starts (ROADMAP
-A13b).
+refuses more ranks than devices.  A mesh serves every arch: the dense
+decoder families, the MoE family (each rank holds its share of the
+experts, or under ``rules_for``'s "expert_ff" rule its share of every
+expert's FFN width), recurrentgemma-2b (the RG-LRU's channels split),
+xlstm-350m (the mLSTM's heads split, the sLSTM whole on every rank),
+whisper-tiny (the encoder and both attentions on the rank's heads, its
+frame pages on its KV heads) and internvl2-2b (the projector replicated),
+with speculative decode (``--draft-config``/``--spec-k``), chunked prefill
+(``--prefill-chunk``) and ``--workload-mix`` too (every rank runs the
+mixed engine over its members' shards; the shared allocator stays on the
+host); it refuses nothing.
 ``--autotune-plan PATH`` serves a TunedPlan artifact (``core/autotune``,
 written by ``python -m repro_torch.launch.autotune`` or the reference's
 tool): its plan replaces ``--compress`` (refused beside it), its serving
@@ -54,9 +57,10 @@ all, serves ``--kv-dtype int8`` in the compute dtype.
 families through one ``MixedServingEngine``: one tick runs each family's
 own step, the paged families draw from one shared page pool, and
 ``--requests`` splits by weight.  It is closed-loop and uncompressed, as in
-the reference: ``--compress``, ``--draft-config``, ``--trace`` and
-``--arrival-rate`` are refused, and an enc-dec member serves an fp cache
-under ``--kv-dtype int8`` while the others serve int8.
+the reference: ``--arch``, ``--autotune-plan``, ``--compress``,
+``--draft-config``, ``--trace`` and ``--arrival-rate`` are refused, and an
+enc-dec member serves an fp cache under ``--kv-dtype int8`` while the
+others serve int8.
 """
 
 from __future__ import annotations
@@ -87,8 +91,8 @@ from repro_torch.models.api import (
     supports_int8_kv,
     supports_paged_kv,
 )
-from repro_torch.serving.config import SpecConfig, config_from_args
-from repro_torch.serving.engine import Request, ServingEngine, mesh_refusal
+from repro_torch.serving.config import config_from_args
+from repro_torch.serving.engine import Request, ServingEngine
 from repro_torch.serving.faultinject import TickClock
 from repro_torch.serving.loadgen import (
     LengthMixture,
@@ -201,9 +205,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--autotune-plan", default=None, metavar="PATH")
     ap.add_argument("--mesh", default="none", metavar="SPEC",
                     help="sharded serving: 'none', 'host' (1 x every card) or 'DxM' "
-                         "(D data replicas of M tensor-parallel ranks); serves the dense, "
-                         "MoE and recurrentgemma archs, plain, speculative or chunked; "
-                         "refuses xLSTM, audio, vlm and --workload-mix")
+                         "(D data replicas of M tensor-parallel ranks); serves every arch "
+                         "and --workload-mix, plain, speculative or chunked")
     ap.add_argument("--share-card", action="store_true",
                     help="let more --mesh ranks than cards share them (over gloo)")
     ap.add_argument("--draft-config", default=None, choices=C.ARCH_IDS, metavar="ARCH",
@@ -241,26 +244,22 @@ def _device_type(args) -> str:
     return resolve_device(args.device).type
 
 
-def _refuse_on_mesh(args, ap, cfg) -> None:
-    """What a mesh does not serve yet exits before any rank starts
-    (``engine.mesh_refusal``, which reads only whether a mesh is set)."""
-    probe = dataclasses.replace(config_from_args(args), mesh=args.mesh,
-                                spec=SpecConfig(spec_k=max(0, args.spec_k)))
-    reason = mesh_refusal(cfg, probe)
-    if reason is not None:
-        ap.error(reason)
+def serving_mesh(args):
+    """The run's (data, model) mesh over its ranks, None without ``--mesh``."""
+    shape = M.parse_mesh(args.mesh, _device_type(args))
+    if shape is None:
+        return None
+    backend = (dist.get_backend() if dist.is_initialized()
+               else M.choose_backend(1, _device_type(args)))
+    return M.make_serving_mesh(shape, backend)
 
 
 def build_mesh(args, ap, cfg):
     """The run's mesh, its rules and (data, model, kv) degrees; prints the
     reference's ``[serve] mesh`` line.  (None, None, (1, 1, 1)) without one."""
-    shape = M.parse_mesh(args.mesh, _device_type(args))
-    if shape is None:
+    mesh = serving_mesh(args)
+    if mesh is None:
         return None, None, (1, 1, 1)
-    _refuse_on_mesh(args, ap, cfg)
-    backend = (dist.get_backend() if dist.is_initialized()
-               else M.choose_backend(1, _device_type(args)))
-    mesh = M.make_serving_mesh(shape, backend)
     rules = M.rules_for(cfg, None, mesh=mesh)
     degrees = sl.parallelism_degrees(mesh, rules, int(getattr(cfg, "n_kv_heads", 0) or 0))
     print(f"[serve] mesh {sl.axis_sizes(mesh)}: data-parallel {degrees[0]}, model-parallel "
@@ -531,19 +530,26 @@ _MIX_REFUSED = (
 )
 
 
+def check_mix_flags(args, ap) -> None:
+    """Exit 2 for a flag ``--workload-mix`` refuses, as the reference's CLI
+    does (before any rank starts)."""
+    for flag, ok in _MIX_REFUSED:
+        if not ok(args):
+            ap.error(f"--workload-mix is closed-loop heterogeneous serving; drop {flag}")
+
+
 def build_mixed(args, ap):
     """The mixed engine for ``--workload-mix``: each family's params from
     ``--seed`` and its EngineConfig from the flags (the sizer charged the
     mean decode context of a paged family, ``--max-len`` of a contiguous
-    one; an enc-dec member's int8 KV downgraded to fp).  Returns (the mix,
-    {arch: (cfg, api)}, the engine)."""
-    for flag, ok in _MIX_REFUSED:
-        if not ok(args):
-            ap.error(f"--workload-mix is closed-loop heterogeneous serving; drop {flag}")
-    if args.mesh != "none":
-        ap.error("--mesh: mixed-family serving under a mesh is not served yet: ROADMAP A13b")
+    one; an enc-dec member's int8 KV downgraded to fp).  Under ``--mesh``
+    every member carries the mesh and its own ``rules_for``, as the
+    reference's members do, and this rank holds each member's shards.
+    Returns (the mix, {arch: (cfg, api)}, the engine)."""
+    check_mix_flags(args, ap)
     mix = parse_mix(args.workload_mix, ap)
     device = resolve_device(args.device)
+    mesh = serving_mesh(args)
     specs, apis = [], {}
     for arch, weight in mix:
         cfg = C.get_config(arch, smoke=args.smoke)
@@ -551,7 +557,9 @@ def build_mixed(args, ap):
         params = api.init_params(cfg, args.seed, device=device)
         paged = args.page_size > 0 and supports_paged_kv(cfg)
         ctx = mean_decode_context(args.prompt_len + api.prefix_len(cfg), args.max_new)
-        ec = config_from_args(args, expected_context=ctx if paged else None)
+        rules = M.rules_for(cfg, None, mesh=mesh) if mesh is not None else None
+        ec = config_from_args(args, expected_context=ctx if paged else None, mesh=mesh,
+                              rules=rules)
         if ec.cache.kv_dtype and not supports_int8_kv(cfg):
             # per family, not per run: whisper keeps an fp cache while the
             # text member of the same mix serves int8
@@ -561,6 +569,11 @@ def build_mixed(args, ap):
     engine = MixedServingEngine(specs, num_pages=args.pool_pages or None, device=device)
     print("[serve] workload mix: " + ", ".join(f"{a}:{w:g}" for a, w in mix)
           + f" (one engine, {len(mix)} families' steps)")
+    if mesh is not None:
+        first = next(iter(engine.engines.values()))
+        print(f"[serve] mesh {sl.axis_sizes(mesh)}: data-parallel {first.data_parallel}, "
+              f"model-parallel {first.model_parallel}, kv shard degree "
+              + ", ".join(f"{a} {e.kv_parallel}" for a, e in engine.engines.items()))
     if engine.allocator is not None:
         print(f"[serve] shared page pool: {engine.num_pages} pages x {args.page_size} tok "
               f"across {sum(e.paged for e in engine.engines.values())} paged families")
@@ -634,14 +647,12 @@ def _rank_main(rank: int, argv, device_type: str) -> None:
 def launch_ranks(argv, args, ap) -> bool:
     """Start the ranks of ``--mesh DxM`` (D*M > 1) unless this process is
     one already (spawned, or under torchrun).  Returns whether it did."""
-    if args.workload_mix or dist.is_initialized() or "WORLD_SIZE" in os.environ:
+    if dist.is_initialized() or "WORLD_SIZE" in os.environ:
         return False
     device_type = _device_type(args)
     shape = M.parse_mesh(args.mesh, device_type)
     if shape is None or shape[0] * shape[1] == 1:
         return False
-    if args.arch:
-        _refuse_on_mesh(args, ap, C.get_config(args.arch, smoke=args.smoke))
     world = shape[0] * shape[1]
     try:
         backend = M.choose_backend(world, device_type, args.share_card)
@@ -678,7 +689,7 @@ def main(argv=None):
     ap = build_parser()
     args = ap.parse_args(argv)
     if args.workload_mix:
-        return main_mixed(args, ap)
+        check_mix_flags(args, ap)
     if launch_ranks(argv, args, ap):
         return None
     own = not dist.is_initialized()  # a group this call joins, it leaves
@@ -686,7 +697,7 @@ def main(argv=None):
         _join_torchrun(args)
     try:
         with _stdout_off(own and dist.is_initialized() and dist.get_rank() != 0):
-            return serve_args(args, ap)
+            return main_mixed(args, ap) if args.workload_mix else serve_args(args, ap)
     finally:
         if own and dist.is_initialized():
             dist.destroy_process_group()

@@ -22,6 +22,16 @@ reference's paged step gathers the frame pages, slices them to n_frames
 and runs its kernel over an identity table; B3's plain version (gather,
 then non-causal decode attention) is that path.
 
+On a mesh (``distributed/shardlib``) every attention -- the encoder's,
+the decoder's self- and cross-attention -- runs on the rank's heads
+(``layers.head_plan``, as ``transformer.py`` does): each projection on the
+rank's shard of its weight, ``wo`` and the MLP's down-projection
+all-reduced where their contraction splits, and where the model axis does
+not divide the heads they stay whole (the kv fallback).  The self and
+frame pools hold the rank's KV heads (``_XKV_PAGES_AXES``), the frame
+table and the allocator stay on the host, equal on every rank, and a
+decode step runs the data replica's rows.
+
 Training (``forward``, ``loss_fn``) is the reference's teacher-forced
 pass on the stacked tree, with per-layer ``unbind`` views taken anew each
 step (``transformer.unbind_stack``): every attention goes through
@@ -36,7 +46,7 @@ import functools
 
 import torch
 
-from repro_torch.core.weight_plan import apply_linear
+from repro_torch.core.weight_plan import sharded_linear
 from repro_torch.distributed import shardlib as sl
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
@@ -119,37 +129,35 @@ def unstack(cfg, params) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _qkv(cfg, p, h):
-    B, S, _ = h.shape
-    H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = apply_linear(h, p["wq"]).reshape(B, S, H, hd)
-    k = apply_linear(h, p["wk"]).reshape(B, S, KVH, hd)
-    v = apply_linear(h, p["wv"]).reshape(B, S, KVH, hd)
-    return q, k, v
-
-
-def _out(cfg, p, o):
-    B, S = o.shape[:2]
-    return apply_linear(o.reshape(B, S, cfg.n_heads * cfg.hd), p["wo"])
+def _read(t: torch.Tensor, hp: L.HeadPlan) -> torch.Tensor:
+    """The KV heads the rank's q heads read of t (B, S, npool, hd), packed
+    where they are a part of the pool's."""
+    r = L.read_heads(t, hp)
+    return r.contiguous() if r.shape[2] != t.shape[2] else r
 
 
 def _self_block(cfg, p, x, *, causal: bool, attend):
     """Self-attention over all of x (encoder: non-causal; decoder: causal)
-    through ``attend(q, k, v, causal=)``; returns (x + attention, k, v)."""
+    through ``attend(q, k, v, causal=)`` on the rank's heads; returns (x +
+    attention, k, v), k and v of the rank's pool heads."""
+    hp = L.head_plan(cfg)
     h = L.apply_norm(p["ln1"], x, NORM)
-    q, k, v = _qkv(cfg, p["attn"], h)
-    o = attend(q, k, v, causal=causal)
-    return x + _out(cfg, p["attn"], o), k, v
+    q, k, v = L.qkv_heads(cfg, p["attn"], h, hp)
+    o = attend(q, _read(k, hp), _read(v, hp), causal=causal)
+    return x + L.out_proj(cfg, p["attn"], o, hp), k, v
 
 
 def _mlp_block(cfg, p, x):
     return x + L.apply_mlp(cfg, p["mlp"], L.apply_norm(p["ln2"], x, NORM))
 
 
-def _cross_q(cfg, p, x):
+def _cross_q(cfg, p, x, hp: L.HeadPlan):
+    """The cross-attention's q (B, S, nq, hd) of the rank's q heads."""
     h = L.apply_norm(p["lnx"], x, NORM)
     B, S, _ = h.shape
-    return apply_linear(h, p["xattn"]["wq"]).reshape(B, S, cfg.n_heads, cfg.hd)
+    q, qs = sharded_linear(h, p["xattn"]["wq"])
+    q = sl.cols(q, qs, hp.q0 * cfg.hd, hp.nq * cfg.hd).contiguous()
+    return q.reshape(B, S, hp.nq, cfg.hd)
 
 
 def _encode(cfg, layers, enc_norm, frames, attend):
@@ -162,20 +170,24 @@ def _encode(cfg, layers, enc_norm, frames, attend):
 
 def encode(cfg, params, frames, *, use_kernel: bool = True):
     """frames (B, n_frames, d) precomputed frame embeddings (the frontend
-    stub) -> the encoder's output (B, n_frames, d) in the compute dtype.
-    ``params`` is the ``unstack`` view."""
+    stub) -> the encoder's output (B, n_frames, d) in the compute dtype,
+    whole on every rank of a mesh.  ``params`` is the ``unstack`` view."""
     return _encode(cfg, params["enc"], params["enc_norm"], frames,
                    functools.partial(L.attention, use_kernel=use_kernel))
 
 
 def _enc_cross_kv(cfg, layers, enc_out) -> list:
-    """Each decoder layer's cross-attention (k, v), (B, Sf, KVH, hd), from
-    the encoder's output."""
+    """Each decoder layer's cross-attention (k, v), (B, Sf, npool, hd) of
+    the rank's pool heads, from the encoder's output."""
     B, Sf, _ = enc_out.shape
-    KVH, hd = cfg.n_kv_heads, cfg.hd
-    return [(apply_linear(enc_out, p["xattn"]["wk"]).reshape(B, Sf, KVH, hd),
-             apply_linear(enc_out, p["xattn"]["wv"]).reshape(B, Sf, KVH, hd))
-            for p in layers]
+    hp, hd = L.head_plan(cfg), cfg.hd
+
+    def heads(w):
+        y, split = sharded_linear(enc_out, w)
+        y = sl.cols(y, split, hp.pool0 * hd, hp.npool * hd).contiguous()
+        return y.reshape(B, Sf, hp.npool, hd)
+
+    return [(heads(p["xattn"]["wk"]), heads(p["xattn"]["wv"])) for p in layers]
 
 
 # ---------------------------------------------------------------------------
@@ -192,10 +204,11 @@ def decode_train(cfg, params, tokens, enc_out):
     S = tokens.shape[1]
     x = L.embed_tokens(cfg, params["embed"], tokens)
     x = x + params["pos_dec"][None, :S].to(x.dtype)
+    hp = L.head_plan(cfg)
     for p, (xk, xv) in zip(layers, _enc_cross_kv(cfg, layers, enc_out)):
         x, _, _ = _self_block(cfg, p, x, causal=True, attend=L.train_attention)
-        o = L.train_attention(_cross_q(cfg, p, x), xk, xv, causal=False)
-        x = _mlp_block(cfg, p, x + _out(cfg, p["xattn"], o))
+        o = L.train_attention(_cross_q(cfg, p, x, hp), xk, xv, causal=False)
+        x = _mlp_block(cfg, p, x + L.out_proj(cfg, p["xattn"], o, hp))
     x = L.apply_norm(params["final_norm"], x, NORM)
     return L.unembed(cfg, params["embed"], x)
 
@@ -294,7 +307,9 @@ def prefill(cfg, params, tokens, frames, cache, *, use_kernel: bool = True):
     prompt, filling the contiguous cache in place (self-attention k/v at
     positions 0..S-1, the cross-attention xk/xv).  Returns (last-position
     logits (B, 1, V), cache).  ``use_kernel=False`` runs the flash
-    attention's plain version on the card."""
+    attention's plain version on the card.  On a mesh the rank runs its
+    heads and fills its cache's KV heads."""
+    hp = L.head_plan(cfg)
     enc_out = encode(cfg, params, frames, use_kernel=use_kernel)
     xkv = _enc_cross_kv(cfg, params["layers"], enc_out)
     B, S = tokens.shape
@@ -305,8 +320,9 @@ def prefill(cfg, params, tokens, frames, cache, *, use_kernel: bool = True):
                               attend=functools.partial(L.attention, use_kernel=use_kernel))
         c["k"][:, :S] = k.to(c["k"].dtype)
         c["v"][:, :S] = v.to(c["v"].dtype)
-        o = L.attention(_cross_q(cfg, p, x), xk, xv, causal=False, use_kernel=use_kernel)
-        x = _mlp_block(cfg, p, x + _out(cfg, p["xattn"], o))
+        o = L.attention(_cross_q(cfg, p, x, hp), _read(xk, hp), _read(xv, hp), causal=False,
+                        use_kernel=use_kernel)
+        x = _mlp_block(cfg, p, x + L.out_proj(cfg, p["xattn"], o, hp))
         c["xk"].copy_(xk.to(c["xk"].dtype))
         c["xv"].copy_(xv.to(c["xv"].dtype))
     x = L.apply_norm(params["final_norm"], x[:, -1:], NORM)
@@ -326,49 +342,42 @@ def _embed_decode(cfg, params, tokens, pos):
 def decode_step(cfg, params, cache, tokens, pos, *, use_kernel: bool = True):
     """One decoder step over T new tokens per sequence (tokens (B, T), pos
     (B,) int32 the position of tokens[:, 0]) against the self and cross
-    caches, updated in place.  Returns (logits (B, T, V), cache).  A paged
-    cache (with ``page_table``) goes through ``_paged_decode_step``.  On
-    the contiguous cache the cross-attention is ``layers.
-    cross_decode_attention`` (B3 over an identity table on the card).
-    ``use_kernel=False`` runs B3's plain version on the card."""
-    if "page_table" in cache:
-        return _paged_decode_step(cfg, params, cache, tokens, pos, use_kernel=use_kernel)
+    caches, updated in place.  Returns (logits (B, T, V), cache).  The
+    self-attention is ``layers.apply_attn`` without RoPE, contiguous or
+    through ``page_table`` (B3, causal); the cross-attention reads the
+    contiguous pool through ``layers.cross_decode_attention`` (B3 over an
+    identity table on the card) or each slot's frame pages through
+    ``xpage_table``, B3 with ``causal=False`` at pos = n_frames - 1, so
+    every query sees the frames and none of the last page's stale tail
+    (dead slots' rows point at the null page: row-local garbage nobody
+    reads).  ``use_kernel=False`` runs B3's plain version on the card.  On
+    a mesh the rank decodes its data replica's rows on its heads, as
+    ``transformer.decode_step`` does, and every rank returns the whole
+    batch's logits."""
+    rows = sl.data_rows(tokens.shape[0])
+    tokens, pos = sl.shard(tokens, "batch", None), sl.shard(pos, "batch")
+    hp = L.head_plan(cfg)
+    kv_heads = None if hp.nkv == hp.npool else hp.kv_in_pool
+    table = cache.get("page_table")
+    xtable = cache.get("xpage_table")
+    if xtable is not None and rows is not None:
+        xtable = xtable[rows]
+    xpos = torch.full((tokens.shape[0],), cfg.n_frames - 1, dtype=torch.int32,
+                      device=tokens.device)
     x = _embed_decode(cfg, params, tokens, pos)
-    for p, c in zip(params["layers"], cache["layers"]):
+    xpools = cache.get("x", [None] * len(cache["layers"]))
+    for p, c, cx in zip(params["layers"], cache["layers"], xpools):
         h = L.apply_norm(p["ln1"], x, NORM)
-        q, k, v = _qkv(cfg, p["attn"], h)
-        kc = L._cache_update(c["k"], k, pos)
-        vc = L._cache_update(c["v"], v, pos)
-        x = x + _out(cfg, p["attn"], L.decode_attention(q, kc, vc, pos))
-        o = L.cross_decode_attention(_cross_q(cfg, p, x), c["xk"].to(x.dtype),
-                                     c["xv"].to(x.dtype), use_kernel=use_kernel)
-        x = _mlp_block(cfg, p, x + _out(cfg, p["xattn"], o))
+        x = x + L.apply_attn(cfg, p["attn"], h, cache=c, pos=pos, page_table=table,
+                             use_kernel=use_kernel, rows=rows, rope=False)
+        q = _cross_q(cfg, p, x, hp)
+        if cx is None:
+            o = L.cross_decode_attention(q, _read(c["xk"], hp).to(x.dtype),
+                                         _read(c["xv"], hp).to(x.dtype), use_kernel=use_kernel)
+        else:
+            o = L.paged_decode_attention(q, cx["k_pages"], cx["v_pages"], xtable, xpos,
+                                         causal=False, use_kernel=use_kernel,
+                                         kv_heads=kv_heads)
+        x = _mlp_block(cfg, p, x + L.out_proj(cfg, p["xattn"], o, hp))
     x = L.apply_norm(params["final_norm"], x, NORM)
-    return L.unembed(cfg, params["embed"], x), cache
-
-
-def _paged_decode_step(cfg, params, cache, tokens, pos, *, use_kernel: bool = True):
-    """Paged decode: the self-attention writes and reads through
-    ``page_table`` like the transformer families (B3, causal); the
-    cross-attention reads each slot's frame pages through ``xpage_table``,
-    B3 with ``causal=False`` at pos = n_frames - 1, so every query sees the
-    frames and none of the last page's stale tail.  Dead slots' rows point
-    at the null page: their writes and reads are row-local garbage nobody
-    reads."""
-    table, xtable = cache["page_table"], cache["xpage_table"]
-    B = tokens.shape[0]
-    xpos = torch.full((B,), cfg.n_frames - 1, dtype=torch.int32, device=tokens.device)
-    x = _embed_decode(cfg, params, tokens, pos)
-    for p, c, cx in zip(params["layers"], cache["layers"], cache["x"]):
-        h = L.apply_norm(p["ln1"], x, NORM)
-        q, k, v = _qkv(cfg, p["attn"], h)
-        L.paged_cache_update(c["k_pages"], k, table, pos)
-        L.paged_cache_update(c["v_pages"], v, table, pos)
-        o = L.paged_decode_attention(q, c["k_pages"], c["v_pages"], table, pos,
-                                     use_kernel=use_kernel)
-        x = x + _out(cfg, p["attn"], o)
-        o = L.paged_decode_attention(_cross_q(cfg, p, x), cx["k_pages"], cx["v_pages"], xtable,
-                                     xpos, causal=False, use_kernel=use_kernel)
-        x = _mlp_block(cfg, p, x + _out(cfg, p["xattn"], o))
-    x = L.apply_norm(params["final_norm"], x, NORM)
-    return L.unembed(cfg, params["embed"], x), cache
+    return sl.gather_batch(L.unembed(cfg, params["embed"], x), rows), cache

@@ -592,16 +592,17 @@ def head_plan(cfg) -> HeadPlan:
 def qkv_heads(cfg, p, x, hp: HeadPlan) -> tuple:
     """q (B, S, nq, hd) of the rank's q heads and k, v (B, S, npool, hd) of
     its cache's KV heads, each projected on the rank's shard of its weight
-    and cut (or gathered, then cut) to those heads."""
+    and cut (or gathered, then cut) to those heads: contiguous, as the
+    attention kernels take them."""
     B, S, _ = x.shape
     hd = cfg.hd
-    q, qs = sharded_linear(x, p["wq"])
-    k, ks = sharded_linear(x, p["wk"])
-    v, vs = sharded_linear(x, p["wv"])
-    q = sl.cols(q, qs, hp.q0 * hd, hp.nq * hd).reshape(B, S, hp.nq, hd)
-    k = sl.cols(k, ks, hp.pool0 * hd, hp.npool * hd).reshape(B, S, hp.npool, hd)
-    v = sl.cols(v, vs, hp.pool0 * hd, hp.npool * hd).reshape(B, S, hp.npool, hd)
-    return q, k, v
+
+    def heads(w, h0, n):
+        y, split = sharded_linear(x, w)
+        return sl.cols(y, split, h0 * hd, n * hd).contiguous().reshape(B, S, n, hd)
+
+    return (heads(p["wq"], hp.q0, hp.nq), heads(p["wk"], hp.pool0, hp.npool),
+            heads(p["wv"], hp.pool0, hp.npool))
 
 
 def out_proj(cfg, p, o, hp: HeadPlan):
@@ -628,12 +629,14 @@ def attn_window_and_base(cfg, kind: str) -> tuple:
 
 
 def apply_attn(cfg, p, x, *, kind: str = "global", cache: dict, pos, page_table=None,
-               use_kernel: bool = True, rows: Optional[slice] = None):
+               use_kernel: bool = True, rows: Optional[slice] = None, rope: bool = True):
     """A decode step for S new tokens per sequence at ``pos``: writes their
     K/V into the cache in place -- through ``page_table`` for a paged cache
     ({"k_pages", ...}), at pos % length for a contiguous one (a ``local``
     layer's ring) -- and attends, within ``local_window`` on a local
-    layer.  ``use_kernel`` reaches the paged attention dispatch.
+    layer.  ``use_kernel`` reaches the paged attention dispatch;
+    ``rope=False`` leaves q and k unrotated (the enc-dec decoder's learned
+    positions).
 
     On a mesh (``distributed/shardlib``) the rank attends with its heads
     (``head_plan``) over its cache's KV heads, and ``x``/``pos`` are its
@@ -645,9 +648,10 @@ def apply_attn(cfg, p, x, *, kind: str = "global", cache: dict, pos, page_table=
     hp = head_plan(cfg)
     window, base = attn_window_and_base(cfg, kind)
     q, k, v = qkv_heads(cfg, p, x, hp)
-    positions = pos[:, None].long() + torch.arange(S, device=x.device)[None]
-    q = apply_rope(q, positions, base)
-    k = apply_rope(k, positions, base)
+    if rope:
+        positions = pos[:, None].long() + torch.arange(S, device=x.device)[None]
+        q = apply_rope(q, positions, base)
+        k = apply_rope(k, positions, base)
     if "k_pages" in cache:
         k, v = sl.gather_batch(k, rows), sl.gather_batch(v, rows)
         pos_all = sl.gather_batch(pos, rows)

@@ -16,6 +16,23 @@ chunks of ``min(MLSTM_CHUNK, S)``); ``mlstm_sequential`` is the per-token
 recurrence it equals, which decode runs one step of.  The sLSTM's prefill
 is a loop over the tokens.  Training runs the same forwards under autograd
 from a zero state (``state=None``).
+
+On a mesh (``distributed/shardlib``) the mLSTM runs on the rank's
+channels of the 2d up projection ("ff": ``w_u``, ``w_z``, the conv and
+the q/k/v scales), which are whole heads wherever the model axis divides
+H; ``w_if`` stays whole, so every rank computes all 2H gates and takes
+its heads' i and f.  Its state holds the rank's heads (C, n, m) and
+channels (conv); ``w_down`` contracts the rank's channels into a partial
+sum that ``sharded_linear`` all-reduces (a packed leaf stays whole and
+gathers them first, ROADMAP C1).  Where the model axis splits the
+channels but not the heads, the rank convolves its channels and gathers
+them before the recurrence, which then runs whole.  The sLSTM's state is
+whole on every rank of a data replica, as the reference's axes say: a
+rank projects its columns of ``w_gates`` (a cut by gate, not by head) and
+gathers them once a call, before the token loop; ``r_gates`` is placed
+whole (``placement_axes``, a ROADMAP C1 departure from the reference's
+head split), so the loop runs with no collective; ``w_up``'s product
+columns are gathered once before ``GELU(a) * b``.
 """
 
 from __future__ import annotations
@@ -25,7 +42,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.weight_plan import GATE_ACTS, apply_linear
+from repro_torch.core.weight_plan import GATE_ACTS, apply_linear, sharded_linear
 from repro_torch.distributed import shardlib as sl
 
 # the sequence-start value of the mLSTM / sLSTM stabilizer m
@@ -181,30 +198,43 @@ def _mlstm_chunkwise(q, k, v, i_raw, f_raw, C0, n0, m0, chunk: int):
 def apply_mlstm(cfg, p, x, state=None):
     """x (B, S, d) -> (y, new state).  S == 1 (decode) is one step of the
     exact recurrence; S > 1 the chunkwise form with chunks of
-    min(MLSTM_CHUNK, S)."""
+    min(MLSTM_CHUNK, S).  On a mesh over the rank's channels and heads
+    (see the module doc)."""
     B, S, d = x.shape
     up, H = 2 * d, cfg.n_heads
     hd = up // H
     dt = x.dtype
     if state is None:
         state = init_mlstm_state(cfg, B, dt, x.device)
-    u = apply_linear(x, p["w_u"])
-    z = apply_linear(x, p["w_z"])
+    # the rank's channels are its conv's (its piece, or all of them)
+    nc = p["conv"].shape[-1]
+    c0 = sl.axis_index("model") * nc if nc < up else 0
+    u, us = sharded_linear(x, p["w_u"])
+    z, zs = sharded_linear(x, p["w_z"])
+    u, z = sl.cols(u, us, c0, nc), sl.cols(z, zs, c0, nc)
     uc, conv_state = causal_conv(u, p["conv"], state["conv"])
     uc = F.silu(uc)
-    q = (uc * p["s_q"].to(dt)).reshape(B, S, H, hd)
-    k = (uc * p["s_k"].to(dt)).reshape(B, S, H, hd) / math.sqrt(hd)
-    v = (u * p["s_v"].to(dt)).reshape(B, S, H, hd)
-    gates = apply_linear(x, p["w_if"]) + p["b_if"].to(dt)
-    i_raw, f_raw = gates.float().chunk(2, dim=-1)  # (B, S, H)
+    q = uc * p["s_q"].to(dt)
+    k = uc * p["s_k"].to(dt)
+    v = u * p["s_v"].to(dt)
+    # the rank's heads are its state's
+    nh = state["C"].shape[1]
+    h0 = sl.axis_index("model") * nh if nh < H else 0
+    if nc != nh * hd:  # channels split, heads whole: the recurrence runs whole
+        q, k, v, z = (sl.cols(t, True, 0, up) for t in (q, k, v, z))
+    q = q.reshape(B, S, nh, hd)
+    k = k.reshape(B, S, nh, hd) / math.sqrt(hd)
+    v = v.reshape(B, S, nh, hd)
+    gates = apply_linear(x, p["w_if"]) + p["b_if"].to(dt)  # whole ("d", None)
+    i_raw, f_raw = (g[..., h0:h0 + nh] for g in gates.float().chunk(2, dim=-1))  # (B, S, nh)
     if S > 1:
         h, C, n, m = _mlstm_chunkwise(q, k, v, i_raw, f_raw, state["C"], state["n"],
                                       state["m"], chunk=min(MLSTM_CHUNK, S))
     else:
         h, C, n, m = mlstm_sequential(q, k, v, i_raw, f_raw, state["C"], state["n"],
                                       state["m"])
-    y = apply_linear(h.to(dt) * F.silu(z), p["w_down"])
-    return y, {"C": C, "n": n, "m": m, "conv": conv_state}
+    y, ys = sharded_linear(h.to(dt) * F.silu(z), p["w_down"], nh < H)
+    return sl.cols(y, ys, 0, d), {"C": C, "n": n, "m": m, "conv": conv_state}
 
 
 # ---------------------------------------------------------------------------
@@ -235,6 +265,19 @@ def slstm_axes(cfg) -> dict:
         "w_gates": ("d", "qkv"), "r_gates": (None, "heads", None, None),
         "b_gates": (None,), "w_up": ("d", "ff"), "w_down": ("ff", "d"),
     }
+
+
+def placement_axes(axes_tree):
+    """``axes_tree`` (a params tree's logical axes) with every sLSTM
+    ``r_gates`` whole: the recurrence runs whole on every rank, so a
+    serving mesh places it whole once instead of gathering its heads every
+    call (ROADMAP C1)."""
+    if isinstance(axes_tree, dict):
+        return {k: (None,) * len(v) if k == "r_gates" else placement_axes(v)
+                for k, v in axes_tree.items()}
+    if isinstance(axes_tree, list):
+        return [placement_axes(v) for v in axes_tree]
+    return axes_tree
 
 
 _SLSTM_STATE_AXES = sl.register_cache_kind(
@@ -268,7 +311,8 @@ def apply_slstm(cfg, p, x, state=None):
     dt = x.dtype
     if state is None:
         state = init_slstm_state(cfg, B, dt, x.device)
-    gates_x = (apply_linear(x, p["w_gates"]) + p["b_gates"].to(dt)).float()
+    gx, gs = sharded_linear(x, p["w_gates"])
+    gates_x = (sl.cols(gx, gs, 0, 4 * d) + p["b_gates"].to(dt)).float()
     r = p["r_gates"].float()
     c, n, h, m = state["c"], state["n"], state["h"], state["m"]
     hs = []
@@ -285,6 +329,7 @@ def apply_slstm(cfg, p, x, state=None):
         m = m_new
         hs.append(h)
     y = torch.stack(hs, dim=1).to(dt)
-    a, b = apply_linear(y, p["w_up"]).chunk(2, dim=-1)
-    y = apply_linear(GATE_ACTS["gelu"](a) * b, p["w_down"])
-    return y, {"c": c, "n": n, "h": h, "m": m}
+    ab, abs_ = sharded_linear(y, p["w_up"])
+    a, b = sl.cols(ab, abs_, 0, 2 * slstm_up(cfg)).chunk(2, dim=-1)
+    y, ys = sharded_linear(GATE_ACTS["gelu"](a) * b, p["w_down"])
+    return sl.cols(y, ys, 0, d), {"c": c, "n": n, "h": h, "m": m}

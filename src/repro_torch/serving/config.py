@@ -5,10 +5,10 @@ Four frozen dataclasses group the knobs by subsystem and compose into the
 one ``EngineConfig`` the engine accepts.  The port serves plain, paged,
 speculative and chunked decode, deadlines, eviction, fault injection, a
 shared page allocator (mixed-family serving) and a mesh with its rules
-(sharded serving: ``launch/mesh.py``; a mesh serves the decoder families
-with attention, MoE and RG-LRU layers, plain, speculative or chunked, and
-the engine refuses by name xLSTM layers, the enc-dec and VLM families and
-a shared allocator under a mesh, ROADMAP A13b).
+(sharded serving: ``launch/mesh.py``; a mesh serves every family --
+attention, MoE, RG-LRU and xLSTM layers, the enc-dec and VLM families --
+plain, speculative or chunked, over its own pool or a shared allocator,
+and refuses nothing).
 ``EngineConfig.of``/``flat`` route the reference's flat keyword names into
 the sub-configs and back, and ``from_legacy`` is the deprecation shim
 behind ``ServingEngine(**legacy)``.

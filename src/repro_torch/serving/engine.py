@@ -83,16 +83,21 @@ over both axes, so every rank's host takes the same decisions.  The
 sizer's balance point divides the weight stream by the model axis and the
 KV stream by the degree the pools achieve (``shardlib.parallelism_degrees``),
 and a default ``max_batch`` feeds every data replica its n_opt.  Under a
-mesh the engine serves the dense decoder, MoE (expert parallelism:
-``models/moe.py``) and recurrentgemma families (the RG-LRU's channels
-split: ``models/recurrent.py``), plain, speculative or with chunked
-prefill.  The draft's params and its contiguous cache are placed through
-the same registry (its own ``param_axes`` / ``cache_axes``) and its steps
-run on the mesh; the acceptance stays on the host, where every rank draws
-the same tokens.  A chunk step runs on the rank's shards over a private
-batch-1 cache of its KV heads (a batch of one stays whole over the data
-axis).  xLSTM layers, the enc-dec and VLM families and a shared page
-allocator are refused by name (ROADMAP A13b).
+mesh the engine serves every family the port has: the dense decoders,
+MoE (expert parallelism: ``models/moe.py``), recurrentgemma (the RG-LRU's
+channels split: ``models/recurrent.py``), xLSTM (the mLSTM's heads split,
+the sLSTM's state whole: ``models/ssm.py``), the enc-dec family (the
+encoder and both attentions on the rank's heads, the frame pools on its
+KV heads: ``models/encdec.py``) and the VLM (the projector replicated),
+plain, speculative or with chunked prefill, alone or as a member of a
+``MixedServingEngine`` over a shared allocator (which, with the tables,
+stays on the host and equal on every rank).  The draft's params and its
+contiguous cache are placed through the same registry (its own
+``param_axes`` / ``cache_axes``) and its steps run on the mesh; the
+acceptance stays on the host, where every rank draws the same tokens.  A
+chunk step runs on the rank's shards over a private batch-1 cache of its
+KV heads (a batch of one stays whole over the data axis).  A mesh refuses
+nothing.
 
 Where the reference jit-compiles one decode step over a donated cache, the
 port runs the decode step eagerly and updates the cache in place.
@@ -124,6 +129,7 @@ from repro_torch.models.api import (
     supports_paged_kv,
 )
 from repro_torch.models.layers import finite_rows
+from repro_torch.models.ssm import placement_axes
 from repro_torch.serving.config import EngineConfig, positional_state_gate
 from repro_torch.serving.faultinject import FaultInjected
 from repro_torch.serving.paged import (
@@ -134,10 +140,6 @@ from repro_torch.serving.paged import (
     PrefixRegistry,
 )
 from repro_torch.serving.scheduler import PrefillJob, TickBudget, chunk_spans
-
-# the layer kinds a mesh does not serve yet (the sLSTM's gates split over
-# "qkv" while its state stays whole)
-XLSTM_KINDS = ("mlstm", "slstm")
 
 # paged pool leaf -> its name in a contiguous (prefill) cache
 _PAGED_KEYS = (
@@ -278,24 +280,6 @@ class EngineStats:
         return self.context_tokens / max(1, self.prefills)
 
 
-def mesh_refusal(cfg, config: EngineConfig) -> Optional[str]:
-    """Why ``config``'s mesh cannot serve ``cfg`` (None: it can): under a
-    mesh the engine serves the decoder families with attention, MoE and
-    RG-LRU layers, plain, speculative or chunked."""
-    if config.mesh is None:
-        return None
-    what = None
-    if get_api(cfg).extra_keys:
-        what = f"the {cfg.family} family"
-    elif any(k in XLSTM_KINDS for k in cfg.layer_kinds):
-        what = "xLSTM layers"
-    elif config.cache.allocator is not None:
-        what = "a shared page allocator (mixed-family serving)"
-    if what is None:
-        return None
-    return f"{cfg.name}: {what} under a mesh is not served yet (ROADMAP A13b)"
-
-
 class ServingEngine:
     """Continuous-batching engine around one model's prefill/decode.
 
@@ -323,9 +307,6 @@ class ServingEngine:
         if plan is not None and params is None:
             params = plan.params
         self.api = get_api(cfg)
-        reason = mesh_refusal(cfg, config)
-        if reason is not None:
-            raise NotImplementedError(reason)
         self.mesh = config.mesh
         self.rules = None
         if self.mesh is not None:
@@ -334,7 +315,7 @@ class ServingEngine:
             # otherwise (the same paths): both expand through the registry
             axes = (plan.axes_tree() if plan is not None and any(
                 l.axes for l in plan.leaves.values()) else self.api.param_axes(cfg))
-            params = local_params(params, axes, self.mesh, self.rules)
+            params = local_params(params, placement_axes(axes), self.mesh, self.rules)
         self.params = self.api.unstack(cfg, tree_to(params, self.device))
         self.plan = plan
         self.max_len = max_len = int(config.max_len)
@@ -533,7 +514,8 @@ class ServingEngine:
         ``page_size``/``num_pages``; ``draft``: the draft model's contiguous
         cache in its compute dtype): on a mesh, the rank's pieces of each
         leaf by the registered cache axes, allocated as such; the page
-        table stays whole (every rank scatters the whole batch's K/V)."""
+        and frame tables stay whole (every rank scatters the whole batch's
+        K/V)."""
         api, cfg = (self.draft_api, self.draft_cfg) if draft else (self.api, self.cfg)
         dtype = self.draft_dtype if draft else self.dtype
         kw = dict(spec_k=self.spec_k, **paged)
@@ -542,10 +524,15 @@ class ServingEngine:
         if self.mesh is None:
             return api.init_cache(cfg, batch, self.max_len, dtype, device=self.device, **kw)
         meta = api.init_cache(cfg, batch, self.max_len, dtype, device="meta", **kw)
+        # each leaf's starting value, from a cache of one slot, one position
+        # and one page on the host
+        start = api.init_cache(cfg, 1, 1, dtype, device="cpu",
+                               **(dict(kw, num_pages=1) if paged else kw))
         axes = api.cache_axes(cfg, quantized_kv=kw.get("kv_dtype") is not None,
                               paged=bool(paged))
         axes.pop("page_table", None)
-        return sl.local_zeros(meta, axes, self.mesh, self.rules, self.device)
+        axes.pop("xpage_table", None)
+        return sl.local_zeros(meta, axes, self.mesh, self.rules, self.device, start=start)
 
     def _local_row(self, slot: int) -> Optional[int]:
         """``slot``'s row in this rank's piece of a batch-split cache (None:

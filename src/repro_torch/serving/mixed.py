@@ -19,6 +19,13 @@ tick runs every member's own step, one after another.  Shared:
 A family whose decode path cannot page (recurrentgemma's local rings,
 xLSTM) keeps its contiguous per-slot cache and draws nothing from the pool.
 The members run on the CUDA device unless ``device="cpu"``.
+
+On a mesh every rank runs one MixedServingEngine whose members carry the
+mesh (``EngineConfig.mesh`` and each family's rules): each member holds
+its shards and the rank's KV heads of the shared pool's page ids, and
+its sizer is charged by its own parallelism degrees.  The allocator, the
+members' tables and the union audit stay on the host; every rank takes
+the same decisions, so they are equal on every rank.
 """
 
 from __future__ import annotations

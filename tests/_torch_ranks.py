@@ -7,7 +7,8 @@ torch thread each); each rank loads the plan (or the dense params) a test
 saved, serves the requests through a meshed engine in lockstep with an
 unsharded one on the same weights, holds its caches to its slices of the
 unsharded engine's after every step, and writes what the test compares to
-``out/rank<r>.json``."""
+``out/rank<r>.json``; ``run_mixed`` does the same for a mixed-family engine
+whose members carry the mesh."""
 
 import json
 import os
@@ -39,7 +40,9 @@ def _cache_pieces(whole, mine, axes, mesh, rules) -> tuple:
     from repro_torch.distributed import shardlib as sl
 
     err, exact = 0.0, True
-    for w_layer, m_layer, a_layer in zip(whole["layers"], mine["layers"], axes["layers"]):
+    layers = [(w, m, a) for key in ("layers", "x") if key in whole
+              for w, m, a in zip(whole[key], mine[key], axes[key])]
+    for w_layer, m_layer, a_layer in layers:
         for k, t in w_layer.items():
             spec = sl.spec_for(t.shape, *a_layer[k], mesh=mesh, rules=rules)
             piece = sl.local_piece(t, spec, mesh)
@@ -108,10 +111,11 @@ def _path_rank(rank: int, shape: tuple, job: dict) -> None:
 
         eng._decode = spy
     reqs = {}
+    extras = job.get("extras") or [None] * len(job["prompts"])
     for name, eng in (("solo", solo), ("mesh", meshed)):
         reqs[name] = [Request(uid=i, prompt=np.asarray(p, np.int32),
-                              max_new_tokens=job["max_new"])
-                      for i, p in enumerate(job["prompts"])]
+                              max_new_tokens=job["max_new"], extras=e)
+                      for i, (p, e) in enumerate(zip(job["prompts"], extras))]
         for r in reqs[name]:
             eng.submit(r)
     quantized = flat.get("kv_dtype") == "int8"
@@ -144,12 +148,18 @@ def _path_rank(rank: int, shape: tuple, job: dict) -> None:
     if "moe" in layer0:
         experts = list(MOE.expert_range(layer0["moe"], cfg.moe.n_experts_padded))
     kinds = {}
+    firsts = {kind: meshed.params["layers"][cfg.layer_kinds.index(kind)]
+              for kind in ("mlstm", "slstm") if kind in cfg.layer_kinds}
     for name, leaf in (("rec.w_x", layer0.get("rec", {}).get("w_x")),
-                       ("rec.w_out", layer0.get("rec", {}).get("w_out"))):
+                       ("rec.w_out", layer0.get("rec", {}).get("w_out")),
+                       *((f"{kind}.{k}", v) for kind, layer in firsts.items()
+                         for k, v in layer["cell"].items() if k.startswith("w_"))):
         if leaf is not None:
             kinds[name] = ("k_split" if isinstance(leaf, ShardedLeaf) and leaf.k_split else
                            "n_split" if isinstance(leaf, ShardedLeaf) and leaf.n_split else
                            "whole")
+    if "slstm" in firsts:
+        kinds["slstm.r_gates"] = list(firsts["slstm"]["cell"]["r_gates"].shape)
     # max_batch: the sizer's n_opt balances one model group, so a default
     # max_batch feeds every data replica its own
     sizer = BatchSizer(n_params=10**6, hbm_bw=3.35e12 * 20)
@@ -191,17 +201,108 @@ def _path_rank(rank: int, shape: tuple, job: dict) -> None:
         json.dump(result, f)
 
 
-def run_path(shape: tuple, job: dict) -> list:
-    """Spawn the ranks of a (data, model) mesh for one path ``job`` (arch,
-    flat engine settings, a plan directory or a saved dense params tree, an
-    optional draft, the rules -- "rules_for" or the defaults -- prompts,
-    max_new, out) and return their results."""
+def _spawn(target, shape: tuple, job: dict) -> list:
+    """Run ``target`` on the gloo ranks of a (data, model) mesh; their
+    results, in rank order."""
     from repro_torch.launch import mesh as M
 
     world = shape[0] * shape[1]
-    M.spawn_ranks(_path_rank, (tuple(shape), job), world, "gloo")
+    M.spawn_ranks(target, (tuple(shape), job), world, "gloo")
     out = []
     for r in range(world):
         with open(os.path.join(job["out"], f"rank{r}.json")) as f:
             out.append(json.load(f))
     return out
+
+
+def run_path(shape: tuple, job: dict) -> list:
+    """Spawn the ranks of a (data, model) mesh for one path ``job`` (arch,
+    flat engine settings, a plan directory or a saved dense params tree, an
+    optional draft, the rules -- "rules_for" or the defaults -- prompts,
+    their extras (frames or patches), max_new, out) and return their
+    results."""
+    return _spawn(_path_rank, shape, job)
+
+
+def _mixed_rank(rank: int, shape: tuple, job: dict) -> None:
+    """One rank of a mixed-family mesh: a MixedServingEngine whose members
+    carry the mesh (each with its ``rules_for``) in lockstep with an
+    unmeshed one over the same weights; after every tick each member's
+    caches are held to their slices of the unmeshed member's, the union
+    audit runs and the shared allocator's free list is recorded."""
+    import warnings
+
+    torch.set_num_threads(1)
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import shardlib as sl
+    from repro_torch.launch import mesh as M
+    from repro_torch.models.api import get_api
+    from repro_torch.serving.config import EngineConfig
+    from repro_torch.serving.engine import Request
+    from repro_torch.serving.mixed import MixedServingEngine, WorkloadSpec
+
+    mesh = M.make_serving_mesh(shape, "gloo")
+    engines = {}
+    for name, on_mesh in (("solo", False), ("mesh", True)):
+        specs = []
+        for arch, params_path in job["members"]:
+            cfg = get_config(arch, smoke=True)
+            flat = dict(job["flat"])
+            if on_mesh:
+                flat.update(mesh=mesh, rules=M.rules_for(cfg, None, mesh=mesh))
+            specs.append(WorkloadSpec(name=arch, cfg=cfg, params=torch.load(params_path),
+                                      config=EngineConfig.of(**flat)))
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # the contiguous families' paging warning
+            engines[name] = MixedServingEngine(specs, device="cpu")
+    reqs = {name: [] for name in engines}
+    for name, eng in engines.items():
+        for arch, uid, prompt, extras in job["requests"]:
+            r = Request(uid=uid, prompt=np.asarray(prompt, np.int32),
+                        max_new_tokens=job["max_new"], extras=extras)
+            reqs[name].append((arch, r))
+            eng.submit(arch, r)
+    solo, meshed = engines["solo"], engines["mesh"]
+    cache_err, frees, ticks = 0.0, [], 0
+    while meshed._busy() and ticks < 400:
+        solo.step()
+        meshed.step()
+        meshed.audit_pages()
+        ticks += 1
+        frees.append([int(p) for p in meshed.allocator._free])
+        if frees[-1] != [int(p) for p in solo.allocator._free]:
+            frees[-1] = None  # the unmeshed allocator's free list differs
+        for arch, eng in meshed.engines.items():
+            whole = solo.engines[arch]
+            axes = get_api(eng.cfg).cache_axes(eng.cfg, quantized_kv=eng.kv_dtype is not None,
+                                               paged=eng.paged)
+            e, _ = _cache_pieces(whole.cache, eng.cache, axes, mesh, eng.rules)
+            cache_err = max(cache_err, e)
+    streams = {name: {} for name in engines}
+    for name in engines:
+        for arch, r in reqs[name]:
+            streams[name].setdefault(arch, []).append([int(t) for t in r.output])
+    result = {
+        "rank": rank,
+        "coords": sl.mesh_coords(mesh),
+        "streams": streams["mesh"],
+        "solo_streams": streams["solo"],
+        "frees": frees,
+        "ticks": ticks,
+        "cache_err": cache_err,
+        "degrees": {a: [e.data_parallel, e.model_parallel, e.kv_parallel]
+                    for a, e in meshed.engines.items()},
+        "paged": sorted(a for a, e in meshed.engines.items() if e.paged),
+        "used_pages": meshed.allocator.used_pages,
+        "weight_bytes": {a: [e.weight_bytes(), solo.engines[a].weight_bytes()]
+                         for a, e in meshed.engines.items()},
+    }
+    with open(os.path.join(job["out"], f"rank{rank}.json"), "w") as f:
+        json.dump(result, f)
+
+
+def run_mixed(shape: tuple, job: dict) -> list:
+    """Spawn the ranks of a (data, model) mesh for one mixed-family ``job``
+    (members [(arch, saved dense params)], flat member settings, requests
+    [(arch, uid, prompt, extras)], max_new, out) and return their results."""
+    return _spawn(_mixed_rank, shape, job)

@@ -181,11 +181,29 @@ def test_smem_gate():
     assert AT.predict(cfg, cand, AT.SearchSpace(), AT.Constraints()).feasible
 
 
-def test_meshes_other_than_one_card_are_refused():
-    with pytest.raises(NotImplementedError, match="A13b"):
-        AT.SearchSpace(meshes=((1, 1), (2, 1)))
-    with pytest.raises(NotImplementedError, match="A13b"):
-        AT.SearchSpace(meshes=((1, 2),))
+@pytest.mark.parametrize("mesh", [(1, 1), (1, 2), (2, 1), (1, 4), (2, 2), (1, 8)])
+def test_predict_equals_reference_on_meshes(mesh):
+    """The mesh terms: TINY's 2 KV heads split over a model axis of 2 and
+    stay whole over 4 and 8 (kv_m 1); d data replicas scale the tick."""
+    space, rspace = AT.SearchSpace(**_WIDE, meshes=(mesh,)), RAT.SearchSpace(**_WIDE,
+                                                                            meshes=(mesh,))
+    cands = [dataclasses.replace(c, mesh=mesh)
+             for c in _random_candidates(12, space, seed=7) + [AT.uniform_candidate(TINY, space)]]
+    tight = dict(_CONS, pool_bytes=2e5)
+    for c in (_CONS, tight):
+        cons, rcons = AT.Constraints(**c), RAT.Constraints(**c)
+        for cand in cands:
+            got = AT.predict(TINY, cand, space, cons)
+            want = RAT.predict(RTINY, _ref_cand(cand), rspace, rcons)
+            assert (got.feasible, got.reason, got.batch, got.context, got.num_pages) == \
+                (want.feasible, want.reason, want.batch, want.context, want.num_pages), cand
+            for f in _PRED_FLOATS:
+                assert getattr(got, f) == pytest.approx(getattr(want, f), rel=1e-12, abs=0), f
+    # the mesh moves the prediction: a split model axis streams less a card
+    one = AT.predict(TINY, dataclasses.replace(cands[-1], mesh=(1, 1)), space, AT.Constraints(
+        **_CONS))
+    got = AT.predict(TINY, cands[-1], space, AT.Constraints(**_CONS))
+    assert (got.tokens_per_s != one.tokens_per_s) == (mesh != (1, 1))
 
 
 def test_h100_constants_by_default():
@@ -201,16 +219,20 @@ def test_h100_constants_by_default():
 # ---------------------------------------------------------------------------
 
 
+@pytest.mark.parametrize("meshes", [((1, 1),), ((1, 1), (1, 2), (2, 2))])
 @pytest.mark.parametrize("strategy", ["random", "anneal"])
 @pytest.mark.parametrize("seed", [0, 1, 2])
-def test_search_trace_equals_reference(strategy, seed):
+def test_search_trace_equals_reference(strategy, seed, meshes):
     """Trial for trial, with one call-counting stub oracle per side: the
     same candidates, verdicts, incumbents, and the oracle consulted at the
-    same sparsity levels in the same order."""
+    same sparsity levels in the same order; on one card and over meshes
+    (each draw and move of the mesh knob the reference's)."""
     ours, theirs = CountingOracle(0.25), CountingOracle(0.25)
     kw = dict(strategy=strategy, trials=16, seed=seed)
-    got = AT.search(TINY, space=SPACE, constraints=CONS, accuracy=ours, **kw)
-    want = RAT.search(RTINY, space=RSPACE, constraints=RCONS, accuracy=theirs, **kw)
+    space = dataclasses.replace(SPACE, meshes=meshes)
+    rspace = dataclasses.replace(RSPACE, meshes=meshes)
+    got = AT.search(TINY, space=space, constraints=CONS, accuracy=ours, **kw)
+    want = RAT.search(RTINY, space=rspace, constraints=RCONS, accuracy=theirs, **kw)
     assert got.trace == want.trace
     assert dataclasses.astuple(got.best) == dataclasses.astuple(want.best)
     assert ours.calls == theirs.calls

@@ -172,7 +172,7 @@ def test_engine_config_rejects_unserved_fields(kw):
         assert EngineConfig(**kw).cache.allocator is kw["cache"].allocator
         return
     # a mesh is served now (sharded serving): the config keeps it, and the
-    # engine refuses by name only what a mesh does not serve (ROADMAP A13b)
+    # engine serves every family on it
     assert EngineConfig(**kw).mesh is kw["mesh"]
 
 

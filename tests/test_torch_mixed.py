@@ -342,18 +342,27 @@ def _arch_of(cfg) -> str:
     return next(a for a in ARCH_IDS if get_config(a, smoke=True) == cfg)
 
 
-@pytest.mark.parametrize("flag", [["--arch", "tinyllama-1.1b"], ["--compress", "quant"],
-                                  ["--draft-config", "tinyllama-1.1b"], ["--trace", "x"],
-                                  ["--arrival-rate", "0.5"], ["--mesh", "host"]])
+@pytest.mark.parametrize("flag", [["--arch", "tinyllama-1.1b"], ["--autotune-plan", "x"],
+                                  ["--compress", "quant"], ["--draft-config", "tinyllama-1.1b"],
+                                  ["--trace", "x"], ["--arrival-rate", "0.5"],
+                                  ["--mesh", "host"]])
 def test_workload_mix_refuses_what_the_reference_refuses(flag, capsys):
+    """The reference's refusals, flag for flag; ``--mesh`` is not one of
+    them: a mix on the host mesh (1 x 1 on the CPU) serves, its members on
+    the mesh."""
+    argv = ["--workload-mix", "tinyllama-1.1b:1", "--smoke", "--device", "cpu",
+            "--requests", "2", "--max-new", "3"] + flag
+    if flag[0] == "--mesh":
+        eng = serve.main(argv)
+        out = capsys.readouterr().out
+        assert "[serve] mesh {'data': 1, 'model': 1}: data-parallel 1, model-parallel 1" in out
+        assert "mixed: 2/2 requests" in out
+        assert all(e.mesh is not None for e in eng.engines.values())
+        return
     with pytest.raises(SystemExit) as e:
-        serve.main(["--workload-mix", "tinyllama-1.1b:1", "--smoke", "--device", "cpu"] + flag)
+        serve.main(argv)
     assert e.value.code == 2
-    err = capsys.readouterr().err
-    if flag[0] == "--mesh":  # mixed serving under a mesh stays refused by name
-        assert "ROADMAP A13b" in err
-    else:
-        assert ("drop " + flag[0]) in err
+    assert ("drop " + flag[0]) in capsys.readouterr().err
 
 
 def test_parse_mix():

@@ -5,9 +5,12 @@ and against their plain versions; B3 reading a rank's KV heads of a pool
 that holds them all (``kv_heads``, in place) against its plain version on
 the narrowed pools, also at a verify step's T = 5; stacked B1 and B2 over
 a rank's experts of a granite-moe-wide stack (``local_leaf``'s cut of the
-expert axis) against their plain versions and the whole stack's launch.
-These need a CUDA device and nvcc; they carry the
-``gpu`` marker and skip elsewhere (and import no JAX):
+expert axis) against their plain versions and the whole stack's launch;
+B3 non-causal over a rank's KV heads of whisper-tiny's frame pool, B6
+non-causal on 3 of its 6 heads at 1500 x 1500, and B5's dense_tile at a
+rank's 1365 columns of xlstm-350m's sLSTM ``w_up``.  These need a CUDA
+device and nvcc; they carry the ``gpu`` marker and skip elsewhere (and
+import no JAX):
 
     python -m pytest -q -m gpu tests/test_torch_sharded_gpu.py
 
@@ -173,3 +176,70 @@ def test_b3_reads_a_ranks_kv_heads_in_place(cuda, kv, hd, kvh, hq, off, n, T):
     want = FA.paged_decode_attention(q, kp, vp, table, pos, kv_heads=(off, n), use_kernel=False,
                                      **scales)
     _close(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("off", [0, 3])
+def test_b3_noncausal_reads_a_ranks_kv_heads_of_a_frame_pool(cuda, off):
+    """whisper-tiny's frame pool (6 KV heads, hd 64, 94 bf16 pages of 16 a
+    sequence, a scrambled table): 3 q heads read KV heads [off, off + 3)
+    in place, non-causal at pos 1499, equal to the plain version and to the
+    launch over pools that hold those 3 heads only (a rank's piece)."""
+    g = torch.Generator(device=cuda).manual_seed(4 + off)
+    B, P, ps = 4, 94, 16
+    table = (1 + torch.randperm(B * P, generator=g, device=cuda)).reshape(B, P).to(torch.int32)
+    shape = (1 + B * P, ps, 6, 64)
+    kp = torch.randn(shape, generator=g, device=cuda).to(torch.bfloat16)
+    vp = torch.randn(shape, generator=g, device=cuda).to(torch.bfloat16)
+    q = torch.randn((B, 1, 3, 64), generator=g, device=cuda).to(torch.bfloat16)
+    pos = torch.full((B,), 1499, dtype=torch.int32, device=cuda)
+    n = FA.paged_decode_attention.launches_noncausal
+    got = FA.paged_decode_attention(q, kp, vp, table, pos, causal=False, kv_heads=(off, 3))
+    assert FA.paged_decode_attention.launches_noncausal == n + 1
+    _close(got, FA.paged_decode_attention(q, kp, vp, table, pos, causal=False,
+                                          kv_heads=(off, 3), use_kernel=False))
+    piece = [t[:, :, off:off + 3].contiguous() for t in (kp, vp)]
+    _close(got, FA.paged_decode_attention(q, *piece, table, pos, causal=False))
+
+
+@pytest.mark.gpu
+def test_b6_noncausal_on_a_ranks_heads_at_1500_frames(cuda):
+    """whisper-tiny's encoder on a rank's 3 of its 6 heads (1500 x 1500,
+    hd 64): equal to the plain version and to those heads of the launch
+    over all 6."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v = (torch.randn((1, 1500, 6, 64), generator=g, device=cuda).to(torch.bfloat16)
+               for _ in range(3))
+    whole = FA.flash_attention(q, k, v, causal=False)
+    mine = [t[:, :, 3:].contiguous() for t in (q, k, v)]
+    n = FA.flash_attention.launches_noncausal
+    got = FA.flash_attention(*mine, causal=False)
+    assert FA.flash_attention.launches_noncausal == n + 1
+    _close(got, FA.flash_attention(*mine, causal=False, use_kernel=False))
+    _close(got, whole[:, :, 3:])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [8, 40])
+def test_b5_dense_tile_at_a_ranks_slstm_w_up(cuda, M):
+    """xlstm-350m's sLSTM ``w_up`` at 1x2: a rank's 1365 of its 2730
+    columns (int8, K 1024) in B5's dense_tile regime, equal to the plain
+    version and to those columns of the whole leaf's launch."""
+    from repro_torch.kernels import block_sparse as BS
+    from repro_torch.kernels import quant_matmul as QM
+
+    g = torch.Generator(device=cuda).manual_seed(6 + M)
+    w = WP.quantize_leaf(torch.randn((1024, 2730), generator=g, device=cuda) / 32.0)
+    x = torch.randn((M, 1024), generator=g, device=cuda).to(torch.bfloat16)
+    whole = WP.apply_linear(x, w)
+    for mesh in _meshes(2):
+        m = mesh.coords["model"]
+        loc = WP.local_leaf(w, ("d", "ff"), mesh, sl.DEFAULT_RULES)
+        assert loc.n_split and tuple(loc.local.q.shape) == (1024, 1365)
+        assert QM.regime(x.dtype, M, 1024, 1365, 1024, 1365, BS.sm_count(cuda))[0] == \
+            "dense_tile"
+        n = QM.quant_matmul.dense_tile_launches
+        y = QM.quant_matmul(x, loc.local.q, loc.local.s)
+        assert QM.quant_matmul.dense_tile_launches == n + 1
+        _close(y, QM.quant_matmul(x, loc.local.q, loc.local.s, use_kernel=False))
+        _close(y, whole[:, m * 1365:(m + 1) * 1365])

@@ -26,12 +26,7 @@ from repro.serving.engine import ServingEngine as RServingEngine
 
 import _torch_ranks as R
 from repro_torch import interop
-from repro_torch.configs import get_config
 from repro_torch.core.weight_plan import save_plan
-from repro_torch.distributed import shardlib as sl
-from repro_torch.models.transformer import init_params
-from repro_torch.serving.config import EngineConfig
-from repro_torch.serving.engine import ServingEngine
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -112,65 +107,7 @@ def test_serve_cli_mesh_lines():
     assert "paged pools do not shard across the 4-way model axis" in four.stderr
 
 
-@pytest.mark.parametrize("flags,what", [
-    (["--arch", "xlstm-350m"], "xLSTM layers"),
-    (["--arch", "whisper-tiny"], "the audio family"),
-    (["--arch", "internvl2-2b"], "the vlm family"),
-])
-def test_serve_cli_refuses_what_a_mesh_does_not_serve(flags, what, capsys):
-    """Refused by name before any rank starts, with exit code 2."""
-    from repro_torch.launch import serve
-
-    with pytest.raises(SystemExit) as e:
-        serve.main(["--arch", "tinyllama-1.1b", "--smoke", "--device", "cpu", "--mesh", "1x2",
-                    *flags])
-    assert e.value.code == 2
-    cap = capsys.readouterr()
-    assert f"{what} under a mesh is not served yet (ROADMAP A13b)" in cap.err
-    assert "starting" not in cap.out
-
-
-def test_serve_cli_refuses_a_workload_mix_on_a_mesh(capsys):
-    """--workload-mix (a shared page allocator across the families) under
-    --mesh: refused by name with exit code 2, no rank started."""
-    from repro_torch.launch import serve
-
-    with pytest.raises(SystemExit) as e:
-        serve.main(["--workload-mix", "tinyllama-1.1b:2,recurrentgemma-2b:1", "--smoke",
-                    "--device", "cpu", "--page-size", "16", "--mesh", "1x2"])
-    assert e.value.code == 2
-    cap = capsys.readouterr()
-    assert "mixed-family serving under a mesh is not served yet: ROADMAP A13b" in cap.err
-    assert "starting" not in cap.out
-
-
-@pytest.mark.parametrize("arch,flat,what", [
-    ("xlstm-350m", {}, "xLSTM layers"),
-    ("whisper-tiny", {}, "the audio family"),
-    ("internvl2-2b", {}, "the vlm family"),
-    ("tinyllama-1.1b", dict(allocator=object()), "a shared page allocator"),
-])
-def test_engine_refuses_what_a_mesh_does_not_serve(arch, flat, what):
-    cfg = get_config(arch, smoke=True)
-    mesh = sl.MeshShape({"data": 1, "model": 2})
-    with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP A13b"):
-        ServingEngine(cfg, None, device="cpu", config=EngineConfig.of(mesh=mesh, **flat))
-
-
-def test_mixed_engine_refuses_members_on_a_mesh():
-    """A MixedServingEngine whose paged members carry a mesh: each member
-    would draw from the shared allocator, which a mesh does not serve yet."""
-    from repro_torch.serving.mixed import MixedServingEngine, WorkloadSpec
-
-    mesh = sl.MeshShape({"data": 1, "model": 2})
-    specs = []
-    for arch in ("tinyllama-1.1b", "llama3.2-1b"):
-        cfg = get_config(arch, smoke=True)
-        specs.append(WorkloadSpec(name=arch, cfg=cfg, params=init_params(cfg, 0, device="cpu"),
-                                  config=EngineConfig.of(max_len=32, max_batch=2, page_size=16,
-                                                         mesh=mesh)))
-    with pytest.raises(NotImplementedError, match="a shared page allocator.*ROADMAP A13b"):
-        MixedServingEngine(specs, device="cpu")
+_MIX = ("--workload-mix", "tinyllama-1.1b:2,recurrentgemma-2b:1,whisper-tiny:1")
 
 
 @pytest.mark.parametrize("flags,line", [
@@ -181,15 +118,31 @@ def test_mixed_engine_refuses_members_on_a_mesh():
     (["--arch", "granite-moe-1b-a400m"], "[serve] granite-moe-smoke: n_params=90,944"),
     (["--arch", "recurrentgemma-2b", "--page-size", "0"],
      "[serve] recurrentgemma-smoke: n_params=201,664"),
+    (["--arch", "xlstm-350m"], "[serve] xlstm-smoke: n_params=159,184"),
+    (["--arch", "whisper-tiny"], "[serve] whisper-smoke: n_params=108,672"),
+    (["--arch", "internvl2-2b"], "[serve] internvl2-smoke: n_params=110,976"),
+    (list(_MIX), "[serve] shared page pool: 137 pages x 16 tok across 2 paged families"),
 ])
 def test_serve_cli_serves_the_new_paths_on_a_mesh(flags, line):
-    """--mesh 1x2 with speculative decode, chunked prefill, a MoE arch and
-    recurrentgemma-2b: the ranks start, rank 0 prints the reference's lines
-    (the mesh line, the path's own line) and every request completes."""
-    run = _cli("--mesh", "1x2", *flags)
+    """--mesh 1x2 with speculative decode, chunked prefill, a MoE arch,
+    recurrentgemma-2b, xlstm-350m, whisper-tiny (its frames), internvl2-2b
+    (its patches) and a --workload-mix: the ranks start, rank 0 prints the
+    reference's lines (the mesh line, the path's own line) and every
+    request completes (the mix: its 7 requests by weight, audit clean)."""
+    if flags[0] == "--workload-mix":
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+        run = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.serve", *flags, "--smoke", "--requests",
+             "6", "--max-new", "4", "--kv-dtype", "int8", "--page-size", "16", "--device",
+             "cpu", "--mesh", "1x2"], env=env, capture_output=True, text=True, timeout=300)
+    else:
+        run = _cli("--mesh", "1x2", *flags)
     assert run.returncode == 0, run.stderr
     out = run.stdout
     assert "[serve] mesh 1x2: starting 2 ranks over gloo on the CPU" in out
     assert "[serve] mesh {'data': 1, 'model': 2}: data-parallel 1, model-parallel 2" in out
     assert line in out
-    assert out.count("[serve] completed 6 requests") == 1
+    if flags[0] == "--workload-mix":
+        assert out.count("[serve] mixed: 7/7 requests") == 1 and "page audit clean" in out
+    else:
+        assert out.count("[serve] completed 6 requests") == 1
