@@ -154,7 +154,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 12. families -- llama3.2-1b (hd 64, tied head), glm4-9b (hd 128, 16 query
                heads a KV head, an untied int8 head at vocab 151552) and
                gemma3-4b (hd 256, 5:1 local:global layers, window 1024,
-               tied head) at full width, random weights from a seed, with
+               tied head) at full width, glm4 cut to 10 of its 40 layers
+               and gemma3 to 12 of 34 (DEPTH_CUTS), random weights from a
+               seed, with
                the serve phase's flags and requests: every request
                finishes with a clean audit and shared prefix pages; B1, B2
                and B3 launch, B5 only on glm4's untied head, B4 never; tok/s
@@ -164,16 +166,17 @@ Phases, in order; any failure raises and the script exits non-zero:
                2032 tokens, teacher-forced decode, within PATH_RTOL); for
                glm4 and gemma3 a served 2032-token prompt (max_len 2048)
                whose prefill runs B6 once a layer (gemma3: windowed on its
-               29 local layers), timed on the card's clock; for gemma3 its
+               local layers), timed on the card's clock; for gemma3 its
                own plan as the draft (k 4: rings widened by k, B3 at T = 5,
                accept rate over 0.5, streams by the near-tie rule) and
                chunked prefill (chunks of 256, 512 a tick) of prompts of
                40, 600 and 1000 tokens against the same prompts prefilled
                whole (within the window a chunk sees every key a whole
                prefill sees), never reaching B6.
-13. moe      -- granite-moe-1b-a400m (24 layers, d 1024, 32 experts top-8)
-               and qwen2-moe-a2.7b (24 layers, d 2048, 60 experts padded
-               to 64, top-4, 4 shared, untied head) at full width and depth,
+13. moe      -- granite-moe-1b-a400m (d 1024, 32 experts top-8) and
+               qwen2-moe-a2.7b (d 2048, 60 experts padded to 64, top-4, 4
+               shared, untied head) at full width, each cut to 8 of its 24
+               layers (DEPTH_CUTS: also in the mesh and train phases),
                random weights from a seed, the serve phase's flags and
                requests, each through the kernels and the plain versions
                (streams by the near-tie rule; the build's peak memory
@@ -232,9 +235,10 @@ Phases, in order; any failure raises and the script exits non-zero:
                at T = 5 on the rank's KV heads; also at 2x2), chunked
                prefill (the long phase's prompts, CHUNK_FLAGS: the chunk
                steps on the rank's shards over its private batch-1 cache),
-               granite-moe-1b-a400m (16 experts a rank; also 1x4, 8 a rank:
+               granite-moe-1b-a400m (8 layers, DEPTH_CUTS; 16 experts a
+               rank; also 1x4, 8 a rank:
                stacked B1/B2 over the rank's experts, one all-reduce a MoE
-               layer), qwen2-moe-a2.7b (32 experts a rank; its ranks build
+               layer), qwen2-moe-a2.7b (8 layers; 32 experts a rank; its ranks build
                in turn, as two fp32 inits do not fit the card at once, and
                each logs its peak memory), recurrentgemma-2b (the RG-LRU's
                1280 channels and 5 of 10 q heads a rank) and
@@ -289,7 +293,7 @@ Phases, in order; any failure raises and the script exits non-zero:
                quant_sparse: B2; wq block_sparse: B1's FMA body; wo
                quant_sparse; wk/wv/head/tok quant; w_down dense; int8
                pages); (d) the winner and the uniform candidate each at its
-               artifact's max_batch requests of 32 tokens, 16 new: the
+               artifact's max_batch requests of 32 tokens, 10 new: the
                median decode tick at full occupancy, tok/s and the measured
                against the predicted speedup; B1 on an fp32 payload at the
                winner's block_sparse shapes and batch, held to its plain
@@ -304,7 +308,7 @@ Phases, in order; any failure raises and the script exits non-zero:
                flash Function's dq/dk/dv against dense_attention's autograd
                (S 2048, 32/4 heads, hd 64, causal and window 256; 1e-4);
                full-width tinyllama-1.1b (fp32 params, bf16 compute) through
-               launch.train.run: 8 steps at B 8 x 128, 3 at B 1 x 2048 (the
+               launch.train.run: 4 steps at B 8 x 128, 3 at B 1 x 2048 (the
                flash Function, 22 forward and 22 backward calls a step), 3
                with --accum 2 and 3 with --compression int8 (step 0's loss
                equal to the B 8 x 128 run's), 3 at B 8 x 512 with and
@@ -324,14 +328,32 @@ Phases, in order; any failure raises and the script exits non-zero:
                tokens over 1500 frames: one flash Function forward and
                backward an encoder layer and a cross-attention a step) and
                internvl2-2b (B 4 x 128 after 256 patches) through
-               launch.train.run at full width, 5 steps each, as above;
+               launch.train.run at full width, 3 steps each, as above;
                B6 unchanged over the phase; a smoke run restarted after a RuntimeError at
                step 4 equal to the uninterrupted one; mnist-4 and har-4 at
                published widths trained and pruned as Table 4 does (400 base
                steps, 4 stages of 200), base and pruned accuracy, q, the
                1.5% objective, B7's pruned accuracy against the plain
                version's, Q7.8's through B8.
-19. summary -- one JSON line of per-kernel numbers, then the result line.
+19. train_mesh -- meshed training, ranks sharing the card over gloo:
+               full-width tinyllama-1.1b through launch.train.run(mesh=)
+               at 1x2 and 2x2 (B 8 x 128, 3 steps, seed 0; tensor parallel
+               over model, data parallel over data, ZeRO-1 moments): every
+               rank's losses, grad norms and gradient leaf norms the same,
+               rank 0's held to a one-card run of the same flags (losses
+               5e-4, grad norms 5e-3, each leaf's norm 2e-2 relative, every
+               step); each rank's param, gradient and moment bytes equal to
+               its share by the placement's specs, and that share 0.5
+               (1x2) or 0.375 (2x2) of the whole state; max_memory_allocated
+               per rank and rank 0's median step.  The 2x2 run writes one
+               whole-leaf checkpoint after step 3 (22 layers: 13.2 GB), and
+               a 1x2 mesh (``elastic.replan_mesh`` of two ranks) resumes it
+               for step 4, held to the one-card run's; rank 0's gather
+               time and host peak RSS, each restore's time and card peak.
+               Then the train CLI under torchrun at the smoke size
+               (--nproc-per-node 2 --mesh host --share-card, 2 steps), its
+               losses held to a one-card run's.
+20. summary -- one JSON line of per-kernel numbers, then the result line.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -2880,6 +2902,8 @@ def _mesh_rank(rank: int, job: dict) -> None:
 
     from repro_torch.launch import serve
 
+    _cut_depths()  # the configs the earlier phases served
+
     torch.cuda.set_device(0)
     torch.backends.cuda.matmul.allow_tf32 = False
     import torch.distributed as dist
@@ -3666,6 +3690,27 @@ def phase_families(torch, results: dict, card: str) -> None:
 # ---------------------------------------------------------------------------
 
 MOE_ARCHS = ("granite-moe-1b-a400m", "qwen2-moe-a2.7b")
+# earlier paths cut in depth (full width kept) so that the script stays
+# within its time limit: {arch: the first layers kept}.  Every phase sees
+# the cut configs: families, moe, the mesh cases (granite at 1x2 and 1x4,
+# qwen2-moe at 1x2) and the train phase's granite run.
+DEPTH_CUTS = {"glm4-9b": 10, "gemma3-4b": 12, "granite-moe-1b-a400m": 8,
+              "qwen2-moe-a2.7b": 8}
+
+
+def _cut_depths() -> None:
+    """Replace each DEPTH_CUTS arch's config in this process's registry by
+    its first layers (``configs.get_config(arch)`` returns the cut one)."""
+    import importlib
+
+    from repro_torch import configs
+
+    for arch, n in DEPTH_CUTS.items():
+        mod = importlib.import_module(f"repro_torch.configs.{configs._MODULES[arch]}")
+        cfg = mod.CONFIG
+        if cfg.n_layers != n:
+            mod.CONFIG = dataclasses.replace(
+                cfg, n_layers=n, pattern=None if cfg.pattern is None else tuple(cfg.pattern[:n]))
 
 
 def _moe_label(cfg) -> str:
@@ -3986,8 +4031,9 @@ def _moe_long(torch, results, serve, cfg, engine, plan, card: str) -> None:
 
 
 def phase_moe(torch, results: dict, card: str) -> None:
-    """granite-moe-1b-a400m and qwen2-moe-a2.7b at published widths and
-    depths (random weights from seed 0, the quickstart flags): for each, the
+    """granite-moe-1b-a400m and qwen2-moe-a2.7b at published widths, cut to
+    DEPTH_CUTS' layers (random weights from seed 0, the quickstart flags):
+    for each, the
     serve run and the plain path's (``_family_serve``: streams by the
     near-tie rule, the build's peak memory), the stacked launches
     (``_moe_checks``), ``_path_parity`` (prefills of 36, 40 and 2032 tokens
@@ -4951,8 +4997,8 @@ def phase_mixed(torch, results: dict, card: str) -> None:
 # calibration task, its budget and workload), anneal, 64 trials, seed 0
 TUNE_FLAGS = ("--arch", "tinyllama-1.1b", "--strategy", "anneal", "--trials", "64",
               "--seed", "0")
-# (d)'s workload: each artifact's max_batch requests of 32 tokens, 16 new
-TUNED_PROMPT, TUNED_NEW = 32, 16
+# (d)'s workload: each artifact's max_batch requests of 32 tokens, 10 new
+TUNED_PROMPT, TUNED_NEW = 32, 10
 
 
 def _tuned_args(path: str, *flags):
@@ -5427,7 +5473,8 @@ def _train_run(torch, label: str, card: str, *flags, arch: str = "tinyllama-1.1b
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     med = statistics.median(out["step_s"][1:]) * 1e3
-    log(f"train {label}: losses {out['losses']}; median step {med:.3f} ms after step 1 "
+    log(f"train {label}: losses {out['losses']}; grad norms {out['grad_norms']}; "
+        f"median step {med:.3f} ms after step 1 "
         f"(step 1 {out['step_s'][0] * 1e3:.1f} ms), {args.batch * args.seq / med * 1e3:.1f} tok/s; "
         f"max_memory_allocated {peak / 1e9:.3f} GB ({(peak - held) / 1e9:.3f} GB above the "
         f"{held / 1e9:.3f} GB held before); restarts {out['restarts']} ({card})")
@@ -5435,8 +5482,8 @@ def _train_run(torch, label: str, card: str, *flags, arch: str = "tinyllama-1.1b
         raise AssertionError(f"train {label}: losses {out['losses']}")
     if out["restarts"]:
         raise AssertionError(f"train {label}: {out['restarts']} restarts where none was injected")
-    return {"losses": out["losses"], "med_ms": med, "peak": peak - held,
-            "layers": get_config(args.arch, smoke=args.smoke).n_layers}
+    return {"losses": out["losses"], "grad_norms": out["grad_norms"], "med_ms": med,
+            "peak": peak - held, "layers": get_config(args.arch, smoke=args.smoke).n_layers}
 
 
 def _train_profile(torch, card: str, batch: int, seq: int) -> None:
@@ -5598,7 +5645,7 @@ def _train_resume(torch) -> None:
 # the other families' full-width runs: (arch, batch, text tokens a row)
 TRAIN_FAMILIES = (("granite-moe-1b-a400m", 8, 128), ("recurrentgemma-2b", 4, 128),
                   ("xlstm-350m", 8, 128), ("whisper-tiny", 8, 128), ("internvl2-2b", 4, 128))
-TRAIN_FAMILY_STEPS = 5
+TRAIN_FAMILY_STEPS = 3
 # card-vs-CPU parity: the fewest layers that hold every kind of the arch
 TRAIN_PARITY = (("granite-moe-1b-a400m", dict(n_layers=2)),
                 ("recurrentgemma-2b", dict(n_layers=3, pattern=("rec", "rec", "local"))),
@@ -5865,9 +5912,11 @@ def _fcnet_train(torch, card: str) -> None:
             raise AssertionError(f"fcnet {cfg.name}: B7's pruned accuracy differs from plain")
 
 
-def phase_train(torch, card: str) -> None:
+def phase_train(torch, card: str) -> dict:
     """Training on the card (see the module doc): the parity checks, the
-    full-width runs through ``launch.train.run``, the resume, the FC nets."""
+    full-width runs through ``launch.train.run``, the resume, the FC nets.
+    Returns the B 8 x 128 run (``_train_run``'s, with each step's gradient
+    leaf norms), the train_mesh phase's one-card run."""
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.models import layers as L
 
@@ -5876,7 +5925,11 @@ def phase_train(torch, card: str) -> None:
     _flash_grad_parity(torch)
     b6 = FA.flash_attention.launches
     L.FlashAttention.forward_calls = L.FlashAttention.backward_calls = 0
-    dense = _train_run(torch, "B 8 x 128", card, "--steps", "8", "--batch", "8", "--seq", "128")
+    # also the train_mesh phase's one-card run: every gradient leaf's norm
+    with _spy_updates(torch, {}) as seen:
+        dense = _train_run(torch, "B 8 x 128", card, "--steps", str(TRAIN_MESH_STEPS + 1),
+                           *TRAIN_MESH_FLAGS)
+    dense["leaf_norms"] = seen["leaf_norms"]
     calls = (L.FlashAttention.forward_calls, L.FlashAttention.backward_calls)
     if calls != (0, 0):
         raise AssertionError(f"train B 8 x 128 ran the flash Function: {calls}")
@@ -5921,6 +5974,297 @@ def phase_train(torch, card: str) -> None:
     _train_resume(torch)
     _fcnet_train(torch, card)
     log(f"train: phase {time.perf_counter() - t0:.1f}s")
+    return dense
+
+
+TRAIN_MESHES = ((1, 2), (2, 2))
+TRAIN_MESH_FLAGS = ("--batch", "8", "--seq", "128")
+TRAIN_MESH_STEPS = 3
+# the meshed steps against the one-card run (bf16 compute)
+TRAIN_MESH_LOSS_RTOL = 5e-4
+TRAIN_MESH_NORM_RTOL = 5e-3
+TRAIN_MESH_LEAF_RTOL = 2e-2  # each gradient leaf's norm, every step
+# a rank's params + grads + moments over the whole state's (4 x the
+# params): 1x2 halves all of them; 2x2 halves params and grads and
+# quarters the moments (d_model also over data)
+TRAIN_MESH_SHARE = {(1, 2): 0.5, (2, 2): 0.375}
+
+
+def _tree_bytes(tree) -> int:
+    from repro_torch.core.weight_plan import flatten_leaves
+
+    return sum(t.numel() * t.element_size() for t in flatten_leaves(tree))
+
+
+def _grad_leaf_norms(torch, grads, place=None) -> list:
+    """Each gradient leaf's whole norm (fp32): on a mesh its pieces'
+    squares summed over the axes that split the leaf."""
+    from repro_torch.core.weight_plan import flatten_leaves
+    from repro_torch.distributed import shardlib as sl
+
+    out = []
+    for i, g in enumerate(flatten_leaves(grads)):
+        sq = torch.sum(torch.square(g.float()))
+        if place is not None:
+            sq = sl.reduce_over(sq, place.split_axes(i), place.mesh)
+        out.append(float(torch.sqrt(sq)))
+    return out
+
+
+@contextlib.contextmanager
+def _spy_updates(torch, record: dict):
+    """While in use, every ``apply_updates`` call records its gradients'
+    bytes and leaf norms (``_grad_leaf_norms``) into ``record``."""
+    from repro_torch.training import optimizer as O
+
+    real = O.apply_updates
+
+    def spy(cfg_, params, grads, state, place=None):
+        record.setdefault("grad_bytes", []).append(_tree_bytes(grads))
+        record.setdefault("leaf_norms", []).append(_grad_leaf_norms(torch, grads, place))
+        return real(cfg_, params, grads, state, place)
+
+    O.apply_updates = spy
+    try:
+        yield record
+    finally:
+        O.apply_updates = real
+
+
+def _host_rss_gb() -> float:
+    """This process's peak resident memory on the host, GB."""
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9
+
+
+def _train_mesh_rank(rank: int, job: dict) -> None:
+    """A rank of the train_mesh phase: ``launch.train.run(args, mesh=)`` on
+    the shared card, each update's gradient bytes and leaf norms recorded;
+    times each checkpoint gather (with the host's peak resident memory
+    after it) and each restore (with the card's peak over it); writes its
+    losses, grad norms, step times, peak memory and the bytes of its
+    params, gradients and moments beside those its placement's specs give
+    (and the whole tree's) to ``job["out"]``."""
+    import io
+    import math
+
+    import torch
+
+    from repro_torch.checkpoint import store
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import shardlib as sl
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import train
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = M.make_serving_mesh(tuple(job["shape"]), "gloo")
+    args = _train_args(*job["flags"])
+    cfg = get_config(args.arch)
+    ckpt = {"gather_s": [], "rss_gb": [], "restore_s": [], "restore_peak": []}
+    gather, restore = store.gather_state, store.restore
+
+    def timed_gather(*a, **k):
+        t0 = time.perf_counter()
+        out = gather(*a, **k)
+        ckpt["gather_s"].append(time.perf_counter() - t0)
+        ckpt["rss_gb"].append(_host_rss_gb())
+        return out
+
+    def timed_restore(*a, **k):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = restore(*a, **k)
+        torch.cuda.synchronize()
+        ckpt["restore_s"].append(time.perf_counter() - t0)
+        ckpt["restore_peak"].append(torch.cuda.max_memory_allocated())
+        return out
+
+    store.gather_state, store.restore = timed_gather, timed_restore
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    quiet = contextlib.redirect_stdout(io.StringIO()) if rank else contextlib.nullcontext()
+    t0 = time.perf_counter()
+    with quiet, _spy_updates(torch, {}) as seen:
+        out = train.run(args, cfg=cfg, mesh=mesh)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    place = M.train_placement(cfg, mesh)
+    pieces = [math.prod(sl.local_shape(s, p, mesh)) * 4
+              for s, p in zip(place.shapes, place.param_specs)]
+    moments = [math.prod(sl.local_shape(s, m, mesh)) * 4
+               for s, m in zip(place.shapes, place.moment_specs)]
+    result = {
+        "rank": rank, "coords": sl.mesh_coords(mesh), "losses": out["losses"],
+        "grad_norms": out["grad_norms"], "step_s": out["step_s"], "wall_s": wall,
+        "restarts": out["restarts"], "peak": torch.cuda.max_memory_allocated(),
+        "leaf_norms": seen["leaf_norms"], "ckpt": ckpt,
+        "bytes": {"params": _tree_bytes(out["params"]), "grads": max(seen["grad_bytes"]),
+                  "moments": _tree_bytes(out["opt_state"]["mu"])
+                  + _tree_bytes(out["opt_state"]["nu"])},
+        "want": {"params": sum(pieces), "grads": sum(pieces), "moments": 2 * sum(moments)},
+        "whole_params": sum(math.prod(s) * 4 for s in place.shapes),
+    }
+    with open(os.path.join(job["out"], f"rank{rank}.json"), "w") as f:
+        json.dump(result, f)
+
+
+def _train_mesh_spawn(torch, shape: tuple, job: dict) -> list:
+    """``_train_mesh_rank`` on the ranks of ``shape`` sharing the card over
+    gloo; their results in rank order."""
+    import tempfile
+
+    from repro_torch.launch import mesh as M
+
+    world = shape[0] * shape[1]
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as out:
+        M.spawn_ranks(_train_mesh_rank, (dict(job, shape=list(shape), out=out),), world,
+                      M.choose_backend(world, "cuda", share_card=True))
+        rows = []
+        for r in range(world):
+            with open(os.path.join(out, f"rank{r}.json")) as f:
+                rows.append(json.load(f))
+    return rows
+
+
+def _rel(got: list, want: list) -> float:
+    return max(abs(a - b) / abs(b) for a, b in zip(got, want))
+
+
+def _held_to(label: str, rows: list, want: dict, first: int = 0) -> None:
+    """Every rank's losses, grad norms and gradient leaf norms the same;
+    rank 0's held to ``want``'s steps from ``first`` (the one-card run of
+    the same flags)."""
+    for row in rows[1:]:
+        if any(row[k] != rows[0][k] for k in ("losses", "grad_norms", "leaf_norms")):
+            raise AssertionError(f"train_mesh {label}: ranks report different metrics")
+    got, norms, leaves = rows[0]["losses"], rows[0]["grad_norms"], rows[0]["leaf_norms"]
+    n = len(got)
+    ref = want["losses"][first:first + n]
+    ref_n = want["grad_norms"][first:first + n]
+    ref_l = want["leaf_norms"][first:first + n]
+    d_loss, d_norm = _rel(got, ref), _rel(norms, ref_n)
+    d_leaf = max(_rel(a, b) for a, b in zip(leaves, ref_l))
+    log(f"train_mesh {label}: losses {got} vs one card {ref} (worst rel {d_loss:.3e}); "
+        f"grad norms {norms} vs {ref_n} (worst rel {d_norm:.3e}); the {len(leaves[0])} "
+        f"gradient leaves' norms worst rel {d_leaf:.3e}")
+    if len(got) != len(ref) or len(leaves) != n or len(leaves[0]) != len(ref_l[0]) \
+            or d_loss > TRAIN_MESH_LOSS_RTOL or d_norm > TRAIN_MESH_NORM_RTOL \
+            or d_leaf > TRAIN_MESH_LEAF_RTOL:
+        raise AssertionError(f"train_mesh {label}: the meshed steps differ from the one-card "
+                             f"run's")
+    if any(row["restarts"] for row in rows):
+        raise AssertionError(f"train_mesh {label}: a rank restarted")
+
+
+def _check_shares(label: str, shape: tuple, rows: list, card: str) -> None:
+    """Each rank's param, gradient and moment bytes: its placement's share,
+    and that share the expected fraction of the whole state."""
+    for row in rows:
+        b, w = row["bytes"], row["want"]
+        whole = 4 * row["whole_params"]  # params, grads and two moments, whole
+        share = sum(b.values()) / whole
+        log(f"train_mesh {label} rank {row['rank']} {row['coords']}: params "
+            f"{b['params'] / 1e9:.3f} GB, grads {b['grads'] / 1e9:.3f}, moments "
+            f"{b['moments'] / 1e9:.3f}: {sum(b.values()) / 1e9:.3f} GB of the whole "
+            f"state's {whole / 1e9:.3f} ({share:.5f}); max_memory_allocated "
+            f"{row['peak'] / 1e9:.3f} GB ({card})")
+        if b != w:
+            raise AssertionError(f"train_mesh {label} rank {row['rank']}: bytes {b} are not "
+                                 f"its share {w}")
+        # the norm vectors stay whole on every rank: a few 1e-5 above
+        if abs(share - TRAIN_MESH_SHARE[shape]) > 1e-3:
+            raise AssertionError(f"train_mesh {label} rank {row['rank']}: holds {share:.5f} "
+                                 f"of the state, not {TRAIN_MESH_SHARE[shape]}")
+
+
+def _log_ckpt(label: str, rows: list, card: str) -> None:
+    c = rows[0]["ckpt"]
+    log(f"train_mesh {label}: rank 0's checkpoint gathers {[round(t, 3) for t in c['gather_s']]}"
+        f" s, host peak RSS after them {[round(x, 3) for x in c['rss_gb']]} GB; restores "
+        f"{[round(t, 3) for t in c['restore_s']]} s, card peak over them "
+        f"{[round(x / 1e9, 3) for x in c['restore_peak']]} GB; the run {rows[0]['wall_s']:.1f} s "
+        f"({card})")
+
+
+def _torchrun_check(torch, card: str) -> None:
+    """The train CLI under torchrun on the card at the smoke size: ``python
+    -m torch.distributed.run --standalone --nproc-per-node 2 -m
+    repro_torch.launch.train --mesh host --share-card``, two ranks sharing
+    the card over gloo at 1 x 2; its logged losses (4 decimals) held to a
+    one-card run of the same flags."""
+    from repro_torch.launch import train
+
+    flags = ("--smoke", "--steps", "2", *TRAIN_MESH_FLAGS)
+    ref = train.run(_train_args(*flags))["losses"]
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"), OMP_NUM_THREADS="1")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "2",
+         "-m", "repro_torch.launch.train", "--arch", "tinyllama-1.1b", "--mesh", "host",
+         "--share-card", "--lr", "3e-4", "--log-every", "1", *flags], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, start_new_session=True)
+    try:
+        stdout, stderr = proc.communicate(timeout=300)
+    finally:  # torchrun and its ranks, whatever happened
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(proc.pid, 9)
+    if proc.returncode != 0:
+        raise AssertionError(f"train_mesh torchrun: exit {proc.returncode}: {stderr[-2000:]}")
+    mesh = re.findall(r"\[train\] mesh (.*)", stdout)
+    got = [float(x) for x in re.findall(r"\[train\] step \d+ loss ([0-9.]+)", stdout)]
+    worst = max(abs(a - b) for a, b in zip(got, ref)) if len(got) == 2 else float("inf")
+    log(f"train_mesh torchrun --nproc-per-node 2 --mesh host --share-card (smoke): mesh {mesh}; "
+        f"losses {got} vs one card {ref} (worst abs {worst:.2e}), "
+        f"{time.perf_counter() - t0:.1f}s with start-up ({card})")
+    if mesh[:1] != ["{'data': 1, 'model': 2} over gloo: tensor parallel over model, data "
+                    "parallel over data, ZeRO-1 moments"] \
+            or worst > 5e-5 + TRAIN_MESH_LOSS_RTOL * max(ref):
+        raise AssertionError("train_mesh torchrun: not a 1x2 gloo mesh, or its losses differ")
+
+
+def phase_train_mesh(torch, card: str, want: dict) -> None:
+    """Meshed training (see the module doc).  ``want``: the train phase's
+    one-card run of the same flags, ``TRAIN_MESH_STEPS`` + 1 steps."""
+    import tempfile
+
+    from repro_torch.distributed.elastic import replan_mesh
+
+    t_phase = time.perf_counter()
+    n = TRAIN_MESH_STEPS
+    planned = replan_mesh(2, model_parallel=2).shape
+    small = (planned["data"], planned["model"])
+    with tempfile.TemporaryDirectory() as ckpt:
+        for shape in TRAIN_MESHES:
+            label = f"{shape[0]}x{shape[1]}"
+            flags = ("--steps", str(n), *TRAIN_MESH_FLAGS)
+            if shape == (2, 2):  # one whole-leaf checkpoint, after the last step
+                flags += ("--ckpt-dir", ckpt, "--ckpt-every", str(n - 1))
+            t0 = time.perf_counter()
+            rows = _train_mesh_spawn(torch, shape, {"flags": flags})
+            log(f"train_mesh {label}: {len(rows)} ranks over gloo sharing the card, "
+                f"{time.perf_counter() - t0:.1f}s with start-up")
+            _held_to(label, rows, want)
+            _check_shares(label, shape, rows, card)
+            med = statistics.median(rows[0]["step_s"][1:]) * 1e3
+            log(f"train_mesh {label}: rank 0's median step {med:.3f} ms after step 1 (step 1 "
+                f"{rows[0]['step_s'][0] * 1e3:.1f} ms; host clock, each step ending in the "
+                f"loss's read) ({card})")
+            if shape == (2, 2):
+                _log_ckpt(label, rows, card)
+        # the 2x2 checkpoint resumes on the mesh two ranks re-plan to
+        t0 = time.perf_counter()
+        rows = _train_mesh_spawn(torch, small, {"flags": ("--steps", str(n + 1),
+                                                          *TRAIN_MESH_FLAGS, "--ckpt-dir", ckpt)})
+        label = f"{small[0]}x{small[1]} resumed from the 2x2 step-{n} checkpoint, step {n + 1}"
+        log(f"train_mesh {label}: {time.perf_counter() - t0:.1f}s with start-up")
+        _held_to(label, rows, want, first=n)
+        _log_ckpt(label, rows, card)
+    _torchrun_check(torch, card)
+    log(f"train_mesh: phase {time.perf_counter() - t_phase:.1f}s")
 
 
 def main(argv=None) -> int:
@@ -5940,6 +6284,7 @@ def main(argv=None) -> int:
         print(f"[chip_smoke] FAIL: no src/repro_torch next to {__file__}", file=sys.stderr)
         return 1
     sys.path.insert(0, src)
+    _cut_depths()
 
     t_start = time.perf_counter()
     results: dict = {}
@@ -5984,7 +6329,8 @@ def main(argv=None) -> int:
     want["mix"] = run("mixed", phase_mixed, torch, results, card)
     run("mesh", phase_mesh, torch, want, long_prompts, card)
     run("autotune", phase_autotune, torch, results, card)
-    run("train", phase_train, torch, card)
+    one_card = run("train", phase_train, torch, card)
+    run("train_mesh", phase_train_mesh, torch, card, one_card)
     log(f"phase wall seconds: {json.dumps(took)}")
     _check_family_rows(results)
     if args.profile:

@@ -28,8 +28,14 @@ gives the same tree (``weight_plan.flatten_leaves``: dict keys sorted).
 ``restore`` puts them back into the structure of a ``tree_like``, so a
 ``(params, opt_state)`` checkpoint goes both ways between the packages.
 ``AsyncCheckpointer`` copies every leaf to the host synchronously and
-writes on a worker thread.  ``restore(shardings=)`` restores onto a mesh:
-each rank keeps its pieces of the whole stored leaves.
+writes on a worker thread.
+
+On a mesh checkpoints still hold whole leaves, as the reference's do:
+``gather_state`` assembles the whole leaves of every rank's pieces on one
+rank (the host copy it writes), leaf by leaf, and ``restore(shardings=)``
+restores onto a mesh of any shape: each rank reads the stored leaves
+through a memory map and copies out its own pieces on the host, so no rank
+holds a whole state, on the host or the card.
 """
 
 from __future__ import annotations
@@ -132,10 +138,11 @@ def _from_numpy(arr: np.ndarray, dtype: str) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
-def restore_flat(base: str, step: Optional[int] = None) -> tuple:
+def restore_flat(base: str, step: Optional[int] = None, mmap: bool = False) -> tuple:
     """(list of CPU tensors in the stored leaf order, manifest dict) of the
-    newest complete step, or of ``step``.  Raises FileNotFoundError when no
-    complete step exists."""
+    newest complete step, or of ``step``; with ``mmap`` the tensors map the
+    files copy-on-write (read as they are touched).  Raises
+    FileNotFoundError when no complete step exists."""
     if step is None:
         step = latest_step(base)
         if step is None:
@@ -144,7 +151,8 @@ def restore_flat(base: str, step: Optional[int] = None) -> tuple:
     with open(os.path.join(d, "MANIFEST.json")) as f:
         manifest = json.load(f)
     leaves = [
-        _from_numpy(np.load(os.path.join(d, f"leaf_{i:05d}.npy")), entry["dtype"])
+        _from_numpy(np.load(os.path.join(d, f"leaf_{i:05d}.npy"), mmap_mode="c" if mmap else None),
+                    entry["dtype"])
         for i, entry in enumerate(manifest["leaves"])
     ]
     return leaves, manifest
@@ -158,12 +166,12 @@ def restore(base: str, tree_like: Any, step: Optional[int] = None, shardings: An
     on this rank's mesh) keeps each leaf's local piece on this rank.
     Raises ValueError when the leaf count or a shape differs, TypeError
     when a sharding is not a Spec.  Returns (tree, metadata)."""
-    arrs, manifest = restore_flat(base, step)
+    arrs, manifest = restore_flat(base, step, mmap=shardings is not None)
     if shardings is not None:
         specs = flatten_leaves(shardings)
         if len(specs) != len(arrs) or not all(isinstance(s, sl.Spec) for s in specs):
             raise TypeError("shardings must be a tree of shardlib.Spec, one per stored leaf")
-        arrs = [sl.local_piece(a, s.spec, s.mesh).contiguous() for a, s in zip(arrs, specs)]
+        arrs = [_own(sl.local_piece(a, s.spec, s.mesh)) for a, s in zip(arrs, specs)]
     leaves_like = flatten_leaves(tree_like)
     if manifest["n_leaves"] != len(leaves_like):
         raise ValueError(
@@ -174,6 +182,24 @@ def restore(base: str, tree_like: Any, step: Optional[int] = None, shardings: An
             raise ValueError(f"leaf {i}: shape {tuple(arr.shape)} != expected {tuple(like.shape)}")
         out.append(arr.to(like.device) if isinstance(like, torch.Tensor) else arr)
     return unflatten_leaves(tree_like, out), manifest["metadata"]
+
+
+def _own(t: torch.Tensor) -> torch.Tensor:
+    """A copy of ``t`` in memory of its own (off a memory-mapped file)."""
+    return torch.empty(t.shape, dtype=t.dtype).copy_(t)
+
+
+def gather_state(tree: Any, specs: Any, rank: int) -> Optional[Any]:
+    """The whole leaves of ``tree`` -- a rank's pieces, placed by ``specs``
+    (a tree of ``shardlib.Spec`` like it) -- as host tensors on rank 0 (the
+    writer), None on the others.  Collective: every rank of the specs' mesh
+    calls it, and one leaf is gathered at a time, so a rank holds one whole
+    leaf on its device at most."""
+    out = []
+    for t, s in zip(flatten_leaves(tree), flatten_leaves(specs)):
+        whole = sl.gather_whole(t.detach(), s.spec, s.mesh)
+        out.append(whole.to("cpu", copy=True) if rank == 0 else None)
+    return unflatten_leaves(tree, out) if rank == 0 else None
 
 
 def _host_copy(leaf):
@@ -197,7 +223,12 @@ class AsyncCheckpointer:
 
     def save(self, step: int, tree: Any, metadata: Optional[dict] = None):
         self.wait()  # one in-flight save at a time
-        host_tree = map_tree(lambda _, leaf: _host_copy(leaf), tree)
+        self.save_host(step, map_tree(lambda _, leaf: _host_copy(leaf), tree), metadata)
+
+    def save_host(self, step: int, host_tree: Any, metadata: Optional[dict] = None):
+        """``save`` of a tree of host tensors the caller hands over (no later
+        update reaches them: ``gather_state``'s), written without a copy."""
+        self.wait()
 
         def work():
             try:

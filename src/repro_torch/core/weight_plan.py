@@ -569,6 +569,8 @@ def unflatten_leaves(skeleton, leaves: list):
                                        scales=scales, walk=walk)
         if isinstance(node, QuantLinear):
             return dataclasses.replace(node, q=next(it), s=next(it))
+        if isinstance(node, ShardedLeaf):
+            return dataclasses.replace(node, local=fill(node.local))
         if isinstance(node, dict):
             # fill in sorted order, keep the skeleton's key order
             filled = {k: fill(node[k]) for k in sorted(node)}
@@ -961,17 +963,28 @@ def local_leaf(node, axes, mesh, rules):
     if not isinstance(node, torch.Tensor):
         return node
     spec = sl.tree_specs(node, axes, mesh=mesh, rules=rules).spec
-    if node.dim() < 2 or not (axes and axes[-2]):
-        # no named contraction axis: a vector, a stack of vectors or a
-        # conv's taps, which the model reads elementwise -- a plain piece
-        return _piece(node, spec, mesh) if any(e is not None for e in spec) else node
+    split = matmul_split(spec, axes, tuple(node.shape), mesh)
+    if split is not None:
+        return ShardedLeaf(_piece(node, spec, mesh), *split)
+    return _piece(node, spec, mesh) if any(e is not None for e in spec) else node
+
+
+def matmul_split(spec: tuple, axes, shape: tuple, mesh) -> Optional[tuple]:
+    """(k_split, n_split, (K, N), experts) -- ``ShardedLeaf``'s fields after
+    ``local`` -- of a dense leaf of whole ``shape`` and logical ``axes``
+    under ``spec``, or None where the rank's piece stays a plain tensor: a
+    leaf with no named contraction axis (a vector, a stack of vectors or a
+    conv's taps, which the model reads elementwise) or a matmul leaf the
+    spec leaves whole."""
+    if len(shape) < 2 or not (axes and axes[-2]):
+        return None
     k_split = _model_split(spec[-2], "rows")
     n_split = _model_split(spec[-1], "columns")
     dim = _split_lead(spec, len(spec) - 2)
     if not (k_split or n_split or dim is not None):
-        return node
-    return ShardedLeaf(_piece(node, spec, mesh), k_split, n_split, tuple(node.shape[-2:]),
-                       None if dim is None else _expert_range(tuple(node.shape), dim, mesh))
+        return None
+    return (k_split, n_split, shape[-2:],
+            None if dim is None else _expert_range(shape, dim, mesh))
 
 
 def local_params(params, axes_tree, mesh, rules):
@@ -1022,13 +1035,16 @@ def sharded_linear(x: torch.Tensor, w, x_split: bool = False) -> tuple:
     split contraction sums its partial products over the model axis (an
     int8 leaf's per-column scales commute with that sum: B5 runs with no
     activation).  A whole leaf gathers a split ``x`` first.  A stack cut on
-    its expert axis runs the rank's experts on ``x`` (their rows)."""
+    its expert axis runs the rank's experts on ``x`` (their rows).  Under
+    autograd (meshed training) a whole ``x`` enters the rank's columns
+    through ``shardlib.fan_out`` and a split contraction's partial products
+    meet in ``shardlib.reduce_sum``: Megatron's f and g."""
     if not isinstance(w, ShardedLeaf):
         return apply_linear(sl.cols(x, x_split, 0, contraction(w)), w), False
     if w.k_split:
         y, _ = partial_linear(x, w, x_split)
-        return sl.all_reduce(y, "model"), False
-    x = sl.cols(x, x_split, 0, w.shape[0])
+        return sl.reduce_sum(y, "model"), False
+    x = sl.fan_out(sl.cols(x, x_split, 0, w.shape[0]))
     return apply_linear(x, w.local), w.n_split
 
 
@@ -1043,4 +1059,4 @@ def sharded_gate_up(x: torch.Tensor, w_gate, w_up, activation: str) -> tuple:
             or w_up.n_split != w_gate.n_split:
         raise ValueError("gate/up shards must split the same output columns and no "
                          "contraction (the activation does not commute with a sum)")
-    return apply_gate_up(x, w_gate.local, w_up.local, activation), w_gate.n_split
+    return apply_gate_up(sl.fan_out(x), w_gate.local, w_up.local, activation), w_gate.n_split

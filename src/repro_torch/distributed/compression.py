@@ -20,47 +20,63 @@ would carry.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.weight_plan import flatten_leaves, unflatten_leaves
+from repro_torch.distributed import shardlib as sl
 
 
-def _int8_codec(g: torch.Tensor) -> torch.Tensor:
+def _int8_codec(g: torch.Tensor, whole=None) -> torch.Tensor:
     amax = g.abs().max()
+    if whole is not None:  # the max over the whole leaf
+        amax = sl.reduce_over(amax, sl.spec_axes(whole.spec), whole.mesh, op=dist.ReduceOp.MAX)
     scale = torch.clamp(amax, min=1e-12) / 127.0
     q = torch.clamp(torch.round(g / scale), -127, 127).to(torch.int8)
     return q.to(g.dtype) * scale
 
 
-def _topk_codec(g: torch.Tensor, frac: float = 0.1) -> torch.Tensor:
-    if g.numel() <= 16:
+def _topk_codec(g: torch.Tensor, frac: float = 0.1, whole=None) -> torch.Tensor:
+    full = g if whole is None else sl.gather_whole(g, whole.spec, whole.mesh)
+    if full.numel() <= 16:
         return g
-    k = max(1, int(g.numel() * frac))
-    flat = g.abs().reshape(-1)
+    k = max(1, int(full.numel() * frac))
+    flat = full.abs().reshape(-1)
     thresh = torch.kthvalue(flat, flat.numel() - k + 1).values  # the k-th largest
     return torch.where(g.abs() >= thresh, g, torch.zeros_like(g))
 
 
 @torch.no_grad()
-def compress_tree(grads, opt_state: dict, kind: str = "int8", topk_frac: float = 0.1):
+def compress_tree(grads, opt_state: dict, kind: str = "int8", topk_frac: float = 0.1,
+                  placement=None):
     """Compress every >= 2-D gradient leaf with error feedback; a leaf of
     lower rank passes through and its residual is zero.  Returns (new
     grads, new opt_state); the "ef" tree of ``opt_state`` is updated in
     place.  Raises ValueError without one: create it with
-    ``optimizer.init_opt_state(..., error_feedback=True)``."""
+    ``optimizer.init_opt_state(..., error_feedback=True)``.
+
+    With a ``placement`` (``optimizer.Placement``) the gradients and ``ef``
+    are a rank's pieces of the leaves, summed over the data replicas, and
+    each codec keeps its whole-leaf meaning: the int8 scale is the max over
+    the whole leaf (a MAX over the axes that split it), the top-k threshold
+    the k-th largest magnitude of the whole leaf (gathered for
+    ``kthvalue``)."""
     if "ef" not in opt_state:
         raise ValueError(
             "gradient compression needs opt_state['ef']; init with error_feedback=True")
     out = []
-    for g, e in zip(flatten_leaves(grads), flatten_leaves(opt_state["ef"])):
+    for i, (g, e) in enumerate(zip(flatten_leaves(grads), flatten_leaves(opt_state["ef"]))):
         if g.dim() < 2:
             e.zero_()
             out.append(g)
             continue
         gc = g + e
+        whole = None  # the leaf's spec where the rank holds a piece of it
+        if placement is not None and placement.split_axes(i):
+            whole = sl.Spec(placement.param_specs[i], placement.mesh)
         if kind == "int8":
-            dec = _int8_codec(gc)
+            dec = _int8_codec(gc, whole)
         elif kind == "topk":
-            dec = _topk_codec(gc, topk_frac)
+            dec = _topk_codec(gc, topk_frac, whole)
         else:
             raise ValueError(kind)
         e.copy_(gc - dec)

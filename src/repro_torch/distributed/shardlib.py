@@ -26,7 +26,11 @@ rank order), and the model code moves activations between layouts with
 (``all_gather``, ``all_reduce``, ``cols``, ``gather_batch``).  ``shard`` /
 ``shard_pinned`` are the relayout their call sites need: a whole tensor to
 this rank's piece.  Without an active mesh (``use_mesh``) every one of them
-does nothing.
+does nothing.  Training on a mesh runs the same model code under autograd:
+there ``fan_out``, ``reduce_sum`` and ``gather_pieces`` (Megatron's f, g
+and a gather with a slicing backward) take the collectives' places, and
+``all_reduce_flat`` / ``reduce_over`` / ``gather_whole`` name their mesh
+for the optimizer and the checkpoints.
 
 A mesh is a ``torch.distributed`` ``DeviceMesh`` with dim names ("data",
 "model") (``launch/mesh.py`` builds it), or a ``MeshShape``: axis sizes
@@ -382,6 +386,15 @@ def _piece(sizes: dict, coords: dict, entry) -> tuple:
     return parts, idx
 
 
+def spec_axes(spec: tuple) -> tuple:
+    """The mesh axes a spec splits its leaf over, in dimension order."""
+    out: list = []
+    for e in spec:
+        if e is not None and e is not UNCONSTRAINED:
+            out += [e] if isinstance(e, str) else list(e)
+    return tuple(out)
+
+
 def local_piece(x: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
     """This rank's piece of a whole tensor under ``spec`` (a view: each
     sharded dim narrowed to the rank's slice, pieces in rank order)."""
@@ -463,18 +476,30 @@ def all_gather(x: torch.Tensor, axis: str, dim: int = -1) -> torch.Tensor:
     n = axis_size(axis)
     if n == 1:
         return x
-    src = x.contiguous()
-    parts = [torch.empty_like(src) for _ in range(n)]
-    dist.all_gather(parts, src, group=_group(axis))
-    return torch.cat(parts, dim=dim)
+    return _gather(x, _group(axis), n, dim)
 
 
 def all_reduce(x: torch.Tensor, axis: str) -> torch.Tensor:
     """The sum of ``x`` over the ``axis`` group (a new tensor)."""
     if axis_size(axis) == 1:
         return x
+    return _reduce(x, _group(axis))
+
+
+def _gather(x: torch.Tensor, group, n: int, dim: int) -> torch.Tensor:
+    """The ``n`` pieces of ``x`` of ``group``'s ranks concatenated along
+    ``dim`` in rank order."""
+    src = x.contiguous()
+    parts = [torch.empty_like(src) for _ in range(n)]
+    dist.all_gather(parts, src, group=group)
+    return torch.cat(parts, dim=dim)
+
+
+def _reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """``x`` reduced by ``op`` over ``group`` (a new tensor, out of any
+    autograd graph)."""
     out = x.detach().clone().contiguous()
-    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=_group(axis))
+    dist.all_reduce(out, op=op, group=group)
     return out
 
 
@@ -482,13 +507,17 @@ def cols(y: torch.Tensor, split: bool, start: int, size: int) -> torch.Tensor:
     """Columns [start, start + size) of the whole last axis, from ``y`` that
     holds either the whole axis or (``split``) this rank's piece of M equal
     pieces over the model axis: a slice where the piece covers them, else
-    an all-gather first."""
+    an all-gather first.  A part of a whole axis is this rank's own (its
+    heads, channels or contraction rows), so under autograd its gradient is
+    summed over the model ranks (``fan_out``)."""
     if split:
         n = y.shape[-1]
         lo = axis_index("model") * n
         if lo <= start and start + size <= lo + n:
             return y.narrow(-1, start - lo, size)
-        y = all_gather(y, "model", dim=-1)
+        y = gather_pieces(y, "model", dim=-1)
+    if size < y.shape[-1]:
+        y = fan_out(y)
     return y.narrow(-1, start, size)
 
 
@@ -516,4 +545,198 @@ def gather_batch(x: torch.Tensor, rows: Optional[slice]) -> torch.Tensor:
     axes = (axes,) if isinstance(axes, str) else tuple(axes or ())
     for a in reversed([a for a in axes if axis_size(a) > 1]):
         x = all_gather(x, a, dim=0)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# collectives that autograd goes through: training on a mesh
+# ---------------------------------------------------------------------------
+#
+# Every model rank of a data replica computes the same loss from replicated
+# activations (Megatron's tensor parallelism), so two operators carry the
+# gradient across the model axis: ``fan_out`` (identity forward, the ranks'
+# gradients summed in the backward) where a replicated tensor enters work
+# that differs by rank -- a column-split product, a rank's heads --, and
+# ``reduce_sum`` (sum forward, identity backward) where the ranks' partial
+# results become one replicated tensor -- a split contraction, the
+# vocab-split embedding.  ``gather_pieces`` concatenates the ranks' pieces
+# into a replicated tensor; its backward keeps the rank's slice of the
+# replicated gradient.  (``torch.distributed.nn``'s all-reduce sums in its
+# backward too: as ``reduce_sum`` it would make every gradient upstream of
+# it M times too large.)  Each Function keeps its process group, since
+# autograd runs a CUDA backward on a thread of its own, where ``use_mesh``'s
+# stack is empty.  Without autograd -- serving -- the dispatchers call the
+# plain collectives above.
+
+
+def _grad_on(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+class _FanOut(torch.autograd.Function):
+    """Forward: ``x`` as it is.  Backward: the gradient summed over the
+    group's ranks, each of which used ``x`` for its own part of the work."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce(g, ctx.group), None
+
+
+class _ReduceSum(torch.autograd.Function):
+    """Forward: the sum of ``x`` over the group's ranks.  Backward: the
+    gradient as it is -- every rank holds the same gradient of the
+    replicated sum, and its own term's share of it is all of it."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherPieces(torch.autograd.Function):
+    """Forward: the group's pieces of ``x`` concatenated along ``dim`` in
+    rank order.  Backward: this rank's slice (at ``index``) of the
+    replicated gradient of the whole."""
+
+    @staticmethod
+    def forward(ctx, x, group, n, index, dim):
+        ctx.dim, ctx.start, ctx.len = dim, index * x.shape[dim], x.shape[dim]
+        return _gather(x.detach(), group, n, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.start, ctx.len).contiguous(), None, None, None, None
+
+
+def fan_out(x: torch.Tensor, axis: str = "model") -> torch.Tensor:
+    """``x`` (replicated over ``axis``) entering rank-specific work: the
+    identity, whose backward sums the ranks' gradients (``x`` itself
+    without autograd or on a 1-wide axis)."""
+    if axis_size(axis) == 1 or not _grad_on(x):
+        return x
+    return _FanOut.apply(x, _group(axis))
+
+
+def reduce_sum(x: torch.Tensor, axis: str) -> torch.Tensor:
+    """The sum of ``x`` over the ``axis`` group: ``all_reduce``, or under
+    autograd the sum whose backward is the identity."""
+    if axis_size(axis) == 1:
+        return x
+    if not _grad_on(x):
+        return all_reduce(x, axis)
+    return _ReduceSum.apply(x, _group(axis))
+
+
+def gather_pieces(x: torch.Tensor, axis: str, dim: int = -1) -> torch.Tensor:
+    """The ``axis`` group's pieces of ``x`` concatenated along ``dim``:
+    ``all_gather``, or under autograd the gather whose backward keeps this
+    rank's slice of the gradient."""
+    n = axis_size(axis)
+    if n == 1:
+        return x
+    if not _grad_on(x):
+        return all_gather(x, axis, dim)
+    return _GatherPieces.apply(x, _group(axis), n, axis_index(axis), dim % x.dim())
+
+
+def batch_axes() -> tuple:
+    """The active mesh's axes that the ``batch`` rule maps to, of size > 1,
+    in rule order (none without a mesh)."""
+    axes = current_rules().get("batch")
+    axes = (axes,) if isinstance(axes, str) else tuple(axes or ())
+    return tuple(a for a in axes if axis_size(a) > 1)
+
+
+def reduce_batch(x: torch.Tensor) -> torch.Tensor:
+    """The sum of ``x`` over the data replicas (``reduce_sum`` over each
+    batch axis)."""
+    for a in batch_axes():
+        x = reduce_sum(x, a)
+    return x
+
+
+def carry_mesh(fn):
+    """``fn`` run under the mesh and rules active now, wherever it is called
+    from: ``torch.utils.checkpoint`` reruns a layer inside the backward,
+    which autograd runs on a thread of its own for CUDA tensors."""
+    s = _get()
+    if not s:
+        return fn
+    mesh, rules = s[-1]
+
+    def run(*args, **kwargs):
+        with use_mesh(mesh, rules):
+            return fn(*args, **kwargs)
+
+    return run
+
+
+def reduce_over(x: torch.Tensor, axes: Sequence[str], mesh, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """``x`` reduced by ``op`` over each of ``axes`` of ``mesh`` (a new
+    tensor; ``x`` itself where every axis is 1-wide).  The mesh is named,
+    not taken from ``use_mesh``, so no caller runs it unmeshed by
+    accident."""
+    sizes = axis_sizes(mesh)
+    for a in axes:
+        if sizes[a] > 1:
+            x = _reduce(x, mesh.get_group(a), op)
+    return x
+
+
+# the flat buffers of ``all_reduce_flat``: a few collectives a step for the
+# ~200 gradient leaves, without a second copy of a 1B model's gradients
+FLAT_BUCKET_BYTES = 1 << 28
+
+
+def all_reduce_flat(tensors: list, axes: Sequence[str], mesh) -> list:
+    """The sums of ``tensors`` over each of ``axes`` of ``mesh``, a few flat
+    buffers at a time (consecutive tensors of one dtype and device, up to
+    ``FLAT_BUCKET_BYTES`` a buffer) instead of one collective a tensor.  Returns
+    new tensors (views of the buffers), each the sum of its own tensor,
+    element for element."""
+    sizes = axis_sizes(mesh)
+    groups = [mesh.get_group(a) for a in axes if sizes[a] > 1]
+    if not groups:
+        return list(tensors)
+    buckets, size = [[]], 0
+    for i, t in enumerate(tensors):
+        nbytes = t.numel() * t.element_size()
+        first = tensors[buckets[-1][0]] if buckets[-1] else t
+        if buckets[-1] and (t.dtype != first.dtype or t.device != first.device
+                            or size + nbytes > FLAT_BUCKET_BYTES):
+            buckets.append([])
+            size = 0
+        buckets[-1].append(i)
+        size += nbytes
+    out = list(tensors)
+    for idx in buckets:
+        flat = torch.cat([tensors[i].detach().reshape(-1) for i in idx])
+        for g in groups:
+            dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=g)
+        for i, part in zip(idx, flat.split([tensors[i].numel() for i in idx])):
+            out[i] = part.view(tensors[i].shape)
+    return out
+
+
+def gather_whole(piece: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
+    """The whole leaf from this rank's ``piece`` of it under ``spec`` (the
+    inverse of ``local_piece``), on every rank of ``mesh``: each split
+    dimension gathered over its axes, the minor axis first.  Collective
+    over ``mesh``'s groups."""
+    sizes = axis_sizes(mesh)
+    x = piece
+    for d, entry in enumerate(spec):
+        if entry is None or entry is UNCONSTRAINED:
+            continue
+        for a in reversed((entry,) if isinstance(entry, str) else tuple(entry)):
+            if sizes[a] > 1:
+                x = _gather(x, mesh.get_group(a), sizes[a], d)
     return x

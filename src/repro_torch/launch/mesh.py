@@ -16,12 +16,19 @@ ranks share a card or run on the CPU.  More ranks than cards is refused,
 as the reference refuses more ranks than devices, unless the caller lets
 ranks share a card (``share_card``, the CLI's ``--share-card``).  Nothing
 falls back from one backend to the other after a failure, and one rank's
-exception fails the whole launch.
+exception fails the whole launch.  ``join_torchrun`` is that choice for
+a rank ``torchrun`` started, shared by the serve and train CLIs.
+
+Training.  ``train_placement`` is where a config's training state lies on
+a mesh (an ``optimizer.Placement``): params by ``rules_for``, AdamW
+moments by ``opt_rules`` (ZeRO-1).  ``train_mesh_sizes`` reads the train
+CLI's ``--mesh``.
 """
 
 from __future__ import annotations
 
 import datetime
+import math
 import os
 import shutil
 import tempfile
@@ -31,6 +38,9 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.distributed import shardlib as sl
+from repro_torch.models import transformer as T
+from repro_torch.models.api import get_api
+from repro_torch.training import optimizer as O
 
 AXES = ("data", "model")
 
@@ -100,25 +110,63 @@ def init_rank(rank: int, world: int, backend: str, store_dir: Optional[str] = No
                                 timeout=timeout)
 
 
+def join_torchrun(device_type: str, share_card: bool = False) -> None:
+    """Join ``torchrun``'s group as the rank its environment names: its
+    card (LOCAL_RANK), the backend chosen from the ranks on this host
+    (LOCAL_WORLD_SIZE) and its cards (``choose_backend``)."""
+    world = int(os.environ["WORLD_SIZE"])
+    backend = choose_backend(int(os.environ.get("LOCAL_WORLD_SIZE", world)), device_type,
+                             share_card)
+    if device_type == "cuda":
+        torch.cuda.set_device(rank_device(int(os.environ.get("LOCAL_RANK", 0)), "cuda"))
+    init_rank(int(os.environ["RANK"]), world, backend)
+
+
 def make_serving_mesh(shape: Optional[tuple], backend: str = "gloo"):
     """The DeviceMesh of (data, model) ``shape`` over the initialized
     process group (which must hold D*M ranks); None for no mesh.  A world
     of one joins a group of its own first."""
     if shape is None:
         return None
-    d, m = shape
+    return make_mesh(dict(zip(AXES, shape)), backend)
+
+
+def make_mesh(sizes: dict, backend: str = "gloo"):
+    """The DeviceMesh of ``sizes`` ({axis name: size}, in mesh order) over
+    the initialized process group, which must hold their product of ranks.
+    A world of one joins a group of its own first."""
+    n = math.prod(sizes.values())
+    label = "x".join(str(v) for v in sizes.values())
     if not dist.is_initialized():
-        if d * m != 1:
-            raise RuntimeError(f"a {d}x{m} mesh needs {d * m} ranks: spawn them first "
+        if n != 1:
+            raise RuntimeError(f"a {label} mesh needs {n} ranks: spawn them first "
                                f"(spawn_ranks) or run under torchrun")
         init_rank(0, 1, backend)
-    if dist.get_world_size() != d * m:
-        raise ValueError(f"a {d}x{m} mesh needs {d * m} ranks, the group has "
+    if dist.get_world_size() != n:
+        raise ValueError(f"a {label} mesh needs {n} ranks, the group has "
                          f"{dist.get_world_size()}")
     from torch.distributed.device_mesh import init_device_mesh
 
-    return init_device_mesh("cuda" if backend == "nccl" else "cpu", (d, m),
-                            mesh_dim_names=AXES)
+    return init_device_mesh("cuda" if backend == "nccl" else "cpu", tuple(sizes.values()),
+                            mesh_dim_names=tuple(sizes))
+
+
+def train_mesh_sizes(spec: str, world: int) -> Optional[dict]:
+    """The train CLI's ``--mesh`` over ``world`` ranks as {axis: size}:
+    "host" is 1 x the ranks there are (None -- the mesh-free step, which a
+    1 x 1 mesh equals -- for a world of one); "pod" and "multipod" are the
+    reference's production meshes, (16, 16) and (2, 16, 16), refused with
+    the ranks they need when the world differs."""
+    if spec == "host":
+        return None if world == 1 else {"data": 1, "model": world}
+    if spec not in ("pod", "multipod"):
+        raise ValueError(f"--mesh must be host, pod or multipod (got {spec!r})")
+    sizes = make_production_mesh(multi_pod=spec == "multipod").shape
+    need = math.prod(sizes.values())
+    if world != need:
+        raise ValueError(f"--mesh {spec} is a {'x'.join(map(str, sizes.values()))} mesh: it "
+                         f"needs {need} ranks under torchrun, this run has {world}")
+    return dict(sizes)
 
 
 def make_host_mesh(device_type: str = "cpu"):
@@ -178,3 +226,15 @@ def opt_rules(rules: dict) -> dict:
     r = dict(rules)
     r["d"] = ("pod", "data")
     return r
+
+
+def train_placement(cfg, mesh) -> O.Placement:
+    """Where ``cfg``'s training state lies on ``mesh``: params by
+    ``rules_for``, moments by ``opt_rules`` of them (ZeRO-1: d_model also
+    over the data axes).  Raises NotImplementedError, before any params
+    are drawn, for a family that does not train on a mesh yet
+    (``transformer.check_meshable``)."""
+    T.check_meshable(cfg)
+    api, rules = get_api(cfg), rules_for(cfg, None, mesh=mesh)
+    return O.Placement.of(T.meta_tree(api.param_shapes(cfg)), api.param_axes(cfg), mesh, rules,
+                          opt_rules(rules))

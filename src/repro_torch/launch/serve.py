@@ -677,11 +677,7 @@ def _join_torchrun(args) -> bool:
     shape = M.parse_mesh(args.mesh, device_type)
     if shape is None or shape[0] * shape[1] == 1:
         return False
-    local = int(os.environ.get("LOCAL_WORLD_SIZE", os.environ["WORLD_SIZE"]))
-    backend = M.choose_backend(local, device_type, args.share_card)
-    if device_type == "cuda":
-        torch.cuda.set_device(M.rank_device(int(os.environ.get("LOCAL_RANK", 0)), "cuda"))
-    M.init_rank(int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"]), backend)
+    M.join_torchrun(device_type, args.share_card)
     return True
 
 

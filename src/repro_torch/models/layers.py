@@ -616,7 +616,9 @@ def out_proj(cfg, p, o, hp: HeadPlan):
 def read_heads(t: torch.Tensor, hp: HeadPlan) -> torch.Tensor:
     """The read KV heads of a (B, S, npool, ...) cache tensor (a view)."""
     off, n = hp.kv_in_pool
-    return t if n == t.shape[2] else t.narrow(2, off, n)
+    # a rank's heads of a tensor of every head: its gradient is summed over
+    # the model ranks under autograd (``shardlib.fan_out``)
+    return t if n == t.shape[2] else sl.fan_out(t).narrow(2, off, n)
 
 
 def attn_window_and_base(cfg, kind: str) -> tuple:
@@ -723,7 +725,7 @@ def embed_tokens(cfg, p, tokens):
         local = local.clamp(0, rows - 1)
         table = tok.q if isinstance(tok, QuantLinear) else tok
         x = torch.where(mine[..., None], table[local].to(_cdtype(cfg)), 0)
-        x = sl.all_reduce(x, "model")
+        x = sl.reduce_sum(x, "model")
     elif isinstance(tok, QuantLinear):
         x = tok.q[idx].to(_cdtype(cfg))
     else:
@@ -747,7 +749,8 @@ def unembed(cfg, p, x):
         y, ys = sharded_linear(x, p["head"])
         return sl.cols(y, ys, 0, cfg.vocab)
     tok, split = p["tok"], isinstance(p["tok"], ShardedLeaf)
-    tok = tok.local if split else tok
+    if split:  # the rank's vocab rows: x enters rank-specific work
+        tok, x = tok.local, sl.fan_out(x)
     if isinstance(tok, QuantLinear):
         y = (x * tok.s.to(x.dtype)) @ tok.q.to(x.dtype).T
     else:

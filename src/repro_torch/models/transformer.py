@@ -527,13 +527,30 @@ def decode_step(cfg, params, cache, tokens, pos, *, use_kernel: bool = True):
 # ---------------------------------------------------------------------------
 
 
+def check_meshable(cfg):
+    """Raise NotImplementedError, naming the ROADMAP item, for a config
+    whose training the port does not run on a mesh yet: a MoE FFN, a
+    recurrent or xLSTM layer, the enc-dec and the VLM families."""
+    what = ("the enc-dec family" if cfg.family == "audio" else
+            "the VLM family" if cfg.family == "vlm" else
+            "a MoE FFN" if cfg.moe is not None else
+            next((f"a {k!r} layer" for k in cfg.layer_kinds if k not in ATTN_KINDS), None))
+    if what is not None:
+        raise NotImplementedError(f"{cfg.name}: training {what} on a mesh is not ported yet "
+                                  f"(ROADMAP A13d)")
+
+
 def _check_dense(params):
-    """Training takes the stacked tree of dense tensors of ``init_params``:
-    a compressed tree (a plan node) or the ``unstack`` view is refused."""
+    """Training takes the stacked tree of dense tensors of ``init_params``
+    (on a mesh, this rank's pieces of them, a split matmul piece in a
+    ``ShardedLeaf`` view): a compressed tree (a plan node) or the
+    ``unstack`` view is refused."""
     if "layers" in params:
         raise ValueError("training takes the stacked params tree, not the unstack view")
 
     def one(path, node):
+        if isinstance(node, ShardedLeaf) and sl.current_mesh() is not None:
+            node = node.local
         if not isinstance(node, torch.Tensor):
             raise ValueError(f"training takes dense weights: {path} is a {type(node).__name__}")
         return node
@@ -578,6 +595,16 @@ def _train_layer(cfg, kind: str, p, x):
     return x + L.apply_mlp(cfg, p["mlp"], h), None
 
 
+def meta_tree(shapes):
+    """A tree of (shape, init) leaves (``param_shapes``') as meta tensors:
+    the whole leaves' shapes, nothing allocated."""
+    if isinstance(shapes, dict):
+        return {k: meta_tree(v) for k, v in shapes.items()}
+    if isinstance(shapes, list):
+        return [meta_tree(v) for v in shapes]
+    return torch.empty(shapes[0], device="meta")
+
+
 def forward(cfg, params, tokens, extra_embeds=None):
     """Training/eval forward: (logits (B, S, V) over the full sequence, the
     layers' MoE aux losses summed in fp32 (0 without MoE)).  ``params`` is
@@ -585,16 +612,26 @@ def forward(cfg, params, tokens, extra_embeds=None):
     (B, P, d) go before the tokens' embeddings and their logits are
     dropped.  With ``cfg.remat`` each layer is rematerialized in the
     backward (``torch.utils.checkpoint``, the reference's per-layer
-    ``jax.checkpoint``)."""
+    ``jax.checkpoint``).
+
+    Under an active mesh (``shardlib.use_mesh``) ``params`` holds this
+    rank's pieces of the leaves, each split matmul piece in a
+    ``ShardedLeaf`` view (``optimizer.Placement.views``), the rows are the
+    data replica's, and the products run on the pieces through the model
+    axis's collectives, which autograd goes through; the logits are whole
+    on every model rank.  Only the dense decoder family trains on a mesh
+    (``check_meshable``, which ``launch.mesh.train_placement`` runs)."""
     check_supported(cfg)
     _check_dense(params)
     x = L.embed_tokens(cfg, params["embed"], tokens)
     if extra_embeds is not None:
         x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    # a rematerialized layer reruns in the backward, on autograd's thread
+    layer_fn = sl.carry_mesh(_train_layer)
     for kind, p in zip(cfg.layer_kinds, _unbind_layers(cfg, params)):
         if cfg.remat:
-            x, a = torch.utils.checkpoint.checkpoint(_train_layer, cfg, kind, p, x,
+            x, a = torch.utils.checkpoint.checkpoint(layer_fn, cfg, kind, p, x,
                                                      use_reentrant=False)
         else:
             x, a = _train_layer(cfg, kind, p, x)
@@ -609,19 +646,39 @@ def forward(cfg, params, tokens, extra_embeds=None):
 
 def next_token_nll(logits, labels):
     """The mean next-token cross entropy: fp32 logsumexp minus the label's
-    logit, averaged over the positions whose label is >= 0."""
+    logit, averaged over the positions whose label is >= 0.  On a mesh the
+    rows are a data replica's: the sum and the count are summed over the
+    replicas before the division (``shardlib.reduce_batch``), so every rank
+    holds the whole batch's mean, and its backward reaches the rank's own
+    rows only."""
     labels = labels.long()
     mask = (labels >= 0).to(torch.float32)
     lf = logits.to(torch.float32)
     label_logit = lf.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
     nll = torch.logsumexp(lf, dim=-1) - label_logit
-    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    total, count = sl.reduce_batch(torch.sum(nll * mask)), sl.reduce_batch(torch.sum(mask))
+    return total / torch.clamp(count, min=1.0)
+
+
+def replica_rows(batch: dict) -> dict:
+    """This data replica's rows of a global ``batch`` on the active mesh
+    (the batch as it is without one, or on a 1-wide data axis).  Raises
+    ValueError for a batch the data replicas do not divide."""
+    n = next(iter(batch.values())).shape[0]
+    rows = sl.data_rows(n)
+    if rows is None and sl.batch_axes():
+        raise ValueError(f"a batch of {n} rows does not divide over the "
+                         f"{math.prod(sl.axis_size(a) for a in sl.batch_axes())} data replicas")
+    return batch if rows is None else {k: v[rows] for k, v in batch.items()}
 
 
 def loss_fn(cfg, params, batch, extra_embeds=None):
     """Next-token cross entropy (``next_token_nll``) plus the MoE aux loss.
     batch: {"tokens": (B, S), "labels": (B, S)}.  Returns (loss + aux,
-    {"loss", "aux"})."""
+    {"loss", "aux"}).  On a mesh ``batch`` is the global batch and the rank
+    runs its replica's rows (``replica_rows``); the loss is the global
+    one."""
+    batch = replica_rows(batch)
     logits, aux = forward(cfg, params, batch["tokens"], extra_embeds)
     loss = next_token_nll(logits, batch["labels"])
     return loss + aux, {"loss": loss, "aux": aux}
