@@ -175,8 +175,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                prefill sees), never reaching B6.
 13. moe      -- granite-moe-1b-a400m (d 1024, 32 experts top-8) and
                qwen2-moe-a2.7b (d 2048, 60 experts padded to 64, top-4, 4
-               shared, untied head) at full width, each cut to 8 of its 24
-               layers (DEPTH_CUTS: also in the mesh and train phases),
+               shared, untied head) at full width, cut to 8 and 4 of their
+               24 layers (DEPTH_CUTS: also in the mesh and train phases),
                random weights from a seed, the serve phase's flags and
                requests, each through the kernels and the plain versions
                (streams by the near-tie rule; the build's peak memory
@@ -191,9 +191,10 @@ Phases, in order; any failure raises and the script exits non-zero:
                T 5).  Every kernel row must carry launches from a served
                run.
 14. encdec_vlm -- whisper-tiny (4 encoder + 4 decoder layers, d 384, 1500
-               frames, tied 51865 head) and internvl2-2b (24 layers, d 2048,
-               16/8 heads, hd 128, 256 patches, untied 92553 head) at full
-               width and depth, random weights from a seed, the serve
+               frames, tied 51865 head) and internvl2-2b (12 of its 24
+               layers, DEPTH_CUTS, d 2048, 16/8 heads, hd 128, 256
+               patches, untied 92553 head) at full width, whisper at full
+               depth, random weights from a seed, the serve
                phase's flags and prompts with random frames or patches
                (whisper: --pool-pages 785, its 94 frame pages a request
                included; internvl: --max-len 320): the engine's warnings
@@ -206,10 +207,11 @@ Phases, in order; any failure raises and the script exits non-zero:
                paged decode held to the plain versions; internvl's
                ``_path_parity`` with 1776-token prompts (B6 at 2032
                positions) and its served long prompt.
-15. recurrent -- recurrentgemma-2b (18 RG-LRU + 8 local layers of window
-               2048, d 2560, 10/1 heads, hd 256, tied 256000 head) and
-               xlstm-350m (12 mLSTM + 12 sLSTM, d 1024, untied 50304 head)
-               at full width and depth, random weights from a seed, the
+15. recurrent -- recurrentgemma-2b (13 of its 26 layers, DEPTH_CUTS: 9
+               RG-LRU + 4 local of window 2048, d 2560, 10/1 heads, hd 256,
+               tied 256000 head) and xlstm-350m (12 of 24, DEPTH_CUTS: 6
+               mLSTM + 6 sLSTM, d 1024, untied 50304 head) at full width,
+               random weights from a seed, the
                serve phase's flags and requests (a contiguous cache: neither
                pages; xlstm serves int8 KV as fp; the warnings logged), each
                through the kernels and the plain versions (streams by the
@@ -238,7 +240,7 @@ Phases, in order; any failure raises and the script exits non-zero:
                granite-moe-1b-a400m (8 layers, DEPTH_CUTS; 16 experts a
                rank; also 1x4, 8 a rank:
                stacked B1/B2 over the rank's experts, one all-reduce a MoE
-               layer), qwen2-moe-a2.7b (8 layers; 32 experts a rank; its ranks build
+               layer), qwen2-moe-a2.7b (4 layers; 32 experts a rank; its ranks build
                in turn, as two fp32 inits do not fit the card at once, and
                each logs its peak memory), recurrentgemma-2b (the RG-LRU's
                1280 channels and 5 of 10 q heads a rank) and
@@ -328,7 +330,7 @@ Phases, in order; any failure raises and the script exits non-zero:
                tokens over 1500 frames: one flash Function forward and
                backward an encoder layer and a cross-attention a step) and
                internvl2-2b (B 4 x 128 after 256 patches) through
-               launch.train.run at full width, 3 steps each, as above;
+               launch.train.run at full width, 2 steps each, as above;
                B6 unchanged over the phase; a smoke run restarted after a RuntimeError at
                step 4 equal to the uninterrupted one; mnist-4 and har-4 at
                published widths trained and pruned as Table 4 does (400 base
@@ -353,7 +355,27 @@ Phases, in order; any failure raises and the script exits non-zero:
                Then the train CLI under torchrun at the smoke size
                (--nproc-per-node 2 --mesh host --share-card, 2 steps), its
                losses held to a one-card run's.
-20. summary -- one JSON line of per-kernel numbers, then the result line.
+20. train_mesh_families -- the other families on a training mesh, ranks
+               sharing the card over gloo: granite-moe-1b-a400m (8
+               layers), recurrentgemma-2b (13), xlstm-350m (12), whisper-
+               tiny (1500 frames) and internvl2-2b (12; DEPTH_CUTS) at
+               full width
+               through launch.train.run(mesh=) at 1x2 (one spawn for the
+               five), granite-moe also at 2x2 (two replicas of 512 tokens
+               beside its 32 experts split over model), each with its
+               train phase batch and sequence for 2 steps, held to the
+               train phase's one-card run of the same flags with the
+               train_mesh limits (losses 5e-4, grad norms 5e-3, each
+               gradient leaf's norm 2e-2, every step); granite's dropped
+               assignments step by step equal to one card's, or at most 2
+               apart for each assignment whose expert choice flipped in
+               the bf16 router; each rank's param, gradient and moment
+               bytes equal to its placement's share (logged with the
+               fraction of the whole state and max_memory_allocated); each
+               family's whole state (16 bytes a param) reckoned against
+               the card first.  qwen2-moe-a2.7b is not run: 121 GB a rank
+               at 1x2.
+21. summary -- one JSON line of per-kernel numbers, then the result line.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -2227,8 +2249,8 @@ class _SharedRouting:
             self.calls = []
         replay = iter(self.calls)
 
-        def route(cfg, xg, router):
-            r = inner(cfg, xg, router)
+        def route(cfg, xg, router, **kw):
+            r = inner(cfg, xg, router, **kw)
             if record:
                 self.calls.append(r)
                 return r
@@ -3692,10 +3714,11 @@ def phase_families(torch, results: dict, card: str) -> None:
 MOE_ARCHS = ("granite-moe-1b-a400m", "qwen2-moe-a2.7b")
 # earlier paths cut in depth (full width kept) so that the script stays
 # within its time limit: {arch: the first layers kept}.  Every phase sees
-# the cut configs: families, moe, the mesh cases (granite at 1x2 and 1x4,
-# qwen2-moe at 1x2) and the train phase's granite run.
+# the cut configs: families, moe, encdec_vlm, recurrent, mixed, the mesh
+# cases, and the train and train_mesh_families runs of these archs.
 DEPTH_CUTS = {"glm4-9b": 10, "gemma3-4b": 12, "granite-moe-1b-a400m": 8,
-              "qwen2-moe-a2.7b": 8}
+              "qwen2-moe-a2.7b": 4, "recurrentgemma-2b": 13, "xlstm-350m": 12,
+              "internvl2-2b": 12}
 
 
 def _cut_depths() -> None:
@@ -5453,8 +5476,10 @@ def _train_args(*flags, arch: str = "tinyllama-1.1b"):
                                             "--lr", "3e-4", *flags])
 
 
-def _train_run(torch, label: str, card: str, *flags, arch: str = "tinyllama-1.1b") -> dict:
-    """``launch.train.run`` on the card from reset peak-memory stats: logs
+def _train_run(torch, label: str, card: str, *flags, arch: str = "tinyllama-1.1b",
+               cfg=None) -> dict:
+    """``launch.train.run`` on the card (``cfg`` in place of the arch's
+    config where given) from reset peak-memory stats: logs
     every loss, the median step after step 1 (host clock; each step ends in
     the loss's read), tok/s and the peak memory; fails on a loss that is not
     finite, a missing step or a restart.  Returns the run's losses, its
@@ -5469,7 +5494,7 @@ def _train_run(torch, label: str, card: str, *flags, arch: str = "tinyllama-1.1b
     torch.cuda.empty_cache()
     held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    out = train.run(args)
+    out = train.run(args, cfg=cfg)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     med = statistics.median(out["step_s"][1:]) * 1e3
@@ -5645,7 +5670,9 @@ def _train_resume(torch) -> None:
 # the other families' full-width runs: (arch, batch, text tokens a row)
 TRAIN_FAMILIES = (("granite-moe-1b-a400m", 8, 128), ("recurrentgemma-2b", 4, 128),
                   ("xlstm-350m", 8, 128), ("whisper-tiny", 8, 128), ("internvl2-2b", 4, 128))
-TRAIN_FAMILY_STEPS = 3
+# 2 (3 before the train_mesh_families phase, cut for the script's time):
+# that phase holds its 2-step meshed runs to these
+TRAIN_FAMILY_STEPS = 2
 # card-vs-CPU parity: the fewest layers that hold every kind of the arch
 TRAIN_PARITY = (("granite-moe-1b-a400m", dict(n_layers=2)),
                 ("recurrentgemma-2b", dict(n_layers=3, pattern=("rec", "rec", "local"))),
@@ -5661,8 +5688,8 @@ def _routes():
 
     calls, real = [], MOE.route
 
-    def spy(cfg, xg, router):
-        r = real(cfg, xg, router)
+    def spy(cfg, xg, router, **kw):
+        r = real(cfg, xg, router, **kw)
         calls.append(dataclasses.replace(r, probs=r.probs.detach(), gates=r.gates.detach()))
         return r
 
@@ -5802,7 +5829,7 @@ def _slstm_share(torch, card: str) -> None:
         raise AssertionError(f"train xlstm: {n[0]} sLSTM cells timed")
 
 
-def _train_families(torch, card: str) -> list:
+def _train_families(torch, card: str) -> tuple:
     """Every card-vs-CPU parity of ``TRAIN_PARITY``, then the other
     families at full width through ``launch.train.run``
     (``TRAIN_FAMILIES``, lr 3e-4, ``TRAIN_FAMILY_STEPS`` steps each):
@@ -5811,20 +5838,24 @@ def _train_families(torch, card: str) -> list:
     (``_slstm_share``), and the ``FlashAttention`` calls: whisper's encoder
     self-attention and cross-attention over 1500 frames, one forward and
     one backward a layer a step; none for the others.  Returns each run's
-    summary for the log's table."""
+    summary for the log's table and, by arch, its losses, grad norms and
+    gradient leaf norms every step (a MoE's routing calls too, on the
+    host): the train_mesh_families phase's one-card runs."""
     from repro_torch.configs import get_config
     from repro_torch.models import layers as L
 
     for arch, changes in TRAIN_PARITY:
         _family_parity(torch, arch, changes)
-    rows = []
+    rows, runs = [], {}
     for arch, batch, seq in TRAIN_FAMILIES:
         cfg = get_config(arch)
         L.FlashAttention.forward_calls = L.FlashAttention.backward_calls = 0
-        with _routes() as routes:
+        with _routes() as routes, _spy_updates(torch, {}) as seen:
             run = _train_run(torch, f"{arch} B {batch} x {seq}", card, "--steps",
                              str(TRAIN_FAMILY_STEPS), "--batch", str(batch), "--seq", str(seq),
                              arch=arch)
+        runs[arch] = dict(run, leaf_norms=seen["leaf_norms"],
+                          routes=[(r.idx.cpu(), r.keep.cpu()) for r in routes])
         calls = (L.FlashAttention.forward_calls, L.FlashAttention.backward_calls)
         want = (TRAIN_FAMILY_STEPS * (cfg.enc_layers + cfg.n_layers),) * 2 \
             if cfg.family == "audio" else (0, 0)
@@ -5848,7 +5879,7 @@ def _train_families(torch, card: str) -> list:
         rows.append(f"{arch} B {batch} x {seq} ({pos} positions a row): {run['med_ms']:.3f} ms, "
                     f"{batch * seq / run['med_ms'] * 1e3:.1f} tok/s, peak {run['peak'] / 1e9:.3f} GB")
         torch.cuda.empty_cache()
-    return rows
+    return rows, runs
 
 
 def _fcnet_train(torch, card: str) -> None:
@@ -5916,7 +5947,9 @@ def phase_train(torch, card: str) -> dict:
     """Training on the card (see the module doc): the parity checks, the
     full-width runs through ``launch.train.run``, the resume, the FC nets.
     Returns the B 8 x 128 run (``_train_run``'s, with each step's gradient
-    leaf norms), the train_mesh phase's one-card run."""
+    leaf norms), the train_mesh phase's one-card run, and the other
+    families' runs by arch (``_train_families``), the train_mesh_families
+    phase's."""
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.models import layers as L
 
@@ -5967,14 +6000,15 @@ def phase_train(torch, card: str) -> dict:
         raise AssertionError("train remat: losses differ or the peak is not lower")
     _train_profile(torch, card, 8, 128)
     _train_profile(torch, card, 1, 2048)
-    for row in _train_families(torch, card):
+    rows, families = _train_families(torch, card)
+    for row in rows:
         log(f"train families: {row} ({card})")
     if FA.flash_attention.launches != b6:
         raise AssertionError(f"B6 launched in training: {FA.flash_attention.launches - b6}")
     _train_resume(torch)
     _fcnet_train(torch, card)
     log(f"train: phase {time.perf_counter() - t0:.1f}s")
-    return dense
+    return dense, families
 
 
 TRAIN_MESHES = ((1, 2), (2, 2))
@@ -6039,29 +6073,26 @@ def _host_rss_gb() -> float:
 
 
 def _train_mesh_rank(rank: int, job: dict) -> None:
-    """A rank of the train_mesh phase: ``launch.train.run(args, mesh=)`` on
-    the shared card, each update's gradient bytes and leaf norms recorded;
-    times each checkpoint gather (with the host's peak resident memory
-    after it) and each restore (with the card's peak over it); writes its
+    """A rank of the train_mesh phases: for each of ``job["runs"]`` (an
+    arch and the train CLI's flags), ``launch.train.run(args, mesh=)`` on
+    the shared card, each update's gradient bytes and leaf norms recorded
+    (a MoE's routing calls too, saved to ``job["out"]``); times each
+    checkpoint gather (with the host's peak resident memory after it) and
+    each restore (with the card's peak over it); writes, run by run, its
     losses, grad norms, step times, peak memory and the bytes of its
     params, gradients and moments beside those its placement's specs give
     (and the whole tree's) to ``job["out"]``."""
     import io
-    import math
 
     import torch
 
     from repro_torch.checkpoint import store
-    from repro_torch.configs import get_config
-    from repro_torch.distributed import shardlib as sl
     from repro_torch.launch import mesh as M
-    from repro_torch.launch import train
 
+    _cut_depths()  # the configs the train phase ran
     torch.cuda.set_device(0)
     torch.backends.cuda.matmul.allow_tf32 = False
     mesh = M.make_serving_mesh(tuple(job["shape"]), "gloo")
-    args = _train_args(*job["flags"])
-    cfg = get_config(args.arch)
     ckpt = {"gather_s": [], "rss_gb": [], "restore_s": [], "restore_peak": []}
     gather, restore = store.gather_state, store.restore
 
@@ -6083,37 +6114,63 @@ def _train_mesh_rank(rank: int, job: dict) -> None:
         return out
 
     store.gather_state, store.restore = timed_gather, timed_restore
+    quiet = contextlib.redirect_stdout(io.StringIO()) if rank else contextlib.nullcontext()
+    results = []
+    for i, run in enumerate(job["runs"]):
+        with quiet:
+            results.append(_train_mesh_one(torch, rank, mesh, run, ckpt,
+                                           os.path.join(job["out"], f"routes{i}_rank{rank}.pt")))
+        torch.cuda.empty_cache()
+    with open(os.path.join(job["out"], f"rank{rank}.json"), "w") as f:
+        json.dump(results, f)
+
+
+def _train_mesh_one(torch, rank: int, mesh, run: dict, ckpt: dict, routes_path: str) -> dict:
+    """One run of ``_train_mesh_rank``: its result (a MoE's routing calls,
+    expert choices and kept assignments on the host, to ``routes_path``)."""
+    import math
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import shardlib as sl
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import train
+
+    args = _train_args(*run["flags"], arch=run.get("arch", "tinyllama-1.1b"))
+    cfg = get_config(args.arch)
+    if run.get("fp32"):
+        cfg = dataclasses.replace(cfg, compute_dtype="float32")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    quiet = contextlib.redirect_stdout(io.StringIO()) if rank else contextlib.nullcontext()
     t0 = time.perf_counter()
-    with quiet, _spy_updates(torch, {}) as seen:
+    with _spy_updates(torch, {}) as seen, _routes() as routes:
         out = train.run(args, cfg=cfg, mesh=mesh)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    if cfg.moe is not None:
+        torch.save([(r.idx.cpu(), r.keep.cpu()) for r in routes], routes_path)
     place = M.train_placement(cfg, mesh)
     pieces = [math.prod(sl.local_shape(s, p, mesh)) * 4
               for s, p in zip(place.shapes, place.param_specs)]
     moments = [math.prod(sl.local_shape(s, m, mesh)) * 4
                for s, m in zip(place.shapes, place.moment_specs)]
-    result = {
+    return {
         "rank": rank, "coords": sl.mesh_coords(mesh), "losses": out["losses"],
         "grad_norms": out["grad_norms"], "step_s": out["step_s"], "wall_s": wall,
         "restarts": out["restarts"], "peak": torch.cuda.max_memory_allocated(),
-        "leaf_norms": seen["leaf_norms"], "ckpt": ckpt,
+        "leaf_norms": seen["leaf_norms"], "ckpt": dict(ckpt),
         "bytes": {"params": _tree_bytes(out["params"]), "grads": max(seen["grad_bytes"]),
                   "moments": _tree_bytes(out["opt_state"]["mu"])
                   + _tree_bytes(out["opt_state"]["nu"])},
         "want": {"params": sum(pieces), "grads": sum(pieces), "moments": 2 * sum(moments)},
         "whole_params": sum(math.prod(s) * 4 for s in place.shapes),
+        "paths": list(place.paths),
     }
-    with open(os.path.join(job["out"], f"rank{rank}.json"), "w") as f:
-        json.dump(result, f)
 
 
 def _train_mesh_spawn(torch, shape: tuple, job: dict) -> list:
     """``_train_mesh_rank`` on the ranks of ``shape`` sharing the card over
-    gloo; their results in rank order."""
+    gloo: for each of ``job["runs"]``, its ranks' results in rank order
+    (a MoE run's routing calls by rank under "routes")."""
     import tempfile
 
     from repro_torch.launch import mesh as M
@@ -6123,11 +6180,17 @@ def _train_mesh_spawn(torch, shape: tuple, job: dict) -> list:
     with tempfile.TemporaryDirectory() as out:
         M.spawn_ranks(_train_mesh_rank, (dict(job, shape=list(shape), out=out),), world,
                       M.choose_backend(world, "cuda", share_card=True))
-        rows = []
+        ranks = []
         for r in range(world):
             with open(os.path.join(out, f"rank{r}.json")) as f:
-                rows.append(json.load(f))
-    return rows
+                ranks.append(json.load(f))
+        runs = [[ranks[r][i] for r in range(world)] for i in range(len(job["runs"]))]
+        for i, rows in enumerate(runs):
+            for r, row in enumerate(rows):
+                path = os.path.join(out, f"routes{i}_rank{r}.pt")
+                if os.path.exists(path):
+                    row["routes"] = torch.load(path)
+    return runs
 
 
 def _rel(got: list, want: list) -> float:
@@ -6147,10 +6210,12 @@ def _held_to(label: str, rows: list, want: dict, first: int = 0) -> None:
     ref_n = want["grad_norms"][first:first + n]
     ref_l = want["leaf_norms"][first:first + n]
     d_loss, d_norm = _rel(got, ref), _rel(norms, ref_n)
-    d_leaf = max(_rel(a, b) for a, b in zip(leaves, ref_l))
+    d_leaf, s, i = max((abs(a - b) / abs(b), s, i) for s, (step, want_step) in
+                       enumerate(zip(leaves, ref_l)) for i, (a, b) in enumerate(zip(step, want_step)))
     log(f"train_mesh {label}: losses {got} vs one card {ref} (worst rel {d_loss:.3e}); "
         f"grad norms {norms} vs {ref_n} (worst rel {d_norm:.3e}); the {len(leaves[0])} "
-        f"gradient leaves' norms worst rel {d_leaf:.3e}")
+        f"gradient leaves' norms worst rel {d_leaf:.3e} ({rows[0]['paths'][i]} at step {s}: "
+        f"{leaves[s][i]:.6e} vs {ref_l[s][i]:.6e})")
     if len(got) != len(ref) or len(leaves) != n or len(leaves[0]) != len(ref_l[0]) \
             or d_loss > TRAIN_MESH_LOSS_RTOL or d_norm > TRAIN_MESH_NORM_RTOL \
             or d_leaf > TRAIN_MESH_LEAF_RTOL:
@@ -6160,9 +6225,10 @@ def _held_to(label: str, rows: list, want: dict, first: int = 0) -> None:
         raise AssertionError(f"train_mesh {label}: a rank restarted")
 
 
-def _check_shares(label: str, shape: tuple, rows: list, card: str) -> None:
+def _check_shares(label: str, rows: list, card: str, fraction=None) -> None:
     """Each rank's param, gradient and moment bytes: its placement's share,
-    and that share the expected fraction of the whole state."""
+    and (``fraction``) that share the expected fraction of the whole
+    state."""
     for row in rows:
         b, w = row["bytes"], row["want"]
         whole = 4 * row["whole_params"]  # params, grads and two moments, whole
@@ -6176,9 +6242,9 @@ def _check_shares(label: str, shape: tuple, rows: list, card: str) -> None:
             raise AssertionError(f"train_mesh {label} rank {row['rank']}: bytes {b} are not "
                                  f"its share {w}")
         # the norm vectors stay whole on every rank: a few 1e-5 above
-        if abs(share - TRAIN_MESH_SHARE[shape]) > 1e-3:
+        if fraction is not None and abs(share - fraction) > 1e-3:
             raise AssertionError(f"train_mesh {label} rank {row['rank']}: holds {share:.5f} "
-                                 f"of the state, not {TRAIN_MESH_SHARE[shape]}")
+                                 f"of the state, not {fraction}")
 
 
 def _log_ckpt(label: str, rows: list, card: str) -> None:
@@ -6244,11 +6310,11 @@ def phase_train_mesh(torch, card: str, want: dict) -> None:
             if shape == (2, 2):  # one whole-leaf checkpoint, after the last step
                 flags += ("--ckpt-dir", ckpt, "--ckpt-every", str(n - 1))
             t0 = time.perf_counter()
-            rows = _train_mesh_spawn(torch, shape, {"flags": flags})
+            [rows] = _train_mesh_spawn(torch, shape, {"runs": [{"flags": flags}]})
             log(f"train_mesh {label}: {len(rows)} ranks over gloo sharing the card, "
                 f"{time.perf_counter() - t0:.1f}s with start-up")
             _held_to(label, rows, want)
-            _check_shares(label, shape, rows, card)
+            _check_shares(label, rows, card, TRAIN_MESH_SHARE[shape])
             med = statistics.median(rows[0]["step_s"][1:]) * 1e3
             log(f"train_mesh {label}: rank 0's median step {med:.3f} ms after step 1 (step 1 "
                 f"{rows[0]['step_s'][0] * 1e3:.1f} ms; host clock, each step ending in the "
@@ -6257,14 +6323,120 @@ def phase_train_mesh(torch, card: str, want: dict) -> None:
                 _log_ckpt(label, rows, card)
         # the 2x2 checkpoint resumes on the mesh two ranks re-plan to
         t0 = time.perf_counter()
-        rows = _train_mesh_spawn(torch, small, {"flags": ("--steps", str(n + 1),
-                                                          *TRAIN_MESH_FLAGS, "--ckpt-dir", ckpt)})
+        [rows] = _train_mesh_spawn(torch, small, {"runs": [{"flags": (
+            "--steps", str(n + 1), *TRAIN_MESH_FLAGS, "--ckpt-dir", ckpt)}]})
         label = f"{small[0]}x{small[1]} resumed from the 2x2 step-{n} checkpoint, step {n + 1}"
         log(f"train_mesh {label}: {time.perf_counter() - t0:.1f}s with start-up")
         _held_to(label, rows, want, first=n)
         _log_ckpt(label, rows, card)
     _torchrun_check(torch, card)
     log(f"train_mesh: phase {time.perf_counter() - t_phase:.1f}s")
+
+
+# the other families on a training mesh: each of TRAIN_FAMILIES at 1x2 (one
+# spawn for all five), granite-moe also at 2x2 (data replicas beside expert
+# parallelism), each with its TRAIN_FAMILIES batch and sequence
+TRAIN_MESH_FAMILY_STEPS = 2
+TRAIN_MESH_FAMILY_2X2 = ("granite-moe-1b-a400m",)
+# held in fp32 compute, against a one-card fp32 run of its own: the mLSTM's
+# b_if gradient is a cancellation (the normalised read-out), whose bf16
+# roundoff is ~20% of itself on one card (4 layers; 23% apart between the
+# bf16 one-card and 1x2 runs at full depth), where fp32 runs agree to 1e-6
+TRAIN_MESH_FP32 = ("xlstm-350m",)
+
+
+def _replica_routes(rows: list) -> list:
+    """The global batch's routing calls of a meshed MoE run: each call's
+    (idx, keep) of the data replicas (the ranks of model index 0, in data
+    order) concatenated over their dispatch groups."""
+    import torch
+
+    parts = sorted((r["coords"]["data"], r["routes"]) for r in rows if r["coords"]["model"] == 0)
+    return [(torch.cat([p[1][i][0] for p in parts]), torch.cat([p[1][i][1] for p in parts]))
+            for i in range(len(parts[0][1]))]
+
+
+def _check_drops(torch, label: str, rows: list, want: dict, steps: int, E: int) -> None:
+    """A meshed MoE run's dropped assignments step by step against the
+    one-card run's: equal where every token chose the same experts; where
+    the bf16 router's near-ties flipped a token's choice, each flipped
+    assignment may move one drop on each of its two experts, so the counts
+    may differ by at most 2 a flip."""
+    got, ref = _replica_routes(rows), want["routes"]
+    per = len(ref) // TRAIN_FAMILY_STEPS
+    if len(got) != per * steps:
+        raise AssertionError(f"train_mesh {label}: {len(got)} routing calls, not {per * steps}")
+    def chosen(idx):  # (tokens, E): each token's experts
+        return torch.nn.functional.one_hot(idx.reshape(-1, idx.shape[-1]), E).sum(-2)
+
+    for s in range(steps):
+        calls = range(s * per, (s + 1) * per)
+        flips = sum(int((chosen(got[i][0]) - chosen(ref[i][0])).clamp_min(0).sum())
+                    for i in calls)
+        mesh_drops = sum(int((~got[i][1]).sum()) for i in calls)
+        card_drops = sum(int((~ref[i][1]).sum()) for i in calls)
+        total = sum(ref[i][1].numel() for i in calls)
+        log(f"train_mesh {label}: step {s} dropped {mesh_drops} of {total} assignments "
+            f"({mesh_drops / total:.5f}) vs one card {card_drops} ({card_drops / total:.5f}); "
+            f"{flips} assignments routed to other experts than on one card")
+        if abs(mesh_drops - card_drops) > 2 * flips:
+            raise AssertionError(f"train_mesh {label}: step {s} drops {mesh_drops} vs "
+                                 f"{card_drops} with {flips} flips")
+
+
+def phase_train_mesh_families(torch, card: str, want: dict) -> None:
+    """The other families on a training mesh (see the module doc): each of
+    ``TRAIN_FAMILIES`` at full width through ``launch.train.run(mesh=)`` at
+    1x2 and granite-moe also at 2x2, ranks sharing the card over gloo,
+    held to the train phase's one-card runs of the same flags (``want``,
+    by arch): losses, grad norms and every gradient leaf's norm
+    (``_held_to``), granite's dropped assignments (``_check_drops``), each
+    rank's bytes its placement's share (``_check_shares``).  Reckons each
+    family's whole state (16 bytes a param) against the card first.  The
+    ``TRAIN_MESH_FP32`` archs run in fp32 compute on both sides, their
+    one-card run made here."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models.api import get_api
+
+    t_phase = time.perf_counter()
+    n = TRAIN_MESH_FAMILY_STEPS
+    free, total = torch.cuda.mem_get_info()
+    for arch, batch, seq in TRAIN_FAMILIES:
+        cfg = get_config(arch)
+        whole = 16 * T.count_params(get_api(cfg).param_shapes(cfg))
+        log(f"train_mesh_families {arch}: whole state {whole / 1e9:.3f} GB (params, grads and "
+            f"two moments in fp32) against the card's {total / 1e9:.3f} GB ({free / 1e9:.3f} "
+            f"free now); B {batch} x {seq}, {n} steps ({card})")
+    runs = {(1, 2): [a for a, _, _ in TRAIN_FAMILIES], (2, 2): list(TRAIN_MESH_FAMILY_2X2)}
+    shapes = {arch: (batch, seq) for arch, batch, seq in TRAIN_FAMILIES}
+    want = dict(want)
+    for arch in TRAIN_MESH_FP32:
+        b, s = shapes[arch]
+        with _spy_updates(torch, {}) as seen:
+            run = _train_run(torch, f"{arch} B {b} x {s} fp32", card, "--steps", str(n), "--batch",
+                             str(b), "--seq", str(s), arch=arch,
+                             cfg=dataclasses.replace(get_config(arch), compute_dtype="float32"))
+        want[arch] = dict(run, leaf_norms=seen["leaf_norms"])
+    for shape, archs in runs.items():
+        label = f"{shape[0]}x{shape[1]}"
+        t0 = time.perf_counter()
+        jobs = [{"arch": a, "fp32": a in TRAIN_MESH_FP32,
+                 "flags": ("--steps", str(n), "--batch", str(shapes[a][0]),
+                           "--seq", str(shapes[a][1]))} for a in archs]
+        results = _train_mesh_spawn(torch, shape, {"runs": jobs})
+        log(f"train_mesh_families {label}: {shape[0] * shape[1]} ranks over gloo sharing the "
+            f"card, {len(archs)} runs, {time.perf_counter() - t0:.1f}s with start-up")
+        for arch, rows in zip(archs, results):
+            name = f"{arch} {label}"
+            _held_to(name, rows, want[arch])
+            _check_shares(name, rows, card)
+            if get_config(arch).moe is not None:
+                _check_drops(torch, name, rows, want[arch], n, get_config(arch).moe.n_experts)
+            log(f"train_mesh {name}: rank 0's steps {[round(t * 1e3, 3) for t in rows[0]['step_s']]}"
+                f" ms (host clock, each step ending in the loss's read); the run "
+                f"{rows[0]['wall_s']:.1f} s ({card})")
+    log(f"train_mesh_families: phase {time.perf_counter() - t_phase:.1f}s")
 
 
 def main(argv=None) -> int:
@@ -6329,8 +6501,9 @@ def main(argv=None) -> int:
     want["mix"] = run("mixed", phase_mixed, torch, results, card)
     run("mesh", phase_mesh, torch, want, long_prompts, card)
     run("autotune", phase_autotune, torch, results, card)
-    one_card = run("train", phase_train, torch, card)
+    one_card, families = run("train", phase_train, torch, card)
     run("train_mesh", phase_train_mesh, torch, card, one_card)
+    run("train_mesh_families", phase_train_mesh_families, torch, card, families)
     log(f"phase wall seconds: {json.dumps(took)}")
     _check_family_rows(results)
     if args.profile:

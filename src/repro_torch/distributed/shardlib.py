@@ -655,6 +655,24 @@ def batch_axes() -> tuple:
     return tuple(a for a in axes if axis_size(a) > 1)
 
 
+def data_replicas() -> int:
+    """The number of data replicas of the active mesh: the product of
+    ``batch_axes``' sizes (1 without a mesh)."""
+    n = 1
+    for a in batch_axes():
+        n *= axis_size(a)
+    return n
+
+
+def replica_index() -> int:
+    """This rank's data replica, row-major over ``batch_axes`` -- the order
+    of ``data_rows``' pieces (0 without a mesh)."""
+    i = 0
+    for a in batch_axes():
+        i = i * axis_size(a) + axis_index(a)
+    return i
+
+
 def reduce_batch(x: torch.Tensor) -> torch.Tensor:
     """The sum of ``x`` over the data replicas (``reduce_sum`` over each
     batch axis)."""

@@ -38,6 +38,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.distributed import shardlib as sl
+from repro_torch.models import ssm as SSM
 from repro_torch.models import transformer as T
 from repro_torch.models.api import get_api
 from repro_torch.training import optimizer as O
@@ -229,12 +230,15 @@ def opt_rules(rules: dict) -> dict:
 
 
 def train_placement(cfg, mesh) -> O.Placement:
-    """Where ``cfg``'s training state lies on ``mesh``: params by
-    ``rules_for``, moments by ``opt_rules`` of them (ZeRO-1: d_model also
-    over the data axes).  Raises NotImplementedError, before any params
-    are drawn, for a family that does not train on a mesh yet
-    (``transformer.check_meshable``)."""
-    T.check_meshable(cfg)
+    """Where ``cfg``'s training state lies on ``mesh``, for every family:
+    params by ``rules_for`` (an MoE's expert stacks on their expert axis,
+    or under "expert_ff" their FFN width), moments by ``opt_rules`` of
+    them (ZeRO-1: d_model also over the data axes).  An sLSTM's
+    ``r_gates`` is placed whole, as the serving engine places it
+    (``ssm.placement_axes``, ROADMAP C1), its moments split over the data
+    axes only."""
     api, rules = get_api(cfg), rules_for(cfg, None, mesh=mesh)
-    return O.Placement.of(T.meta_tree(api.param_shapes(cfg)), api.param_axes(cfg), mesh, rules,
-                          opt_rules(rules))
+    axes = api.param_axes(cfg)
+    return O.Placement.of(T.meta_tree(api.param_shapes(cfg)), SSM.placement_axes(axes), mesh,
+                          rules, opt_rules(rules),
+                          moment_axes=SSM.placement_axes(axes, moments=True))

@@ -28,11 +28,13 @@ the ranks there are -- the mesh-free step alone, (1, WORLD_SIZE) under
 and are refused otherwise.  ``run(args, mesh=)`` takes a ``DeviceMesh``
 whose process group the caller made (``launch.mesh.spawn_ranks``; NCCL
 where each rank owns a card, gloo for ranks that share one:
-``choose_backend``).  On a mesh only the dense decoder family trains
-(``transformer.check_meshable``).  Each rank draws the whole tree on its
-device, leaf by leaf, and keeps its pieces (the one-card run's params);
-each draws the whole global batch, and the step takes its replica's rows;
-the moments are ZeRO-1 pieces (``launch.mesh.train_placement``).  A
+``choose_backend``).  Every family trains on a mesh.  Each rank draws
+the whole tree on its device, leaf by leaf, and keeps its pieces (the
+one-card run's params); each draws the whole global batch with its
+frames or patches (``extras``), and the loss takes its replica's rows of
+all of them; the moments are ZeRO-1 pieces
+(``launch.mesh.train_placement``; an sLSTM's ``r_gates`` whole, its
+moments over the data axes).  A
 checkpoint holds whole leaves: every rank takes part in gathering them,
 rank 0 writes, and the others wait at a barrier; a restore cuts each
 rank's pieces on the host, so a checkpoint of one mesh resumes on another
@@ -133,7 +135,7 @@ def run(args, cfg=None, mesh=None) -> dict:
         params = api.init_params(cfg, args.seed, device=device)
     else:
         place, rank, world = M.train_placement(cfg, mesh), dist.get_rank(), dist.get_world_size()
-        params = T.make_params(T.param_shapes(cfg), args.seed, device, leaf_fn=place.piece)
+        params = T.make_params(api.param_shapes(cfg), args.seed, device, leaf_fn=place.piece)
         if rank == 0:
             print(f"[train] mesh {sl.axis_sizes(mesh)} over {dist.get_backend()}: tensor "
                   f"parallel over model, data parallel over data, ZeRO-1 moments", flush=True)

@@ -34,7 +34,8 @@ decode step runs the data replica's rows.
 
 Training (``forward``, ``loss_fn``) is the reference's teacher-forced
 pass on the stacked tree, with per-layer ``unbind`` views taken anew each
-step (``transformer.unbind_stack``): every attention goes through
+step (``transformer.unbind_stack``), on the rank's heads and its data
+replica's rows on a mesh: every attention goes through
 ``layers.train_attention`` -- the encoder's non-causal self-attention and
 the non-causal cross-attention are the ``FlashAttention`` Function past
 1024 frames, never kernel B6, which has no backward.
@@ -207,7 +208,8 @@ def decode_train(cfg, params, tokens, enc_out):
     hp = L.head_plan(cfg)
     for p, (xk, xv) in zip(layers, _enc_cross_kv(cfg, layers, enc_out)):
         x, _, _ = _self_block(cfg, p, x, causal=True, attend=L.train_attention)
-        o = L.train_attention(_cross_q(cfg, p, x, hp), xk, xv, causal=False)
+        o = L.train_attention(_cross_q(cfg, p, x, hp), _read(xk, hp), _read(xv, hp),
+                              causal=False)
         x = _mlp_block(cfg, p, x + L.out_proj(cfg, p["xattn"], o, hp))
     x = L.apply_norm(params["final_norm"], x, NORM)
     return L.unembed(cfg, params["embed"], x)
@@ -226,9 +228,12 @@ def forward(cfg, params, tokens, frames):
 def loss_fn(cfg, params, batch):
     """Next-token cross entropy over the text positions (no aux, as the
     reference's).  batch: {"tokens", "labels": (B, S), "frames": (B,
-    n_frames, d)}.  Returns (loss, {"loss"})."""
-    logits = forward(cfg, params, batch["tokens"], batch["frames"])
-    loss = T.next_token_nll(logits, batch["labels"])
+    n_frames, d)}.  Returns (loss, {"loss"}).  On a mesh ``batch`` is the
+    global batch: the rank runs its data replica's rows of all three
+    (``transformer.replica_rows``), and the loss is the global one."""
+    rows = T.replica_rows(batch)
+    logits = forward(cfg, params, rows["tokens"], rows["frames"])
+    loss = T.next_token_nll(logits, rows["labels"])
     return loss, {"loss": loss}
 
 

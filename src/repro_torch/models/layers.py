@@ -554,7 +554,8 @@ class HeadPlan:
     q heads [q0, q0 + nq) (``q_split``: the rank's piece of H over the
     model axis, else all of them), the KV heads its cache holds [pool0,
     pool0 + npool) (its piece where the model axis divides the KV heads,
-    else all), and the KV heads its q heads read [kv0, kv0 + nkv)."""
+    else all; ``kv_split``: the former), and the KV heads its q heads read
+    [kv0, kv0 + nkv)."""
 
     q0: int
     nq: int
@@ -563,6 +564,7 @@ class HeadPlan:
     npool: int
     kv0: int
     nkv: int
+    kv_split: bool
 
     @property
     def kv_in_pool(self) -> tuple:
@@ -586,7 +588,7 @@ def head_plan(cfg) -> HeadPlan:
     nkv = kv_last - kv0 + 1
     if not (nq == nkv * G and q0 % G == 0 or nkv == 1):
         raise NotImplementedError(f"{cfg.name}: q heads [{q0}, {q0 + nq}) cut GQA groups of {G}")
-    return HeadPlan(q0, nq, q_split, pool0, npool, kv0, nkv)
+    return HeadPlan(q0, nq, q_split, pool0, npool, kv0, nkv, kv_split)
 
 
 def qkv_heads(cfg, p, x, hp: HeadPlan) -> tuple:
@@ -616,9 +618,12 @@ def out_proj(cfg, p, o, hp: HeadPlan):
 def read_heads(t: torch.Tensor, hp: HeadPlan) -> torch.Tensor:
     """The read KV heads of a (B, S, npool, ...) cache tensor (a view)."""
     off, n = hp.kv_in_pool
-    # a rank's heads of a tensor of every head: its gradient is summed over
-    # the model ranks under autograd (``shardlib.fan_out``)
-    return t if n == t.shape[2] else sl.fan_out(t).narrow(2, off, n)
+    # every KV head, read by the rank's own q heads (a part of the pool, or
+    # all of one a MQA model's ranks share): its gradient is summed over the
+    # model ranks under autograd (``shardlib.fan_out``)
+    if hp.q_split and not hp.kv_split:
+        t = sl.fan_out(t)
+    return t if n == t.shape[2] else t.narrow(2, off, n)
 
 
 def attn_window_and_base(cfg, kind: str) -> tuple:

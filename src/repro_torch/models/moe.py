@@ -26,18 +26,31 @@ partial sum too, and ONE all-reduce over the model axis a layer adds both.
 Where the model axis does not divide Ep the stacks stay whole and no
 routed all-reduce is issued (an "expert_ff" rule splits their FFN width
 instead, whose ``w_down`` product is then the partial sum).
+
+Training on a mesh runs the same code under autograd.  The rank runs its
+data replica's rows, and the routing is the global batch's, as the
+reference's jitted step routes it (``replicas``): the group size and the
+capacity regime come from the global token count, a replica's rows hold
+whole dispatch groups or one part of a group whose other parts are the
+next replicas' (each expert's slots then start after the earlier
+replicas' assignments, one all-reduce of their counts), and the Switch
+loss takes the whole batch's means.  The dispatched tokens and the gate
+values enter the rank's experts (or columns) through ``shardlib.fan_out``
+and the partial sums meet in ``shardlib.reduce_sum``: Megatron's f and g.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Optional
 
 import torch
 
 from repro_torch.core.weight_plan import (
     ShardedLeaf,
     apply_gate_up,
+    apply_linear,
     partial_linear,
     sharded_gate_up,
 )
@@ -132,11 +145,18 @@ class Routing:
     capacity: int
 
 
-def route(cfg, xg: torch.Tensor, router: torch.Tensor) -> Routing:
+def route(cfg, xg: torch.Tensor, router: torch.Tensor, *, n_tokens: Optional[int] = None,
+          share: int = 1) -> Routing:
     """The reference's routing of xg (nG, G, d): the router in the compute
     dtype, softmax in fp32, top-k renormalised; full capacity up to
     FULL_CAPACITY_TOKENS tokens, else ceil(G * K / E * capacity_factor)
-    slots an expert a group, filled in (token, k) order."""
+    slots an expert a group, filled in (token, k) order.
+
+    On a training mesh xg is a data replica's part of the global batch of
+    ``n_tokens`` tokens (the regime's count), and with ``share`` > 1 it is
+    one group's part of ``share`` consecutive replicas' (a group of G *
+    share tokens): each expert's slots start after the assignments the
+    group's earlier replicas made to it."""
     m = cfg.moe
     nG, G, _ = xg.shape
     K, Ep = m.top_k, m.n_experts_padded
@@ -144,15 +164,45 @@ def route(cfg, xg: torch.Tensor, router: torch.Tensor) -> Routing:
     probs = torch.softmax(logits, dim=-1)
     gates, idx = top_k(probs, K)
     gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
-    if nG * G <= FULL_CAPACITY_TOKENS:
-        capacity = G
+    if (n_tokens or nG * G) <= FULL_CAPACITY_TOKENS:
+        capacity = G * share
     else:
-        capacity = max(1, int(math.ceil(G * K / m.n_experts * m.capacity_factor)))
+        capacity = max(1, int(math.ceil(G * share * K / m.n_experts * m.capacity_factor)))
     # an assignment's slot: the earlier assignments of its group to its expert
     onehot = torch.nn.functional.one_hot(idx.reshape(nG, G * K), Ep)
     before = onehot.cumsum(dim=1) - onehot
+    if share > 1:
+        before = before + _earlier_replicas(onehot.sum(dim=1), share)[:, None]
     slot = before.gather(2, idx.reshape(nG, G * K, 1)).reshape(nG, G, K)
     return Routing(probs, idx, gates, slot, slot < capacity, capacity)
+
+
+def _earlier_replicas(counts: torch.Tensor, share: int) -> torch.Tensor:
+    """Each expert's assignments (1, Ep) in the parts of this replica's
+    group that the group's earlier replicas hold: every replica's counts
+    summed over the data axes into a table, its own row filled."""
+    n, r = sl.data_replicas(), sl.replica_index()
+    table = counts.new_zeros((n,) + tuple(counts.shape[1:]))
+    table[r] = counts[0]
+    table = sl.reduce_batch(table)
+    return table[r - r % share:r].sum(dim=0, keepdim=True)
+
+
+def dispatch_groups(T: int, replicas: int = 1) -> tuple:
+    """(groups, share) of a data replica's T tokens of a global batch of
+    ``replicas`` * T: its whole groups of ``_group_size`` of the global
+    count and 1, or one part of a group (groups 1) and the replicas that
+    share it.  Raises ValueError where the replicas' rows cut a group
+    elsewhere than between whole parts."""
+    G = _group_size(T * replicas)
+    if T % G == 0:
+        return T // G, 1
+    if G % T == 0:
+        return 1, G // T
+    raise ValueError(f"dispatch groups of {G} tokens straddle the data replicas' rows: "
+                     f"{T} tokens a replica of {T * replicas} hold neither whole groups nor "
+                     f"whole parts of one (hint: a batch whose replicas' tokens divide or "
+                     f"are divided by {G})")
 
 
 def expert_range(p, Ep: int) -> tuple:
@@ -165,8 +215,10 @@ def expert_range(p, Ep: int) -> tuple:
     return got["w_gate"] or (0, Ep)
 
 
-def apply_moe(cfg, p, x: torch.Tensor, return_aux: bool = False):
+def apply_moe(cfg, p, x: torch.Tensor, return_aux: bool = False, replicas: int = 1):
     """x (B, S, d) -> (B, S, d) [, the Switch load-balancing loss].
+    ``replicas``: the data replicas whose rows make the global batch, x
+    being this rank's (training on a mesh; see the module doc).
 
     Kept tokens are scattered into an (Ep, nG * C, d) buffer (row
     (g * C + slot) of their expert; empty rows are zero, as the reference's
@@ -182,11 +234,11 @@ def apply_moe(cfg, p, x: torch.Tensor, return_aux: bool = False):
     B, S, d = x.shape
     T = B * S
     dt = x.dtype
-    G = _group_size(T)
-    nG = T // G
+    nG, share = dispatch_groups(T, replicas)
+    G = T // nG
     Ep, K = m.n_experts_padded, m.top_k
     xg = x.reshape(nG, G, d)
-    r = route(cfg, xg, p["router"])
+    r = route(cfg, xg, p["router"], n_tokens=T * replicas, share=share)
     C = r.capacity
     e0, ne = expert_range(p, Ep)
     keep = r.keep if ne == Ep else r.keep & (r.idx >= e0) & (r.idx < e0 + ne)
@@ -196,26 +248,30 @@ def apply_moe(cfg, p, x: torch.Tensor, return_aux: bool = False):
     group = torch.arange(nG, device=x.device)[:, None, None]
     dest = torch.where(keep, ((r.idx - e0) * nG + group) * C + r.slot, spare).reshape(-1)
     src = xg.reshape(T, 1, d).expand(T, K, d).reshape(T * K, d)
+    g, u = p["w_gate"], p["w_up"]
+    h_split = isinstance(g, ShardedLeaf) and g.n_split
+    if isinstance(g, ShardedLeaf):  # the tokens enter the rank's own experts or columns
+        g, u, src = g.local, u.local, sl.fan_out(src)
     buf = x.new_zeros((spare + 1, d))
     buf.index_copy_(0, dest, src)
     xe = buf[:-1].view(ne, nG * C, d)
 
     # the rank's sub-stacks (its experts, or under "expert_ff" its columns
     # of every expert): one stacked launch each
-    g, u = p["w_gate"], p["w_up"]
-    h_split = isinstance(g, ShardedLeaf) and g.n_split
-    if isinstance(g, ShardedLeaf):
-        g, u = g.local, u.local
     h = apply_gate_up(xe, g, u, cfg.activation)
-    ye, partial = partial_linear(h, p["w_down"], h_split)
+    if ne < Ep:
+        ye, partial = apply_linear(h, p["w_down"].local), True
+    else:
+        ye, partial = partial_linear(h, p["w_down"], h_split)
     ye = ye.reshape(spare, d)
 
-    comb = torch.where(keep, r.gates, 0.0).to(dt).to(torch.float32)
+    # the rank's experts' (or columns') share of every token's sum: the
+    # gate values enter it as the dispatched tokens do, and one all-reduce
+    # adds the ranks' shares (with the shared experts' partial product)
+    gates = sl.fan_out(r.gates) if partial else r.gates
+    comb = torch.where(keep, gates, 0.0).to(dt).to(torch.float32)
     rows = ye[dest.clamp_max(spare - 1)].to(torch.float32).reshape(nG, G, K, d)
     routed = (comb[..., None] * rows).sum(dim=2)
-    # the rank's experts' share of every token's sum: one all-reduce adds
-    # the ranks' shares (with the shared experts' partial product)
-    partial = partial or ne < Ep
 
     ys, s_partial = None, False
     if m.n_shared_experts:
@@ -224,22 +280,27 @@ def apply_moe(cfg, p, x: torch.Tensor, return_aux: bool = False):
         ys, s_partial = partial_linear(hs, s["w_down"], hs_split)
     if partial:
         if s_partial:
-            y = sl.all_reduce(routed + ys.to(torch.float32), "model").to(dt)
+            y = sl.reduce_sum(routed + ys.to(torch.float32), "model").to(dt)
         else:
-            y = sl.all_reduce(routed, "model").to(dt)
+            y = sl.reduce_sum(routed, "model").to(dt)
             y = y if ys is None else y + ys
     else:
         y = routed.to(dt)
         if ys is not None:
-            y = y + (sl.all_reduce(ys, "model") if s_partial else ys)
+            y = y + (sl.reduce_sum(ys, "model") if s_partial else ys)
     y = y.reshape(B, S, d)
     if not return_aux:
         return y
-    # Switch-style load balancing over the real experts, before capacity
+    # Switch-style load balancing over the real experts, before capacity:
+    # the whole batch's means (each replica's sums added over the replicas)
     E = m.n_experts
-    frac_tokens = torch.nn.functional.one_hot(r.idx, E).sum(2).to(torch.float32).mean((0, 1))
-    frac_probs = r.probs.mean((0, 1))
-    aux = E * (frac_tokens * frac_probs).sum() * m.router_aux_weight
+
+    def mean(t):
+        t = t.sum((0, 1))
+        return (sl.reduce_batch(t) if replicas > 1 else t) / (T * replicas)
+
+    frac_tokens = mean(torch.nn.functional.one_hot(r.idx, E).sum(2).to(torch.float32))
+    aux = E * (frac_tokens * mean(r.probs)).sum() * m.router_aux_weight
     return y, aux
 
 

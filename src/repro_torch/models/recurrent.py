@@ -97,14 +97,16 @@ def linear_scan(a, b, h0):
 
 def apply_rglru(cfg, p, x, state=None):
     """x (B, S, d) -> (y, new state); on a mesh over the rank's channels
-    (see the module doc)."""
+    (see the module doc).  ``state`` None (training) starts from zeros of
+    the rank's channels."""
     B, S, d = x.shape
     dt = x.dtype
-    if state is None:
-        state = init_rglru_state(cfg, B, dt, x.device)
     gate, split = sharded_linear(x, p["w_gate"])
     gate = GATE_ACTS["gelu"](gate)
     u, _ = sharded_linear(x, p["w_x"])
+    if state is None:
+        state = {"h": torch.zeros((B, u.shape[-1]), dtype=torch.float32, device=x.device),
+                 "conv": None}
     u, conv_state = causal_conv(u, p["conv"], state["conv"])
     uf = u.float()
     # input-dependent diagonal gates

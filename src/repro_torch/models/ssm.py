@@ -125,6 +125,15 @@ def init_mlstm_state(cfg, batch: int, dtype=torch.float32, device="cpu") -> dict
     }
 
 
+def _mlstm_zeros(batch: int, heads: int, hd: int, device) -> dict:
+    """A zero mLSTM state of ``heads`` heads (m at M_INIT) with no conv
+    state (``causal_conv`` starts from zeros)."""
+    f32 = dict(dtype=torch.float32, device=device)
+    return {"C": torch.zeros((batch, heads, hd, hd), **f32),
+            "n": torch.zeros((batch, heads, hd), **f32),
+            "m": torch.full((batch, heads), M_INIT, **f32), "conv": None}
+
+
 def mlstm_sequential(q, k, v, i_raw, f_raw, C, n, m):
     """The exact per-token recurrence: q/k/v (B, S, H, hd), i/f (B, S, H);
     state C (B, H, hd, hd), n (B, H, hd), m (B, H), all fp32.  Returns (h
@@ -204,8 +213,9 @@ def apply_mlstm(cfg, p, x, state=None):
     up, H = 2 * d, cfg.n_heads
     hd = up // H
     dt = x.dtype
-    if state is None:
-        state = init_mlstm_state(cfg, B, dt, x.device)
+    if state is None:  # training: zeros of the rank's heads ("heads", as its cache's)
+        split = sl.spec_for((H,), "heads") == ("model",)
+        state = _mlstm_zeros(B, H // sl.axis_size("model") if split else H, hd, x.device)
     # the rank's channels are its conv's (its piece, or all of them)
     nc = p["conv"].shape[-1]
     c0 = sl.axis_index("model") * nc if nc < up else 0
@@ -217,7 +227,7 @@ def apply_mlstm(cfg, p, x, state=None):
     q = uc * p["s_q"].to(dt)
     k = uc * p["s_k"].to(dt)
     v = u * p["s_v"].to(dt)
-    # the rank's heads are its state's
+    # the rank's heads are its state's; a whole tensor enters its heads' work
     nh = state["C"].shape[1]
     h0 = sl.axis_index("model") * nh if nh < H else 0
     if nc != nh * hd:  # channels split, heads whole: the recurrence runs whole
@@ -226,7 +236,7 @@ def apply_mlstm(cfg, p, x, state=None):
     k = k.reshape(B, S, nh, hd) / math.sqrt(hd)
     v = v.reshape(B, S, nh, hd)
     gates = apply_linear(x, p["w_if"]) + p["b_if"].to(dt)  # whole ("d", None)
-    i_raw, f_raw = (g[..., h0:h0 + nh] for g in gates.float().chunk(2, dim=-1))  # (B, S, nh)
+    i_raw, f_raw = (sl.cols(g, False, h0, nh) for g in gates.float().chunk(2, dim=-1))
     if S > 1:
         h, C, n, m = _mlstm_chunkwise(q, k, v, i_raw, f_raw, state["C"], state["n"],
                                       state["m"], chunk=min(MLSTM_CHUNK, S))
@@ -267,16 +277,21 @@ def slstm_axes(cfg) -> dict:
     }
 
 
-def placement_axes(axes_tree):
+def placement_axes(axes_tree, moments: bool = False):
     """``axes_tree`` (a params tree's logical axes) with every sLSTM
-    ``r_gates`` whole: the recurrence runs whole on every rank, so a
-    serving mesh places it whole once instead of gathering its heads every
-    call (ROADMAP C1)."""
+    ``r_gates`` whole: the recurrence runs whole on every rank, so a mesh
+    places it whole once instead of gathering its heads every call
+    (ROADMAP C1).  ``moments``: the axes of its ZeRO-1 moments on a
+    training mesh instead, its heads over "zero" (the data axes)."""
+    def whole(axes):  # (..., 4, H, hd, hd): any stacked layer axes in front
+        return tuple("zero" if moments and i == len(axes) - 3 else None
+                     for i in range(len(axes)))
+
     if isinstance(axes_tree, dict):
-        return {k: (None,) * len(v) if k == "r_gates" else placement_axes(v)
+        return {k: whole(v) if k == "r_gates" else placement_axes(v, moments)
                 for k, v in axes_tree.items()}
     if isinstance(axes_tree, list):
-        return [placement_axes(v) for v in axes_tree]
+        return [placement_axes(v, moments) for v in axes_tree]
     return axes_tree
 
 

@@ -527,19 +527,6 @@ def decode_step(cfg, params, cache, tokens, pos, *, use_kernel: bool = True):
 # ---------------------------------------------------------------------------
 
 
-def check_meshable(cfg):
-    """Raise NotImplementedError, naming the ROADMAP item, for a config
-    whose training the port does not run on a mesh yet: a MoE FFN, a
-    recurrent or xLSTM layer, the enc-dec and the VLM families."""
-    what = ("the enc-dec family" if cfg.family == "audio" else
-            "the VLM family" if cfg.family == "vlm" else
-            "a MoE FFN" if cfg.moe is not None else
-            next((f"a {k!r} layer" for k in cfg.layer_kinds if k not in ATTN_KINDS), None))
-    if what is not None:
-        raise NotImplementedError(f"{cfg.name}: training {what} on a mesh is not ported yet "
-                                  f"(ROADMAP A13d)")
-
-
 def _check_dense(params):
     """Training takes the stacked tree of dense tensors of ``init_params``
     (on a mesh, this rank's pieces of them, a split matmul piece in a
@@ -578,19 +565,19 @@ def _unbind_layers(cfg, params) -> list:
     return layers
 
 
-def _train_layer(cfg, kind: str, p, x):
+def _train_layer(cfg, kind: str, p, x, replicas: int = 1):
     """One layer without a cache, as the reference's ``apply_layer(mode=
     "train")``: returns (x, the MoE aux loss or None).  An attention layer
     is norm, attention (``layers.train_attention``), residual, norm, MLP or
-    MoE FFN, residual; a recurrent or xLSTM layer runs its cell from a zero
-    state."""
+    MoE FFN (routed over the ``replicas``' global batch), residual; a
+    recurrent or xLSTM layer runs its cell from a zero state."""
     if kind not in ATTN_KINDS:
         return _apply_recurrent_layer(cfg, kind, p, x, None), None
     h = L.apply_norm(p["ln1"], x, cfg.norm)
     x = x + _attn_seq(cfg, p["attn"], h, kind, L.train_attention)[0]
     h = L.apply_norm(p["ln2"], x, cfg.norm)
     if "moe" in p:
-        f, aux = MOE.apply_moe(cfg, p["moe"], h, return_aux=True)
+        f, aux = MOE.apply_moe(cfg, p["moe"], h, return_aux=True, replicas=replicas)
         return x + f, aux
     return x + L.apply_mlp(cfg, p["mlp"], h), None
 
@@ -619,22 +606,23 @@ def forward(cfg, params, tokens, extra_embeds=None):
     ``ShardedLeaf`` view (``optimizer.Placement.views``), the rows are the
     data replica's, and the products run on the pieces through the model
     axis's collectives, which autograd goes through; the logits are whole
-    on every model rank.  Only the dense decoder family trains on a mesh
-    (``check_meshable``, which ``launch.mesh.train_placement`` runs)."""
+    on every model rank.  A MoE FFN routes the global batch (all the
+    replicas' rows, ``moe.apply_moe``)."""
     check_supported(cfg)
     _check_dense(params)
     x = L.embed_tokens(cfg, params["embed"], tokens)
     if extra_embeds is not None:
         x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    replicas = sl.data_replicas()
     # a rematerialized layer reruns in the backward, on autograd's thread
     layer_fn = sl.carry_mesh(_train_layer)
     for kind, p in zip(cfg.layer_kinds, _unbind_layers(cfg, params)):
         if cfg.remat:
-            x, a = torch.utils.checkpoint.checkpoint(layer_fn, cfg, kind, p, x,
+            x, a = torch.utils.checkpoint.checkpoint(layer_fn, cfg, kind, p, x, replicas,
                                                      use_reentrant=False)
         else:
-            x, a = _train_layer(cfg, kind, p, x)
+            x, a = _train_layer(cfg, kind, p, x, replicas)
         if a is not None:
             aux = aux + a
     x = L.apply_norm(params["final_norm"], x, cfg.norm)
@@ -661,24 +649,33 @@ def next_token_nll(logits, labels):
 
 
 def replica_rows(batch: dict) -> dict:
-    """This data replica's rows of a global ``batch`` on the active mesh
-    (the batch as it is without one, or on a 1-wide data axis).  Raises
-    ValueError for a batch the data replicas do not divide."""
+    """This data replica's rows of every leaf of a global ``batch`` on the
+    active mesh -- tokens, labels and a family's frames or patches
+    together -- (the batch as it is without one, or on a 1-wide data
+    axis).  Raises ValueError for a batch the data replicas do not
+    divide."""
     n = next(iter(batch.values())).shape[0]
     rows = sl.data_rows(n)
     if rows is None and sl.batch_axes():
         raise ValueError(f"a batch of {n} rows does not divide over the "
-                         f"{math.prod(sl.axis_size(a) for a in sl.batch_axes())} data replicas")
+                         f"{sl.data_replicas()} data replicas")
     return batch if rows is None else {k: v[rows] for k, v in batch.items()}
 
 
-def loss_fn(cfg, params, batch, extra_embeds=None):
-    """Next-token cross entropy (``next_token_nll``) plus the MoE aux loss.
-    batch: {"tokens": (B, S), "labels": (B, S)}.  Returns (loss + aux,
-    {"loss", "aux"}).  On a mesh ``batch`` is the global batch and the rank
-    runs its replica's rows (``replica_rows``); the loss is the global
-    one."""
-    batch = replica_rows(batch)
-    logits, aux = forward(cfg, params, batch["tokens"], extra_embeds)
-    loss = next_token_nll(logits, batch["labels"])
+def replica_loss(cfg, params, rows: dict, extra_embeds=None):
+    """Next-token cross entropy (``next_token_nll``) plus the MoE aux loss
+    of ``rows``, the replica's rows of the batch that ``replica_rows``
+    cut (the whole batch without a mesh): {"tokens": (b, S), "labels":
+    (b, S)}; ``extra_embeds`` (b, P, d) go before the tokens' embeddings
+    (a VLM's, projected from the same rows' patches).  Returns (loss + aux,
+    {"loss", "aux"}), the global batch's on every rank."""
+    logits, aux = forward(cfg, params, rows["tokens"], extra_embeds)
+    loss = next_token_nll(logits, rows["labels"])
     return loss + aux, {"loss": loss, "aux": aux}
+
+
+def loss_fn(cfg, params, batch):
+    """``replica_loss`` of the replica's rows of ``batch`` {"tokens": (B,
+    S), "labels": (B, S)}: on a mesh ``batch`` is the global batch, cut
+    once here."""
+    return replica_loss(cfg, params, replica_rows(batch))

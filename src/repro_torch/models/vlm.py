@@ -8,7 +8,10 @@ the multimodal splice: a norm and a learned d x d projection of the
 patches (``proj``: B1 on the card for a quant_sparse plan), prepended to
 the prompt's embeddings, so a sequence's positions and KV pages start with
 its n_patches patches (``api.prefix_len``).  ``forward`` and ``loss_fn``
-train through the transformer's training forward after the same splice.
+train through the transformer's training forward after the same splice;
+on a mesh the rank projects its data replica's patches, and the untied
+head stays whole where the model axis does not divide the vocabulary
+(internvl2-2b's 92553 rows), as in serving.
 """
 
 from __future__ import annotations
@@ -74,9 +77,11 @@ def forward(cfg, params, tokens, patches):
 
 def loss_fn(cfg, params, batch):
     """The transformer's loss over the text positions, after the projected
-    ``batch["patches"]``."""
-    return T.loss_fn(cfg, params, {"tokens": batch["tokens"], "labels": batch["labels"]},
-                     extra_embeds=_project(cfg, params, batch["patches"]))
+    ``batch["patches"]``.  On a mesh the replica's rows of the patches,
+    tokens and labels are cut together, once (``transformer.replica_rows``),
+    and only the replica's patches are projected."""
+    rows = T.replica_rows(batch)
+    return T.replica_loss(cfg, params, rows, extra_embeds=_project(cfg, params, rows["patches"]))
 
 
 init_cache = T.init_cache

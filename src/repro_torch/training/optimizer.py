@@ -88,18 +88,25 @@ class Placement:
     moment_specs: tuple
 
     @classmethod
-    def of(cls, whole, axes, mesh, rules: dict, moment_rules: dict) -> "Placement":
+    def of(cls, whole, axes, mesh, rules: dict, moment_rules: dict,
+           moment_axes=None) -> "Placement":
         """From a tree of the whole leaves (meta tensors will do) and the
-        params' logical ``axes`` tree."""
+        params' logical ``axes`` tree; ``moment_axes``, where given, is the
+        moments' (each must split what its param's splits)."""
         flat = flatten_leaves(whole)
-        ax = [tuple(a) if a else (None,) * t.dim()
-              for t, a in zip(flat, _axes_leaves(axes, whole))]
+
+        def leaves(tree):
+            return [tuple(a) if a else (None,) * t.dim()
+                    for t, a in zip(flat, _axes_leaves(tree, whole))]
+
+        ax = leaves(axes)
+        mom = ax if moment_axes is None else leaves(moment_axes)
         specs = tuple(sl._resolve(mesh, rules, a, t.shape) for t, a in zip(flat, ax))
         return cls(mesh, rules, tuple(flatten_leaves(map_tree(lambda path, _: path, whole))),
                    tuple(tuple(t.shape) for t in flat), specs,
                    tuple(matmul_split(s, a, tuple(t.shape), mesh)
                          for s, a, t in zip(specs, ax, flat)),
-                   tuple(sl._resolve(mesh, moment_rules, a, t.shape) for t, a in zip(flat, ax)))
+                   tuple(sl._resolve(mesh, moment_rules, a, t.shape) for t, a in zip(flat, mom)))
 
     def piece(self, path: str, leaf: torch.Tensor) -> torch.Tensor:
         """The rank's piece of the whole ``leaf`` at ``path`` (a copy where

@@ -169,8 +169,8 @@ class RouteSpy:
         self.calls = []
         real = MOE.route
 
-        def spy(cfg, xg, router):
-            r = real(cfg, xg, router)
+        def spy(cfg, xg, router, **kw):
+            r = real(cfg, xg, router, **kw)
             self.calls.append((r.idx.clone(), r.keep.clone()))
             return r
 

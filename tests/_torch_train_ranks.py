@@ -1,4 +1,5 @@
-"""The rank side of tests/test_torch_sharded_training.py.
+"""The rank side of tests/test_torch_sharded_training.py and
+tests/test_torch_sharded_training_families.py.
 
 It imports the port only: a spawned rank imports this module, never the
 test module (which imports jax).  ``run_mesh`` spawns the gloo ranks of one
@@ -16,6 +17,7 @@ Tolerances are the test's (fp32 compute): this module records the worst
 errors and the counts of elements past them."""
 
 import json
+import math
 import os
 
 import torch
@@ -37,21 +39,68 @@ CASES = {
     "gemma3": ("gemma3-4b", {}, False),
 }
 
+# the other families: name -> (arch, make_train_step options, remat, the
+# MoE config's changes, (B, S)); a case with changes has params of its own
+FAMILY_CASES = {
+    "granite": ("granite-moe-1b-a400m", {}, False, {}, (B, S)),
+    "qwen2": ("qwen2-moe-a2.7b", {}, False, {}, (B, S)),
+    "recurrentgemma": ("recurrentgemma-2b", {}, False, {}, (B, S)),
+    "xlstm": ("xlstm-350m", {}, False, {}, (B, S)),
+    "whisper": ("whisper-tiny", {}, False, {}, (B, S)),
+    "internvl": ("internvl2-2b", {}, False, {}, (B, S)),
+    # 512 tokens, 256 a replica at 2x1: capacity on (dropped assignments)
+    "granite_512": ("granite-moe-1b-a400m", {}, False, {"capacity_factor": 0.5}, (8, 64)),
+    # 5 experts on a model axis of 2: the "expert_ff" rule
+    "qwen2_expert_ff": ("qwen2-moe-a2.7b", {}, False, {"n_experts": 5}, (B, S)),
+    "xlstm_remat": ("xlstm-350m", {}, True, {}, (B, S)),
+}
 
-def batch(vocab: int, step: int) -> dict:
-    """Step ``step``'s global synthetic batch (B x S), as torch tensors."""
+
+def case(name: str) -> tuple:
+    """(arch, options, remat, MoE changes, (B, S)) of a case of either table."""
+    if name in CASES:
+        return CASES[name] + ({}, (B, S))
+    return FAMILY_CASES[name]
+
+
+def params_key(name: str) -> str:
+    """The key of a case's whole params in a job: its arch, or its own name
+    where it changes the config's params."""
+    arch, _, _, changes, _ = case(name)
+    return name if "n_experts" in changes else arch
+
+
+def case_config(name: str):
+    """The smoke config of case ``name``, its changes and remat applied."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    arch, _, remat, changes, _ = case(name)
+    cfg = get_config(arch, smoke=True)
+    if changes:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, **changes))
+    return dataclasses.replace(cfg, remat=remat)
+
+
+def batch(cfg, step: int, b: int = B, s: int = S) -> dict:
+    """Step ``step``'s global synthetic batch (b x s) with the family's
+    frames or patches (``launch.train.extras``), as torch tensors."""
     from repro_torch.data import LMDataConfig, synthetic_lm_batch
+    from repro_torch.launch.train import extras
+    from repro_torch.models.api import get_api
 
-    b = synthetic_lm_batch(LMDataConfig(vocab=vocab, seq_len=S, global_batch=B), step)
-    return {k: torch.from_numpy(v) for k, v in b.items()}
+    out = synthetic_lm_batch(LMDataConfig(vocab=cfg.vocab, seq_len=s, global_batch=b), step)
+    out.update(extras(cfg, get_api(cfg), b, step))
+    return {k: torch.from_numpy(v) for k, v in out.items()}
 
 
-def launcher_args(*flags):
+def launcher_args(*flags, arch: str = "tinyllama-1.1b"):
     """The train CLI's args at smoke size on the CPU, lr 1e-3."""
     from repro_torch.launch import train
 
     return train.build_parser().parse_args(
-        ["--arch", "tinyllama-1.1b", "--smoke", "--batch", str(B), "--seq", str(S),
+        ["--arch", arch, "--smoke", "--batch", str(B), "--seq", str(S),
          "--lr", "1e-3", "--log-every", "100", "--device", "cpu", *flags])
 
 
@@ -104,34 +153,36 @@ def _roundoff(grads: list) -> list:
     return [g.abs() <= ROUNDOFF * g.abs().max() for g in grads]
 
 
-def _run_case(name: str, mesh, whole: dict) -> dict:
-    """One case: three steps mesh-free and meshed from the same params
-    ``whole[arch]``; the meshed step's every optimizer update is shadowed
-    by one whose moments stay the params' pieces (no ZeRO), whose moments
-    and params a ZeRO-1 rank must equal bit for bit."""
+def _run_case(name: str, mesh, whole: dict, steps: int = STEPS) -> dict:
+    """One case: ``steps`` steps mesh-free and meshed from the same params
+    ``whole[params_key(name)]`` (on their device); the meshed step's every
+    optimizer update is shadowed by one whose moments stay the params'
+    pieces (no ZeRO), whose moments and params a ZeRO-1 rank must equal bit
+    for bit.  Every
+    ``moe.route`` call's dropped assignments are counted (the mesh-free
+    run's, and the rank's own replica's on the mesh)."""
     import dataclasses
 
-    from repro_torch.configs import get_config
     from repro_torch.core.weight_plan import flatten_leaves
     from repro_torch.distributed import shardlib as sl
     from repro_torch.launch import mesh as M
-    from repro_torch.models import transformer as T
+    from repro_torch.models import moe as MOE
     from repro_torch.models.api import get_api
     from repro_torch.training import optimizer as O
     from repro_torch.training import trainer as TR
 
-    arch, opts, remat = CASES[name]
-    cfg = dataclasses.replace(get_config(arch, smoke=True), remat=remat)
+    _, opts, _, _, (b_rows, s_len) = case(name)
+    cfg = case_config(name)
+    key = params_key(name)
     api = get_api(cfg)
     oc = O.OptimizerConfig(**OPT)
     ef = opts.get("compression") is not None
     place = M.train_placement(cfg, mesh)
     # the same leaves with the moments as the params' pieces (no ZeRO)
-    plain = O.Placement.of(T.meta_tree(api.param_shapes(cfg)), api.param_axes(cfg), mesh,
-                           place.rules, place.rules)
-    solo_p = _clone(whole[arch])
+    plain = dataclasses.replace(place, moment_specs=place.param_specs)
+    solo_p = _clone(whole[key])
     solo_o = O.init_opt_state(oc, solo_p, error_feedback=ef)
-    mine = _pieces(whole[arch], place)
+    mine = _pieces(whole[key], place)
     opt = O.init_opt_state(oc, mine, error_feedback=ef, placement=place)
     shadow_p = _clone(mine)
     shadow_o = O.init_opt_state(oc, shadow_p, error_feedback=ef, placement=plain)
@@ -158,18 +209,33 @@ def _run_case(name: str, mesh, whole: dict) -> dict:
                     zero["moments_equal"] &= bool(torch.equal(want, z))
         return out
 
-    O.apply_updates = spy
+    real_route, side = MOE.route, ["solo"]
+    drops = {"solo": [], "mesh": []}
+
+    def count(*a, **k):
+        r = real_route(*a, **k)
+        drops[side[0]][-1] += int((~r.keep).sum())
+        return r
+
+    O.apply_updates, MOE.route = spy, count
     losses, norms = {"solo": [], "mesh": []}, {"solo": [], "mesh": []}
+    aux = {"solo": [], "mesh": []}
     try:
-        for s in range(STEPS):
-            b = batch(cfg.vocab, s)
+        device = flatten_leaves(whole[key])[0].device
+        for s in range(steps):
+            b = {k: v.to(device) for k, v in batch(cfg, s, b_rows, s_len).items()}
+            for k in drops:
+                drops[k].append(0)
+            side[0] = "solo"
             solo_p, solo_o, m0 = solo_step(solo_p, solo_o, b)
+            side[0] = "mesh"
             mine, opt, m1 = mesh_step(mine, opt, b)
             for k, m in (("solo", m0), ("mesh", m1)):
                 losses[k].append(float(m["loss"]))
                 norms[k].append(float(m["grad_norm"]))
+                aux[k].append(float(m.get("aux", 0.0)))
     finally:
-        O.apply_updates = real
+        O.apply_updates, MOE.route = real, real_route
     # a rank holds 1/D of each moment whose d_model dimension D divides
     data = sl.axis_sizes(mesh)["data"]
     shares = []
@@ -177,23 +243,26 @@ def _run_case(name: str, mesh, whole: dict) -> dict:
         cut = any(e is not None for e in place.moment_cut(i))
         shares.append([p.numel(), m.numel(), cut])
     out = {
-        "losses": losses, "grad_norms": norms,
+        "losses": losses, "grad_norms": norms, "aux": aux, "drops": drops,
         "loss_rel": max(abs(a - b) / abs(a) for a, b in zip(losses["solo"], losses["mesh"])),
         "norm_rel": max(abs(a - b) / abs(a) for a, b in zip(norms["solo"], norms["mesh"])),
         "zero": zero, "shares": shares, "data": data,
         "moment_cuts": sum(s[2] for s in shares),
+        "paths": list(place.paths), "whole": [math.prod(s) for s in place.shapes],
     }
     if not ef:  # step 0's: later steps start from params that differ by roundoff
         out["grad_err"] = _grad_err(seen["solo"][0], seen["mesh"][0], place)
-    roundoff = _roundoff(seen["solo"][0]) if not ef else whole["roundoff"][arch]
+    roundoff = _roundoff(seen["solo"][0]) if not ef else whole["roundoff"][key]
     out["params"] = _param_over(flatten_leaves(solo_p), flatten_leaves(mine), place, roundoff)
     if name == "adamw":
-        whole["roundoff"][arch] = roundoff
+        whole["roundoff"][key] = roundoff
     return out
 
 
 def _train_rank(rank: int, shape: tuple, job: dict) -> None:
     torch.set_num_threads(1)
+    if job.get("device") == "cuda":  # ranks sharing card 0 over gloo
+        torch.cuda.set_device(0)
     from repro_torch.distributed import shardlib as sl
     from repro_torch.distributed.elastic import replan_mesh
     from repro_torch.launch import mesh as M
@@ -204,21 +273,27 @@ def _train_rank(rank: int, shape: tuple, job: dict) -> None:
         shape = (planned.shape["data"], planned.shape["model"])
     mesh = M.make_serving_mesh(shape, "gloo")
     result = {"rank": rank, "coords": sl.mesh_coords(mesh), "shape": list(shape)}
-    whole = {arch: torch.load(path) for arch, path in job["params"].items()}
+    whole = {arch: torch.load(path, map_location=job.get("device", "cpu"))
+             for arch, path in job["params"].items()}
     whole["roundoff"] = {}
     for name in job["cases"]:
-        result[name] = _run_case(name, mesh, whole)
+        result[name] = _run_case(name, mesh, whole, job.get("steps", STEPS))
+    arch = job.get("arch", "tinyllama-1.1b")
+    for other in job.get("launch", ()):  # the launcher's two steps on the mesh
+        out = train.run(launcher_args("--steps", "2", arch=other), mesh=mesh)
+        result[f"launch {other}"] = {"losses": out["losses"]}
     if job.get("save"):  # the launcher on the mesh, checkpoints after every step
         out = train.run(launcher_args("--steps", "2", "--ckpt-dir", job["save"],
-                                      "--ckpt-every", "1"), mesh=mesh)
+                                      "--ckpt-every", "1", arch=arch), mesh=mesh)
         result["save"] = {"losses": out["losses"]}
     if job.get("resume"):  # resume another mesh's checkpoint, hold it to the mesh-free run
         from repro_torch.configs import get_config
         from repro_torch.core.weight_plan import flatten_leaves
 
-        out = train.run(launcher_args("--steps", "3", "--ckpt-dir", job["resume"]), mesh=mesh)
+        out = train.run(launcher_args("--steps", "3", "--ckpt-dir", job["resume"], arch=arch),
+                        mesh=mesh)
         want = torch.load(job["uninterrupted"])
-        cfg = get_config("tinyllama-1.1b", smoke=True)
+        cfg = get_config(arch, smoke=True)
         place = M.train_placement(cfg, mesh)
         roundoff = [r.bool() for r in flatten_leaves(want["roundoff"])]
         result["resume"] = {
@@ -232,10 +307,12 @@ def _train_rank(rank: int, shape: tuple, job: dict) -> None:
 
 def run_mesh(shape: tuple, job: dict) -> list:
     """Spawn the gloo ranks of a (data, model) mesh for ``job`` (cases,
-    saved whole params by arch, optional "save" / "resume" checkpoint
-    directories, "uninterrupted": the mesh-free run to hold a resume to,
-    "replan": the ranks left to re-plan the mesh for, out) and return
-    their results in rank order."""
+    saved whole params by ``params_key``, optional "launch": archs to train
+    two steps through the launcher, "save" / "resume" checkpoint
+    directories of the launcher's "arch" (tinyllama-1.1b without one),
+    "uninterrupted": the mesh-free run to hold a resume to, "replan": the
+    ranks left to re-plan the mesh for, "device": "cuda" for ranks sharing
+    card 0, "steps", out) and return their results in rank order."""
     from repro_torch.launch import mesh as M
 
     world = shape[0] * shape[1]

@@ -8,7 +8,9 @@ a rank's experts of a granite-moe-wide stack (``local_leaf``'s cut of the
 expert axis) against their plain versions and the whole stack's launch;
 B3 non-causal over a rank's KV heads of whisper-tiny's frame pool, B6
 non-causal on 3 of its 6 heads at 1500 x 1500, and B5's dense_tile at a
-rank's 1365 columns of xlstm-350m's sLSTM ``w_up``.  These need a CUDA
+rank's 1365 columns of xlstm-350m's sLSTM ``w_up``; and one smoke
+training step of granite-moe and whisper at 1x2, two gloo ranks sharing
+the card, against the mesh-free step on the card.  These need a CUDA
 device and nvcc; they carry the ``gpu`` marker and skip elsewhere (and
 import no JAX):
 
@@ -16,7 +18,8 @@ import no JAX):
 
 bf16 outputs are held to 1e-2 of the max (fp32 sums in another order --
 a launch over fewer columns may split its sums otherwise -- rounded once),
-as in tests/test_torch_gpu.py."""
+as in tests/test_torch_gpu.py; the training step (fp32) to
+tests/test_torch_sharded_training.py's tolerances."""
 
 import pytest
 import torch
@@ -243,3 +246,32 @@ def test_b5_dense_tile_at_a_ranks_slstm_w_up(cuda, M):
         assert QM.quant_matmul.dense_tile_launches == n + 1
         _close(y, QM.quant_matmul(x, loc.local.q, loc.local.s, use_kernel=False))
         _close(y, whole[:, m * 1365:(m + 1) * 1365])
+
+
+@pytest.mark.gpu
+def test_1x2_training_step_of_moe_and_encdec_on_the_card(cuda, tmp_path):
+    """One smoke training step of granite-moe (its experts split over the
+    model axis) and of whisper (its heads and frames) at 1x2, two gloo
+    ranks sharing the card (``tests/_torch_train_ranks``): each rank's
+    loss, its pieces of the step's gradients and of the updated params
+    equal its slices of the mesh-free step's on the card, and its ZeRO-1
+    update a shadow's without ZeRO."""
+    import _torch_train_ranks as R
+    from repro_torch.models.api import get_api
+
+    cases = ["granite", "whisper"]
+    params = {}
+    for name in cases:
+        cfg = R.case_config(name)
+        params[R.params_key(name)] = str(tmp_path / f"{name}.pt")
+        torch.save(get_api(cfg).init_params(cfg, 0, device="cpu"), params[R.params_key(name)])
+    rows = R.run_mesh((1, 2), {"cases": cases, "params": params, "device": "cuda",
+                               "steps": 1, "out": str(tmp_path)})
+    for row in rows:
+        for name in cases:
+            got = row[name]
+            assert got["loss_rel"] <= 1e-5, (name, row["coords"], got["losses"])
+            assert got["grad_err"] <= 1e-5, (name, row["coords"], got["grad_err"])
+            over, n, worst = got["params"]
+            assert over == 0, (name, row["coords"], over, n, worst)
+            assert got["zero"] == {"moments_equal": True, "params_equal": True}, name

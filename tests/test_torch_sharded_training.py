@@ -199,26 +199,6 @@ def test_train_mesh_shapes(spec, need):
         M.train_mesh_sizes(spec, 4)
 
 
-@pytest.mark.parametrize("arch, what", [
-    ("granite-moe-1b-a400m", "a MoE FFN"), ("qwen2-moe-a2.7b", "a MoE FFN"),
-    ("recurrentgemma-2b", "a 'rec' layer"), ("xlstm-350m", "a 'mlstm' layer"),
-    ("whisper-tiny", "the enc-dec family"), ("internvl2-2b", "the VLM family")])
-def test_other_families_are_refused_on_a_mesh(arch, what):
-    """A mesh refuses the families the next slice ports, by name and
-    ROADMAP item, in the launcher and in ``launch.mesh.train_placement``
-    (which a meshed ``make_train_step`` takes), before any params are
-    drawn; the dense family passes the same check."""
-    mesh = sl.MeshShape({"data": 1, "model": 2}, {"data": 0, "model": 0})
-    args = R.launcher_args("--steps", "1")
-    args.arch = arch
-    with pytest.raises(NotImplementedError, match=f"training {what} on a mesh .*A13d"):
-        train.run(args, mesh=mesh)
-    with pytest.raises(NotImplementedError, match="A13d"):
-        M.train_placement(get_config(arch, smoke=True), mesh)
-    for dense in DENSE:
-        T.check_meshable(get_config(dense, smoke=True))
-
-
 @pytest.mark.parametrize("case", ["2x8 cards", "one host, cpu", "one card shared",
                                   "one card", "pod on 16"])
 def test_train_torchrun_ranks_choose_the_backend_per_host(monkeypatch, case):
