@@ -78,7 +78,14 @@ Phases, in order; any failure raises and the script exits non-zero:
                pair, B1 at both families' projections (summed, M 8), B5 in
                dense_tile at xlstm-350m's ragged leaves (1024 x 8, 1024 x
                2730, 1365 x 1024) and in wgmma at its 1024 x 50304 head, B3
-               over bf16 pages at tinyllama's 32/4 heads.
+               over bf16 pages at tinyllama's 32/4 heads.  The logit
+               softcap (30, queries scaled by 20 so the cap bends the
+               scores): B6 at hd 64 (32/4), 128 (32/2), 256 (8/4) causal and
+               256 under its 1024-token window at 2048 tokens, B3 at
+               tinyllama's heads at T 1 and T 5, each held to its plain
+               version, twice for the same bits, timed beside one capped
+               ``flex_attention`` call (SDPA has no cap), also held to the
+               plain version.
 4. fcnet    -- the paper's four FC nets (Table 2) at published widths,
                random weights from a seed: forward_fp32 / forward_pruned
                (B7) held to the plain path, forward_q78 (B8) equal to it
@@ -121,6 +128,15 @@ Phases, in order; any failure raises and the script exits non-zero:
                served plan and for a --compress quant plan (every
                projection through B5, every launch in its wgmma regime); the
                logits must agree within the stated bf16 tolerance.
+8b. softcap -- the serve phase's model and plan with logit_softcap = 30 (no
+               config sets one): the 8 requests through the kernels (B1, B2,
+               capped B3, B5; B4 not) and the plain versions, streams by the
+               near-tie rule; ``_path_parity`` at 36, 40 and 2032 tokens (the
+               2032-token prefill runs capped B6 once a layer); teacher-
+               forced verify steps (capped B3 at T = 5) against the plain
+               versions.  The families phase also prefills glm4-9b and
+               gemma3-4b capped at 2032 tokens (B6 at hd 128, hd 256 and
+               its window, against the plain versions).
 9. spec     -- the serve flags with --draft-config tinyllama-1.1b --spec-k 4
                (a dense bf16 draft from seed + 1): every request finishes,
                the audit is clean, B1, B2, B3 and B5 launch (B3 at T = 5,
@@ -275,8 +291,10 @@ Phases, in order; any failure raises and the script exits non-zero:
                whisper decoder layer a step, B6 non-causal once a whisper
                layer a prefill, the weight kernels never; each member's
                streams equal it served alone.
-17. autotune -- the offline autotuner at full width (tinyllama-1.1b, random
-               weights from seed 0): (a) ``python -m repro_torch.launch.autotune``'s
+17. autotune -- the offline autotuner at full width (tinyllama-1.1b at 8 of
+               its 22 layers from here on, TAIL_CUTS: autotune, train and
+               train_mesh and their ranks; random weights from seed 0):
+               (a) ``python -m repro_torch.launch.autotune``'s
                main with the default space, calibration task and
                constraints, anneal, 64 trials, seed 0, into a temporary
                directory with --plan-cache (the search's seconds, every
@@ -337,6 +355,15 @@ Phases, in order; any failure raises and the script exits non-zero:
                steps, 4 stages of 200), base and pruned accuracy, q, the
                1.5% objective, B7's pruned accuracy against the plain
                version's, Q7.8's through B8.
+18b. analysis -- the dry run (``launch/dryrun.py``) on the card's host:
+               tinyllama-1.1b's train step at B 8 x 128 traced for rank 0
+               of a 1 x 1 mesh over meta tensors; its matmul FLOPs equal to
+               FlopCounterMode's count of the same step on the card, its
+               arguments + temporaries within 0.75-1.33x of the step's
+               max_memory_allocated; then ``python -m
+               repro_torch.launch.dryrun --arch whisper-tiny --shape
+               decode_32k`` (16 x 16, full width) exits 0 and its record
+               is read back.
 19. train_mesh -- meshed training, ranks sharing the card over gloo:
                full-width tinyllama-1.1b through launch.train.run(mesh=)
                at 1x2 and 2x2 (B 8 x 128, 3 steps, seed 0; tensor parallel
@@ -348,7 +375,7 @@ Phases, in order; any failure raises and the script exits non-zero:
                its share by the placement's specs, and that share 0.5
                (1x2) or 0.375 (2x2) of the whole state; max_memory_allocated
                per rank and rank 0's median step.  The 2x2 run writes one
-               whole-leaf checkpoint after step 3 (22 layers: 13.2 GB), and
+               whole-leaf checkpoint after step 3 (8 layers, TAIL_CUTS), and
                a 1x2 mesh (``elastic.replan_mesh`` of two ranks) resumes it
                for step 4, held to the one-card run's; rank 0's gather
                time and host peak RSS, each restore's time and card peak.
@@ -437,6 +464,15 @@ M_EDGES = (1, 63, 64, 65, 127, 128, 129)
 # the 2032-token prefill on the card's clock before B1/B2 ran on wgmma
 # (NVIDIA H100 80GB HBM3, 700 W; fp32 CUDA-core B1/B2 with 16-row tiles)
 LONG_PREFILL_MS_BEFORE = 117.722
+# the logit softcap the capped runs set on a config (none of the registry
+# sets one): cap * tanh(score / cap) on attention scores and final logits.
+# A capped kernel row scales its queries by CAP_Q_SCALE, so that its scaled
+# scores (std ~20) reach past the cap and the tanh bends them
+SOFTCAP = 30.0
+CAP_Q_SCALE = 20.0
+# the analysis phase: the dry run's memory peak (arguments + temporaries) is
+# held to max_memory_allocated of the same step on the card within this band
+ANALYSIS_PEAK_BAND = (0.75, 1.33)
 # B5/B7 in fp32: kernel and plain version both sum in fp32, in another
 # order, over K <= 2048; held to max |kernel - plain| <= FP32_RTOL * max
 # |plain|.  B8 is integer arithmetic: exact equality, no tolerance.
@@ -809,6 +845,22 @@ def phase_kernels(torch, results: dict) -> None:
     row, dv, rv = b3_verify_row(torch, timer, gen)
     results["paged_decode_attention"].update(max_abs_err=max(b3_err, d, dv),
                                              max_rel_err=max(b3_rel, r, rv), rows=rows + [row])
+    # B3 capped, at the serve step and the verify step of tinyllama's
+    # attention (the softcap phase serves a capped model: its launches)
+    for key, T in (("cap30 serve", 1), ("cap30 verify", SPEC_K + 1)):
+        _b3_row(torch, timer, gen, results, key, 32, 4, 64, T, softcap=SOFTCAP)
+
+
+def _gathered_bf16(torch, kp, vp, ks, vs, table) -> tuple:
+    """Each sequence's pages gathered and dequantized to bf16 K and V (B,
+    S, KVH, hd); ``ks``/``vs`` None: bf16 pages, no scales."""
+    from repro_torch.models import layers as L
+
+    kd, vd = L.gather_pages(kp, table).float(), L.gather_pages(vp, table).float()
+    if ks is not None:
+        kd = kd * L.gather_pages(ks, table)[..., None]
+        vd = vd * L.gather_pages(vs, table)[..., None]
+    return kd.to(torch.bfloat16), vd.to(torch.bfloat16)
 
 
 def _sdpa_gathered(torch, q, kp, vp, ks, vs, table, pos):
@@ -816,21 +868,39 @@ def _sdpa_gathered(torch, q, kp, vp, ks, vs, table, pos):
     dequantized bf16 K/V (expanded to the query heads) under the causal
     mask of the T new tokens at pos .. pos + T - 1; returns a thunk for the
     timer.  ``ks``/``vs`` None: bf16 pages, no scales."""
-    from repro_torch.models import layers as L
-
     T, H, KVH = q.shape[1], q.shape[2], kp.shape[2]
-    kd, vd = L.gather_pages(kp, table).float(), L.gather_pages(vp, table).float()
-    if ks is not None:
-        kd = kd * L.gather_pages(ks, table)[..., None]
-        vd = vd * L.gather_pages(vs, table)[..., None]
-    kd = kd.to(torch.bfloat16).repeat_interleave(H // KVH, dim=2).transpose(1, 2)
-    vd = vd.to(torch.bfloat16).repeat_interleave(H // KVH, dim=2).transpose(1, 2)
+    kd, vd = _gathered_bf16(torch, kp, vp, ks, vs, table)
+    kd = kd.repeat_interleave(H // KVH, dim=2).transpose(1, 2)
+    vd = vd.repeat_interleave(H // KVH, dim=2).transpose(1, 2)
     S = kd.shape[2]
     q_pos = pos[:, None] + torch.arange(T, device="cuda")[None]
     mask = (torch.arange(S, device="cuda")[None, None, :] <= q_pos[:, :, None])[:, None]
     qt = q.transpose(1, 2)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     return lambda: sdpa(qt, kd, vd, attn_mask=mask)
+
+
+def _flex_capped(torch, q, k, v, cap: float, q_pos=None, window=None):
+    """The capped attention's yardstick: one ``flex_attention`` call (eager:
+    SDPA has no softcap) whose score_mod caps each scaled score and masks it
+    causally (query i of row b at q_pos[b] + i, or at i) and under
+    ``window``; q (B, Sq, H, hd), k/v (B, Sk, KVH, hd) bf16.  Returns a
+    thunk (B, Sq, H, hd)."""
+    from torch.nn.attention.flex_attention import flex_attention
+
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    base = torch.zeros((q.shape[0],), dtype=torch.int32, device=q.device) if q_pos is None \
+        else q_pos
+
+    def score_mod(score, b, h, q_idx, kv_idx):
+        qp = base[b] + q_idx
+        keep = kv_idx <= qp
+        if window:
+            keep = keep & (kv_idx > qp - window)
+        return torch.where(keep, cap * torch.tanh(score / cap), -float("inf"))
+
+    return lambda: flex_attention(qt, kt, vt, score_mod=score_mod,
+                                  enable_gqa=True).transpose(1, 2)
 
 
 def _b3_bound(q, table, pos, ps, KVH, hd, H, elem=1, scale_bytes=4) -> tuple:
@@ -1044,6 +1114,14 @@ def phase_flash(torch, results: dict) -> None:
     i8_ms = timer(lambda: FA.flash_attention(q, k, v, **kw))
     log(f"B6 S={S} causal int8 K/V: kernel {i8_ms:.4f} ms")
     results["flash_attention"].update(max_abs_err=err, max_rel_err=rel)
+    # B6 capped at 2048 tokens: tinyllama's hd 64, glm4's hd 128 (32/2),
+    # gemma3's hd 256 (8/4) causal and under its 1024-token window; the
+    # softcap phase and the families' capped prefills launch their shapes
+    for key, H, KVH, hd, window in (("cap30 hd64", 32, 4, 64, None),
+                                    ("cap30 hd128", 32, 2, 128, None),
+                                    ("cap30 hd256", 8, 4, 256, None),
+                                    ("cap30 hd256 window", 8, 4, 256, 1024)):
+        _b6_row(torch, timer, gen, results, key, H, KVH, hd, window=window, softcap=SOFTCAP)
 
 
 def _held(torch, label: str, got, want, tol) -> tuple:
@@ -1914,7 +1992,7 @@ def _timed_spec_ticks(engine) -> dict:
     return times
 
 
-def _verify_parity(torch, cfg, params, gen) -> None:
+def _verify_parity(torch, cfg, params, gen, label: str = "spec") -> None:
     """Teacher-forced verify steps at the spec phase's shape (8 sequences,
     T = SPEC_K + 1 positions a step, paged int8 KV from position 0): the
     kernels (B1, B2, B5 at M = 40, B3 at T = 5) against the plain versions on
@@ -1950,7 +2028,7 @@ def _verify_parity(torch, cfg, params, gen) -> None:
             raise AssertionError("verify parity: non-finite logits")
         worst = float(((verify - b).abs().amax(dim=-1) / b.abs().amax(dim=-1)).max())
         agree = float((verify.argmax(-1) == b.argmax(-1)).float().mean())
-        log(f"spec: teacher-forced verify (B={B}, T={T_}, {n} positions) vs {name}: max "
+        log(f"{label}: teacher-forced verify (B={B}, T={T_}, {n} positions) vs {name}: max "
             f"|dlogit| / max |logit| = {worst:.3e} (tolerance {PATH_RTOL}), greedy agreement "
             f"{agree:.4f}")
         if not worst <= PATH_RTOL:
@@ -2924,7 +3002,7 @@ def _mesh_rank(rank: int, job: dict) -> None:
 
     from repro_torch.launch import serve
 
-    _cut_depths()  # the configs the earlier phases served
+    _cut_depths(job.get("cuts"))  # the configs the earlier phases served
 
     torch.cuda.set_device(0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3172,6 +3250,63 @@ def phase_parity(torch, cfg, engine) -> None:
     torch.cuda.empty_cache()
 
 
+def phase_softcap(torch, results: dict, cfg, engine, card: str) -> None:
+    """The serve cell's model and plan with ``logit_softcap`` = SOFTCAP (no
+    config of the registry sets one; the weights are the serve phase's): the
+    8 requests through the kernels -- B1, B2, B3 (capped) and B5 must launch,
+    B4 not -- and through the plain versions, streams by the near-tie rule;
+    ``_path_parity`` at 36, 40 and LONG_M tokens, whose LONG_M prefill runs
+    capped B6 once a layer; teacher-forced verify steps (B3 capped at T =
+    SPEC_K + 1) against the plain versions.  The capped B3 and hd-64 B6 rows
+    take these launches."""
+    from repro_torch.core.weight_plan import with_use_kernel
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.serving.engine import ServingEngine
+
+    serve, _, args = _serve_args()
+    capped = dataclasses.replace(cfg, logit_softcap=SOFTCAP)
+    eng = ServingEngine(capped, engine.params, plan=engine.plan, device=engine.device,
+                        config=engine.config)
+    outputs, launches, dt = _serve_and_check(serve, eng, capped, args.max_new, "softcap")
+    by_t = dict(FA.paged_decode_attention.launches_by_t)
+    if launches.pop("block_sparse_matmul_col"):
+        raise AssertionError("softcap: B4 launched, but every served leaf carries its walk")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"softcap: kernel {name} was not launched on the capped path")
+    _row(results, "paged_decode_attention", "cap30 serve")["launches"] = by_t.get(1, 0)
+    log(f"softcap {SOFTCAP:g}: {eng.stats.completed}/8 FINISHED, B3 launches by query "
+        f"positions {by_t}, {eng.stats.decode_tokens / dt:.1f} tok/s on {card}")
+
+    plain = _engine_like(eng, engine.plan, params=with_use_kernel(engine.params, False))
+    plain.attention_kernel = False
+    p_out, p_launches, _ = _serve_and_check(serve, plain, capped, args.max_new, "softcap plain")
+    if any(p_launches.values()):
+        raise AssertionError(f"softcap plain: a kernel launched on the plain path: {p_launches}")
+    prompts = [r.prompt for r in _serve_requests(capped, args.max_new)]
+    _streams_near_tie(torch, capped, plain.params, "softcap kernels vs plain", prompts, p_out,
+                      outputs)
+    del plain, eng
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13)
+    _zero_launches((*_served_kernels(), FA.flash_attention))
+    _path_parity(torch, capped, engine.params, f"softcap {SOFTCAP:g} quant_sparse", gen)
+    by_w = dict(FA.flash_attention.launches_by_window)
+    log(f"softcap: B6 launches {FA.flash_attention.launches}, by window {by_w}")
+    if FA.flash_attention.launches != capped.n_layers or by_w != {0: capped.n_layers}:
+        raise AssertionError(f"softcap: the capped LONG_M prefill did not run every layer's "
+                             f"attention through B6 ({by_w})")
+    _row(results, "flash_attention", "cap30 hd64")["launches"] = FA.flash_attention.launches
+    FA.paged_decode_attention.launches_by_t.clear()
+    _verify_parity(torch, capped, engine.params, gen, label="softcap")
+    n5 = FA.paged_decode_attention.launches_by_t.get(SPEC_K + 1, 0)
+    if n5 <= 0:
+        raise AssertionError(f"softcap: B3 never launched at T = {SPEC_K + 1}")
+    _row(results, "paged_decode_attention", "cap30 verify")["launches"] = n5
+    torch.cuda.empty_cache()
+
+
 def _profile_steps(torch, cfg, params, steps: int, B: int = 8, start: int = 0) -> tuple:
     """``steps`` decode steps at batch ``B`` (paged int8 KV, positions from
     ``start`` + 2) timed on the host clock, then as many under
@@ -3332,28 +3467,43 @@ def _add_row(results: dict, name: str, row: dict, err: float, rel: float) -> Non
     r["max_rel_err"] = max(r.get("max_rel_err", 0.0), rel)
 
 
-def _b6_row(torch, timer, gen, results, key, H, KVH, hd, window=None, S=2048) -> None:
+def _b6_row(torch, timer, gen, results, key, H, KVH, hd, window=None, S=2048,
+            softcap: float = 0.0) -> None:
     """B6 at one family's long prefill (B 1, S = 2048 tokens, causal, bf16):
     held to its plain version, launched twice for the same bits, timed
-    beside the plain version and SDPA on the same inputs."""
+    beside the plain version and SDPA on the same inputs.  ``softcap`` > 0:
+    the capped kernel on queries scaled by CAP_Q_SCALE (the cap bends the
+    scores), its yardstick one capped ``flex_attention`` call (also held to
+    the plain version within PATH_RTOL: it scores in bf16)."""
     from repro_torch.kernels import flash_attention as FA
 
-    q = torch.randn((1, S, H, hd), generator=gen, device="cuda").to(torch.bfloat16)
+    q = torch.randn((1, S, H, hd), generator=gen, device="cuda")
+    q = (q * (CAP_Q_SCALE if softcap else 1.0)).to(torch.bfloat16)
     k = torch.randn((1, S, KVH, hd), generator=gen, device="cuda").to(torch.bfloat16)
     v = torch.randn(k.shape, generator=gen, device="cuda").to(torch.bfloat16)
-    label = f"B6 hd {hd} S={S} H={H}/{KVH} causal{f' window {window}' if window else ''} bf16"
-    o = FA.flash_attention(q, k, v, window=window)
-    d, r = _held(torch, label, o, FA.flash_attention(q, k, v, window=window, use_kernel=False),
-                 KERNEL_RTOL)
-    _deterministic(torch, label, o, FA.flash_attention(q, k, v, window=window))
+    cap = f" cap {softcap:g}" if softcap else ""
+    label = (f"B6 hd {hd} S={S} H={H}/{KVH} causal{f' window {window}' if window else ''}"
+             f"{cap} bf16")
+    kw = dict(window=window, softcap=softcap)
+    o = FA.flash_attention(q, k, v, **kw)
+    want = FA.flash_attention(q, k, v, use_kernel=False, **kw)
+    d, r = _held(torch, label, o, want, KERNEL_RTOL)
+    _deterministic(torch, label, o, FA.flash_attention(q, k, v, **kw))
     nbytes = 2 * (q.numel() * 2 + k.numel() * 2)
+    # the cap's tanh, a division and a product a score, is not a tensor-core
+    # operation: the bound counts the products only
     flops = 4.0 * hd * H * _visible_pairs(S, S, True, window)
     b_ms, b_by = bound(nbytes, flops)
-    ms = timer(lambda: FA.flash_attention(q, k, v, window=window))
-    plain_ms = timer(lambda: FA.flash_attention(q, k, v, window=window, use_kernel=False))
+    ms = timer(lambda: FA.flash_attention(q, k, v, **kw))
+    plain_ms = timer(lambda: FA.flash_attention(q, k, v, use_kernel=False, **kw))
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    if window is None:
+    if softcap:
+        flex = _flex_capped(torch, q, k, v, softcap, window=window)
+        _held(torch, f"{label}: flex_attention (the yardstick)", flex(), want, PATH_RTOL)
+        lib_ms = timer(flex)
+        lib = "flex_attention(capped score_mod, eager)"
+    elif window is None:
         lib_ms = timer(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True))
         lib = "SDPA(is_causal, enable_gqa)"
     else:
@@ -3365,19 +3515,22 @@ def _b6_row(torch, timer, gen, results, key, H, KVH, hd, window=None, S=2048) ->
         f"{b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP)")
     _add_row(results, "flash_attention", {
         "key": key, "shape": f"B=1 S={S} H={H} KVH={KVH} hd={hd} causal"
-                             f"{f' window {window}' if window else ''} bf16",
+                             f"{f' window {window}' if window else ''}{cap} bf16",
         "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
         "bound_by": b_by}, d, r)
 
 
 def _b3_row(torch, timer, gen, results, key, H, KVH, hd, T, prefix=0, P=8,
-            int8=True, B=8) -> None:
+            int8=True, B=8, softcap: float = 0.0) -> None:
     """B3 at one family's serve step (T 1) or verify step (T 5): B (8)
     sequences at the serve phase's contexts (after ``prefix`` positions of
     a VLM's patches; the 8 repeat past the eighth), int8 pages of 16 (bf16
     where ``int8`` is False), ``P`` pages a sequence, sequences 1-3 sharing
     sequence 0's first page; held to its plain version, twice for the same
-    bits, timed beside SDPA on the gathered bf16 K/V."""
+    bits, timed beside SDPA on the gathered bf16 K/V.  ``softcap`` > 0: the
+    capped kernel on queries scaled by CAP_Q_SCALE, its yardstick one capped
+    ``flex_attention`` call on the gathered bf16 K/V (held to the plain
+    version within PATH_RTOL: K/V rounded to bf16, scores in bf16)."""
     from repro_torch.kernels import flash_attention as FA
 
     ps = 16
@@ -3397,28 +3550,39 @@ def _b3_row(torch, timer, gen, results, key, H, KVH, hd, T, prefix=0, P=8,
         kp = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
         vp = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
         kw = {}
-    q = torch.randn((B, T, H, hd), generator=gen, device="cuda").to(torch.bfloat16)
+    q = torch.randn((B, T, H, hd), generator=gen, device="cuda")
+    q = (q * (CAP_Q_SCALE if softcap else 1.0)).to(torch.bfloat16)
     kind = "int8" if int8 else "bf16"
-    label = f"B3 {kind} hd {hd} B={B} T={T} H={H}/{KVH}"
+    cap = f" cap {softcap:g}" if softcap else ""
+    label = f"B3 {kind} hd {hd} B={B} T={T} H={H}/{KVH}{cap}"
+    if softcap:
+        kw["softcap"] = softcap
     o = FA.paged_decode_attention(q, kp, vp, table, pos, **kw)
-    d, r = _held(torch, label, o,
-                 FA.paged_decode_attention(q, kp, vp, table, pos, use_kernel=False, **kw),
-                 KERNEL_RTOL)
+    want = FA.paged_decode_attention(q, kp, vp, table, pos, use_kernel=False, **kw)
+    d, r = _held(torch, label, o, want, KERNEL_RTOL)
     _deterministic(torch, label, o, FA.paged_decode_attention(q, kp, vp, table, pos, **kw))
     b_ms, b_by = (_b3_bound(q, table, pos, ps, KVH, hd, H) if int8 else
                   _b3_bound(q, table, pos, ps, KVH, hd, H, elem=2, scale_bytes=0))
     ms = timer(lambda: FA.paged_decode_attention(q, kp, vp, table, pos, **kw))
     plain_ms = timer(lambda: FA.paged_decode_attention(q, kp, vp, table, pos, use_kernel=False,
                                                        **kw))
-    lib_ms = timer(_sdpa_gathered(torch, q, kp, vp, kw.get("k_scale_pages"),
-                                  kw.get("v_scale_pages"), table, pos))
-    log(f"{label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA(gathered bf16) "
+    if softcap:
+        flex = _flex_capped(torch, q, *_gathered_bf16(torch, kp, vp, kw.get("k_scale_pages"),
+                                                      kw.get("v_scale_pages"), table),
+                            softcap, q_pos=pos)
+        _held(torch, f"{label}: flex_attention (the yardstick)", flex(), want, PATH_RTOL)
+        lib_ms, lib = timer(flex), "flex_attention(capped score_mod, gathered bf16)"
+    else:
+        lib_ms = timer(_sdpa_gathered(torch, q, kp, vp, kw.get("k_scale_pages"),
+                                      kw.get("v_scale_pages"), table, pos))
+        lib = "SDPA(gathered bf16)"
+    log(f"{label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, {lib} "
         f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     pos_s = ("/".join(map(str, pos.tolist())) if B <= 8 else
              f"{int(pos.min())}..{int(pos.max())}")
     _add_row(results, "paged_decode_attention", {
         "key": key, "shape": f"B={B} T={T} H={H} KVH={KVH} hd={hd} {kind} pages of 16, pos "
-                             f"{pos_s}{' (verify)' if T > 1 else ''}",
+                             f"{pos_s}{' (verify)' if T > 1 else ''}{cap}",
         "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
         "bound_by": b_by}, d, r)
 
@@ -3599,6 +3763,47 @@ def _family_long(torch, results, serve, cfg, engine, plan, card: str, key=None) 
     return launches
 
 
+def _capped_prefill(torch, results, cfg, params, gen) -> None:
+    """A LONG_M-token prefill of the family with ``logit_softcap`` =
+    SOFTCAP through capped B6 (once a layer; gemma3 windowed on its local
+    layers) and through the plain versions: the last logits within
+    PATH_RTOL.  B6's capped rows at the family's head dim take its launches
+    by window."""
+    from repro_torch.core.weight_plan import with_use_kernel
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import transformer as T
+
+    capped = dataclasses.replace(cfg, logit_softcap=SOFTCAP)
+    prompt = torch.randint(0, cfg.vocab, (1, LONG_M), generator=gen, device="cuda")
+    FA.flash_attention.launches = 0
+    FA.flash_attention.launches_by_window.clear()
+    lg = {}
+    for name, p, use_kernel in (("kernels", params, True),
+                                ("plain", with_use_kernel(params, False), False)):
+        cache = T.init_cache(capped, 1, LONG_M, torch.bfloat16, kv_dtype=torch.int8,
+                             device="cuda")
+        lg[name] = T.prefill(capped, p, prompt, cache, use_kernel=use_kernel)[0][0, -1].float()
+    torch.cuda.synchronize()
+    a, b = lg["kernels"], lg["plain"]
+    worst = float((a - b).abs().max() / b.abs().max())
+    by_w = dict(FA.flash_attention.launches_by_window)
+    want = {}
+    for kind in cfg.layer_kinds:
+        w = cfg.local_window if kind == "local" else 0
+        want[w] = want.get(w, 0) + 1
+    log(f"{cfg.name} softcap {SOFTCAP:g}: prefill of {LONG_M} tokens, max |dlogit| / max "
+        f"|logit| = {worst:.3e} (tolerance {PATH_RTOL}), B6 by window {by_w}")
+    if not (torch.isfinite(a).all() and worst <= PATH_RTOL):
+        raise AssertionError(f"{cfg.name} softcap: capped prefill logits differ from the plain "
+                             f"path: {worst:.3e}")
+    if by_w != want:
+        raise AssertionError(f"{cfg.name} softcap: B6 launches by window {by_w}, expected {want}")
+    _row(results, "flash_attention", f"cap30 hd{cfg.hd}")["launches"] = by_w.get(0, 0)
+    if "local" in cfg.layer_kinds:
+        _row(results, "flash_attention", f"cap30 hd{cfg.hd} window")["launches"] = \
+            by_w[cfg.local_window]
+
+
 def _family_spec(torch, results, serve, cfg, engine, plan, outputs, card: str,
                  key="") -> dict:
     """The family with its own plan as the draft (k = SPEC_K; a model with
@@ -3700,6 +3905,7 @@ def phase_families(torch, results: dict, card: str) -> None:
         _path_parity(torch, cfg, engine.params, f"{arch} quant_sparse", gen)
         if arch in FAMILY_LONG:
             _family_long(torch, results, serve, cfg, engine, plan, card)
+            _capped_prefill(torch, results, cfg, engine.params, gen)
             _family_spec(torch, results, serve, cfg, engine, plan, outputs, card)
         if arch == "gemma3-4b":
             _gemma_chunked(torch, serve, cfg, engine, plan, card)
@@ -3721,19 +3927,47 @@ DEPTH_CUTS = {"glm4-9b": 10, "gemma3-4b": 12, "granite-moe-1b-a400m": 8,
               "internvl2-2b": 12}
 
 
-def _cut_depths() -> None:
-    """Replace each DEPTH_CUTS arch's config in this process's registry by
-    its first layers (``configs.get_config(arch)`` returns the cut one)."""
+# tinyllama-1.1b's depth in the autotune, train and train_mesh phases (and
+# their ranks): their runs are held to each other, not to the serving
+# phases' streams, and at 22 layers these three take about 480 s on a slower
+# host (NVIDIA H100 80GB HBM3, 700 W), which then pushes the script past its
+# 1200 s; full width, 8 of 22 layers
+TAIL_CUTS = {"tinyllama-1.1b": 8}
+
+
+def _cut_depths(extra=None) -> dict:
+    """Replace each DEPTH_CUTS arch's config (and ``extra``'s: {arch:
+    layers}) in this process's registry by its first layers
+    (``configs.get_config(arch)`` returns the cut one).  Returns the
+    configs it replaced, by arch."""
     import importlib
 
     from repro_torch import configs
 
-    for arch, n in DEPTH_CUTS.items():
+    replaced = {}
+    for arch, n in {**DEPTH_CUTS, **(extra or {})}.items():
         mod = importlib.import_module(f"repro_torch.configs.{configs._MODULES[arch]}")
         cfg = mod.CONFIG
         if cfg.n_layers != n:
+            replaced[arch] = cfg
             mod.CONFIG = dataclasses.replace(
                 cfg, n_layers=n, pattern=None if cfg.pattern is None else tuple(cfg.pattern[:n]))
+    return replaced
+
+
+@contextlib.contextmanager
+def _tail_cuts():
+    """TAIL_CUTS in this process's registry, the full configs back after."""
+    import importlib
+
+    from repro_torch import configs
+
+    replaced = _cut_depths(TAIL_CUTS)
+    try:
+        yield
+    finally:
+        for arch, cfg in replaced.items():
+            importlib.import_module(f"repro_torch.configs.{configs._MODULES[arch]}").CONFIG = cfg
 
 
 def _moe_label(cfg) -> str:
@@ -5460,7 +5694,7 @@ def _tuned_meshes(torch, cfg, doc: dict, path: str, win_out: list, win_body: dic
         f"{ceiling:.2f} from (a)'s oracle)")
     kernels = sorted({k.split()[0] for k, n in win_body.items() if n})
     attention = ("paged_decode_attention",) if doc["serving"]["page_size"] else ()
-    job = {"want": {"tuned": win_out}, "tuned": path, "long_prompts": []}
+    job = {"want": {"tuned": win_out}, "tuned": path, "long_prompts": [], "cuts": TAIL_CUTS}
     rows = _mesh_run(torch, "1x2", ("tuned",), job)[0]
     _check_mesh_case("1x2", "tuned", rows, card, kernels=kernels, attention=attention)
 
@@ -6011,6 +6245,97 @@ def phase_train(torch, card: str) -> dict:
     return dense, families
 
 
+def phase_analysis(torch, card: str) -> None:
+    """The dry run (``launch/dryrun.py``) against the card: rank 0 of a 1 x 1
+    mesh of full-width tinyllama-1.1b's training step at the train phase's
+    B 8 x 128 (no remat), traced on the CPU over meta tensors (a fake
+    process group), then the same step once on the card (fp32 params and
+    AdamW state, bf16 compute) under ``FlopCounterMode``.  The trace's
+    matmul FLOPs must equal the card's count exactly (the training path
+    launches no custom kernel: the same aten products run); its arguments +
+    temporaries peak is held to the card's ``max_memory_allocated`` of the
+    step within ANALYSIS_PEAK_BAND.  Then ``python -m
+    repro_torch.launch.dryrun --arch whisper-tiny --shape decode_32k`` as a
+    subprocess (the 16 x 16 mesh, full width) must exit 0 and write its
+    record, which is read back."""
+    import subprocess as sp
+    import tempfile
+
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.launch import dryrun as D
+    from repro_torch.models.api import get_api
+    from repro_torch.training import optimizer as O
+    from repro_torch.training.trainer import make_train_step
+
+    arch, B, S = "tinyllama-1.1b", 8, 128
+    cfg, shape = get_config(arch), ShapeSpec("train_8x128", S, B, "train")
+    t0 = time.perf_counter()
+    rec = D.analyze_cell(D.lower_cell(arch, shape, mesh=(1, 1), remat=False), cfg, shape)
+    trace_s = time.perf_counter() - t0
+    mem = rec["memory"]
+    traced_peak = mem["argument_bytes"] + mem["temp_bytes"]
+
+    api = get_api(cfg)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    params = api.init_params(cfg, 0)
+    opt_cfg = O.OptimizerConfig()
+    opt = O.init_opt_state(opt_cfg, params)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    tok = torch.randint(0, cfg.vocab, (B, S), generator=gen, device="cuda", dtype=torch.int32)
+    step = make_train_step(cfg, api.loss_fn, opt_cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    with FlopCounterMode(display=False) as counter:
+        params, opt, metrics = step(params, opt, {"tokens": tok, "labels": tok})
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t1
+    card_peak = torch.cuda.max_memory_allocated() - base
+    card_flops = counter.get_total_flops()
+    ratio = traced_peak / card_peak
+    log(f"analysis: {arch} train B {B} x {S} on a 1x1 mesh traced in {trace_s:.1f}s: matmul "
+        f"FLOPs {rec['dot_flops_per_device']:.6e} (all ops {rec['hlo_flops_per_device']:.6e}), "
+        f"bytes {rec['hlo_bytes_per_device']:.4e}, arguments {mem['argument_bytes'] / 1e9:.3f} "
+        f"GB + temporaries {mem['temp_bytes'] / 1e9:.3f} GB = {traced_peak / 1e9:.3f} GB")
+    log(f"analysis: the same step on the card ({step_s:.2f}s, loss "
+        f"{float(metrics['loss']):.4f}): FlopCounterMode {card_flops:.6e} FLOPs, "
+        f"max_memory_allocated {card_peak / 1e9:.3f} GB; traced / card peak {ratio:.4f} "
+        f"(band {ANALYSIS_PEAK_BAND}) on {card}")
+    if rec["dot_flops_per_device"] != card_flops:
+        raise AssertionError(f"analysis: traced matmul FLOPs {rec['dot_flops_per_device']} != the "
+                             f"card's {card_flops}")
+    if not ANALYSIS_PEAK_BAND[0] <= ratio <= ANALYSIS_PEAK_BAND[1]:
+        raise AssertionError(f"analysis: traced peak {traced_peak} is {ratio:.4f} of the card's "
+                             f"{card_peak}, outside {ANALYSIS_PEAK_BAND}")
+    del params, opt, metrics, step
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as out:
+        env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+        t2 = time.perf_counter()
+        r = sp.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "whisper-tiny",
+                    "--shape", "decode_32k", "--out", out], env=env, capture_output=True,
+                   text=True, timeout=300)
+        lines = [ln for ln in r.stdout.splitlines() if ln.startswith("[dryrun]")]
+        log(f"analysis: dryrun subprocess exit {r.returncode} in {time.perf_counter() - t2:.1f}s: "
+            + " | ".join(lines))
+        if r.returncode != 0:
+            raise AssertionError(f"analysis: the dry run failed:\n{r.stdout}\n{r.stderr[-4000:]}")
+        with open(os.path.join(out, "whisper-tiny_decode_32k_16-16.json")) as f:
+            w = json.load(f)
+    log(f"analysis: whisper-tiny decode_32k on 16x16: flops/dev {w['hlo_flops_per_device']:.4e}, "
+        f"bytes/dev {w['hlo_bytes_per_device']:.4e}, collectives "
+        f"{w['collectives']['total_bytes']:.4e} B, {w['dominant']}-bound, roofline "
+        f"{w['t_roofline_s'] * 1e3:.3f} ms, peak {w['peak_bytes_per_device'] / 1e9:.3f} GB, "
+        f"fits {w['fits']}")
+    if not (w["fits"] and w["hlo_flops_per_device"] > 0 and w["collectives"]["total_bytes"] > 0):
+        raise AssertionError(f"analysis: implausible dry-run record {w}")
+
+
 TRAIN_MESHES = ((1, 2), (2, 2))
 TRAIN_MESH_FLAGS = ("--batch", "8", "--seq", "128")
 TRAIN_MESH_STEPS = 3
@@ -6089,7 +6414,7 @@ def _train_mesh_rank(rank: int, job: dict) -> None:
     from repro_torch.checkpoint import store
     from repro_torch.launch import mesh as M
 
-    _cut_depths()  # the configs the train phase ran
+    _cut_depths(TAIL_CUTS)  # the configs the train phase ran
     torch.cuda.set_device(0)
     torch.backends.cuda.matmul.allow_tf32 = False
     mesh = M.make_serving_mesh(tuple(job["shape"]), "gloo")
@@ -6440,7 +6765,13 @@ def phase_train_mesh_families(torch, card: str, want: dict) -> None:
 
 
 def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description="on-card smoke test of the CUDA port")
+    ap = argparse.ArgumentParser(
+        description="on-card smoke test of the CUDA port",
+        epilog="phases (see the module docstring): device, build, kernels (with B6 and B3 at "
+               f"logit softcap {SOFTCAP:g}), ..., parity, softcap (the serve cell's model "
+               "capped), ..., train, analysis (the dry run's FLOPs and peak against one "
+               "train step on the card; the whisper-tiny decode_32k dry run), train_mesh, "
+               "train_mesh_families, summary")
     ap.add_argument("--profile", action="store_true",
                     help="time B1/B2 at decode under every cluster split and B3 under every "
                          "(split, groups) after the kernels phase; after every phase, profile "
@@ -6486,6 +6817,7 @@ def main(argv=None) -> int:
     run("plancache", phase_plancache, torch, results, serve_outputs, serve_launches, card)
     long_prompts, long_outputs = run("long", phase_long, torch, results)
     run("parity", phase_parity, torch, cfg, engine)
+    run("softcap", phase_softcap, torch, results, cfg, engine, card)
     want = {"serve": serve_outputs, "long": [long_outputs[-1]]}
     want["spec"] = run("spec", phase_spec, torch, results, serve_outputs, card)
     want["chunked"] = run("chunked", phase_chunked, torch, long_prompts, long_outputs, card)
@@ -6500,10 +6832,13 @@ def main(argv=None) -> int:
     want.update(rg=rec[RG], xlstm=rec[XLSTM])
     want["mix"] = run("mixed", phase_mixed, torch, results, card)
     run("mesh", phase_mesh, torch, want, long_prompts, card)
-    run("autotune", phase_autotune, torch, results, card)
-    one_card, families = run("train", phase_train, torch, card)
-    run("train_mesh", phase_train_mesh, torch, card, one_card)
-    run("train_mesh_families", phase_train_mesh_families, torch, card, families)
+    with _tail_cuts():
+        run("autotune", phase_autotune, torch, results, card)
+        one_card, families = run("train", phase_train, torch, card)
+    run("analysis", phase_analysis, torch, card)
+    with _tail_cuts():
+        run("train_mesh", phase_train_mesh, torch, card, one_card)
+        run("train_mesh_families", phase_train_mesh_families, torch, card, families)
     log(f"phase wall seconds: {json.dumps(took)}")
     _check_family_rows(results)
     if args.profile:

@@ -8,7 +8,16 @@ from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import ModelConfig, MoEConfig
+from repro_torch.configs.base import (
+    ALL_SHAPES,
+    DECODE_32K,
+    LONG_500K,
+    PREFILL_32K,
+    TRAIN_4K,
+    ModelConfig,
+    MoEConfig,
+    ShapeSpec,
+)
 
 _MODULES = {
     "llama3.2-1b": "llama3_2_1b",
@@ -25,9 +34,30 @@ _MODULES = {
 
 ARCH_IDS = tuple(_MODULES)
 
-__all__ = ["ARCH_IDS", "ModelConfig", "MoEConfig", "get_config"]
+# archs with a sub-quadratic decode path: the only ones that run long_500k
+SUBQUADRATIC = ("xlstm-350m", "recurrentgemma-2b", "gemma3-4b")
+
+__all__ = ["ALL_SHAPES", "ARCH_IDS", "DECODE_32K", "LONG_500K", "ModelConfig", "MoEConfig",
+           "PREFILL_32K", "SUBQUADRATIC", "ShapeSpec", "TRAIN_4K", "all_cells", "get_config",
+           "shapes_for"]
 
 
 def get_config(arch: str, smoke: bool = False) -> ModelConfig:
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")
     return mod.SMOKE if smoke else mod.CONFIG
+
+
+def shapes_for(arch: str) -> tuple:
+    """The shape cells that apply to ``arch`` (the reference's rule):
+    train_4k, prefill_32k and decode_32k for every arch, and long_500k only
+    for the archs with a sub-quadratic decode path (``SUBQUADRATIC``)."""
+    shapes = [TRAIN_4K, PREFILL_32K, DECODE_32K]
+    if arch in SUBQUADRATIC:
+        shapes.append(LONG_500K)
+    return tuple(shapes)
+
+
+def all_cells() -> list:
+    """Every (arch, shape, runs) triple of ``ARCH_IDS`` x ``ALL_SHAPES``:
+    the long_500k cells of the other archs stay in the list as skips."""
+    return [(a, s, s in shapes_for(a)) for a in ARCH_IDS for s in ALL_SHAPES]

@@ -205,6 +205,22 @@ def quantize_leaf(leaf: torch.Tensor, use_kernel: bool = True) -> QuantLinear:
     return QuantLinear(q=qv, s=scales.squeeze(-2), use_kernel=use_kernel)
 
 
+def quantize_for_serving(params, min_size: int = 16384):
+    """int8-quantize every eligible matmul weight (the reference's pre-plan
+    API, kept as the ``quant``-everywhere special case of ``compress``): the
+    ``QuantLinear`` leaves ``compress(PlanConfig(default="quant",
+    min_size=min_size))`` makes, without the plan; every other leaf as it
+    is.  The dry run's ``int8`` variant."""
+    cfg = PlanConfig(default="quant", min_size=min_size)
+
+    def q(path, leaf):
+        if _quant_eligible(path.rsplit("/", 1)[-1], leaf, cfg):
+            return quantize_leaf(leaf)
+        return leaf
+
+    return map_tree(q, params)
+
+
 def pack_block_sparse(leaf: torch.Tensor, cfg: PlanConfig, quant: bool) -> PackedLinear:
     """Prune ``leaf`` to block sparsity cfg.q_prune and pack it.
 

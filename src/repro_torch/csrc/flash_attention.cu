@@ -1,5 +1,6 @@
 // B6: GQA flash attention forward (long prefill), causal and sliding-window
-// masks, bf16 K/V or int8 K/V with per-(position, head) fp32 scales.
+// masks, an optional logit softcap, bf16 K/V or int8 K/V with
+// per-(position, head) fp32 scales.
 //
 // Replaces repro/kernels/flash_attention.py:flash_attention (line 105; the
 // Pallas kernel body _flash_kernel).  Query i sits at position i and key j
@@ -72,7 +73,11 @@
 //
 // Numerics (both): scores are the fp32 sum of exact bf16 products; the
 // fp32 state (m, l, O) stays in registers; P is rounded to bf16 before PV,
-// as both reference paths do for bf16 V.
+// as both reference paths do for bf16 V.  A softcap (cap > 0, gemma2-style)
+// replaces each scaled score x by cap * tanh(x / cap) before the mask and
+// the online softmax, as the reference's jnp flash does
+// (repro/models/layers.py:236); it is a runtime argument, so one build
+// serves capped and uncapped models.
 #include "hopper.cuh"
 #include "mma.cuh"
 
@@ -106,7 +111,8 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,  // (B, Sq, H, HD)
                  const float* __restrict__ k_scale,    // (B, Sk, KVH)
                  const float* __restrict__ v_scale,
                  __nv_bfloat16* __restrict__ out,      // (B, Sq, H, HD)
-                 int Sq, int Sk, int H, int KVH, int causal, int window, float scale) {
+                 int Sq, int Sk, int H, int KVH, int causal, int window, float scale,
+                 float cap) {
   using L = Layout<HD>;
   constexpr int LD = L::LD;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -254,6 +260,7 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,  // (B, Sq, H, HD)
         if (window > 0) keep = keep && key > qp - window;
         float x = sc[nt][e] * scale;
         x *= ks[col];
+        if (cap > 0.0f) x = cap * tanhf(x / cap);
         x = keep ? x : -CUDART_INF_F;  // exp(-inf - m) = 0 with m >= -1e30: p = 0
         sc[nt][e] = x;
         mx[e >> 1] = fmaxf(mx[e >> 1], x);
@@ -326,7 +333,7 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,  // (B, Sq, H, HD)
 template <int HD>
 int launch(const void* q, const void* k, const void* v, const float* ks, const float* vs,
            void* out, int B, int Sq, int Sk, int H, int KVH, int causal, int window, float scale,
-           cudaStream_t stream) {
+           float cap, cudaStream_t stream) {
   constexpr size_t smem = Layout<HD>::smem_bytes;
   auto kern = flash_fwd_kernel<HD>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -338,7 +345,7 @@ int launch(const void* q, const void* k, const void* v, const float* ks, const f
                                          static_cast<const int8_t*>(k),
                                          static_cast<const int8_t*>(v), ks, vs,
                                          static_cast<__nv_bfloat16*>(out), Sq, Sk, H, KVH,
-                                         causal, window, scale);
+                                         causal, window, scale, cap);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -462,6 +469,14 @@ __device__ __forceinline__ void softmax_tile(float (&s)[BK / 2], float (&m)[2], 
   }
 }
 
+// the softcap of one tile's raw scores: s = cap * tanh(s * pre), pre =
+// scale / cap (the caller then takes log2(e) alone as the exp2 scale)
+template <int BK>
+__device__ __forceinline__ void softcap_tile(float (&s)[BK / 2], float cap, float pre) {
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) s[i] = cap * tanhf(s[i] * pre);
+}
+
 // p (bf16 pairs) from s: pairs 4 kk + {0, 1, 2, 3} are the A fragment of
 // keys 16 kk .. 16 kk + 15 (rows g, g + 8 at columns 2 t, then at + 8)
 template <int BK>
@@ -478,7 +493,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap kmap,
                        const __nv_bfloat16* __restrict__ q,  // (B, Sq, H, HD)
                        __nv_bfloat16* __restrict__ out,      // (B, Sq, H, HD)
                        int Sq, int Sk, int H, int KVH, int causal, int window,
-                       float scale_log2) {
+                       float scale_log2, float cap, float cap_pre) {
   using C = Cfg<HD>;
   constexpr int BK = C::BK, kStages = C::kStages, kPanels = C::kPanels;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
@@ -585,6 +600,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap kmap,
       for (int i = 0; i < 32; ++i) o[c][i] = 0.0f;
 
     auto softmax = [&](int i) {
+      if (cap > 0.0f) softcap_tile<BK>(s, cap, cap_pre);
       const int n0 = (t_begin + i) * BK;
       const bool inside = n0 + BK <= Sk && (!causal || n0 + BK - 1 <= wq_first) &&
                           (window <= 0 || n0 > wq_last - window);
@@ -677,7 +693,7 @@ inline bool encode_kv_map(CUtensorMap* map, const void* kv, int B, int Sk, int K
 
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Sk, int H,
-           int KVH, int causal, int window, float scale, cudaStream_t stream) {
+           int KVH, int causal, int window, float scale, float cap, cudaStream_t stream) {
   if (Sk <= 0)  // no key: every row writes 0
     return static_cast<int>(
         cudaMemsetAsync(out, 0, static_cast<size_t>(B) * Sq * H * HD * 2, stream));
@@ -692,9 +708,11 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq
                                          static_cast<int>(Cfg<HD>::kSmem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const float log2e = 1.4426950408889634f;
+  // capped: the scores are scaled inside the cap, and exp2 takes log2(e) alone
   kern<<<dim3(B * KVH, tiles), kThreads, Cfg<HD>::kSmem, stream>>>(
       kmap, vmap, static_cast<const __nv_bfloat16*>(q), static_cast<__nv_bfloat16*>(out), Sq, Sk,
-      H, KVH, causal, window, scale * log2e);
+      H, KVH, causal, window, cap > 0.0f ? log2e : scale * log2e, cap,
+      cap > 0.0f ? scale / cap : 0.0f);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -702,31 +720,36 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq
 
 // q/out (B, Sq, H, hd) bf16; k/v (B, Sk, KVH, hd) bf16, or int8 with
 // (B, Sk, KVH) f32 scales; all 16-byte aligned; hd 64, 128 or 256 (the head
-// dims of the served models).  window <= 0: no window.  Returns a
-// cudaError_t code (0 = launched).
+// dims of the served models).  window <= 0: no window; softcap <= 0: no
+// cap.  Returns a cudaError_t code (0 = launched).
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v,
                                       const float* k_scale, const float* v_scale, void* out,
                                       int B, int Sq, int Sk, int H, int KVH, int hd, int causal,
-                                      int window, float scale, int kv_dtype, void* stream) {
+                                      int window, float scale, float softcap, int kv_dtype,
+                                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || Sq <= 0) return 0;
   if (kv_dtype == DT_I8) {
     switch (hd) {
       case 64: return launch<64>(q, k, v, k_scale, v_scale, out, B, Sq, Sk, H, KVH, causal,
-                                 window, scale, s);
+                                 window, scale, softcap, s);
       case 128: return launch<128>(q, k, v, k_scale, v_scale, out, B, Sq, Sk, H, KVH, causal,
-                                   window, scale, s);
+                                   window, scale, softcap, s);
       case 256: return launch<256>(q, k, v, k_scale, v_scale, out, B, Sq, Sk, H, KVH, causal,
-                                   window, scale, s);
+                                   window, scale, softcap, s);
     }
   }
   if (kv_dtype == DT_BF16) {
     switch (hd) {
-      case 64: return fwg::launch<64>(q, k, v, out, B, Sq, Sk, H, KVH, causal, window, scale, s);
+      case 64:
+        return fwg::launch<64>(q, k, v, out, B, Sq, Sk, H, KVH, causal, window, scale, softcap,
+                               s);
       case 128:
-        return fwg::launch<128>(q, k, v, out, B, Sq, Sk, H, KVH, causal, window, scale, s);
+        return fwg::launch<128>(q, k, v, out, B, Sq, Sk, H, KVH, causal, window, scale, softcap,
+                                s);
       case 256:
-        return fwg::launch<256>(q, k, v, out, B, Sq, Sk, H, KVH, causal, window, scale, s);
+        return fwg::launch<256>(q, k, v, out, B, Sq, Sk, H, KVH, causal, window, scale, softcap,
+                                s);
     }
   }
   return static_cast<int>(cudaErrorInvalidValue);

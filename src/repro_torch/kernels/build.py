@@ -67,8 +67,8 @@ _SIGNATURES = {
     },
     "flash_attention": {
         # q, k, v, k_scale, v_scale, out, B, Sq, Sk, H, KVH, hd, causal, window,
-        # scale, kv_dtype, stream
-        "flash_attention_launch": ([_P] * 6 + [_I] * 8 + [_F, _I, _P], _I),
+        # scale, softcap, kv_dtype, stream
+        "flash_attention_launch": ([_P] * 6 + [_I] * 8 + [_F, _F, _I, _P], _I),
     },
     "batched_ffn": {
         # x, w, b, y, M, K, N, ldx, ldw, act, x_dtype, sb, split, width, ks,

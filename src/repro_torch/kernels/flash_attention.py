@@ -28,8 +28,10 @@ by TMA through an mbarrier ring, two consumer warpgroups run QK^T on
 ``wgmma`` from shared memory and PV on ``wgmma`` with P in registers, each
 tile's softmax under the previous tile's PV; tiles wholly inside the band
 run unmasked, tiles outside it are never loaded.  int8 K/V (off the main
-path) keep the first port's ``mma.sync`` kernel.  Its plain version is an
-fp32 online softmax over key chunks (``models.layers.flash_rows``).
+path) keep the first port's ``mma.sync`` kernel.  A logit softcap (cap *
+tanh(score / cap) on the scaled scores before the softmax, gemma2-style)
+is a runtime argument of both bodies.  Its plain version is an fp32 online
+softmax over key chunks (``models.layers.flash_rows``).
 """
 
 from __future__ import annotations
@@ -272,12 +274,14 @@ FLASH_BLOCK_K = 128  # the plain version's key chunk (the Pallas kernel's block_
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, window=None, k_scale=None,
-                          v_scale=None) -> torch.Tensor:
+                          v_scale=None, softcap: float = 0.0) -> torch.Tensor:
     """B6's plain version: the Pallas kernel's arithmetic in PyTorch.  q is
     scaled by 1/sqrt(hd) in fp32, scores and the online softmax state are
     fp32, P is rounded to V's dtype before PV (bf16 V), and int8 K/V fold
-    their per-(position, head) scales into the scores and into P in fp32.
-    Query i sits at position i, key j at j."""
+    their per-(position, head) scales into the scores and into P in fp32;
+    ``softcap`` > 0 caps the scaled scores (cap * tanh(s / cap)) before the
+    mask, as the reference's jnp flash does.  Query i sits at position i,
+    key j at j."""
     from repro_torch.models import layers as L  # layers imports this module
 
     B, Sq, H, hd = q.shape
@@ -286,21 +290,18 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window=None, k_scale=
     qs = q.to(torch.float32).reshape(B, Sq, KVH, G, hd).permute(0, 2, 3, 1, 4)
     qs = qs * (1.0 / math.sqrt(hd))
     o = L.flash_rows(qs, k, v, torch.arange(Sq, device=q.device), causal=causal,
-                     window=window, softcap=0.0, chunk_k=FLASH_BLOCK_K,
+                     window=window, softcap=softcap, chunk_k=FLASH_BLOCK_K,
                      k_scale=k_scale, v_scale=v_scale)
     return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd).to(q.dtype)
 
 
-def _check_flash_features(q_offset, softcap):
-    """B6 (and so its plain version) has neither a query offset nor a logit
-    softcap, as the Pallas kernel has neither."""
+def _check_flash_features(q_offset):
+    """B6 (and so its plain version) has no query offset, as the Pallas
+    kernel has none."""
     if q_offset:
         raise ValueError(f"flash attention kernel B6 takes no q_offset (got {q_offset}): a "
                          "prefill continued from cached positions (a chunk of chunked "
                          "prefill) reads them through paged decode attention, kernel B3")
-    if softcap:
-        raise ValueError(f"flash attention kernel B6 takes no logit softcap (got {softcap}): "
-                         "softcapped attention is ROADMAP A8c")
 
 
 def _check_flash(q, k, v, k_scale, v_scale):
@@ -343,13 +344,13 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None, k_scale=None,
                     use_kernel: bool = True) -> torch.Tensor:
     """Flash attention forward of q (B, Sq, H, hd) against k/v (B, Sk, KVH,
     hd), GQA by H // KVH, query i at position i; optional int8 k/v with
-    (B, Sk, KVH) float32 scales.  ``q_offset`` and ``softcap`` are taken only
-    to refuse them (ValueError): B6 has neither.  Ragged Sq and Sk need no
-    padding."""
-    _check_flash_features(q_offset, softcap)
+    (B, Sk, KVH) float32 scales; ``softcap`` > 0 caps the scaled scores.
+    ``q_offset`` is taken only to refuse it (ValueError): B6 has none.
+    Ragged Sq and Sk need no padding."""
+    _check_flash_features(q_offset)
     if not q.is_cuda or not use_kernel:
         return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     k_scale=k_scale, v_scale=v_scale)
+                                     k_scale=k_scale, v_scale=v_scale, softcap=softcap)
     _check_flash(q, k, v, k_scale, v_scale)
     B, Sq, H, hd = q.shape
     Sk, KVH = k.shape[1], k.shape[2]
@@ -358,7 +359,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None, k_scale=None,
     code = lib.flash_attention_launch(
         build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(k_scale), build.ptr(v_scale),
         build.ptr(out), B, Sq, Sk, H, KVH, hd, int(bool(causal)), int(window or 0),
-        1.0 / math.sqrt(hd), build.DTYPE_CODES[k.dtype],
+        1.0 / math.sqrt(hd), float(softcap), build.DTYPE_CODES[k.dtype],
         build.stream_ptr(q.device))
     build.check(lib, code, "flash_attention")
     flash_attention.launches += 1

@@ -84,8 +84,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None, q_offset: int 
                     softcap: float = 0.0, k_scale=None, v_scale=None, use_kernel: bool = True):
     """Flash attention forward (kernel B6).  Unlike the reference's
     ``ops.flash_attention`` it pads nothing: the kernel masks ragged Sq and
-    Sk itself, so non-causal calls never see padded keys.  B6 refuses
-    ``q_offset`` and ``softcap``."""
+    Sk itself, so non-causal calls never see padded keys.  B6 caps the
+    scores where ``softcap`` > 0 and refuses ``q_offset``."""
     return _fa.flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset,
                                softcap=softcap, k_scale=k_scale, v_scale=v_scale,
                                use_kernel=use_kernel)

@@ -5,8 +5,7 @@ capability probes, ``state_bytes_per_step`` and ``kv_bytes_per_token``.
 
 ``loss_fn`` trains every family: the transformer stacks (dense, MoE with
 its aux loss, recurrent and xLSTM), the VLM after its projected patches
-and the enc-dec over its frames, refusing only what
-``transformer.check_supported`` refuses."""
+and the enc-dec over its frames."""
 
 from __future__ import annotations
 
@@ -176,3 +175,43 @@ def kv_bytes_per_token(cfg, kv_dtype=None, context_len=None) -> float:
     if context_len:
         total += state_bytes_per_step(cfg) / context_len
     return float(total)
+
+
+# ---------------------------------------------------------------------------
+# meta-tensor input specs (the dry run)
+# ---------------------------------------------------------------------------
+
+
+def _extras_specs(cfg, api: ModelAPI, batch: int) -> dict:
+    """A batch's frontend-stub inputs as fp32 meta tensors: a VLM's patches
+    (batch, n_patches, d), an enc-dec's frames (batch, n_frames, d)."""
+    out = {}
+    if "patches" in api.extra_keys:
+        out["patches"] = torch.empty((batch, cfg.n_patches, cfg.d_model), device="meta")
+    if "frames" in api.extra_keys:
+        out["frames"] = torch.empty((batch, cfg.n_frames, cfg.d_model), device="meta")
+    return out
+
+
+def input_specs(cfg, shape, mode: str | None = None) -> dict:
+    """Meta-tensor stand-ins (shapes and dtypes, nothing allocated) for the
+    inputs of the step a shape cell runs, the reference's ``input_specs``:
+    mode (the cell's kind by default) train -> {"batch": {"tokens",
+    "labels", extras}}; prefill -> {"batch": {"tokens", extras}, "cache"};
+    decode -> {"tokens" (B, 1), "pos" (B,), "cache"}.  Tokens are int32;
+    the cache is ``init_cache`` of the cell's batch and length in the
+    compute dtype, on the meta device (one dict per layer, where the
+    reference stacks its layers)."""
+    api = get_api(cfg)
+    mode = mode or shape.kind
+    B, S = shape.global_batch, shape.seq_len
+    tok = torch.empty((B, S), dtype=torch.int32, device="meta")
+    if mode == "train":
+        return {"batch": {"tokens": tok, "labels": tok.clone(), **_extras_specs(cfg, api, B)}}
+    cache = api.init_cache(cfg, B, S, getattr(torch, cfg.compute_dtype), device="meta")
+    if mode == "prefill":
+        return {"batch": {"tokens": tok, **_extras_specs(cfg, api, B)}, "cache": cache}
+    if mode == "decode":
+        return {"tokens": torch.empty((B, 1), dtype=torch.int32, device="meta"),
+                "pos": torch.empty((B,), dtype=torch.int32, device="meta"), "cache": cache}
+    raise ValueError(mode)

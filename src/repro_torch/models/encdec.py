@@ -43,6 +43,7 @@ the non-causal cross-attention are the ``FlashAttention`` Function past
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import torch
@@ -370,10 +371,13 @@ def decode_step(cfg, params, cache, tokens, pos, *, use_kernel: bool = True):
     xpos = torch.full((tokens.shape[0],), cfg.n_frames - 1, dtype=torch.int32,
                       device=tokens.device)
     x = _embed_decode(cfg, params, tokens, pos)
+    # the reference's enc-dec attends uncapped (repro/models/encdec.py:88,
+    # :98): a logit softcap bends only its final logits
+    self_cfg = dataclasses.replace(cfg, logit_softcap=0.0)
     xpools = cache.get("x", [None] * len(cache["layers"]))
     for p, c, cx in zip(params["layers"], cache["layers"], xpools):
         h = L.apply_norm(p["ln1"], x, NORM)
-        x = x + L.apply_attn(cfg, p["attn"], h, cache=c, pos=pos, page_table=table,
+        x = x + L.apply_attn(self_cfg, p["attn"], h, cache=c, pos=pos, page_table=table,
                              use_kernel=use_kernel, rows=rows, rope=False)
         q = _cross_q(cfg, p, x, hp)
         if cx is None:

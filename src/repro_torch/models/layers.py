@@ -3,8 +3,9 @@ LayerNorm, RoPE, GQA attention (dense and chunked flash prefill,
 contiguous and paged decode, sliding windows, enc-dec cross-attention),
 the int8 KV cache, the gated and ungated MLP, embedding
 (with gemma's scale) and unembedding (tied or untied) -- what the
-transformer, MoE, VLM and enc-dec families run (``transformer.check_supported``
-names the rest).  Training attends through ``train_attention``: dense
+transformer, MoE, VLM and enc-dec families run, with gemma2-style logit
+softcaps on the attention scores and the final logits where a config sets
+``logit_softcap``.  Training attends through ``train_attention``: dense
 attention under autograd, or past ``dense_threshold`` the
 ``FlashAttention`` Function (the reference's custom VJP: the chunked
 forward, a backward that recomputes each tile from the saved log-sum-exp).
@@ -24,6 +25,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import weight_plan as WP
 from repro_torch.core.weight_plan import (
     GATE_ACTS,
     QuantLinear,
@@ -118,6 +120,20 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, base: float) -> torch.T
     x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# int8 weights for serving
+# ---------------------------------------------------------------------------
+
+
+def quantize_for_serving(params, min_size: int = 16384):
+    """int8-quantize the matmul weights into the ``QuantLinear`` form every
+    dispatch takes: ``weight_plan.quantize_for_serving``, the
+    quant-everywhere special case of ``weight_plan.compress`` (serving
+    b_weight 4 -> 1, the paper's Section 4.1); a ``PlanConfig`` gives the
+    pruning-composed representations."""
+    return WP.quantize_for_serving(params, min_size=min_size)
 
 
 # ---------------------------------------------------------------------------
@@ -340,7 +356,7 @@ def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
               chunk: int = 512, use_kernel: bool = True):
     """Prefill attention: dense while both q and k are at most
     ``dense_threshold`` long, else flash -- kernel B6 for CUDA tensors
-    (which takes neither ``q_offset`` nor ``softcap`` and raises for them),
+    (which caps the scores too, and raises for a ``q_offset``),
     the plain chunked ``flash_attention`` on the CPU or for
     ``use_kernel=False``."""
     if q.shape[1] <= dense_threshold and k.shape[1] <= dense_threshold:
@@ -748,11 +764,12 @@ def unembed(cfg, p, x):
     and for an int8 table ``(x * s) @ q.T``: its scales lie on the
     contraction axis, so this product is plain torch, not kernel B5, which
     scales output channels (the reference contracts it with ``dot_general``
-    outside any Pallas kernel as well).  Softcapped logits are ROADMAP A8c
-    (``transformer.check_supported``)."""
+    outside any Pallas kernel as well).  A ``logit_softcap`` > 0 caps the
+    logits in fp32 (cap * tanh(y / cap)) and rounds them back to x's dtype,
+    as the reference does."""
     if "head" in p:
         y, ys = sharded_linear(x, p["head"])
-        return sl.cols(y, ys, 0, cfg.vocab)
+        return _cap_logits(cfg, sl.cols(y, ys, 0, cfg.vocab))
     tok, split = p["tok"], isinstance(p["tok"], ShardedLeaf)
     if split:  # the rank's vocab rows: x enters rank-specific work
         tok, x = tok.local, sl.fan_out(x)
@@ -760,4 +777,11 @@ def unembed(cfg, p, x):
         y = (x * tok.s.to(x.dtype)) @ tok.q.to(x.dtype).T
     else:
         y = x @ tok.T.to(x.dtype)
-    return sl.cols(y, split, 0, cfg.vocab)  # a vocab-sharded table: the rank's columns
+    # a vocab-sharded table: the rank's columns
+    return _cap_logits(cfg, sl.cols(y, split, 0, cfg.vocab))
+
+
+def _cap_logits(cfg, y):
+    if cfg.logit_softcap <= 0.0:
+        return y
+    return _softcap(y.to(torch.float32), cfg.logit_softcap).to(y.dtype)

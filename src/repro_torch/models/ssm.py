@@ -315,14 +315,30 @@ def init_slstm_state(cfg, batch: int, dtype=torch.float32, device="cpu") -> dict
             "h": torch.zeros((batch, d), **f32), "m": torch.full((batch, d), M_INIT, **f32)}
 
 
+def slstm_step(r, gates, c, n, h, m) -> tuple:
+    """One token of the sLSTM recurrence: the gate pre-activations ``gates``
+    (B, 4 d) of the token plus the (4, H, hd, hd) product ``r`` with the
+    previous h, then the stabilised exponential gating.  Returns the new
+    (c, n, h, m), each (B, d) fp32."""
+    B, d = h.shape
+    H, hd = r.shape[1], r.shape[2]
+    rec = torch.einsum("ghij,bhj->gbhi", r, h.reshape(B, H, hd)).reshape(4, B, d)
+    gi, gf, gz, go = (g + rec[j] for j, g in enumerate(gates.chunk(4, dim=-1)))
+    logf = _log_sigmoid(gf)
+    m_new = torch.maximum(logf + m, gi)
+    fg = torch.exp(logf + m - m_new)
+    ig = torch.exp(gi - m_new)
+    c = fg * c + ig * torch.tanh(gz)
+    n = fg * n + ig
+    return c, n, torch.sigmoid(go) * c / n.clamp_min(1.0), m_new
+
+
 def apply_slstm(cfg, p, x, state=None):
     """x (B, S, d) -> (y, new state): the gate pre-activations of every
     token in one projection, then the recurrence token by token (each step
     a (4, H, hd, hd) product with the previous h), then the gated up/down
     projection (tanh GELU)."""
     B, S, d = x.shape
-    H = cfg.n_heads
-    hd = d // H
     dt = x.dtype
     if state is None:
         state = init_slstm_state(cfg, B, dt, x.device)
@@ -332,16 +348,7 @@ def apply_slstm(cfg, p, x, state=None):
     c, n, h, m = state["c"], state["n"], state["h"], state["m"]
     hs = []
     for t in range(S):
-        rec = torch.einsum("ghij,bhj->gbhi", r, h.reshape(B, H, hd)).reshape(4, B, d)
-        gi, gf, gz, go = (g + rec[j] for j, g in enumerate(gates_x[:, t].chunk(4, dim=-1)))
-        logf = _log_sigmoid(gf)
-        m_new = torch.maximum(logf + m, gi)
-        fg = torch.exp(logf + m - m_new)
-        ig = torch.exp(gi - m_new)
-        c = fg * c + ig * torch.tanh(gz)
-        n = fg * n + ig
-        h = torch.sigmoid(go) * c / n.clamp_min(1.0)
-        m = m_new
+        c, n, h, m = slstm_step(r, gates_x[:, t], c, n, h, m)
         hs.append(h)
     y = torch.stack(hs, dim=1).to(dt)
     ab, abs_ = sharded_linear(y, p["w_up"])

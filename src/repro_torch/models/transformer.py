@@ -18,8 +18,10 @@ prepended patch embeddings (``prefill(extra_embeds=)``, ``models/vlm.py``).
 A ``local`` layer keeps a contiguous ring of ``local_window (+ spec_k)``
 slots, also when the global layers are paged; a recurrent or xLSTM layer
 keeps a fixed-size state in the compute dtype (fp32 for its integrators),
-whatever ``kv_dtype`` says.  ``check_supported`` names the ROADMAP item of
-what is not ported (logit softcaps).
+whatever ``kv_dtype`` says.  A config's ``logit_softcap`` caps the
+attention scores (kernel B6 on the card past the dense threshold, B3 at
+decode) and the final logits, as the reference's gemma2-style softcap
+does.
 
 Training (``forward``, ``loss_fn``) runs the reference's ``train`` mode
 for every layer kind: attention without a cache through
@@ -28,7 +30,7 @@ FFN with its Switch aux loss (summed over the layers in fp32), and the
 ``rec`` / ``mlstm`` / ``slstm`` cells from a zero state; on the stacked
 tree itself -- each step takes its per-layer views anew
 (``_unbind_layers``), so the gradients reach the stacked leaves that the
-optimizer updates in place.  It refuses what ``check_supported`` refuses.
+optimizer updates in place.
 """
 
 from __future__ import annotations
@@ -93,13 +95,17 @@ def rem_runs(rem: tuple) -> list:
 
 
 ATTN_KINDS = ("global", "local")
+LAYER_KINDS = ATTN_KINDS + ("rec", "mlstm", "slstm")
 
 
 def check_supported(cfg):
-    """Raise NotImplementedError, naming the ROADMAP item, for any part of
-    ``cfg`` the port does not serve yet."""
-    if cfg.logit_softcap > 0.0:
-        raise NotImplementedError(f"{cfg.name}: logit softcaps are not ported yet (ROADMAP A8c)")
+    """Raise NotImplementedError for a config the port does not serve: a
+    layer kind outside ``LAYER_KINDS``.  Every config of the reference's
+    registry passes, logit softcaps included."""
+    unknown = sorted(set(cfg.layer_kinds) - set(LAYER_KINDS))
+    if unknown:
+        raise NotImplementedError(f"{cfg.name}: layer kinds {unknown} are not ported "
+                                  f"(the port has {LAYER_KINDS})")
 
 
 def attn_shapes(cfg) -> dict:

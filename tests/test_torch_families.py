@@ -100,11 +100,15 @@ def test_layer_kind_sets_window_and_rope_base(arch):
 
 
 def test_check_supported_still_names_what_is_not_ported():
-    """Logit softcaps stay refused (A8c); the recurrent and xLSTM families,
-    once refused as A10, pass at smoke and full width."""
+    """Logit softcaps, once refused as A8c, pass; a layer kind the port does
+    not have is refused by name; the recurrent and xLSTM families, once
+    refused as A10, pass at smoke and full width."""
     cfg = get_config("gemma3-4b", smoke=True)
-    with pytest.raises(NotImplementedError, match="A8c"):
-        T.check_supported(dataclasses.replace(cfg, logit_softcap=30.0))
+    for smoke in (True, False):
+        T.check_supported(dataclasses.replace(get_config("gemma3-4b", smoke=smoke),
+                                              logit_softcap=30.0))
+    with pytest.raises(NotImplementedError, match="mamba"):
+        T.check_supported(dataclasses.replace(cfg, pattern=("mamba",) * cfg.n_layers))
     for arch in ("recurrentgemma-2b", "xlstm-350m"):
         for smoke in (True, False):
             T.check_supported(ref_get_config(arch, smoke=smoke))

@@ -204,11 +204,14 @@ def test_attention_dispatch_matches_reference(S, threshold, flash, window, cap, 
 
 
 def test_b6_refuses_q_offset_and_softcap():
+    """B6 refuses a q_offset; a logit softcap, once refused (A8c), it
+    takes: on CPU tensors its plain version with the cap."""
     q, k, v = _t(*_qkv(1, 64, 64, 4, 2, 64), dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="kernel B3"):
         ops.flash_attention(q, k, v, q_offset=8)
-    with pytest.raises(ValueError, match="A8"):
-        ops.flash_attention(q, k, v, softcap=30.0)
+    got = ops.flash_attention(q, k, v, softcap=30.0)
+    assert torch.equal(got, FA.flash_attention_plain(q, k, v, softcap=30.0))
+    assert got.shape == q.shape and got.dtype == q.dtype
 
 
 @pytest.mark.parametrize("bad", ["fp32 q", "hd 32", "fp32 k", "scales without int8",

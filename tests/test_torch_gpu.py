@@ -577,7 +577,7 @@ def test_flash_attention_rejects_what_the_kernel_does_not_take(cuda):
     for bad in (dict(q=q.float()), dict(q=q[..., :32].contiguous(), k=k[..., :32].contiguous(),
                                        v=v[..., :32].contiguous()),
                 dict(k=k.transpose(1, 2).contiguous().transpose(1, 2)),
-                dict(q_offset=8), dict(softcap=30.0)):
+                dict(q_offset=8)):
         args = dict(q=q, k=k, v=v)
         args.update(bad)
         with pytest.raises(ValueError):

@@ -20,7 +20,8 @@ PORT = ROOT / "src" / "repro_torch"
 
 def test_import_leaves_jax_and_repro_out():
     """Importing repro_torch and every submodule (and chip_smoke) in a fresh
-    interpreter loads neither jax nor repro."""
+    interpreter loads neither jax nor repro, and sets up no process group
+    (the dry run's fake group exists inside ``lower_cell`` only)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
@@ -42,8 +43,12 @@ def test_import_leaves_jax_and_repro_out():
         "       'repro_torch.training.trainer', 'repro_torch.distributed.compression',\n"
         "       'repro_torch.launch.train', 'repro_torch.core.autotune',\n"
         "       'repro_torch.launch.autotune', 'repro_torch.distributed.shardlib',\n"
-        "       'repro_torch.distributed.elastic', 'repro_torch.launch.mesh'}\n"
+        "       'repro_torch.distributed.elastic', 'repro_torch.launch.mesh',\n"
+        "       'repro_torch.launch.dryrun', 'repro_torch.launch.op_analysis'}\n"
         "assert new <= set(mods), new - set(mods)\n"
+        "import torch.distributed as dist\n"
+        "assert not dist.is_initialized()  # the dry run makes its group in lower_cell only\n"
+        "assert 'torch.testing._internal.distributed.fake_pg' not in sys.modules\n"
         "print('BAD', bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )

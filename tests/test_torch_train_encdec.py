@@ -109,10 +109,11 @@ def test_launcher_trains_with_the_reference_extras(arch, key, n):
 
 @pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "whisper-tiny", "internvl2-2b"])
 def test_softcap_refused_by_name(arch):
-    """Training refuses what serving refuses (logit softcaps, ROADMAP A8c),
-    in the transformer's forward and in the enc-dec's."""
-    base = get_config(arch, smoke=True)
-    params = get_api(base).init_params(base, 0, device="cpu")
-    cfg = dataclasses.replace(base, logit_softcap=30.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP A8c"):
-        get_api(cfg).loss_fn(cfg, params, H.to_torch(H.batch(cfg)))
+    """Training takes what serving takes: logit softcaps, once refused by
+    name (ROADMAP A8c), train in the transformer's forward and in the
+    enc-dec's, the loss the reference's at cap 30."""
+    rcfg, cfg = H.configs(arch, logit_softcap=30.0)
+    batch = H.batch(cfg)
+    (rloss, _), _ = H.ref_loss_and_grads(rcfg, batch)
+    loss, _, _ = H.port_loss_and_grads(cfg, H.port_params(rcfg), batch)
+    np.testing.assert_allclose(float(loss), float(rloss), rtol=1e-5)
