@@ -379,6 +379,22 @@ Phases, in order; any failure raises and the script exits non-zero:
                a 1x2 mesh (``elastic.replan_mesh`` of two ranks) resumes it
                for step 4, held to the one-card run's; rank 0's gather
                time and host peak RSS, each restore's time and card peak.
+               Every meshed step's loss is the vocab-parallel cross
+               entropy (``shardlib.vocab_nll``: the rank's vocabulary
+               columns, never gathered).  The 1x2 spawn also runs the
+               reference's production layouts: 2 steps at B 8 x 128 under
+               sequence parallelism (``seq_sp``), held to the one-card run
+               with the same limits; and ``api.decode_step`` over a
+               contiguous cache of B 8 x 4096 positions cut along its
+               sequence over "model" (``cache_seq``, decode_32k's rule)
+               after a 3000-token prefill, 8 steps teacher-forced, with a
+               bf16, an int8 and an e4m3 cache, each call's logits within
+               PATH_RTOL of the same run unsharded and within LAYOUT_SEQ_RTOL
+               of the run on the same mesh with ``cache_seq`` off, the
+               prompt's slots bit-equal to that run's cache after every
+               step, a rank holding half the slots and bytes (its seconds
+               logged); one more step with the ranks' partial outputs left
+               unsummed must read past LAYOUT_SEQ_RTOL.
                Then the train CLI under torchrun at the smoke size
                (--nproc-per-node 2 --mesh host --share-card, 2 steps), its
                losses held to a one-card run's.
@@ -2501,9 +2517,9 @@ def _decode_reduces(engine, counts: list):
 
     real_reduce, real_decode, n = sl.all_reduce, engine._decode, [0]
 
-    def reduce(x, axis):
+    def reduce(x, axis, *op):
         n[0] += 1
-        return real_reduce(x, axis)
+        return real_reduce(x, axis, *op)
 
     def decode(tokens, pos, poison):
         before = n[0]
@@ -6024,10 +6040,10 @@ def _slstm_share(torch, card: str) -> None:
         float(m["loss"])
     real, spent, n = T._CELLS["slstm"], {"fwd": 0.0, "bwd": 0.0}, [0]
 
-    def timed(cfg, p, x, state=None):
+    def timed(cfg, p, x, state=None, **kw):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        y, new = real(cfg, p, x, state)
+        y, new = real(cfg, p, x, state, **kw)
         torch.cuda.synchronize()
         spent["fwd"] += time.perf_counter() - t0
         n[0] += 1
@@ -6339,6 +6355,18 @@ def phase_analysis(torch, card: str) -> None:
 TRAIN_MESHES = ((1, 2), (2, 2))
 TRAIN_MESH_FLAGS = ("--batch", "8", "--seq", "128")
 TRAIN_MESH_STEPS = 3
+# the 1x2 spawn's production layouts: the train_mesh flags' steps under
+# sequence parallelism (seq_sp), and teacher-forced decode steps over a
+# contiguous cache of LAYOUT_LEN positions cut along its sequence over
+# "model" (cache_seq, decode_32k's rule), after a LAYOUT_PROMPT-token prefill
+TRAIN_MESH_SP_STEPS = 2
+LAYOUT_BATCH, LAYOUT_LEN, LAYOUT_PROMPT, LAYOUT_STEPS = 8, 4096, 3000, 8
+# the sequence-cut decode against tensor parallelism on the same mesh, which
+# differ only by the cut: within this of the largest logit (a bf16 logit's
+# rounding step near the largest is 0.4-0.8% of it; the card read 1.333e-2
+# in bf16, 1.25e-2 in int8, 0 in e4m3), while a planted fault (the ranks'
+# partial outputs not summed) must read above it (the card read 0.95-1.07)
+LAYOUT_SEQ_RTOL = 3e-2
 # the meshed steps against the one-card run (bf16 compute)
 TRAIN_MESH_LOSS_RTOL = 5e-4
 TRAIN_MESH_NORM_RTOL = 5e-3
@@ -6448,6 +6476,131 @@ def _train_mesh_rank(rank: int, job: dict) -> None:
         torch.cuda.empty_cache()
     with open(os.path.join(job["out"], f"rank{rank}.json"), "w") as f:
         json.dump(results, f)
+    if job.get("layouts"):
+        t0 = time.perf_counter()
+        rows = _layout_decode(torch, mesh)
+        with open(os.path.join(job["out"], f"layouts_rank{rank}.json"), "w") as f:
+            json.dump({"rank": rank, "rows": rows, "seconds": time.perf_counter() - t0}, f)
+        torch.cuda.empty_cache()
+
+
+def _layout_decode(torch, mesh, device: str = "cuda") -> list:
+    """A rank's decode over a contiguous cache cut along its sequence
+    (``rules_for`` of decode_32k: ``cache_seq`` over "model"): tinyllama-1.1b
+    (TAIL_CUTS' 8 layers, bf16 weights from seed 0) prefills LAYOUT_PROMPT
+    tokens of LAYOUT_BATCH sequences into LAYOUT_LEN slots and decodes
+    LAYOUT_STEPS tokens teacher-forced through ``api.prefill`` /
+    ``api.decode_step``, with a bf16, an int8 and an e4m3 cache.  It runs
+    three times: unsharded on the rank (no mesh: the one card's), on the
+    mesh with the cache cut along its sequence, and on the mesh with
+    ``cache_seq`` off (tensor parallelism only, the cache cut on its KV
+    heads), so that the last two differ only by the sequence cut.  Then
+    one more step on each mesh run, the sequence-cut one with its planted
+    fault (``_drop_output_combine``).  Returns, by KV dtype, each call's
+    logits error relative to the reference run's largest (``err``: against
+    the unsharded run; ``seq_err``: against tensor parallelism), the
+    faulted step's ``fault_err``, the rank's slots and cache bytes against
+    the whole cache's, and the sequence-cut run's seconds."""
+    import numpy as np
+
+    from repro_torch.configs import DECODE_32K, get_config
+    from repro_torch.core.weight_plan import local_params, map_tree
+    from repro_torch.distributed import shardlib as sl
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import ssm as SSM
+    from repro_torch.models.api import get_api
+
+    cfg = get_config("tinyllama-1.1b")
+    api = get_api(cfg)
+    whole = map_tree(lambda _, t: t.to(torch.bfloat16), api.init_params(cfg, 0, device=device))
+    rules = M.rules_for(cfg, DECODE_32K, mesh=mesh)
+    tp_rules = dict(rules, cache_seq=None)
+    params = {"one card": api.unstack(cfg, whole),
+              "mesh": api.unstack(cfg, local_params(
+                  whole, SSM.placement_axes(api.param_axes(cfg)), mesh, rules))}
+    B, P, n = LAYOUT_BATCH, LAYOUT_PROMPT, LAYOUT_STEPS
+    toks = np.random.default_rng(0).integers(0, cfg.vocab, (B, P + n + 1))
+    toks = torch.from_numpy(toks.astype(np.int32)).to(device)
+
+    def step(p, cache, i):
+        pos = torch.full((B,), P + i, dtype=torch.int32, device=device)
+        return api.decode_step(cfg, p, cache, toks[:, P + i:P + i + 1], pos)[0]
+
+    def decode(p, cache):
+        out = [api.prefill(cfg, p, {"tokens": toks[:, :P]}, cache)[0]]
+        out += [step(p, cache, i) for i in range(n)]
+        if device == "cuda":
+            torch.cuda.synchronize()
+        return torch.cat(out, dim=1).float()
+
+    def rel(got, want):
+        return [((got[:, i] - want[:, i]).abs().max() / want[:, i].abs().max()).item()
+                for i in range(got.shape[1])]
+
+    rows = []
+    for label, kv in (("bf16", None), ("int8", torch.int8), ("e4m3", torch.float8_e4m3fn)):
+        want = decode(params["one card"], api.init_cache(cfg, B, LAYOUT_LEN, torch.bfloat16,
+                                                         kv_dtype=kv, device=device))
+        meta = api.init_cache(cfg, B, LAYOUT_LEN, torch.bfloat16, kv_dtype=kv, device="meta")
+        axes = api.cache_axes(cfg, quantized_kv=kv is torch.int8)
+        cache = sl.local_zeros(meta, axes, mesh, rules, device)
+        tp_cache = sl.local_zeros(meta, axes, mesh, tp_rules, device)
+        t0 = time.perf_counter()
+        with sl.use_mesh(mesh, rules):
+            got = decode(params["mesh"], cache)
+        seconds = time.perf_counter() - t0
+        with sl.use_mesh(mesh, tp_rules):
+            tp = decode(params["mesh"], tp_cache)
+        prompt_equal = _prompt_slots_equal(torch, cache, tp_cache, sl.mesh_coords(mesh)["model"],
+                                           P)
+        with sl.use_mesh(mesh, tp_rules):
+            tp_next = step(params["mesh"], tp_cache, n).float()
+        with sl.use_mesh(mesh, rules), _drop_output_combine(sl):
+            faulted = step(params["mesh"], cache, n).float()
+        rows.append({"kv": label, "seconds": seconds, "err": rel(got, want),
+                     "seq_err": rel(got, tp), "fault_err": rel(faulted, tp_next)[0],
+                     "prompt_slots_equal": prompt_equal,
+                     "finite": bool(torch.isfinite(got).all()),
+                     "slots": cache["layers"][0]["k"].shape[1],
+                     "bytes": _tree_bytes(cache), "whole_bytes": _tree_bytes(meta)})
+        del want, got, tp, cache, tp_cache
+    return rows
+
+
+def _prompt_slots_equal(torch, cache: dict, tp_cache: dict, r: int, prompt: int) -> bool:
+    """Whether rank ``r``'s slots of the prompt's positions hold the same
+    bits in its piece of the sequence-cut cache as in tensor parallelism's
+    cache, on the KV heads the rank holds in both, after every step: the
+    prefill filled the rank's slots, and no decode write landed on them."""
+    def bits(t):
+        return t.view({1: torch.uint8, 2: torch.int16, 4: torch.int32}[t.element_size()])
+
+    for c, t in zip(cache["layers"], tp_cache["layers"]):
+        for name, piece in c.items():
+            n, kvh = piece.shape[1], t[name].shape[2]
+            end = max(0, min(n, prompt - r * n))
+            if not torch.equal(bits(piece[:, :end, r * kvh:(r + 1) * kvh]),
+                               bits(t[name][:, r * n:r * n + end])):
+                return False
+    return True
+
+
+@contextlib.contextmanager
+def _drop_output_combine(sl):
+    """The planted fault that ``_check_layouts`` must see: the flash-
+    decoding combine's SUM of the ranks' partial outputs skipped, so each
+    rank keeps its own slots' share.  That SUM is ``decode_attention``'s
+    only 5-dimensional ``all_reduce_axes``."""
+    real = sl.all_reduce_axes
+
+    def faulty(x, axes, *op):
+        return x if x.dim() == 5 and not op else real(x, axes, *op)
+
+    sl.all_reduce_axes = faulty
+    try:
+        yield
+    finally:
+        sl.all_reduce_axes = real
 
 
 def _train_mesh_one(torch, rank: int, mesh, run: dict, ckpt: dict, routes_path: str) -> dict:
@@ -6464,16 +6617,17 @@ def _train_mesh_one(torch, rank: int, mesh, run: dict, ckpt: dict, routes_path: 
     cfg = get_config(args.arch)
     if run.get("fp32"):
         cfg = dataclasses.replace(cfg, compute_dtype="float32")
+    sp = run.get("sp", False)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     with _spy_updates(torch, {}) as seen, _routes() as routes:
-        out = train.run(args, cfg=cfg, mesh=mesh)
+        out = train.run(args, cfg=cfg, mesh=mesh, sequence_parallel=sp)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     if cfg.moe is not None:
         torch.save([(r.idx.cpu(), r.keep.cpu()) for r in routes], routes_path)
-    place = M.train_placement(cfg, mesh)
+    place = M.train_placement(cfg, mesh, sequence_parallel=sp)
     pieces = [math.prod(sl.local_shape(s, p, mesh)) * 4
               for s, p in zip(place.shapes, place.param_specs)]
     moments = [math.prod(sl.local_shape(s, m, mesh)) * 4
@@ -6492,10 +6646,12 @@ def _train_mesh_one(torch, rank: int, mesh, run: dict, ckpt: dict, routes_path: 
     }
 
 
-def _train_mesh_spawn(torch, shape: tuple, job: dict) -> list:
+def _train_mesh_spawn(torch, shape: tuple, job: dict, layouts: list | None = None) -> list:
     """``_train_mesh_rank`` on the ranks of ``shape`` sharing the card over
     gloo: for each of ``job["runs"]``, its ranks' results in rank order
-    (a MoE run's routing calls by rank under "routes")."""
+    (a MoE run's routing calls by rank under "routes"); with
+    ``job["layouts"]`` each rank's ``_layout_decode`` appended to
+    ``layouts``."""
     import tempfile
 
     from repro_torch.launch import mesh as M
@@ -6510,6 +6666,10 @@ def _train_mesh_spawn(torch, shape: tuple, job: dict) -> list:
             with open(os.path.join(out, f"rank{r}.json")) as f:
                 ranks.append(json.load(f))
         runs = [[ranks[r][i] for r in range(world)] for i in range(len(job["runs"]))]
+        if job.get("layouts"):
+            for r in range(world):
+                with open(os.path.join(out, f"layouts_rank{r}.json")) as f:
+                    layouts.append(json.load(f))
         for i, rows in enumerate(runs):
             for r, row in enumerate(rows):
                 path = os.path.join(out, f"routes{i}_rank{r}.pt")
@@ -6617,6 +6777,44 @@ def _torchrun_check(torch, card: str) -> None:
         raise AssertionError("train_mesh torchrun: not a 1x2 gloo mesh, or its losses differ")
 
 
+def _check_sp(label: str, rows: list, want: dict, card: str) -> None:
+    """The 1x2 steps under sequence parallelism (``seq_sp``: the residual
+    stream cut on its sequence over "model") held to the one-card run with
+    the train_mesh limits, each rank's bytes its placement's share."""
+    label = f"{label} seq_sp"
+    _held_to(label, rows, want)
+    _check_shares(label, rows, card, TRAIN_MESH_SHARE[(1, 2)])
+    log(f"train_mesh {label}: rank 0's steps {[round(t * 1e3, 3) for t in rows[0]['step_s']]} "
+        f"ms (host clock); the run {rows[0]['wall_s']:.1f} s ({card})")
+
+
+def _check_layouts(label: str, ranks: list, card: str) -> None:
+    """Each rank's decode over a cache cut along its sequence
+    (``_layout_decode``): every call's logits within PATH_RTOL of the
+    unsharded run's and within LAYOUT_SEQ_RTOL of tensor parallelism's on
+    the same mesh, finite, the planted fault's step past LAYOUT_SEQ_RTOL,
+    the prompt's slots bit-equal to tensor parallelism's, and the rank
+    holding half the slots and half the cache's bytes."""
+    for rank in ranks:
+        for row in rank["rows"]:
+            worst, seq = max(row["err"]), max(row["seq_err"])
+            log(f"train_mesh {label} cache_seq {row['kv']} rank {rank['rank']}: prefill of "
+                f"{LAYOUT_PROMPT} and {LAYOUT_STEPS} teacher-forced steps over {row['slots']} "
+                f"of {LAYOUT_LEN} slots, {row['bytes'] / 1e9:.4f} of {row['whole_bytes'] / 1e9:.4f}"
+                f" GB of cache; logits within {worst:.3e} of the unsharded run's largest (each "
+                f"call {[f'{e:.2e}' for e in row['err']]}), within {seq:.3e} of tensor "
+                f"parallelism's (each call {[f'{e:.2e}' for e in row['seq_err']]}; limit "
+                f"{LAYOUT_SEQ_RTOL}), the output combine dropped {row['fault_err']:.3e}, the "
+                f"prompt's slots the same bits: {row['prompt_slots_equal']}; "
+                f"{row['seconds']:.1f} s ({card})")
+            if not row["finite"] or worst > PATH_RTOL or not seq <= LAYOUT_SEQ_RTOL \
+                    or not row["fault_err"] > LAYOUT_SEQ_RTOL or not row["prompt_slots_equal"] \
+                    or row["slots"] * 2 != LAYOUT_LEN or row["bytes"] * 2 != row["whole_bytes"]:
+                raise AssertionError(f"train_mesh {label} cache_seq {row['kv']} rank "
+                                     f"{rank['rank']}: {row}")
+    log(f"train_mesh {label} cache_seq: {max(r['seconds'] for r in ranks):.1f} s a rank")
+
+
 def phase_train_mesh(torch, card: str, want: dict) -> None:
     """Meshed training (see the module doc).  ``want``: the train phase's
     one-card run of the same flags, ``TRAIN_MESH_STEPS`` + 1 steps."""
@@ -6632,10 +6830,16 @@ def phase_train_mesh(torch, card: str, want: dict) -> None:
         for shape in TRAIN_MESHES:
             label = f"{shape[0]}x{shape[1]}"
             flags = ("--steps", str(n), *TRAIN_MESH_FLAGS)
+            job = {"runs": [{"flags": flags}]}
             if shape == (2, 2):  # one whole-leaf checkpoint, after the last step
-                flags += ("--ckpt-dir", ckpt, "--ckpt-every", str(n - 1))
+                job["runs"][0]["flags"] += ("--ckpt-dir", ckpt, "--ckpt-every", str(n - 1))
+            layouts: list = []
+            if shape == (1, 2):  # the production layouts: seq_sp steps, cache_seq decode
+                job["runs"].append({"flags": ("--steps", str(TRAIN_MESH_SP_STEPS),
+                                              *TRAIN_MESH_FLAGS), "sp": True})
+                job["layouts"] = True
             t0 = time.perf_counter()
-            [rows] = _train_mesh_spawn(torch, shape, {"runs": [{"flags": flags}]})
+            rows, *sp = _train_mesh_spawn(torch, shape, job, layouts)
             log(f"train_mesh {label}: {len(rows)} ranks over gloo sharing the card, "
                 f"{time.perf_counter() - t0:.1f}s with start-up")
             _held_to(label, rows, want)
@@ -6646,6 +6850,10 @@ def phase_train_mesh(torch, card: str, want: dict) -> None:
                 f"loss's read) ({card})")
             if shape == (2, 2):
                 _log_ckpt(label, rows, card)
+            if sp:
+                _check_sp(label, sp[0], want, card)
+            if layouts:
+                _check_layouts(label, layouts, card)
         # the 2x2 checkpoint resumes on the mesh two ranks re-plan to
         t0 = time.perf_counter()
         [rows] = _train_mesh_spawn(torch, small, {"runs": [{"flags": (

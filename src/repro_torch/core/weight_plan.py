@@ -1064,6 +1064,20 @@ def sharded_linear(x: torch.Tensor, w, x_split: bool = False) -> tuple:
     return apply_linear(x, w.local), w.n_split
 
 
+def residual_linear(x: torch.Tensor, w, x_split: bool = False, seq: bool = False):
+    """y = x @ W for a product that joins the residual stream (a block's
+    row-parallel output): the whole (B, S, N) on every rank, or with
+    ``seq`` (sequence parallelism, ``shardlib.seq_split``) this rank's
+    piece of the sequence -- a split contraction's partial products
+    reduce-scattered over the model axis where they would be all-reduced,
+    a product every rank holds whole cut to the piece."""
+    if seq and isinstance(w, ShardedLeaf) and w.k_split:
+        return sl.scatter_seq(partial_linear(x, w, x_split)[0])
+    y, y_split = sharded_linear(x, w, x_split)
+    y = sl.cols(y, y_split, 0, output_width(w))
+    return sl.split_seq(y) if seq else y
+
+
 def sharded_gate_up(x: torch.Tensor, w_gate, w_up, activation: str) -> tuple:
     """act(x @ Wg) * (x @ Wu) on this rank's shards: (y, y_split); ``x``
     whole.  A fusable packed pair of local columns is one B2 launch.  The

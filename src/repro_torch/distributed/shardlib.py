@@ -21,16 +21,21 @@ The execution half replaces GSPMD.  The reference shards one jitted
 program over a mesh and lets the compiler insert the collectives; the port
 runs one process per rank, each holding its *local piece* of every leaf
 (``local_piece``: the dims a spec shards are cut to this rank's slice, in
-rank order), and the model code moves activations between layouts with
-``torch.distributed`` collectives over the mesh's process groups
-(``all_gather``, ``all_reduce``, ``cols``, ``gather_batch``).  ``shard`` /
-``shard_pinned`` are the relayout their call sites need: a whole tensor to
-this rank's piece.  Without an active mesh (``use_mesh``) every one of them
+rank order; ``local_zeros`` allocates a cache's pieces), and the model
+code moves activations between layouts with ``torch.distributed``
+collectives over the mesh's process groups (``all_gather``,
+``all_reduce``, ``cols``, ``gather_batch``).  ``shard`` / ``shard_pinned``
+are the relayout their call sites need: a whole tensor to this rank's
+piece.  Without an active mesh (``use_mesh``) every one of them
 does nothing.  Training on a mesh runs the same model code under autograd:
 there ``fan_out``, ``reduce_sum`` and ``gather_pieces`` (Megatron's f, g
 and a gather with a slicing backward) take the collectives' places, and
 ``all_reduce_flat`` / ``reduce_over`` / ``gather_whole`` name their mesh
-for the optimizer and the checkpoints.
+for the optimizer and the checkpoints.  The reference's production layouts
+add sequence parallelism (``seq_split``, ``gather_seq`` / ``split_seq`` /
+``scatter_seq``: all-gather and reduce-scatter, each the other's
+conjugate under autograd) and the vocab-parallel cross entropy
+(``vocab_nll``).
 
 A mesh is a ``torch.distributed`` ``DeviceMesh`` with dim names ("data",
 "model") (``launch/mesh.py`` builds it), or a ``MeshShape``: axis sizes
@@ -419,14 +424,29 @@ def local_zeros(tree, axes_tree, mesh, rules: dict, device, start=None):
     give the whole shapes and dtypes) by its logical axes: a sharded cache
     allocated as pieces.  ``start``, a tree like ``tree`` whose every leaf
     holds one value throughout (a cache of one slot), gives each leaf that
-    value instead of zero (the xLSTM stabilizers start at -1e30)."""
+    value instead of zero (the xLSTM stabilizers start at -1e30).  A
+    ``cache_seq`` mapping that does not divide its ring raises ValueError:
+    a piece's global ring is its length times the mapping's ranks
+    (``layers.cache_seq_piece``), so a ring kept whole there would be read
+    as a piece."""
     values = []
     if start is not None:
         map_leaves(lambda t, ax: values.append(t.flatten()[0].item()), start, None)
     values = iter(values)
+    sizes = axis_sizes(mesh)
 
     def one(t, ax):
-        spec = _resolve(mesh, rules, tuple(ax) if ax else (None,) * t.dim(), t.shape)
+        logical = tuple(ax) if ax else (None,) * t.dim()
+        spec = _resolve(mesh, rules, logical, t.shape)
+        if "cache_seq" in logical and rules.get("cache_seq") is not None:
+            d = logical.index("cache_seq")
+            mapped = rules["cache_seq"]
+            used = {a for e in spec[:d] if e for a in ((e,) if isinstance(e, str) else e)}
+            axes = [a for a in ((mapped,) if isinstance(mapped, str) else mapped)
+                    if a in sizes and a not in used]
+            if spec[d] is None and _axes_size(sizes, axes) > 1:
+                raise ValueError(f"a ring of {t.shape[d]} slots under cache_seq over "
+                                 f"{tuple(axes)}: the axes do not divide it")
         out = torch.zeros(local_shape(t.shape, spec, mesh), dtype=t.dtype, device=device)
         v = next(values, 0)
         return out.fill_(v) if v else out
@@ -479,11 +499,12 @@ def all_gather(x: torch.Tensor, axis: str, dim: int = -1) -> torch.Tensor:
     return _gather(x, _group(axis), n, dim)
 
 
-def all_reduce(x: torch.Tensor, axis: str) -> torch.Tensor:
-    """The sum of ``x`` over the ``axis`` group (a new tensor)."""
+def all_reduce(x: torch.Tensor, axis: str, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """``x`` reduced by ``op`` (the sum by default) over the ``axis`` group
+    (a new tensor)."""
     if axis_size(axis) == 1:
         return x
-    return _reduce(x, _group(axis))
+    return _reduce(x, _group(axis), op)
 
 
 def _gather(x: torch.Tensor, group, n: int, dim: int) -> torch.Tensor:
@@ -500,6 +521,16 @@ def _reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
     autograd graph)."""
     out = x.detach().clone().contiguous()
     dist.all_reduce(out, op=op, group=group)
+    return out
+
+
+def _reduce_scatter(x: torch.Tensor, group, n: int, dim: int) -> torch.Tensor:
+    """The sum of ``x`` over ``group``'s ``n`` ranks, cut along ``dim`` into
+    ``n`` equal pieces: this rank's piece (rank order), out of any autograd
+    graph."""
+    parts = [p.contiguous() for p in x.detach().chunk(n, dim=dim)]
+    out = torch.empty_like(parts[0])
+    dist.reduce_scatter(out, parts, group=group)
     return out
 
 
@@ -645,6 +676,158 @@ def gather_pieces(x: torch.Tensor, axis: str, dim: int = -1) -> torch.Tensor:
     if not _grad_on(x):
         return all_gather(x, axis, dim)
     return _GatherPieces.apply(x, _group(axis), n, axis_index(axis), dim % x.dim())
+
+
+class _SplitPieces(torch.autograd.Function):
+    """Forward: this rank's piece (at ``index`` of ``n``) along ``dim`` of a
+    tensor every rank of the group holds whole.  Backward: the group's
+    pieces of the gradient concatenated -- the whole gradient, which the
+    replicated work before the cut needs on every rank.  The conjugate of
+    ``_GatherPieces``."""
+
+    @staticmethod
+    def forward(ctx, x, group, n, index, dim):
+        ctx.group, ctx.n, ctx.dim = group, n, dim
+        size = x.shape[dim] // n
+        return x.narrow(dim, index * size, size).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, ctx.group, ctx.n, ctx.dim), None, None, None, None
+
+
+class _ScatterSum(torch.autograd.Function):
+    """Forward: the group's partial terms of ``x`` summed and cut along
+    ``dim``, this rank's piece (a reduce-scatter).  Backward: the group's
+    pieces of the gradient concatenated (an all-gather): each rank's term
+    entered every piece of the sum."""
+
+    @staticmethod
+    def forward(ctx, x, group, n, dim):
+        ctx.group, ctx.n, ctx.dim = group, n, dim
+        return _reduce_scatter(x, group, n, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, ctx.group, ctx.n, ctx.dim), None, None, None
+
+
+# ---------------------------------------------------------------------------
+# Megatron sequence parallelism: the residual stream cut on its sequence
+# ---------------------------------------------------------------------------
+#
+# Under a ``seq_sp`` rule (``launch.mesh.rules_for(sequence_parallel=True)``)
+# the residual stream between blocks holds this rank's piece of the
+# sequence (dim 1) over "model".  A block's input is gathered whole
+# (``gather_seq``: all-gather, its backward the rank's slice of the
+# gradient that the block's products summed over the ranks); its output
+# comes back as the rank's piece (``scatter_seq``: the row-parallel
+# product's partial terms reduce-scattered where tensor parallelism
+# all-reduces them; ``split_seq``: a product every rank holds whole, cut).
+# Norms run on the piece, their params entering it through ``fan_out``.
+
+
+def seq_split(length: int) -> bool:
+    """Whether the active rules cut a residual stream of ``length``
+    positions over the model axis (``seq_sp``): False without a mesh or a
+    mapping, or where the axis does not divide ``length`` (the reference's
+    divisibility rule).  Raises NotImplementedError for a mapping onto
+    another axis than "model", which the port does not run."""
+    mesh = current_mesh()
+    if mesh is None or current_rules().get("seq_sp") is None:
+        return False
+    entry = _resolve(mesh, current_rules(), ("seq_sp",), (length,))[0]
+    if entry is None:
+        return False
+    if entry != "model":
+        raise NotImplementedError(f"seq_sp over {entry!r}: the port cuts the residual "
+                                  f"stream over 'model' only")
+    return True
+
+
+def gather_seq(x: torch.Tensor) -> torch.Tensor:
+    """The whole sequence (dim 1) from the model ranks' pieces of it."""
+    return gather_pieces(x, "model", dim=1)
+
+
+def split_seq(x: torch.Tensor) -> torch.Tensor:
+    """This rank's piece of the sequence (dim 1) of ``x``, which every
+    model rank holds whole; under autograd its backward gathers the
+    gradient whole."""
+    n = axis_size("model")
+    if n == 1:
+        return x
+    if not _grad_on(x):
+        size = x.shape[1] // n
+        return x.narrow(1, axis_index("model") * size, size).contiguous()
+    return _SplitPieces.apply(x, _group("model"), n, axis_index("model"), 1)
+
+
+def scatter_seq(x: torch.Tensor) -> torch.Tensor:
+    """The sum of the model ranks' partial terms ``x`` (B, S, ...), this
+    rank's piece of its sequence: a reduce-scatter, whose backward
+    gathers the gradient whole."""
+    n = axis_size("model")
+    if n == 1:
+        return x
+    if not _grad_on(x):
+        return _reduce_scatter(x, _group("model"), n, 1)
+    return _ScatterSum.apply(x, _group("model"), n, 1)
+
+
+def all_reduce_axes(x: torch.Tensor, axes: Sequence[str], op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """``x`` reduced by ``op`` over each of ``axes`` of the active mesh in
+    turn (over all of their ranks together)."""
+    for a in axes:
+        x = all_reduce(x, a, op)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# the vocab-parallel cross entropy
+# ---------------------------------------------------------------------------
+
+
+class _VocabNLL(torch.autograd.Function):
+    """Each position's cross entropy over a vocabulary split over the
+    group: ``logits`` (..., V_l) are this rank's columns [start, start +
+    V_l).  Forward: the local max and an all-reduce MAX, the local sum of
+    exp and an all-reduce SUM (the log-sum-exp), the label's logit taken
+    on the rank that owns it and an all-reduce SUM; in fp32.  Backward
+    (local, no collective): the rank's softmax columns minus the label's
+    one-hot on its owner, times the positions' gradients; the gradient of
+    the activations before the split product is summed over the ranks by
+    its ``fan_out``.  No whole (rows, S, V) tensor exists."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, start, group):
+        lf = logits.to(torch.float32)
+        V = lf.shape[-1]
+        m = _reduce(lf.amax(dim=-1), group, dist.ReduceOp.MAX)
+        lse = m + torch.log(_reduce(torch.exp(lf - m[..., None]).sum(dim=-1), group))
+        local = labels.long() - start
+        own = (local >= 0) & (local < V)
+        local = local.clamp(0, V - 1)
+        picked = lf.gather(-1, local[..., None])[..., 0]
+        label_logit = _reduce(torch.where(own, picked, torch.zeros_like(picked)), group)
+        ctx.save_for_backward(logits, lse, local, own)
+        return lse - label_logit
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, lse, local, own = ctx.saved_tensors
+        p = torch.exp(logits.to(torch.float32) - lse[..., None])
+        p.scatter_add_(-1, local[..., None], -own.to(p.dtype)[..., None])
+        return (p * g[..., None]).to(logits.dtype), None, None, None
+
+
+def vocab_nll(logits: torch.Tensor, labels: torch.Tensor, start: int,
+              axis: str = "model") -> torch.Tensor:
+    """Each position's cross entropy (fp32, ``labels`` shaped like
+    ``logits[..., 0]``, each >= 0) from this rank's vocabulary columns
+    [start, start + V_l) of a vocabulary split over ``axis``
+    (``_VocabNLL``)."""
+    return _VocabNLL.apply(logits, labels, start, _group(axis))
 
 
 def batch_axes() -> tuple:

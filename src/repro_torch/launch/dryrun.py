@@ -28,16 +28,25 @@ seconds.
 
 The step of each kind is the port's: ``make_train_step`` over the rank's
 placement (the global batch on every rank, cut to the replica's rows),
-``api.prefill`` of the replica's rows into its piece of a contiguous cache,
-``api.decode_step`` (which cuts its replica's rows and gathers the logits).
-Where the reference shards a cache's sequence (``cache_seq``, long
-contexts) or the residual stream's (``seq_sp``), the port keeps the
-sequence whole (ROADMAP C1): its caches are placed by the serving rules,
-``rules_for(cfg, None)``.
+``api.prefill`` and ``api.decode_step`` (each cuts its replica's rows, runs
+them on its piece of a contiguous cache and gathers the logits).
+Each cell runs under the reference's rules for its shape,
+``rules_for(cfg, shape, sequence_parallel=(variant == "sp"))``: a decode
+cell's contiguous cache is cut along its sequence (``cache_seq``: over
+"model", or over ("data", "model") at long_500k's batch of 1) and read by
+flash decoding (``layers.decode_attention``), an ``sp`` cell's residual
+stream along its sequence (``seq_sp``), and the vocab-split logits of a
+train step meet the vocab-parallel loss (``shardlib.vocab_nll``).  A rule
+the port does not run raises (a prompt's sequence split over "data" at a
+prefill below batch 16, which no cell of the registry has); none falls
+back to a whole layout.
 
-Variants (inference kinds): ``baseline`` fp32 params, ``bf16`` halves the
-weight stream, ``int8`` ``layers.quantize_for_serving``.  ``kv8`` (an fp8
-KV cache) and ``sp`` (sequence parallelism) are not ported: ValueError.
+Variants, the reference's: ``baseline`` fp32 params; at prefill and decode
+``bf16`` halves the weight stream, ``int8`` is ``layers.quantize_for_serving``,
+``kv8`` an fp8 (e4m3) KV cache -- the attention caches' ``k`` / ``v``
+leaves, recurrent states keep their dtypes -- and ``int8_kv8`` both;
+``sp`` (train and prefill) adds sequence parallelism.  A train step takes
+the fp32 params of every variant, as the reference's does.
 
 Hardware constants are the H100's data sheet (not measured): bf16 peak and
 HBM rate from ``core/perf_model.py``, 80 GB a card, and one NVLink 4
@@ -88,10 +97,7 @@ HBM_BYTES = 80e9  # a card's memory
 # the flash attention's chunk rows, 64 x 64 a layer at 32k tokens, and the
 # sLSTM's token step, 32768 a layer
 REPEATED = ((ML, "flash_rows"), (SSM, "slstm_step"))
-VARIANTS = ("baseline", "bf16", "int8")
-# what the port does not run yet, and the ROADMAP item that will
-UNPORTED_VARIANTS = {"kv8": "an fp8 KV cache (ROADMAP A15b)",
-                     "sp": "sequence parallelism over seq_sp (ROADMAP A15c)"}
+VARIANTS = ("baseline", "bf16", "int8", "kv8", "int8_kv8", "sp")
 
 
 @dataclasses.dataclass
@@ -139,10 +145,19 @@ def _serving_params(cfg, mesh, rules, variant: str):
     params = T.meta_tree(api.param_shapes(cfg))
     if variant == "bf16":
         params = map_tree(lambda _, t: t.to(torch.bfloat16), params)
-    elif variant == "int8":
+    elif variant.startswith("int8"):
         params = ML.quantize_for_serving(params)
     params = _own(local_params(params, SSM.placement_axes(api.param_axes(cfg)), mesh, rules))
     return api.unstack(cfg, params)
+
+
+def _kv8(cache):
+    """The cache with every attention layer's ``k`` / ``v`` leaf in fp8
+    (e4m3), as the reference's ``kv8`` variant casts them; recurrent states
+    and the enc-dec's cross-attention frames keep their dtypes."""
+    return {**cache, "layers": [
+        {k: t.to(torch.float8_e4m3fn) if k in ("k", "v") else t for k, t in layer.items()}
+        for layer in cache["layers"]]}
 
 
 def build_step(cfg, shape, mesh, rules, variant: str = "baseline"):
@@ -155,7 +170,7 @@ def build_step(cfg, shape, mesh, rules, variant: str = "baseline"):
     specs = input_specs(cfg, shape)
     if shape.kind == "train":
         opt_cfg = O.OptimizerConfig()
-        placement = M.train_placement(cfg, mesh)
+        placement = M.train_placement(cfg, mesh, sequence_parallel=variant == "sp")
         params = map_tree(placement.piece, T.meta_tree(api.param_shapes(cfg)))
         opt_state = O.init_opt_state(opt_cfg, params, placement=placement)
         batch = specs["batch"]
@@ -164,14 +179,15 @@ def build_step(cfg, shape, mesh, rules, variant: str = "baseline"):
 
     params = _serving_params(cfg, mesh, rules, variant)
     axes = api.cache_axes(cfg, quantized_kv=False, paged=False)
-    cache = sl.local_zeros(specs["cache"], axes, mesh, rules, "meta")
+    whole = _kv8(specs["cache"]) if variant.endswith("kv8") else specs["cache"]
+    cache = sl.local_zeros(whole, axes, mesh, rules, "meta")
 
     if shape.kind == "prefill":
         batch = specs["batch"]
 
         def prefill_step(params, batch, cache):
             with sl.use_mesh(mesh, rules):
-                return api.prefill(cfg, params, T.replica_rows(batch), cache)
+                return api.prefill(cfg, params, batch, cache)
 
         return prefill_step, (params, batch, cache), (2,)
 
@@ -190,13 +206,19 @@ def build_step(cfg, shape, mesh, rules, variant: str = "baseline"):
 
 
 def check_variant(variant: str) -> None:
-    """Raise ValueError, naming its ROADMAP item, for a variant the port
-    does not run."""
-    if variant in UNPORTED_VARIANTS:
-        raise ValueError(f"dry-run variant {variant!r}: {UNPORTED_VARIANTS[variant]} is not "
-                         f"ported")
+    """Raise ValueError for a variant the reference does not name."""
     if variant not in VARIANTS:
         raise ValueError(f"unknown dry-run variant {variant!r} (one of {VARIANTS})")
+
+
+def check_rules(shape, mesh, rules) -> None:
+    """Raise NotImplementedError where the cell's rules cut a prompt's
+    sequence (``seq``: a prefill below batch 16 on a data axis its batch
+    does not fill), which the port does not run."""
+    spec = sl._resolve(mesh, rules, ("batch", "seq"), (shape.global_batch, shape.seq_len))
+    if spec[1] is not None:
+        raise NotImplementedError(f"{shape.name}: the rules cut the prompt's sequence over "
+                                  f"{spec[1]}, which the port does not run")
 
 
 def lower_cell(arch: str, shape, *, multi_pod: bool = False, remat: bool | None = None,
@@ -225,7 +247,8 @@ def lower_cell(arch: str, shape, *, multi_pod: bool = False, remat: bool | None 
     dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world)
     try:
         dm = init_device_mesh("cpu", tuple(sizes.values()), mesh_dim_names=tuple(sizes))
-        rules = M.rules_for(cfg, None, mesh=dm)
+        rules = M.rules_for(cfg, shape, sequence_parallel=variant == "sp", mesh=dm)
+        check_rules(shape, dm, rules)
         fn, args, donate = build_step(cfg, shape, dm, rules, variant)
         t0 = time.perf_counter()
         _, costs, memory = OA.analyze(fn, *args, donate=donate, repeated=REPEATED)
@@ -302,12 +325,13 @@ def analyze_cell(cell: LoweredCell, cfg, shape) -> dict:
 
 def run_cell(arch: str, shape, multi_pod: bool, out_dir: str | None, **kw) -> dict:
     """Trace and analyze one cell, print its line, write its JSON to
-    ``out_dir`` (None: no file)."""
+    ``out_dir`` (None: no file; a variant's file is tagged with it)."""
     cfg = kw.pop("cfg", None) or C.get_config(arch)
     cell = lower_cell(arch, shape, multi_pod=multi_pod, cfg=cfg, **kw)
     rec = analyze_cell(cell, cfg, shape)
+    rec["variant"] = variant = kw.get("variant", "baseline")
     print(
-        f"[dryrun] {arch:24s} {shape.name:12s} {rec['mesh']:8s} "
+        f"[dryrun] {arch:24s} {shape.name:12s} {rec['mesh']:8s} {variant:8s} "
         f"flops/dev={rec['hlo_flops_per_device']:.3e} "
         f"bytes/dev={rec['hlo_bytes_per_device']:.3e} "
         f"coll={rec['collectives']['total_bytes']:.3e}B "
@@ -320,6 +344,7 @@ def run_cell(arch: str, shape, multi_pod: bool, out_dir: str | None, **kw) -> di
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
         tag = f"{arch}_{shape.name}_{rec['mesh'].replace('x', '-')}"
+        tag += "" if variant == "baseline" else f"_{variant}"
         with open(os.path.join(out_dir, tag + ".json"), "w") as f:
             json.dump(rec, f, indent=1)
     return rec

@@ -202,10 +202,14 @@ def spawn_ranks(target, args: tuple, world: int, backend: str) -> None:
 def rules_for(cfg, shape=None, *, zero_opt: bool = True, sequence_parallel: bool = False,
               mesh=None) -> dict:
     """Logical -> physical rules for one (arch, shape) cell, the
-    reference's: long-context decode shards the cache sequence; MoE archs
-    whose expert count does not divide the model axis shard the expert FFN
-    instead (``expert_ff``).  ``mesh`` gives the model axis's size (16
-    without one, the production axis)."""
+    reference's: decode shards the cache's sequence (``cache_seq``) over
+    "model", and at a batch below 16 (long_500k) over ("data", "model");
+    ``sequence_parallel`` cuts a train or prefill step's residual stream on
+    its sequence (``seq_sp``); a prefill below batch 16 shards its prompt
+    and cache over "data" (``seq``, which the port refuses where it would
+    split); MoE archs whose expert count does not divide the model axis
+    shard the expert FFN instead (``expert_ff``).  ``mesh`` gives the
+    model axis's size (16 without one, the production axis)."""
     rules = dict(sl.DEFAULT_RULES)
     model_size = int(sl.axis_sizes(mesh).get("model", 1)) if mesh is not None else 16
     if sequence_parallel and (shape is None or shape.kind in ("train", "prefill")):
@@ -229,15 +233,18 @@ def opt_rules(rules: dict) -> dict:
     return r
 
 
-def train_placement(cfg, mesh) -> O.Placement:
+def train_placement(cfg, mesh, *, sequence_parallel: bool = False) -> O.Placement:
     """Where ``cfg``'s training state lies on ``mesh``, for every family:
     params by ``rules_for`` (an MoE's expert stacks on their expert axis,
     or under "expert_ff" their FFN width), moments by ``opt_rules`` of
     them (ZeRO-1: d_model also over the data axes).  An sLSTM's
     ``r_gates`` is placed whole, as the serving engine places it
     (``ssm.placement_axes``, ROADMAP C1), its moments split over the data
-    axes only."""
-    api, rules = get_api(cfg), rules_for(cfg, None, mesh=mesh)
+    axes only.  ``sequence_parallel`` adds the ``seq_sp`` rule that the
+    step runs under (Megatron's sequence parallelism: the residual stream
+    cut on its sequence over "model"); it places no leaf otherwise."""
+    api = get_api(cfg)
+    rules = rules_for(cfg, None, sequence_parallel=sequence_parallel, mesh=mesh)
     axes = api.param_axes(cfg)
     return O.Placement.of(T.meta_tree(api.param_shapes(cfg)), SSM.placement_axes(axes), mesh,
                           rules, opt_rules(rules),

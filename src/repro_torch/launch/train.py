@@ -105,7 +105,7 @@ def _step_times(dt: float, world: int, device) -> list:
     return [float(t) for t in parts]
 
 
-def run(args, cfg=None, mesh=None) -> dict:
+def run(args, cfg=None, mesh=None, sequence_parallel: bool = False) -> dict:
     """Train ``args.steps`` steps (from the latest checkpoint in
     ``args.ckpt_dir`` where there is one).  Returns {"final_loss",
     "losses", "grad_norms", "params", "opt_state", "restarts", "step_s"}:
@@ -113,7 +113,10 @@ def run(args, cfg=None, mesh=None) -> dict:
     ending in the loss's read) of the steps this call ran, and the
     supervisor's restart count.  ``mesh``: train on it, this process one
     of its ranks (``params`` and ``opt_state`` are then the rank's pieces);
-    without one, ``--mesh`` picks it (``train_mesh``)."""
+    without one, ``--mesh`` picks it (``train_mesh``).  ``sequence_parallel``
+    runs the meshed steps under the ``seq_sp`` rule (Megatron's sequence
+    parallelism, ``launch.mesh.train_placement``); the CLI has no flag for
+    it, as the reference's has none."""
     if cfg is None:
         cfg = C.get_config(args.arch, smoke=args.smoke)
     if args.remat:
@@ -134,11 +137,13 @@ def run(args, cfg=None, mesh=None) -> dict:
     if mesh is None:
         params = api.init_params(cfg, args.seed, device=device)
     else:
-        place, rank, world = M.train_placement(cfg, mesh), dist.get_rank(), dist.get_world_size()
+        place = M.train_placement(cfg, mesh, sequence_parallel=sequence_parallel)
+        rank, world = dist.get_rank(), dist.get_world_size()
         params = T.make_params(api.param_shapes(cfg), args.seed, device, leaf_fn=place.piece)
         if rank == 0:
+            sp = ", sequence parallel over model" if sequence_parallel else ""
             print(f"[train] mesh {sl.axis_sizes(mesh)} over {dist.get_backend()}: tensor "
-                  f"parallel over model, data parallel over data, ZeRO-1 moments", flush=True)
+                  f"parallel over model{sp}, data parallel over data, ZeRO-1 moments", flush=True)
     opt_state = O.init_opt_state(opt_cfg, params, error_feedback=args.compression is not None,
                                  placement=place)
     step_fn = make_train_step(cfg, api.loss_fn, opt_cfg, accum_steps=args.accum,

@@ -138,24 +138,26 @@ def _read(t: torch.Tensor, hp: L.HeadPlan) -> torch.Tensor:
     return r.contiguous() if r.shape[2] != t.shape[2] else r
 
 
-def _self_block(cfg, p, x, *, causal: bool, attend):
+def _self_block(cfg, p, x, *, causal: bool, attend, seq: bool = False):
     """Self-attention over all of x (encoder: non-causal; decoder: causal)
     through ``attend(q, k, v, causal=)`` on the rank's heads; returns (x +
-    attention, k, v), k and v of the rank's pool heads."""
+    attention, k, v), k and v of the rank's pool heads.  ``seq`` (sequence
+    parallelism): x is the rank's piece of the sequence, the block's input
+    gathered whole and its output cut (``layers.block_input``)."""
     hp = L.head_plan(cfg)
-    h = L.apply_norm(p["ln1"], x, NORM)
+    h = L.block_input(p["ln1"], x, NORM, seq)
     q, k, v = L.qkv_heads(cfg, p["attn"], h, hp)
     o = attend(q, _read(k, hp), _read(v, hp), causal=causal)
-    return x + L.out_proj(cfg, p["attn"], o, hp), k, v
+    return x + L.out_proj(cfg, p["attn"], o, hp, seq), k, v
 
 
-def _mlp_block(cfg, p, x):
-    return x + L.apply_mlp(cfg, p["mlp"], L.apply_norm(p["ln2"], x, NORM))
+def _mlp_block(cfg, p, x, seq: bool = False):
+    return x + L.apply_mlp(cfg, p["mlp"], L.block_input(p["ln2"], x, NORM, seq), seq)
 
 
-def _cross_q(cfg, p, x, hp: L.HeadPlan):
+def _cross_q(cfg, p, x, hp: L.HeadPlan, seq: bool = False):
     """The cross-attention's q (B, S, nq, hd) of the rank's q heads."""
-    h = L.apply_norm(p["lnx"], x, NORM)
+    h = L.block_input(p["lnx"], x, NORM, seq)
     B, S, _ = h.shape
     q, qs = sharded_linear(h, p["xattn"]["wq"])
     q = sl.cols(q, qs, hp.q0 * cfg.hd, hp.nq * cfg.hd).contiguous()
@@ -163,11 +165,17 @@ def _cross_q(cfg, p, x, hp: L.HeadPlan):
 
 
 def _encode(cfg, layers, enc_norm, frames, attend):
+    """The encoder over the frames; its output whole on every rank (under
+    sequence parallelism the frames' residual stream is the rank's piece
+    between blocks, where the model axis divides the frames)."""
     x = frames.to(getattr(torch, cfg.compute_dtype))
+    seq = sl.seq_split(x.shape[1])
+    if seq:
+        x = sl.split_seq(x)
     for p in layers:
-        x, _, _ = _self_block(cfg, p, x, causal=False, attend=attend)
-        x = _mlp_block(cfg, p, x)
-    return L.apply_norm(enc_norm, x, NORM)
+        x, _, _ = _self_block(cfg, p, x, causal=False, attend=attend, seq=seq)
+        x = _mlp_block(cfg, p, x, seq)
+    return L.block_input(enc_norm, x, NORM, seq)
 
 
 def encode(cfg, params, frames, *, use_kernel: bool = True):
@@ -198,32 +206,45 @@ def _enc_cross_kv(cfg, layers, enc_out) -> list:
 
 
 def decode_train(cfg, params, tokens, enc_out):
-    """Teacher-forced decoder forward: tokens (B, S) -> logits (B, S, V)
-    against the encoder's output, every attention through
+    """Teacher-forced decoder forward: tokens (B, S) -> (logits (B, S, V),
+    start) against the encoder's output, every attention through
     ``layers.train_attention`` (causal self-attention, non-causal
-    cross-attention).  ``params`` is the stacked tree."""
+    cross-attention).  ``params`` is the stacked tree.  The logits of a
+    vocabulary that the model axis splits are the rank's columns from
+    ``start`` (``layers.unembed_local``); under sequence parallelism the
+    residual stream between blocks is the rank's piece of the sequence."""
     layers = T.unbind_stack(params["dec"], cfg.n_layers)
     S = tokens.shape[1]
     x = L.embed_tokens(cfg, params["embed"], tokens)
     x = x + params["pos_dec"][None, :S].to(x.dtype)
+    seq = sl.seq_split(S)
+    if seq:
+        x = sl.split_seq(x)
     hp = L.head_plan(cfg)
     for p, (xk, xv) in zip(layers, _enc_cross_kv(cfg, layers, enc_out)):
-        x, _, _ = _self_block(cfg, p, x, causal=True, attend=L.train_attention)
-        o = L.train_attention(_cross_q(cfg, p, x, hp), _read(xk, hp), _read(xv, hp),
+        x, _, _ = _self_block(cfg, p, x, causal=True, attend=L.train_attention, seq=seq)
+        o = L.train_attention(_cross_q(cfg, p, x, hp, seq), _read(xk, hp), _read(xv, hp),
                               causal=False)
-        x = _mlp_block(cfg, p, x + L.out_proj(cfg, p["xattn"], o, hp))
-    x = L.apply_norm(params["final_norm"], x, NORM)
-    return L.unembed(cfg, params["embed"], x)
+        x = _mlp_block(cfg, p, x + L.out_proj(cfg, p["xattn"], o, hp, seq), seq)
+    x = L.block_input(params["final_norm"], x, NORM, seq)
+    return L.unembed_local(cfg, params["embed"], x)
 
 
-def forward(cfg, params, tokens, frames):
-    """Training/eval forward: encode the frames, then ``decode_train``.
+def forward_local(cfg, params, tokens, frames) -> tuple:
+    """Encode the frames, then ``decode_train``: (logits, start).
     ``params`` is the stacked tree of dense tensors (``init_params``)."""
     T.check_supported(cfg)
     T._check_dense(params)
     enc = T.unbind_stack(params["enc"], cfg.enc_layers)
     enc_out = _encode(cfg, enc, params["enc_norm"], frames, L.train_attention)
     return decode_train(cfg, params, tokens, enc_out)
+
+
+def forward(cfg, params, tokens, frames):
+    """Training/eval forward: the whole vocabulary's logits on every rank
+    (``forward_local``, a split vocabulary's columns gathered)."""
+    logits, start = forward_local(cfg, params, tokens, frames)
+    return logits if start is None else sl.gather_pieces(logits, "model")
 
 
 def loss_fn(cfg, params, batch):
@@ -233,8 +254,8 @@ def loss_fn(cfg, params, batch):
     global batch: the rank runs its data replica's rows of all three
     (``transformer.replica_rows``), and the loss is the global one."""
     rows = T.replica_rows(batch)
-    logits = forward(cfg, params, rows["tokens"], rows["frames"])
-    loss = T.next_token_nll(logits, rows["labels"])
+    logits, start = forward_local(cfg, params, rows["tokens"], rows["frames"])
+    loss = T.next_token_nll(logits, rows["labels"], start)
     return loss, {"loss": loss}
 
 
@@ -314,25 +335,38 @@ def prefill(cfg, params, tokens, frames, cache, *, use_kernel: bool = True):
     positions 0..S-1, the cross-attention xk/xv).  Returns (last-position
     logits (B, 1, V), cache).  ``use_kernel=False`` runs the flash
     attention's plain version on the card.  On a mesh the rank runs its
-    heads and fills its cache's KV heads."""
+    heads and fills its cache's KV heads, for its data replica's rows where
+    the data axis splits the batch (every rank returns the whole batch's
+    logits)."""
+    rows = sl.data_rows(tokens.shape[0])
+    if rows is not None:
+        tokens, frames = tokens[rows], frames[rows]
     hp = L.head_plan(cfg)
     enc_out = encode(cfg, params, frames, use_kernel=use_kernel)
     xkv = _enc_cross_kv(cfg, params["layers"], enc_out)
     B, S = tokens.shape
     x = L.embed_tokens(cfg, params["embed"], tokens)
     x = x + params["pos_dec"][None, :S].to(x.dtype)
+    seq = sl.seq_split(S)
+    if seq:
+        x = sl.split_seq(x)
     for p, c, (xk, xv) in zip(params["layers"], cache["layers"], xkv):
-        x, k, v = _self_block(cfg, p, x, causal=True,
+        x, k, v = _self_block(cfg, p, x, causal=True, seq=seq,
                               attend=functools.partial(L.attention, use_kernel=use_kernel))
-        c["k"][:, :S] = k.to(c["k"].dtype)
-        c["v"][:, :S] = v.to(c["v"].dtype)
-        o = L.attention(_cross_q(cfg, p, x, hp), _read(xk, hp), _read(xv, hp), causal=False,
-                        use_kernel=use_kernel)
-        x = _mlp_block(cfg, p, x + L.out_proj(cfg, p["xattn"], o, hp))
+        piece = L.cache_seq_piece(c["k"], rows is not None)
+        if piece is not None and k.shape[2] != c["k"].shape[2]:
+            k, v = sl.all_gather(k, "model", dim=2), sl.all_gather(v, "model", dim=2)
+        L.fill_cache(c["k"], k, piece)
+        L.fill_cache(c["v"], v, piece)
+        o = L.attention(_cross_q(cfg, p, x, hp, seq), _read(xk, hp), _read(xv, hp),
+                        causal=False, use_kernel=use_kernel)
+        x = _mlp_block(cfg, p, x + L.out_proj(cfg, p["xattn"], o, hp, seq), seq)
         c["xk"].copy_(xk.to(c["xk"].dtype))
         c["xv"].copy_(xv.to(c["xv"].dtype))
+    if seq:
+        x = sl.gather_seq(x)
     x = L.apply_norm(params["final_norm"], x[:, -1:], NORM)
-    return L.unembed(cfg, params["embed"], x), cache
+    return sl.gather_batch(L.unembed(cfg, params["embed"], x), rows), cache
 
 
 def _embed_decode(cfg, params, tokens, pos):

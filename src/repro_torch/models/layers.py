@@ -10,6 +10,13 @@ attention under autograd, or past ``dense_threshold`` the
 ``FlashAttention`` Function (the reference's custom VJP: the chunked
 forward, a backward that recomputes each tile from the saved log-sum-exp).
 
+The reference's production layouts on a mesh: a contiguous cache cut
+along its sequence (``cache_seq``: ``cache_seq_piece``, the owner's
+writes, flash decoding's combine in ``decode_attention``), an fp8 (e4m3)
+KV cache, the residual stream cut on its sequence (``seq_sp``:
+``block_input``, ``weight_plan.residual_linear``) and the vocab-split
+logits the training loss reads (``unembed_local``).
+
 Functions take and return tensors in the reference's layouts: activations
 (B, S, d), q (B, S, H, hd), KV caches (B, S, KVH, hd) and page pools
 (num_pages, page_size, KVH, hd).  Where the reference returns an updated
@@ -24,12 +31,14 @@ import math
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import weight_plan as WP
 from repro_torch.core.weight_plan import (
     GATE_ACTS,
     QuantLinear,
     ShardedLeaf,
+    residual_linear,
     sharded_gate_up,
     sharded_linear,
 )
@@ -104,6 +113,16 @@ def apply_norm(p, x, kind: str = "rmsnorm", eps: float = 1e-6):
         var = (c * c).mean(dim=-1, keepdim=True)
         y = c * torch.rsqrt(var + eps) * p["scale"] + p["bias"]
     return y.to(x.dtype)
+
+
+def block_input(p, x, kind: str = "rmsnorm", seq: bool = False):
+    """A block's normed input from the residual stream ``x``: ``apply_norm``
+    of it, or with ``seq`` (sequence parallelism) the norm of the rank's
+    piece of the sequence -- its params entering the piece's work through
+    ``shardlib.fan_out`` -- gathered whole."""
+    if not seq:
+        return apply_norm(p, x, kind)
+    return sl.gather_seq(apply_norm({k: sl.fan_out(v) for k, v in p.items()}, x, kind))
 
 
 def rope_freqs(hd: int, base: float, device=None) -> torch.Tensor:
@@ -369,8 +388,46 @@ def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
     return flash_attention(q, k, v, causal, window, q_offset, softcap, cq, ck)
 
 
+@dataclasses.dataclass(frozen=True)
+class SeqPiece:
+    """A rank's piece of a contiguous cache cut along its sequence (the
+    ``cache_seq`` rule): the global ring's slots [first, first + the
+    piece's length) of ``ring``, combined over the mesh ``axes``."""
+
+    first: int
+    ring: int
+    axes: tuple
+
+
+def cache_seq_piece(cache: torch.Tensor, batch_split: bool) -> Optional[SeqPiece]:
+    """How the active rules cut a contiguous cache leaf (B, slots, ...)
+    along its sequence (None: whole).  The cache's axes are (batch,
+    cache_seq, kv_heads, ...): ``cache_seq``'s mesh axes, less those the
+    batch took (``batch_split``: the rank holds its data replica's rows),
+    cut the ring into equal pieces in rank order, as ``shardlib._resolve``
+    and ``local_piece`` do, so the global ring is the piece's length times
+    their ranks.  ``shardlib.local_zeros`` refuses a ring those axes do not
+    divide, which would otherwise be read here as a piece."""
+    mesh = sl.current_mesh()
+    mapped = sl.current_rules().get("cache_seq") if mesh is not None else None
+    if mapped is None:
+        return None
+    sizes, coords = sl.axis_sizes(mesh), sl.mesh_coords(mesh)
+    used = set(sl.batch_axes()) if batch_split else set()
+    axes = tuple(a for a in ((mapped,) if isinstance(mapped, str) else mapped)
+                 if a in sizes and a not in used)
+    n, idx = 1, 0
+    for a in axes:
+        n, idx = n * sizes[a], idx * sizes[a] + coords[a]
+    if n == 1:
+        return None
+    slots = cache.shape[1]
+    return SeqPiece(idx * slots, slots * n, tuple(a for a in axes if sizes[a] > 1))
+
+
 def decode_attention(q, k_cache, v_cache, pos, *, window: Optional[int] = None,
-                     softcap: float = 0.0, k_scale=None, v_scale=None, causal: bool = True):
+                     softcap: float = 0.0, k_scale=None, v_scale=None, causal: bool = True,
+                     piece: Optional[SeqPiece] = None):
     """Attention of T new tokens per sequence against a ring-buffer cache of
     length S (slot i holds the newest position p with p % S == i).  Query t
     sits at pos + t and sees kv_pos <= pos + t; ``causal=False`` gives every
@@ -379,7 +436,17 @@ def decode_attention(q, k_cache, v_cache, pos, *, window: Optional[int] = None,
 
     int8 caches (``k_scale``/``v_scale`` (B, S, KVH)) fold their scales into
     the score and probability tensors: (q . k*s) == (q . k) * s and
-    p @ (v*s) == (p*s) @ v."""
+    p @ (v*s) == (p*s) @ v.  An fp8 cache (``torch.float8_e4m3fn``) rounds
+    q and the probabilities to e4m3 as the reference's ``astype`` does, and
+    contracts in fp32.
+
+    ``piece`` (flash decoding): the cache is the rank's slots of a ring cut
+    along its sequence (``cache_seq_piece``); the rank's scores take their
+    global slots' positions, and the softmax and the output combine over
+    ``piece.axes``: an all-reduce MAX of the rows' maxima, a SUM of the
+    rescaled exponentials, then a SUM of the partial outputs of the
+    normalized probabilities (rounded to V's dtype as the whole ring's
+    are)."""
     B, S, KVH, hd = k_cache.shape
     T, H = q.shape[1], q.shape[2]
     G = H // KVH
@@ -394,22 +461,31 @@ def decode_attention(q, k_cache, v_cache, pos, *, window: Optional[int] = None,
                          k_cache.to(torch.float32)) * scale
         s = s * k_scale.to(torch.float32).permute(0, 2, 1)[:, :, None, None, :]
     s = _softcap(s, softcap)
+    first, ring = (piece.first, piece.ring) if piece is not None else (0, S)
     newest = pos[:, None].long() + ((T - 1) if causal else 0)  # (B, 1)
-    slot = torch.arange(S, device=dev)[None]
-    kv_pos = newest - ((newest - slot) % S)  # (B, S) absolute position per slot
+    slot = torch.arange(first, first + S, device=dev)[None]
+    kv_pos = newest - ((newest - slot) % ring)  # (B, S) absolute position per slot
     q_pos = pos[:, None].long() + (torch.arange(T, device=dev)[None] if causal else 0)
     q_pos = q_pos.expand(B, T)  # (B, T)
     mask = (kv_pos[:, None, :] >= 0) & (kv_pos[:, None, :] <= q_pos[:, :, None])
     if window is not None:
         mask &= kv_pos[:, None, :] > (q_pos[:, :, None] - window)
-    s = torch.where(mask[:, None, None], s, torch.full_like(s, -1e30))
-    p = torch.softmax(s, dim=-1)
+    mask = mask[:, None, None]
+    s = torch.where(mask, s, torch.full_like(s, -1e30))
+    if piece is None:
+        p = torch.softmax(s, dim=-1)
+    else:
+        m = sl.all_reduce_axes(s.amax(dim=-1), piece.axes, dist.ReduceOp.MAX)
+        e = torch.where(mask, torch.exp(s - m[..., None]), torch.zeros_like(s))
+        p = e / sl.all_reduce_axes(e.sum(dim=-1), piece.axes)[..., None]
     if v_scale is None:
         o = torch.einsum("bkgts,bskd->btkgd", p.to(v_cache.dtype).to(torch.float32),
                          v_cache.to(torch.float32))
     else:
         pv = p * v_scale.to(torch.float32).permute(0, 2, 1)[:, :, None, None, :]
         o = torch.einsum("bkgts,bskd->btkgd", pv, v_cache.to(torch.float32))
+    if piece is not None:
+        o = sl.all_reduce_axes(o, piece.axes)
     return o.reshape(B, T, H, hd).to(q.dtype)
 
 
@@ -424,13 +500,43 @@ def quantize_kv(x: torch.Tensor):
     return q, scale
 
 
-def _cache_update(cache: torch.Tensor, new: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+def _cache_update(cache: torch.Tensor, new: torch.Tensor, pos: torch.Tensor,
+                  piece: Optional[SeqPiece] = None) -> torch.Tensor:
     """Write T new (B, T, ...) entries at positions pos..pos+T-1 (mod the
-    ring length), IN PLACE (the reference donates the cache instead)."""
+    ring length), IN PLACE (the reference donates the cache instead).  For
+    a ``piece`` of a ring cut along its sequence only the owner of a
+    position's global slot writes it: one token at a time, each row writing
+    its slot's new value or, on another rank's slot, the value it holds."""
     S = cache.shape[1]
     B, T = new.shape[:2]
-    idx = (pos[:, None].long() + torch.arange(T, device=pos.device)[None]) % S
-    cache[torch.arange(B, device=pos.device)[:, None], idx] = new.to(cache.dtype)
+    b = torch.arange(B, device=pos.device)
+    if piece is None:
+        idx = (pos[:, None].long() + torch.arange(T, device=pos.device)[None]) % S
+        cache[b[:, None], idx] = new.to(cache.dtype)
+        return cache
+    for t in range(T):
+        g = (pos.long() + t) % piece.ring - piece.first
+        mine = ((g >= 0) & (g < S)).view((B,) + (1,) * (new.dim() - 2))
+        idx = g.clamp(0, S - 1)
+        cache[b, idx] = torch.where(mine, new[:, t].to(cache.dtype), cache[b, idx])
+    return cache
+
+
+def fill_cache(cache: torch.Tensor, new: torch.Tensor, piece: Optional[SeqPiece] = None):
+    """Write a prompt's (B, Sq, ...) entries at positions 0..Sq-1 into a
+    ring, IN PLACE: a ring of Sc < Sq slots keeps the last Sc positions,
+    rolled so that slot = pos % Sc.  A ``piece`` (the rank's slots of a
+    ring cut along its sequence) takes its slots of the global ring."""
+    Sq = new.shape[1]
+    first, ring = (piece.first, piece.ring) if piece is not None else (0, cache.shape[1])
+    n = cache.shape[1]
+    if ring >= Sq:
+        cnt = max(0, min(n, Sq - first))
+        if cnt:
+            cache[:, :cnt] = new[:, first:first + cnt].to(cache.dtype)
+    else:
+        rolled = torch.roll(new[:, -ring:], Sq % ring, dims=1)
+        cache.copy_(rolled[:, first:first + n].to(cache.dtype))
     return cache
 
 
@@ -623,12 +729,12 @@ def qkv_heads(cfg, p, x, hp: HeadPlan) -> tuple:
             heads(p["wv"], hp.pool0, hp.npool))
 
 
-def out_proj(cfg, p, o, hp: HeadPlan):
+def out_proj(cfg, p, o, hp: HeadPlan, seq: bool = False):
     """The o-projection of o (B, S, nq, hd) on the rank's shard of ``wo``;
-    the whole (B, S, d) on every rank."""
+    the whole (B, S, d) on every rank, or with ``seq`` (sequence
+    parallelism) the rank's piece of the sequence."""
     B, S = o.shape[:2]
-    y, ys = sharded_linear(o.reshape(B, S, hp.nq * cfg.hd), p["wo"], hp.q_split)
-    return sl.cols(y, ys, 0, cfg.d_model)
+    return residual_linear(o.reshape(B, S, hp.nq * cfg.hd), p["wo"], hp.q_split, seq)
 
 
 def read_heads(t: torch.Tensor, hp: HeadPlan) -> torch.Tensor:
@@ -651,6 +757,12 @@ def attn_window_and_base(cfg, kind: str) -> tuple:
     return None, cfg.rope_base_global or cfg.rope_base
 
 
+def all_heads(cfg) -> HeadPlan:
+    """The ``HeadPlan`` of every q and KV head (what a rank attends with
+    over a cache cut along its sequence, which holds every KV head)."""
+    return HeadPlan(0, cfg.n_heads, False, 0, cfg.n_kv_heads, 0, cfg.n_kv_heads, False)
+
+
 def apply_attn(cfg, p, x, *, kind: str = "global", cache: dict, pos, page_table=None,
                use_kernel: bool = True, rows: Optional[slice] = None, rope: bool = True):
     """A decode step for S new tokens per sequence at ``pos``: writes their
@@ -666,11 +778,22 @@ def apply_attn(cfg, p, x, *, kind: str = "global", cache: dict, pos, page_table=
     data replica's ``rows`` of the engine batch: the page pools, which
     every data replica holds whole, take the whole batch's K/V (gathered
     over the data axis) through the whole ``page_table``; a contiguous
-    cache holds the replica's rows only."""
+    cache holds the replica's rows only.  A contiguous cache cut along its
+    sequence (``cache_seq``, ``cache_seq_piece``) holds every KV head: the
+    rank gathers every q head and every new K/V head (T tokens: small),
+    writes the K/V whose slots it owns, attends over its slots with the
+    flash-decoding combine (``decode_attention``) and keeps its own heads
+    for ``out_proj``."""
     B, S, _ = x.shape
     hp = head_plan(cfg)
+    piece = None
+    if "k_pages" not in cache:
+        piece = cache_seq_piece(cache["k"], rows is not None)
+        if piece is not None and cache["k"].shape[2] != cfg.n_kv_heads:
+            raise NotImplementedError(f"{cfg.name}: a cache cut along its sequence over "
+                                      f"{piece.axes} and on its KV heads")
     window, base = attn_window_and_base(cfg, kind)
-    q, k, v = qkv_heads(cfg, p, x, hp)
+    q, k, v = qkv_heads(cfg, p, x, hp if piece is None else all_heads(cfg))
     if rope:
         positions = pos[:, None].long() + torch.arange(S, device=x.device)[None]
         q = apply_rope(q, positions, base)
@@ -692,16 +815,20 @@ def apply_attn(cfg, p, x, *, kind: str = "global", cache: dict, pos, page_table=
             v_scale_pages=cache.get("v_scale_pages"), use_kernel=use_kernel,
             kv_heads=None if hp.nkv == hp.npool else hp.kv_in_pool)
     else:
+        def write(name, new):
+            c = _cache_update(cache[name], new, pos, piece)
+            return c if piece is not None else read_heads(c, hp)
+
         ksc = vsc = None
         if "k_scale" in cache:
             k, ks = quantize_kv(k)
             v, vs = quantize_kv(v)
-            ksc = read_heads(_cache_update(cache["k_scale"], ks, pos), hp)
-            vsc = read_heads(_cache_update(cache["v_scale"], vs, pos), hp)
-        kc = read_heads(_cache_update(cache["k"], k, pos), hp)
-        vc = read_heads(_cache_update(cache["v"], v, pos), hp)
+            ksc, vsc = write("k_scale", ks), write("v_scale", vs)
+        kc, vc = write("k", k), write("v", v)
         o = decode_attention(q, kc, vc, pos, window=window, softcap=cfg.logit_softcap,
-                             k_scale=ksc, v_scale=vsc)
+                             k_scale=ksc, v_scale=vsc, piece=piece)
+        if piece is not None:  # the rank's own heads
+            o = o[:, :, hp.q0:hp.q0 + hp.nq]
     return out_proj(cfg, p, o, hp)
 
 
@@ -712,28 +839,30 @@ def apply_attn(cfg, p, x, *, kind: str = "global", cache: dict, pos, page_table=
 GATED = ("silu", "swiglu", "geglu", "gelu_glu")
 
 
-def apply_mlp(cfg, p, x):
+def apply_mlp(cfg, p, x, seq: bool = False):
     """The MLP on the rank's shards (the whole weights without a mesh): the
-    hidden layer keeps the rank's "ff" columns into ``w_down``."""
+    hidden layer keeps the rank's "ff" columns into ``w_down``; ``seq``
+    returns the rank's piece of the sequence (``out_proj``)."""
     if "w_gate" in p:
         # fused-pair node: a packed (w_gate, w_up) pair is ONE kernel launch
         h, hs = sharded_gate_up(x, p["w_gate"], p["w_up"], cfg.activation)
     else:
         h, hs = sharded_linear(x, p["w_up"])
         h = GATE_ACTS[cfg.activation](h)
-    y, ys = sharded_linear(h, p["w_down"], hs)
-    return sl.cols(y, ys, 0, cfg.d_model)
+    return residual_linear(h, p["w_down"], hs, seq)
 
 
 def _cdtype(cfg) -> torch.dtype:
     return getattr(torch, cfg.compute_dtype)
 
 
-def embed_tokens(cfg, p, tokens):
+def embed_tokens(cfg, p, tokens, seq: bool = False):
     """Rows of the token table (an int8 table dequantized after the
     gather), times sqrt(d_model) in the compute dtype where the config
     scales embeddings (gemma): the scalar is rounded to that dtype first, as
-    the reference's weakly typed Python scalar is."""
+    the reference's weakly typed Python scalar is.  ``seq`` (sequence
+    parallelism) returns the rank's piece of the sequence: a vocab-split
+    table's partial rows reduce-scattered, a whole one's cut."""
     tok = p["tok"]
     idx = tokens.long()
     if isinstance(tok, ShardedLeaf):
@@ -746,11 +875,13 @@ def embed_tokens(cfg, p, tokens):
         local = local.clamp(0, rows - 1)
         table = tok.q if isinstance(tok, QuantLinear) else tok
         x = torch.where(mine[..., None], table[local].to(_cdtype(cfg)), 0)
-        x = sl.reduce_sum(x, "model")
+        x = sl.scatter_seq(x) if seq else sl.reduce_sum(x, "model")
     elif isinstance(tok, QuantLinear):
         x = tok.q[idx].to(_cdtype(cfg))
     else:
         x = tok[idx].to(_cdtype(cfg))
+    if seq and not isinstance(p["tok"], ShardedLeaf):  # a whole table's rows: cut
+        x = sl.split_seq(x)
     if isinstance(tok, QuantLinear):  # int8 table: dequantize the gathered rows
         x = x * tok.s.to(x.dtype)
     if cfg.scale_embed:
@@ -758,18 +889,22 @@ def embed_tokens(cfg, p, tokens):
     return x
 
 
-def unembed(cfg, p, x):
-    """Logits: through the head where the model has one (any
+def unembed_local(cfg, p, x) -> tuple:
+    """(logits, start): through the head where the model has one (any
     representation), else through the tied token table -- ``x @ tok.T``,
     and for an int8 table ``(x * s) @ q.T``: its scales lie on the
     contraction axis, so this product is plain torch, not kernel B5, which
     scales output channels (the reference contracts it with ``dot_general``
     outside any Pallas kernel as well).  A ``logit_softcap`` > 0 caps the
     logits in fp32 (cap * tanh(y / cap)) and rounds them back to x's dtype,
-    as the reference does."""
+    as the reference does.  Where the vocab rule splits the head's columns
+    or the table's rows over the model axis, the logits are the rank's
+    vocabulary columns, ungathered, from ``start`` (the training loss reads
+    them so, ``shardlib.vocab_nll``); else the whole vocabulary, start
+    None."""
     if "head" in p:
         y, ys = sharded_linear(x, p["head"])
-        return _cap_logits(cfg, sl.cols(y, ys, 0, cfg.vocab))
+        return _cap_logits(cfg, y), (sl.axis_index("model") * y.shape[-1] if ys else None)
     tok, split = p["tok"], isinstance(p["tok"], ShardedLeaf)
     if split:  # the rank's vocab rows: x enters rank-specific work
         tok, x = tok.local, sl.fan_out(x)
@@ -777,8 +912,14 @@ def unembed(cfg, p, x):
         y = (x * tok.s.to(x.dtype)) @ tok.q.to(x.dtype).T
     else:
         y = x @ tok.T.to(x.dtype)
-    # a vocab-sharded table: the rank's columns
-    return _cap_logits(cfg, sl.cols(y, split, 0, cfg.vocab))
+    return _cap_logits(cfg, y), (sl.axis_index("model") * y.shape[-1] if split else None)
+
+
+def unembed(cfg, p, x):
+    """The whole vocabulary's logits on every rank (``unembed_local``, a
+    split vocabulary's columns gathered): serving's decode and prefill."""
+    y, start = unembed_local(cfg, p, x)
+    return y if start is None else sl.gather_pieces(y, "model")
 
 
 def _cap_logits(cfg, y):

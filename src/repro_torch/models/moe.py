@@ -215,10 +215,13 @@ def expert_range(p, Ep: int) -> tuple:
     return got["w_gate"] or (0, Ep)
 
 
-def apply_moe(cfg, p, x: torch.Tensor, return_aux: bool = False, replicas: int = 1):
+def apply_moe(cfg, p, x: torch.Tensor, return_aux: bool = False, replicas: int = 1,
+              seq: bool = False):
     """x (B, S, d) -> (B, S, d) [, the Switch load-balancing loss].
     ``replicas``: the data replicas whose rows make the global batch, x
-    being this rank's (training on a mesh; see the module doc).
+    being this rank's (training on a mesh; see the module doc).  ``seq``
+    (sequence parallelism): the output is the rank's piece of the
+    sequence, the ranks' partial sums reduce-scattered.
 
     Kept tokens are scattered into an (Ep, nG * C, d) buffer (row
     (g * C + slot) of their expert; empty rows are zero, as the reference's
@@ -278,17 +281,24 @@ def apply_moe(cfg, p, x: torch.Tensor, return_aux: bool = False, replicas: int =
         s = p["shared"]
         hs, hs_split = sharded_gate_up(xg, s["w_gate"], s["w_up"], cfg.activation)
         ys, s_partial = partial_linear(hs, s["w_down"], hs_split)
+    def summed(t):  # the model ranks' partial terms of every token's output
+        t = t.reshape(B, S, d)
+        return sl.scatter_seq(t) if seq else sl.reduce_sum(t, "model")
+
+    def whole(t):  # a term every rank holds whole
+        t = t.reshape(B, S, d)
+        return sl.split_seq(t) if seq else t
+
     if partial:
         if s_partial:
-            y = sl.reduce_sum(routed + ys.to(torch.float32), "model").to(dt)
+            y = summed(routed + ys.to(torch.float32)).to(dt)
         else:
-            y = sl.reduce_sum(routed, "model").to(dt)
-            y = y if ys is None else y + ys
+            y = summed(routed).to(dt)
+            y = y if ys is None else y + whole(ys)
     else:
-        y = routed.to(dt)
+        y = whole(routed.to(dt))
         if ys is not None:
-            y = y + (sl.reduce_sum(ys, "model") if s_partial else ys)
-    y = y.reshape(B, S, d)
+            y = y + (summed(ys) if s_partial else whole(ys))
     if not return_aux:
         return y
     # Switch-style load balancing over the real experts, before capacity:

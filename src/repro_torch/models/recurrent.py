@@ -25,7 +25,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.weight_plan import GATE_ACTS, sharded_linear
+from repro_torch.core.weight_plan import GATE_ACTS, residual_linear, sharded_linear
 from repro_torch.distributed import shardlib as sl
 from repro_torch.models.ssm import causal_conv
 
@@ -95,11 +95,12 @@ def linear_scan(a, b, h0):
     return Bv[:, 1:]
 
 
-def apply_rglru(cfg, p, x, state=None):
+def apply_rglru(cfg, p, x, state=None, seq: bool = False):
     """x (B, S, d) -> (y, new state); on a mesh over the rank's channels
     (see the module doc).  ``state`` None (training) starts from zeros of
-    the rank's channels."""
-    B, S, d = x.shape
+    the rank's channels.  ``seq`` (sequence parallelism): y is the rank's
+    piece of the sequence (``weight_plan.residual_linear``)."""
+    B, S, _ = x.shape
     dt = x.dtype
     gate, split = sharded_linear(x, p["w_gate"])
     gate = GATE_ACTS["gelu"](gate)
@@ -123,5 +124,5 @@ def apply_rglru(cfg, p, x, state=None):
     else:
         hs = linear_scan(a, b, state["h"])
         h = hs[:, -1]
-    y, y_split = sharded_linear(hs.to(dt) * gate, p["w_out"], split)
-    return sl.cols(y, y_split, 0, d), {"h": h, "conv": conv_state}
+    y = residual_linear(hs.to(dt) * gate, p["w_out"], split, seq)
+    return y, {"h": h, "conv": conv_state}

@@ -42,7 +42,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.weight_plan import GATE_ACTS, apply_linear, sharded_linear
+from repro_torch.core.weight_plan import GATE_ACTS, apply_linear, residual_linear, sharded_linear
 from repro_torch.distributed import shardlib as sl
 
 # the sequence-start value of the mLSTM / sLSTM stabilizer m
@@ -204,11 +204,12 @@ def _mlstm_chunkwise(q, k, v, i_raw, f_raw, C0, n0, m0, chunk: int):
     return h, C, n, m
 
 
-def apply_mlstm(cfg, p, x, state=None):
+def apply_mlstm(cfg, p, x, state=None, seq: bool = False):
     """x (B, S, d) -> (y, new state).  S == 1 (decode) is one step of the
     exact recurrence; S > 1 the chunkwise form with chunks of
     min(MLSTM_CHUNK, S).  On a mesh over the rank's channels and heads
-    (see the module doc)."""
+    (see the module doc); ``seq`` (sequence parallelism): y is the rank's
+    piece of the sequence."""
     B, S, d = x.shape
     up, H = 2 * d, cfg.n_heads
     hd = up // H
@@ -243,8 +244,8 @@ def apply_mlstm(cfg, p, x, state=None):
     else:
         h, C, n, m = mlstm_sequential(q, k, v, i_raw, f_raw, state["C"], state["n"],
                                       state["m"])
-    y, ys = sharded_linear(h.to(dt) * F.silu(z), p["w_down"], nh < H)
-    return sl.cols(y, ys, 0, d), {"C": C, "n": n, "m": m, "conv": conv_state}
+    y = residual_linear(h.to(dt) * F.silu(z), p["w_down"], nh < H, seq)
+    return y, {"C": C, "n": n, "m": m, "conv": conv_state}
 
 
 # ---------------------------------------------------------------------------
@@ -333,11 +334,11 @@ def slstm_step(r, gates, c, n, h, m) -> tuple:
     return c, n, torch.sigmoid(go) * c / n.clamp_min(1.0), m_new
 
 
-def apply_slstm(cfg, p, x, state=None):
+def apply_slstm(cfg, p, x, state=None, seq: bool = False):
     """x (B, S, d) -> (y, new state): the gate pre-activations of every
     token in one projection, then the recurrence token by token (each step
     a (4, H, hd, hd) product with the previous h), then the gated up/down
-    projection (tanh GELU)."""
+    projection (tanh GELU); ``seq`` as ``apply_mlstm``'s."""
     B, S, d = x.shape
     dt = x.dtype
     if state is None:
@@ -353,5 +354,5 @@ def apply_slstm(cfg, p, x, state=None):
     y = torch.stack(hs, dim=1).to(dt)
     ab, abs_ = sharded_linear(y, p["w_up"])
     a, b = sl.cols(ab, abs_, 0, 2 * slstm_up(cfg)).chunk(2, dim=-1)
-    y, ys = sharded_linear(GATE_ACTS["gelu"](a) * b, p["w_down"])
-    return sl.cols(y, ys, 0, d), {"c": c, "n": n, "h": h, "m": m}
+    y = residual_linear(GATE_ACTS["gelu"](a) * b, p["w_down"], seq=seq)
+    return y, {"c": c, "n": n, "h": h, "m": m}

@@ -27,7 +27,10 @@ Training (``forward``, ``loss_fn``) runs the reference's ``train`` mode
 for every layer kind: attention without a cache through
 ``layers.train_attention`` (never kernel B6, which has no backward), a MoE
 FFN with its Switch aux loss (summed over the layers in fp32), and the
-``rec`` / ``mlstm`` / ``slstm`` cells from a zero state; on the stacked
+``rec`` / ``mlstm`` / ``slstm`` cells from a zero state; on a mesh the
+loss is the vocab-parallel cross entropy of the rank's vocabulary columns
+(``next_token_nll(start=)``), and under a ``seq_sp`` rule the residual
+stream between blocks is the rank's piece of the sequence; on the stacked
 tree itself -- each step takes its per-layer views anew
 (``_unbind_layers``), so the gradients reach the stacked leaves that the
 optimizer updates in place.
@@ -397,57 +400,64 @@ def init_cache(cfg, batch: int, length: int, dtype=torch.bfloat16, kv_dtype=None
 
 
 def apply_layer(cfg, kind: str, p, x, *, cache, pos=None, page_table=None,
-                use_kernel: bool = True, rows=None):
+                use_kernel: bool = True, rows=None, seq: bool = False):
     """One layer of ``kind``; returns x.  For an attention layer ("global"
     or "local") ``pos`` None is the prefill over x (filling the contiguous
     cache), else a decode step at ``pos``; the kind sets the window and the
     RoPE base (``layers.attn_window_and_base``).  A recurrent or xLSTM
     layer runs its cell over x from its state and writes the new state
     into ``cache`` in place (positions play no part).  ``rows``: a data
-    replica's rows of the batch on a mesh (``layers.apply_attn``)."""
+    replica's rows of the batch on a mesh (``layers.apply_attn``; at
+    prefill, where a cache cut along its sequence takes them).
+    ``seq`` (a prefill under sequence parallelism): x is the rank's piece
+    of the sequence, each block's input gathered whole and its output cut
+    (``layers.block_input``, ``weight_plan.residual_linear``)."""
     if kind not in ATTN_KINDS:
-        return _apply_recurrent_layer(cfg, kind, p, x, cache)
-    h = L.apply_norm(p["ln1"], x, cfg.norm)
+        return _apply_recurrent_layer(cfg, kind, p, x, cache, seq)
+    h = L.block_input(p["ln1"], x, cfg.norm, seq)
     if pos is None:
-        a = _attn_prefill(cfg, p["attn"], h, kind, cache, use_kernel=use_kernel)
+        a = _attn_prefill(cfg, p["attn"], h, kind, cache, use_kernel=use_kernel, seq=seq,
+                          batch_split=rows is not None)
     else:
         a = L.apply_attn(cfg, p["attn"], h, kind=kind, cache=cache, pos=pos,
                          page_table=page_table, use_kernel=use_kernel, rows=rows)
     x = x + a
-    h = L.apply_norm(p["ln2"], x, cfg.norm)
+    h = L.block_input(p["ln2"], x, cfg.norm, seq)
     if "moe" in p:  # routed over all of h's B * S tokens, as the reference's step does
-        return x + MOE.apply_moe(cfg, p["moe"], h)
-    return x + L.apply_mlp(cfg, p["mlp"], h)
+        return x + MOE.apply_moe(cfg, p["moe"], h, seq=seq)
+    return x + L.apply_mlp(cfg, p["mlp"], h, seq)
 
 
 _CELLS = {"rec": R.apply_rglru, "mlstm": SSM.apply_mlstm, "slstm": SSM.apply_slstm}
 
 
-def _apply_recurrent_layer(cfg, kind: str, p, x, state):
+def _apply_recurrent_layer(cfg, kind: str, p, x, state, seq: bool = False):
     """A ``rec`` layer (norm, RG-LRU, residual, norm, MLP, residual) or an
     ``mlstm`` / ``slstm`` one (norm, cell, residual); the cell's new state
     is copied into ``state``.  ``state`` None (training) runs the cell from
-    a zero state and keeps nothing."""
+    a zero state and keeps nothing.  Under sequence parallelism (``seq``)
+    the cell's input is gathered whole before its scan."""
     cell = "rec" if kind == "rec" else "cell"
-    h = L.apply_norm(p["ln1" if kind == "rec" else "ln"], x, cfg.norm)
-    y, new = _CELLS[kind](cfg, p[cell], h, state)
+    h = L.block_input(p["ln1" if kind == "rec" else "ln"], x, cfg.norm, seq)
+    y, new = _CELLS[kind](cfg, p[cell], h, state, seq=seq)
     if state is not None:
         for k, v in new.items():
             state[k].copy_(v)
     x = x + y
     if kind != "rec":
         return x
-    h = L.apply_norm(p["ln2"], x, cfg.norm)
-    return x + L.apply_mlp(cfg, p["mlp"], h)
+    h = L.block_input(p["ln2"], x, cfg.norm, seq)
+    return x + L.apply_mlp(cfg, p["mlp"], h, seq)
 
 
-def _attn_seq(cfg, p, h, kind: str, attend) -> tuple:
+def _attn_seq(cfg, p, h, kind: str, attend, seq: bool = False) -> tuple:
     """Full-sequence causal attention of an attention block (windowed on a
     ``local`` layer) through ``attend(q, k, v, causal=, window=,
-    softcap=)``.  Returns (the block's output, the roped K and V) -- what a
-    prefill writes into its cache; the training forward writes none.  On a
-    mesh the rank attends with its q heads (``layers.head_plan``) and K/V
-    are its cache's KV heads."""
+    softcap=)``.  Returns (the block's output -- with ``seq`` the rank's
+    piece of the sequence --, the roped K and V) -- what a prefill writes
+    into its cache; the training forward writes none.  On a mesh the rank
+    attends with its q heads (``layers.head_plan``) and K/V are its
+    cache's KV heads."""
     B, Sq, _ = h.shape
     hp = L.head_plan(cfg)
     window, base = L.attn_window_and_base(cfg, kind)
@@ -459,41 +469,55 @@ def _attn_seq(cfg, p, h, kind: str, attend) -> tuple:
     if kr.shape[2] != k.shape[2]:  # a rank's group of a cache of every KV head
         kr, vr = kr.contiguous(), vr.contiguous()
     o = attend(q, kr, vr, causal=True, window=window, softcap=cfg.logit_softcap)
-    return L.out_proj(cfg, p, o, hp), k, v
+    return L.out_proj(cfg, p, o, hp, seq), k, v
 
 
-def _attn_prefill(cfg, p, h, kind: str, cache, use_kernel: bool = True):
+def _attn_prefill(cfg, p, h, kind: str, cache, use_kernel: bool = True, seq: bool = False,
+                  batch_split: bool = False):
     """Full-sequence causal attention (windowed on a ``local`` layer) that
     also fills the contiguous KV cache, in place; int8 caches get the
     quantized K/V of every position.  A local layer's ring of Sc < Sq slots
-    keeps the last Sc positions, rolled so that slot = pos % Sc.  Past
-    ``dense_threshold`` the attention is kernel B6 on the card unless
-    ``use_kernel=False``."""
-    Sq = h.shape[1]
-    out, k, v = _attn_seq(cfg, p, h, kind, functools.partial(L.attention, use_kernel=use_kernel))
-    Sc = cache["k"].shape[1]
-
-    def fill(c, new):
-        if Sc >= Sq:
-            c[:, :Sq] = new.to(c.dtype)
-        else:
-            c.copy_(torch.roll(new[:, -Sc:], Sq % Sc, dims=1).to(c.dtype))
-
+    keeps the last Sc positions, rolled so that slot = pos % Sc
+    (``layers.fill_cache``).  Past ``dense_threshold`` the attention is
+    kernel B6 on the card unless ``use_kernel=False``.  A cache cut along
+    its sequence (``cache_seq``; ``batch_split``: the rows are a data
+    replica's) takes the rank's slots of every KV head, the rank's K/V
+    heads gathered first."""
+    out, k, v = _attn_seq(cfg, p, h, kind, functools.partial(L.attention, use_kernel=use_kernel),
+                          seq)
+    piece = L.cache_seq_piece(cache["k"], batch_split)
+    if piece is not None and k.shape[2] != cache["k"].shape[2]:
+        k, v = sl.all_gather(k, "model", dim=2), sl.all_gather(v, "model", dim=2)
     if "k_scale" in cache:
         k, ks = L.quantize_kv(k)
         v, vs = L.quantize_kv(v)
-        fill(cache["k_scale"], ks)
-        fill(cache["v_scale"], vs)
-    fill(cache["k"], k)
-    fill(cache["v"], v)
+        L.fill_cache(cache["k_scale"], ks, piece)
+        L.fill_cache(cache["v_scale"], vs, piece)
+    L.fill_cache(cache["k"], k, piece)
+    L.fill_cache(cache["v"], v, piece)
     return out
 
 
-def _run_layers(cfg, params, x, cache, pos=None, use_kernel: bool = True, rows=None):
+def _run_layers(cfg, params, x, cache, pos=None, use_kernel: bool = True, rows=None,
+                seq: bool = False):
     for kind, p, c in zip(cfg.layer_kinds, params["layers"], cache["layers"]):
         x = apply_layer(cfg, kind, p, x, cache=c, pos=pos, page_table=cache.get("page_table"),
-                        use_kernel=use_kernel, rows=rows)
+                        use_kernel=use_kernel, rows=rows, seq=seq)
     return x
+
+
+def embed_inputs(cfg, embed, tokens, extra_embeds=None) -> tuple:
+    """(x, seq): the tokens' embeddings after the ``extra_embeds`` (a VLM's
+    projected patches), and whether the active rules cut the residual
+    stream on its sequence (``shardlib.seq_split``); if so x is the rank's
+    piece of it."""
+    S = tokens.shape[1] + (0 if extra_embeds is None else extra_embeds.shape[1])
+    seq = sl.seq_split(S)
+    if extra_embeds is None:
+        return L.embed_tokens(cfg, embed, tokens, seq), seq
+    x = L.embed_tokens(cfg, embed, tokens)
+    x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
+    return (sl.split_seq(x) if seq else x), seq
 
 
 def prefill(cfg, params, tokens, cache, *, extra_embeds=None, use_kernel: bool = True):
@@ -502,13 +526,20 @@ def prefill(cfg, params, tokens, cache, *, extra_embeds=None, use_kernel: bool =
     ``extra_embeds`` (B, P, d) (a VLM's projected patches) go before the
     tokens' embeddings, at positions 0..P-1.  ``use_kernel=False`` runs the
     flash attention's plain version on the card (the params' own
-    ``use_kernel`` fields switch B1, B2 and B5)."""
-    x = L.embed_tokens(cfg, params["embed"], tokens)
-    if extra_embeds is not None:
-        x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
-    x = _run_layers(cfg, params, x, cache, use_kernel=use_kernel)
+    ``use_kernel`` fields switch B1, B2 and B5).  On a mesh whose data
+    axis splits the batch the rank prefills its replica's rows into its
+    piece of the cache and every rank returns the whole batch's logits, as
+    ``decode_step`` does."""
+    rows = sl.data_rows(tokens.shape[0])
+    if rows is not None:
+        tokens = tokens[rows]
+        extra_embeds = None if extra_embeds is None else extra_embeds[rows]
+    x, seq = embed_inputs(cfg, params["embed"], tokens, extra_embeds)
+    x = _run_layers(cfg, params, x, cache, use_kernel=use_kernel, rows=rows, seq=seq)
+    if seq:
+        x = sl.gather_seq(x)
     x = L.apply_norm(params["final_norm"], x[:, -1:], cfg.norm)
-    return L.unembed(cfg, params["embed"], x), cache
+    return sl.gather_batch(L.unembed(cfg, params["embed"], x), rows), cache
 
 
 def decode_step(cfg, params, cache, tokens, pos, *, use_kernel: bool = True):
@@ -571,21 +602,22 @@ def _unbind_layers(cfg, params) -> list:
     return layers
 
 
-def _train_layer(cfg, kind: str, p, x, replicas: int = 1):
+def _train_layer(cfg, kind: str, p, x, replicas: int = 1, seq: bool = False):
     """One layer without a cache, as the reference's ``apply_layer(mode=
     "train")``: returns (x, the MoE aux loss or None).  An attention layer
     is norm, attention (``layers.train_attention``), residual, norm, MLP or
     MoE FFN (routed over the ``replicas``' global batch), residual; a
-    recurrent or xLSTM layer runs its cell from a zero state."""
+    recurrent or xLSTM layer runs its cell from a zero state.  ``seq``:
+    sequence parallelism (``apply_layer``)."""
     if kind not in ATTN_KINDS:
-        return _apply_recurrent_layer(cfg, kind, p, x, None), None
-    h = L.apply_norm(p["ln1"], x, cfg.norm)
-    x = x + _attn_seq(cfg, p["attn"], h, kind, L.train_attention)[0]
-    h = L.apply_norm(p["ln2"], x, cfg.norm)
+        return _apply_recurrent_layer(cfg, kind, p, x, None, seq), None
+    h = L.block_input(p["ln1"], x, cfg.norm, seq)
+    x = x + _attn_seq(cfg, p["attn"], h, kind, L.train_attention, seq)[0]
+    h = L.block_input(p["ln2"], x, cfg.norm, seq)
     if "moe" in p:
-        f, aux = MOE.apply_moe(cfg, p["moe"], h, return_aux=True, replicas=replicas)
+        f, aux = MOE.apply_moe(cfg, p["moe"], h, return_aux=True, replicas=replicas, seq=seq)
         return x + f, aux
-    return x + L.apply_mlp(cfg, p["mlp"], h), None
+    return x + L.apply_mlp(cfg, p["mlp"], h, seq), None
 
 
 def meta_tree(shapes):
@@ -612,44 +644,59 @@ def forward(cfg, params, tokens, extra_embeds=None):
     ``ShardedLeaf`` view (``optimizer.Placement.views``), the rows are the
     data replica's, and the products run on the pieces through the model
     axis's collectives, which autograd goes through; the logits are whole
-    on every model rank.  A MoE FFN routes the global batch (all the
-    replicas' rows, ``moe.apply_moe``)."""
+    on every model rank (``forward_local`` keeps a split vocabulary's
+    columns).  A MoE FFN routes the global batch (all the replicas' rows,
+    ``moe.apply_moe``).  Under a ``seq_sp`` rule the residual stream
+    between blocks is the rank's piece of the sequence (Megatron's
+    sequence parallelism, ``shardlib.seq_split``)."""
+    logits, start, aux = forward_local(cfg, params, tokens, extra_embeds)
+    return (logits if start is None else sl.gather_pieces(logits, "model")), aux
+
+
+def forward_local(cfg, params, tokens, extra_embeds=None) -> tuple:
+    """``forward``'s (logits, start, aux), the logits of a vocabulary that
+    the model axis splits left as the rank's columns from ``start``
+    (``layers.unembed_local``; start None: the whole vocabulary)."""
     check_supported(cfg)
     _check_dense(params)
-    x = L.embed_tokens(cfg, params["embed"], tokens)
-    if extra_embeds is not None:
-        x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
+    x, seq = embed_inputs(cfg, params["embed"], tokens, extra_embeds)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     replicas = sl.data_replicas()
     # a rematerialized layer reruns in the backward, on autograd's thread
     layer_fn = sl.carry_mesh(_train_layer)
     for kind, p in zip(cfg.layer_kinds, _unbind_layers(cfg, params)):
         if cfg.remat:
-            x, a = torch.utils.checkpoint.checkpoint(layer_fn, cfg, kind, p, x, replicas,
+            x, a = torch.utils.checkpoint.checkpoint(layer_fn, cfg, kind, p, x, replicas, seq,
                                                      use_reentrant=False)
         else:
-            x, a = _train_layer(cfg, kind, p, x, replicas)
+            x, a = _train_layer(cfg, kind, p, x, replicas, seq)
         if a is not None:
             aux = aux + a
-    x = L.apply_norm(params["final_norm"], x, cfg.norm)
-    logits = L.unembed(cfg, params["embed"], x)
+    x = L.block_input(params["final_norm"], x, cfg.norm, seq)
+    logits, start = L.unembed_local(cfg, params["embed"], x)
     if extra_embeds is not None:
         logits = logits[:, extra_embeds.shape[1]:]
-    return logits, aux
+    return logits, start, aux
 
 
-def next_token_nll(logits, labels):
+def next_token_nll(logits, labels, start=None):
     """The mean next-token cross entropy: fp32 logsumexp minus the label's
-    logit, averaged over the positions whose label is >= 0.  On a mesh the
+    logit, averaged over the positions whose label is >= 0.  ``start`` not
+    None: ``logits`` are this model rank's vocabulary columns from
+    ``start`` (``forward_local``), and each position's term is the
+    vocab-parallel cross entropy (``shardlib.vocab_nll``).  On a mesh the
     rows are a data replica's: the sum and the count are summed over the
     replicas before the division (``shardlib.reduce_batch``), so every rank
     holds the whole batch's mean, and its backward reaches the rank's own
     rows only."""
     labels = labels.long()
     mask = (labels >= 0).to(torch.float32)
-    lf = logits.to(torch.float32)
-    label_logit = lf.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
-    nll = torch.logsumexp(lf, dim=-1) - label_logit
+    if start is not None:
+        nll = sl.vocab_nll(logits, labels.clamp_min(0), start)
+    else:
+        lf = logits.to(torch.float32)
+        label_logit = lf.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
+        nll = torch.logsumexp(lf, dim=-1) - label_logit
     total, count = sl.reduce_batch(torch.sum(nll * mask)), sl.reduce_batch(torch.sum(mask))
     return total / torch.clamp(count, min=1.0)
 
@@ -675,8 +722,8 @@ def replica_loss(cfg, params, rows: dict, extra_embeds=None):
     (b, S)}; ``extra_embeds`` (b, P, d) go before the tokens' embeddings
     (a VLM's, projected from the same rows' patches).  Returns (loss + aux,
     {"loss", "aux"}), the global batch's on every rank."""
-    logits, aux = forward(cfg, params, rows["tokens"], extra_embeds)
-    loss = next_token_nll(logits, rows["labels"])
+    logits, start, aux = forward_local(cfg, params, rows["tokens"], extra_embeds)
+    loss = next_token_nll(logits, rows["labels"], start)
     return loss + aux, {"loss": loss, "aux": aux}
 
 

@@ -153,9 +153,11 @@ def _roundoff(grads: list) -> list:
     return [g.abs() <= ROUNDOFF * g.abs().max() for g in grads]
 
 
-def _run_case(name: str, mesh, whole: dict, steps: int = STEPS) -> dict:
+def _run_case(name: str, mesh, whole: dict, steps: int = STEPS, sp: bool = False) -> dict:
     """One case: ``steps`` steps mesh-free and meshed from the same params
-    ``whole[params_key(name)]`` (on their device); the meshed step's every
+    ``whole[params_key(name)]`` (on their device), the meshed one under
+    sequence parallelism with ``sp`` (``train_placement(sequence_parallel=
+    True)``: the ``seq_sp`` rule); the meshed step's every
     optimizer update is shadowed by one whose moments stay the params'
     pieces (no ZeRO), whose moments and params a ZeRO-1 rank must equal bit
     for bit.  Every
@@ -177,7 +179,7 @@ def _run_case(name: str, mesh, whole: dict, steps: int = STEPS) -> dict:
     api = get_api(cfg)
     oc = O.OptimizerConfig(**OPT)
     ef = opts.get("compression") is not None
-    place = M.train_placement(cfg, mesh)
+    place = M.train_placement(cfg, mesh, sequence_parallel=sp)
     # the same leaves with the moments as the params' pieces (no ZeRO)
     plain = dataclasses.replace(place, moment_specs=place.param_specs)
     solo_p = _clone(whole[key])

@@ -13,9 +13,11 @@ stands on, against the reference where the reference has them.
   model axis is 2 and none on a 1 x 1 mesh; the records' n_params,
   n_active_params and model_flops_global equal the reference's formulas.
 - ``main`` traces whisper-tiny's decode_32k cell at full width on the
-  16 x 16 mesh and writes its JSON; the unported variants and a process
-  group already up are refused; the bf16 and int8 variants shrink the
-  weight stream.
+  16 x 16 mesh and writes its JSON; a process group already up and an
+  unknown variant are refused; the bf16 and int8 variants shrink the
+  weight stream; the reference's ``kv8`` / ``int8_kv8`` (an e4m3 KV
+  cache) and ``sp`` (sequence parallelism, train and prefill) run and
+  move the bytes they should.
 - The card's check at smoke width: a train step's traced matmul FLOPs
   equal ``FlopCounterMode``'s count of the same step run for real.
 
@@ -163,25 +165,30 @@ def _bytes(tree) -> int:
     return sum(t.numel() * t.element_size() for t in tensors(tree))
 
 
-def _expected_argument_bytes(cfg, shape) -> int:
-    """Rank 0's share of a cell's arguments by its placement, from the
-    whole smoke tree cut with a MeshShape (no process group): its param
-    pieces (ZeRO-1 moments and the int32 step at train), the global batch
-    (train, prefill: every rank holds it), or its cache pieces plus
-    tokens and pos (decode)."""
+def _expected_argument_bytes(cfg, shape, variant: str = "baseline") -> int:
+    """Rank 0's share of a cell's arguments by its placement under the
+    reference's rules for the cell (``rules_for(cfg, shape)``: a decode
+    cell's cache cut along its sequence), from the whole smoke tree cut
+    with a MeshShape (no process group): its param pieces (ZeRO-1 moments
+    and the int32 step at train), the global batch (train, prefill: every
+    rank holds it), or its cache pieces plus tokens and pos (decode); a
+    variant's params and cache leaves in its dtypes."""
     api = get_api(cfg)
     specs = input_specs(cfg, shape)
     batch = specs.get("batch", {})
     if shape.kind == "train":
         cfg = dataclasses.replace(cfg, remat=True)
-        place = M.train_placement(cfg, MESH)
+        place = M.train_placement(cfg, MESH, sequence_parallel=variant == "sp")
         params = WP.map_tree(place.piece, api.init_params(cfg, 0, device="cpu"))
         return _bytes(params) + _bytes(O.init_opt_state(O.OptimizerConfig(), params,
                                                         placement=place)) + _bytes(batch)
-    rules = M.rules_for(cfg, None, mesh=MESH)
-    params = WP.local_params(api.init_params(cfg, 0, device="cpu"),
-                             placement_axes(api.param_axes(cfg)), MESH, rules)
-    cache = sl.local_zeros(specs["cache"], api.cache_axes(cfg), MESH, rules, "meta")
+    rules = M.rules_for(cfg, shape, sequence_parallel=variant == "sp", mesh=MESH)
+    whole = api.init_params(cfg, 0, device="cpu")
+    if variant.startswith("int8"):
+        whole = L.quantize_for_serving(whole)
+    params = WP.local_params(whole, placement_axes(api.param_axes(cfg)), MESH, rules)
+    cache = specs["cache"] if not variant.endswith("kv8") else D._kv8(specs["cache"])
+    cache = sl.local_zeros(cache, api.cache_axes(cfg), MESH, rules, "meta")
     inputs = [specs[k] for k in ("tokens", "pos") if k in specs]
     return _bytes(params) + _bytes(cache) + _bytes(batch) + _bytes(inputs)
 
@@ -245,11 +252,38 @@ def test_main_writes_whisper_decode_at_full_width(tmp_path, capsys):
     assert not dist.is_initialized()
 
 
-@pytest.mark.parametrize("variant,item", [("kv8", "A15b"), ("sp", "A15c")])
-def test_unported_variants_name_their_roadmap_item(variant, item):
-    with pytest.raises(ValueError, match=item):
-        D.lower_cell("tinyllama-1.1b", C.DECODE_32K, variant=variant)
+@pytest.mark.parametrize("variant,kind", [("kv8", "decode"), ("int8_kv8", "decode"),
+                                          ("sp", "train"), ("sp", "prefill")])
+def test_reference_variants_run_and_move_their_bytes(variant, kind):
+    """The reference's ``kv8`` / ``int8_kv8`` (the attention caches' K/V in
+    e4m3) and ``sp`` (``seq_sp``: the residual stream cut on its sequence)
+    run on a fake 2 x 2 mesh at smoke width.  An e4m3 cache holds 1/4 of
+    the fp32 cache's bytes (the arguments the rank's share, exactly);
+    ``int8_kv8`` also quantizes the weights as ``int8`` does.  ``sp``
+    places the same pieces and replaces the row-parallel all-reduces with
+    reduce-scatters: fewer all-reduce bytes, reduce-scatters where the
+    baseline has none."""
+    cfg, shape = C.get_config("tinyllama-1.1b", smoke=True), SMALL[kind]
+    base = D.lower_cell("tinyllama-1.1b", shape, cfg=cfg, mesh=(2, 2),
+                        variant="int8" if variant == "int8_kv8" else "baseline")
+    cell = D.lower_cell("tinyllama-1.1b", shape, cfg=cfg, mesh=(2, 2), variant=variant)
     assert not dist.is_initialized()
+    assert cell.memory.argument_bytes == _expected_argument_bytes(cfg, shape, variant)
+    coll, base_coll = cell.costs.collective_bytes, base.costs.collective_bytes
+    if variant.endswith("kv8"):
+        api = get_api(cfg)
+        mine = sl.local_zeros(input_specs(cfg, shape)["cache"], api.cache_axes(cfg), MESH,
+                              M.rules_for(cfg, shape, mesh=MESH), "meta")
+        kv = sum(t.numel() for layer in mine["layers"] for k, t in layer.items()
+                 if k in ("k", "v"))  # the rank's K/V elements: a quarter at 2 x 2
+        assert kv * 4 == sum(t.numel() for layer in input_specs(cfg, shape)["cache"]["layers"]
+                             for k, t in layer.items() if k in ("k", "v"))
+        assert base.memory.argument_bytes - cell.memory.argument_bytes == 3 * kv
+        assert cell.costs.bytes_by_cat["dot"] < base.costs.bytes_by_cat["dot"]
+    else:
+        assert cell.memory.argument_bytes == base.memory.argument_bytes
+        assert base_coll["reduce-scatter"] == 0 < coll["reduce-scatter"]
+        assert coll["all-reduce"] < base_coll["all-reduce"]
 
 
 def test_refuses_beside_a_process_group(tmp_path):
